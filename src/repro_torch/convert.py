@@ -1,0 +1,35 @@
+"""Load a JAX parameter tree into the port's ``Model``.
+
+The JAX and torch random streams differ, so parity runs start from one
+JAX ``Model.init`` tree, handed over as numpy arrays (``jax.device_get``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _to_tensor(x: Any) -> torch.Tensor:
+    a = np.array(x)  # a writable copy: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy rejects ml_dtypes.bfloat16; bf16 → fp32 → bf16 is exact.
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flatten a nested dict/list of arrays into a ``state_dict``: the JAX path
+    ``["blocks"]["b0"]["attn"]["wq"]`` becomes ``"blocks.b0.attn.wq"``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: _to_tensor(tree)}
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in items:
+        out.update(params_from_jax(val, f"{prefix}.{key}" if prefix else str(key)))
+    return out

@@ -1,0 +1,32 @@
+"""Public kernel entry points, with the JAX package's positional signatures.
+
+Port of ``repro/kernels/ops.py``.  A CUDA tensor goes to the Hopper kernel, a
+CPU tensor to the plain PyTorch version in ``ref``; there is no fallback from
+one to the other.  Forward only: backward and training are later work.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import ref
+from .flash_attention import flash_attention_fwd
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    window: int = 0, q_block: int = 512, k_block: int = 1024,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Softmax attention, q [B,Tq,H,dk], k/v [B,Tk,K,d*] → [B,Tq,H,dv].
+
+    ``q_block``/``k_block`` are the reference's TPU tiling; the Hopper kernel
+    chooses its own tiles, and the plain version needs none.
+    """
+    if q.device.type == "cuda":
+        return flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    raise ValueError(f"no flash_attention path for device {q.device}")

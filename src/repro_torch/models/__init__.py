@@ -1,0 +1,5 @@
+"""The dense GQA decoder of the JAX model zoo, in PyTorch."""
+
+from .io import input_specs  # noqa: F401
+from .specs import ParamSpec, init_params, param_count  # noqa: F401
+from .transformer import Model, layer_plan, model_specs  # noqa: F401

@@ -1,0 +1,87 @@
+"""Shared layers: norms, MLPs, embeddings, RoPE.
+
+Port of ``repro/models/layers.py``: (spec function, plain function) pairs over
+explicit parameter trees.  ``ashard`` has no counterpart: the port runs on one
+device, so activation sharding constraints are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from .specs import ParamSpec
+
+
+# ------------------------------------------------------------------- norms --
+def rmsnorm_spec(d: int, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones", dtype=dtype)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.float()
+    var = torch.mean(h * h, dim=-1, keepdim=True)
+    h = h * torch.rsqrt(var + eps)
+    return (h * p["scale"].float()).to(x.dtype)
+
+
+# -------------------------------------------------------------------- MLPs --
+def mlp_spec(d_model: int, d_ff: int, act: str, dtype=torch.bfloat16) -> Dict:
+    width = 2 * d_ff if act == "swiglu" else d_ff
+    return {
+        # swiglu: fused gate+up projection, split as [gate | up].
+        "wi": ParamSpec((d_model, width), ("embed", "mlp"), dtype=dtype),
+        "wo": ParamSpec((d_ff, d_model), ("mlp", "embed"), dtype=dtype),
+    }
+
+
+def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ p["wi"]
+    if act == "swiglu":
+        gate, up = torch.chunk(h, 2, dim=-1)
+        h = F.silu(gate) * up
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+    else:
+        raise ValueError(f"unknown activation {act}")
+    return h @ p["wo"]
+
+
+# -------------------------------------------------------------- embeddings --
+def embed_spec(vocab: int, d_model: int, dtype=torch.bfloat16) -> Dict:
+    return {
+        "table": ParamSpec(
+            (vocab, d_model), ("vocab", "embed"), init="embed", scale=0.02, dtype=dtype
+        )
+    }
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["table"])
+
+
+def unembed_spec(vocab: int, d_model: int, dtype=torch.bfloat16) -> Dict:
+    return {"w": ParamSpec((d_model, vocab), ("embed", "vocab"), dtype=dtype)}
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"]
+
+
+# -------------------------------------------------------------------- RoPE --
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split convention, angles in fp32.
+
+    x: [..., T, H, d] (d even); positions: broadcastable to [..., T].
+    """
+    half = x.shape[-1] // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freq = 1.0 / (theta ** exponent)
+    ang = positions.float()[..., None] * freq        # [..., T, half]
+    cos = torch.cos(ang)[..., None, :]               # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

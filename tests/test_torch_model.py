@@ -1,0 +1,99 @@
+"""The port's Model against the JAX Model on the same weights: prefill logits
+and caches, then a teacher-forced greedy decode loop (llama3.2-1b smoke, fp32)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from repro.configs import ARCHS  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.models import param_count as jax_param_count  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models import Model, model_specs, param_count  # noqa: E402
+
+DENSE = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b")
+
+
+def _models(arch):
+    jcfg = jax_config(arch, smoke=True).with_overrides(dtype="float32")
+    tcfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
+    jm = JaxModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(tcfg, device="cpu")
+    tm.load_state_dict(params_from_jax(jax.device_get(jp)))
+    return jm, jp, tm
+
+
+def _tokens(vocab, B, T, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, T)).astype(np.int32)
+
+
+def _close(out, expect, atol, rtol):
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect), atol=atol, rtol=rtol)
+
+
+def test_llama_prefill_then_teacher_forced_decode():
+    jm, jp, tm = _models("llama3.2-1b")
+    B, T, steps = 2, 24, 8
+    max_len = T + steps
+    tokens = _tokens(jm.cfg.vocab_size, B, T)
+    jprefill = jax.jit(jm.prefill, static_argnums=2)
+    jdecode = jax.jit(jm.decode_step)
+
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(tokens)}, max_len)
+    tl, tc = tm.prefill({"tokens": torch.from_numpy(tokens).long()}, max_len)
+    assert tuple(tl.shape) == (B, 1, jm.cfg.vocab_size)
+    _close(tl, jl, atol=2e-4, rtol=1e-3)
+    jb, tb = jc["blocks"]["b0"], tc["blocks"]["b0"]
+    _close(tb.k, jb.k, atol=1e-4, rtol=1e-3)
+    _close(tb.v, jb.v, atol=1e-4, rtol=1e-3)
+    assert tb.length == T and np.all(np.asarray(jb.length) == T)
+
+    for step in range(steps):
+        # Both models are fed JAX's greedy token.
+        tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(np.int32)
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok))
+        tl, tc = tm.decode_step(tc, torch.from_numpy(tok).long())
+        _close(tl, jl, atol=5e-3, rtol=1e-2)
+        assert tc["blocks"]["b0"].length == T + step + 1
+        # Where JAX's top-2 margin exceeds the tolerance, the argmax agrees.
+        jlast, tlast = np.asarray(jl[:, -1]), tl[:, -1].numpy()
+        top2 = np.sort(jlast, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 5e-3 + 1e-2 * np.abs(top2[:, 1])
+        np.testing.assert_array_equal(tlast.argmax(-1)[clear], jlast.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("arch", DENSE[1:])
+def test_dense_prefill_matches(arch):
+    """The other dense GQA archs: untied heads, MHA (K == H), other RoPE bases."""
+    jm, jp, tm = _models(arch)
+    tokens = _tokens(jm.cfg.vocab_size, 2, 16, seed=1)
+    jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(tokens)}, 20)
+    tl, _ = tm.prefill({"tokens": torch.from_numpy(tokens).long()}, 20)
+    _close(tl, jl, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
+def test_other_archs_are_refused(arch):
+    with pytest.raises(NotImplementedError, match="dense GQA"):
+        model_specs(get_config(arch, smoke=True))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_tree_matches_jax(arch):
+    """Same parameter count at the published widths; same state_dict keys and
+    shapes at smoke width."""
+    assert param_count(model_specs(get_config(arch))) == jax_param_count(
+        JaxModel(jax_config(arch)).specs())
+    jcfg = jax_config(arch, smoke=True)
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                   JaxModel(jcfg).param_shapes())
+    expect = {k: tuple(v.shape) for k, v in params_from_jax(zeros).items()}
+    got = {k: tuple(v.shape) for k, v in Model(get_config(arch, smoke=True),
+                                               device="cpu").state_dict().items()}
+    assert got == expect

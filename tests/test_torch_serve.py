@@ -1,0 +1,99 @@
+"""The port's serving entry point, its example, chip_smoke.py's refusals,
+and the rule that the port imports nothing of JAX or of the JAX package."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch.serve import serve  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+SRC = REPO / "src"
+
+
+def _run(args, cwd=REPO, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_serve_on_cpu_returns_jax_keys():
+    from repro.launch.serve import serve as jax_serve
+
+    expect = jax_serve("llama3.2-1b", batch=2, prompt_len=8, gen_len=3)
+    out = serve("llama3.2-1b", batch=2, prompt_len=8, gen_len=3, device="cpu")
+    assert set(out) == set(expect)
+    assert tuple(out["tokens"].shape) == (2, 3) == expect["tokens"].shape
+    assert out["tokens"].dtype == torch.int64
+    assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
+    assert out["prefill_seconds"] > 0 and out["throughput_tok_s"] > 0
+
+
+def test_serve_is_reproducible_from_seed():
+    kw = dict(batch=3, prompt_len=10, gen_len=5, device="cpu")
+    a = serve("llama3.2-1b", seed=4, **kw)["tokens"]
+    assert torch.equal(a, serve("llama3.2-1b", seed=4, **kw)["tokens"])
+    s1 = serve("llama3.2-1b", seed=4, greedy=False, **kw)["tokens"]
+    s2 = serve("llama3.2-1b", seed=4, greedy=False, **kw)["tokens"]
+    assert torch.equal(s1, s2) and tuple(s1.shape) == (3, 5)
+
+
+def test_serve_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: serve() would run on it")
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        serve("llama3.2-1b", batch=1, prompt_len=4, gen_len=2)
+
+
+def test_serve_refuses_encoder_only():
+    with pytest.raises(ValueError, match="encoder-only"):
+        serve("hubert-xlarge", device="cpu")
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 15
+
+
+def test_port_sources_name_no_jax_or_repro_import():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders
+
+
+def test_example_runs_on_cpu():
+    proc = _run(["examples/serve_batch_torch.py", "--device", "cpu", "--batch", "2",
+                 "--prompt-len", "8", "--gen", "4"])
+    assert proc.returncode == 0, proc.stderr
+    assert "generated 2 sequences x 4 tokens" in proc.stdout
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    """Alone in a directory the script has no port to run; without a card it
+    refuses before printing any result."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", lone)
+    runs = [_run([str(lone)], cwd=tmp_path)]
+    if not torch.cuda.is_available():
+        runs.append(_run(["chip_smoke.py"]))
+    for proc in runs:
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
