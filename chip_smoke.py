@@ -7,11 +7,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit, then the build of every kernel source;
 2. every kernel against its plain PyTorch version on the card: the reference
-   test shapes (fp32 at 2e-5 with TF32 off, bf16 at 2e-2), then the serving
-   shape, timed beside its bound and a PyTorch library call as yardstick;
-3. the port against its own plain CPU path on a small fp32 model;
-4. the main path: ``serve("llama3.2-1b")`` at full width, batch 8 x prompt
-   1024 x 32 generated tokens, with every kernel launch counted.
+   test shapes (fp32 at 2e-5 with TF32 off, bf16 at 2e-2; the RG-LRU scan at
+   1e-5), then each serving shape, timed beside its bound and, where one
+   PyTorch call computes the same function, that call as yardstick;
+3. the port against its own plain CPU path on small fp32 models
+   (llama3.2-1b and recurrentgemma-9b);
+4. the main paths, each with every kernel launch counted from zero:
+   ``serve("llama3.2-1b")`` at full width, batch 8 x prompt 1024 x 32
+   generated tokens; then ``serve("recurrentgemma-9b")`` at full width and
+   depth (38 layers, bf16), batch 4 x prompt 4096 x 32 generated tokens.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -26,13 +30,16 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, HBM3.
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, fp32 CUDA
+# cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # tests/test_kernels.py's FLASH_CASES, then cases that reach every kernel
 # variant: bf16 windowed (mma, D 64), bf16 d 128 (mma, D 128), bf16 d 192/128
-# (SIMT bf16).  B, T, H, K, dk, dv, causal, window, dtype
+# and recurrentgemma's windowed MQA at d 256 (SIMT bf16).
+# B, T, H, K, dk, dv, causal, window, dtype
 FLASH_CASES = [
     (2, 64, 4, 2, 32, 32, True, 0, "float32"),
     (1, 96, 8, 8, 64, 64, True, 24, "float32"),
@@ -43,9 +50,22 @@ FLASH_CASES = [
     (2, 200, 8, 2, 64, 64, True, 48, "bfloat16"),
     (1, 130, 4, 2, 128, 128, True, 0, "bfloat16"),
     (1, 70, 2, 1, 192, 128, True, 0, "bfloat16"),
+    (1, 300, 4, 1, 256, 256, True, 64, "bfloat16"),
 ]
-SLICE = (8, 1024, 32, 8, 64, 64, True, 0, "bfloat16")  # llama3.2-1b prefill attention
+FLASH_SLICES = {  # prefill attention of each main path
+    "llama3.2-1b": (8, 1024, 32, 8, 64, 64, True, 0, "bfloat16"),
+    "recurrentgemma-9b": (4, 4096, 16, 1, 256, 256, True, 2048, "bfloat16"),
+}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# tests/test_kernels.py's RG-LRU cases, a width that is no multiple of 32
+# with an odd T, then recurrentgemma-9b's prefill scan.  B, T, W
+RGLRU_CASES = [(2, 100, 48), (1, 64, 128), (3, 33, 20), (2, 257, 4100)]
+RGLRU_SLICE = (4, 4096, 4096)
+RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
+
+# Main paths: arch, batch, prompt, generated tokens.
+SERVE = [("llama3.2-1b", 8, 1024, 32), ("recurrentgemma-9b", 4, 4096, 32)]
 
 
 def nvidia_smi() -> str:
@@ -72,8 +92,9 @@ def main() -> int:
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
     from repro_torch.launch.serve import serve
-    from repro_torch.models import Model, input_specs
+    from repro_torch.models import Model, input_specs, layer_plan
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
@@ -89,10 +110,8 @@ def main() -> int:
     # --------------------------------------------------------- 2. kernels --
     gen = torch.Generator(dev).manual_seed(0)
 
-    def inputs(B, T, H, K, dk, dv, dtype):
-        dt = getattr(torch, dtype)
-        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)
-        return mk(B, T, H, dk), mk(B, T, K, dk), mk(B, T, K, dv)
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
 
     def time_ms(fn, iters):
         for _ in range(3):
@@ -106,9 +125,17 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
+    def bound(flops, peak_flops, nbytes):
+        t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+    def flash_inputs(B, T, H, K, dk, dv, dtype):
+        dt = getattr(torch, dtype)
+        return randn(B, T, H, dk).to(dt), randn(B, T, K, dk).to(dt), randn(B, T, K, dv).to(dt)
+
     for case in FLASH_CASES:
         B, T, H, K, dk, dv, causal, window, dtype = case
-        q, k, v = inputs(B, T, H, K, dk, dv, dtype)
+        q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
         out = flash_attention_fwd(q, k, v, causal=causal, window=window)
         expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -117,100 +144,175 @@ def main() -> int:
         if not err <= TOL[dtype]:
             raise AssertionError(f"flash_attention disagrees with its plain version on {case}")
 
-    B, T, H, K, dk, dv, causal, window, dtype = SLICE
-    q, k, v = inputs(B, T, H, K, dk, dv, dtype)
-    out = flash_attention_fwd(q, k, v, causal=causal, window=window)
-    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    slice_err = (out.float() - expect.float()).abs().max().item()
-    if not slice_err <= TOL[dtype]:
-        raise AssertionError(f"flash_attention disagrees at the serving shape: {slice_err}")
-    del expect
-    ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, window=window), 50)
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window), 5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), 50)
-    # Work this run's inputs need: unmasked (q, k) pairs, 2 FLOP per
-    # multiply-add in QK^T (dk) and PV (dv); each of q, k, v, o moved once.
-    pos = torch.arange(T)
-    pairs = int((pos[None, :] <= pos[:, None]).sum()) if causal else T * T
-    flops = 2 * (dk + dv) * B * H * pairs
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
-    print(f"[kernel] flash_attention {SLICE}: max_abs_err {slice_err:.3e}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)")
-    del q, k, v, qt, kt, vt, out
+    records = {}  # kernel entries of the JSON line, keyed by the path they serve
+    for arch, case in FLASH_SLICES.items():
+        B, T, H, K, dk, dv, causal, window, dtype = case
+        q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
+        out = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - expect.float()).abs().max().item()
+        if not err <= TOL[dtype]:
+            raise AssertionError(f"flash_attention disagrees at the {arch} shape: {err}")
+        del expect
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, window=window), 20)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                           window=window), 3)
+        # Work this run's inputs need: unmasked (q, k) pairs, 2 FLOP per
+        # multiply-add in QK^T (dk) and PV (dv); each of q, k, v, o moved once.
+        pos = torch.arange(T)
+        keep = torch.ones(T, T, dtype=torch.bool)
+        if causal:
+            keep &= pos[None, :] <= pos[:, None]
+        if window:
+            keep &= pos[None, :] > pos[:, None] - window
+        flops = 2 * (dk + dv) * B * H * int(keep.sum())
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        # Yardstick: SDPA on the same q, k, v, with the window as an explicit mask.
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if window:
+            mask = keep.to(dev)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        else:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        print(f"[kernel] flash_attention {case} ({arch} prefill): max_abs_err {err:.3e}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        records[("flash_attention", arch)] = {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:128",
+            "shape": list(case),
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        }
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
 
-    # -------------------------------- 3. port vs its plain path, small input --
-    cfg = get_config("llama3.2-1b", smoke=True).with_overrides(dtype="float32")
-    gpu = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
-    cpu = Model(cfg, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
-    prompt = input_specs(cfg, ShapeConfig("p", 24, 2, "prefill"),
-                         generator=torch.Generator().manual_seed(1), device="cpu")
-    lg, cg = gpu.prefill({"tokens": prompt["tokens"].to(dev)}, 32)
-    lc, cc = cpu.prefill(prompt, 32)
-    for step in range(4):
-        torch.testing.assert_close(lg.cpu(), lc, atol=2e-4, rtol=1e-3)
-        tok = torch.argmax(lc[:, -1], dim=-1, keepdim=True)
-        lg, cg = gpu.decode_step(cg, tok.to(dev))
-        lc, cc = cpu.decode_step(cc, tok)
-    torch.testing.assert_close(lg.cpu(), lc, atol=5e-3, rtol=1e-2)
-    print("[check] llama3.2-1b smoke fp32: card prefill + 4 decode steps match the CPU path")
-    del gpu, cpu
+    def scan_inputs(B, T, W):
+        a = torch.sigmoid(randn(B, T, W)) * 0.6 + 0.3
+        return a, randn(B, T, W) * 0.1, randn(B, W) * 0.1
 
-    # ------------------------------------------------------ 4. main path --
-    arch, batch, prompt_len, gen_len = "llama3.2-1b", 8, 1024, 32
-    full = get_config(arch)
-    # Same weights and prompts as serve() draws from seed 0: the first token
-    # it serves must be the argmax of these finite logits.
-    model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
-    prompts = input_specs(full, ShapeConfig("serve", prompt_len, batch, "prefill"),
-                          generator=torch.Generator(dev).manual_seed(1), device=dev)
-    logits, _ = model.prefill(prompts, prompt_len + gen_len)
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("full-width prefill logits are not finite")
-    first = torch.argmax(logits[:, -1], dim=-1).cpu()
-    del model, logits, prompts
-    torch.cuda.empty_cache()
+    def scan_err(a, b, h0):
+        out = rglru_scan_fwd(a, b, h0)
+        expect = ref.rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        err = (out - expect).abs().max().item()
+        if not torch.allclose(out, expect, atol=RGLRU_TOL, rtol=RGLRU_TOL):
+            raise AssertionError(f"rglru_scan disagrees with its plain version at "
+                                 f"{tuple(a.shape)}: max_abs_err {err}")
+        return err
 
-    flash_attention_fwd.launches = 0
-    res = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
-                gen_len=gen_len, device="cuda")
-    launches = flash_attention_fwd.launches
-    toks = res["tokens"]
-    print(f"[serve] {arch} full width bf16, batch {batch} x prompt {prompt_len} x "
-          f"{gen_len} tokens: prefill {res['prefill_seconds']:.4f} s, "
-          f"decode {res['decode_seconds_per_token'] * 1e3:.3f} ms/token, "
-          f"{res['throughput_tok_s']:.1f} tok/s; flash_attention launches {launches}")
-    if tuple(toks.shape) != (batch, gen_len):
-        raise AssertionError(f"tokens shape {tuple(toks.shape)} != {(batch, gen_len)}")
-    if not bool(((toks >= 0) & (toks < full.vocab_size)).all()):
-        raise AssertionError("generated tokens out of vocabulary range")
-    if not torch.equal(toks[:, 0], first):
-        raise AssertionError("first served token is not the argmax of the prefill logits")
-    if launches != full.num_layers:
-        raise AssertionError(f"flash_attention launched {launches} times in prefill, "
-                             f"expected {full.num_layers} (one per layer)")
+    for case in RGLRU_CASES:
+        err = scan_err(*scan_inputs(*case))
+        print(f"[kernel] rglru_scan {case}: max_abs_err {err:.3e} (tol {RGLRU_TOL})")
 
-    record = {"kernels": [{
-        "name": "flash_attention",
+    B, T, W = RGLRU_SLICE
+    a, b, h0 = scan_inputs(B, T, W)
+    err = scan_err(a, b, h0)
+    ms = time_ms(lambda: rglru_scan_fwd(a, b, h0), 20)
+    plain_ms = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1)
+    # One fma per element; a and b read once, h written once, h0 read once (fp32).
+    nbytes = 4 * (3 * a.numel() + h0.numel())
+    bound_ms, bound_by = bound(2 * a.numel(), PEAK_FP32_FLOPS, nbytes)
+    print(f"[kernel] rglru_scan {RGLRU_SLICE} (recurrentgemma-9b prefill): max_abs_err "
+          f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call "
+          f"(no single PyTorch call computes this recurrence), bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB)")
+    records[("rglru_scan", "recurrentgemma-9b")] = {
+        "name": "rglru_scan",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:128",
-        "launches": launches,
-        "max_abs_err": slice_err,
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:78",
+        "shape": list(RGLRU_SLICE),
+        "launches": None,
+        "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]}
-    print(json.dumps(record))
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the recurrence",
+    }
+    del a, b, h0
+    torch.cuda.empty_cache()
+
+    # -------------------------------- 3. port vs its plain path, small input --
+    for arch, _, _, _ in SERVE:
+        cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
+        gpu = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        prompt = input_specs(cfg, ShapeConfig("p", 24, 2, "prefill"),
+                             generator=torch.Generator().manual_seed(1), device="cpu")
+        lg, cg = gpu.prefill({"tokens": prompt["tokens"].to(dev)}, 32)
+        lc, cc = cpu.prefill(prompt, 32)
+        for step in range(4):
+            torch.testing.assert_close(lg.cpu(), lc, atol=2e-4, rtol=1e-3)
+            tok = torch.argmax(lc[:, -1], dim=-1, keepdim=True)
+            lg, cg = gpu.decode_step(cg, tok.to(dev))
+            lc, cc = cpu.decode_step(cc, tok)
+        torch.testing.assert_close(lg.cpu(), lc, atol=5e-3, rtol=1e-2)
+        print(f"[check] {arch} smoke fp32 (window {cfg.window}): card prefill + 4 decode "
+              f"steps match the CPU path")
+        del gpu, cpu
+
+    # ----------------------------------------------------- 4. main paths --
+    kernels = {"flash_attention": flash_attention_fwd, "rglru_scan": rglru_scan_fwd}
+    for arch, batch, prompt_len, gen_len in SERVE:
+        full = get_config(arch)
+        plan = layer_plan(full)
+        kinds = plan.pattern * plan.n_scan + plan.tail
+        expect = {"flash_attention": kinds.count("attn"), "rglru_scan": kinds.count("rec")}
+        # Same weights and prompts as serve() draws from seed 0: the first token
+        # it serves must be the argmax of these finite logits.
+        model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        prompts = input_specs(full, ShapeConfig("serve", prompt_len, batch, "prefill"),
+                              generator=torch.Generator(dev).manual_seed(1), device=dev)
+        logits, _ = model.prefill(prompts, prompt_len + gen_len)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} full-width prefill logits are not finite")
+        first = torch.argmax(logits[:, -1], dim=-1).cpu()
+        del model, logits, prompts
+        torch.cuda.empty_cache()
+
+        for fn in kernels.values():
+            fn.launches = 0
+        res = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
+                    gen_len=gen_len, device="cuda")
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        toks = res["tokens"]
+        print(f"[serve] {arch} full width bf16, {full.num_layers} layers, batch {batch} x "
+              f"prompt {prompt_len} x {gen_len} tokens: prefill "
+              f"{res['prefill_seconds']:.4f} s, decode "
+              f"{res['decode_seconds_per_token'] * 1e3:.3f} ms/token, "
+              f"{res['throughput_tok_s']:.1f} tok/s; launches "
+              + ", ".join(f"{n} {c}" for n, c in launches.items()))
+        torch.cuda.empty_cache()
+        if tuple(toks.shape) != (batch, gen_len):
+            raise AssertionError(f"tokens shape {tuple(toks.shape)} != {(batch, gen_len)}")
+        if not bool(((toks >= 0) & (toks < full.vocab_size)).all()):
+            raise AssertionError("generated tokens out of vocabulary range")
+        if not torch.equal(toks[:, 0], first):
+            raise AssertionError("first served token is not the argmax of the prefill logits")
+        if launches != expect:
+            raise AssertionError(f"{arch} prefill launched {launches}, expected {expect} "
+                                 "(one per layer of each kernel's kind)")
+        for (name, path), rec in records.items():
+            if path == arch:
+                rec["launches"] = launches[name]
+
+    print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

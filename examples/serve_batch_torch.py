@@ -4,6 +4,8 @@ then greedy decode, with random weights drawn from a seed.
     PYTHONPATH=src python examples/serve_batch_torch.py --device cuda
     PYTHONPATH=src python examples/serve_batch_torch.py --device cuda --full \
         --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python examples/serve_batch_torch.py --device cuda --full \
+        --arch recurrentgemma-9b --batch 4 --prompt-len 4096 --gen 32
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu
 """
 

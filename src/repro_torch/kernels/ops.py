@@ -13,6 +13,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_fwd
+from .rglru_scan import rglru_scan_fwd
 
 
 def flash_attention(
@@ -30,3 +31,13 @@ def flash_attention(
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     raise ValueError(f"no flash_attention path for device {q.device}")
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """Linear recurrence h_t = a_t·h_{t-1} + b_t: a, b [B,T,W] fp32, h0 [B,W] fp32
+    → h [B,T,W] fp32."""
+    if a.device.type == "cuda":
+        return rglru_scan_fwd(a, b, h0)
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0)
+    raise ValueError(f"no rglru_scan path for device {a.device}")

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels (quadratic forms).
+"""Plain PyTorch versions of the kernels (quadratic attention, sequential scan).
 
 Port of ``repro/kernels/ref.py``.  The CPU path of ``ops`` runs these, and the
 card's checks hold each kernel against them on the same inputs.
@@ -42,3 +42,13 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhql,blhd->bqhd", p, v.float())
     return out.to(v.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t. [B,T,W] fp32."""
+    h = h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

@@ -1,4 +1,4 @@
-"""The dense GQA decoder of the JAX model zoo, in PyTorch."""
+"""The GQA decoders of the JAX model zoo (dense and RG-LRU hybrid), in PyTorch."""
 
 from .io import input_specs  # noqa: F401
 from .specs import ParamSpec, init_params, param_count  # noqa: F401

@@ -1,0 +1,127 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma).
+
+Port of ``repro/models/recurrent.py``.  Block: x → {linear branch → causal
+depthwise conv(4) → RG-LRU}, gated by a parallel GeLU branch, then an output
+projection.  The RG-LRU is a gated *linear* recurrence
+
+    r_t = sigmoid(W_a x_t + b_a)          (recurrence gate)
+    i_t = sigmoid(W_x x_t + b_x)          (input gate)
+    log a_t = -c * softplus(Lambda) * r_t
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Prefill runs the recurrence through ``kernels.ops.rglru_scan`` (the Hopper
+kernel on the card) where the JAX package runs ``jax.lax.associative_scan``
+with ``h0`` folded into ``b[:, 0]``: both compute one recurrence from ``h0``.
+Decode is a one-step update in plain ops.  ``h`` and the carried conv inputs
+stay fp32 in a bf16 model; the matmuls run in x's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .specs import ParamSpec
+
+
+def rglru_block_spec(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
+    g = cfg.rglru
+    D = cfg.d_model
+    W = g.width or D
+    return {
+        "w_x": ParamSpec((D, W), ("embed", "mlp"), dtype=dtype),
+        "w_gate": ParamSpec((D, W), ("embed", "mlp"), dtype=dtype),
+        "conv_w": ParamSpec((g.conv_width, W), (None, "mlp"), init="normal",
+                            scale=0.1, dtype=dtype),
+        "conv_b": ParamSpec((W,), ("mlp",), init="zeros", dtype=dtype),
+        "w_a": ParamSpec((W, W), ("mlp", None), dtype=dtype),
+        "b_a": ParamSpec((W,), (None,), init="zeros", dtype=dtype),
+        "w_i": ParamSpec((W, W), ("mlp", None), dtype=dtype),
+        "b_i": ParamSpec((W,), (None,), init="zeros", dtype=dtype),
+        "lam": ParamSpec((W,), (None,), init="ones", dtype=torch.float32),
+        "w_out": ParamSpec((W, D), ("mlp", "embed"), dtype=dtype),
+    }
+
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor       # [B, W] recurrent state (fp32)
+    conv: torch.Tensor    # [B, conv_width-1, W] trailing inputs (fp32)
+
+
+def rglru_state_spec(cfg: ModelConfig, batch: int, device: torch.device) -> RGLRUState:
+    """A zeroed state."""
+    g = cfg.rglru
+    W = g.width or cfg.d_model
+    return RGLRUState(
+        h=torch.zeros((batch, W), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, g.conv_width - 1, W), dtype=torch.float32, device=device),
+    )
+
+
+def _causal_conv(p, x: torch.Tensor, conv_width: int) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds. x: [B, T, W]."""
+    T = x.shape[1]
+    out = x * p["conv_w"][conv_width - 1]
+    for i in range(1, conv_width):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :T]
+        out = out + shifted * p["conv_w"][conv_width - 1 - i]
+    return out + p["conv_b"]
+
+
+def _gates(p, x: torch.Tensor, c: float):
+    # The products run in x's dtype and are cast to fp32 after, as in the reference.
+    r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"].float())
+    i = torch.sigmoid((x @ p["w_i"]).float() + p["b_i"].float())
+    log_a = -c * F.softplus(p["lam"]) * r      # [B, T, W] fp32
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, beta * i * x.float()
+
+
+def _tail_pad(z: torch.Tensor, n: int) -> torch.Tensor:
+    T = z.shape[1]
+    if T >= n:
+        return z[:, T - n:]
+    return F.pad(z, (0, 0, n - T, 0))
+
+
+def rglru_block_with_state(
+    p, x: torch.Tensor, cfg: ModelConfig, state: Optional[RGLRUState]
+) -> Tuple[torch.Tensor, RGLRUState]:
+    """x: [B, T, D] → ([B, T, D], state after the last token).  ``state=None``
+    starts from zeros (prefill)."""
+    g = cfg.rglru
+    B, T, D = x.shape
+    W = g.width or D
+    z = x @ p["w_x"]
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")  # jax.nn.gelu's default form
+    if state is not None:
+        hist = torch.cat([state.conv.to(z.dtype), z], dim=1)
+        zc = _causal_conv(p, hist, g.conv_width)[:, g.conv_width - 1:]
+        h0 = state.h
+        tail = hist[:, -(g.conv_width - 1):]
+    else:
+        zc = _causal_conv(p, z, g.conv_width)
+        h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+        tail = _tail_pad(z, g.conv_width - 1)
+    a, b = _gates(p, zc, g.c)
+    h = ops.rglru_scan(a, b, h0.contiguous())
+    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    return out, RGLRUState(h=h[:, -1], conv=tail.float())
+
+
+def rglru_decode(p, x: torch.Tensor, cfg: ModelConfig, state: RGLRUState):
+    """One-token step. x: [B, 1, D] → ([B, 1, D], new state)."""
+    g = cfg.rglru
+    z = x @ p["w_x"]                                               # [B, 1, W]
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    hist = torch.cat([state.conv.to(z.dtype), z], dim=1)           # [B, cw, W]
+    zc = torch.einsum("btw,tw->bw", hist, p["conv_w"]) + p["conv_b"]
+    a, b = _gates(p, zc[:, None, :], g.c)
+    h = a[:, 0] * state.h + b[:, 0]
+    out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    return out, RGLRUState(h=h, conv=hist[:, 1:].float())

@@ -1,11 +1,13 @@
-"""Model assembly for the dense GQA decoder: embed → layer stack → tied logits.
+"""Model assembly: embed → layer stack → tied logits, for GQA decoders built
+from ``"attn"`` and ``"rec"`` (RG-LRU) blocks.
 
-Port of ``repro/models/transformer.py`` for ``block_pattern == ("attn",)``.
-The parameters mirror the JAX tree (``embed.table``,
-``blocks.b0.{ln1,attn,ln2,ffn}.*`` stacked on a leading layer dim,
-``final_norm.scale``), so ``convert.params_from_jax`` loads a JAX
+Port of ``repro/models/transformer.py`` for the dense (``("attn",)``) and
+hybrid (``("rec", "rec", "attn")``) patterns.  The parameters mirror the JAX
+tree (``embed.table``; ``blocks.b{i}.*`` for the super-block pattern, stacked
+on a leading dim of ``n_scan``; ``tail.{j}.*`` for the unrolled trailing
+layers; ``final_norm.scale``), so ``convert.params_from_jax`` loads a JAX
 ``Model.init`` tree one-to-one.  A Python loop over the stacked leading dim
-replaces ``lax.scan``.
+replaces ``lax.scan``.  Caches are stacked the same way and written in place.
 
 Entry points: ``prefill(batch, max_len)`` and ``decode_step(caches, tokens)``.
 Training (``loss``/``forward``) is later work.
@@ -21,6 +23,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import recurrent as rec
 from .layers import embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec, unembed, unembed_spec
 from .specs import init_params, stack_layer_specs
 
@@ -50,7 +53,7 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if tuple(cfg.block_pattern) != ("attn",):
+    if not set(cfg.block_pattern) <= {"attn", "rec"}:
         unsupported.append(f"block_pattern={cfg.block_pattern}")
     if cfg.attention != "gqa":
         unsupported.append(f"attention={cfg.attention!r}")
@@ -62,37 +65,69 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append("mtp")
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA decoders only; not yet: "
+            f"{cfg.name}: the port runs GQA decoders of attention and RG-LRU "
+            "blocks only; not yet: "
             + ", ".join(unsupported))
 
 
-def _block_spec(cfg: ModelConfig, dtype) -> Dict:
+def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
+    mixer = attn.gqa_spec(cfg, dtype) if kind == "attn" else rec.rglru_block_spec(cfg, dtype)
     return {
         "ln1": rmsnorm_spec(cfg.d_model, dtype),
-        "attn": attn.gqa_spec(cfg, dtype),
+        kind: mixer,
         "ln2": rmsnorm_spec(cfg.d_model, dtype),
         "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype),
     }
 
 
-def _block_apply(cfg: ModelConfig, p, x, mode: str, cache: attn.KVCache):
-    """One pre-norm block. mode: prefill | decode. Returns (x, cache)."""
+def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
+    """One pre-norm block. mode: prefill | decode.  ``cache`` (a ``KVCache`` or
+    an ``RGLRUState`` of buffers) is written in place.  Returns (x, cache)."""
     h = rmsnorm(p["ln1"], x)
-    if mode == "prefill":
-        y, cache = attn.gqa_prefill(p["attn"], h, cfg, cache)
+    if kind == "attn":
+        step = attn.gqa_prefill if mode == "prefill" else attn.gqa_decode
+        y, cache = step(p["attn"], h, cfg, cache)
     else:
-        y, cache = attn.gqa_decode(p["attn"], h, cfg, cache)
+        if mode == "prefill":
+            y, new = rec.rglru_block_with_state(p["rec"], h, cfg, None)
+        else:
+            y, new = rec.rglru_decode(p["rec"], h, cfg, cache)
+        cache.h.copy_(new.h)
+        cache.conv.copy_(new.conv)
     x = x + y
     return x + mlp(p["ffn"], rmsnorm(p["ln2"], x), cfg.act), cache
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+                 device: torch.device):
+    if kind == "attn":
+        return attn.gqa_cache_spec(cfg, batch, max_len, dtype, device)
+    return rec.rglru_state_spec(cfg, batch, device)
+
+
+def _stacked(cache, n: int):
+    """``n`` copies of a zeroed cache, stacked on a new leading dim."""
+    return cache._replace(**{f: t.expand(n, *t.shape).clone()
+                             for f, t in cache._asdict().items()
+                             if isinstance(t, torch.Tensor)})
+
+
+def _layer(cache, i: int):
+    """Views of layer ``i`` of a stacked cache."""
+    return cache._replace(**{f: t[i] for f, t in cache._asdict().items()
+                             if isinstance(t, torch.Tensor)})
 
 
 def model_specs(cfg: ModelConfig) -> Dict:
     """The parameter spec tree, without allocating anything."""
     _check_supported(cfg)
     dt = _DTYPES[cfg.dtype]
+    plan = layer_plan(cfg)
+    sb = {f"b{i}": _block_spec(cfg, k, dt) for i, k in enumerate(plan.pattern)}
     out: Dict[str, Any] = {
         "embed": embed_spec(cfg.vocab_size, cfg.d_model, dt),
-        "blocks": stack_layer_specs({"b0": _block_spec(cfg, dt)}, layer_plan(cfg).n_scan),
+        "blocks": stack_layer_specs(sb, plan.n_scan),
+        "tail": [_block_spec(cfg, k, dt) for k in plan.tail],
         "final_norm": rmsnorm_spec(cfg.d_model, dt),
     }
     if not cfg.tie_embeddings:
@@ -101,12 +136,16 @@ def model_specs(cfg: ModelConfig) -> Dict:
 
 
 class ParamTree(nn.Module):
-    """Nested parameters under the JAX tree's keys; ``tree["key"]`` reads one."""
+    """Nested parameters under the JAX tree's keys; ``tree["key"]`` reads one.
+    A list becomes a tree keyed ``"0"``, ``"1"``, ... as ``params_from_jax``
+    flattens it."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree):
         super().__init__()
+        if isinstance(tree, list):
+            tree = {str(i): v for i, v in enumerate(tree)}
         for key, val in tree.items():
-            if isinstance(val, dict):
+            if isinstance(val, (dict, list)):
                 self.add_module(key, ParamTree(val))
             else:
                 self.register_parameter(key, nn.Parameter(val, requires_grad=False))
@@ -122,7 +161,7 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """llama-style decoder: ``prefill`` then ``decode_step``, on one device.
+    """Decoder (dense or hybrid): ``prefill`` then ``decode_step``, on one device.
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
     on that device; seed 0 when omitted), with the JAX package's initializers.
@@ -140,6 +179,7 @@ class Model(nn.Module):
         params = init_params(model_specs(cfg), generator, self.device)
         self.embed = ParamTree(params["embed"])
         self.blocks = ParamTree(params["blocks"])
+        self.tail = ParamTree(params["tail"])
         self.final_norm = ParamTree(params["final_norm"])
         if "unembed" in params:
             self.unembed = ParamTree(params["unembed"])
@@ -150,24 +190,37 @@ class Model(nn.Module):
         return unembed(self.unembed, h)
 
     def cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """Zeroed KV caches, stacked like the JAX tree: ``blocks.b0`` holds
-        ``[L, B, S, K, hd]`` buffers."""
-        c = attn.gqa_cache_spec(self.cfg, batch, max_len, self.dtype, self.device)
-        n = self.plan.n_scan
-        stacked = attn.KVCache(k=c.k.expand(n, *c.k.shape).clone(),
-                               v=c.v.expand(n, *c.v.shape).clone(), length=0)
-        return {"lead": [], "blocks": {"b0": stacked}, "tail": []}
+        """Zeroed caches shaped like the JAX tree: ``blocks.b{i}`` stacks
+        ``n_scan`` layers (``KVCache`` k/v ``[n, B, S, K, hd]``, ``RGLRUState``
+        h ``[n, B, W]`` and conv ``[n, B, 3, W]``), ``tail`` holds one per layer."""
+        mk = lambda kind: _block_cache(self.cfg, kind, batch, max_len, self.dtype,
+                                       self.device)
+        plan = self.plan
+        blocks = {f"b{i}": _stacked(mk(k), plan.n_scan) for i, k in enumerate(plan.pattern)}
+        return {"lead": [], "blocks": blocks, "tail": [mk(k) for k in plan.tail]}
 
     def _stack(self, x: torch.Tensor, mode: str, caches: Dict[str, Any]):
-        c = caches["blocks"]["b0"]
-        length = c.length
-        for i in range(self.plan.n_scan):
-            p = self.blocks.layer(i)["b0"]
-            x, layer_cache = _block_apply(
-                self.cfg, p, x, mode, attn.KVCache(c.k[i], c.v[i], c.length))
-            length = layer_cache.length
-        new = c._replace(length=length)
-        return x, {"lead": [], "blocks": {"b0": new}, "tail": []}
+        """Stacked super-blocks, then the tail.  Caches are written in place;
+        the returned tree carries the new KV lengths."""
+        plan = self.plan
+        blocks = caches["blocks"]
+        lengths = {}  # every layer of one stack starts from the same length
+        for i in range(plan.n_scan):
+            p_sb = self.blocks.layer(i)
+            for j, kind in enumerate(plan.pattern):
+                key = f"b{j}"
+                x, c = _block_apply(self.cfg, kind, p_sb[key], x, mode,
+                                    _layer(blocks[key], i))
+                if kind == "attn":
+                    lengths[key] = c.length
+        blocks = {k: c._replace(length=lengths[k]) if k in lengths else c
+                  for k, c in blocks.items()}
+        tail = []
+        for j, kind in enumerate(plan.tail):
+            x, c = _block_apply(self.cfg, kind, self.tail[str(j)], x, mode,
+                                caches["tail"][j])
+            tail.append(c)
+        return x, {"lead": [], "blocks": blocks, "tail": tail}
 
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):

@@ -24,10 +24,10 @@ CASES = [
 ]
 
 
-def _setup(window):
-    over = dict(dtype="float32", window=window)
-    jcfg = jax_config("llama3.2-1b", smoke=True).with_overrides(**over)
-    tcfg = get_config("llama3.2-1b", smoke=True).with_overrides(**over)
+def _setup(window, arch="llama3.2-1b", **over):
+    over = dict(dtype="float32", window=window, **over)
+    jcfg = jax_config(arch, smoke=True).with_overrides(**over)
+    tcfg = get_config(arch, smoke=True).with_overrides(**over)
     jp = init_params(ja.gqa_spec(jcfg, jnp.float32), jax.random.PRNGKey(3))
     tp = params_from_jax(jax.device_get(jp))
     return jcfg, tcfg, jp, tp
@@ -37,11 +37,9 @@ def _close(a, b, atol=1e-5, rtol=1e-4):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("window,T,max_len,steps", CASES)
-def test_gqa_prefill_and_decode_match(window, T, max_len, steps):
-    jcfg, tcfg, jp, tp = _setup(window)
+def _prefill_then_decode(jcfg, tcfg, jp, tp, T, max_len, steps, seed):
     B, D = 2, jcfg.d_model
-    rng = np.random.default_rng(window + T)
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, T, D)).astype(np.float32)
 
     jy, jc = ja.gqa_prefill(jp, jnp.asarray(x), jcfg, max_len)
@@ -61,6 +59,19 @@ def test_gqa_prefill_and_decode_match(window, T, max_len, steps):
         _close(tc.k.numpy(), jc.k)
         _close(tc.v.numpy(), jc.v)
         assert tc.length == int(jc.length) == T + step + 1
+
+
+@pytest.mark.parametrize("window,T,max_len,steps", CASES)
+def test_gqa_prefill_and_decode_match(window, T, max_len, steps):
+    _prefill_then_decode(*_setup(window), T, max_len, steps, seed=window + T)
+
+
+def test_windowed_mqa_head_dim_256_matches():
+    """recurrentgemma's attention: one KV head under 4 query heads, head dim
+    256, a prompt of 24 past a window of 16, decode wrapping the ring."""
+    jcfg, tcfg, jp, tp = _setup(16, "recurrentgemma-9b", head_dim=256)
+    assert (tcfg.num_kv_heads, tcfg.resolved_head_dim) == (1, 256)
+    _prefill_then_decode(jcfg, tcfg, jp, tp, T=24, max_len=32, steps=10, seed=7)
 
 
 def test_decode_attention_per_sequence_lengths():

@@ -124,11 +124,14 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
         build.build(["flash_attention"])
 
 
+@pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_card(cuda):
-    """Every case, plus a windowed bf16 and a d=128 bf16 case, on the card."""
+    """Every case, plus windowed bf16 (d 64, and recurrentgemma's MQA at d 256)
+    and a d=128 bf16 case, on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = FLASH_CASES + [(2, 200, 8, 2, 64, 64, 0, 0, True, 48, "bfloat16"),
-                           (1, 130, 4, 2, 128, 128, 0, 0, True, 0, "bfloat16")]
+                           (1, 130, 4, 2, 128, 128, 0, 0, True, 0, "bfloat16"),
+                           (1, 300, 4, 1, 256, 256, 0, 0, True, 64, "bfloat16")]
     for case in cases:
         causal, window, dt = case[8:]
         q, k, v = _torch(_inputs(case), dt, cuda)

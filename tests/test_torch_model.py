@@ -1,5 +1,6 @@
 """The port's Model against the JAX Model on the same weights: prefill logits
-and caches, then a teacher-forced greedy decode loop (llama3.2-1b smoke, fp32)."""
+and caches, then a teacher-forced greedy decode loop (llama3.2-1b and the
+recurrentgemma-9b hybrid, smoke widths, fp32)."""
 
 import pytest
 
@@ -17,6 +18,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import Model, model_specs, param_count  # noqa: E402
 
 DENSE = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b")
+HYBRID = ("recurrentgemma-9b",)
 
 
 def _models(arch):
@@ -78,13 +80,69 @@ def test_dense_prefill_matches(arch):
     _close(tl, jl, atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
+def test_recurrentgemma_prefill_then_teacher_forced_decode():
+    """24 prompt tokens past the smoke window of 16, then 8 decode steps that
+    wrap the ring buffer; the rec caches (h, conv) and the KV ring match too."""
+    jm, jp, tm = _models("recurrentgemma-9b")
+    assert jm.cfg.window == 16 and tm.plan.pattern == ("rec", "rec", "attn")
+    B, T, steps = 2, 24, 8
+    max_len = T + steps
+    tokens = _tokens(jm.cfg.vocab_size, B, T, seed=2)
+    jprefill = jax.jit(jm.prefill, static_argnums=2)
+    jdecode = jax.jit(jm.decode_step)
+
+    def caches_close(tc, jc, atol, rtol):
+        for key in ("b0", "b1"):
+            for f in ("h", "conv"):
+                _close(getattr(tc["blocks"][key], f), getattr(jc["blocks"][key], f),
+                       atol, rtol)
+        for f in ("k", "v"):
+            _close(getattr(tc["blocks"]["b2"], f), getattr(jc["blocks"]["b2"], f), atol, rtol)
+        for tt, jt in zip(tc["tail"], jc["tail"], strict=True):
+            _close(tt.h, jt.h, atol, rtol)
+            _close(tt.conv, jt.conv, atol, rtol)
+
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(tokens)}, max_len)
+    tl, tc = tm.prefill({"tokens": torch.from_numpy(tokens).long()}, max_len)
+    _close(tl, jl, atol=2e-4, rtol=1e-3)
+    caches_close(tc, jc, atol=2e-4, rtol=1e-3)
+    assert tc["blocks"]["b2"].k.shape[2] == 16  # S = window: [n, B, S, K, hd]
+    assert tc["blocks"]["b2"].length == T
+
+    for step in range(steps):
+        tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(np.int32)
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok))
+        tl, tc = tm.decode_step(tc, torch.from_numpy(tok).long())
+        _close(tl, jl, atol=5e-3, rtol=1e-2)
+        assert tc["blocks"]["b2"].length == T + step + 1
+    caches_close(tc, jc, atol=5e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE + HYBRID])
 def test_other_archs_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="dense GQA"):
+    with pytest.raises(NotImplementedError, match="not yet"):
         model_specs(get_config(arch, smoke=True))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def test_hybrid_bf16_tree_loads_one_to_one():
+    """JAX's bf16 recurrentgemma tree (blocks.b0-b2, tail.0-1, fp32 ``lam``)
+    loads with strict keys and keeps every dtype."""
+    jp = JaxModel(jax_config("recurrentgemma-9b", smoke=True)).init(jax.random.PRNGKey(1))
+    sd = params_from_jax(jax.device_get(jp))
+    tm = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu")
+    tm.load_state_dict(sd)
+    got = tm.state_dict()
+    assert set(got) == set(sd)
+    assert {"blocks.b0.rec.w_a", "blocks.b2.attn.wq", "tail.0.rec.lam",
+            "tail.1.ffn.wo"} <= set(got)
+    for key, want in sd.items():
+        assert got[key].dtype == want.dtype, key
+        assert torch.equal(got[key], want), key
+    assert got["tail.1.rec.lam"].dtype == torch.float32
+    assert got["blocks.b0.rec.w_a"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", DENSE + HYBRID)
 def test_param_tree_matches_jax(arch):
     """Same parameter count at the published widths; same state_dict keys and
     shapes at smoke width."""

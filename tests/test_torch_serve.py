@@ -36,6 +36,14 @@ def test_serve_on_cpu_returns_jax_keys():
     assert out["prefill_seconds"] > 0 and out["throughput_tok_s"] > 0
 
 
+def test_serve_recurrentgemma_on_cpu():
+    """The hybrid serves through the same entry: 12 prompt tokens, decode past
+    the smoke window of 16."""
+    out = serve("recurrentgemma-9b", batch=2, prompt_len=12, gen_len=8, device="cpu")
+    assert tuple(out["tokens"].shape) == (2, 8) and out["tokens"].dtype == torch.int64
+    assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
+
+
 def test_serve_is_reproducible_from_seed():
     kw = dict(batch=3, prompt_len=10, gen_len=5, device="cpu")
     a = serve("llama3.2-1b", seed=4, **kw)["tokens"]
@@ -84,6 +92,13 @@ def test_example_runs_on_cpu():
                  "--prompt-len", "8", "--gen", "4"])
     assert proc.returncode == 0, proc.stderr
     assert "generated 2 sequences x 4 tokens" in proc.stdout
+
+
+def test_example_serves_recurrentgemma_on_cpu():
+    proc = _run(["examples/serve_batch_torch.py", "--arch", "recurrentgemma-9b",
+                 "--device", "cpu", "--batch", "2", "--prompt-len", "20", "--gen", "3"])
+    assert proc.returncode == 0, proc.stderr
+    assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
