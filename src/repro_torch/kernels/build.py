@@ -3,14 +3,17 @@
 Each source is one shared library with a plain C interface, so it compiles
 in seconds (no PyTorch headers).  The build happens at first use; a library
 is rebuilt when its source is newer.  Several sources build in parallel, one
-nvcc each.  Nothing here runs when the module is imported: the CPU tests
-import every module on machines with no nvcc.
+nvcc each.  nvcc runs with ``-Xptxas -v``; its output is kept beside each
+library (``build/lib<name>.log``) and :func:`ptxas_usage` reads each kernel's
+registers and spill bytes from it.  Nothing here runs when the module is
+imported: the CPU tests import every module on machines with no nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,7 +22,7 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,9 +45,16 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def log_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.log"
+
+
 def _stale(name: str) -> bool:
+    """No library, a source newer than it, or no nvcc log beside it (a library
+    built without ``-Xptxas -v``)."""
     lib, src = lib_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    return (not lib.exists() or not log_path(name).exists()
+            or lib.stat().st_mtime < src.stat().st_mtime)
 
 
 def build(names: Optional[Iterable[str]] = None) -> List[str]:
@@ -73,10 +83,69 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
             failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            log_path(n).write_text(log)
             os.replace(tmp, lib_path(n))
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return todo
+
+
+_LENGTH = re.compile(r"\d+")
+_TEMPLATE_ARG = re.compile(r"L[ij](?P<literal>\d+)E|(?P<builtin>[fdijb])|(?P<length>\d+)")
+_BUILTIN = {"f": "float", "d": "double", "i": "int", "j": "unsigned int", "b": "bool"}
+
+
+def kernel_name(symbol: str) -> str:
+    """``flash_fwd_wgmma<256>`` from a kernel's mangled symbol: the last
+    component of its name (nvcc names an anonymous namespace after the file,
+    as one more component), with integer or named-type template arguments.
+    Any other symbol comes back as it is."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    nested = symbol.startswith("_ZN")
+    pos, name, args = 3 if nested else 2, None, []
+    while m := _LENGTH.match(symbol, pos):
+        pos = m.end() + int(m[0])
+        name = symbol[m.end():pos]
+        if not nested:
+            break
+    if name is None:
+        return symbol
+    if symbol.startswith("I", pos):
+        pos += 1
+        while m := _TEMPLATE_ARG.match(symbol, pos):
+            if m["length"]:
+                pos = m.end() + int(m["length"])
+                args.append(symbol[m.end():pos])
+            else:
+                pos = m.end()
+                args.append(m["literal"] or _BUILTIN[m["builtin"]])
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_usage(log: str) -> List[Dict[str, object]]:
+    """Each kernel's resources from nvcc's ``-Xptxas -v`` output: ``kernel``
+    (:func:`kernel_name` of its symbol), ``registers``, ``spill_stores`` and
+    ``spill_loads`` (bytes), ``static_smem`` (bytes; dynamic shared memory is
+    requested at launch and does not appear here)."""
+    kernels: Dict[str, Dict[str, object]] = {}
+    props, last = None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            last = m[1]
+            kernels.setdefault(last, {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                                      "static_smem": 0})
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m[1]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            if props in kernels:
+                kernels[props].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            if last in kernels:
+                kernels[last]["registers"] = int(m[1])
+                if sm := re.search(r"(\d+) bytes smem", line):
+                    kernels[last]["static_smem"] = int(sm[1])
+    return [{"kernel": kernel_name(symbol), **use} for symbol, use in kernels.items()]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,13 +6,16 @@ q ``[B,Tq,H,dk]``, k ``[B,Tk,K,dk]``, v ``[B,Tk,K,dv]`` → ``[B,Tq,H,dv]`` in
 v's dtype, GQA by indexing KV head ``h // (H/K)``, causal / window / tail
 masks, fp32 online softmax.
 
-What bounds it on an H100: at llama3.2-1b's prefill (d 64) attention does
-about 400 FLOP per byte of q/k/v/o, above the card's ~295 FLOP/byte ridge,
-so the tensor cores bound it.  The bf16 path therefore runs both products on
-the tensor cores (``mma.sync``), keeps P in registers between them, and skips
-KV tiles that the causal or window mask empties; fp32 (and bf16 with a head
-dim above 128) takes a CUDA-core variant with exact fp32 arithmetic.  The
-source file's header has the tiling.
+What bounds it on an H100: at both serving prefills (llama3.2-1b at d 64,
+recurrentgemma-9b at d 256) attention does several hundred FLOP per byte of
+q/k/v/o, above the card's ~295 FLOP/byte ridge, so the tensor cores bound it.
+bf16 therefore takes the ``wgmma`` variant: TMA loads into a ring of
+shared-memory stages, one producer warpgroup, two consumer warpgroups that
+run both products on ``wgmma`` and keep P in registers between them, and KV
+tiles that the causal or window mask empties are skipped.  fp32, and bf16
+that the TMA cannot load, take the ``simt`` variant (CUDA cores, exact fp32
+arithmetic).  :func:`variant` makes the choice, explicitly and never on a
+failure; the source file's header has the tiling.
 
 The TPU tiling arguments (``q_block``/``k_block``, 512/1024 by default) do not
 fit Hopper's 227 KB of shared memory; the kernel picks its own tiles.
@@ -29,13 +32,14 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "wgmma": 1}
 _MAX_HEAD_DIM = 256
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -66,6 +70,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel variant a launch on these tensors runs.
+
+    ``"wgmma"`` for bf16 that the TMA can load: dk and dv multiples of 8 (its
+    strides are multiples of 16 bytes) and at most 256, from 16-byte aligned
+    storage.  ``"simt"`` for fp32 and any other bf16.  This is the one place
+    that states the rule; the C entry only refuses a wgmma request that
+    breaks it.
+    """
+    dk, dv = q.shape[-1], v.shape[-1]
+    tma = (q.dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0
+           and max(dk, dv) <= _MAX_HEAD_DIM
+           and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    return "wgmma" if tma else "simt"
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: Optional[float] = None,
@@ -78,18 +98,24 @@ def flash_attention_fwd(
     if out.numel() == 0:
         return out
     scale = 1.0 / math.sqrt(dk) if scale is None else float(scale)
+    kind = variant(q, k, v)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Tq, Tk, H, K, dk, dv, int(causal), int(window),
-            scale, stream,
+            _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
+            int(causal), int(window), scale, stream,
         )
+    if err < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_variant[kind] += 1
     return out
 
 
-flash_attention_fwd.launches = 0  # kernel launches since the last reset
+# Kernel launches since the last reset, in all and by variant.
+flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
