@@ -22,7 +22,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``serve("llama3.2-1b")`` at full width, batch 8 x prompt 1024 x 32
    generated tokens; then ``serve("recurrentgemma-9b")`` at full width and
    depth (38 layers, bf16), batch 4 x prompt 4096 x 32 generated tokens.
-   Every flash-attention launch of both must be ``wgmma``.
+   Every flash-attention launch of both must be ``wgmma``;
+5. admitted serving: llama3.2-1b's phase-4 request again, admitted through
+   the lock table (``admission_slots=4``), with the kernel libraries
+   unloaded first: the libraries are loaded when the slot is taken, the card
+   is idle at each keepalive, the tokens equal phase 4's, the lease counters
+   are 1 grant, 4 fast renewals, 0 expirations and 0 RDMA operations on the
+   serving host, and flash attention launches 16 times on ``wgmma``; then
+   three server threads share two slots, never more than two inside a
+   lease, each with phase 4's tokens and its own fence token; then the host
+   time of admit, keepalive and complete, and bare against admitted serving
+   (through a private table and through a gate built beforehand) over three
+   requests each, in turns, with the garbage collector's time in each.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -31,9 +42,12 @@ JAX; with no CUDA card, or without the repository beside it, it exits 1.
 
 from __future__ import annotations
 
+import gc
 import json
+import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -114,7 +128,7 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rglru_scan import rglru_scan_fwd
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.models import Model, input_specs, layer_plan
 
     dev = torch.device("cuda")
@@ -330,6 +344,14 @@ def main() -> int:
 
     # ----------------------------------------------------- 4. main paths --
     kernels = {"flash_attention": flash_attention_fwd, "rglru_scan": rglru_scan_fwd}
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+        flash_attention_fwd.launches_by_variant = dict.fromkeys(
+            flash_attention_fwd.launches_by_variant, 0)
+
+    served = {}  # each main path's result
     for arch, batch, prompt_len, gen_len in SERVE:
         full = get_config(arch)
         plan = layer_plan(full)
@@ -347,12 +369,9 @@ def main() -> int:
         del model, logits, prompts
         torch.cuda.empty_cache()
 
-        for fn in kernels.values():
-            fn.launches = 0
-        flash_attention_fwd.launches_by_variant = dict.fromkeys(
-            flash_attention_fwd.launches_by_variant, 0)
-        res = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
-                    gen_len=gen_len, device="cuda")
+        reset_counts()
+        res = served[arch] = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
+                                   gen_len=gen_len, device="cuda")
         launches = {name: fn.launches for name, fn in kernels.items()}
         flash_variants = dict(flash_attention_fwd.launches_by_variant)
         toks = res["tokens"]
@@ -380,6 +399,164 @@ def main() -> int:
         for (name, path), rec in records.items():
             if path == arch:
                 rec["launches"] = launches[name]
+
+    # ----------------------------------------------- 5. admitted serving --
+    arch, batch, prompt_len, gen_len = SERVE[0]
+    kw = dict(smoke=False, batch=batch, prompt_len=prompt_len, gen_len=gen_len, device="cuda")
+    bare = served[arch]
+    host_us = {"admit": [], "keepalive": [], "complete": []}
+    seen = []  # what admit and each keepalive found on the host and the card
+    real = {name: getattr(BatchAdmission, name) for name in host_us}
+
+    def instrumented(name):
+        def call(self, *args, **kwargs):
+            if name == "admit":
+                seen.append(("admit", sorted(build._loaded)))
+            elif name == "keepalive":
+                seen.append(("keepalive", torch.cuda.current_stream().query()))
+            t = time.perf_counter_ns()
+            out = real[name](self, *args, **kwargs)
+            host_us[name].append((time.perf_counter_ns() - t) / 1e3)
+            return out
+        return call
+
+    build._loaded.clear()  # serve() must load the libraries again before it admits
+    for name in host_us:
+        setattr(BatchAdmission, name, instrumented(name))
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        res = serve(arch, admission_slots=4, **kw)
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        flash_variants = dict(flash_attention_fwd.launches_by_variant)
+    finally:
+        for name, fn in real.items():
+            setattr(BatchAdmission, name, fn)
+    adm = res["admission"]
+    request_s = res["prefill_seconds"] + res["decode_seconds_per_token"] * (gen_len - 1)
+    print(f"[admission] {arch} batch {batch} x prompt {prompt_len} x {gen_len} tokens "
+          f"admitted via {adm['slot_key']} (fence token {adm['fence_token']}): grants "
+          f"{adm['grants']}, fast renewals {adm['fast_renews']}, expirations "
+          f"{adm['expirations']}, RDMA ops on the serving host {adm['local_rdma_ops']}; "
+          f"launches " + ", ".join(f"{n} {c}" for n, c in launches.items())
+          + f" (flash by variant: " + ", ".join(f"{n} {c}" for n, c in flash_variants.items())
+          + f"); libraries loaded at admit {seen[0][1]}, card idle at each keepalive "
+          f"{[ok for what, ok in seen[1:]]}")
+    if not torch.equal(res["tokens"], bare["tokens"]):
+        raise AssertionError("admitted serve's tokens differ from the bare serve's")
+    counters = {k: adm[k] for k in ("grants", "fast_renews", "expirations", "local_rdma_ops")}
+    if counters != {"grants": 1, "fast_renews": 4, "expirations": 0, "local_rdma_ops": 0}:
+        raise AssertionError(f"admission counters {counters}")
+    if launches != {"flash_attention": 16, "rglru_scan": 0} or flash_variants["wgmma"] != 16:
+        raise AssertionError(f"admitted serve launched {launches}, flash {flash_variants}")
+    if seen[0] != ("admit", ["flash_attention"]):
+        raise AssertionError(f"admit found the kernel libraries {seen[0][1]} loaded")
+    if [what for what, _ in seen[1:]] != ["keepalive"] * 4 or not all(ok for _, ok in seen[1:]):
+        raise AssertionError(f"keepalives found the card busy or were not 4: {seen[1:]}")
+    records[("flash_attention", arch)]["admitted_launches"] = launches["flash_attention"]
+
+    # Three server threads, two slots.
+    guard, inside, peak = threading.Lock(), [0], [0]
+
+    class Counted(BatchAdmission):
+        def admit(self, *args, **kwargs):
+            lease = super().admit(*args, **kwargs)
+            with guard:
+                inside[0] += 1
+                peak[0] = max(peak[0], inside[0])
+            return lease
+
+        def complete(self, lease, worker=None):
+            with guard:
+                inside[0] -= 1
+            return super().complete(lease, worker)
+
+    gate = Counted(num_slots=2)
+    results, errors = [None] * 3, []
+
+    def server(i):
+        try:
+            results[i] = serve(arch, admission=gate, **kw)
+        except BaseException as exc:
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=server, args=(i,)) for i in range(3)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    threaded_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError(f"server threads failed: {errors}")
+    fences = [(r["admission"]["slot_key"], r["admission"]["fence_token"]) for r in results]
+    print(f"[admission] 3 server threads, 2 slots: at most {peak[0]} inside a lease, "
+          f"fences {fences}, {threaded_s:.3f} s for the three requests")
+    if not 1 <= peak[0] <= 2 or inside[0] != 0:
+        raise AssertionError(f"{peak[0]} batches inside their leases at once with 2 slots")
+    if not all(torch.equal(r["tokens"], bare["tokens"]) for r in results):
+        raise AssertionError("a threaded serve's tokens differ from the single-thread serve's")
+    if len(set(fences)) != 3:
+        raise AssertionError(f"admissions share a fence: {fences}")
+
+    # Host time of one admission's calls, in the request and over many.
+    loop = BatchAdmission(num_slots=4)
+    cycle = {name: [] for name in host_us}
+    for _ in range(2000):
+        t0 = time.perf_counter_ns()
+        lease = loop.admit(timeout=1.0)
+        t1 = time.perf_counter_ns()
+        lease = loop.keepalive(lease)
+        t2 = time.perf_counter_ns()
+        loop.complete(lease)
+        t3 = time.perf_counter_ns()
+        for name, ns in zip(cycle, (t1 - t0, t2 - t1, t3 - t2)):
+            cycle[name].append(ns / 1e3)
+    print(f"[admission] host us in the request: admit {host_us['admit'][0]:.1f}, keepalives "
+          f"{[round(x, 1) for x in host_us['keepalive']]}, complete "
+          f"{host_us['complete'][0]:.1f}; request {request_s:.4f} s of prefill and decode, "
+          f"{wall:.3f} s for the whole call; {smi}")
+    print("[admission] host us over 2000 admit-keepalive-complete cycles, median / p99: "
+          + ", ".join(f"{name} {statistics.median(v):.2f} / "
+                      f"{sorted(v)[int(0.99 * len(v))]:.2f}" for name, v in cycle.items())
+          + f"; {smi}")
+
+    # Bare against admitted, in turns (the order rotates each round):
+    # admitted through a private table that serve() builds, and through a
+    # gate built beforehand; with the time the Python garbage collector took
+    # during each call.
+    gc_ms, gc_t0 = [0.0, 0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+            gc_ms[1] += info["generation"] == 2
+
+    modes = {"bare": {}, "admitted": {"admission_slots": 4},
+             "shared gate": {"admission": BatchAdmission(num_slots=4)}}
+    runs, gcs = {m: [] for m in modes}, {m: [] for m in modes}
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(3):
+            order = list(modes)[i:] + list(modes)[:i]
+            for mode in order:
+                gc_ms[:] = [0.0, 0]
+                runs[mode].append(serve(arch, **modes[mode], **kw))
+                gcs[mode].append((round(gc_ms[0], 3), gc_ms[1]))
+                torch.cuda.empty_cache()
+    finally:
+        gc.callbacks.remove(on_gc)
+    for mode, rs in runs.items():
+        print(f"[admission] {mode} x {len(rs)}: prefill s "
+              f"{[round(r['prefill_seconds'], 5) for r in rs]}, decode ms/token "
+              f"{[round(r['decode_seconds_per_token'] * 1e3, 4) for r in rs]}, "
+              f"garbage collection in the call (ms, full collections) {gcs[mode]}")
+        if not all(torch.equal(r["tokens"], bare["tokens"]) for r in rs):
+            raise AssertionError(f"a {mode} serve's tokens differ from phase 4's")
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -1,5 +1,7 @@
 """Batched serving on the PyTorch port: prefill a batch of random prompts,
-then greedy decode, with random weights drawn from a seed.
+then greedy decode, with random weights drawn from a seed.  The batch is
+admitted through the port's sharded lock table (``--admission-slots``, 4 by
+default; 0 serves without admission).
 
     PYTHONPATH=src python examples/serve_batch_torch.py --device cuda
     PYTHONPATH=src python examples/serve_batch_torch.py --device cuda --full \
@@ -22,10 +24,12 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=24)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--admission-slots", type=int, default=4)
     args = ap.parse_args()
 
     out = serve(args.arch, smoke=not args.full, batch=args.batch,
-                prompt_len=args.prompt_len, gen_len=args.gen, device=args.device)
+                prompt_len=args.prompt_len, gen_len=args.gen, device=args.device,
+                admission_slots=args.admission_slots)
     toks = out["tokens"]
     print(f"[serve_batch_torch] generated {toks.shape[0]} sequences x "
           f"{toks.shape[1]} tokens on {args.device}")
@@ -34,6 +38,11 @@ def main():
           f"{out['throughput_tok_s']:.0f} tok/s")
     for i, row in enumerate(toks[: min(4, len(toks))]):
         print(f"  seq{i}: {row[:12].tolist()}...")
+    if "admission" in out:
+        adm = out["admission"]
+        print(f"[serve_batch_torch] admitted via {adm['slot_key']} "
+              f"(fence token {adm['fence_token']}); "
+              f"lock-table RDMA ops on the serving host: {adm['local_rdma_ops']}")
 
 
 if __name__ == "__main__":

@@ -3,17 +3,22 @@
 Port of ``repro/kernels/ops.py``.  A CUDA tensor goes to the Hopper kernel, a
 CPU tensor to the plain PyTorch version in ``ref``; there is no fallback from
 one to the other.  Forward only: backward and training are later work.
+:func:`prepare` builds and loads ahead of time the kernels that a model's
+layers launch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, List, Optional
 
 import torch
 
-from . import ref
+from . import build, ref
 from .flash_attention import flash_attention_fwd
 from .rglru_scan import rglru_scan_fwd
+
+# The kernel that a layer of each kind launches in prefill on a CUDA tensor.
+KERNEL_OF = {"attn": "flash_attention", "rec": "rglru_scan"}
 
 
 def flash_attention(
@@ -41,3 +46,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
     raise ValueError(f"no rglru_scan path for device {a.device}")
+
+
+def prepare(kinds: Iterable[str]) -> List[str]:
+    """Build (one nvcc per stale source, in parallel) and load the kernels
+    that layers of these kinds launch, so that no later launch waits on a
+    build; return their names."""
+    names = sorted({KERNEL_OF[k] for k in kinds})
+    build.build(names)
+    for name in names:
+        build.load(name)
+    return names
