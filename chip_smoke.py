@@ -33,7 +33,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    lease, each with phase 4's tokens and its own fence token; then the host
    time of admit, keepalive and complete, and bare against admitted serving
    (through a private table and through a gate built beforehand) over three
-   requests each, in turns, with the garbage collector's time in each.
+   requests each, in turns, with the garbage collector's time in each;
+6. training: (a) flash attention's gradients on the card (fp32 and bf16,
+   causal and windowed, GQA and MQA) against the autograd of its plain
+   version on the same CUDA tensors, then three fp32 train steps of
+   llama3.2-1b and recurrentgemma-9b at smoke width on the card and on the
+   CPU from one init (losses, grads' norms and final parameters within the
+   CPU parity tests' atol 1e-5, rtol 1e-4); (b) a smoke run checkpointed at
+   step 3 and resumed through step 6 gives an uninterrupted run's losses
+   exactly; (c) the main path's second half: ``train("llama3.2-1b")`` at its
+   published widths (16 layers, bf16 parameters, fp32 AdamW moments, block
+   remat), ``train_4k``'s 4096 tokens per row at global batch 8 in 8
+   microbatches, 10 steps at lr 3e-4 with 2 warmup steps, launches counted
+   from zero: every loss finite, 256 flash launches per step, all
+   ``wgmma``, and the 10th loss below the 1st; then one microbatch's
+   backward timed with CUDA events around the whole and around each
+   attention backward (the plain version's autograd); then that
+   microbatch's loss and every gradient through the kernel against the
+   same with the plain version in the forward and in remat's recompute,
+   within ``TRAIN_BF16_TOL``, and a recompute that is wrong on purpose must
+   exceed it.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -44,9 +63,11 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -102,6 +123,26 @@ RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
 # Main paths: arch, batch, prompt, generated tokens.
 SERVE = [("llama3.2-1b", 8, 1024, 32), ("recurrentgemma-9b", 4, 4096, 32)]
 
+# Phase 6.  Flash gradient cases (B, T, H, K, dk, dv, causal, window, dtype):
+# fp32 on simt, bf16 on wgmma; llama's d 64 GQA and recurrentgemma's d 256 MQA.
+GRAD_CASES = [
+    (2, 64, 4, 2, 32, 32, True, 0, "float32"),
+    (1, 96, 8, 8, 64, 64, True, 24, "float32"),
+    (2, 256, 8, 2, 64, 64, True, 0, "bfloat16"),
+    (1, 300, 4, 1, 256, 256, True, 64, "bfloat16"),
+]
+# The CPU parity tests' tolerance for losses, gradients and parameters (fp32).
+TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
+# One full-width bf16 microbatch through the kernel against the same through
+# its plain version: relative loss gap, the worst leaf's relative L2 gap of
+# its gradient, and the worst leaf's relative gap of the gradient norms.  On
+# an H100 the kernel read 3.4e-5, 2.8e-2 (the first layer's wk) and 9.7e-4;
+# a recompute wrong on purpose (window 2048 in remat's calls) 0, 0.36 and
+# 6.1e-2.  The limits sit about twice and five times above the kernel.
+TRAIN_BF16_TOL = {"loss": 5e-4, "grad": 6e-2, "norm": 5e-3}
+# Full width: arch, rows per step, tokens per row, microbatches, steps.
+TRAIN = ("llama3.2-1b", 8, 4096, 8, 10)
+
 
 def nvidia_smi() -> str:
     return subprocess.run(
@@ -109,6 +150,96 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def smoke_train_steps(arch: str, dev, steps: int = 3):
+    """``steps`` fp32 train steps of ``arch``'s smoke config on ``dev`` and on
+    the CPU from one init (drawn on ``dev``); two microbatches per step.
+    Returns each step's (loss on dev, loss on CPU, grad-norm on dev, on CPU)
+    and the largest parameter difference; raises on a disagreement."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models import Model
+
+    cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
+    run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps, microbatches=2)
+    card = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    models = {"card": card, "cpu": cpu}
+    states = {k: init_train_state(m, run) for k, m in models.items()}
+    fns = {k: build_train_step(m, run) for k, m in models.items()}
+    data = SyntheticLMDataset(cfg, ShapeConfig("smoke", 64, 4, "train"), seed=0)
+    rows = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).long() for k, v in data.batch(i).items()}
+        out = {}
+        for k, m in models.items():
+            states[k], metrics = fns[k](states[k], {n: t.to(m.device) for n, t in batch.items()})
+            out[k] = (metrics["loss"].item(), metrics["grad_norm"].item())
+        rows.append((out["card"][0], out["cpu"][0], out["card"][1], out["cpu"][1]))
+        for got, want in ((out["card"][0], out["cpu"][0]), (out["card"][1], out["cpu"][1])):
+            torch.testing.assert_close(torch.tensor(got), torch.tensor(want), **TRAIN_TOL)
+    worst = 0.0
+    for key, p in cpu.named_parameters():
+        got = card.get_parameter(key).detach().cpu()
+        torch.testing.assert_close(got, p.detach(), **TRAIN_TOL, msg=f"{arch} {key}")
+        worst = max(worst, (got - p.detach()).abs().max().item())
+    return rows, worst
+
+
+def resumed_losses(arch: str, dev, directory: str):
+    """Losses of a 6-step smoke run, and of a run checkpointed at step 3 and
+    resumed through step 6, in ``directory``."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch.train import train
+
+    shape = ShapeConfig("smoke", 32, 4, "train")
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=6, checkpoint_every=3)
+    whole = train(arch, steps=6, shape=shape, log_every=1, device=dev,
+                  run=RunConfig(checkpoint_dir=f"{directory}/whole", **kw))
+    run = RunConfig(checkpoint_dir=f"{directory}/split", **kw)
+    first = train(arch, steps=3, shape=shape, log_every=1, device=dev, run=run)
+    rest = train(arch, steps=6, shape=shape, log_every=1, device=dev, run=run, resume=True)
+    return ([h["loss"] for h in whole["history"]],
+            [h["loss"] for h in first["history"] + rest["history"]])
+
+
+def microbatch_grads(model, batch, flash_fwd=None):
+    """One microbatch's loss and every parameter's gradient; with
+    ``flash_fwd``, attention's forward and remat's recompute call it in place
+    of ``ops._flash_fwd`` (the autograd Function and its backward stay)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    names, params = zip(*model.named_parameters())
+    real = ops._flash_fwd
+    ops._flash_fwd = flash_fwd or real
+    try:
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        ops._flash_fwd = real
+    return loss.item(), dict(zip(names, grads))
+
+
+def grad_gaps(got, want):
+    """(relative loss gap, worst leaf's |g - g'| / |g'|, worst leaf's
+    relative gap of the norms, that leaf's name) between two
+    :func:`microbatch_grads` readings, in fp32."""
+    (loss, grads), (loss_w, grads_w) = got, want
+    l2, norm = {}, {}
+    for key, w in grads_w.items():
+        g, w = grads[key].float(), w.float()
+        wn = w.norm().item()
+        l2[key] = (g - w).norm().item() / wn
+        norm[key] = abs(g.norm().item() - wn) / wn
+    worst = max(l2, key=l2.get)
+    return abs(loss - loss_w) / abs(loss_w), l2[worst], max(norm.values()), worst
 
 
 def main() -> int:
@@ -124,11 +255,13 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import torch.nn.functional as F
 
-    from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.kernels import build, ref
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rglru_scan import rglru_scan_fwd
     from repro_torch.launch.serve import BatchAdmission, serve
+    from repro_torch.launch.train import train
     from repro_torch.models import Model, input_specs, layer_plan
 
     dev = torch.device("cuda")
@@ -557,6 +690,225 @@ def main() -> int:
               f"garbage collection in the call (ms, full collections) {gcs[mode]}")
         if not all(torch.equal(r["tokens"], bare["tokens"]) for r in rs):
             raise AssertionError(f"a {mode} serve's tokens differ from phase 4's")
+
+    # -------------------------------------------------------- 6. training --
+    # (a) Flash gradients on the card against the plain version's autograd.
+    for case in GRAD_CASES:
+        B, T, H, K, dk, dv, causal, window, dtype = case
+        inputs = flash_inputs(B, T, H, K, dk, dv, dtype)
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        before = dict(flash_attention_fwd.launches_by_variant)
+        out = ops.flash_attention(*leaves, causal, window)
+        kind, = (n for n, c in flash_attention_fwd.launches_by_variant.items()
+                 if c != before[n])
+        g = randn(*out.shape).to(out.dtype)
+        grads = torch.autograd.grad(out, leaves, g)
+        oracle = [x.clone().requires_grad_() for x in inputs]
+        expect = ref.flash_attention_ref(*oracle, causal=causal, window=window)
+        expect_grads = torch.autograd.grad(expect, oracle, g)
+        torch.cuda.synchronize()
+        err, share = flash_check(case, out.detach(), expect.detach(), kind)
+        grad_err = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(grads, expect_grads))
+        if not grad_err <= TOL[dtype] or any(bool(torch.isnan(a).any()) for a in grads):
+            raise AssertionError(f"flash_attention gradients on {case} disagree with the "
+                                 f"plain version's autograd: max_abs_err {grad_err}")
+        print(f"[train] flash_attention grads {case} {kind}: forward max_abs_err {err:.3e}, "
+              f"dq/dk/dv max_abs_err {grad_err:.3e} (tol {TOL[dtype]})")
+        del inputs, leaves, out, g, grads, oracle, expect, expect_grads
+
+    for arch, _, _, _ in SERVE:
+        reset_counts()
+        rows, worst = smoke_train_steps(arch, dev)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        print(f"[train] {arch} smoke fp32, 3 steps x 2 microbatches, card vs CPU from one init: "
+              f"losses {[(round(a, 6), round(b, 6)) for a, b, _, _ in rows]}, grad-norms "
+              f"{[(round(c, 6), round(d, 6)) for _, _, c, d in rows]}, largest parameter "
+              f"difference {worst:.3e} (atol {TRAIN_TOL['atol']}, rtol {TRAIN_TOL['rtol']}); "
+              f"card launches " + ", ".join(f"{n} {c}" for n, c in launches.items()))
+        # Per microbatch: every layer once in forward, and the stacked
+        # super-blocks' layers once more in remat's recompute.
+        plan = layer_plan(get_config(arch, smoke=True))
+        expect = {name: 3 * 2 * (2 * plan.n_scan * plan.pattern.count(kind)
+                                 + plan.tail.count(kind))
+                  for name, kind in (("flash_attention", "attn"), ("rglru_scan", "rec"))}
+        if launches != expect:
+            raise AssertionError(f"{arch} smoke training launched {launches}, expected {expect}")
+
+    # (b) Resume on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, resumed = resumed_losses("llama3.2-1b", dev, tmp)
+    print(f"[train] llama3.2-1b smoke resume: checkpoint at step 3, resumed through step 6: "
+          f"losses {resumed} vs uninterrupted {whole}")
+    if resumed != whole:
+        raise AssertionError("the resumed run's losses differ from the uninterrupted run's")
+    torch.cuda.empty_cache()
+
+    # (c) The main path's second half: full-width llama3.2-1b training.
+    arch, rows, seq, micro, n_steps = TRAIN
+    full = get_config(arch)
+    shape = ShapeConfig("train_4k", seq, rows, "train")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(learning_rate=3e-4, warmup_steps=2, total_steps=n_steps,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = train(arch, smoke=False, steps=n_steps, shape=shape, run=run, log_every=1,
+                    device="cuda")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_variants = dict(flash_attention_fwd.launches_by_variant)
+    hist = res["history"]
+    n_params = sum(t.numel() for t in res["final_state"]["params"].values())
+    del res
+    torch.cuda.empty_cache()
+    for h in hist:
+        print(f"[train] {arch} full width step {h['step']}: loss {h['loss']:.6f}, grad-norm "
+              f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s")
+    step_s = statistics.mean(h["seconds_per_step"] for h in hist[1:])
+    tokens = rows * seq
+    H, hd, L = full.num_heads, full.resolved_head_dim, full.num_layers
+    # Model FLOPs: 6 N per token, plus causal attention's QK^T and PV (2 FLOP
+    # per multiply-add over dk + dv) over the T(T+1)/2 unmasked pairs, three
+    # times (forward and backward) in every layer.  Remat's recompute is not
+    # model work and is not counted.
+    attn_flops = 3 * 2 * 2 * hd * H * (seq * (seq + 1) // 2) * rows * L
+    model_flops = 6 * n_params * tokens + attn_flops
+    share = model_flops / step_s / PEAK_BF16_FLOPS
+    print(f"[train] {arch} full width bf16 (fp32 moments, block remat), {L} layers, "
+          f"{n_params} parameters, {rows} rows x {seq} tokens in {micro} microbatches, "
+          f"lr {run.learning_rate} (warmup {run.warmup_steps}): {step_s:.4f} s per step after "
+          f"the first (mean of steps 2-{n_steps}), {tokens / step_s:.1f} tokens/s, model FLOPs "
+          f"{model_flops / 1e12:.2f} T per step ({attn_flops / 1e12:.2f} T attention), "
+          f"{100 * share:.2f} % of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory "
+          f"{peak_gb:.2f} GB; launches per step " + ", ".join(
+              f"{n} {c / n_steps:g}" for n, c in launches.items())
+          + " (flash by variant: " + ", ".join(
+              f"{n} {c / n_steps:g}" for n, c in flash_variants.items()) + f"); {smi}")
+    expect_flash = 2 * L * micro * n_steps  # forward + remat recompute, per microbatch
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
+    if launches["flash_attention"] != expect_flash or flash_variants["wgmma"] != expect_flash:
+        raise AssertionError(f"training launched flash {launches['flash_attention']} times "
+                             f"({flash_variants}), expected {expect_flash}, all wgmma")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"loss did not fall: step 1 {hist[0]['loss']}, "
+                             f"step {n_steps} {hist[-1]['loss']}")
+
+    # One microbatch's backward, with events around the whole and around each
+    # attention backward (the plain version's autograd); the flash kernel at
+    # this shape beside its plain version and SDPA.
+    model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    mb = SyntheticLMDataset(full, ShapeConfig("mb", seq, 1, "train"), seed=0).batch(0)
+    mb = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in mb.items()}
+    attn_events, attn_peaks = [], []
+    real_backward = ops._FlashAttention.backward
+
+    def timed_backward(ctx, g):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        out = real_backward(ctx, g)
+        end.record()
+        attn_events.append((start, end))
+        attn_peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    params = [p for p in model.parameters()]
+    timings = []
+    ops._FlashAttention.backward = staticmethod(timed_backward)
+    try:
+        for _ in range(2):  # the first warms up; the second is reported
+            attn_events.clear()
+            attn_peaks.clear()
+            start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            start.record()
+            loss, _ = model.loss(mb)
+            mid.record()
+            grads = torch.autograd.grad(loss, params)
+            end.record()
+            end.synchronize()
+            timings = [start.elapsed_time(mid), mid.elapsed_time(end),
+                       sum(a.elapsed_time(b) for a, b in attn_events)]
+            del loss, grads
+    finally:
+        ops._FlashAttention.backward = real_backward
+    fwd_ms, bwd_ms, attn_ms = timings
+    print(f"[train] {arch} one microbatch (1 x {seq}): forward {fwd_ms:.2f} ms, backward "
+          f"{bwd_ms:.2f} ms (with remat's recompute), of which the attention backward "
+          f"(plain version's autograd) {attn_ms:.2f} ms in {len(attn_events)} calls = "
+          f"{100 * attn_ms / bwd_ms:.1f} %, {attn_ms / len(attn_events):.2f} ms and "
+          f"{max(attn_peaks) / 1e9:.2f} GB of transient memory per call; {smi}")
+    del params
+
+    # The same microbatch and weights with the plain version in place of the
+    # kernel, in the forward and in remat's recompute: the wgmma kernel under
+    # autograd and remat at the training shape, held to the plain version's
+    # loss and gradients in bf16.  Then a recompute that is wrong on purpose
+    # (window 2048 in remat's calls only) must exceed the limits.
+    def plain_fwd(q, k, v, causal, window, scale):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+    calls = []
+
+    def wrong_recompute(q, k, v, causal, window, scale):
+        calls.append(None)  # the first L calls are the forward, then remat's
+        return plain_fwd(q, k, v, causal, seq // 2 if len(calls) > L else window, scale)
+
+    before = flash_attention_fwd.launches_by_variant["wgmma"]
+    kernel_run = microbatch_grads(model, mb)
+    wgmma = flash_attention_fwd.launches_by_variant["wgmma"] - before
+    plain_run = microbatch_grads(model, mb, plain_fwd)
+    wrong_run = microbatch_grads(model, mb, wrong_recompute)
+    del model
+    gaps = grad_gaps(kernel_run, plain_run)
+    wrong = grad_gaps(wrong_run, plain_run)
+    print(f"[train] {arch} one microbatch (1 x {seq}), kernel (wgmma launches {wgmma}) vs plain "
+          f"version in forward and recompute: loss {kernel_run[0]:.6f} vs {plain_run[0]:.6f}, "
+          f"relative gap {gaps[0]:.3e} (limit {TRAIN_BF16_TOL['loss']}); worst leaf "
+          f"|g - g_plain| / |g_plain| {gaps[1]:.3e} ({gaps[3]}; limit {TRAIN_BF16_TOL['grad']}); "
+          f"worst leaf norm gap {gaps[2]:.3e} (limit {TRAIN_BF16_TOL['norm']}); a wrong "
+          f"recompute (window {seq // 2}): {wrong[0]:.3e}, {wrong[1]:.3e} ({wrong[3]}), "
+          f"{wrong[2]:.3e}")
+    if wgmma != 2 * L:
+        raise AssertionError(f"the kernel's microbatch launched wgmma {wgmma} times, "
+                             f"expected {2 * L}")
+    if not (gaps[0] <= TRAIN_BF16_TOL["loss"] and gaps[1] <= TRAIN_BF16_TOL["grad"]
+            and gaps[2] <= TRAIN_BF16_TOL["norm"]):
+        raise AssertionError(f"training through the kernel disagrees with the plain version "
+                             f"at the training shape: {gaps}")
+    if wrong[1] <= TRAIN_BF16_TOL["grad"]:
+        raise AssertionError(f"the gradient check does not see a wrong recompute: {wrong}")
+    del kernel_run, plain_run, wrong_run
+    torch.cuda.empty_cache()
+
+    case = (1, seq, full.num_heads, full.num_kv_heads, hd, hd, True, 0, "bfloat16")
+    q, k, v = flash_inputs(*case[:6], case[-1])
+    out, expect, kind = flash_run(case, q, k, v)
+    err, _ = flash_check(case, out, expect, kind)
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    flops = 2 * 2 * hd * H * (seq * (seq + 1) // 2)
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"[kernel] flash_attention {case} {kind} ({arch} training microbatch): max_abs_err "
+          f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    records[("flash_attention", f"{arch} train")] = {
+        "name": "flash_attention", "variant": kind, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:128",
+        "shape": list(case), "launches": launches["flash_attention"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "backward_ms": attn_ms / len(attn_events),
+    }
+    del q, k, v, qt, kt, vt, out, expect
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

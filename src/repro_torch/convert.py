@@ -1,7 +1,8 @@
-"""Load a JAX parameter tree into the port's ``Model``.
+"""Load a JAX parameter tree, or a whole JAX train state, into the port.
 
 The JAX and torch random streams differ, so parity runs start from one
-JAX ``Model.init`` tree, handed over as numpy arrays (``jax.device_get``).
+JAX ``Model.init`` tree (or ``init_train_state``), handed over as numpy
+arrays (``jax.device_get``).
 """
 
 from __future__ import annotations
@@ -33,3 +34,16 @@ def params_from_jax(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     for key, val in items:
         out.update(params_from_jax(val, f"{prefix}.{key}" if prefix else str(key)))
     return out
+
+
+def train_state_from_jax(state: Any) -> Dict[str, Any]:
+    """A JAX train state ``{"params", "opt": {"step", "mu", "nu"}}`` as the
+    port's: the same keys, each tree flattened as :func:`params_from_jax`
+    does (load it with ``launch.steps.restore_train_state``)."""
+    opt = state["opt"]
+    return {
+        "params": params_from_jax(state["params"]),
+        "opt": {"step": _to_tensor(opt["step"]),
+                "mu": params_from_jax(opt["mu"]),
+                "nu": params_from_jax(opt["nu"])},
+    }

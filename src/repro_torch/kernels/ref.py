@@ -45,10 +45,13 @@ def flash_attention_ref(
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t. [B,T,W] fp32."""
+    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t. [B,T,W] fp32.
+
+    The steps are stacked rather than written into one buffer, so that the
+    autograd graph the backward recomputes stays linear in T."""
     h = h0
-    out = torch.empty_like(a)
+    hs = []
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
-        out[:, t] = h
-    return out
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else torch.empty_like(a)

@@ -1,10 +1,13 @@
-"""GQA attention: prefill (flash kernel) and decode against a KV cache.
+"""GQA attention: train and prefill (flash kernel), decode against a KV cache.
 
-Port of the GQA half of ``repro/models/attention.py``.  Prefill calls
-``kernels.ops.flash_attention`` where the JAX package calls
-``online_attention``: the two implement one contract
-(``tests/test_kernels.py::test_online_attention_equals_kernel_contract``).
-Decode attention stays plain tensor ops, as it is in the JAX package.
+Port of the GQA half of ``repro/models/attention.py``.  Train mode
+(:func:`gqa_attention`) and prefill call ``kernels.ops.flash_attention``
+where the JAX package calls ``online_attention`` on the CPU (and its Pallas
+kernel with ``use_pallas``): the two implement one contract
+(``tests/test_kernels.py::test_online_attention_equals_kernel_contract``),
+and on a CPU tensor ``ops`` runs its plain quadratic version, so
+``online_attention`` has no separate port.  Decode attention stays plain
+tensor ops, as it is in the JAX package.
 
 Unlike JAX's immutable arrays, the cache here is written in place: prefill
 copies into the buffers ``Model.cache`` allocated, and each decode step
@@ -96,6 +99,16 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     k = (x @ p["wk"]).reshape(B, T, K, hd)
     v = (x @ p["wv"]).reshape(B, T, K, hd)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def gqa_attention(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Training self-attention. x: [B, T, D] → [B, T, D]."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block,
+                              cfg.k_block)
+    return out.reshape(B, T, -1) @ p["wo"]
 
 
 def gqa_prefill(p, x, cfg: ModelConfig, cache: KVCache):

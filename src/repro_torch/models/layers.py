@@ -1,4 +1,4 @@
-"""Shared layers: norms, MLPs, embeddings, RoPE.
+"""Shared layers: norms, MLPs, embeddings, RoPE, losses.
 
 Port of ``repro/models/layers.py``: (spec function, plain function) pairs over
 explicit parameter trees.  ``ashard`` has no counterpart: the port runs on one
@@ -7,10 +7,11 @@ device, so activation sharding constraints are dropped.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .specs import ParamSpec
 
@@ -25,6 +26,21 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(h * h, dim=-1, keepdim=True)
     h = h * torch.rsqrt(var + eps)
     return (h * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_spec(d: int, dtype=torch.bfloat16) -> Dict[str, ParamSpec]:
+    return {
+        "scale": ParamSpec((d,), ("embed",), init="ones", dtype=dtype),
+        "bias": ParamSpec((d,), ("embed",), init="zeros", dtype=dtype),
+    }
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.float()
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.var(h, dim=-1, keepdim=True, correction=0)  # jnp.var: population
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # -------------------------------------------------------------------- MLPs --
@@ -85,3 +101,54 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ losses --
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position ``logsumexp - gold`` in fp32.  The gold logit is a gather:
+    the reference's one-hot contraction exists for XLA's partitioner and gives
+    the same fp32 value."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy in fp32. logits [..., V], labels int [...]."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def chunked_xent(hidden: torch.Tensor, logits_fn: Callable[[torch.Tensor], torch.Tensor],
+                 labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy without materialising [B, T, V] logits.
+
+    Chunks of ``chunk`` positions along T, in order, each under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` scan body),
+    so that one chunk's logits live at a time in forward and backward.
+    ``logits_fn(h_chunk) -> [B, c, V]``.  Falls back to :func:`softmax_xent`
+    when T is not a multiple of ``chunk``.
+    """
+    B, T, _ = hidden.shape
+    if T % chunk != 0:
+        return softmax_xent(logits_fn(hidden), labels, mask)
+    if mask is None:
+        mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+
+    def body(hc, yc, mc):
+        nll = _nll(logits_fn(hc), yc) * mc
+        return torch.sum(nll), torch.sum(mc)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T, chunk):
+        s, c = checkpoint(body, hidden[:, i:i + chunk], labels[:, i:i + chunk],
+                          mask[:, i:i + chunk], use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

@@ -9,9 +9,10 @@ projection.  The RG-LRU is a gated *linear* recurrence
     log a_t = -c * softplus(Lambda) * r_t
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through ``kernels.ops.rglru_scan`` (the Hopper
-kernel on the card) where the JAX package runs ``jax.lax.associative_scan``
-with ``h0`` folded into ``b[:, 0]``: both compute one recurrence from ``h0``.
+Training and prefill run the recurrence through ``kernels.ops.rglru_scan``
+(the Hopper kernel on the card, under autograd in training) where the JAX
+package runs ``jax.lax.associative_scan`` with ``h0`` folded into
+``b[:, 0]``: both compute one recurrence from ``h0``.
 Decode is a one-step update in plain ops.  ``h`` and the carried conv inputs
 stay fp32 in a bf16 model; the matmuls run in x's dtype.
 """
@@ -112,6 +113,11 @@ def rglru_block_with_state(
     h = ops.rglru_scan(a, b, h0.contiguous())
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     return out, RGLRUState(h=h[:, -1], conv=tail.float())
+
+
+def rglru_block(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Training forward (zero initial state). x: [B, T, D] → [B, T, D]."""
+    return rglru_block_with_state(p, x, cfg, None)[0]
 
 
 def rglru_decode(p, x: torch.Tensor, cfg: ModelConfig, state: RGLRUState):

@@ -9,8 +9,11 @@ layers; ``final_norm.scale``), so ``convert.params_from_jax`` loads a JAX
 ``Model.init`` tree one-to-one.  A Python loop over the stacked leading dim
 replaces ``lax.scan``.  Caches are stacked the same way and written in place.
 
-Entry points: ``prefill(batch, max_len)`` and ``decode_step(caches, tokens)``.
-Training (``loss``/``forward``) is later work.
+Entry points: ``loss(batch)`` and ``forward(batch)`` (training: gradients
+reach every parameter, each stacked super-block under
+``torch.utils.checkpoint`` unless ``cfg.remat == "none"``), and
+``prefill(batch, max_len)`` and ``decode_step(caches, tokens)`` (serving,
+under ``torch.inference_mode``).
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
 from . import recurrent as rec
-from .layers import embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec, unembed, unembed_spec
+from .layers import (chunked_xent, embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec,
+                     softmax_xent, unembed, unembed_spec)
 from .specs import init_params, stack_layer_specs
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -81,10 +86,16 @@ def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
 
 
 def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
-    """One pre-norm block. mode: prefill | decode.  ``cache`` (a ``KVCache`` or
-    an ``RGLRUState`` of buffers) is written in place.  Returns (x, cache)."""
+    """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
+    ``KVCache`` or an ``RGLRUState`` of buffers; ``None`` in train mode) is
+    written in place.  Returns (x, cache)."""
     h = rmsnorm(p["ln1"], x)
-    if kind == "attn":
+    if mode == "train":
+        if kind == "attn":
+            y = attn.gqa_attention(p["attn"], h, cfg)
+        else:
+            y = rec.rglru_block(p["rec"], h, cfg)
+    elif kind == "attn":
         step = attn.gqa_prefill if mode == "prefill" else attn.gqa_decode
         y, cache = step(p["attn"], h, cfg, cache)
     else:
@@ -148,7 +159,7 @@ class ParamTree(nn.Module):
             if isinstance(val, (dict, list)):
                 self.add_module(key, ParamTree(val))
             else:
-                self.register_parameter(key, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(val))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -161,7 +172,8 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder (dense or hybrid): ``prefill`` then ``decode_step``, on one device.
+    """Decoder (dense or hybrid) on one device: ``loss`` for training,
+    ``prefill`` then ``decode_step`` for serving.
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
     on that device; seed 0 when omitted), with the JAX package's initializers.
@@ -221,6 +233,46 @@ class Model(nn.Module):
                                 caches["tail"][j])
             tail.append(c)
         return x, {"lead": [], "blocks": blocks, "tail": tail}
+
+    def _train_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """Stacked super-blocks, each under remat unless ``cfg.remat`` is
+        ``"none"`` (the reference's per-super-block ``jax.checkpoint``), then
+        the unrolled tail."""
+        plan = self.plan
+
+        def superblock(i: int, x: torch.Tensor) -> torch.Tensor:
+            p_sb = self.blocks.layer(i)
+            for j, kind in enumerate(plan.pattern):
+                x, _ = _block_apply(self.cfg, kind, p_sb[f"b{j}"], x, "train", None)
+            return x
+
+        for i in range(plan.n_scan):
+            if self.cfg.remat != "none":
+                x = checkpoint(superblock, i, x, use_reentrant=False)
+            else:
+                x = superblock(i, x)
+        for j, kind in enumerate(plan.tail):
+            x, _ = _block_apply(self.cfg, kind, self.tail[str(j)], x, "train", None)
+        return x
+
+    def forward(self, batch: Dict[str, torch.Tensor]):
+        """Training-mode forward to final hidden states [B, T, D], and the
+        auxiliary loss (0: no MoE)."""
+        x = self._train_stack(embed(self.embed, batch["tokens"]))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return rmsnorm(self.final_norm, x), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Mean next-token cross-entropy over ``labels`` (and ``mask``);
+        returns (total, metrics with ``ce`` and ``loss``).  From T 2048 the
+        logits are taken in chunks (:func:`chunked_xent`)."""
+        h, _ = self.forward(batch)
+        labels, mask = batch["labels"], batch.get("mask")
+        if labels.shape[1] >= 2048:
+            ce = chunked_xent(h, self._logits, labels, mask)
+        else:
+            ce = softmax_xent(self._logits(h), labels, mask)
+        return ce, {"ce": ce, "loss": ce}
 
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):

@@ -96,3 +96,29 @@ def test_cache_shape_matches_jax_spec():
         c = ta.gqa_cache_spec(tcfg, 2, 16, torch.float32, torch.device("cpu"))
         assert tuple(c.k.shape) == spec.k.shape and tuple(c.v.shape) == spec.v.shape
         assert c.length == 0 and not c.k.any()
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_gqa_attention_train_matches_jax(window):
+    """Train mode: the port's flash path (its plain version on the CPU)
+    against the reference's ``online_attention`` path, output and grads of x
+    and of every projection."""
+    jcfg, tcfg, jp, tp = _setup(window)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 20, jcfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, 20, jcfg.d_model)).astype(np.float32)
+
+    def fwd_bwd(p, x_):
+        y, vjp = jax.vjp(lambda p_, xx: ja.gqa_attention(p_, xx, jcfg), p, x_)
+        return y, vjp(jnp.asarray(w))
+
+    jy, (jgp, jgx) = jax.jit(fwd_bwd)(jp, jnp.asarray(x))
+    params = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    y = ta.gqa_attention(params, tx, tcfg)
+    _close(y.detach().numpy(), jy)
+    grads = torch.autograd.grad(torch.sum(y * torch.from_numpy(w)), [tx, *params.values()])
+    _close(grads[0].numpy(), jgx)
+    want = params_from_jax(jax.device_get(jgp))
+    for key, g in zip(params, grads[1:]):
+        _close(g.numpy(), want[key].numpy())

@@ -305,6 +305,44 @@ def test_build_is_stale_without_its_log(tmp_path, monkeypatch):
     assert not build._stale("flash_attention")
 
 
+# ------------------------------------------------------------ autograd --
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[10] == "float32"])
+def test_flash_grads_match_jax_custom_vjp(jx, case):
+    """ops.flash_attention under autograd against the reference's
+    ``jax.custom_vjp`` (Pallas forward in interpret mode, the oracle's vjp
+    as backward), for every fp32 case: causal, windowed, GQA, MQA, ragged."""
+    B, T, H, K, dk, dv, qb, kb, causal, window, _ = case
+    arrays = _inputs(case, seed=2)
+    g = np.random.default_rng(3).standard_normal((B, T, H, dv)).astype(np.float32)
+    jg = jx.jnp.asarray(g)
+    want = jx.jax.grad(
+        lambda q, k, v: jx.jnp.sum(jx.ops.flash_attention(q, k, v, causal, window, qb, kb) * jg),
+        argnums=(0, 1, 2))(*(jx.jnp.asarray(a) for a in arrays))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = ops.flash_attention(*leaves, causal, window, qb, kb)
+    for got, exp in zip(torch.autograd.grad(out, leaves, torch.from_numpy(g)), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-4, rtol=1e-4)
+
+
+def test_flash_autograd_saves_only_its_inputs():
+    """Under autograd the function keeps q, k and v for its backward and no
+    output of its forward (so it sits safely inside torch.utils.checkpoint);
+    without grad it records no graph at all."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(FLASH_CASES[0]))
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = ops.flash_attention(q, k, v, True, 0)
+    assert out.grad_fn is not None
+    assert [t.data_ptr() for t in saved] == [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v, True, 0).grad_fn is None
+
+
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_card(cuda):
     """Every case, plus bf16 at each wgmma head dim and tile edge and one bf16

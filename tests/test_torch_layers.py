@@ -70,3 +70,41 @@ def test_embed_and_unembed():
     np.testing.assert_allclose(tl.unembed({"w": tw}, out).numpy(),
                                np.asarray(jl.unembed({"w": jw}, expect)),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm(dtype):
+    jx, tx = _pair(2, 5, 64, scale=3.0)
+    js, ts = _pair(64)
+    jb, tb = _pair(64, scale=0.5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    expect = jl.layernorm({"scale": js.astype(jdt), "bias": jb.astype(jdt)}, jx.astype(jdt))
+    out = tl.layernorm({"scale": ts.to(tdt), "bias": tb.to(tdt)}, tx.to(tdt))
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(expect, np.float32),
+                               atol=1e-5 if dtype == "float32" else 3e-2, rtol=1e-5)
+    spec = tl.layernorm_spec(64)
+    assert spec["scale"].init == "ones" and spec["bias"].init == "zeros"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_softmax_xent(dtype, masked):
+    """fp32 logsumexp minus the gold logit, meaned over the mask; the gather
+    gives the reference's one-hot contraction's value."""
+    jlog, tlog = _pair(3, 7, 50, scale=4.0)
+    labels = RNG.integers(0, 50, (3, 7))
+    mask = (RNG.random((3, 7)) > 0.4).astype(np.float32) if masked else None
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    expect = jl.softmax_xent(jlog.astype(jdt), jnp.asarray(labels, jnp.int32),
+                             None if mask is None else jnp.asarray(mask))
+    out = tl.softmax_xent(tlog.to(tdt), torch.from_numpy(labels),
+                          None if mask is None else torch.from_numpy(mask))
+    assert out.dtype == torch.float32 and out.shape == ()
+    np.testing.assert_allclose(out.item(), float(expect), rtol=1e-6)
+
+
+def test_softmax_xent_empty_mask_is_zero():
+    logits = torch.zeros((2, 3, 5))
+    out = tl.softmax_xent(logits, torch.zeros((2, 3), dtype=torch.long), torch.zeros((2, 3)))
+    assert out.item() == 0.0

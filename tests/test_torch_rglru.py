@@ -197,3 +197,46 @@ def test_rglru_state_spec_matches_jax(jx):
     for got, want in zip(st, spec):
         assert tuple(got.shape) == want.shape and got.dtype == torch.float32
         assert str(want.dtype) == "float32" and not got.any()
+
+
+# ------------------------------------------------------------ autograd --
+@pytest.mark.parametrize("B,T,W,tb,wb", SCAN_CASES)
+def test_rglru_scan_grads_match_jax_custom_vjp(jx, B, T, W, tb, wb):
+    """ops.rglru_scan under autograd (saving a, b, h0 and recomputing the
+    sequential scan's autograd) against the reference's ``jax.custom_vjp``."""
+    from repro.kernels import ops as jops
+
+    arrays = _scan_inputs(B, T, W, seed=2)
+    g = np.random.default_rng(3).standard_normal((B, T, W)).astype(np.float32)
+    jg = jx.jnp.asarray(g)
+    want = jx.jax.grad(lambda a, b, h0: jx.jnp.sum(jops.rglru_scan(a, b, h0) * jg),
+                       argnums=(0, 1, 2))(*(jx.jnp.asarray(x) for x in arrays))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    out = ops.rglru_scan(*leaves)
+    assert out.grad_fn is not None
+    for got, exp in zip(torch.autograd.grad(out, leaves, torch.from_numpy(g)), want):
+        _close(got, exp, SCAN_TOL, 1e-5)
+
+
+def test_rglru_block_train_grads_match_jax(jx):
+    """The train forward (``rglru_block``) and the grads of every block
+    parameter and of x, against the JAX block's (its associative scan)."""
+    jcfg, tcfg, jp, tp = _block_setup(jx, seed=5)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 24, jcfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, 24, jcfg.d_model)).astype(np.float32)
+
+    def fwd_bwd(p, x_):
+        y, vjp = jx.jax.vjp(lambda p_, xx: jx.jr.rglru_block(p_, xx, jcfg), p, x_)
+        return y, vjp(jx.jnp.asarray(w))
+
+    jy, (jgp, jgx) = jx.jax.jit(fwd_bwd)(jp, jx.jnp.asarray(x))
+    params = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    y = tr.rglru_block(params, tx, tcfg)
+    _close(y.detach(), jy, BLOCK_ATOL, BLOCK_RTOL)
+    grads = torch.autograd.grad(torch.sum(y * torch.from_numpy(w)), [tx, *params.values()])
+    _close(grads[0], jgx, BLOCK_ATOL, BLOCK_RTOL)
+    want = params_from_jax(jx.jax.device_get(jgp))
+    for key, g in zip(params, grads[1:]):
+        _close(g, want[key].numpy(), BLOCK_ATOL, BLOCK_RTOL)

@@ -71,18 +71,23 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
+        "assert {'repro_torch.optim.adamw', 'repro_torch.data.pipeline',\n"
+        "        'repro_torch.checkpoint.ckpt', 'repro_torch.launch.train'} <= set(names)\n"
     )
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    assert int(proc.stdout.split()[0]) >= 52
 
 
 def test_port_sources_name_no_jax_or_repro_import():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
-    files = sorted((SRC / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)(\.|\s|$)", re.M)
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "examples/serve_batch_torch.py",
+        REPO / "examples/quickstart_torch.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
 
