@@ -7,15 +7,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit, then the build of every kernel source
    with each kernel's registers, static shared memory and spill bytes (nvcc
-   ``-Xptxas -v``); every ``flash_fwd_wgmma`` instantiation must spill
-   nothing;
+   ``-Xptxas -v``); every ``flash_fwd_wgmma`` and ``flash_bwd_wgmma``
+   instantiation must spill nothing;
 2. every kernel against its plain PyTorch version on the card: the reference
    test shapes (fp32 at 2e-5 with TF32 off; bf16 within 2e-2 and, per
    element, within 1.6e-2 of the value plus 1e-2 of its row's RMS, NaN-free;
    the RG-LRU scan at 1e-5), each flash case naming the kernel variant it
    launched (every bf16 case must launch ``wgmma``), then each serving shape,
    timed beside its bound and, where one PyTorch call computes the same
-   function, that call as yardstick;
+   function, that call as yardstick; then the flash backward: the forward's
+   lse against the plain version's (1e-4), and dq, dk, dv against the plain
+   backward on the kernel's own output and against the oracle's autograd on
+   fp32 upcasts (fp32 within 1e-4 of both; bf16 per element against the
+   plain backward and in relative L2 against the oracle, see ``GRAD_RTOL``),
+   each case naming its variant (every bf16 case up to head dim 128 must
+   launch ``wgmma``);
 3. the port against its own plain CPU path on small fp32 models
    (llama3.2-1b and recurrentgemma-9b);
 4. the main paths, each with every kernel launch counted from zero:
@@ -34,9 +40,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    time of admit, keepalive and complete, and bare against admitted serving
    (through a private table and through a gate built beforehand) over three
    requests each, in turns, with the garbage collector's time in each;
-6. training: (a) flash attention's gradients on the card (fp32 and bf16,
-   causal and windowed, GQA and MQA) against the autograd of its plain
-   version on the same CUDA tensors, then three fp32 train steps of
+6. training: (a) flash attention's gradients on the card through its
+   autograd Function (fp32 and bf16, causal and windowed, GQA and MQA)
+   against the plain backward and the oracle's autograd, with phase 2's
+   tolerances, then three fp32 train steps of
    llama3.2-1b and recurrentgemma-9b at smoke width on the card and on the
    CPU from one init (losses, grads' norms and final parameters within the
    CPU parity tests' atol 1e-5, rtol 1e-4); (b) a smoke run checkpointed at
@@ -45,14 +52,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    published widths (16 layers, bf16 parameters, fp32 AdamW moments, block
    remat), ``train_4k``'s 4096 tokens per row at global batch 8 in 8
    microbatches, 10 steps at lr 3e-4 with 2 warmup steps, launches counted
-   from zero: every loss finite, 256 flash launches per step, all
-   ``wgmma``, and the 10th loss below the 1st; then one microbatch's
-   backward timed with CUDA events around the whole and around each
-   attention backward (the plain version's autograd); then that
-   microbatch's loss and every gradient through the kernel against the
-   same with the plain version in the forward and in remat's recompute,
-   within ``TRAIN_BF16_TOL``, and a recompute that is wrong on purpose must
-   exceed it.
+   from zero: every loss finite, 256 flash launches and 128 flash backward
+   launches per step, all ``wgmma``, no call of a plain version, and the
+   10th loss below the 1st; then one microbatch's backward timed with CUDA
+   events around the whole and around each attention backward (the
+   kernel); then that microbatch's loss and every gradient through the
+   kernels against the same with the plain versions in the forward, remat's
+   recompute and the backward, within ``TRAIN_BF16_TOL``, and a recompute
+   that is wrong on purpose must exceed it; then the forward and the
+   backward at this shape, each timed beside its plain version, its bound
+   and SDPA (forward, and backward under autograd).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -131,6 +140,32 @@ GRAD_CASES = [
     (2, 256, 8, 2, 64, 64, True, 0, "bfloat16"),
     (1, 300, 4, 1, 256, 256, True, 64, "bfloat16"),
 ]
+# Flash backward cases: GRAD_CASES, then d 128 with H/K = 4, a d 64 window that
+# is no multiple of the KV tile over a ragged tail, and dk 192 / dv 128 (past
+# the wgmma backward's head dims: simt).  Every bf16 case up to head dim 128
+# must launch the wgmma backward.
+BWD_CASES = GRAD_CASES + [
+    (2, 256, 8, 2, 128, 128, True, 0, "bfloat16"),
+    (2, 500, 4, 2, 64, 64, True, 77, "bfloat16"),
+    (1, 70, 2, 1, 192, 128, True, 0, "bfloat16"),
+]
+LSE_TOL = 1e-4  # the forward's lse against the plain version's: fp32 order only
+# fp32 gradients: largest |g - oracle|, the oracle's autograd on the same inputs.
+GRAD_FP32_TOL = 1e-4
+# bf16 gradients are held per element to |g - w| <= GRAD_RTOL |w| + GRAD_ROW
+# rms(w's row over d) + GRAD_FLOOR rms(w), w the plain backward in fp32 on fp32
+# upcasts of the inputs and the kernel's bf16 output (the floor is for rows
+# whose terms cancel, as dq's first row).  tests/test_torch_flash_bwd.py holds
+# the bound to both sides on the CPU: an emulation of the wgmma variant's
+# roundings (P and dS in bf16, outputs in bf16) reads under 0.5 of it, a window
+# off by one key above 2, a dropped KV tile above 10.  The oracle's autograd on
+# the same upcasts is not the per-element reference: its D = rowsum(dO O) uses
+# the unrounded output, which moves rows whose terms cancel (dq's first row is
+# 0 there).  Against it each gradient is held to a relative L2 error of
+# GRAD_ORACLE_L2 (bf16 rounding reads about 2.5e-3; lse in the wrong units or a
+# wrong mask reads near 1).
+GRAD_RTOL, GRAD_ROW, GRAD_FLOOR = 1.6e-2, 2e-2, 1e-3
+GRAD_ORACLE_L2 = 1e-2
 # The CPU parity tests' tolerance for losses, gradients and parameters (fp32).
 TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
 # One full-width bf16 microbatch through the kernel against the same through
@@ -208,22 +243,23 @@ def resumed_losses(arch: str, dev, directory: str):
             [h["loss"] for h in first["history"] + rest["history"]])
 
 
-def microbatch_grads(model, batch, flash_fwd=None):
+def microbatch_grads(model, batch, flash_fwd=None, flash_bwd=None):
     """One microbatch's loss and every parameter's gradient; with
-    ``flash_fwd``, attention's forward and remat's recompute call it in place
-    of ``ops._flash_fwd`` (the autograd Function and its backward stay)."""
+    ``flash_fwd`` / ``flash_bwd``, attention's forward and remat's recompute,
+    and attention's backward, call them in place of ``ops._flash_fwd`` /
+    ``ops._flash_bwd`` (the autograd Function stays)."""
     import torch
 
     from repro_torch.kernels import ops
 
     names, params = zip(*model.named_parameters())
-    real = ops._flash_fwd
-    ops._flash_fwd = flash_fwd or real
+    real = ops._flash_fwd, ops._flash_bwd
+    ops._flash_fwd, ops._flash_bwd = flash_fwd or real[0], flash_bwd or real[1]
     try:
         loss, _ = model.loss(batch)
         grads = torch.autograd.grad(loss, params)
     finally:
-        ops._flash_fwd = real
+        ops._flash_fwd, ops._flash_bwd = real
     return loss.item(), dict(zip(names, grads))
 
 
@@ -258,7 +294,7 @@ def main() -> int:
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.rglru_scan import rglru_scan_fwd
     from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.launch.train import train
@@ -282,11 +318,12 @@ def main() -> int:
                   f"static shared memory {use['static_smem']} B (dynamic: requested at "
                   f"launch), spill stores {use['spill_stores']} B, "
                   f"spill loads {use['spill_loads']} B")
-            if kernel.startswith("flash_fwd_wgmma<"):
+            if kernel.startswith(("flash_fwd_wgmma<", "flash_bwd_wgmma<")):
                 wgmma_built.add(kernel)
                 if use["spill_stores"] or use["spill_loads"]:
                     raise AssertionError(f"{kernel} spills registers: {use}")
-    wanted = {f"flash_fwd_wgmma<{d}>" for d in (64, 128, 256)}
+    wanted = ({f"flash_fwd_wgmma<{d}>" for d in (64, 128, 256)}
+              | {f"flash_bwd_wgmma<{d}>" for d in (64, 128)})
     if wgmma_built != wanted:
         raise AssertionError(f"nvcc's log shows {sorted(wgmma_built)}, expected {sorted(wanted)}")
 
@@ -406,6 +443,72 @@ def main() -> int:
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
+    def grad_refs(case, q, k, v, out, lse, g):
+        """The plain backward on the kernel's output and lse, and the
+        oracle's autograd, both in fp32 on fp32 upcasts of the inputs."""
+        causal, window = case[6:8]
+        qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, g))
+        plain = ref.flash_attention_bwd_ref(qf, kf, vf, of, lse, gf, causal=causal,
+                                            window=window)
+        leaves = [x.clone().requires_grad_() for x in (qf, kf, vf)]
+        oracle = torch.autograd.grad(
+            ref.flash_attention_ref(*leaves, causal=causal, window=window), leaves, gf)
+        return plain, oracle
+
+    def grad_check(case, kind, got, plain, oracle):
+        """Largest |g - oracle| over dq, dk, dv and, for bf16, the largest
+        share of the per-element bound against the plain backward and the
+        largest relative L2 error against the oracle; raises on a
+        disagreement, a NaN or the wrong variant."""
+        B, T, H, K, dk, dv, causal, window, dtype = case
+        want = "wgmma" if dtype == "bfloat16" and max(dk, dv) <= 128 else "simt"
+        err, share, l2 = 0.0, 0.0, 0.0
+        for g, w, o in zip(got, plain, oracle):
+            g = g.float()
+            err = max(err, (g - o).abs().max().item())
+            if dtype == "bfloat16":
+                limit = (GRAD_RTOL * w.abs() + GRAD_ROW * w.pow(2).mean(-1, keepdim=True).sqrt()
+                         + GRAD_FLOOR * w.pow(2).mean().sqrt())
+                share = max(share, ((g - w).abs() / limit).max().item())
+                l2 = max(l2, ((g - o).norm() / o.norm()).item())
+            elif (g - w).abs().max().item() > GRAD_FP32_TOL:
+                err = math.inf
+        nan = any(bool(torch.isnan(x).any()) for x in got)
+        ok = (share <= 1.0 and l2 <= GRAD_ORACLE_L2 if dtype == "bfloat16"
+              else err <= GRAD_FP32_TOL)
+        if not ok or nan or kind != want:
+            raise AssertionError(f"flash_attention backward ({kind}, expected {want}) on {case}: "
+                                 f"max_abs_err vs the oracle {err}, share of the bf16 bound "
+                                 f"{share}, relative L2 vs the oracle {l2}, NaN {nan}")
+        return err, share, l2
+
+    def bwd_note(dtype, err, share, l2):
+        if dtype == "bfloat16":
+            return (f"dq/dk/dv max_abs_err vs the fp32 oracle {err:.3e}, relative L2 {l2:.3e} "
+                    f"(limit {GRAD_ORACLE_L2}), {share:.3f} of the per-element bound vs the "
+                    f"plain backward")
+        return f"dq/dk/dv max_abs_err vs the oracle {err:.3e} (tol {GRAD_FP32_TOL})"
+
+    # The backward against its plain version and the oracle's autograd.
+    for case in BWD_CASES:
+        B, T, H, K, dk, dv, causal, window, dtype = case
+        q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
+        g = randn(B, T, H, dv).to(q.dtype)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=True)
+        _, lse_plain = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+        before = dict(flash_attention_bwd.launches_by_variant)
+        got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
+        kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items() if c != before[n])
+        plain, oracle = grad_refs(case, q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_plain).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash_attention lse on {case}: max_abs_err {lse_err}")
+        err, share, l2 = grad_check(case, kind, got, plain, oracle)
+        print(f"[kernel] flash_attention_bwd {case} {kind}: lse max_abs_err {lse_err:.3e} "
+              f"(tol {LSE_TOL}); " + bwd_note(dtype, err, share, l2))
+        del q, k, v, g, out, lse, got, plain, oracle
+
     def scan_inputs(B, T, W):
         a = torch.sigmoid(randn(B, T, W)) * 0.6 + 0.3
         return a, randn(B, T, W) * 0.1, randn(B, W) * 0.1
@@ -476,20 +579,22 @@ def main() -> int:
         del gpu, cpu
 
     # ----------------------------------------------------- 4. main paths --
-    kernels = {"flash_attention": flash_attention_fwd, "rglru_scan": rglru_scan_fwd}
+    kernels = {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
+               "rglru_scan": rglru_scan_fwd}
 
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
-        flash_attention_fwd.launches_by_variant = dict.fromkeys(
-            flash_attention_fwd.launches_by_variant, 0)
+        for fn in (flash_attention_fwd, flash_attention_bwd):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
     served = {}  # each main path's result
     for arch, batch, prompt_len, gen_len in SERVE:
         full = get_config(arch)
         plan = layer_plan(full)
         kinds = plan.pattern * plan.n_scan + plan.tail
-        expect = {"flash_attention": kinds.count("attn"), "rglru_scan": kinds.count("rec")}
+        expect = {"flash_attention": kinds.count("attn"), "flash_attention_bwd": 0,
+                  "rglru_scan": kinds.count("rec")}
         # Same weights and prompts as serve() draws from seed 0: the first token
         # it serves must be the argmax of these finite logits.
         model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -581,7 +686,8 @@ def main() -> int:
     counters = {k: adm[k] for k in ("grants", "fast_renews", "expirations", "local_rdma_ops")}
     if counters != {"grants": 1, "fast_renews": 4, "expirations": 0, "local_rdma_ops": 0}:
         raise AssertionError(f"admission counters {counters}")
-    if launches != {"flash_attention": 16, "rglru_scan": 0} or flash_variants["wgmma"] != 16:
+    if (launches != {"flash_attention": 16, "flash_attention_bwd": 0, "rglru_scan": 0}
+            or flash_variants["wgmma"] != 16):
         raise AssertionError(f"admitted serve launched {launches}, flash {flash_variants}")
     if seen[0] != ("admit", ["flash_attention"]):
         raise AssertionError(f"admit found the kernel libraries {seen[0][1]} loaded")
@@ -692,30 +798,29 @@ def main() -> int:
             raise AssertionError(f"a {mode} serve's tokens differ from phase 4's")
 
     # -------------------------------------------------------- 6. training --
-    # (a) Flash gradients on the card against the plain version's autograd.
+    # (a) Flash gradients on the card, through the autograd Function, against
+    # the plain backward and the oracle's autograd.
     for case in GRAD_CASES:
         B, T, H, K, dk, dv, causal, window, dtype = case
         inputs = flash_inputs(B, T, H, K, dk, dv, dtype)
         leaves = [x.clone().requires_grad_() for x in inputs]
         before = dict(flash_attention_fwd.launches_by_variant)
+        before_bwd = dict(flash_attention_bwd.launches_by_variant)
         out = ops.flash_attention(*leaves, causal, window)
         kind, = (n for n, c in flash_attention_fwd.launches_by_variant.items()
                  if c != before[n])
         g = randn(*out.shape).to(out.dtype)
         grads = torch.autograd.grad(out, leaves, g)
-        oracle = [x.clone().requires_grad_() for x in inputs]
-        expect = ref.flash_attention_ref(*oracle, causal=causal, window=window)
-        expect_grads = torch.autograd.grad(expect, oracle, g)
+        bwd_kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items()
+                     if c != before_bwd[n])
+        expect, lse = ref.flash_attention_lse_ref(*inputs, causal=causal, window=window)
+        plain, oracle = grad_refs(case, *inputs, out.detach(), lse, g)
         torch.cuda.synchronize()
-        err, share = flash_check(case, out.detach(), expect.detach(), kind)
-        grad_err = max((a.float() - b.float()).abs().max().item()
-                       for a, b in zip(grads, expect_grads))
-        if not grad_err <= TOL[dtype] or any(bool(torch.isnan(a).any()) for a in grads):
-            raise AssertionError(f"flash_attention gradients on {case} disagree with the "
-                                 f"plain version's autograd: max_abs_err {grad_err}")
-        print(f"[train] flash_attention grads {case} {kind}: forward max_abs_err {err:.3e}, "
-              f"dq/dk/dv max_abs_err {grad_err:.3e} (tol {TOL[dtype]})")
-        del inputs, leaves, out, g, grads, oracle, expect, expect_grads
+        err, share = flash_check(case, out.detach(), expect, kind)
+        print(f"[train] flash_attention grads {case} forward {kind}, backward {bwd_kind}: "
+              f"forward max_abs_err {err:.3e}; "
+              + bwd_note(dtype, *grad_check(case, bwd_kind, grads, plain, oracle)))
+        del inputs, leaves, out, g, grads, expect, lse, plain, oracle
 
     for arch, _, _, _ in SERVE:
         reset_counts()
@@ -732,6 +837,8 @@ def main() -> int:
         expect = {name: 3 * 2 * (2 * plan.n_scan * plan.pattern.count(kind)
                                  + plan.tail.count(kind))
                   for name, kind in (("flash_attention", "attn"), ("rglru_scan", "rec"))}
+        expect["flash_attention_bwd"] = 3 * 2 * (plan.n_scan * plan.pattern.count("attn")
+                                                 + plan.tail.count("attn"))
         if launches != expect:
             raise AssertionError(f"{arch} smoke training launched {launches}, expected {expect}")
 
@@ -751,13 +858,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run = RunConfig(learning_rate=3e-4, warmup_steps=2, total_steps=n_steps,
                         microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        res = train(arch, smoke=False, steps=n_steps, shape=shape, run=run, log_every=1,
-                    device="cuda")
+        # Calls of the plain versions during the run: there must be none.
+        plain_calls = {}
+        plain_fns = {name: getattr(ref, name) for name in
+                     ("flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref")}
+
+        def counted(name):
+            def call(*args, **kwargs):
+                plain_calls[name] = plain_calls.get(name, 0) + 1
+                return plain_fns[name](*args, **kwargs)
+            return call
+
+        for name in plain_fns:
+            setattr(ref, name, counted(name))
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            res = train(arch, smoke=False, steps=n_steps, shape=shape, run=run, log_every=1,
+                        device="cuda")
+        finally:
+            for name, fn in plain_fns.items():
+                setattr(ref, name, fn)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in kernels.items()}
     flash_variants = dict(flash_attention_fwd.launches_by_variant)
+    bwd_variants = dict(flash_attention_bwd.launches_by_variant)
     hist = res["history"]
     n_params = sum(t.numel() for t in res["final_state"]["params"].values())
     del res
@@ -784,8 +909,18 @@ def main() -> int:
           f"{peak_gb:.2f} GB; launches per step " + ", ".join(
               f"{n} {c / n_steps:g}" for n, c in launches.items())
           + " (flash by variant: " + ", ".join(
-              f"{n} {c / n_steps:g}" for n, c in flash_variants.items()) + f"); {smi}")
+              f"{n} {c / n_steps:g}" for n, c in flash_variants.items())
+          + "; backward by variant: " + ", ".join(
+              f"{n} {c / n_steps:g}" for n, c in bwd_variants.items())
+          + f"); calls of the plain versions {plain_calls}; {smi}")
     expect_flash = 2 * L * micro * n_steps  # forward + remat recompute, per microbatch
+    expect_bwd = L * micro * n_steps
+    if (launches["flash_attention_bwd"] != expect_bwd or bwd_variants["wgmma"] != expect_bwd
+            or plain_calls):
+        raise AssertionError(f"training launched the flash backward "
+                             f"{launches['flash_attention_bwd']} times ({bwd_variants}), "
+                             f"expected {expect_bwd}, all wgmma, and called the plain "
+                             f"versions {plain_calls} times, expected never")
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
     if launches["flash_attention"] != expect_flash or flash_variants["wgmma"] != expect_flash:
@@ -796,8 +931,8 @@ def main() -> int:
                              f"step {n_steps} {hist[-1]['loss']}")
 
     # One microbatch's backward, with events around the whole and around each
-    # attention backward (the plain version's autograd); the flash kernel at
-    # this shape beside its plain version and SDPA.
+    # attention backward (the kernel); the flash kernels at this shape beside
+    # their plain versions and SDPA.
     model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
     mb = SyntheticLMDataset(full, ShapeConfig("mb", seq, 1, "train"), seed=0).batch(0)
     mb = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in mb.items()}
@@ -837,43 +972,52 @@ def main() -> int:
     fwd_ms, bwd_ms, attn_ms = timings
     print(f"[train] {arch} one microbatch (1 x {seq}): forward {fwd_ms:.2f} ms, backward "
           f"{bwd_ms:.2f} ms (with remat's recompute), of which the attention backward "
-          f"(plain version's autograd) {attn_ms:.2f} ms in {len(attn_events)} calls = "
+          f"(the kernel) {attn_ms:.2f} ms in {len(attn_events)} calls = "
           f"{100 * attn_ms / bwd_ms:.1f} %, {attn_ms / len(attn_events):.2f} ms and "
           f"{max(attn_peaks) / 1e9:.2f} GB of transient memory per call; {smi}")
     del params
 
-    # The same microbatch and weights with the plain version in place of the
-    # kernel, in the forward and in remat's recompute: the wgmma kernel under
-    # autograd and remat at the training shape, held to the plain version's
-    # loss and gradients in bf16.  Then a recompute that is wrong on purpose
-    # (window 2048 in remat's calls only) must exceed the limits.
-    def plain_fwd(q, k, v, causal, window, scale):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    # The same microbatch and weights with the plain versions in place of the
+    # kernels, in the forward, remat's recompute and the backward: the wgmma
+    # kernels under autograd and remat at the training shape, held to the
+    # plain versions' loss and gradients in bf16.  Then a recompute that is
+    # wrong on purpose (window 2048 in remat's calls only) must exceed the
+    # limits.
+    def plain_fwd(q, k, v, causal, window, scale, lse=False):
+        fn = ref.flash_attention_lse_ref if lse else ref.flash_attention_ref
+        return fn(q, k, v, causal=causal, window=window, scale=scale)
+
+    def plain_bwd(q, k, v, out, lse, g, causal, window, scale):
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal, window=window,
+                                           scale=scale)
 
     calls = []
 
-    def wrong_recompute(q, k, v, causal, window, scale):
+    def wrong_recompute(q, k, v, causal, window, scale, lse=False):
         calls.append(None)  # the first L calls are the forward, then remat's
-        return plain_fwd(q, k, v, causal, seq // 2 if len(calls) > L else window, scale)
+        return plain_fwd(q, k, v, causal, seq // 2 if len(calls) > L else window, scale, lse)
 
     before = flash_attention_fwd.launches_by_variant["wgmma"]
+    before_bwd = flash_attention_bwd.launches_by_variant["wgmma"]
     kernel_run = microbatch_grads(model, mb)
     wgmma = flash_attention_fwd.launches_by_variant["wgmma"] - before
-    plain_run = microbatch_grads(model, mb, plain_fwd)
-    wrong_run = microbatch_grads(model, mb, wrong_recompute)
+    wgmma_bwd = flash_attention_bwd.launches_by_variant["wgmma"] - before_bwd
+    plain_run = microbatch_grads(model, mb, plain_fwd, plain_bwd)
+    wrong_run = microbatch_grads(model, mb, wrong_recompute, plain_bwd)
     del model
     gaps = grad_gaps(kernel_run, plain_run)
     wrong = grad_gaps(wrong_run, plain_run)
-    print(f"[train] {arch} one microbatch (1 x {seq}), kernel (wgmma launches {wgmma}) vs plain "
-          f"version in forward and recompute: loss {kernel_run[0]:.6f} vs {plain_run[0]:.6f}, "
+    print(f"[train] {arch} one microbatch (1 x {seq}), kernels (wgmma launches: forward "
+          f"{wgmma}, backward {wgmma_bwd}) vs plain versions in forward, recompute and "
+          f"backward: loss {kernel_run[0]:.6f} vs {plain_run[0]:.6f}, "
           f"relative gap {gaps[0]:.3e} (limit {TRAIN_BF16_TOL['loss']}); worst leaf "
           f"|g - g_plain| / |g_plain| {gaps[1]:.3e} ({gaps[3]}; limit {TRAIN_BF16_TOL['grad']}); "
           f"worst leaf norm gap {gaps[2]:.3e} (limit {TRAIN_BF16_TOL['norm']}); a wrong "
           f"recompute (window {seq // 2}): {wrong[0]:.3e}, {wrong[1]:.3e} ({wrong[3]}), "
           f"{wrong[2]:.3e}")
-    if wgmma != 2 * L:
-        raise AssertionError(f"the kernel's microbatch launched wgmma {wgmma} times, "
-                             f"expected {2 * L}")
+    if wgmma != 2 * L or wgmma_bwd != L:
+        raise AssertionError(f"the kernel's microbatch launched wgmma {wgmma} / {wgmma_bwd} "
+                             f"times (forward / backward), expected {2 * L} / {L}")
     if not (gaps[0] <= TRAIN_BF16_TOL["loss"] and gaps[1] <= TRAIN_BF16_TOL["grad"]
             and gaps[2] <= TRAIN_BF16_TOL["norm"]):
         raise AssertionError(f"training through the kernel disagrees with the plain version "
@@ -905,9 +1049,60 @@ def main() -> int:
         "shape": list(case), "launches": launches["flash_attention"],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
-        "backward_ms": attn_ms / len(attn_events),
     }
-    del q, k, v, qt, kt, vt, out, expect
+    del expect
+
+    # The backward at this shape: checked against its plain version and the
+    # oracle, then timed beside the oracle's autograd (its forward recomputed,
+    # as a backward through the oracle does it), its bound and SDPA's backward.
+    g = randn(*out.shape).to(out.dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=True, lse=True)
+    before = dict(flash_attention_bwd.launches_by_variant)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    bwd_kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items() if c != before[n])
+    plain, oracle = grad_refs(case, q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    bwd_err, bwd_share, bwd_l2 = grad_check(case, bwd_kind, got, plain, oracle)
+    del got, plain, oracle
+    torch.cuda.empty_cache()
+    bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, causal=True), 20)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
+        ref.flash_attention_ref(*leaves, causal=True), leaves, g), 3)
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    gt = g.transpose(1, 2).contiguous()
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt,
+                                                         retain_graph=True), 20)
+    # Five products per unmasked pair (S, dP, dV, dK, dQ: 2 FLOP per
+    # multiply-add over 3 dk + 2 dv); q, k, v, out, dout, lse read once and
+    # dq, dk, dv written once.
+    bwd_flops = 2 * (3 * hd + 2 * hd) * H * (seq * (seq + 1) // 2)
+    bwd_bytes = (sum(x.numel() * x.element_size() for x in (q, k, v, out, g, lse))
+                 + sum(x.numel() * x.element_size() for x in (q, k, v)))
+    bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
+    in_step_ms = attn_ms / len(attn_events)
+    print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({arch} training microbatch): "
+          + bwd_note("bfloat16", bwd_err, bwd_share, bwd_l2) + f"; kernel {bwd_ms:.4f} ms ({in_step_ms:.4f}"
+          f" ms per call in the microbatch's backward), plain (the oracle's autograd, forward "
+          f"recomputed) {bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms, bound "
+          f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_flops / 1e9:.2f} GFLOP, "
+          f"{bwd_bytes / 1e6:.1f} MB); {smi}")
+    records[("flash_attention", f"{arch} train")].update(
+        backward_ms=bwd_ms, backward_ms_in_step=in_step_ms, backward_plain_ms=bwd_plain_ms,
+        backward_bound_ms=bwd_bound_ms, backward_library_ms=bwd_library_ms,
+        backward_launches=launches["flash_attention_bwd"])
+    records[("flash_attention_bwd", f"{arch} train")] = {
+        "name": "flash_attention_bwd", "variant": bwd_kind, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:128",
+        "replaces_note": "the backward of its custom_vjp (src/repro/kernels/ops.py:30-60), "
+                         "the oracle's vjp",
+        "shape": list(case), "launches": launches["flash_attention_bwd"],
+        "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": bwd_library_ms,
+    }
+    del q, k, v, qt, kt, vt, out, lse, g, gt, o_sdpa, leaves
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": list(records.values())}))

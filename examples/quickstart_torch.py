@@ -4,7 +4,11 @@
 
 The port's counterpart of ``examples/quickstart.py``: the reduced ("smoke")
 config of a GQA architecture, trained by ``repro_torch.launch.train.train``
-on the CUDA card, or on the CPU with ``--device cpu``.
+on the CUDA card, or on the CPU with ``--device cpu``.  On the card every
+attention layer runs the hand-written flash kernels forward and backward
+(the smoke config is fp32, so their CUDA-core variants, which repeat a run
+bit for bit); on the CPU their plain PyTorch versions run, the backward from
+the same flash-backward equations.
 """
 
 import argparse

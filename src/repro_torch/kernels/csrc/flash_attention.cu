@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bound through a plain C entry.
+// Flash attention for Hopper (sm_90a), forward and backward, bound through
+// plain C entries (flash_attention_fwd, flash_attention_bwd).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (_flash_kernel, launched by flash_attention_fwd).  Same contract:
@@ -48,6 +49,21 @@
 //    8, or a misaligned pointer).  CUDA-core dot products, 32x32 tiles,
 //    8 threads per query row.
 //
+// The forward's lse.  With a non-null Params::lse, both variants write each
+// row's log-sum-exp, fp32 [B, H, Tq], in natural-log units of the scaled
+// scores over the keys the mask leaves: lse = log sum_k exp(scale q.k).  The
+// wgmma variant keeps its running max m in scaled base-2 units (S scale log2e)
+// and writes (m + log2 l) ln 2; the simt variant, m + ln l.  A row with no
+// unmasked key keeps m = -inf and gets lse = -inf (the backward then gives it
+// P = 0).  Serving passes null and writes nothing.
+//
+// The backward (second half of this file, with its own header): the
+// flash-backward equations from the saved output and lse, flash_bwd_wgmma<D>
+// for bf16 up to D 128 and flash_bwd_simt<T> for fp32 and every other shape,
+// as kernels/flash_attention.py::backward_variant chooses.  The reference has
+// no backward kernel: its custom_vjp (repro/kernels/ops.py) takes the vjp of
+// its quadratic oracle, which this computes up to rounding.
+//
 // What bounds it on an H100: at both serving shapes attention does several
 // hundred FLOP per byte of q/k/v/o (llama3.2-1b, d 64: 34.4 GFLOP against
 // 84 MB; recurrentgemma-9b, d 256, window 2048: 412 GFLOP against 285 MB),
@@ -73,6 +89,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Tq] or null: each row's log-sum-exp (see the header)
   int B, Tq, Tk, H, K, dk, dv;
   int causal, window;
   float scale;
@@ -188,6 +205,8 @@ __global__ void __launch_bounds__(S_THREADS) flash_fwd_simt(Params p) {
     }
   }
   if (qpos < p.Tq) {
+    if (p.lse != nullptr && lane8 == 0)
+      p.lse[((int64_t)b * p.H + h) * p.Tq + qpos] = m == -INFINITY ? -INFINITY : m + logf(l);
     const float denom = fmaxf(l, 1e-30f);
     for (int c = lane8; c < dv; c += 8)
       store_f(o + ((int64_t)(b * p.Tq + qpos) * p.H + h) * dv + c, Acc[row * dv + c] / denom);
@@ -405,6 +424,36 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D[64 x N] (+)= A B with A and B both MN-major in shared memory: each read
+// through the descriptor's transpose, as V is in the forward's P V.
+template <int N>
+__device__ void wgmma_tt(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tt<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : F16(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tt<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : F32(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 #undef F4
 #undef F16
@@ -689,6 +738,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         const int qpos = qpos0 + 8 * r;
+        if (qpos < p.Tq && p.lse != nullptr && t == 0)  // m is in scaled log2 units
+          p.lse[((int64_t)b * p.H + h) * p.Tq + qpos] =
+              m[r] == -INFINITY ? -INFINITY : (m[r] + log2f(l[r])) * 0.6931471805599453f;
         if (qpos < p.Tq) {
           __nv_bfloat16* orow = out + ((int64_t)(b * p.Tq + qpos) * p.H + h) * p.dv;
 #pragma unroll
@@ -702,6 +754,501 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       }
     }
     if (wg == 0) turn_wait();  // the last turn warpgroup 1 handed over
+  }
+}
+
+// ================================================================ backward --
+// The flash-backward equations, from the forward's output O and per-row
+// log-sum-exp: D = rowsum(dO * O), P = exp(scale S - lse), dV = P^T dO,
+// dP = dO V^T, dS = P (dP - D), dQ = scale dS K, dK = scale dS^T Q.  dK and dV
+// of a KV head sum over its GQA group in fp32 and are cast once.
+struct BwdParams {
+  Params p;          // q, k, v, o (the forward's output), lse (read), shapes, masks
+  const void* dout;  // [B, Tq, H, dv], contiguous
+  void* dq;          // [B, Tq, H, dk]
+  void* dk;          // [B, Tk, K, dk]
+  void* dv;          // [B, Tk, K, dv]
+  float* dq_acc;     // [B, H, t_pad, dk] fp32 zeros: the wgmma variant's dq sums
+  float* lse2;       // [B, H, t_pad]: lse in base 2 (+inf for a row with no key)
+  float* dsum;       // [B, H, t_pad]: D
+  int t_pad;         // Tq rounded up to the wgmma variant's 64-row query tile
+};
+
+// Query tiles [lo, hi) that see at least one key of the KV tile at k0: the
+// forward's kv_tiles read the other way.  Causal: queries from k0 on; window:
+// queries up to the tile's last key + window - 1.
+__device__ __forceinline__ void q_tiles(const Params& p, int k0, int bk, int bq, int& lo,
+                                        int& hi) {
+  int q_end = p.Tq;
+  if (p.window > 0) q_end = min(q_end, min(k0 + bk, p.Tk) - 1 + p.window);
+  lo = (p.causal ? k0 : 0) / bq;
+  hi = max(lo, (q_end + bq - 1) / bq);
+}
+
+// Row pass: one warp per (b, h, query row) of the padded range; rows past Tq
+// get D = 0 and lse2 = +inf, so that they contribute P = 0.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_rows(BwdParams bp) {
+  const Params& p = bp.p;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= p.B * p.H * bp.t_pad) return;
+  const int t = row % bp.t_pad, bh = row / bp.t_pad, b = bh / p.H, h = bh % p.H;
+  float d = 0.f, l2 = INFINITY;
+  if (t < p.Tq) {
+    const int64_t base = ((int64_t)(b * p.Tq + t) * p.H + h) * p.dv;
+    const T* o = static_cast<const T*>(p.o) + base;
+    const T* g = static_cast<const T*>(bp.dout) + base;
+    for (int c = lane; c < p.dv; c += 32) d = fmaf(to_f(o[c]), to_f(g[c]), d);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    const float lse = p.lse[(int64_t)bh * p.Tq + t];
+    l2 = lse == -INFINITY ? INFINITY : lse * 1.4426950408889634f;
+  }
+  if (lane == 0) {
+    bp.dsum[row] = d;
+    bp.lse2[row] = l2;
+  }
+}
+
+// ------------------------------------------------ SIMT backward (exact fp32) --
+// Two passes, no atomics, so a run repeats bit for bit: flash_bwd_simt_dkdv
+// (one block per (b, KV head, 32 keys), walking every query head of the
+// group and every query tile the mask lets see the keys, dK and dV summed in
+// shared memory) and flash_bwd_simt_dq (one block per (b, h, 32 queries),
+// walking the forward's KV tiles).  8 threads per row, as the forward.
+constexpr int SB = 32;
+
+size_t simt_bwd_smem(int dk, int dv) {
+  return sizeof(float) * (2 * (size_t)SB * (dk + 1) + 2 * (size_t)SB * (dv + 1) +
+                          (size_t)SB * (dk + dv) + 2 * (size_t)SB * (SB + 1) + 2 * SB);
+}
+
+// Rows [r0, r0 + SB) of a [B, T, heads, d] tensor into a [SB][d + 1] fp32 tile,
+// zero past T.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const void* src, int b, int T_, int heads,
+                                          int head, int d, int r0) {
+  const T* x = static_cast<const T*>(src);
+  for (int i = threadIdx.x; i < SB * d; i += S_THREADS) {
+    const int r = i / d, c = i % d, t = r0 + r;
+    dst[r * (d + 1) + c] = t < T_ ? to_f(x[((int64_t)(b * T_ + t) * heads + head) * d + c]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(S_THREADS) flash_bwd_simt_dkdv(BwdParams bp) {
+  const Params& p = bp.p;
+  extern __shared__ float smem[];
+  const int dk = p.dk, dv = p.dv, lk = dk + 1, lv = dv + 1, lp = SB + 1;
+  float* Ks = smem;               // [SB][lk]
+  float* Vs = Ks + SB * lk;       // [SB][lv]
+  float* Qs = Vs + SB * lv;       // [SB][lk]
+  float* Gs = Qs + SB * lk;       // dO, [SB][lv]
+  float* dKa = Gs + SB * lv;      // [SB][dk]
+  float* dVa = dKa + SB * dk;     // [SB][dv]
+  float* Ps = dVa + SB * dv;      // P^T, [SB keys][lp]
+  float* dSs = Ps + SB * lp;      // dS^T, [SB keys][lp]
+  float* Ls = dSs + SB * lp;      // [SB]
+  float* Ds = Ls + SB;            // [SB]
+
+  const int k0 = blockIdx.y * SB;  // causal: the first key tiles see the most queries
+  const int b = blockIdx.x / p.K, kh = blockIdx.x % p.K, G = p.H / p.K;
+  const int tid = threadIdx.x, row = tid >> 3, lane8 = tid & 7, key = k0 + row;
+  const float sl2 = p.scale * 1.4426950408889634f;
+  load_rows<T>(Ks, p.k, b, p.Tk, p.K, kh, dk, k0);
+  load_rows<T>(Vs, p.v, b, p.Tk, p.K, kh, dv, k0);
+  for (int i = tid; i < SB * dk; i += S_THREADS) dKa[i] = 0.f;
+  for (int i = tid; i < SB * dv; i += S_THREADS) dVa[i] = 0.f;
+  int lo, hi;
+  q_tiles(p, k0, SB, SB, lo, hi);
+  for (int h = kh * G; h < (kh + 1) * G; ++h) {
+    const int64_t rows = (int64_t)(b * p.H + h) * bp.t_pad;
+    for (int qt = lo; qt < hi; ++qt) {
+      const int m0 = qt * SB;
+      __syncthreads();  // the previous tile's readers are done
+      load_rows<T>(Qs, p.q, b, p.Tq, p.H, h, dk, m0);
+      load_rows<T>(Gs, bp.dout, b, p.Tq, p.H, h, dv, m0);
+      if (tid < SB) {
+        Ls[tid] = bp.lse2[rows + m0 + tid];
+        Ds[tid] = bp.dsum[rows + m0 + tid];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int jj = 0; jj < SB / 8; ++jj) {
+        const int j = lane8 + jj * 8;
+        float s = 0.f, dp = 0.f;
+        for (int c = 0; c < dk; ++c) s = fmaf(Ks[row * lk + c], Qs[j * lk + c], s);
+        for (int c = 0; c < dv; ++c) dp = fmaf(Vs[row * lv + c], Gs[j * lv + c], dp);
+        const float pj = masked(p, m0 + j, key) ? 0.f : exp2f(fmaf(s, sl2, -Ls[j]));
+        Ps[row * lp + j] = pj;
+        dSs[row * lp + j] = pj * (dp - Ds[j]);
+      }
+      __syncwarp();  // a row's 8 threads share one warp
+      for (int c = lane8; c < dv; c += 8) {
+        float a = dVa[row * dv + c];
+        for (int j = 0; j < SB; ++j) a = fmaf(Ps[row * lp + j], Gs[j * lv + c], a);
+        dVa[row * dv + c] = a;
+      }
+      for (int c = lane8; c < dk; c += 8) {
+        float a = dKa[row * dk + c];
+        for (int j = 0; j < SB; ++j) a = fmaf(dSs[row * lp + j], Qs[j * lk + c], a);
+        dKa[row * dk + c] = a;
+      }
+    }
+  }
+  if (key < p.Tk) {
+    const int64_t base = (int64_t)(b * p.Tk + key) * p.K + kh;
+    for (int c = lane8; c < dk; c += 8)
+      store_f(static_cast<T*>(bp.dk) + base * dk + c, p.scale * dKa[row * dk + c]);
+    for (int c = lane8; c < dv; c += 8)
+      store_f(static_cast<T*>(bp.dv) + base * dv + c, dVa[row * dv + c]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(S_THREADS) flash_bwd_simt_dq(BwdParams bp) {
+  const Params& p = bp.p;
+  extern __shared__ float smem[];
+  const int dk = p.dk, dv = p.dv, lk = dk + 1, lv = dv + 1, lp = SB + 1;
+  float* Qs = smem;               // [SB][lk]
+  float* Gs = Qs + SB * lk;       // dO, [SB][lv]
+  float* Ks = Gs + SB * lv;       // [SB][lk]
+  float* Vs = Ks + SB * lk;       // [SB][lv]
+  float* dQa = Vs + SB * lv;      // [SB][dk]
+  float* dSs = dQa + SB * dk;     // [SB queries][lp]
+
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * SB;  // heaviest causal tiles first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, kh = h / (p.H / p.K);
+  const int tid = threadIdx.x, row = tid >> 3, lane8 = tid & 7, qpos = m0 + row;
+  const float sl2 = p.scale * 1.4426950408889634f;
+  load_rows<T>(Qs, p.q, b, p.Tq, p.H, h, dk, m0);
+  load_rows<T>(Gs, bp.dout, b, p.Tq, p.H, h, dv, m0);
+  for (int i = tid; i < SB * dk; i += S_THREADS) dQa[i] = 0.f;
+  const int64_t rows = (int64_t)(b * p.H + h) * bp.t_pad + qpos;
+  const float l2 = bp.lse2[rows], d = bp.dsum[rows];
+  int lo, hi;
+  kv_tiles(p, m0, SB, SB, lo, hi);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * SB;
+    __syncthreads();
+    load_rows<T>(Ks, p.k, b, p.Tk, p.K, kh, dk, k0);
+    load_rows<T>(Vs, p.v, b, p.Tk, p.K, kh, dv, k0);
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < SB / 8; ++jj) {
+      const int j = lane8 + jj * 8;
+      float s = 0.f, dp = 0.f;
+      for (int c = 0; c < dk; ++c) s = fmaf(Qs[row * lk + c], Ks[j * lk + c], s);
+      for (int c = 0; c < dv; ++c) dp = fmaf(Gs[row * lv + c], Vs[j * lv + c], dp);
+      const float pj = masked(p, qpos, k0 + j) ? 0.f : exp2f(fmaf(s, sl2, -l2));
+      dSs[row * lp + j] = pj * (dp - d);
+    }
+    __syncwarp();
+    for (int c = lane8; c < dk; c += 8) {
+      float a = dQa[row * dk + c];
+      for (int j = 0; j < SB; ++j) a = fmaf(dSs[row * lp + j], Ks[j * lk + c], a);
+      dQa[row * dk + c] = a;
+    }
+  }
+  if (qpos < p.Tq) {
+    T* out = static_cast<T*>(bp.dq) + ((int64_t)(b * p.Tq + qpos) * p.H + h) * dk;
+    for (int c = lane8; c < dk; c += 8) store_f(out + c, p.scale * dQa[row * dk + c]);
+  }
+}
+
+// --------------------------------------------------------- wgmma backward --
+// flash_bwd_wgmma<D>, D 64 or 128 (dk, dv <= D).  One block per (b, KV head,
+// BN = 128 keys); the two consumer warpgroups own 64 keys each and keep their
+// dK and dV accumulators in registers across the whole walk, over every query
+// head of the GQA group and every 64-row query tile the mask lets see the
+// keys (q_tiles).  A producer warpgroup loads K and V once and, per step, Q,
+// dO, lse2 and D into a ring of NS stages.  Per step, each consumer:
+//   S^T = K Q^T and dP^T = V dO^T on wgmma (both operands K-major),
+//   P^T = 2^(S^T sl2 - lse2) in registers (masked only on edge tiles),
+//   dV += P^T dO (P^T from registers, dO MN-major),
+//   dS^T = P^T (dP^T - D), dK += dS^T Q (dS^T from registers, Q MN-major),
+//   dS^T to shared memory in bf16 (128-byte swizzle, by hand), then, after a
+//   barrier of both consumers, dQ[:, half] = dS K[:, half] over all 128 keys
+//   (both operands MN-major), each warpgroup one half of dQ's columns.  The
+//   64 x dk fp32 dQ tile goes to shared memory and one thread adds it to the
+//   fp32 dq_acc ([B, H, t_pad, dk], so that the tile is contiguous) with one
+//   asynchronous bulk reduction (cp.reduce.async.bulk .add.f32), which runs
+//   on while the block goes on to the next step.  dS^T is double-buffered: a
+//   step's barrier also tells each consumer that the other is done with the
+//   buffer it is about to overwrite, and that the last step's dQ tile has
+//   been read out of shared memory.
+// The blocks of a KV head add into dq in an order that can change from run
+// to run (the reductions are atomic in L2); a last pass (flash_bwd_dq_cast)
+// scales dq and casts it to bf16.
+// What bounds it: five products per unmasked (query, key) pair against the
+// forward's two; at llama3.2-1b's training shape (T 4096, H 32, K 8, d 64,
+// causal) 171.8 GFLOP against 84.4 MB of inputs and outputs, so the tensor
+// cores (0.174 ms on an H100).  This first design runs each step's phases in
+// turn (products, the elementwise pass, products, with both consumers in
+// step at the dS^T barrier), and so reaches about a fifth of that; letting
+// one consumer's elementwise pass overlap the other's products, as the
+// forward's turns do, is the next step.
+template <int D>
+struct BwdTile {
+  static constexpr int BM = 64;   // query rows per step
+  static constexpr int BN = 128;  // keys per block, 64 per consumer warpgroup
+  static constexpr int NS = 2;    // stages of (Q, dO, lse2, D)
+  static constexpr int ATOMS = D / W_ATOM;
+  static constexpr uint32_t KV_BOX = BN * 128;   // one [BN][64] atom column
+  static constexpr uint32_t Q_BOX = BM * 128;    // one [BM][64] atom column
+  static constexpr uint32_t KV_BYTES = ATOMS * KV_BOX;
+  static constexpr uint32_t Q_BYTES = ATOMS * Q_BOX;
+  static constexpr uint32_t ROW_BYTES = BM * 4;  // lse2 or D of one step
+  // A stage: Q, dO, then lse2 and D padded to the swizzle period.
+  static constexpr uint32_t STAGE = 2 * Q_BYTES + 1024;
+  static constexpr uint32_t DS_BYTES = BN * BM * 2;  // dS^T in bf16: one [BN][64] atom column
+  static constexpr uint32_t DQ_BYTES = BM * D * 4;   // one dQ tile in fp32, [BM][dk]
+  // K, V, NS stages, two dS^T buffers, the dQ tile, then the mbarriers (K and
+  // V full, then full and empty of each stage); 1024 bytes of slack for the
+  // alignment.
+  static constexpr size_t SMEM = 1024 + 2 * (size_t)KV_BYTES + NS * (size_t)STAGE +
+                                 2 * (size_t)DS_BYTES + DQ_BYTES + 8 * (1 + 2 * NS);
+  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
+};
+
+// One contiguous run of global memory into shared memory, completing on bar
+// (16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    BwdParams bp) {
+  using Tile = BwdTile<D>;
+  constexpr int BM = Tile::BM, BN = Tile::BN, NS = Tile::NS, ATOMS = Tile::ATOMS;
+  const Params& p = bp.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(sm);
+  const uint32_t sV = sK + Tile::KV_BYTES;
+  const uint32_t sStage = sV + Tile::KV_BYTES;
+  const uint32_t sDS = sStage + NS * Tile::STAGE;
+  const uint32_t sDQ = sDS + 2 * Tile::DS_BYTES;
+  const uint32_t kv_full = sDQ + Tile::DQ_BYTES;
+  const uint32_t full = kv_full + 8, empty = full + 8 * NS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int BK_ = p.B * p.K, kt = blockIdx.x / BK_;  // the first key tiles are the heaviest
+  const int b = (blockIdx.x % BK_) / p.K, kh = blockIdx.x % p.K, G = p.H / p.K;
+  const int k0 = kt * BN;
+  int lo, hi;
+  q_tiles(p, k0, BN, BM, lo, hi);
+  const int nq = hi - lo, steps = G * nq;  // step i: head kh G + i / nq, query tile lo + i % nq
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * Tile::KV_BYTES);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        tma_load(sK + a * Tile::KV_BOX, &tk, kv_full, a * W_ATOM, kh, k0, b);
+        tma_load(sV + a * Tile::KV_BOX, &tv, kv_full, a * W_ATOM, kh, k0, b);
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % NS, h = kh * G + i / nq, m0 = (lo + i % nq) * BM;
+        if (i >= NS) mbar_wait(empty + 8 * s, ((i / NS) - 1) & 1);
+        const uint32_t st = sStage + s * Tile::STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, 2 * Tile::Q_BYTES + 2 * Tile::ROW_BYTES);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load(st + a * Tile::Q_BOX, &tq, bar, a * W_ATOM, h, m0, b);
+          tma_load(st + Tile::Q_BYTES + a * Tile::Q_BOX, &tdo, bar, a * W_ATOM, h, m0, b);
+        }
+        const int64_t rows = (int64_t)(b * p.H + h) * bp.t_pad + m0;
+        const uint32_t rs = st + 2 * Tile::Q_BYTES;
+        bulk_load(rs, bp.lse2 + rows, Tile::ROW_BYTES, bar);
+        bulk_load(rs + Tile::ROW_BYTES, bp.dsum + rows, Tile::ROW_BYTES, bar);
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+    const int wg = warp >> 2, t = lane & 3, g = lane >> 2;
+    const int lrow = wg * 64 + (warp & 3) * 16 + g;  // this thread's keys: lrow, lrow + 8
+    const int kw0 = k0 + wg * 64, key0 = k0 + lrow;
+    const float sl2 = p.scale * 1.4426950408889634f;
+    const uint32_t k_wg = sK + wg * 64 * 128, v_wg = sV + wg * 64 * 128;
+    // This warpgroup's half of dQ's columns in K (MN-major): an atom column
+    // at D 128, 32 columns (64 bytes) into the atom at D 64.
+    constexpr int NQ = D / 2;
+    const uint32_t k_half = sK + (D == 128 ? wg * Tile::KV_BOX : wg * 64);
+
+    float dv_acc[D / 2], dk_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % NS, h = kh * G + i / nq, m0 = (lo + i % nq) * BM;
+      const uint32_t q_st = sStage + s * Tile::STAGE, do_st = q_st + Tile::Q_BYTES;
+      const float* lse2 = reinterpret_cast<const float*>(sm + (q_st - sK) + 2 * Tile::Q_BYTES);
+      const float* dsum = lse2 + BM;
+      mbar_wait(full + 8 * s, (i / NS) & 1);
+
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * Tile::KV_BOX + (kk & 3) * 32;
+        const uint32_t qoff = (kk >> 2) * Tile::Q_BOX + (kk & 3) * 32;
+        wgmma_ss<64>(sc, desc_sw128(k_wg + off, 16, 1024), desc_sw128(q_st + qoff, 16, 1024),
+                     kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * Tile::KV_BOX + (kk & 3) * 32;
+        const uint32_t qoff = (kk >> 2) * Tile::Q_BOX + (kk & 3) * 32;
+        wgmma_ss<64>(dp, desc_sw128(v_wg + off, 16, 1024), desc_sw128(do_st + qoff, 16, 1024),
+                     kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T: element e of chunk j is key key0 + 8 (e >> 1), query
+      // m0 + 8 j + 2 t + (e & 1).  Warpgroup-uniform: does this 64 x 64 tile
+      // cross the diagonal, the window's edge or the end of the keys?
+      const bool edge = kw0 + 64 > p.Tk || (p.causal && kw0 + 63 > m0) ||
+                        (p.window > 0 && kw0 <= m0 + 63 - p.window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+        const float2 dd = *reinterpret_cast<const float2*>(dsum + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pe = ex2(fmaf(sc[4 * j + e], sl2, -((e & 1) ? l2.y : l2.x)));
+          if (edge && masked(p, m0 + 8 * j + 2 * t + (e & 1), key0 + 8 * (e >> 1))) pe = 0.f;
+          sc[4 * j + e] = pe;
+          dp[4 * j + e] = pe * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));  // dS^T
+        }
+      }
+      uint32_t pf[4][4], dsf[4][4];
+      pack_p<64>(sc, pf);
+      pack_p<64>(dp, dsf);
+
+      // dS^T to this step's buffer: key row r, query column c at byte
+      // r 128 + ((c / 8) ^ (r % 8)) 16 + (c % 8) 2, the 128-byte swizzle.
+      unsigned char* ds = sm + (sDS - sK) + (i & 1) * Tile::DS_BYTES;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int kr = lrow + 8 * r;
+          *reinterpret_cast<uint32_t*>(ds + kr * 128 + ((j ^ (kr & 7)) << 4) + 4 * t) =
+              dsf[j >> 1][(j & 1) * 2 + r];
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BM / 16; ++kc)
+        wgmma_rs<D>(dv_acc, pf[kc], desc_sw128(do_st + kc * 16 * 128, Tile::Q_BOX, 1024), 1);
+#pragma unroll
+      for (int kc = 0; kc < BM / 16; ++kc)
+        wgmma_rs<D>(dk_acc, dsf[kc], desc_sw128(q_st + kc * 16 * 128, Tile::Q_BOX, 1024), 1);
+      wgmma_commit();
+
+      // The last step's dQ tile has been read out of shared memory.
+      if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both halves of dS^T are written
+      const uint32_t ds_u32 = sDS + (i & 1) * Tile::DS_BYTES;
+      float dq[NQ / 2];
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc)
+        wgmma_tt<NQ>(dq, desc_sw128(ds_u32 + kc * 16 * 128, Tile::DS_BYTES, 1024),
+                     desc_sw128(k_half + kc * 16 * 128, Tile::KV_BOX, 1024), kc > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // Q, dO, lse2 and D of this stage are read
+
+      // The dQ tile, [BM][dk] in fp32, then one bulk reduction into dq_acc.
+      float* dqs = reinterpret_cast<float*>(sm + (sDQ - sK));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = (warp & 3) * 16 + g + 8 * r;
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const int col = wg * NQ + 8 * j + 2 * t;
+          if (col < p.dk)  // dk is even: col + 1 too
+            *reinterpret_cast<float2*>(dqs + row * p.dk + col) =
+                make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 2, 256;\n" ::: "memory");
+      if (threadIdx.x == 0) {
+        const float* dst = bp.dq_acc + ((int64_t)(b * p.H + h) * bp.t_pad + m0) * p.dk;
+        asm volatile(
+            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+            "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+            "r"(sDQ), "r"(BM * p.dk * 4)
+            : "memory");
+      }
+    }
+    // The last reduction has landed before the block's shared memory goes.
+    if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key < p.Tk) {
+        const int64_t base = (int64_t)(b * p.Tk + key) * p.K + kh;
+        __nv_bfloat16* dkr = static_cast<__nv_bfloat16*>(bp.dk) + base * p.dk;
+        __nv_bfloat16* dvr = static_cast<__nv_bfloat16*>(bp.dv) + base * p.dv;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          const int col = 8 * c + 2 * t;
+          if (col < p.dk)
+            *reinterpret_cast<__nv_bfloat162*>(dkr + col) = __floats2bfloat162_rn(
+                p.scale * dk_acc[4 * c + 2 * r], p.scale * dk_acc[4 * c + 2 * r + 1]);
+          if (col < p.dv)
+            *reinterpret_cast<__nv_bfloat162*>(dvr + col) =
+                __floats2bfloat162_rn(dv_acc[4 * c + 2 * r], dv_acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dq [B, Tq, H, dk] = scale dq_acc [B, H, t_pad, dk] in bf16.
+__global__ void __launch_bounds__(256) flash_bwd_dq_cast(BwdParams bp, int64_t n) {
+  const Params& p = bp.p;
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(bp.dq);
+  for (int64_t i = blockIdx.x * 256 + threadIdx.x; i < n; i += (int64_t)gridDim.x * 256) {
+    const int64_t row = i / p.dk;  // (b Tq + t) H + h
+    const int h = (int)(row % p.H), t = (int)(row / p.H % p.Tq), b = (int)(row / p.H / p.Tq);
+    dq[i] = __float2bfloat16_rn(p.scale *
+                                bp.dq_acc[((int64_t)(b * p.H + h) * bp.t_pad + t) * p.dk + i % p.dk]);
   }
 }
 
@@ -786,21 +1333,71 @@ int launch_simt(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_bwd_wgmma(const BwdParams& bp, cudaStream_t stream) {
+  using Tile = BwdTile<D>;
+  const Params& p = bp.p;
+  CUtensorMap tq, tk, tv, tdo;
+  int r = make_map(&tq, p.q, p.B, p.Tq, p.H, p.dk, Tile::BM);
+  if (r == 0) r = make_map(&tdo, bp.dout, p.B, p.Tq, p.H, p.dv, Tile::BM);
+  if (r == 0) r = make_map(&tk, p.k, p.B, p.Tk, p.K, p.dk, Tile::BN);
+  if (r == 0) r = make_map(&tv, p.v, p.B, p.Tk, p.K, p.dv, Tile::BN);
+  if (r != 0) return -r;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = p.B * p.K * ((p.Tk + Tile::BN - 1) / Tile::BN);
+  flash_bwd_wgmma<D><<<blocks, W_THREADS, Tile::SMEM, stream>>>(tq, tk, tv, tdo, bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)p.B * p.Tq * p.H * p.dk;
+  const int64_t grid = (n + 255) / 256;
+  flash_bwd_dq_cast<<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(bp, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_simt(const BwdParams& bp, cudaStream_t stream) {
+  const Params& p = bp.p;
+  const size_t smem = simt_bwd_smem(p.dk, p.dv);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_simt_dkdv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_simt_dq<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  flash_bwd_simt_dkdv<T><<<dim3(p.B * p.K, (p.Tk + SB - 1) / SB), S_THREADS, smem, stream>>>(bp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_simt_dq<T><<<dim3(p.B * p.H, (p.Tq + SB - 1) / SB), S_THREADS, smem, stream>>>(bp);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_rows(const BwdParams& bp, cudaStream_t stream) {
+  const int64_t rows = (int64_t)bp.p.B * bp.p.H * bp.t_pad;
+  flash_bwd_rows<T><<<(int)((rows + 7) / 8), 256, 0, stream>>>(bp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt, 1 = wgmma, as
 // kernels/flash_attention.py::variant chose it; that function states which
 // requests the wgmma variant takes.  A wgmma request that breaks its rule is
 // refused here (cudaErrorInvalidValue), never sent to another variant.
-// Returns the cudaError_t of the launch (0 on success), or minus the
+// lse is null, or fp32 [B, H, Tq] for each row's log-sum-exp (see the
+// header).  Returns the cudaError_t of the launch (0 on success), or minus the
 // CUresult of a tensor map that could not be encoded.  The caller has
 // checked shapes, H % K == 0, dk, dv <= 256, contiguity and that q, k, v, o
 // live on the current device.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int variant, int B, int Tq, int Tk, int H,
+                                   float* lse, int dtype, int variant, int B, int Tq, int Tk, int H,
                                    int K, int dk, int dv, int causal, int window, float scale,
                                    void* stream) {
-  Params p{q, k, v, o, B, Tq, Tk, H, K, dk, dv, causal, window, scale};
+  Params p{q, k, v, o, lse, B, Tq, Tk, H, K, dk, dv, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // report this launch's error, not an earlier one's
   if (variant == 1) {
@@ -813,4 +1410,39 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   }
   if (dtype == 1) return launch_simt<__nv_bfloat16>(p, s);
   return launch_simt<float>(p, s);
+}
+
+// The backward: (dq, dk, dv) from q, k, v, the forward's output o and lse
+// (flash_attention_fwd with a non-null lse) and the output's cotangent dout.
+// dtype and variant as for the forward; variant 1 (wgmma) is
+// kernels/flash_attention.py::backward_variant's choice and needs bf16, dk and
+// dv multiples of 8 up to 128 and 16-byte aligned q, k, v, dout; it is refused
+// otherwise (cudaErrorInvalidValue).  lse2 and dsum are fp32 [B, H, t_pad]
+// scratch, t_pad = Tq rounded up to 64; dq_acc is fp32 zeros [B, H, t_pad, dk]
+// for variant 1 (unused by variant 0).  Returns as the forward does.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const float* lse, const void* dout, void* dq, void* dk,
+                                   void* dv, float* dq_acc, float* lse2, float* dsum, int dtype,
+                                   int variant, int B, int Tq, int Tk, int H, int K, int dk_,
+                                   int dv_, int causal, int window, float scale, void* stream) {
+  Params p{q, k, v, const_cast<void*>(o), const_cast<float*>(lse), B, Tq, Tk, H, K, dk_, dv_,
+           causal, window, scale};
+  BwdParams bp{p, dout, dq, dk, dv, dq_acc, lse2, dsum, (Tq + 63) / 64 * 64};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();  // report this call's error, not an earlier one's
+  if (variant == 1) {
+    const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
+    const int d = dk_ > dv_ ? dk_ : dv_;
+    if (dtype != 1 || dk_ % 8 || dv_ % 8 || addr % 16 || d > 128 || dq_acc == nullptr)
+      return (int)cudaErrorInvalidValue;
+    int err = launch_bwd_rows<__nv_bfloat16>(bp, s);
+    if (err) return err;
+    return d <= 64 ? launch_bwd_wgmma<64>(bp, s) : launch_bwd_wgmma<128>(bp, s);
+  }
+  if (dtype == 1) {
+    int err = launch_bwd_rows<__nv_bfloat16>(bp, s);
+    return err ? err : launch_bwd_simt<__nv_bfloat16>(bp, s);
+  }
+  int err = launch_bwd_rows<float>(bp, s);
+  return err ? err : launch_bwd_simt<float>(bp, s);
 }

@@ -1,4 +1,5 @@
-"""Flash-attention forward on Hopper: the wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention on Hopper, forward and backward: the wrapper of
+``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel`` through ``flash_attention_fwd``), with the same contract:
@@ -17,6 +18,17 @@ that the TMA cannot load, take the ``simt`` variant (CUDA cores, exact fp32
 arithmetic).  :func:`variant` makes the choice, explicitly and never on a
 failure; the source file's header has the tiling.
 
+The forward writes each row's log-sum-exp when asked (fp32 ``[B,H,Tq]``,
+natural-log units of the scaled scores, -inf for a row with no unmasked
+key).  :func:`flash_attention_bwd` computes (dq, dk, dv) from it and the
+forward's output with the flash-backward equations: ``flash_bwd_wgmma`` for
+bf16 up to head dim 128 (tensor cores; dq summed in fp32 by bulk reductions
+whose order across blocks can change from run to run),
+``flash_bwd_simt`` for everything else (CUDA cores, exact fp32, no atomics,
+deterministic); :func:`backward_variant` makes that choice.  The reference
+has no backward kernel: its ``custom_vjp`` takes the oracle's vjp, which
+this computes up to rounding.
+
 The TPU tiling arguments (``q_block``/``k_block``, 512/1024 by default) do not
 fit Hopper's 227 KB of shared memory; the kernel picks its own tiles.
 """
@@ -34,15 +46,28 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "wgmma": 1}
 _MAX_HEAD_DIM = 256
+_MAX_BWD_WGMMA_DIM = 128  # flash_bwd_wgmma<64>, <128>; <256> does not fit the registers
+_ROWS = 64  # the backward's query tile (t_pad in the .cu): per-row buffers are padded to it
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float,
+                                                                  ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult {-err}")
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
@@ -86,17 +111,29 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "wgmma" if tma else "simt"
 
 
+def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward variant a launch on these tensors runs: ``"wgmma"``
+    where the forward's rule gives ``"wgmma"`` and dk, dv are at most 128
+    (the dK and dV accumulators of a 64-key slice then fit one warpgroup's
+    registers); ``"simt"`` otherwise.  The one place that states the rule."""
+    small = max(q.shape[-1], v.shape[-1]) <= _MAX_BWD_WGMMA_DIM
+    return "wgmma" if small and variant(q, k, v) == "wgmma" else "simt"
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Launch the kernel on the current stream; raise on anything it does not take."""
+    lse: bool = False,
+):
+    """Launch the kernel on the current stream; raise on anything it does not
+    take.  Returns the output, or (output, lse) with ``lse``."""
     _check(q, k, v, window)
     B, Tq, H, dk = q.shape
     _, Tk, K, dv = v.shape
     out = torch.empty((B, Tq, H, dv), dtype=v.dtype, device=v.device)
+    row_lse = torch.empty((B, H, Tq), dtype=torch.float32, device=v.device) if lse else None
     if out.numel() == 0:
-        return out
+        return (out, row_lse) if lse else out
     scale = 1.0 / math.sqrt(dk) if scale is None else float(scale)
     kind = variant(q, k, v)
     lib = _lib()
@@ -104,18 +141,75 @@ def flash_attention_fwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            row_lse.data_ptr() if lse else None,
             _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
             int(causal), int(window), scale, stream,
         )
-    if err < 0:
-        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed: CUresult {-err}")
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    _raise_on(err, "flash_attention")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_variant[kind] += 1
-    return out
+    return (out, row_lse) if lse else out
 
 
-# Kernel launches since the last reset, in all and by variant.
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, *,
+    causal: bool = True, window: int = 0, scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of flash attention from the forward's output and lse
+    (``flash_attention_fwd(..., lse=True)``) and the output's cotangent.
+    Launches on the current stream; raises on anything it does not take."""
+    _check(q, k, v, window)
+    B, Tq, H, dk = q.shape
+    _, Tk, K, dv = v.shape
+    if out.shape != (B, Tq, H, dv) or dout.shape != out.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"{(B, Tq, H, dv)}")
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(B, H, Tq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    for name, x in (("out", out), ("lse", lse), ("dout", dout)):
+        if x.device != q.device:
+            raise ValueError(f"{name} must be on q's device {q.device}, got {x.device}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out and dout must be {q.dtype}, got {out.dtype}/{dout.dtype}")
+    # Autograd's cotangent may be a strided view; the TMA reads it from a
+    # contiguous, 16-byte aligned copy.
+    out, lse, dout = out.contiguous(), lse.contiguous(), dout.contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    dq, dk_, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or dk_.numel() == 0:
+        return dq.zero_(), dk_.zero_(), dv_.zero_()
+    scale = 1.0 / math.sqrt(dk) if scale is None else float(scale)
+    kind = backward_variant(q, k, v)
+    # Per-row D = rowsum(dout * out) and lse in base 2, padded to whole
+    # query tiles; dq's fp32 sums for the wgmma variant, [B,H,t_pad,dk] so that
+    # each query tile of a head is one contiguous run.
+    t_pad = -(-Tq // _ROWS) * _ROWS
+    rows = torch.empty((2, B, H, t_pad), dtype=torch.float32, device=q.device)
+    dq_acc = (torch.zeros((B, H, t_pad, dk), dtype=torch.float32, device=q.device)
+              if kind == "wgmma" else None)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+            dq_acc.data_ptr() if dq_acc is not None else None,
+            rows[0].data_ptr(), rows[1].data_ptr(),
+            _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
+            int(causal), int(window), scale, stream,
+        )
+    _raise_on(err, "flash_attention backward")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_variant[kind] += 1
+    return dq, dk_, dv_
+
+
+# Kernel launches since the last reset, in all and by variant (a backward
+# launch is one call: its row pass, its main kernels and dq's cast).
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)

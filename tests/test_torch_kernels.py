@@ -325,9 +325,10 @@ def test_flash_grads_match_jax_custom_vjp(jx, case):
 
 
 def test_flash_autograd_saves_only_its_inputs():
-    """Under autograd the function keeps q, k and v for its backward and no
-    output of its forward (so it sits safely inside torch.utils.checkpoint);
-    without grad it records no graph at all."""
+    """Under autograd the function keeps what its backward reads and nothing
+    else: its inputs q, k and v, its own output and each row's lse (fp32
+    [B,H,T]), all of them results of the forward that non-reentrant
+    torch.utils.checkpoint recomputes; without grad it records no graph."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(FLASH_CASES[0]))
     saved = []
 
@@ -338,7 +339,12 @@ def test_flash_autograd_saves_only_its_inputs():
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         out = ops.flash_attention(q, k, v, True, 0)
     assert out.grad_fn is not None
-    assert [t.data_ptr() for t in saved] == [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    assert [t.data_ptr() for t in saved[:4]] == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                 out.data_ptr()]
+    B, T, H = q.shape[:3]
+    assert len(saved) == 5 and saved[4].shape == (B, H, T) and saved[4].dtype == torch.float32
+    _, lse = ref.flash_attention_lse_ref(q.detach(), k.detach(), v.detach())
+    assert torch.equal(saved[4], lse)
     with torch.no_grad():
         assert ops.flash_attention(q, k, v, True, 0).grad_fn is None
 
