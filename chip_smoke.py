@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    fp32 upcasts (fp32 within 1e-4 of both; bf16 per element against the
    plain backward and in relative L2 against the oracle, see ``GRAD_RTOL``),
    each case naming its variant (every bf16 case up to head dim 128 must
-   launch ``wgmma``);
+   launch ``wgmma``); then the forward and the backward at llama3-8b's
+   training shape (head dim 128), as at the end of phase 6;
 3. the port against its own plain CPU path on small fp32 models
    (llama3.2-1b and recurrentgemma-9b);
 4. the main paths, each with every kernel launch counted from zero:
@@ -61,7 +62,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    recompute and the backward, within ``TRAIN_BF16_TOL``, and a recompute
    that is wrong on purpose must exceed it; then the forward and the
    backward at this shape, each timed beside its plain version, its bound
-   and SDPA (forward, and backward under autograd).
+   and SDPA (forward, and backward under autograd), and the backward's
+   device time split by launch (dq_acc zeroing, row pass, main kernel, dq's
+   cast; ``torch.profiler``) with the main kernel's share of the bound.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -142,13 +145,27 @@ GRAD_CASES = [
 ]
 # Flash backward cases: GRAD_CASES, then d 128 with H/K = 4, a d 64 window that
 # is no multiple of the KV tile over a ragged tail, and dk 192 / dv 128 (past
-# the wgmma backward's head dims: simt).  Every bf16 case up to head dim 128
-# must launch the wgmma backward.
+# the wgmma backward's head dims: simt); then the edges of the wgmma
+# backward's schedule: H/K = 1 and H/K = 8 at d 64 (the group sets the number
+# of steps and which consumer owns each step's dQ), a T whose last 128-key
+# block leaves the second consumer only padding keys, and a window at d 128.
+# Every bf16 case up to head dim 128 must launch the wgmma backward.
 BWD_CASES = GRAD_CASES + [
     (2, 256, 8, 2, 128, 128, True, 0, "bfloat16"),
     (2, 500, 4, 2, 64, 64, True, 77, "bfloat16"),
     (1, 70, 2, 1, 192, 128, True, 0, "bfloat16"),
+    (1, 512, 8, 8, 64, 64, True, 0, "bfloat16"),
+    (1, 512, 8, 1, 64, 64, True, 0, "bfloat16"),
+    (1, 4160, 4, 2, 64, 64, True, 0, "bfloat16"),
+    (1, 600, 4, 1, 128, 128, True, 100, "bfloat16"),
 ]
+# llama3-8b's attention at train_4k's length (B, T, H, K, dk, dv, causal,
+# window, dtype), timed in phase 2: the flash kernels at head dim 128.
+TRAIN_D128 = (1, 4096, 32, 8, 128, 128, True, 0, "bfloat16")
+# The launches of one flash_attention_bwd call on the wgmma variant, each
+# with the name its kernel has in a profiler trace.
+BWD_LAUNCHES = {"dq_acc zeroing": "FillFunctor", "flash_bwd_rows": "flash_bwd_rows",
+                "flash_bwd_wgmma": "flash_bwd_wgmma", "flash_bwd_dq_cast": "flash_bwd_dq_cast"}
 LSE_TOL = 1e-4  # the forward's lse against the plain version's: fp32 order only
 # fp32 gradients: largest |g - oracle|, the oracle's autograd on the same inputs.
 GRAD_FP32_TOL = 1e-4
@@ -489,6 +506,112 @@ def main() -> int:
                     f"plain backward")
         return f"dq/dk/dv max_abs_err vs the oracle {err:.3e} (tol {GRAD_FP32_TOL})"
 
+    def bwd_split(q, k, v, out, lse, g, calls=10):
+        """Device ms of each launch of one flash_attention_bwd call, the mean
+        of torch.profiler's kernel times over ``calls`` calls."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+            torch.cuda.synchronize()
+        us, count = dict.fromkeys(BWD_LAUNCHES, 0.0), dict.fromkeys(BWD_LAUNCHES, 0)
+        for ev in prof.key_averages():
+            for part, key in BWD_LAUNCHES.items():
+                if key in ev.key:
+                    us[part] += (getattr(ev, "device_time_total", None)
+                                 or getattr(ev, "cuda_time_total", 0))
+                    count[part] += ev.count
+        # The trace may miss a launch at its edges; more than one per call is
+        # a fault.
+        if not all(0 < count[n] <= calls and us[n] > 0 for n in BWD_LAUNCHES):
+            raise AssertionError(f"launches {count} and device us {us} in {calls} calls")
+        return {n: us[n] / count[n] / 1e3 for n in BWD_LAUNCHES}
+
+    def attention_at_train_shape(case, label):
+        """Flash attention's forward and backward at a training shape, each
+        checked against its plain version and timed beside it, its bound and
+        SDPA (the backward under autograd); the backward's time split by
+        launch.  Returns the two JSON records, ``launches`` still None."""
+        B, T, H, K, dk, dv, causal, window, dtype = case
+        q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
+        out, expect, kind = flash_run(case, q, k, v)
+        err, _ = flash_check(case, out, expect, kind)
+        del expect
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        pairs = B * H * (T * (T + 1) // 2)  # causal: unmasked (query, key) pairs
+        flops = 2 * (dk + dv) * pairs
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        print(f"[kernel] flash_attention {case} {kind} ({label}): max_abs_err {err:.3e}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP); {smi}")
+        fwd = {"name": "flash_attention", "variant": kind, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:128",
+               "shape": list(case), "launches": None, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
+
+        # The backward: checked against its plain version and the oracle,
+        # then timed beside the oracle's autograd (its forward recomputed, as
+        # a backward through the oracle does it), its bound and SDPA's.
+        g = randn(*out.shape).to(out.dtype)
+        out, lse = flash_attention_fwd(q, k, v, causal=True, lse=True)
+        before = dict(flash_attention_bwd.launches_by_variant)
+        got = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        bwd_kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items()
+                     if c != before[n])
+        plain, oracle = grad_refs(case, q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        bwd_err, bwd_share, bwd_l2 = grad_check(case, bwd_kind, got, plain, oracle)
+        del got, plain, oracle
+        torch.cuda.empty_cache()
+        bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, causal=True), 20)
+        split = bwd_split(q, k, v, out, lse, g)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
+            ref.flash_attention_ref(*leaves, causal=True), leaves, g), 3)
+        qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        gt = g.transpose(1, 2).contiguous()
+        bwd_library_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt,
+                                                             retain_graph=True), 20)
+        # Five products per unmasked pair (S, dP, dV, dK, dQ: 2 FLOP per
+        # multiply-add over 3 dk + 2 dv); q, k, v, out, dout, lse read once
+        # and dq, dk, dv written once.
+        bwd_flops = 2 * (3 * dk + 2 * dv) * pairs
+        bwd_bytes = (sum(x.numel() * x.element_size() for x in (q, k, v, out, g, lse))
+                     + sum(x.numel() * x.element_size() for x in (q, k, v)))
+        bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
+        main_ms = split["flash_bwd_wgmma"]
+        print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({label}): "
+              + bwd_note(dtype, bwd_err, bwd_share, bwd_l2)
+              + f"; kernel {bwd_ms:.4f} ms, plain (the oracle's autograd, forward recomputed) "
+              f"{bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms, bound "
+              f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_flops / 1e9:.2f} GFLOP, "
+              f"{bwd_bytes / 1e6:.1f} MB); {smi}")
+        print(f"[kernel] flash_attention_bwd {case} ({label}) device ms per call by launch: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
+              + f" (sum {sum(split.values()):.4f}); the main kernel reaches "
+              f"{100 * bwd_bound_ms / main_ms:.1f} % of the bound, the call "
+              f"{100 * bwd_bound_ms / bwd_ms:.1f} %")
+        bwd = {"name": "flash_attention_bwd", "variant": bwd_kind, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:128",
+               "replaces_note": "the backward of its custom_vjp (src/repro/kernels/ops.py:30-60), "
+                                "the oracle's vjp",
+               "shape": list(case), "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms,
+               "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+               "library_ms": bwd_library_ms, "split_ms": split}
+        del q, k, v, qt, kt, vt, out, lse, g, gt, o_sdpa, leaves
+        torch.cuda.empty_cache()
+        return fwd, bwd
+
     # The backward against its plain version and the oracle's autograd.
     for case in BWD_CASES:
         B, T, H, K, dk, dv, causal, window, dtype = case
@@ -508,6 +631,15 @@ def main() -> int:
         print(f"[kernel] flash_attention_bwd {case} {kind}: lse max_abs_err {lse_err:.3e} "
               f"(tol {LSE_TOL}); " + bwd_note(dtype, err, share, l2))
         del q, k, v, g, out, lse, got, plain, oracle
+
+    # llama3-8b's training shape (d 128): no main path runs it yet; its
+    # records take their wrappers' launches on the training path (phase 6).
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_D128, "llama3-8b training shape")
+    for rec in (fwd_rec, bwd_rec):
+        rec["launches_note"] = ("the wrapper's launches on llama3.2-1b's training path "
+                                "(d 64); no main path runs d 128 yet")
+    records[("flash_attention", "llama3-8b train")] = fwd_rec
+    records[("flash_attention_bwd", "llama3-8b train")] = bwd_rec
 
     def scan_inputs(B, T, W):
         a = torch.sigmoid(randn(B, T, W)) * 0.6 + 0.3
@@ -1028,82 +1160,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     case = (1, seq, full.num_heads, full.num_kv_heads, hd, hd, True, 0, "bfloat16")
-    q, k, v = flash_inputs(*case[:6], case[-1])
-    out, expect, kind = flash_run(case, q, k, v)
-    err, _ = flash_check(case, out, expect, kind)
-    ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20)
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = 2 * 2 * hd * H * (seq * (seq + 1) // 2)
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
-    bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-    print(f"[kernel] flash_attention {case} {kind} ({arch} training microbatch): max_abs_err "
-          f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    records[("flash_attention", f"{arch} train")] = {
-        "name": "flash_attention", "variant": kind, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:128",
-        "shape": list(case), "launches": launches["flash_attention"],
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
-    }
-    del expect
-
-    # The backward at this shape: checked against its plain version and the
-    # oracle, then timed beside the oracle's autograd (its forward recomputed,
-    # as a backward through the oracle does it), its bound and SDPA's backward.
-    g = randn(*out.shape).to(out.dtype)
-    out, lse = flash_attention_fwd(q, k, v, causal=True, lse=True)
-    before = dict(flash_attention_bwd.launches_by_variant)
-    got = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
-    bwd_kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items() if c != before[n])
-    plain, oracle = grad_refs(case, q, k, v, out, lse, g)
-    torch.cuda.synchronize()
-    bwd_err, bwd_share, bwd_l2 = grad_check(case, bwd_kind, got, plain, oracle)
-    del got, plain, oracle
-    torch.cuda.empty_cache()
-    bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, causal=True), 20)
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
-        ref.flash_attention_ref(*leaves, causal=True), leaves, g), 3)
-    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    gt = g.transpose(1, 2).contiguous()
-    bwd_library_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt,
-                                                         retain_graph=True), 20)
-    # Five products per unmasked pair (S, dP, dV, dK, dQ: 2 FLOP per
-    # multiply-add over 3 dk + 2 dv); q, k, v, out, dout, lse read once and
-    # dq, dk, dv written once.
-    bwd_flops = 2 * (3 * hd + 2 * hd) * H * (seq * (seq + 1) // 2)
-    bwd_bytes = (sum(x.numel() * x.element_size() for x in (q, k, v, out, g, lse))
-                 + sum(x.numel() * x.element_size() for x in (q, k, v)))
-    bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
+    fwd_rec, bwd_rec = attention_at_train_shape(case, f"{arch} training microbatch")
+    fwd_rec["launches"] = launches["flash_attention"]
     in_step_ms = attn_ms / len(attn_events)
-    print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({arch} training microbatch): "
-          + bwd_note("bfloat16", bwd_err, bwd_share, bwd_l2) + f"; kernel {bwd_ms:.4f} ms ({in_step_ms:.4f}"
-          f" ms per call in the microbatch's backward), plain (the oracle's autograd, forward "
-          f"recomputed) {bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms, bound "
-          f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_flops / 1e9:.2f} GFLOP, "
-          f"{bwd_bytes / 1e6:.1f} MB); {smi}")
-    records[("flash_attention", f"{arch} train")].update(
-        backward_ms=bwd_ms, backward_ms_in_step=in_step_ms, backward_plain_ms=bwd_plain_ms,
-        backward_bound_ms=bwd_bound_ms, backward_library_ms=bwd_library_ms,
+    print(f"[kernel] flash_attention_bwd at {arch}'s training shape: {in_step_ms:.4f} ms per "
+          f"call in the microbatch's backward; {smi}")
+    fwd_rec.update(
+        backward_ms=bwd_rec["ms"], backward_ms_in_step=in_step_ms,
+        backward_plain_ms=bwd_rec["plain_ms"], backward_bound_ms=bwd_rec["bound_ms"],
+        backward_library_ms=bwd_rec["library_ms"],
         backward_launches=launches["flash_attention_bwd"])
-    records[("flash_attention_bwd", f"{arch} train")] = {
-        "name": "flash_attention_bwd", "variant": bwd_kind, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:128",
-        "replaces_note": "the backward of its custom_vjp (src/repro/kernels/ops.py:30-60), "
-                         "the oracle's vjp",
-        "shape": list(case), "launches": launches["flash_attention_bwd"],
-        "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-        "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": bwd_library_ms,
-    }
-    del q, k, v, qt, kt, vt, out, lse, g, gt, o_sdpa, leaves
-    torch.cuda.empty_cache()
+    bwd_rec["launches"] = launches["flash_attention_bwd"]
+    records[("flash_attention", f"{arch} train")] = fwd_rec
+    records[("flash_attention_bwd", f"{arch} train")] = bwd_rec
+    for name in ("flash_attention", "flash_attention_bwd"):
+        records[(name, "llama3-8b train")]["launches"] = launches[name]
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

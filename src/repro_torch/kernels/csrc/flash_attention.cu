@@ -60,9 +60,13 @@
 // The backward (second half of this file, with its own header): the
 // flash-backward equations from the saved output and lse, flash_bwd_wgmma<D>
 // for bf16 up to D 128 and flash_bwd_simt<T> for fp32 and every other shape,
-// as kernels/flash_attention.py::backward_variant chooses.  The reference has
-// no backward kernel: its custom_vjp (repro/kernels/ops.py) takes the vjp of
-// its quadratic oracle, which this computes up to rounding.
+// as kernels/flash_attention.py::backward_variant chooses.  flash_bwd_wgmma
+// is warp-specialised like the forward: a TMA loader, a dQ writer that adds
+// finished dQ tiles into fp32 sums by TMA reductions, and two consumer
+// warpgroups of 64 keys each that meet only through mbarriers, the dQ of
+// each query tile computed by one of them in turn.  The reference has no
+// backward kernel: its custom_vjp (repro/kernels/ops.py) takes the vjp of its
+// quadratic oracle, which this computes up to rounding.
 //
 // What bounds it on an H100: at both serving shapes attention does several
 // hundred FLOP per byte of q/k/v/o (llama3.2-1b, d 64: 34.4 GFLOP against
@@ -79,6 +83,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -424,22 +429,25 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D[64 x 64] (+)= A B with A from registers and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_kb64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // D[64 x N] (+)= A B with A and B both MN-major in shared memory: each read
 // through the descriptor's transpose, as V is in the forward's P V.
 template <int N>
 __device__ void wgmma_tt(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
-
-template <>
-__device__ __forceinline__ void wgmma_tt<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
-      : F16(0)
-      : "l"(da), "l"(db), "r"(acc));
-}
 
 template <>
 __device__ __forceinline__ void wgmma_tt<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
@@ -785,28 +793,44 @@ __device__ __forceinline__ void q_tiles(const Params& p, int k0, int bk, int bq,
   hi = max(lo, (q_end + bq - 1) / bq);
 }
 
-// Row pass: one warp per (b, h, query row) of the padded range; rows past Tq
-// get D = 0 and lse2 = +inf, so that they contribute P = 0.
+// Row pass: 8 threads per (b, h, query row) of the padded range, in the
+// order of the outputs ((b H + h) t_pad + t), with 16-byte loads of o and
+// dout where dv and the pointers allow.  Rows past Tq get D = 0 and
+// lse2 = +inf, so that they contribute P = 0.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_rows(BwdParams bp) {
+  constexpr int VEC = 16 / sizeof(T);
   const Params& p = bp.p;
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= p.B * p.H * bp.t_pad) return;
-  const int t = row % bp.t_pad, bh = row / bp.t_pad, b = bh / p.H, h = bh % p.H;
+  const int64_t idx = (int64_t)blockIdx.x * 32 + (threadIdx.x >> 3);
+  const int lane8 = threadIdx.x & 7;
+  if (idx >= (int64_t)p.B * p.H * bp.t_pad) return;  // whole groups of 8 leave together
+  const int t = (int)(idx % bp.t_pad), h = (int)(idx / bp.t_pad % p.H), b = (int)(idx / bp.t_pad / p.H);
   float d = 0.f, l2 = INFINITY;
   if (t < p.Tq) {
     const int64_t base = ((int64_t)(b * p.Tq + t) * p.H + h) * p.dv;
     const T* o = static_cast<const T*>(p.o) + base;
     const T* g = static_cast<const T*>(bp.dout) + base;
-    for (int c = lane; c < p.dv; c += 32) d = fmaf(to_f(o[c]), to_f(g[c]), d);
+    if (p.dv % VEC == 0 && ((uintptr_t)p.o | (uintptr_t)bp.dout) % 16 == 0) {
+      for (int c = lane8 * VEC; c < p.dv; c += 8 * VEC) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
+        const uint4 gv = *reinterpret_cast<const uint4*>(g + c);
+        const T* oe = reinterpret_cast<const T*>(&ov);
+        const T* ge = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-    const float lse = p.lse[(int64_t)bh * p.Tq + t];
+        for (int e = 0; e < VEC; ++e) d = fmaf(to_f(oe[e]), to_f(ge[e]), d);
+      }
+    } else {
+      for (int c = lane8; c < p.dv; c += 8) d = fmaf(to_f(o[c]), to_f(g[c]), d);
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)  // the row's 8 lanes only: rows of a warp may differ in t
+      d += __shfl_xor_sync(0xffu << (threadIdx.x & 24), d, off);
+    const float lse = p.lse[((int64_t)b * p.H + h) * p.Tq + t];
     l2 = lse == -INFINITY ? INFINITY : lse * 1.4426950408889634f;
   }
-  if (lane == 0) {
-    bp.dsum[row] = d;
-    bp.lse2[row] = l2;
+  if (lane8 == 0) {
+    bp.dsum[idx] = d;
+    bp.lse2[idx] = l2;
   }
 }
 
@@ -958,56 +982,73 @@ __global__ void __launch_bounds__(S_THREADS) flash_bwd_simt_dq(BwdParams bp) {
 
 // --------------------------------------------------------- wgmma backward --
 // flash_bwd_wgmma<D>, D 64 or 128 (dk, dv <= D).  One block per (b, KV head,
-// BN = 128 keys); the two consumer warpgroups own 64 keys each and keep their
-// dK and dV accumulators in registers across the whole walk, over every query
-// head of the GQA group and every 64-row query tile the mask lets see the
-// keys (q_tiles).  A producer warpgroup loads K and V once and, per step, Q,
-// dO, lse2 and D into a ring of NS stages.  Per step, each consumer:
-//   S^T = K Q^T and dP^T = V dO^T on wgmma (both operands K-major),
-//   P^T = 2^(S^T sl2 - lse2) in registers (masked only on edge tiles),
-//   dV += P^T dO (P^T from registers, dO MN-major),
-//   dS^T = P^T (dP^T - D), dK += dS^T Q (dS^T from registers, Q MN-major),
-//   dS^T to shared memory in bf16 (128-byte swizzle, by hand), then, after a
-//   barrier of both consumers, dQ[:, half] = dS K[:, half] over all 128 keys
-//   (both operands MN-major), each warpgroup one half of dQ's columns.  The
-//   64 x dk fp32 dQ tile goes to shared memory and one thread adds it to the
-//   fp32 dq_acc ([B, H, t_pad, dk], so that the tile is contiguous) with one
-//   asynchronous bulk reduction (cp.reduce.async.bulk .add.f32), which runs
-//   on while the block goes on to the next step.  dS^T is double-buffered: a
-//   step's barrier also tells each consumer that the other is done with the
-//   buffer it is about to overwrite, and that the last step's dQ tile has
-//   been read out of shared memory.
-// The blocks of a KV head add into dq in an order that can change from run
-// to run (the reductions are atomic in L2); a last pass (flash_bwd_dq_cast)
-// scales dq and casts it to bf16.
+// BN = 128 keys), heaviest key tiles first.  The block walks steps i: every
+// query head of the GQA group and every 64-row query tile the mask lets see
+// its keys (q_tiles).  Roles (384 threads):
+//   - the loader (thread 256) issues TMA loads: K and V once, then per step
+//     Q, dO, lse2 and D into a ring of NS = 2 stages;
+//   - the dQ writer (thread 288) adds each finished 64 x 64 fp32 dQ tile into
+//     dq_acc ([B, H, t_pad, dk]) by TMA tensor reductions
+//     (cp.reduce.async.bulk.tensor .add), which are atomic in L2;
+//   - two consumer warpgroups (warps 0-7, 240 registers) own 64 keys each
+//     and keep their dK and dV accumulators in registers for the whole walk.
+//     Per step a consumer computes S^T = K Q^T and dP^T = V dO^T (K and V
+//     held in registers as A fragments at D 64, read from shared memory at
+//     D 128), P^T = 2^(S^T sl2 - lse2) and dS^T = P^T (dP^T - D) in
+//     registers (masks in one warpgroup-uniform branch, on edge tiles only),
+//     writes dS^T in bf16 to its half of dS^T buffer i % 3 (128-byte swizzle,
+//     by hand), and issues dV += P^T dO and dK += dS^T Q (A from registers).
+//     dQ needs both halves of dS^T, so each step's dQ has one owner, consumer
+//     i % 2, which computes it one step late (during step i + 1, when the
+//     other half is written already): dS K over all 128 keys (both operands
+//     MN-major), 64 columns per tile, stored in the TMA's 128-byte swizzle
+//     (every bank once per warp) and handed to the writer.
+// Barriers, all mbarriers: full/empty per stage (loader and consumers),
+// full/empty per dS^T buffer (both consumers and the step's dQ owner), and
+// full/empty per dQ tile (owner and writer).  The consumers meet nowhere
+// else: with dQ owned in turns they overlap each other's products and
+// elementwise passes without named barriers (turns between them, as the
+// forward takes them, made this kernel slower on the card).
+// Shared memory: K and V, two stages of Q and dO (8 KB each at D 64, 16 KB
+// at D 128) with lse2 and D, three 16 KB dS^T buffers, and two dQ tiles of
+// 16 KB per consumer at D 64 (one at D 128, which sends two per step): 183448
+// B at D 64, 216184 B at D 128 (SMEM).  The order in which a query tile's
+// reductions arrive can change from run to run; a last pass
+// (flash_bwd_dq_cast) scales dq and casts it to bf16.
 // What bounds it: five products per unmasked (query, key) pair against the
 // forward's two; at llama3.2-1b's training shape (T 4096, H 32, K 8, d 64,
 // causal) 171.8 GFLOP against 84.4 MB of inputs and outputs, so the tensor
-// cores (0.174 ms on an H100).  This first design runs each step's phases in
-// turn (products, the elementwise pass, products, with both consumers in
-// step at the dS^T barrier), and so reaches about a fifth of that; letting
-// one consumer's elementwise pass overlap the other's products, as the
-// forward's turns do, is the next step.
+// cores (0.174 ms on an H100).  The products are small (64 x 64 x 64 at d
+// 64), and each score costs an ex2 and two bf16 conversions on the
+// quarter-rate pipe between a consumer's products, so the kernel reaches a
+// little under half of that bound.
 template <int D>
 struct BwdTile {
   static constexpr int BM = 64;   // query rows per step
   static constexpr int BN = 128;  // keys per block, 64 per consumer warpgroup
-  static constexpr int NS = 2;    // stages of (Q, dO, lse2, D)
+  static constexpr int NS = 2;     // stages of (Q, dO, lse2, D)
+  static constexpr int NDS = 3;    // dS^T buffers: step i's in buffer i % NDS
   static constexpr int ATOMS = D / W_ATOM;
-  static constexpr uint32_t KV_BOX = BN * 128;   // one [BN][64] atom column
-  static constexpr uint32_t Q_BOX = BM * 128;    // one [BM][64] atom column
+  static constexpr int CHUNKS = D / 64;            // 64-column dQ tiles per step
+  static constexpr int DQ_BUFS = D == 64 ? 2 : 1;  // dQ tiles per consumer
+  static constexpr bool KV_REGS = D == 64;         // K and V as A fragments in registers
+  static constexpr uint32_t KV_BOX = BN * 128;     // one [BN][64] atom column
+  static constexpr uint32_t Q_BOX = BM * 128;      // one [BM][64] atom column
   static constexpr uint32_t KV_BYTES = ATOMS * KV_BOX;
   static constexpr uint32_t Q_BYTES = ATOMS * Q_BOX;
   static constexpr uint32_t ROW_BYTES = BM * 4;  // lse2 or D of one step
   // A stage: Q, dO, then lse2 and D padded to the swizzle period.
   static constexpr uint32_t STAGE = 2 * Q_BYTES + 1024;
-  static constexpr uint32_t DS_BYTES = BN * BM * 2;  // dS^T in bf16: one [BN][64] atom column
-  static constexpr uint32_t DQ_BYTES = BM * D * 4;   // one dQ tile in fp32, [BM][dk]
-  // K, V, NS stages, two dS^T buffers, the dQ tile, then the mbarriers (K and
-  // V full, then full and empty of each stage); 1024 bytes of slack for the
+  static constexpr uint32_t DS_BYTES = BN * BM * 2;  // dS^T in bf16, [BN keys][BM queries]
+  static constexpr uint32_t DQ_BOX = BM * 128;       // [BM][32] fp32: one swizzled box
+  static constexpr uint32_t DQ_TILE = 2 * DQ_BOX;    // 64 x 64 fp32
+  // K, V, NS stages, NDS dS^T buffers, the dQ tiles (consumer 0's, then
+  // 1's), then the mbarriers (K and V full; full and empty of each stage, of
+  // each dS^T buffer and of each dQ tile); 1024 bytes of slack for the
   // alignment.
   static constexpr size_t SMEM = 1024 + 2 * (size_t)KV_BYTES + NS * (size_t)STAGE +
-                                 2 * (size_t)DS_BYTES + DQ_BYTES + 8 * (1 + 2 * NS);
+                                 NDS * (size_t)DS_BYTES + 2 * DQ_BUFS * (size_t)DQ_TILE +
+                                 8 * (1 + 2 * NS + 2 * NDS + 4 * DQ_BUFS);
   static_assert(SMEM <= 232448, "over the 227 KB a block may use");
 };
 
@@ -1021,23 +1062,35 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// Add one box of shared memory into a rank-2 fp32 tensor map at (c0, c1).
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int c0,
+                                               int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 template <int D>
 __global__ void __launch_bounds__(W_THREADS, 1)
     flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                    BwdParams bp) {
+                    const __grid_constant__ CUtensorMap tdq, BwdParams bp) {
   using Tile = BwdTile<D>;
   constexpr int BM = Tile::BM, BN = Tile::BN, NS = Tile::NS, ATOMS = Tile::ATOMS;
+  constexpr int CHUNKS = Tile::CHUNKS, DQ_BUFS = Tile::DQ_BUFS, NDS = Tile::NDS;
   const Params& p = bp.p;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sK = smem_u32(sm);
   const uint32_t sV = sK + Tile::KV_BYTES;
   const uint32_t sStage = sV + Tile::KV_BYTES;
-  const uint32_t sDS = sStage + NS * Tile::STAGE;
-  const uint32_t sDQ = sDS + 2 * Tile::DS_BYTES;
-  const uint32_t kv_full = sDQ + Tile::DQ_BYTES;
+  const uint32_t sDS = sStage + NS * Tile::STAGE;  // buffer i % NDS holds step i's dS^T
+  const uint32_t sDQ = sDS + NDS * Tile::DS_BYTES;  // tile (wg, n): sDQ + (wg DQ_BUFS + n) DQ_TILE
+  const uint32_t kv_full = sDQ + 2 * DQ_BUFS * Tile::DQ_TILE;
   const uint32_t full = kv_full + 8, empty = full + 8 * NS;
+  const uint32_t ds_full = empty + 8 * NS, ds_empty = ds_full + 8 * NDS;
+  const uint32_t dq_full = ds_empty + 8 * NDS, dq_empty = dq_full + 8 * 2 * DQ_BUFS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   const int BK_ = p.B * p.K, kt = blockIdx.x / BK_;  // the first key tiles are the heaviest
@@ -1053,12 +1106,20 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
+    for (int n = 0; n < NDS; ++n) {
+      mbar_init(ds_full + 8 * n, 256);  // every consumer thread
+      mbar_init(ds_empty + 8 * n, 4);   // lane 0 of each warp of the step's dQ consumer
+    }
+    for (int n = 0; n < 2 * DQ_BUFS; ++n) {
+      mbar_init(dq_full + 8 * n, 128);  // every thread of the tile's consumer
+      mbar_init(dq_empty + 8 * n, 1);   // the writer
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp >= 8) {
-    // ------------------------------------------------------- producer --
+    // ------------------------------------------------ loader and writer --
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
     if (threadIdx.x == 256) {
       mbar_expect_tx(kv_full, 2 * Tile::KV_BYTES);
@@ -1082,6 +1143,28 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         bulk_load(rs, bp.lse2 + rows, Tile::ROW_BYTES, bar);
         bulk_load(rs + Tile::ROW_BYTES, bp.dsum + rows, Tile::ROW_BYTES, bar);
       }
+    } else if (threadIdx.x == 288) {
+      // The dQ writer: step i's dQ tiles come from consumer i % 2, its
+      // ((i / 2) CHUNKS + c)-th, in its tile ((i / 2) CHUNKS + c) % DQ_BUFS.
+      for (int i = 0; i < steps; ++i) {
+        const int wg = i & 1;
+        const int row = (b * p.H + kh * G + i / nq) * bp.t_pad + (lo + i % nq) * BM;
+#pragma unroll
+        for (int c = 0; c < CHUNKS; ++c) {
+          const int u = (i >> 1) * CHUNKS + c, tile = wg * DQ_BUFS + u % DQ_BUFS;
+          mbar_wait(dq_full + 8 * tile, (u / DQ_BUFS) & 1);
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            if (64 * c + 32 * x < p.dk)
+              tma_reduce_add(&tdq, sDQ + tile * Tile::DQ_TILE + x * Tile::DQ_BOX, 64 * c + 32 * x,
+                             row);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          mbar_arrive(dq_empty + 8 * tile);
+        }
+      }
+      // The last reductions have landed before the block ends.
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
     }
   } else {
     // ------------------------------------------------------- consumers --
@@ -1091,69 +1174,185 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     const int kw0 = k0 + wg * 64, key0 = k0 + lrow;
     const float sl2 = p.scale * 1.4426950408889634f;
     const uint32_t k_wg = sK + wg * 64 * 128, v_wg = sV + wg * 64 * 128;
-    // This warpgroup's half of dQ's columns in K (MN-major): an atom column
-    // at D 128, 32 columns (64 bytes) into the atom at D 64.
-    constexpr int NQ = D / 2;
-    const uint32_t k_half = sK + (D == 128 ? wg * Tile::KV_BOX : wg * 64);
 
     float dv_acc[D / 2], dk_acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
     mbar_wait(kv_full, 0);
 
-    for (int i = 0; i < steps; ++i) {
-      const int s = i % NS, h = kh * G + i / nq, m0 = (lo + i % nq) * BM;
-      const uint32_t q_st = sStage + s * Tile::STAGE, do_st = q_st + Tile::Q_BYTES;
-      const float* lse2 = reinterpret_cast<const float*>(sm + (q_st - sK) + 2 * Tile::Q_BYTES);
-      const float* dsum = lse2 + BM;
-      mbar_wait(full + 8 * s, (i / NS) & 1);
+    // At D 64, K and V of this warpgroup's keys as A fragments (pack_p's
+    // layout: k16 step kk holds key rows lrow, lrow + 8 and columns
+    // 16 kk + 2 t (+1, +8, +9)), read once through the TMA's swizzle.
+    constexpr int KF = Tile::KV_REGS ? D / 16 : 1;
+    uint32_t kf[KF][4], vf[KF][4];
+    if constexpr (Tile::KV_REGS) {
+#pragma unroll
+      for (int kk = 0; kk < KF; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int r = lrow + 8 * (f & 1), c = 16 * kk + 2 * t + 8 * (f >> 1);
+          const int off = r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+          kf[kk][f] = *reinterpret_cast<const uint32_t*>(sm + off);
+          vf[kk][f] = *reinterpret_cast<const uint32_t*>(sm + (sV - sK) + off);
+        }
+      }
+    }
 
-      float sc[32], dp[32];
+    auto stage = [&](int i) { return sStage + (i % NS) * Tile::STAGE; };
+    auto arrive_warp = [&](uint32_t bar) {  // one arrival per warp, after all its lanes
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S^T = K Q^T and dP^T = V dO^T of step i (B K-major), issued and committed.
+    auto issue_sdp = [&](float (&sc)[32], float (&dp)[32], int i) {
+      const uint32_t q_st = stage(i), do_st = q_st + Tile::Q_BYTES;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk >> 2) * Tile::KV_BOX + (kk & 3) * 32;
         const uint32_t qoff = (kk >> 2) * Tile::Q_BOX + (kk & 3) * 32;
-        wgmma_ss<64>(sc, desc_sw128(k_wg + off, 16, 1024), desc_sw128(q_st + qoff, 16, 1024),
-                     kk > 0);
+        if constexpr (Tile::KV_REGS)
+          wgmma_rs_kb64(sc, kf[kk], desc_sw128(q_st + qoff, 16, 1024), kk > 0);
+        else
+          wgmma_ss<64>(sc, desc_sw128(k_wg + off, 16, 1024), desc_sw128(q_st + qoff, 16, 1024),
+                       kk > 0);
       }
-      wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk >> 2) * Tile::KV_BOX + (kk & 3) * 32;
         const uint32_t qoff = (kk >> 2) * Tile::Q_BOX + (kk & 3) * 32;
-        wgmma_ss<64>(dp, desc_sw128(v_wg + off, 16, 1024), desc_sw128(do_st + qoff, 16, 1024),
-                     kk > 0);
+        if constexpr (Tile::KV_REGS)
+          wgmma_rs_kb64(dp, vf[kk], desc_sw128(do_st + qoff, 16, 1024), kk > 0);
+        else
+          wgmma_ss<64>(dp, desc_sw128(v_wg + off, 16, 1024), desc_sw128(do_st + qoff, 16, 1024),
+                       kk > 0);
       }
       wgmma_commit();
+    };
+    // dV += P^T dO and dK += dS^T Q (A from registers), issued and committed.
+    auto issue_dkdv = [&](const uint32_t (&pf)[4][4], const uint32_t (&dsf)[4][4], int i) {
+      const uint32_t q_st = stage(i), do_st = q_st + Tile::Q_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BM / 16; ++kc)
+        wgmma_rs<D>(dv_acc, pf[kc], desc_sw128(do_st + kc * 16 * 128, Tile::Q_BOX, 1024), 1);
+#pragma unroll
+      for (int kc = 0; kc < BM / 16; ++kc)
+        wgmma_rs<D>(dk_acc, dsf[kc], desc_sw128(q_st + kc * 16 * 128, Tile::Q_BOX, 1024), 1);
+      wgmma_commit();
+    };
+    // dQ[:, c:c + 64] = dS K[:, c:c + 64] of step i over all 128 keys (both
+    // operands MN-major), issued and committed.
+    auto issue_dq = [&](float (&dq)[32], int i, int c) {
+      const uint32_t ds_i = sDS + (i % NDS) * Tile::DS_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc)
+        wgmma_tt<64>(dq, desc_sw128(ds_i + kc * 16 * 128, Tile::DS_BYTES, 1024),
+                     desc_sw128(sK + (c / 64) * Tile::KV_BOX + kc * 16 * 128, Tile::KV_BOX, 1024),
+                     kc > 0);
+      wgmma_commit();
+    };
+    // dQ tile u of this consumer, [64 rows][32] fp32 boxes under the 128-byte
+    // swizzle (16-byte unit (col / 4) ^ (row % 8) of the row's 128 bytes, so
+    // that a warp's stores hit every bank once), then handed to the writer.
+    auto store_dq = [&](const float (&dq)[32], int u) {
+      const int tile = wg * DQ_BUFS + u % DQ_BUFS;
+      if (u >= DQ_BUFS) mbar_wait(dq_empty + 8 * tile, ((u / DQ_BUFS) - 1) & 1);
+      unsigned char* dst = sm + (sDQ - sK) + tile * Tile::DQ_TILE;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = (warp & 3) * 16 + g + 8 * r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = (8 * j + 2 * t) & 31;
+          *reinterpret_cast<float2*>(dst + (j >> 2) * Tile::DQ_BOX + row * 128 +
+                                     (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4) =
+              make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(dq_full + 8 * tile);
+    };
+
+    // dQ of step i from its owner, consumer i % 2, one step late so that the
+    // other consumer's half of dS^T is there already: over both halves, 64
+    // columns at a time; then the dS^T buffer goes back to both consumers.
+    auto dq_step = [&](int i) {
+      float dq[32];
+      mbar_wait(ds_full + 8 * (i % NDS), (i / NDS) & 1);
+      // The running dV and dK products are done before dq's accumulators
+      // are allocated: nothing new lives in registers while a product still
+      // reads its A fragments from them.
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) {
+        issue_dq(dq, i, 64 * c);
+        wgmma_wait<0>();
+        fence_regs(dq);
+        store_dq(dq, (i >> 1) * CHUNKS + c);
+      }
+      arrive_warp(ds_empty + 8 * (i % NDS));
+    };
+
+    for (int i = 0; i < steps; ++i) {
+      const int m0 = (lo + i % nq) * BM;
+      const float* lse2 = reinterpret_cast<const float*>(sm + (stage(i) - sK) + 2 * Tile::Q_BYTES);
+      const float* dsum = lse2 + BM;
+      float sc[32], dp[32];
+      mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
+      issue_sdp(sc, dp, i);
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
 
       // P^T: element e of chunk j is key key0 + 8 (e >> 1), query
-      // m0 + 8 j + 2 t + (e & 1).  Warpgroup-uniform: does this 64 x 64 tile
-      // cross the diagonal, the window's edge or the end of the keys?
-      const bool edge = kw0 + 64 > p.Tk || (p.causal && kw0 + 63 > m0) ||
-                        (p.window > 0 && kw0 <= m0 + 63 - p.window);
+      // m0 + 8 j + 2 t + (e & 1).
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, -((e & 1) ? l2.y : l2.x)));
+      }
+      // Does this 64 x 64 tile cross the diagonal, the window's edge or the
+      // end of the keys?  Warpgroup-uniform, so the mask costs one branch
+      // and, on edge tiles only, two compares per element: key row r sees
+      // the queries [qlo[r], qhi[r]).
+      if (kw0 + 64 > p.Tk || (p.causal && kw0 + 63 > m0) ||
+          (p.window > 0 && kw0 <= m0 + 63 - p.window)) {
+        int qlo[2], qhi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = key0 + 8 * r;
+          qlo[r] = p.causal ? key : INT_MIN;
+          qhi[r] = key >= p.Tk ? INT_MIN : p.window > 0 ? key + p.window : INT_MAX;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = m0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+            sc[4 * j + e] = q >= qlo[r] && q < qhi[r] ? sc[4 * j + e] : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
         const float2 dd = *reinterpret_cast<const float2*>(dsum + 8 * j + 2 * t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pe = ex2(fmaf(sc[4 * j + e], sl2, -((e & 1) ? l2.y : l2.x)));
-          if (edge && masked(p, m0 + 8 * j + 2 * t + (e & 1), key0 + 8 * (e >> 1))) pe = 0.f;
-          sc[4 * j + e] = pe;
-          dp[4 * j + e] = pe * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));  // dS^T
-        }
+        for (int e = 0; e < 4; ++e)  // dS^T
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
       }
       uint32_t pf[4][4], dsf[4][4];
       pack_p<64>(sc, pf);
       pack_p<64>(dp, dsf);
 
-      // dS^T to this step's buffer: key row r, query column c at byte
-      // r 128 + ((c / 8) ^ (r % 8)) 16 + (c % 8) 2, the 128-byte swizzle.
-      unsigned char* ds = sm + (sDS - sK) + (i & 1) * Tile::DS_BYTES;
+      // dS^T to buffer i % NDS once step i - NDS's dQ has read it: key row
+      // r, query column c at byte r 128 + ((c / 8) ^ (r % 8)) 16 + (c % 8) 2,
+      // the 128-byte swizzle.
+      if (i >= NDS) mbar_wait(ds_empty + 8 * (i % NDS), ((i / NDS) - 1) & 1);
+      unsigned char* ds = sm + (sDS - sK) + (i % NDS) * Tile::DS_BYTES;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1164,59 +1363,17 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(ds_full + 8 * (i % NDS));
 
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < BM / 16; ++kc)
-        wgmma_rs<D>(dv_acc, pf[kc], desc_sw128(do_st + kc * 16 * 128, Tile::Q_BOX, 1024), 1);
-#pragma unroll
-      for (int kc = 0; kc < BM / 16; ++kc)
-        wgmma_rs<D>(dk_acc, dsf[kc], desc_sw128(q_st + kc * 16 * 128, Tile::Q_BOX, 1024), 1);
-      wgmma_commit();
-
-      // The last step's dQ tile has been read out of shared memory.
-      if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both halves of dS^T are written
-      const uint32_t ds_u32 = sDS + (i & 1) * Tile::DS_BYTES;
-      float dq[NQ / 2];
-#pragma unroll
-      for (int kc = 0; kc < BN / 16; ++kc)
-        wgmma_tt<NQ>(dq, desc_sw128(ds_u32 + kc * 16 * 128, Tile::DS_BYTES, 1024),
-                     desc_sw128(k_half + kc * 16 * 128, Tile::KV_BOX, 1024), kc > 0);
-      wgmma_commit();
+      // dV and dK of step i; then dQ of step i - 1 if this consumer owns it.
+      issue_dkdv(pf, dsf, i);
+      if (i > 0 && ((i - 1) & 1) == wg) dq_step(i - 1);
       wgmma_wait<0>();
-      fence_regs(dq);
       fence_regs(dv_acc);
       fence_regs(dk_acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * s);  // Q, dO, lse2 and D of this stage are read
-
-      // The dQ tile, [BM][dk] in fp32, then one bulk reduction into dq_acc.
-      float* dqs = reinterpret_cast<float*>(sm + (sDQ - sK));
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = (warp & 3) * 16 + g + 8 * r;
-#pragma unroll
-        for (int j = 0; j < NQ / 8; ++j) {
-          const int col = wg * NQ + 8 * j + 2 * t;
-          if (col < p.dk)  // dk is even: col + 1 too
-            *reinterpret_cast<float2*>(dqs + row * p.dk + col) =
-                make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-        }
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync 2, 256;\n" ::: "memory");
-      if (threadIdx.x == 0) {
-        const float* dst = bp.dq_acc + ((int64_t)(b * p.H + h) * bp.t_pad + m0) * p.dk;
-        asm volatile(
-            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-            "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
-            "r"(sDQ), "r"(BM * p.dk * 4)
-            : "memory");
-      }
+      arrive_warp(empty + 8 * (i % NS));  // step i's stage goes back to the loader
     }
-    // The last reduction has landed before the block's shared memory goes.
-    if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    if (steps > 0 && ((steps - 1) & 1) == wg) dq_step(steps - 1);
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1240,15 +1397,24 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
-// dq [B, Tq, H, dk] = scale dq_acc [B, H, t_pad, dk] in bf16.
-__global__ void __launch_bounds__(256) flash_bwd_dq_cast(BwdParams bp, int64_t n) {
+// dq [B, Tq, H, dk] = scale dq_acc [B, H, t_pad, dk] in bf16, 8 columns per
+// thread (dk is a multiple of 8 on the wgmma variant): two 16-byte loads,
+// one 16-byte store.
+__global__ void __launch_bounds__(256) flash_bwd_dq_cast(BwdParams bp, int64_t n8) {
   const Params& p = bp.p;
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(bp.dq);
-  for (int64_t i = blockIdx.x * 256 + threadIdx.x; i < n; i += (int64_t)gridDim.x * 256) {
-    const int64_t row = i / p.dk;  // (b Tq + t) H + h
+  for (int64_t i = blockIdx.x * 256 + threadIdx.x; i < n8; i += (int64_t)gridDim.x * 256) {
+    const int64_t row = i * 8 / p.dk;  // (b Tq + t) H + h
+    const int col = (int)(i * 8 - row * p.dk);
     const int h = (int)(row % p.H), t = (int)(row / p.H % p.Tq), b = (int)(row / p.H / p.Tq);
-    dq[i] = __float2bfloat16_rn(p.scale *
-                                bp.dq_acc[((int64_t)(b * p.H + h) * bp.t_pad + t) * p.dk + i % p.dk]);
+    const float4* src = reinterpret_cast<const float4*>(
+        bp.dq_acc + ((int64_t)(b * p.H + h) * bp.t_pad + t) * p.dk + col);
+    const float4 x = src[0], y = src[1];
+    uint4 out;
+    out.x = pack_bf16(p.scale * x.x, p.scale * x.y);
+    out.y = pack_bf16(p.scale * x.z, p.scale * x.w);
+    out.z = pack_bf16(p.scale * y.x, p.scale * y.y);
+    out.w = pack_bf16(p.scale * y.z, p.scale * y.w);
+    reinterpret_cast<uint4*>(bp.dq)[i] = out;
   }
 }
 
@@ -1333,26 +1499,42 @@ int launch_simt(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Rank-2 map of the fp32 dq_acc, [rows][dk] innermost first; box (32, 64)
+// (128 bytes by 64 rows) under the 128-byte swizzle, for the backward's dQ
+// reductions.  Returns as make_map.
+int make_dq_map(CUtensorMap* map, float* ptr, int64_t rows, int dk) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)dk, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)dk * 4};
+  const cuuint32_t box[2] = {32, 64};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ptr, dims, strides, box,
+                     elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 template <int D>
 int launch_bwd_wgmma(const BwdParams& bp, cudaStream_t stream) {
   using Tile = BwdTile<D>;
   const Params& p = bp.p;
-  CUtensorMap tq, tk, tv, tdo;
+  CUtensorMap tq, tk, tv, tdo, tdq;
   int r = make_map(&tq, p.q, p.B, p.Tq, p.H, p.dk, Tile::BM);
   if (r == 0) r = make_map(&tdo, bp.dout, p.B, p.Tq, p.H, p.dv, Tile::BM);
   if (r == 0) r = make_map(&tk, p.k, p.B, p.Tk, p.K, p.dk, Tile::BN);
   if (r == 0) r = make_map(&tv, p.v, p.B, p.Tk, p.K, p.dv, Tile::BN);
+  if (r == 0) r = make_dq_map(&tdq, bp.dq_acc, (int64_t)p.B * p.H * bp.t_pad, p.dk);
   if (r != 0) return -r;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tile::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int blocks = p.B * p.K * ((p.Tk + Tile::BN - 1) / Tile::BN);
-  flash_bwd_wgmma<D><<<blocks, W_THREADS, Tile::SMEM, stream>>>(tq, tk, tv, tdo, bp);
+  flash_bwd_wgmma<D><<<blocks, W_THREADS, Tile::SMEM, stream>>>(tq, tk, tv, tdo, tdq, bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)p.B * p.Tq * p.H * p.dk;
-  const int64_t grid = (n + 255) / 256;
-  flash_bwd_dq_cast<<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(bp, n);
+  const int64_t n8 = (int64_t)p.B * p.Tq * p.H * p.dk / 8;
+  const int64_t grid = (n8 + 255) / 256;
+  flash_bwd_dq_cast<<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(bp, n8);
   return (int)cudaGetLastError();
 }
 
@@ -1378,7 +1560,7 @@ int launch_bwd_simt(const BwdParams& bp, cudaStream_t stream) {
 template <typename T>
 int launch_bwd_rows(const BwdParams& bp, cudaStream_t stream) {
   const int64_t rows = (int64_t)bp.p.B * bp.p.H * bp.t_pad;
-  flash_bwd_rows<T><<<(int)((rows + 7) / 8), 256, 0, stream>>>(bp);
+  flash_bwd_rows<T><<<(int)((rows + 31) / 32), 256, 0, stream>>>(bp);
   return (int)cudaGetLastError();
 }
 

@@ -35,9 +35,13 @@ FLASH_CASES = [
 GRAD_RTOL, GRAD_ROW, GRAD_FLOOR = 1.6e-2, 2e-2, 1e-3
 # B, T, H, K, d, causal, window: a late row of 1024 keys, d 256 with a window
 # and a ragged tail, a window that is no multiple of the KV tile with GQA, and
-# d 128 with H/K = 4.
+# d 128 with H/K = 4; then the wgmma backward's schedule edges that the card
+# checks run: H/K = 1 and H/K = 8 at d 64, a last 128-key block whose second
+# half is all padding (T 4160), and a window at d 128.
 BOUND_CASES = [(1, 1200, 2, 1, 64, True, 1024), (1, 333, 2, 1, 256, True, 200),
-               (2, 500, 4, 2, 64, True, 77), (1, 512, 8, 2, 128, True, 0)]
+               (2, 500, 4, 2, 64, True, 77), (1, 512, 8, 2, 128, True, 0),
+               (1, 512, 8, 8, 64, True, 0), (1, 512, 8, 1, 64, True, 0),
+               (1, 4160, 2, 1, 64, True, 0), (1, 600, 4, 1, 128, True, 100)]
 
 
 @pytest.fixture(scope="module")
@@ -297,7 +301,8 @@ def test_remat_block_grads_equal_the_unremated_block():
 
 # ----------------------------------------------------------- on the card --
 # (B, Tq, H, K, dk, dv[, Tk]), causal, window, dtype: FLASH_CASES, then bf16 at
-# both wgmma head dims and its tile edges, and shapes past them (simt).
+# both wgmma head dims and its tile edges, shapes past them (simt), and the
+# edges of the wgmma backward's schedule (as in chip_smoke.py's BWD_CASES).
 CARD_CASES = [(c[:6], c[8], c[9], c[10]) for c in FLASH_CASES] + [
     ((2, 256, 8, 2, 64, 64), True, 0, "bfloat16"),
     ((1, 200, 2, 1, 64, 64), False, 0, "bfloat16"),       # no mask, ragged tail
@@ -306,6 +311,10 @@ CARD_CASES = [(c[:6], c[8], c[9], c[10]) for c in FLASH_CASES] + [
     ((1, 70, 2, 1, 192, 128), True, 0, "bfloat16"),       # dk 192 / dv 128: simt
     ((1, 300, 4, 1, 256, 256), True, 64, "bfloat16"),     # d 256: simt
     ((1, 40, 2, 1, 64, 64), True, 0, "float32"),
+    ((1, 512, 8, 8, 64, 64), True, 0, "bfloat16"),        # H/K = 1
+    ((1, 512, 8, 1, 64, 64), True, 0, "bfloat16"),        # H/K = 8
+    ((1, 4160, 4, 2, 64, 64), True, 0, "bfloat16"),       # last block: 64 keys of 128
+    ((1, 600, 4, 1, 128, 128), True, 100, "bfloat16"),    # window at d 128
 ]
 
 
