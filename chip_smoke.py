@@ -22,7 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain backward and in relative L2 against the oracle, see ``GRAD_RTOL``),
    each case naming its variant (every bf16 case up to head dim 128 must
    launch ``wgmma``); then the forward and the backward at llama3-8b's
-   training shape (head dim 128), as at the end of phase 6;
+   training shape (head dim 128) and at recurrentgemma-9b's (head dim 256,
+   MQA, window 2048: the backward on ``simt``), each timed beside its plain
+   version, its bound and SDPA (a window as a boolean mask; the SDPA backend
+   that ran is named), the backward's device time split by launch; then the
+   RG-LRU scan's forward and its backward kernel (``rglru_scan_bwd``) against
+   their plain versions at 1e-5 (the backward also at T 1 and with a large
+   h0), each timed at recurrentgemma-9b's prefill shape (B 4) and training
+   shape (B 1) beside its bound and its plain version (the backward's: the
+   oracle's autograd with its forward, and the plain reverse loop);
 3. the port against its own plain CPU path on small fp32 models
    (llama3.2-1b and recurrentgemma-9b);
 4. the main paths, each with every kernel launch counted from zero:
@@ -47,7 +55,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    tolerances, then three fp32 train steps of
    llama3.2-1b and recurrentgemma-9b at smoke width on the card and on the
    CPU from one init (losses, grads' norms and final parameters within the
-   CPU parity tests' atol 1e-5, rtol 1e-4); (b) a smoke run checkpointed at
+   CPU parity tests' atol 1e-5, rtol 1e-4; each kernel's launches printed,
+   the scan backward's among them); (b) a smoke run checkpointed at
    step 3 and resumed through step 6 gives an uninterrupted run's losses
    exactly; (c) the main path's second half: ``train("llama3.2-1b")`` at its
    published widths (16 layers, bf16 parameters, fp32 AdamW moments, block
@@ -61,10 +70,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels against the same with the plain versions in the forward, remat's
    recompute and the backward, within ``TRAIN_BF16_TOL``, and a recompute
    that is wrong on purpose must exceed it; then the forward and the
-   backward at this shape, each timed beside its plain version, its bound
-   and SDPA (forward, and backward under autograd), and the backward's
-   device time split by launch (dq_acc zeroing, row pass, main kernel, dq's
-   cast; ``torch.profiler``) with the main kernel's share of the bound.
+   backward at this shape, as in phase 2; (d) the main path's third part:
+   ``train("recurrentgemma-9b")`` at its published widths cut to 8 layers
+   (two ``(rec, rec, attn)`` super-blocks under remat and the two tail
+   ``rec`` layers; ``get_config`` patched in train's namespace for the
+   call), bf16 parameters, fp32 AdamW moments, 4 rows of 4096 tokens in 4
+   microbatches, 6 steps at lr 3e-4 with 2 warmup steps: every loss finite,
+   the 6th below the 1st, each step's launches counted from zero and equal
+   to what ``layer_plan`` implies (scan forward 40, scan backward 24, flash
+   forward 16 on ``wgmma``, flash backward 8 on ``simt``, as
+   ``backward_variant`` states for d 256), no call of a plain version, with
+   s/step, tokens/s, the model-FLOPs share and the peak memory; then one
+   microbatch's backward timed with CUDA events (the whole, each scan
+   backward, each attention backward), and again with the parent tree's
+   scan route (its backward the oracle's autograd) swapped in for that
+   measurement only; then that microbatch's loss and every gradient
+   through the kernels against the plain versions in the forward, remat's
+   recompute and the backward, within ``RG_TRAIN_BF16_TOL``, and a scan
+   backward wrong on purpose (da from h_t) must exceed it.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -73,6 +96,7 @@ JAX; with no CUDA card, or without the repository beside it, it exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -130,6 +154,11 @@ BF16_RTOL, BF16_ROW = 1.6e-2, 1e-2
 # with an odd T, then recurrentgemma-9b's prefill scan.  B, T, W
 RGLRU_CASES = [(2, 100, 48), (1, 64, 128), (3, 33, 20), (2, 257, 4100)]
 RGLRU_SLICE = (4, 4096, 4096)
+# The scan's backward: RGLRU_CASES, T 1, and an h0 ten times the others' (every
+# case has a nonzero h0).  B, T, W, h0 scale.
+RGLRU_BWD_CASES = [(*c, 1.0) for c in RGLRU_CASES] + [(2, 1, 64, 1.0), (2, 33, 96, 10.0)]
+# recurrentgemma-9b's training scan: one row of train_4k's 4096 tokens.
+RGLRU_TRAIN = (1, 4096, 4096)
 RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
 
 # Main paths: arch, batch, prompt, generated tokens.
@@ -162,10 +191,18 @@ BWD_CASES = GRAD_CASES + [
 # llama3-8b's attention at train_4k's length (B, T, H, K, dk, dv, causal,
 # window, dtype), timed in phase 2: the flash kernels at head dim 128.
 TRAIN_D128 = (1, 4096, 32, 8, 128, 128, True, 0, "bfloat16")
-# The launches of one flash_attention_bwd call on the wgmma variant, each
-# with the name its kernel has in a profiler trace.
-BWD_LAUNCHES = {"dq_acc zeroing": "FillFunctor", "flash_bwd_rows": "flash_bwd_rows",
-                "flash_bwd_wgmma": "flash_bwd_wgmma", "flash_bwd_dq_cast": "flash_bwd_dq_cast"}
+# recurrentgemma-9b's attention in one training microbatch (phase 6(d)): MQA
+# at d 256 with the 2048 window, forward on wgmma, backward on simt.
+TRAIN_RG_ATTN = (1, 4096, 16, 1, 256, 256, True, 2048, "bfloat16")
+# The launches of one flash_attention_bwd call on each variant, each with the
+# name its kernel has in a profiler trace, and the variant's main kernels.
+BWD_LAUNCHES = {
+    "wgmma": {"dq_acc zeroing": "FillFunctor", "flash_bwd_rows": "flash_bwd_rows",
+              "flash_bwd_wgmma": "flash_bwd_wgmma", "flash_bwd_dq_cast": "flash_bwd_dq_cast"},
+    "simt": {"flash_bwd_rows": "flash_bwd_rows", "flash_bwd_simt_dkdv": "flash_bwd_simt_dkdv",
+             "flash_bwd_simt_dq": "flash_bwd_simt_dq"},
+}
+BWD_MAIN = {"wgmma": ("flash_bwd_wgmma",), "simt": ("flash_bwd_simt_dkdv", "flash_bwd_simt_dq")}
 LSE_TOL = 1e-4  # the forward's lse against the plain version's: fp32 order only
 # fp32 gradients: largest |g - oracle|, the oracle's autograd on the same inputs.
 GRAD_FP32_TOL = 1e-4
@@ -194,6 +231,18 @@ TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
 TRAIN_BF16_TOL = {"loss": 5e-4, "grad": 6e-2, "norm": 5e-3}
 # Full width: arch, rows per step, tokens per row, microbatches, steps.
 TRAIN = ("llama3.2-1b", 8, 4096, 8, 10)
+# Phase 6(d): recurrentgemma-9b at published widths cut to 8 layers (two
+# (rec, rec, attn) super-blocks and the two tail rec layers): arch, layers,
+# rows per step, tokens per row, microbatches, steps.
+RG_TRAIN = ("recurrentgemma-9b", 8, 4, 4096, 4, 6)
+# Its microbatch through the kernels against the plain versions, read as
+# TRAIN_BF16_TOL.  On an H100 the kernels read 3.9e-5, 2.0e-2 (the last tail
+# layer's w_a) and 3.3e-4; a scan backward wrong on purpose (da from h_t) 0,
+# 1.44 (the first super-block's lam) and 2.4e-2.  The limits sit about five,
+# two and five times above the kernels.
+RG_TRAIN_BF16_TOL = {"loss": 2e-4, "grad": 4e-2, "norm": 1.5e-3}
+# The ops-level functions that the plain versions replace in a microbatch.
+KERNEL_ENTRIES = ("_flash_fwd", "_flash_bwd", "_scan_fwd", "_scan_bwd")
 
 
 def nvidia_smi() -> str:
@@ -260,24 +309,247 @@ def resumed_losses(arch: str, dev, directory: str):
             [h["loss"] for h in first["history"] + rest["history"]])
 
 
-def microbatch_grads(model, batch, flash_fwd=None, flash_bwd=None):
-    """One microbatch's loss and every parameter's gradient; with
-    ``flash_fwd`` / ``flash_bwd``, attention's forward and remat's recompute,
-    and attention's backward, call them in place of ``ops._flash_fwd`` /
-    ``ops._flash_bwd`` (the autograd Function stays)."""
+def plain_entries(wrong_scan_bwd: bool = False):
+    """The plain versions in place of ``ops``' kernel entries
+    (:data:`KERNEL_ENTRIES`); with ``wrong_scan_bwd``, a scan backward that
+    is wrong on purpose: da from h_t in place of h_{t-1}."""
+    from repro_torch.kernels import ref
+
+    def flash_fwd(q, k, v, causal, window, scale, lse=False):
+        fn = ref.flash_attention_lse_ref if lse else ref.flash_attention_ref
+        return fn(q, k, v, causal=causal, window=window, scale=scale)
+
+    def flash_bwd(q, k, v, out, lse, g, causal, window, scale):
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
+                                           window=window, scale=scale)
+
+    def scan_bwd(a, h, h0, g):
+        da, db, dh0 = ref.rglru_scan_bwd_ref(a, h, h0, g)
+        return (db * h, db, dh0) if wrong_scan_bwd else (da, db, dh0)
+
+    return {"_flash_fwd": flash_fwd, "_flash_bwd": flash_bwd,
+            "_scan_fwd": lambda a, b, h0: ref.rglru_scan_ref(a, b, h0), "_scan_bwd": scan_bwd}
+
+
+def microbatch_grads(model, batch, swap=None):
+    """One microbatch's loss and every parameter's gradient; ``swap`` maps
+    names of :data:`KERNEL_ENTRIES` to functions that ``ops`` calls in their
+    place (the forward, remat's recompute and the backward), the autograd
+    Functions staying as they are."""
     import torch
 
     from repro_torch.kernels import ops
 
     names, params = zip(*model.named_parameters())
-    real = ops._flash_fwd, ops._flash_bwd
-    ops._flash_fwd, ops._flash_bwd = flash_fwd or real[0], flash_bwd or real[1]
+    real = {name: getattr(ops, name) for name in KERNEL_ENTRIES}
+    for name, fn in (swap or {}).items():
+        setattr(ops, name, fn)
     try:
         loss, _ = model.loss(batch)
         grads = torch.autograd.grad(loss, params)
     finally:
-        ops._flash_fwd, ops._flash_bwd = real
+        for name, fn in real.items():
+            setattr(ops, name, fn)
     return loss.item(), dict(zip(names, grads))
+
+
+def expected_launches(plan, microbatches: int):
+    """Kernel launches of one training step under block remat: per
+    microbatch, each layer's forward once and the stacked super-blocks' once
+    more in remat's recompute, and each layer's backward once."""
+    def count(kind, recompute):
+        return microbatches * ((1 + recompute) * plan.n_scan * plan.pattern.count(kind)
+                               + plan.tail.count(kind))
+
+    return {"flash_attention": count("attn", 1), "flash_attention_bwd": count("attn", 0),
+            "rglru_scan": count("rec", 1), "rglru_scan_bwd": count("rec", 0)}
+
+
+@contextlib.contextmanager
+def counted_plain_calls():
+    """Count every call of a plain version (``kernels/ref.py``) in the block;
+    yields the counts by name."""
+    from repro_torch.kernels import ref
+
+    calls = {}
+    names = ("flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref",
+             "rglru_scan_ref", "rglru_scan_bwd_ref")
+    real = {name: getattr(ref, name) for name in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(ref, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(ref, name, fn)
+
+
+@contextlib.contextmanager
+def timed_backwards(functions):
+    """CUDA events around each call of each autograd Function's backward in
+    the block, and the transient memory it took; yields, per label of
+    ``functions`` ({label: Function}), a list of (start, end, peak bytes)."""
+    import torch
+
+    log = {label: [] for label in functions}
+    real = {label: fn.__dict__["backward"] for label, fn in functions.items()}
+
+    def timed(label):
+        inner = real[label].__func__
+
+        def backward(ctx, *grads):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start.record()
+            out = inner(ctx, *grads)
+            end.record()
+            log[label].append((start, end, torch.cuda.max_memory_allocated() - base))
+            return out
+        return staticmethod(backward)
+
+    for label, fn in functions.items():
+        fn.backward = timed(label)
+    try:
+        yield log
+    finally:
+        for label, fn in functions.items():
+            fn.backward = real[label]
+
+
+def timed_microbatch(model, batch, functions):
+    """One microbatch's forward and backward (every parameter's gradient),
+    each timed with CUDA events, and each call of the backward of each
+    autograd Function in ``functions`` ({label: Function}): returns (forward
+    ms, backward ms, {label: [(ms, transient bytes)]})."""
+    import torch
+
+    params = list(model.parameters())
+    with timed_backwards(functions) as log:
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        loss, _ = model.loss(batch)
+        mid.record()
+        grads = torch.autograd.grad(loss, params)
+        end.record()
+        end.synchronize()
+    del loss, grads
+    return (start.elapsed_time(mid), mid.elapsed_time(end),
+            {label: [(a.elapsed_time(b), peak) for a, b, peak in calls]
+             for label, calls in log.items()})
+
+
+def launch_counts():
+    """Every kernel wrapper's launches, and the flash ones by variant."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+
+    out = {"flash_attention": flash_attention_fwd.launches,
+           "flash_attention_bwd": flash_attention_bwd.launches,
+           "rglru_scan": rglru_scan_fwd.launches, "rglru_scan_bwd": rglru_scan_bwd.launches}
+    for name, fn in (("flash_attention", flash_attention_fwd),
+                     ("flash_attention_bwd", flash_attention_bwd)):
+        out.update((f"{name}:{v}", c) for v, c in fn.launches_by_variant.items())
+    return out
+
+
+def counted_training(arch, layers, shape, run, device, smoke=False):
+    """``train(arch)`` for ``run.total_steps`` steps at ``layers`` layers:
+    ``get_config`` is patched in train's namespace for the call (no knob of
+    train() changes), and each step's launches are counted from zero.
+    Returns (train's result, each step's launch_counts(), the calls of each
+    plain version during the run)."""
+    from repro_torch.launch import train as train_mod
+
+    step_counts = []
+    real_config, real_step = train_mod.get_config, train_mod.build_train_step
+
+    def counted_step(model, run_):
+        step = real_step(model, run_)
+
+        def call(state, batch):
+            before = launch_counts()
+            out = step(state, batch)
+            step_counts.append({k: c - before[k] for k, c in launch_counts().items()})
+            return out
+        return call
+
+    train_mod.get_config = lambda a, smoke=False: real_config(a, smoke).with_overrides(
+        num_layers=layers)
+    train_mod.build_train_step = counted_step
+    try:
+        with counted_plain_calls() as plain_calls:
+            res = train_mod.train(arch, smoke=smoke, steps=run.total_steps, shape=shape,
+                                  run=run, log_every=1, device=device)
+    finally:
+        train_mod.get_config, train_mod.build_train_step = real_config, real_step
+    return res, step_counts, plain_calls
+
+
+def parent_scan():
+    """The RG-LRU scan's autograd Function as the parent tree had it, for a
+    measurement only: the forward kernel, saving a, b and h0; the backward
+    the oracle's autograd, its forward recomputed on detached copies."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    class ParentScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b, h0):
+            ctx.save_for_backward(a, b, h0)
+            return ops._scan_fwd(a, b, h0)
+
+        @staticmethod
+        def backward(ctx, g):
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+                return torch.autograd.grad(ref.rglru_scan_ref(*xs), xs, g)
+
+    return ParentScan
+
+
+def sdpa_backend(fn):
+    """The SDPA backend that ran ``fn``, read from the names of the kernels a
+    profiler trace of one call shows (flash, efficient, cudnn or math), and
+    the three kernels that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if t > 0:
+            times[ev.key] = t
+    names = " ".join(times).lower()
+    backend = next((label for label, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                                               ("efficient", ("fmha", "efficient", "mem_eff")))
+                    if any(k in names for k in keys)), "math")
+    top = sorted(times, key=times.get, reverse=True)[:3]
+    return backend, [name[:90] for name in top]
+
+
+def attn_pairs(T: int, causal: bool, window: int):
+    """The [T, T] mask of kept (query, key) pairs, True = kept, on the CPU."""
+    import torch
+
+    pos = torch.arange(T)
+    keep = torch.ones(T, T, dtype=torch.bool)
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
+    return keep
 
 
 def grad_gaps(got, want):
@@ -311,8 +583,10 @@ def main() -> int:
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
-    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    from repro_torch.kernels.flash_attention import (backward_variant, flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import variant as flash_variant
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
     from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.launch.train import train
     from repro_torch.models import Model, input_specs, layer_plan
@@ -350,8 +624,8 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def time_ms(fn, iters):
-        for _ in range(3):
+    def time_ms(fn, iters, warmup=3):
+        for _ in range(warmup):
             fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -506,50 +780,59 @@ def main() -> int:
                     f"plain backward")
         return f"dq/dk/dv max_abs_err vs the oracle {err:.3e} (tol {GRAD_FP32_TOL})"
 
-    def bwd_split(q, k, v, out, lse, g, calls=10):
-        """Device ms of each launch of one flash_attention_bwd call, the mean
-        of torch.profiler's kernel times over ``calls`` calls."""
+    def bwd_split(kind, q, k, v, out, lse, g, causal, window, calls=10):
+        """Device ms of each launch of one flash_attention_bwd call on the
+        ``kind`` variant, the mean of torch.profiler's kernel times over
+        ``calls`` calls."""
         from torch.profiler import ProfilerActivity, profile
 
+        launches = BWD_LAUNCHES[kind]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+                flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
             torch.cuda.synchronize()
-        us, count = dict.fromkeys(BWD_LAUNCHES, 0.0), dict.fromkeys(BWD_LAUNCHES, 0)
+        us, count = dict.fromkeys(launches, 0.0), dict.fromkeys(launches, 0)
         for ev in prof.key_averages():
-            for part, key in BWD_LAUNCHES.items():
+            for part, key in launches.items():
                 if key in ev.key:
                     us[part] += (getattr(ev, "device_time_total", None)
                                  or getattr(ev, "cuda_time_total", 0))
                     count[part] += ev.count
         # The trace may miss a launch at its edges; more than one per call is
         # a fault.
-        if not all(0 < count[n] <= calls and us[n] > 0 for n in BWD_LAUNCHES):
+        if not all(0 < count[n] <= calls and us[n] > 0 for n in launches):
             raise AssertionError(f"launches {count} and device us {us} in {calls} calls")
-        return {n: us[n] / count[n] / 1e3 for n in BWD_LAUNCHES}
+        return {n: us[n] / count[n] / 1e3 for n in launches}
 
     def attention_at_train_shape(case, label):
         """Flash attention's forward and backward at a training shape, each
         checked against its plain version and timed beside it, its bound and
-        SDPA (the backward under autograd); the backward's time split by
-        launch.  Returns the two JSON records, ``launches`` still None."""
+        SDPA (the window as a boolean mask; the backward under autograd),
+        with the SDPA backend that ran; the backward's time split by launch.
+        Returns the two JSON records, ``launches`` still None."""
         B, T, H, K, dk, dv, causal, window, dtype = case
         q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
         out, expect, kind = flash_run(case, q, k, v)
-        err, _ = flash_check(case, out, expect, kind)
+        err, share = flash_check(case, out, expect, kind)
         del expect
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+        mask = dict(causal=causal, window=window)
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, **mask), 20)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **mask), 3)
+        keep = attn_pairs(T, causal, window)
+        # Yardstick: SDPA on the same q, k, v; a window goes in as a mask.
+        sdpa_mask = (dict(attn_mask=keep.to(dev)) if window
+                     else dict(is_causal=causal))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        pairs = B * H * (T * (T + 1) // 2)  # causal: unmasked (query, key) pairs
+            qt, kt, vt, enable_gqa=True, **sdpa_mask), 20)
+        pairs = B * H * int(keep.sum())  # unmasked (query, key) pairs
         flops = 2 * (dk + dv) * pairs
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-        print(f"[kernel] flash_attention {case} {kind} ({label}): max_abs_err {err:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP); {smi}")
+        print(f"[kernel] flash_attention {case} {kind} ({label}): max_abs_err {err:.3e}"
+              + (f", {share:.3f} of the per-element bound" if dtype == "bfloat16" else "")
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {pairs} pairs); {smi}")
         fwd = {"name": "flash_attention", "variant": kind, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:128",
@@ -561,9 +844,9 @@ def main() -> int:
         # then timed beside the oracle's autograd (its forward recomputed, as
         # a backward through the oracle does it), its bound and SDPA's.
         g = randn(*out.shape).to(out.dtype)
-        out, lse = flash_attention_fwd(q, k, v, causal=True, lse=True)
+        out, lse = flash_attention_fwd(q, k, v, lse=True, **mask)
         before = dict(flash_attention_bwd.launches_by_variant)
-        got = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        got = flash_attention_bwd(q, k, v, out, lse, g, **mask)
         bwd_kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items()
                      if c != before[n])
         plain, oracle = grad_refs(case, q, k, v, out, lse, g)
@@ -571,16 +854,19 @@ def main() -> int:
         bwd_err, bwd_share, bwd_l2 = grad_check(case, bwd_kind, got, plain, oracle)
         del got, plain, oracle
         torch.cuda.empty_cache()
-        bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, causal=True), 20)
-        split = bwd_split(q, k, v, out, lse, g)
+        bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, **mask), 20)
+        split = bwd_split(bwd_kind, q, k, v, out, lse, g, **mask)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
-            ref.flash_attention_ref(*leaves, causal=True), leaves, g), 3)
+            ref.flash_attention_ref(*leaves, **mask), leaves, g), 3)
         qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_mask)
         gt = g.transpose(1, 2).contiguous()
         bwd_library_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt,
                                                              retain_graph=True), 20)
+        backend, top = sdpa_backend(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_mask),
+            (qt, kt, vt), gt))
         # Five products per unmasked pair (S, dP, dV, dK, dQ: 2 FLOP per
         # multiply-add over 3 dk + 2 dv); q, k, v, out, dout, lse read once
         # and dq, dk, dv written once.
@@ -588,16 +874,18 @@ def main() -> int:
         bwd_bytes = (sum(x.numel() * x.element_size() for x in (q, k, v, out, g, lse))
                      + sum(x.numel() * x.element_size() for x in (q, k, v)))
         bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
-        main_ms = split["flash_bwd_wgmma"]
+        main_ms = sum(split[n] for n in BWD_MAIN[bwd_kind])
         print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({label}): "
               + bwd_note(dtype, bwd_err, bwd_share, bwd_l2)
               + f"; kernel {bwd_ms:.4f} ms, plain (the oracle's autograd, forward recomputed) "
-              f"{bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms, bound "
+              f"{bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms (forward and "
+              f"backward on SDPA's {backend} backend: {top}), bound "
               f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_flops / 1e9:.2f} GFLOP, "
               f"{bwd_bytes / 1e6:.1f} MB); {smi}")
         print(f"[kernel] flash_attention_bwd {case} ({label}) device ms per call by launch: "
               + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
-              + f" (sum {sum(split.values()):.4f}); the main kernel reaches "
+              + f" (sum {sum(split.values()):.4f}); the main kernel"
+              f"{'s' if len(BWD_MAIN[bwd_kind]) > 1 else ''} reach "
               f"{100 * bwd_bound_ms / main_ms:.1f} % of the bound, the call "
               f"{100 * bwd_bound_ms / bwd_ms:.1f} %")
         bwd = {"name": "flash_attention_bwd", "variant": bwd_kind, "route": "cuda",
@@ -607,7 +895,7 @@ def main() -> int:
                                 "the oracle's vjp",
                "shape": list(case), "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms,
                "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
-               "library_ms": bwd_library_ms, "split_ms": split}
+               "library_ms": bwd_library_ms, "library_backend": backend, "split_ms": split}
         del q, k, v, qt, kt, vt, out, lse, g, gt, o_sdpa, leaves
         torch.cuda.empty_cache()
         return fwd, bwd
@@ -640,6 +928,12 @@ def main() -> int:
                                 "(d 64); no main path runs d 128 yet")
     records[("flash_attention", "llama3-8b train")] = fwd_rec
     records[("flash_attention_bwd", "llama3-8b train")] = bwd_rec
+    # recurrentgemma-9b's training shape (d 256, MQA, window 2048); its records
+    # take phase 6(d)'s launches.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_RG_ATTN,
+                                                "recurrentgemma-9b training microbatch")
+    records[("flash_attention", "recurrentgemma-9b train")] = fwd_rec
+    records[("flash_attention_bwd", "recurrentgemma-9b train")] = bwd_rec
 
     def scan_inputs(B, T, W):
         a = torch.sigmoid(randn(B, T, W)) * 0.6 + 0.3
@@ -655,40 +949,86 @@ def main() -> int:
                                  f"{tuple(a.shape)}: max_abs_err {err}")
         return err
 
+    def scan_bwd_err(a, h, h0, g):
+        """Largest |kernel - plain| over da, db and dh0; raises beyond RGLRU_TOL."""
+        got = rglru_scan_bwd(a, h, h0, g)
+        want = ref.rglru_scan_bwd_ref(a, h, h0, g)
+        torch.cuda.synchronize()
+        err = max((x - y).abs().max().item() for x, y in zip(got, want))
+        if not all(torch.allclose(x, y, atol=RGLRU_TOL, rtol=RGLRU_TOL)
+                   for x, y in zip(got, want)):
+            raise AssertionError(f"rglru_scan_bwd disagrees with its plain version at "
+                                 f"{tuple(a.shape)}: max_abs_err {err}")
+        return err
+
     for case in RGLRU_CASES:
         err = scan_err(*scan_inputs(*case))
         print(f"[kernel] rglru_scan {case}: max_abs_err {err:.3e} (tol {RGLRU_TOL})")
+    for B, T, W, scale in RGLRU_BWD_CASES:
+        a, b, h0 = scan_inputs(B, T, W)
+        h0 = h0 * scale
+        err = scan_bwd_err(a, rglru_scan_fwd(a, b, h0), h0, randn(B, T, W))
+        print(f"[kernel] rglru_scan_bwd {(B, T, W)} (h0 x {scale:g}): da/db/dh0 max_abs_err "
+              f"{err:.3e} (atol and rtol {RGLRU_TOL})")
 
-    B, T, W = RGLRU_SLICE
-    a, b, h0 = scan_inputs(B, T, W)
-    err = scan_err(a, b, h0)
-    ms = time_ms(lambda: rglru_scan_fwd(a, b, h0), 20)
-    plain_ms = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1)
-    # One fma per element; a and b read once, h written once, h0 read once (fp32).
-    nbytes = 4 * (3 * a.numel() + h0.numel())
-    bound_ms, bound_by = bound(2 * a.numel(), PEAK_FP32_FLOPS, nbytes)
-    print(f"[kernel] rglru_scan {RGLRU_SLICE} (recurrentgemma-9b prefill): max_abs_err "
-          f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call "
-          f"(no single PyTorch call computes this recurrence), bound {bound_ms:.4f} ms "
-          f"({bound_by}: {nbytes / 1e6:.1f} MB)")
-    records[("rglru_scan", "recurrentgemma-9b")] = {
-        "name": "rglru_scan",
-        "variant": "rglru_scan_kernel",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-        "replaces": "src/repro/kernels/rglru_scan.py:78",
-        "shape": list(RGLRU_SLICE),
-        "launches": None,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes the recurrence",
-    }
-    del a, b, h0
-    torch.cuda.empty_cache()
+    def scan_record(name, shape, err, ms, plain_ms, bound_ms, bound_by, **extra):
+        return {"name": name, "variant": f"{name}_kernel", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                "replaces": "src/repro/kernels/rglru_scan.py:78", "shape": list(shape),
+                "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "library_note": "no single PyTorch call computes the recurrence", **extra}
+
+    # Timed: the forward at the prefill and the training shape, the backward
+    # at both.  The forward moves a, b in and h out, one fma per element; the
+    # backward g, a, h in and da, db out, an add and two multiplies per
+    # element; both read h0 (and the backward writes dh0) once (fp32).  The
+    # backward's plain time is the oracle's autograd with its forward, as the
+    # parent tree ran it; the plain reverse loop is timed beside it.
+    scan_times = {}
+    for shape in (RGLRU_SLICE, RGLRU_TRAIN):
+        a, b, h0 = scan_inputs(*shape)
+        g = randn(*shape)
+        err = scan_err(a, b, h0)
+        h = rglru_scan_fwd(a, b, h0)
+        bwd_err = scan_bwd_err(a, h, h0, g)
+        n, n0 = a.numel(), h0.numel()
+        fwd = dict(ms=time_ms(lambda: rglru_scan_fwd(a, b, h0), 20),
+                   plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, warmup=1))
+        fwd.update(zip(("bound_ms", "bound_by"), bound(2 * n, PEAK_FP32_FLOPS, 4 * (3 * n + n0))))
+        leaves = [x.detach().requires_grad_() for x in (a, b, h0)]
+        bwd = dict(ms=time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 20),
+                   plain_ms=time_ms(lambda: torch.autograd.grad(
+                       ref.rglru_scan_ref(*leaves), leaves, g), 1, warmup=1),
+                   plain_loop_ms=time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, h0, g), 1,
+                                         warmup=1))
+        bwd_bytes = 4 * (5 * n + 2 * n0)
+        bwd.update(zip(("bound_ms", "bound_by"), bound(3 * n, PEAK_FP32_FLOPS, bwd_bytes)))
+        scan_times[shape] = (err, fwd, bwd_err, bwd)
+        print(f"[kernel] rglru_scan {shape}: max_abs_err {err:.3e}; kernel {fwd['ms']:.4f} ms, "
+              f"plain {fwd['plain_ms']:.4f} ms, no library call (no single PyTorch call "
+              f"computes this recurrence), bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}: "
+              f"{4 * (3 * n + n0) / 1e6:.1f} MB); {smi}")
+        print(f"[kernel] rglru_scan_bwd {shape}: max_abs_err {bwd_err:.3e}; kernel "
+              f"{bwd['ms']:.4f} ms, plain (the oracle's autograd, forward recomputed) "
+              f"{bwd['plain_ms']:.4f} ms, plain reverse loop {bwd['plain_loop_ms']:.4f} ms, no "
+              f"library call, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}: "
+              f"{bwd_bytes / 1e6:.1f} MB), {100 * bwd['bound_ms'] / bwd['ms']:.1f} % of it; {smi}")
+        del a, b, h0, g, h, leaves
+        torch.cuda.empty_cache()
+    err, fwd, _, _ = scan_times[RGLRU_SLICE]
+    records[("rglru_scan", "recurrentgemma-9b")] = scan_record(
+        "rglru_scan", RGLRU_SLICE, err, **fwd)
+    err, fwd, bwd_err, bwd = scan_times[RGLRU_TRAIN]
+    records[("rglru_scan", "recurrentgemma-9b train")] = scan_record(
+        "rglru_scan", RGLRU_TRAIN, err, **fwd)
+    prefill_bwd = scan_times[RGLRU_SLICE][3]
+    records[("rglru_scan_bwd", "recurrentgemma-9b train")] = scan_record(
+        "rglru_scan_bwd", RGLRU_TRAIN, bwd_err, **bwd,
+        replaces_note="the backward of its custom_vjp (src/repro/kernels/ops.py:63-78), the vjp "
+                      "of ref.rglru_scan_ref",
+        prefill_shape={"shape": list(RGLRU_SLICE), "max_abs_err": scan_times[RGLRU_SLICE][2],
+                       **prefill_bwd})
 
     # -------------------------------- 3. port vs its plain path, small input --
     for arch, _, _, _ in SERVE:
@@ -712,7 +1052,7 @@ def main() -> int:
 
     # ----------------------------------------------------- 4. main paths --
     kernels = {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
-               "rglru_scan": rglru_scan_fwd}
+               "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd}
 
     def reset_counts():
         for fn in kernels.values():
@@ -726,7 +1066,7 @@ def main() -> int:
         plan = layer_plan(full)
         kinds = plan.pattern * plan.n_scan + plan.tail
         expect = {"flash_attention": kinds.count("attn"), "flash_attention_bwd": 0,
-                  "rglru_scan": kinds.count("rec")}
+                  "rglru_scan": kinds.count("rec"), "rglru_scan_bwd": 0}
         # Same weights and prompts as serve() draws from seed 0: the first token
         # it serves must be the argmax of these finite logits.
         model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -818,8 +1158,8 @@ def main() -> int:
     counters = {k: adm[k] for k in ("grants", "fast_renews", "expirations", "local_rdma_ops")}
     if counters != {"grants": 1, "fast_renews": 4, "expirations": 0, "local_rdma_ops": 0}:
         raise AssertionError(f"admission counters {counters}")
-    if (launches != {"flash_attention": 16, "flash_attention_bwd": 0, "rglru_scan": 0}
-            or flash_variants["wgmma"] != 16):
+    if (launches != {"flash_attention": 16, "flash_attention_bwd": 0, "rglru_scan": 0,
+                     "rglru_scan_bwd": 0} or flash_variants["wgmma"] != 16):
         raise AssertionError(f"admitted serve launched {launches}, flash {flash_variants}")
     if seen[0] != ("admit", ["flash_attention"]):
         raise AssertionError(f"admit found the kernel libraries {seen[0][1]} loaded")
@@ -963,14 +1303,9 @@ def main() -> int:
               f"{[(round(c, 6), round(d, 6)) for _, _, c, d in rows]}, largest parameter "
               f"difference {worst:.3e} (atol {TRAIN_TOL['atol']}, rtol {TRAIN_TOL['rtol']}); "
               f"card launches " + ", ".join(f"{n} {c}" for n, c in launches.items()))
-        # Per microbatch: every layer once in forward, and the stacked
-        # super-blocks' layers once more in remat's recompute.
-        plan = layer_plan(get_config(arch, smoke=True))
-        expect = {name: 3 * 2 * (2 * plan.n_scan * plan.pattern.count(kind)
-                                 + plan.tail.count(kind))
-                  for name, kind in (("flash_attention", "attn"), ("rglru_scan", "rec"))}
-        expect["flash_attention_bwd"] = 3 * 2 * (plan.n_scan * plan.pattern.count("attn")
-                                                 + plan.tail.count("attn"))
+        # 3 steps of 2 microbatches.
+        expect = {name: 3 * c for name, c in
+                  expected_launches(layer_plan(get_config(arch, smoke=True)), 2).items()}
         if launches != expect:
             raise AssertionError(f"{arch} smoke training launched {launches}, expected {expect}")
 
@@ -991,26 +1326,11 @@ def main() -> int:
         run = RunConfig(learning_rate=3e-4, warmup_steps=2, total_steps=n_steps,
                         microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
         # Calls of the plain versions during the run: there must be none.
-        plain_calls = {}
-        plain_fns = {name: getattr(ref, name) for name in
-                     ("flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref")}
-
-        def counted(name):
-            def call(*args, **kwargs):
-                plain_calls[name] = plain_calls.get(name, 0) + 1
-                return plain_fns[name](*args, **kwargs)
-            return call
-
-        for name in plain_fns:
-            setattr(ref, name, counted(name))
-        try:
+        with counted_plain_calls() as plain_calls:
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             res = train(arch, smoke=False, steps=n_steps, shape=shape, run=run, log_every=1,
                         device="cuda")
-        finally:
-            for name, fn in plain_fns.items():
-                setattr(ref, name, fn)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in kernels.items()}
     flash_variants = dict(flash_attention_fwd.launches_by_variant)
@@ -1045,8 +1365,9 @@ def main() -> int:
           + "; backward by variant: " + ", ".join(
               f"{n} {c / n_steps:g}" for n, c in bwd_variants.items())
           + f"); calls of the plain versions {plain_calls}; {smi}")
-    expect_flash = 2 * L * micro * n_steps  # forward + remat recompute, per microbatch
-    expect_bwd = L * micro * n_steps
+    per_step = expected_launches(layer_plan(full), micro)
+    expect_flash = per_step["flash_attention"] * n_steps
+    expect_bwd = per_step["flash_attention_bwd"] * n_steps
     if (launches["flash_attention_bwd"] != expect_bwd or bwd_variants["wgmma"] != expect_bwd
             or plain_calls):
         raise AssertionError(f"training launched the flash backward "
@@ -1058,6 +1379,8 @@ def main() -> int:
     if launches["flash_attention"] != expect_flash or flash_variants["wgmma"] != expect_flash:
         raise AssertionError(f"training launched flash {launches['flash_attention']} times "
                              f"({flash_variants}), expected {expect_flash}, all wgmma")
+    if launches["rglru_scan"] or launches["rglru_scan_bwd"]:
+        raise AssertionError(f"llama training launched the scan: {launches}")
     if not hist[-1]["loss"] < hist[0]["loss"]:
         raise AssertionError(f"loss did not fall: step 1 {hist[0]['loss']}, "
                              f"step {n_steps} {hist[-1]['loss']}")
@@ -1068,46 +1391,15 @@ def main() -> int:
     model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
     mb = SyntheticLMDataset(full, ShapeConfig("mb", seq, 1, "train"), seed=0).batch(0)
     mb = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in mb.items()}
-    attn_events, attn_peaks = [], []
-    real_backward = ops._FlashAttention.backward
-
-    def timed_backward(ctx, g):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        start.record()
-        out = real_backward(ctx, g)
-        end.record()
-        attn_events.append((start, end))
-        attn_peaks.append(torch.cuda.max_memory_allocated() - base)
-        return out
-
-    params = [p for p in model.parameters()]
-    timings = []
-    ops._FlashAttention.backward = staticmethod(timed_backward)
-    try:
-        for _ in range(2):  # the first warms up; the second is reported
-            attn_events.clear()
-            attn_peaks.clear()
-            start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-            start.record()
-            loss, _ = model.loss(mb)
-            mid.record()
-            grads = torch.autograd.grad(loss, params)
-            end.record()
-            end.synchronize()
-            timings = [start.elapsed_time(mid), mid.elapsed_time(end),
-                       sum(a.elapsed_time(b) for a, b in attn_events)]
-            del loss, grads
-    finally:
-        ops._FlashAttention.backward = real_backward
-    fwd_ms, bwd_ms, attn_ms = timings
+    for _ in range(2):  # the first warms up; the second is reported
+        fwd_ms, bwd_ms, calls = timed_microbatch(model, mb, {"attention": ops._FlashAttention})
+    attn = calls["attention"]
+    attn_ms = sum(t for t, _ in attn)
     print(f"[train] {arch} one microbatch (1 x {seq}): forward {fwd_ms:.2f} ms, backward "
           f"{bwd_ms:.2f} ms (with remat's recompute), of which the attention backward "
-          f"(the kernel) {attn_ms:.2f} ms in {len(attn_events)} calls = "
-          f"{100 * attn_ms / bwd_ms:.1f} %, {attn_ms / len(attn_events):.2f} ms and "
-          f"{max(attn_peaks) / 1e9:.2f} GB of transient memory per call; {smi}")
-    del params
+          f"(the kernel) {attn_ms:.2f} ms in {len(attn)} calls = "
+          f"{100 * attn_ms / bwd_ms:.1f} %, {attn_ms / len(attn):.2f} ms and "
+          f"{max(p for _, p in attn) / 1e9:.2f} GB of transient memory per call; {smi}")
 
     # The same microbatch and weights with the plain versions in place of the
     # kernels, in the forward, remat's recompute and the backward: the wgmma
@@ -1115,27 +1407,21 @@ def main() -> int:
     # plain versions' loss and gradients in bf16.  Then a recompute that is
     # wrong on purpose (window 2048 in remat's calls only) must exceed the
     # limits.
-    def plain_fwd(q, k, v, causal, window, scale, lse=False):
-        fn = ref.flash_attention_lse_ref if lse else ref.flash_attention_ref
-        return fn(q, k, v, causal=causal, window=window, scale=scale)
-
-    def plain_bwd(q, k, v, out, lse, g, causal, window, scale):
-        return ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal, window=window,
-                                           scale=scale)
-
+    plain = plain_entries()
     calls = []
 
     def wrong_recompute(q, k, v, causal, window, scale, lse=False):
         calls.append(None)  # the first L calls are the forward, then remat's
-        return plain_fwd(q, k, v, causal, seq // 2 if len(calls) > L else window, scale, lse)
+        return plain["_flash_fwd"](q, k, v, causal, seq // 2 if len(calls) > L else window,
+                                   scale, lse)
 
     before = flash_attention_fwd.launches_by_variant["wgmma"]
     before_bwd = flash_attention_bwd.launches_by_variant["wgmma"]
     kernel_run = microbatch_grads(model, mb)
     wgmma = flash_attention_fwd.launches_by_variant["wgmma"] - before
     wgmma_bwd = flash_attention_bwd.launches_by_variant["wgmma"] - before_bwd
-    plain_run = microbatch_grads(model, mb, plain_fwd, plain_bwd)
-    wrong_run = microbatch_grads(model, mb, wrong_recompute, plain_bwd)
+    plain_run = microbatch_grads(model, mb, plain)
+    wrong_run = microbatch_grads(model, mb, {**plain, "_flash_fwd": wrong_recompute})
     del model
     gaps = grad_gaps(kernel_run, plain_run)
     wrong = grad_gaps(wrong_run, plain_run)
@@ -1162,7 +1448,7 @@ def main() -> int:
     case = (1, seq, full.num_heads, full.num_kv_heads, hd, hd, True, 0, "bfloat16")
     fwd_rec, bwd_rec = attention_at_train_shape(case, f"{arch} training microbatch")
     fwd_rec["launches"] = launches["flash_attention"]
-    in_step_ms = attn_ms / len(attn_events)
+    in_step_ms = attn_ms / len(attn)
     print(f"[kernel] flash_attention_bwd at {arch}'s training shape: {in_step_ms:.4f} ms per "
           f"call in the microbatch's backward; {smi}")
     fwd_rec.update(
@@ -1175,6 +1461,150 @@ def main() -> int:
     records[("flash_attention_bwd", f"{arch} train")] = bwd_rec
     for name in ("flash_attention", "flash_attention_bwd"):
         records[(name, "llama3-8b train")]["launches"] = launches[name]
+    torch.cuda.empty_cache()
+
+    # (d) recurrentgemma-9b training at published widths, cut to 8 layers,
+    # through train() with get_config patched in its namespace for the call.
+    arch, layers, rows, seq, micro, n_steps = RG_TRAIN
+    cfg = get_config(arch).with_overrides(num_layers=layers)
+    plan = layer_plan(cfg)
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    probe = [torch.empty((1, 8, n, hd), dtype=torch.bfloat16, device=dev) for n in (H, K, K)]
+    fwd_kind, bwd_kind = flash_variant(*probe), backward_variant(*probe)
+    del probe
+
+    def expected_counts(microbatches):
+        """launch_counts()' keys: the kernels' launches and, by variant, the
+        flash launches all on the variants the wrappers' rules choose."""
+        out = dict.fromkeys(launch_counts(), 0)
+        out.update(expected_launches(plan, microbatches))
+        out[f"flash_attention:{fwd_kind}"] = out["flash_attention"]
+        out[f"flash_attention_bwd:{bwd_kind}"] = out["flash_attention_bwd"]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(learning_rate=3e-4, warmup_steps=2, total_steps=n_steps,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, step_counts, plain_calls = counted_training(
+            arch, layers, ShapeConfig("train_4k", seq, rows, "train"), run, "cuda")
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res["history"]
+    n_params = sum(t.numel() for t in res["final_state"]["params"].values())
+    trained_layers = res["config"].num_layers
+    del res
+    torch.cuda.empty_cache()
+    for h, counts in zip(hist, step_counts):
+        print(f"[train] {arch} {layers} layers step {h['step']}: loss {h['loss']:.6f}, grad-norm "
+              f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s; launches "
+              + ", ".join(f"{n} {c}" for n, c in counts.items() if c))
+    step_s = statistics.mean(h["seconds_per_step"] for h in hist[1:])
+    tokens = rows * seq
+    n_attn = plan.n_scan * plan.pattern.count("attn") + plan.tail.count("attn")
+    pairs = int(attn_pairs(seq, cfg.causal, cfg.window).sum())
+    # Model FLOPs: 6 N per token, plus windowed causal attention's QK^T and PV
+    # (2 FLOP per multiply-add over dk + dv) over the unmasked pairs of each
+    # row, three times (forward and backward) in each attention layer.  Remat's
+    # recompute is not model work and is not counted.
+    attn_flops = 3 * 2 * 2 * hd * H * pairs * rows * n_attn
+    model_flops = 6 * n_params * tokens + attn_flops
+    share = model_flops / step_s / PEAK_BF16_FLOPS
+    expect = expected_counts(micro)
+    print(f"[train] {arch} published widths at {trained_layers} layers ({plan.n_scan} x "
+          f"{plan.pattern} + {plan.tail}), bf16 (fp32 moments, block remat), {n_params} "
+          f"parameters, {rows} rows x {seq} tokens in {micro} microbatches, lr "
+          f"{run.learning_rate} (warmup {run.warmup_steps}): {step_s:.4f} s per step after the "
+          f"first (mean of steps 2-{n_steps}), {tokens / step_s:.1f} tokens/s, model FLOPs "
+          f"{model_flops / 1e12:.2f} T per step ({attn_flops / 1e12:.2f} T attention over "
+          f"{pairs} pairs per row and head), {100 * share:.2f} % of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; launches per "
+          f"step expected " + ", ".join(f"{n} {c}" for n, c in expect.items() if c)
+          + f" (flash forward on {fwd_kind}, backward on {bwd_kind}, as the wrappers' rules "
+          f"choose at d {hd}); calls of the plain versions {plain_calls}; {smi}")
+    if trained_layers != layers or len(step_counts) != n_steps:
+        raise AssertionError(f"trained {trained_layers} layers in {len(step_counts)} steps")
+    if fwd_kind != "wgmma" or any(c != expect for c in step_counts) or plain_calls:
+        raise AssertionError(f"{arch} training launched {step_counts}, expected {expect} per "
+                             f"step with the forward on wgmma (rule: {fwd_kind}), and called "
+                             f"the plain versions {plain_calls} times, expected never")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"loss did not fall: step 1 {hist[0]['loss']}, "
+                             f"step {n_steps} {hist[-1]['loss']}")
+
+    # One microbatch's backward: events around the whole, each scan backward
+    # and each attention backward; then the same microbatch with the parent
+    # tree's scan route (its backward the oracle's autograd), swapped in for
+    # this measurement only.
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    mb = SyntheticLMDataset(cfg, ShapeConfig("mb", seq, 1, "train"), seed=0).batch(0)
+    mb = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in mb.items()}
+    timed = {"scan": ops._RGLRUScan, "attention": ops._FlashAttention}
+    for _ in range(2):  # the first warms up; the second is reported
+        fwd_ms, bwd_ms, calls = timed_microbatch(model, mb, timed)
+    oracle_scan, real_scan = parent_scan(), ops._RGLRUScan
+    ops._RGLRUScan = oracle_scan
+    try:
+        _, oracle_bwd_ms, oracle_calls = timed_microbatch(model, mb, {**timed,
+                                                                       "scan": oracle_scan})
+    finally:
+        ops._RGLRUScan = real_scan
+    per_call = {label: sum(t for t, _ in c) / len(c) for label, c in calls.items()}
+
+    def part(label, c):
+        ms = sum(t for t, _ in c)
+        return (f"the {label} backward {ms:.2f} ms in {len(c)} calls ({ms / len(c):.3f} ms each, "
+                f"{100 * ms / bwd_ms:.1f} %)")
+
+    print(f"[train] {arch} {layers} layers, one microbatch (1 x {seq}): forward {fwd_ms:.2f} ms, "
+          f"backward {bwd_ms:.2f} ms (with remat's recompute), of which "
+          + ", ".join(part(label, c) for label, c in calls.items())
+          + f"; the parent's route (the scan backward through the oracle's autograd): backward "
+          f"{oracle_bwd_ms:.2f} ms, of which the scan backward "
+          f"{sum(t for t, _ in oracle_calls['scan']):.2f} ms in {len(oracle_calls['scan'])} "
+          f"calls; {smi}")
+
+    # The same microbatch through the kernels against the plain versions in the
+    # forward, remat's recompute and the backward; then a scan backward wrong
+    # on purpose (da from h_t) must exceed the limits.
+    before = launch_counts()
+    kernel_run = microbatch_grads(model, mb)
+    mb_launches = {k: c - before[k] for k, c in launch_counts().items()}
+    before = launch_counts()
+    plain_run = microbatch_grads(model, mb, plain_entries())
+    plain_launches = {k: c - before[k] for k, c in launch_counts().items() if c != before[k]}
+    wrong_run = microbatch_grads(model, mb, plain_entries(wrong_scan_bwd=True))
+    del model
+    gaps = grad_gaps(kernel_run, plain_run)
+    wrong = grad_gaps(wrong_run, plain_run)
+    tol = RG_TRAIN_BF16_TOL
+    print(f"[train] {arch} {layers} layers, one microbatch (1 x {seq}), kernels (launches "
+          + ", ".join(f"{n} {c}" for n, c in mb_launches.items() if c)
+          + f") vs plain versions in forward, recompute and backward: loss {kernel_run[0]:.6f} "
+          f"vs {plain_run[0]:.6f}, relative gap {gaps[0]:.3e} (limit {tol['loss']}); worst leaf "
+          f"|g - g_plain| / |g_plain| {gaps[1]:.3e} ({gaps[3]}; limit {tol['grad']}); worst leaf "
+          f"norm gap {gaps[2]:.3e} (limit {tol['norm']}); a scan backward wrong on purpose "
+          f"(da from h_t): {wrong[0]:.3e}, {wrong[1]:.3e} ({wrong[3]}), {wrong[2]:.3e}")
+    if mb_launches != expected_counts(1) or plain_launches:
+        raise AssertionError(f"the kernels' microbatch launched {mb_launches}, expected "
+                             f"{expected_counts(1)}; the plain one {plain_launches}")
+    if not (gaps[0] <= tol["loss"] and gaps[1] <= tol["grad"] and gaps[2] <= tol["norm"]):
+        raise AssertionError(f"{arch} training through the kernels disagrees with the plain "
+                             f"versions at published widths: {gaps}")
+    if wrong[1] <= tol["grad"]:
+        raise AssertionError(f"the gradient check does not see a wrong scan backward: {wrong}")
+    del kernel_run, plain_run, wrong_run
+    torch.cuda.empty_cache()
+
+    for (name, path), rec in records.items():
+        if path == f"{arch} train":
+            rec["launches"] = launches[name]
+            rec["launches_per_step"] = launches[name] // n_steps
+    records[("rglru_scan_bwd", f"{arch} train")]["ms_in_step"] = per_call["scan"]
+    records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = per_call["attention"]
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

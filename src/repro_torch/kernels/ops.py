@@ -13,8 +13,11 @@ is the flash-backward kernel on CUDA (``flash_attention_bwd``) and the same
 equations in plain PyTorch on the CPU (``ref.flash_attention_bwd_ref``).
 Under non-reentrant ``torch.utils.checkpoint`` (the models' remat) the
 saved output and lse are those of the recomputed forward, so saving them is
-safe there.  The RG-LRU scan saves only its inputs and its backward is the
-autograd of its plain version, as the reference takes its oracle's vjp.
+safe there.  The RG-LRU scan saves a, h0 and its output h (never b, which
+the backward does not need), likewise the recomputed forward's h under
+remat; its backward is the reverse-scan kernel on CUDA
+(``rglru_scan_bwd``) and the same loop in plain PyTorch on the CPU
+(``ref.rglru_scan_bwd_ref``), the cotangents of the reference's oracle vjp.
 :func:`prepare` builds and loads ahead of time the kernels that a model's
 layers launch.
 """
@@ -27,7 +30,7 @@ import torch
 
 from . import build, ref
 from .flash_attention import flash_attention_bwd, flash_attention_fwd
-from .rglru_scan import rglru_scan_fwd
+from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
 # The kernel that a layer of each kind launches on a CUDA tensor.
 KERNEL_OF = {"attn": "flash_attention", "rec": "rglru_scan"}
@@ -62,11 +65,13 @@ def _scan_fwd(a, b, h0):
     raise ValueError(f"no rglru_scan path for device {a.device}")
 
 
-def _oracle_grads(fn, inputs, g):
-    """Cotangents of ``fn`` at ``inputs`` (recomputed on detached copies)."""
-    with torch.enable_grad():
-        xs = [x.detach().requires_grad_() for x in inputs]
-        return torch.autograd.grad(fn(*xs), xs, g)
+def _scan_bwd(a, h, h0, g):
+    """(da, db, dh0) from a, the forward's output h and h0."""
+    if a.device.type == "cuda":
+        return rglru_scan_bwd(a, h, h0, g)
+    if a.device.type == "cpu":
+        return ref.rglru_scan_bwd_ref(a, h, h0, g)
+    raise ValueError(f"no rglru_scan backward for device {a.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -89,12 +94,14 @@ class _FlashAttention(torch.autograd.Function):
 class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, h0):
-        ctx.save_for_backward(a, b, h0)
-        return _scan_fwd(a, b, h0)
+        h = _scan_fwd(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
 
     @staticmethod
     def backward(ctx, g):
-        return _oracle_grads(ref.rglru_scan_ref, ctx.saved_tensors, g)
+        a, h, h0 = ctx.saved_tensors
+        return _scan_bwd(a, h, h0, g.contiguous())
 
 
 def flash_attention(

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels (quadratic attention and its
-flash-backward equations, sequential scan).
+flash-backward equations, sequential scan and its reverse).
 
 Port of ``repro/kernels/ref.py``.  The CPU path of ``ops`` runs these, and the
 card's checks hold each kernel against them on the same inputs.
@@ -116,11 +116,28 @@ def flash_attention_bwd_ref(
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """Sequential linear recurrence h_t = a_t h_{t-1} + b_t. [B,T,W] fp32.
 
-    The steps are stacked rather than written into one buffer, so that the
-    autograd graph the backward recomputes stays linear in T."""
+    The steps are stacked rather than written into one buffer, so that an
+    autograd graph through it stays linear in T."""
     h = h0
     hs = []
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else torch.empty_like(a)
+
+
+def rglru_scan_bwd_ref(
+    a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor, g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(da, db, dh0) of :func:`rglru_scan_ref` for the cotangent g of its
+    output h, from a, that h and h0, without autograd: with h_{-1} = h0,
+    ``dh_t = g_t + a_{t+1} dh_{t+1}``, ``da_t = dh_t h_{t-1}``,
+    ``db_t = dh_t`` and ``dh0 = a_0 dh_0``, looped from t = T-1 down."""
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    carry = torch.zeros_like(h0)  # a_{t+1} dh_{t+1}
+    for t in range(a.shape[1] - 1, -1, -1):
+        dh = g[:, t] + carry
+        db[:, t] = dh
+        da[:, t] = dh * (h[:, t - 1] if t > 0 else h0)
+        carry = a[:, t] * dh
+    return da, db, carry

@@ -10,9 +10,11 @@ projection.  The RG-LRU is a gated *linear* recurrence
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 Training and prefill run the recurrence through ``kernels.ops.rglru_scan``
-(the Hopper kernel on the card, under autograd in training) where the JAX
-package runs ``jax.lax.associative_scan`` with ``h0`` folded into
-``b[:, 0]``: both compute one recurrence from ``h0``.
+where the JAX package runs ``jax.lax.associative_scan`` with ``h0`` folded
+into ``b[:, 0]``: both compute one recurrence from ``h0``.  On the card the
+forward is the scan kernel and, in training, the backward the reverse-scan
+kernel from the saved h (``rglru_scan_bwd``); on the CPU both are their plain
+loops.
 Decode is a one-step update in plain ops.  ``h`` and the carried conv inputs
 stay fp32 in a bf16 model; the matmuls run in x's dtype.
 """

@@ -1,7 +1,9 @@
 """The port's RG-LRU: the scan (plain version, CPU dispatch, Hopper kernel)
 against the JAX package's Pallas kernel in interpret mode and its associative
-scan, and the recurrent block and its decode step against
-``repro.models.recurrent`` on the same parameters.
+scan, the scan's backward (plain version, autograd dispatch, Hopper kernel)
+against the cotangents of the JAX package's ``custom_vjp``, and the
+recurrent block and its decode step against ``repro.models.recurrent`` on
+the same parameters.
 
 Inputs are drawn with numpy and handed to both frameworks.  The JAX modules
 are imported inside a fixture so that the card-only test also runs where JAX
@@ -18,7 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd  # noqa: E402
 from repro_torch.models import recurrent as tr  # noqa: E402
 
 # tests/test_kernels.py's RG-LRU cases: B, T, W, t_block, w_block.
@@ -27,6 +29,10 @@ SCAN_CASES = [
     (1, 64, 128, 64, 128),
     (3, 33, 20, 16, 8),
 ]
+# The backward's cases: SCAN_CASES, then T 1 (no step before or after the
+# only one) and an h0 ten times larger than the rest (da_0 and dh0 read it).
+# B, T, W, t_block, w_block, h0 scale.
+BWD_CASES = [(*c, 1.0) for c in SCAN_CASES] + [(2, 1, 48, 8, 16, 1.0), (2, 37, 24, 16, 8, 10.0)]
 # fp32 throughout; the sequential, blocked-associative and fma orders differ
 # in rounding only, and |a| < 1 damps what accumulates.
 SCAN_TOL = 1e-5
@@ -89,33 +95,50 @@ def test_rglru_scan_matches_jax_associative_scan(jx, B, T, W, tb, wb):
     _close(ops.rglru_scan(*(torch.from_numpy(x) for x in arrays)), expect, SCAN_TOL)
 
 
-def _bad_scan_inputs(kind):
+# Each wrapper and the number of tensors it takes: (a, b, h0) and (a, h, h0, g).
+WRAPPERS = {"fwd": (rglru_scan_fwd, 3), "bwd": (rglru_scan_bwd, 4)}
+
+
+def _bad_scan_inputs(kind, n):
+    """``n`` CPU tensors in a wrapper's order, one of them broken as ``kind``
+    says (the forward's a or the backward's g in bf16, the second tensor or g
+    strided, h0 too narrow), the error it must raise and its message."""
     a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(2, 8, 16))
+    args = [a, b, h0, b * 0.5][:n]
     if kind == "bf16":
-        return (a.bfloat16(), b, h0), TypeError, "float32"
+        i = 3 if n == 4 else 0
+        args[i] = args[i].bfloat16()
+        return args, TypeError, "float32"
     if kind == "strided":
-        return (a, b.transpose(1, 2).contiguous().transpose(1, 2), h0), ValueError, \
-            "contiguous"
+        i = 3 if n == 4 else 1
+        args[i] = args[i].transpose(1, 2).contiguous().transpose(1, 2)
+        return args, ValueError, "contiguous"
     if kind == "shape":
-        return (a, b, h0[:, :8]), ValueError, "shape mismatch"
-    return (a, b, h0), ValueError, "CUDA tensor"
+        args[2] = h0[:, :8]
+        return args, ValueError, "shape mismatch"
+    return args, ValueError, "CUDA tensor"
 
 
-@pytest.mark.parametrize("kind", ["cpu", "bf16", "strided", "shape"])
-def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(kind):
-    """The wrapper launches on fp32, contiguous CUDA tensors of matching shapes
-    or raises; it never computes anything itself."""
-    args, err, match = _bad_scan_inputs(kind)
-    before = rglru_scan_fwd.launches
+@pytest.mark.parametrize("kind,direction", [
+    pytest.param(kind, direction, id=kind if direction == "fwd" else f"{kind}-{direction}")
+    for direction in WRAPPERS for kind in ("cpu", "bf16", "strided", "shape")])
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(kind, direction):
+    """Each wrapper launches on fp32, contiguous CUDA tensors of matching
+    shapes or raises; it never computes anything itself."""
+    fn, n = WRAPPERS[direction]
+    args, err, match = _bad_scan_inputs(kind, n)
+    before = fn.launches
     with pytest.raises(err, match=match):
-        rglru_scan_fwd(*args)
-    assert rglru_scan_fwd.launches == before
+        fn(*args)
+    assert fn.launches == before
 
 
 def test_ops_rglru_refuses_unknown_device():
     a = torch.empty((1, 4, 8), device="meta")
     with pytest.raises(ValueError, match="no rglru_scan path"):
         ops.rglru_scan(a, a, torch.empty((1, 8), device="meta"))
+    with pytest.raises(ValueError, match="no rglru_scan backward"):
+        ops._scan_bwd(a, a, torch.empty((1, 8), device="meta"), a)
 
 
 def test_rglru_build_raises_without_nvcc(tmp_path, monkeypatch):
@@ -125,6 +148,28 @@ def test_rglru_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["rglru_scan"])
+
+
+@pytest.mark.cuda
+def test_rglru_bwd_kernel_matches_plain_on_card(cuda):
+    """The backward kernel against its plain version on the forward's h:
+    every backward case, a width that is no multiple of 32 with an odd T, and
+    T 0 (zeros, no launch)."""
+    for B, T, W, _, _, scale in BWD_CASES + [(2, 257, 4100, 0, 0, 1.0)]:
+        a, b, h0 = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(B, T, W))
+        h0 = h0 * scale
+        h = rglru_scan_fwd(a, b, h0)
+        g = torch.from_numpy(_scan_inputs(B, T, W, seed=3)[1]).to(cuda)
+        got = rglru_scan_bwd(a, h, h0, g)
+        want = ref.rglru_scan_bwd_ref(a, h, h0, g)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            _close(x.cpu(), y.cpu(), SCAN_TOL, SCAN_TOL)
+    empty = torch.zeros((1, 0, 8), device=cuda)
+    before = rglru_scan_bwd.launches
+    da, db, dh0 = rglru_scan_bwd(empty, empty, torch.ones((1, 8), device=cuda), empty)
+    assert rglru_scan_bwd.launches == before and da.shape == db.shape == (1, 0, 8)
+    assert not dh0.cpu().any()
 
 
 @pytest.mark.cuda
@@ -200,17 +245,58 @@ def test_rglru_state_spec_matches_jax(jx):
 
 
 # ------------------------------------------------------------ autograd --
-@pytest.mark.parametrize("B,T,W,tb,wb", SCAN_CASES)
-def test_rglru_scan_grads_match_jax_custom_vjp(jx, B, T, W, tb, wb):
-    """ops.rglru_scan under autograd (saving a, b, h0 and recomputing the
-    sequential scan's autograd) against the reference's ``jax.custom_vjp``."""
+def _jax_scan_grads(jx, arrays, g):
+    """(da, db, dh0) of the JAX package's ``rglru_scan`` (its Pallas forward
+    in interpret mode under its ``custom_vjp``) for the cotangent g."""
     from repro.kernels import ops as jops
 
+    jg = jx.jnp.asarray(g)
+    return jx.jax.grad(lambda a, b, h0: jx.jnp.sum(jops.rglru_scan(a, b, h0) * jg),
+                       argnums=(0, 1, 2))(*(jx.jnp.asarray(x) for x in arrays))
+
+
+@pytest.mark.parametrize("B,T,W,tb,wb,scale", BWD_CASES)
+def test_rglru_scan_bwd_ref_matches_jax_custom_vjp(jx, B, T, W, tb, wb, scale):
+    """The plain backward, on the plain forward's h, against the reference's
+    cotangents."""
+    a, b, h0 = _scan_inputs(B, T, W, seed=4)
+    arrays = (a, b, h0 * np.float32(scale))
+    g = np.random.default_rng(5).standard_normal((B, T, W)).astype(np.float32)
+    want = _jax_scan_grads(jx, arrays, g)
+    a, b, h0 = (torch.from_numpy(x) for x in arrays)
+    got = ref.rglru_scan_bwd_ref(a, ref.rglru_scan_ref(a, b, h0), h0, torch.from_numpy(g))
+    assert [tuple(x.shape) for x in got] == [(B, T, W), (B, T, W), (B, W)]
+    for x, exp in zip(got, want):
+        _close(x, exp, SCAN_TOL, SCAN_TOL)
+
+
+def test_rglru_scan_backward_on_cpu_takes_the_plain_backward(monkeypatch):
+    """``_RGLRUScan.backward`` on CPU tensors calls ``ref.rglru_scan_bwd_ref``
+    once, on the saved h, and never the forward's plain version."""
+    leaves = [torch.from_numpy(x).requires_grad_() for x in _scan_inputs(2, 9, 16)]
+    out = ops.rglru_scan(*leaves)
+
+    def refuse(*args):
+        raise AssertionError("the backward recomputed the forward")
+
+    calls, real = [], ref.rglru_scan_bwd_ref
+    monkeypatch.setattr(ref, "rglru_scan_ref", refuse)
+    monkeypatch.setattr(ref, "rglru_scan_bwd_ref",
+                        lambda *args: calls.append(args) or real(*args))
+    grads = torch.autograd.grad(out, leaves, torch.ones_like(out))
+    assert len(calls) == 1 and calls[0][1] is not None
+    torch.testing.assert_close(calls[0][1], out.detach(), rtol=0, atol=0)
+    assert [g.shape for g in grads] == [x.shape for x in leaves]
+
+
+@pytest.mark.parametrize("B,T,W,tb,wb", SCAN_CASES)
+def test_rglru_scan_grads_match_jax_custom_vjp(jx, B, T, W, tb, wb):
+    """ops.rglru_scan under autograd (saving a, its output h and h0; the
+    backward runs the plain reverse scan on the CPU) against the reference's
+    ``jax.custom_vjp``."""
     arrays = _scan_inputs(B, T, W, seed=2)
     g = np.random.default_rng(3).standard_normal((B, T, W)).astype(np.float32)
-    jg = jx.jnp.asarray(g)
-    want = jx.jax.grad(lambda a, b, h0: jx.jnp.sum(jops.rglru_scan(a, b, h0) * jg),
-                       argnums=(0, 1, 2))(*(jx.jnp.asarray(x) for x in arrays))
+    want = _jax_scan_grads(jx, arrays, g)
     leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
     out = ops.rglru_scan(*leaves)
     assert out.grad_fn is not None
@@ -220,7 +306,8 @@ def test_rglru_scan_grads_match_jax_custom_vjp(jx, B, T, W, tb, wb):
 
 def test_rglru_block_train_grads_match_jax(jx):
     """The train forward (``rglru_block``) and the grads of every block
-    parameter and of x, against the JAX block's (its associative scan)."""
+    parameter and of x (the scan's through the plain reverse scan on the
+    CPU), against the JAX block's (its associative scan)."""
     jcfg, tcfg, jp, tp = _block_setup(jx, seed=5)
     rng = np.random.default_rng(6)
     x = rng.standard_normal((2, 24, jcfg.d_model)).astype(np.float32)
