@@ -8,7 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit, then the build of every kernel source
    with each kernel's registers, static shared memory and spill bytes (nvcc
    ``-Xptxas -v``); every ``flash_fwd_wgmma`` and ``flash_bwd_wgmma``
-   instantiation must spill nothing;
+   instantiation (``flash_bwd_wgmma<64/128>`` and, past head dim 128,
+   ``flash_bwd_wgmma_dkdv<256>`` and ``flash_bwd_wgmma_dq<256>``) must spill
+   nothing;
 2. every kernel against its plain PyTorch version on the card: the reference
    test shapes (fp32 at 2e-5 with TF32 off; bf16 within 2e-2 and, per
    element, within 1.6e-2 of the value plus 1e-2 of its row's RMS, NaN-free;
@@ -20,12 +22,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward on the kernel's own output and against the oracle's autograd on
    fp32 upcasts (fp32 within 1e-4 of both; bf16 per element against the
    plain backward and in relative L2 against the oracle, see ``GRAD_RTOL``),
-   each case naming its variant (every bf16 case up to head dim 128 must
-   launch ``wgmma``); then the forward and the backward at llama3-8b's
-   training shape (head dim 128) and at recurrentgemma-9b's (head dim 256,
-   MQA, window 2048: the backward on ``simt``), each timed beside its plain
-   version, its bound and SDPA (a window as a boolean mask; the SDPA backend
-   that ran is named), the backward's device time split by launch; then the
+   each case naming its variant (``wgmma`` for bf16 that the TMA can load,
+   up to head dim 256, with Tk other than Tq where a key tile sees no query;
+   ``simt`` for fp32 and for bf16 with a head dim no multiple of 8 or off
+   16-byte aligned storage);
+   then the forward and the backward at llama3-8b's training shape (head dim
+   128) and at recurrentgemma-9b's (head dim 256, MQA, window 2048: the
+   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``), each
+   timed beside its plain version, its bound (at d 256 also the bound of the
+   seven products the split design runs, a second call that must repeat
+   the first bit for bit, and the time at every head-group count the
+   launch can choose) and SDPA (a window as a boolean
+   mask; the SDPA backend that ran is named), the backward's device time
+   split by launch; then the
    RG-LRU scan's forward and its backward kernel (``rglru_scan_bwd``) against
    their plain versions at 1e-5 (the backward also at T 1 and with a large
    h0), each timed at recurrentgemma-9b's prefill shape (B 4) and training
@@ -78,8 +87,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    microbatches, 6 steps at lr 3e-4 with 2 warmup steps: every loss finite,
    the 6th below the 1st, each step's launches counted from zero and equal
    to what ``layer_plan`` implies (scan forward 40, scan backward 24, flash
-   forward 16 on ``wgmma``, flash backward 8 on ``simt``, as
-   ``backward_variant`` states for d 256), no call of a plain version, with
+   forward 16 and flash backward 8, both required on ``wgmma``), no call of
+   a plain version, with
    s/step, tokens/s, the model-FLOPs share and the peak memory; then one
    microbatch's backward timed with CUDA events (the whole, each scan
    backward, each attention backward), and again with the parent tree's
@@ -173,12 +182,19 @@ GRAD_CASES = [
     (1, 300, 4, 1, 256, 256, True, 64, "bfloat16"),
 ]
 # Flash backward cases: GRAD_CASES, then d 128 with H/K = 4, a d 64 window that
-# is no multiple of the KV tile over a ragged tail, and dk 192 / dv 128 (past
-# the wgmma backward's head dims: simt); then the edges of the wgmma
-# backward's schedule: H/K = 1 and H/K = 8 at d 64 (the group sets the number
-# of steps and which consumer owns each step's dQ), a T whose last 128-key
-# block leaves the second consumer only padding keys, and a window at d 128.
-# Every bf16 case up to head dim 128 must launch the wgmma backward.
+# is no multiple of the KV tile over a ragged tail, and dk 192 / dv 128 (MLA,
+# on the d-256 kernels); then the edges of the wgmma backward's schedule:
+# H/K = 1 and H/K = 8 at d 64 (the group sets the number of steps and which
+# consumer owns each step's dQ), a T whose last 128-key block leaves the
+# second consumer only padding keys, and a window at d 128; then those of the
+# d-256 kernels: H/K = 16 (each head its own group of blocks), a window
+# shorter than half a 64-key tile (whole consumer halves masked), Tq with a
+# ragged last 64-row tile under a window, and Tk 300 against Tq 100 (an
+# optional tenth entry): key tiles past the last query see no query tile, so
+# every head group of theirs walks no step; then bf16 that the TMA cannot
+# load, on the simt backward: dv 60, and d 256 with q, k and v one element
+# off 16-byte aligned storage (an optional eleventh entry).  bwd_want names
+# the variant each case must launch.
 BWD_CASES = GRAD_CASES + [
     (2, 256, 8, 2, 128, 128, True, 0, "bfloat16"),
     (2, 500, 4, 2, 64, 64, True, 77, "bfloat16"),
@@ -187,22 +203,35 @@ BWD_CASES = GRAD_CASES + [
     (1, 512, 8, 1, 64, 64, True, 0, "bfloat16"),
     (1, 4160, 4, 2, 64, 64, True, 0, "bfloat16"),
     (1, 600, 4, 1, 128, 128, True, 100, "bfloat16"),
+    (1, 320, 16, 1, 256, 256, True, 128, "bfloat16"),
+    (1, 200, 4, 2, 256, 256, True, 16, "bfloat16"),
+    (2, 333, 4, 2, 256, 256, True, 200, "bfloat16"),
+    (1, 100, 8, 1, 256, 256, True, 0, "bfloat16", 300),
+    (1, 70, 2, 1, 64, 60, True, 0, "bfloat16"),
+    (1, 130, 4, 1, 256, 256, True, 64, "bfloat16", None, 1),
 ]
 # llama3-8b's attention at train_4k's length (B, T, H, K, dk, dv, causal,
 # window, dtype), timed in phase 2: the flash kernels at head dim 128.
 TRAIN_D128 = (1, 4096, 32, 8, 128, 128, True, 0, "bfloat16")
 # recurrentgemma-9b's attention in one training microbatch (phase 6(d)): MQA
-# at d 256 with the 2048 window, forward on wgmma, backward on simt.
+# at d 256 with the 2048 window, forward and backward on wgmma.
 TRAIN_RG_ATTN = (1, 4096, 16, 1, 256, 256, True, 2048, "bfloat16")
-# The launches of one flash_attention_bwd call on each variant, each with the
-# name its kernel has in a profiler trace, and the variant's main kernels.
+# The launches of one flash_attention_bwd call on each variant (``wgmma`` up
+# to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
+# kernel has in a profiler trace, and the main kernels of each.
 BWD_LAUNCHES = {
     "wgmma": {"dq_acc zeroing": "FillFunctor", "flash_bwd_rows": "flash_bwd_rows",
-              "flash_bwd_wgmma": "flash_bwd_wgmma", "flash_bwd_dq_cast": "flash_bwd_dq_cast"},
+              "flash_bwd_wgmma": "flash_bwd_wgmma<", "flash_bwd_dq_cast": "flash_bwd_dq_cast"},
+    "wgmma d 256": {"flash_bwd_rows": "flash_bwd_rows",
+                    "flash_bwd_wgmma_dkdv": "flash_bwd_wgmma_dkdv<",
+                    "flash_bwd_wgmma_dq": "flash_bwd_wgmma_dq<",
+                    "flash_bwd_dkdv_sum": "flash_bwd_dkdv_sum"},
     "simt": {"flash_bwd_rows": "flash_bwd_rows", "flash_bwd_simt_dkdv": "flash_bwd_simt_dkdv",
              "flash_bwd_simt_dq": "flash_bwd_simt_dq"},
 }
-BWD_MAIN = {"wgmma": ("flash_bwd_wgmma",), "simt": ("flash_bwd_simt_dkdv", "flash_bwd_simt_dq")}
+BWD_MAIN = {"wgmma": ("flash_bwd_wgmma",),
+            "wgmma d 256": ("flash_bwd_wgmma_dkdv", "flash_bwd_wgmma_dq"),
+            "simt": ("flash_bwd_simt_dkdv", "flash_bwd_simt_dq")}
 LSE_TOL = 1e-4  # the forward's lse against the plain version's: fp32 order only
 # fp32 gradients: largest |g - oracle|, the oracle's autograd on the same inputs.
 GRAD_FP32_TOL = 1e-4
@@ -583,9 +612,9 @@ def main() -> int:
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.flash_attention import (backward_variant, flash_attention_bwd,
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels.flash_attention import (MAX_FUSED_BWD_DIM, flash_attention_bwd,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.flash_attention import variant as flash_variant
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
     from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.launch.train import train
@@ -609,12 +638,13 @@ def main() -> int:
                   f"static shared memory {use['static_smem']} B (dynamic: requested at "
                   f"launch), spill stores {use['spill_stores']} B, "
                   f"spill loads {use['spill_loads']} B")
-            if kernel.startswith(("flash_fwd_wgmma<", "flash_bwd_wgmma<")):
+            if kernel.startswith(("flash_fwd_wgmma<", "flash_bwd_wgmma")):
                 wgmma_built.add(kernel)
                 if use["spill_stores"] or use["spill_loads"]:
                     raise AssertionError(f"{kernel} spills registers: {use}")
     wanted = ({f"flash_fwd_wgmma<{d}>" for d in (64, 128, 256)}
-              | {f"flash_bwd_wgmma<{d}>" for d in (64, 128)})
+              | {f"flash_bwd_wgmma<{d}>" for d in (64, 128)}
+              | {"flash_bwd_wgmma_dkdv<256>", "flash_bwd_wgmma_dq<256>"})
     if wgmma_built != wanted:
         raise AssertionError(f"nvcc's log shows {sorted(wgmma_built)}, expected {sorted(wanted)}")
 
@@ -640,9 +670,18 @@ def main() -> int:
         t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
-    def flash_inputs(B, T, H, K, dk, dv, dtype):
-        dt = getattr(torch, dtype)
-        return randn(B, T, H, dk).to(dt), randn(B, T, K, dk).to(dt), randn(B, T, K, dv).to(dt)
+    def flash_inputs(B, T, H, K, dk, dv, dtype, Tk=None, offset=0):
+        """q, k, v; with ``offset``, each in storage that starts that many
+        elements into its buffer."""
+        dt, Tk = getattr(torch, dtype), Tk or T
+        out = []
+        for shape in ((B, T, H, dk), (B, Tk, K, dk), (B, Tk, K, dv)):
+            x = randn(*shape).to(dt)
+            if offset:
+                buf = torch.empty(x.numel() + offset, dtype=dt, device=dev)
+                x = buf[offset:].view(shape).copy_(x)
+            out.append(x)
+        return out
 
     def flash_run(case, q, k, v):
         """The kernel's output, its plain version's, and the variant launched."""
@@ -746,13 +785,20 @@ def main() -> int:
             ref.flash_attention_ref(*leaves, causal=causal, window=window), leaves, gf)
         return plain, oracle
 
+    def bwd_want(case):
+        """The backward variant a case must launch: ``wgmma`` for bf16 that
+        the TMA can load (dk and dv multiples of 8, 16-byte aligned storage),
+        ``simt`` otherwise."""
+        dk, dv, dtype, offset = *case[4:6], case[8], (case[10:] or (0,))[0]
+        tma = dtype == "bfloat16" and dk % 8 == 0 and dv % 8 == 0 and offset % 8 == 0
+        return "wgmma" if tma else "simt"
+
     def grad_check(case, kind, got, plain, oracle):
         """Largest |g - oracle| over dq, dk, dv and, for bf16, the largest
         share of the per-element bound against the plain backward and the
         largest relative L2 error against the oracle; raises on a
         disagreement, a NaN or the wrong variant."""
-        B, T, H, K, dk, dv, causal, window, dtype = case
-        want = "wgmma" if dtype == "bfloat16" and max(dk, dv) <= 128 else "simt"
+        dtype, want = case[8], bwd_want(case)
         err, share, l2 = 0.0, 0.0, 0.0
         for g, w, o in zip(got, plain, oracle):
             g = g.float()
@@ -782,8 +828,8 @@ def main() -> int:
 
     def bwd_split(kind, q, k, v, out, lse, g, causal, window, calls=10):
         """Device ms of each launch of one flash_attention_bwd call on the
-        ``kind`` variant, the mean of torch.profiler's kernel times over
-        ``calls`` calls."""
+        ``kind`` key of BWD_LAUNCHES, the mean of torch.profiler's kernel
+        times over ``calls`` calls."""
         from torch.profiler import ProfilerActivity, profile
 
         launches = BWD_LAUNCHES[kind]
@@ -852,10 +898,42 @@ def main() -> int:
         plain, oracle = grad_refs(case, q, k, v, out, lse, g)
         torch.cuda.synchronize()
         bwd_err, bwd_share, bwd_l2 = grad_check(case, bwd_kind, got, plain, oracle)
-        del got, plain, oracle
+        del plain, oracle
+        split_kind = ("wgmma d 256" if bwd_kind == "wgmma" and max(dk, dv) > MAX_FUSED_BWD_DIM
+                      else bwd_kind)
+        # The d-256 kernels use no atomics: a second call must repeat the first
+        # bit for bit.
+        repeat_note = ""
+        if split_kind == "wgmma d 256":
+            again = flash_attention_bwd(q, k, v, out, lse, g, **mask)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd on {case} does not repeat bit for bit")
+            repeat_note = "; a second call repeats it bit for bit"
+            del again
+        del got
         torch.cuda.empty_cache()
         bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, **mask), 20)
-        split = bwd_split(bwd_kind, q, k, v, out, lse, g, **mask)
+        split = bwd_split(split_kind, q, k, v, out, lse, g, **mask)
+        # Past head dim 128: the time at every head-group count the launch
+        # could choose (a divisor of H/K), beside bwd_groups' choice.
+        groups_rec = {}
+        if split_kind == "wgmma d 256":
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            chosen = flash_mod.bwd_groups(B, K, T, H // K, sms)
+            choose, by_groups = flash_mod.bwd_groups, {}
+            try:
+                for n in (n for n in range(1, H // K + 1) if (H // K) % n == 0):
+                    flash_mod.bwd_groups = lambda *_, n=n: n
+                    by_groups[n] = time_ms(
+                        lambda: flash_attention_bwd(q, k, v, out, lse, g, **mask), 20)
+            finally:
+                flash_mod.bwd_groups = choose
+            print(f"[kernel] flash_attention_bwd {case} ({label}) ms per call by head groups "
+                  f"(blocks = {B * K * -(-T // 64)} key tiles x groups on {sms} SMs): "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in by_groups.items())
+                  + f"; bwd_groups chooses {chosen}")
+            groups_rec = {"head_groups": chosen,
+                          "ms_by_head_groups": {str(n): t for n, t in by_groups.items()}}
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
             ref.flash_attention_ref(*leaves, **mask), leaves, g), 3)
@@ -874,9 +952,19 @@ def main() -> int:
         bwd_bytes = (sum(x.numel() * x.element_size() for x in (q, k, v, out, g, lse))
                      + sum(x.numel() * x.element_size() for x in (q, k, v)))
         bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
-        main_ms = sum(split[n] for n in BWD_MAIN[bwd_kind])
+        main_ms = sum(split[n] for n in BWD_MAIN[split_kind])
+        # Past head dim 128 the dq kernel recomputes S and dP: seven products
+        # per unmasked pair (4 dk + 3 dv).
+        design_note, design = "", {}
+        if split_kind == "wgmma d 256":
+            flops7 = 2 * (4 * dk + 3 * dv) * pairs
+            bound7_ms, _ = bound(flops7, PEAK_BF16_FLOPS, bwd_bytes)
+            design_note = (f"; the split design's seven products {flops7 / 1e9:.2f} GFLOP, bound "
+                           f"{bound7_ms:.4f} ms, of which the main kernels reach "
+                           f"{100 * bound7_ms / main_ms:.1f} %")
+            design = {"bound_7_products_ms": bound7_ms}
         print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({label}): "
-              + bwd_note(dtype, bwd_err, bwd_share, bwd_l2)
+              + bwd_note(dtype, bwd_err, bwd_share, bwd_l2) + repeat_note
               + f"; kernel {bwd_ms:.4f} ms, plain (the oracle's autograd, forward recomputed) "
               f"{bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms (forward and "
               f"backward on SDPA's {backend} backend: {top}), bound "
@@ -885,9 +973,9 @@ def main() -> int:
         print(f"[kernel] flash_attention_bwd {case} ({label}) device ms per call by launch: "
               + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
               + f" (sum {sum(split.values()):.4f}); the main kernel"
-              f"{'s' if len(BWD_MAIN[bwd_kind]) > 1 else ''} reach "
+              f"{'s' if len(BWD_MAIN[split_kind]) > 1 else ''} reach "
               f"{100 * bwd_bound_ms / main_ms:.1f} % of the bound, the call "
-              f"{100 * bwd_bound_ms / bwd_ms:.1f} %")
+              f"{100 * bwd_bound_ms / bwd_ms:.1f} %" + design_note)
         bwd = {"name": "flash_attention_bwd", "variant": bwd_kind, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:128",
@@ -895,15 +983,16 @@ def main() -> int:
                                 "the oracle's vjp",
                "shape": list(case), "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms,
                "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
-               "library_ms": bwd_library_ms, "library_backend": backend, "split_ms": split}
+               "library_ms": bwd_library_ms, "library_backend": backend, "split_ms": split,
+               **design, **groups_rec}
         del q, k, v, qt, kt, vt, out, lse, g, gt, o_sdpa, leaves
         torch.cuda.empty_cache()
         return fwd, bwd
 
     # The backward against its plain version and the oracle's autograd.
     for case in BWD_CASES:
-        B, T, H, K, dk, dv, causal, window, dtype = case
-        q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
+        B, T, H, K, dk, dv, causal, window, dtype, *tk = case
+        q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype, *tk)
         g = randn(B, T, H, dv).to(q.dtype)
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=True)
         _, lse_plain = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
@@ -1468,18 +1557,15 @@ def main() -> int:
     arch, layers, rows, seq, micro, n_steps = RG_TRAIN
     cfg = get_config(arch).with_overrides(num_layers=layers)
     plan = layer_plan(cfg)
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    probe = [torch.empty((1, 8, n, hd), dtype=torch.bfloat16, device=dev) for n in (H, K, K)]
-    fwd_kind, bwd_kind = flash_variant(*probe), backward_variant(*probe)
-    del probe
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
 
     def expected_counts(microbatches):
-        """launch_counts()' keys: the kernels' launches and, by variant, the
-        flash launches all on the variants the wrappers' rules choose."""
+        """launch_counts()' keys: the kernels' launches and, by variant, every
+        flash launch, forward and backward, on ``wgmma``."""
         out = dict.fromkeys(launch_counts(), 0)
         out.update(expected_launches(plan, microbatches))
-        out[f"flash_attention:{fwd_kind}"] = out["flash_attention"]
-        out[f"flash_attention_bwd:{bwd_kind}"] = out["flash_attention_bwd"]
+        out["flash_attention:wgmma"] = out["flash_attention"]
+        out["flash_attention_bwd:wgmma"] = out["flash_attention_bwd"]
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1521,14 +1607,14 @@ def main() -> int:
           f"{pairs} pairs per row and head), {100 * share:.2f} % of "
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; launches per "
           f"step expected " + ", ".join(f"{n} {c}" for n, c in expect.items() if c)
-          + f" (flash forward on {fwd_kind}, backward on {bwd_kind}, as the wrappers' rules "
-          f"choose at d {hd}); calls of the plain versions {plain_calls}; {smi}")
+          + f" (flash forward and backward at d {hd} both on wgmma); calls of the plain "
+          f"versions {plain_calls}; {smi}")
     if trained_layers != layers or len(step_counts) != n_steps:
         raise AssertionError(f"trained {trained_layers} layers in {len(step_counts)} steps")
-    if fwd_kind != "wgmma" or any(c != expect for c in step_counts) or plain_calls:
+    if any(c != expect for c in step_counts) or plain_calls:
         raise AssertionError(f"{arch} training launched {step_counts}, expected {expect} per "
-                             f"step with the forward on wgmma (rule: {fwd_kind}), and called "
-                             f"the plain versions {plain_calls} times, expected never")
+                             f"step, and called the plain versions {plain_calls} times, "
+                             f"expected never")
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
     if not hist[-1]["loss"] < hist[0]["loss"]:

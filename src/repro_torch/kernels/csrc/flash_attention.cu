@@ -57,16 +57,21 @@
 // unmasked key keeps m = -inf and gets lse = -inf (the backward then gives it
 // P = 0).  Serving passes null and writes nothing.
 //
-// The backward (second half of this file, with its own header): the
-// flash-backward equations from the saved output and lse, flash_bwd_wgmma<D>
-// for bf16 up to D 128 and flash_bwd_simt<T> for fp32 and every other shape,
-// as kernels/flash_attention.py::backward_variant chooses.  flash_bwd_wgmma
-// is warp-specialised like the forward: a TMA loader, a dQ writer that adds
-// finished dQ tiles into fp32 sums by TMA reductions, and two consumer
-// warpgroups of 64 keys each that meet only through mbarriers, the dQ of
-// each query tile computed by one of them in turn.  The reference has no
-// backward kernel: its custom_vjp (repro/kernels/ops.py) takes the vjp of its
-// quadratic oracle, which this computes up to rounding.
+// The backward (second half of this file, with its own headers): the
+// flash-backward equations from the saved output and lse, on the tensor
+// cores for every bf16 shape the forward's wgmma rule takes, and
+// flash_bwd_simt<T> for fp32 and every other shape, as
+// kernels/flash_attention.py::variant chooses.  Up to D 128,
+// flash_bwd_wgmma<D> is warp-specialised like the forward: a TMA loader, a dQ
+// writer that adds finished dQ tiles into fp32 sums by TMA reductions, and
+// two consumer warpgroups of 64 keys each that meet only through mbarriers,
+// the dQ of each query tile computed by one of them in turn.  Past it, up to
+// D 256, two kernels split the work: flash_bwd_wgmma_dkdv<256> (64 keys a
+// block, the head dim split across the two consumers, the GQA group split
+// across blocks) and flash_bwd_wgmma_dq<256> (64 queries a block, S and dP
+// recomputed), with no atomics.  The reference has no backward kernel: its
+// custom_vjp (repro/kernels/ops.py) takes the vjp of its quadratic oracle,
+// which this computes up to rounding.
 //
 // What bounds it on an H100: at both serving shapes attention does several
 // hundred FLOP per byte of q/k/v/o (llama3.2-1b, d 64: 34.4 GFLOP against
@@ -463,6 +468,37 @@ __device__ __forceinline__ void wgmma_tt<64>(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : F16(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x 128] (+)= A B with A K-major and B MN-major, both in shared memory
+// (B read through the descriptor's transpose).
+__device__ __forceinline__ void wgmma_st128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : F64(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 #undef F4
 #undef F16
 #undef F32
@@ -780,6 +816,8 @@ struct BwdParams {
   float* lse2;       // [B, H, t_pad]: lse in base 2 (+inf for a row with no key)
   float* dsum;       // [B, H, t_pad]: D
   int t_pad;         // Tq rounded up to the wgmma variant's 64-row query tile
+  float* part;       // D 256 only: fp32 dK then dV of each head group, [groups, B, Tk, K, d]
+  int groups;        // D 256 only: blocks that share one (key tile, KV head), a divisor of H/K
 };
 
 // Query tiles [lo, hi) that see at least one key of the KV tile at k0: the
@@ -981,7 +1019,8 @@ __global__ void __launch_bounds__(S_THREADS) flash_bwd_simt_dq(BwdParams bp) {
 }
 
 // --------------------------------------------------------- wgmma backward --
-// flash_bwd_wgmma<D>, D 64 or 128 (dk, dv <= D).  One block per (b, KV head,
+// flash_bwd_wgmma<D>, D 64 or 128 (dk, dv <= D; past 128, see the D 256
+// kernels below).  One block per (b, KV head,
 // BN = 128 keys), heaviest key tiles first.  The block walks steps i: every
 // query head of the GQA group and every 64-row query tile the mask lets see
 // its keys (q_tiles).  Roles (384 threads):
@@ -1418,6 +1457,476 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_cast(BwdParams bp, int64_t n
   }
 }
 
+// ------------------------------------------------ wgmma backward at D 256 --
+// flash_bwd_wgmma_dkdv<D> and flash_bwd_wgmma_dq<D>, D 256 (128 < max(dk,
+// dv) <= 256), two kernels with no atomics, so that a run repeats bit for
+// bit.  The layout of flash_bwd_wgmma<64/128> does not stretch to D 256: dK
+// and dV of 64 keys in one warpgroup would be 256 registers a thread, and
+// K, V and two stages of Q and dO at 128 keys would be 320 KB.
+//   - flash_bwd_wgmma_dkdv: one block per (64-key tile, head group, b, KV
+//     head), heaviest key tiles first.  The GQA group of H/K query heads is
+//     split into `groups` blocks (the wrapper chooses the count from the SM
+//     count, so that a B 1 MQA grid fills the card), each walking its heads
+//     and the query tiles q_tiles gives.  K and V (32 KB each) load once; Q,
+//     dO (32 KB each), lse2 and D stream through two stages.  The two
+//     consumer warpgroups split the head dim: each keeps dK and dV of all 64
+//     keys for its 128 columns (64 + 64 registers), computes S^T = K Q^T and
+//     dP^T = V dO^T for its 32 of the step's 64 queries (16 + 16 registers),
+//     P^T and dS^T from them, and writes its half of both to shared memory in
+//     bf16 (128-byte swizzle, by hand).  Both then read all of P^T and dS^T
+//     as the shared-memory A operand of dV += P^T dO and dK += dS^T Q, B the
+//     consumer's columns of dO and Q read through the transpose.  Two named
+//     barriers a step guard the one P^T / dS^T buffer: before the writes
+//     (both consumers' products of the step before are done) and after them.
+//     Each block writes its fp32 dK (unscaled) and dV to its head group's
+//     slice of `part`.
+//   - flash_bwd_wgmma_dq: one block per (b, h, 64 query rows), heaviest
+//     causal tiles first.  Q and dO load once; K and V stream through two
+//     stages over the forward's kv_tiles.  The same split: each consumer
+//     computes S = Q K^T and dP = dO V^T for its 32 of the step's 64 keys,
+//     dS in bf16 to shared memory, then dQ += dS K for its 128 columns.
+//     dQ is scaled and cast once at the end, written straight to dq.
+//   - flash_bwd_dkdv_sum sums the groups' partials in a fixed order, scales
+//     dK and casts both to bf16.
+// Roles as flash_bwd_wgmma's: one TMA loader thread (thread 256) and two
+// consumer warpgroups (240 registers each) that meet the loader on mbarriers
+// (K and V, or Q and dO, full; full and empty per stage).
+// Shared memory: K, V, two stages of (Q, dO, lse2, D), P^T and dS^T (8 KB
+// each): 216104 B for dkdv; Q, dO, two stages of (K, V), dS: 205864 B for dq
+// (Bwd256Tile).
+// What bounds it: recomputing S and dP in the dq kernel makes seven products
+// per unmasked pair instead of five.  At recurrentgemma-9b's training shape
+// (T 4096, H 16, K 1, d 256, causal, window 2048) that is 361 GFLOP against
+// 0.14 GB of inputs and outputs, so the tensor cores (0.365 ms at 989
+// TFLOP/s; 0.261 ms for five products).  A step moves a 64 KB tile pair from L2 for 3-4 small
+// products (N 32 and 128), so L2 and shared-memory bandwidth come close.
+template <int D>
+struct Bwd256Tile {
+  static constexpr int BT = 64;  // rows of every tile: keys or queries
+  static constexpr int NS = 2;   // stages
+  static constexpr int ATOMS = D / W_ATOM;
+  static constexpr int HALF = D / 2;                 // head-dim columns per consumer
+  static constexpr uint32_t BOX = BT * 128;          // one [64][64] bf16 atom column
+  static constexpr uint32_t TILE = ATOMS * BOX;      // one 64-row operand tile
+  static constexpr uint32_t ROW_BYTES = BT * 4;      // lse2 or D of one query tile
+  static constexpr uint32_t DKDV_STAGE = 2 * TILE + 1024;  // Q, dO, lse2 and D
+  static constexpr uint32_t DQ_STAGE = 2 * TILE;           // K, V
+  static constexpr uint32_t SCORE = BT * BT * 2;     // [64][64] bf16: P^T, dS^T or dS
+  static constexpr size_t DKDV_SMEM =
+      1024 + 2 * (size_t)TILE + NS * (size_t)DKDV_STAGE + 2 * SCORE + 8 * (1 + 2 * NS);
+  static constexpr size_t DQ_SMEM =
+      1024 + 2 * (size_t)TILE + NS * (size_t)DQ_STAGE + SCORE + 8 * (1 + 2 * NS);
+  static_assert(DKDV_SMEM <= 232448 && DQ_SMEM <= 232448, "over the 227 KB a block may use");
+};
+
+// Both consumer warpgroups (256 threads) at named barrier id.
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// This consumer's half of a [64 rows][64 columns] bf16 score tile from its
+// m64n32 accumulator (columns 32 wg + ...), under the 128-byte swizzle: row
+// r, column c at byte r 128 + ((c / 8) ^ (r % 8)) 16 + (c % 8) 2, so that a
+// warp's stores hit every bank once.
+__device__ __forceinline__ void store_half(unsigned char* dst, const float (&x)[16], int lrow,
+                                           int wg, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lrow + 8 * r;
+      *reinterpret_cast<uint32_t*>(dst + row * 128 + (((4 * wg + j) ^ (row & 7)) << 4) + 4 * t) =
+          pack_bf16(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_bwd_wgmma_dkdv(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, BwdParams bp) {
+  using Tile = Bwd256Tile<D>;
+  constexpr int NS = Tile::NS, ATOMS = Tile::ATOMS, HALF = Tile::HALF;
+  const Params& p = bp.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(sm), sV = sK + Tile::TILE;
+  const uint32_t sStage = sV + Tile::TILE;  // stage s: Q, dO, then lse2 and D
+  const uint32_t sP = sStage + NS * Tile::DKDV_STAGE, sDS = sP + Tile::SCORE;
+  const uint32_t kv_full = sDS + Tile::SCORE, full = kv_full + 8, empty = full + 8 * NS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int G = p.H / p.K, GH = G / bp.groups;  // heads per block
+  const int per_tile = p.B * p.K * bp.groups, r0 = blockIdx.x % per_tile;
+  const int kt = blockIdx.x / per_tile;  // the first key tiles are the heaviest
+  const int grp = r0 / (p.B * p.K), b = r0 / p.K % p.B, kh = r0 % p.K;
+  const int k0 = kt * 64, h0 = kh * G + grp * GH;
+  int lo, hi;
+  q_tiles(p, k0, 64, 64, lo, hi);
+  const int nq = hi - lo, steps = GH * nq;  // step i: head h0 + i / nq, query tile lo + i % nq
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ----------------------------------------------------------- loader --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * Tile::TILE);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        tma_load(sK + a * Tile::BOX, &tk, kv_full, a * W_ATOM, kh, k0, b);
+        tma_load(sV + a * Tile::BOX, &tv, kv_full, a * W_ATOM, kh, k0, b);
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % NS, h = h0 + i / nq, m0 = (lo + i % nq) * 64;
+        if (i >= NS) mbar_wait(empty + 8 * s, ((i / NS) - 1) & 1);
+        const uint32_t st = sStage + s * Tile::DKDV_STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, 2 * Tile::TILE + 2 * Tile::ROW_BYTES);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load(st + a * Tile::BOX, &tq, bar, a * W_ATOM, h, m0, b);
+          tma_load(st + Tile::TILE + a * Tile::BOX, &tdo, bar, a * W_ATOM, h, m0, b);
+        }
+        const int64_t rows = (int64_t)(b * p.H + h) * bp.t_pad + m0;
+        bulk_load(st + 2 * Tile::TILE, bp.lse2 + rows, Tile::ROW_BYTES, bar);
+        bulk_load(st + 2 * Tile::TILE + Tile::ROW_BYTES, bp.dsum + rows, Tile::ROW_BYTES, bar);
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+    const int wg = warp >> 2, t = lane & 3, g = lane >> 2;
+    const int lrow = (warp & 3) * 16 + g;  // this thread's keys: k0 + lrow, + 8
+    const float sl2 = p.scale * 1.4426950408889634f;
+    const uint32_t qrows = wg * 32 * 128;  // this consumer's 32 rows of a Q or dO tile
+    const uint32_t cols = wg * 2 * Tile::BOX;  // its 128 columns of a Q or dO tile
+
+    float dv_acc[HALF / 2], dk_acc[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % NS, mq0 = (lo + i % nq) * 64 + wg * 32;  // this consumer's queries
+      const uint32_t q_st = sStage + s * Tile::DKDV_STAGE, do_st = q_st + Tile::TILE;
+      const float* lse2 =
+          reinterpret_cast<const float*>(sm + (q_st - sK) + 2 * Tile::TILE) + wg * 32;
+      const float* dsum = lse2 + 64;
+      float sc[16], dp[16];
+      mbar_wait(full + 8 * s, (i / NS) & 1);
+      // S^T = K Q^T and dP^T = V dO^T for this consumer's 32 queries; this
+      // also waits for the step before's dV and dK.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * Tile::BOX + (kk & 3) * 32;
+        wgmma_ss<32>(sc, desc_sw128(sK + off, 16, 1024), desc_sw128(q_st + off + qrows, 16, 1024),
+                     kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * Tile::BOX + (kk & 3) * 32;
+        wgmma_ss<32>(dp, desc_sw128(sV + off, 16, 1024),
+                     desc_sw128(do_st + off + qrows, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (i > 0) {  // the step before's stage is read no more
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % NS));
+      }
+
+      // P^T: element e of chunk j is key k0 + lrow + 8 (e >> 1), query
+      // mq0 + 8 j + 2 t + (e & 1).  Masks as in flash_bwd_wgmma, on edge
+      // tiles only (warpgroup-uniform): key row r sees queries [qlo, qhi).
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, -((e & 1) ? l2.y : l2.x)));
+      }
+      if (k0 + 64 > p.Tk || (p.causal && k0 + 63 > mq0) ||
+          (p.window > 0 && k0 <= mq0 + 31 - p.window)) {
+        int qlo[2], qhi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = k0 + lrow + 8 * r;
+          qlo[r] = p.causal ? key : INT_MIN;
+          qhi[r] = key >= p.Tk ? INT_MIN : p.window > 0 ? key + p.window : INT_MAX;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = mq0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+            sc[4 * j + e] = q >= qlo[r] && q < qhi[r] ? sc[4 * j + e] : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 dd = *reinterpret_cast<const float2*>(dsum + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // dS^T
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+      }
+
+      consumers_sync(1);  // both consumers' dV and dK of the step before are done
+      store_half(sm + (sP - sK), sc, lrow, wg, t);
+      store_half(sm + (sDS - sK), dp, lrow, wg, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumers_sync(2);  // both halves are written
+
+      // dV += P^T dO and dK += dS^T Q over the step's 64 queries, this
+      // consumer's 128 columns; issued and committed, waited for next step.
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_st128(dv_acc, desc_sw128(sP + kc * 32, 16, 1024),
+                    desc_sw128(do_st + cols + kc * 16 * 128, Tile::BOX, 1024), 1);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_st128(dk_acc, desc_sw128(sDS + kc * 32, 16, 1024),
+                    desc_sw128(q_st + cols + kc * 16 * 128, Tile::BOX, 1024), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+
+    // This head group's fp32 partials: dK unscaled, columns 128 wg + 8 c + 2 t.
+    const int64_t n_k = (int64_t)p.B * p.Tk * p.K;
+    float* dk_part = bp.part + grp * n_k * p.dk;
+    float* dv_part = bp.part + bp.groups * n_k * p.dk + grp * n_k * p.dv;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + lrow + 8 * r;
+      if (key < p.Tk) {
+        const int64_t base = (int64_t)(b * p.Tk + key) * p.K + kh;
+#pragma unroll
+        for (int c = 0; c < HALF / 8; ++c) {
+          const int col = wg * HALF + 8 * c + 2 * t;
+          if (col < p.dk)
+            *reinterpret_cast<float2*>(dk_part + base * p.dk + col) =
+                make_float2(dk_acc[4 * c + 2 * r], dk_acc[4 * c + 2 * r + 1]);
+          if (col < p.dv)
+            *reinterpret_cast<float2*>(dv_part + base * p.dv + col) =
+                make_float2(dv_acc[4 * c + 2 * r], dv_acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_bwd_wgmma_dq(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, BwdParams bp) {
+  using Tile = Bwd256Tile<D>;
+  constexpr int NS = Tile::NS, ATOMS = Tile::ATOMS, HALF = Tile::HALF;
+  const Params& p = bp.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(sm), sDO = sQ + Tile::TILE;
+  const uint32_t sStage = sDO + Tile::TILE;  // stage s: K, then V
+  const uint32_t sDS = sStage + NS * Tile::DQ_STAGE;
+  const uint32_t q_full = sDS + Tile::SCORE, full = q_full + 8, empty = full + 8 * NS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int BH = p.B * p.H, nqt = bp.t_pad / 64;
+  const int m0 = (nqt - 1 - blockIdx.x / BH) * 64;  // heaviest causal tiles first
+  const int b = (blockIdx.x % BH) / p.H, h = blockIdx.x % p.H, kh = h / (p.H / p.K);
+  int lo, hi;
+  kv_tiles(p, m0, 64, 64, lo, hi);
+  const int steps = hi - lo;  // step j: key tile lo + j
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ----------------------------------------------------------- loader --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * Tile::TILE);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        tma_load(sQ + a * Tile::BOX, &tq, q_full, a * W_ATOM, h, m0, b);
+        tma_load(sDO + a * Tile::BOX, &tdo, q_full, a * W_ATOM, h, m0, b);
+      }
+      for (int j = 0; j < steps; ++j) {
+        const int s = j % NS, n0 = (lo + j) * 64;
+        if (j >= NS) mbar_wait(empty + 8 * s, ((j / NS) - 1) & 1);
+        const uint32_t st = sStage + s * Tile::DQ_STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, 2 * Tile::TILE);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load(st + a * Tile::BOX, &tk, bar, a * W_ATOM, kh, n0, b);
+          tma_load(st + Tile::TILE + a * Tile::BOX, &tv, bar, a * W_ATOM, kh, n0, b);
+        }
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+    const int wg = warp >> 2, t = lane & 3, g = lane >> 2;
+    const int lrow = (warp & 3) * 16 + g;  // this thread's queries: m0 + lrow, + 8
+    const float sl2 = p.scale * 1.4426950408889634f;
+    const uint32_t krows = wg * 32 * 128;      // this consumer's 32 keys of a K or V tile
+    const uint32_t cols = wg * 2 * Tile::BOX;  // its 128 columns of a K tile
+    float l2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t row = (int64_t)(b * p.H + h) * bp.t_pad + m0 + lrow + 8 * r;
+      l2[r] = bp.lse2[row];
+      dd[r] = bp.dsum[row];
+    }
+
+    float dq_acc[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < steps; ++j) {
+      const int s = j % NS, kc0 = (lo + j) * 64 + wg * 32;  // this consumer's keys
+      const uint32_t k_st = sStage + s * Tile::DQ_STAGE, v_st = k_st + Tile::TILE;
+      float sc[16], dp[16];
+      mbar_wait(full + 8 * s, (j / NS) & 1);
+      // S = Q K^T and dP = dO V^T for this consumer's 32 keys; this also
+      // waits for the step before's dQ.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * Tile::BOX + (kk & 3) * 32;
+        wgmma_ss<32>(sc, desc_sw128(sQ + off, 16, 1024), desc_sw128(k_st + off + krows, 16, 1024),
+                     kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * Tile::BOX + (kk & 3) * 32;
+        wgmma_ss<32>(dp, desc_sw128(sDO + off, 16, 1024),
+                     desc_sw128(v_st + off + krows, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (j > 0) {  // the step before's stage is read no more
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * ((j - 1) % NS));
+      }
+
+      // P: element e of chunk c is query m0 + lrow + 8 (e >> 1), key
+      // kc0 + 8 c + 2 t + (e & 1).  Masks as in the forward's softmax_tile,
+      // on edge tiles only: row r sees keys lo < key < hi.
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * c + e] = ex2(fmaf(sc[4 * c + e], sl2, -l2[e >> 1]));
+      }
+      if (kc0 + 32 > p.Tk || (p.causal && kc0 + 31 > m0) ||
+          (p.window > 0 && kc0 <= m0 + 63 - p.window)) {
+        int klo[2], khi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = m0 + lrow + 8 * r;
+          khi[r] = p.causal ? min(p.Tk, q + 1) : p.Tk;
+          klo[r] = p.window > 0 ? q - p.window : -1;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kc0 + 8 * c + 2 * t + (e & 1), r = e >> 1;
+            sc[4 * c + e] = key > klo[r] && key < khi[r] ? sc[4 * c + e] : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dp[i] = sc[i] * (dp[i] - dd[(i >> 1) & 1]);  // dS
+
+      consumers_sync(1);  // both consumers' dQ of the step before is done
+      store_half(sm + (sDS - sQ), dp, lrow, wg, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumers_sync(2);  // both halves are written
+
+      // dQ += dS K over the step's 64 keys, this consumer's 128 columns.
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_st128(dq_acc, desc_sw128(sDS + kc * 32, 16, 1024),
+                    desc_sw128(k_st + cols + kc * 16 * 128, Tile::BOX, 1024), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(bp.dq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = m0 + lrow + 8 * r;
+      if (q < p.Tq) {
+        __nv_bfloat16* row = out + ((int64_t)(b * p.Tq + q) * p.H + h) * p.dk;
+#pragma unroll
+        for (int c = 0; c < HALF / 8; ++c) {
+          const int col = wg * HALF + 8 * c + 2 * t;
+          if (col < p.dk)
+            *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(
+                p.scale * dq_acc[4 * c + 2 * r], p.scale * dq_acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dk = scale sum_g dK part g, dv = sum_g dV part g, in bf16, group by group
+// in order; 8 columns per thread (dk and dv are multiples of 8 here).
+__global__ void __launch_bounds__(256) flash_bwd_dkdv_sum(BwdParams bp, int64_t nk8,
+                                                          int64_t nv8) {
+  const float* dk_part = bp.part;
+  const float* dv_part = bp.part + bp.groups * nk8 * 8;
+  for (int64_t i = blockIdx.x * 256 + threadIdx.x; i < nk8 + nv8; i += (int64_t)gridDim.x * 256) {
+    const bool is_k = i < nk8;
+    const int64_t j = is_k ? i : i - nk8, n8 = is_k ? nk8 : nv8;
+    const float4* src = reinterpret_cast<const float4*>((is_k ? dk_part : dv_part) + j * 8);
+    float4 x = src[0], y = src[1];
+    for (int grp = 1; grp < bp.groups; ++grp) {
+      const float4 a = src[grp * n8 * 2], c = src[grp * n8 * 2 + 1];
+      x.x += a.x; x.y += a.y; x.z += a.z; x.w += a.w;
+      y.x += c.x; y.y += c.y; y.z += c.z; y.w += c.w;
+    }
+    const float s = is_k ? bp.p.scale : 1.f;
+    uint4 out;
+    out.x = pack_bf16(s * x.x, s * x.y);
+    out.y = pack_bf16(s * x.z, s * x.w);
+    out.z = pack_bf16(s * y.x, s * y.y);
+    out.w = pack_bf16(s * y.z, s * y.w);
+    reinterpret_cast<uint4*>(is_k ? bp.dk : bp.dv)[j] = out;
+  }
+}
+
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime.  It is
 // fetched through the runtime's entry-point query, so the library links
 // against nothing beyond the runtime that nvcc links anyway (no -lcuda, no
@@ -1538,6 +2047,35 @@ int launch_bwd_wgmma(const BwdParams& bp, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_bwd_wgmma_split(const BwdParams& bp, cudaStream_t stream) {
+  using Tile = Bwd256Tile<D>;
+  const Params& p = bp.p;
+  CUtensorMap tq, tk, tv, tdo;
+  int r = make_map(&tq, p.q, p.B, p.Tq, p.H, p.dk, Tile::BT);
+  if (r == 0) r = make_map(&tdo, bp.dout, p.B, p.Tq, p.H, p.dv, Tile::BT);
+  if (r == 0) r = make_map(&tk, p.k, p.B, p.Tk, p.K, p.dk, Tile::BT);
+  if (r == 0) r = make_map(&tv, p.v, p.B, p.Tk, p.K, p.dv, Tile::BT);
+  if (r != 0) return -r;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma_dkdv<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tile::DKDV_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_wgmma_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Tile::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int kv_blocks = p.B * p.K * bp.groups * ((p.Tk + Tile::BT - 1) / Tile::BT);
+  flash_bwd_wgmma_dkdv<D><<<kv_blocks, W_THREADS, Tile::DKDV_SMEM, stream>>>(tq, tk, tv, tdo, bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int q_blocks = p.B * p.H * (bp.t_pad / Tile::BT);
+  flash_bwd_wgmma_dq<D><<<q_blocks, W_THREADS, Tile::DQ_SMEM, stream>>>(tq, tk, tv, tdo, bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)p.B * p.Tk * p.K, nk8 = rows * p.dk / 8, nv8 = rows * p.dv / 8;
+  const int64_t grid = (nk8 + nv8 + 255) / 256;
+  flash_bwd_dkdv_sum<<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(bp, nk8, nv8);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd_simt(const BwdParams& bp, cudaStream_t stream) {
   const Params& p = bp.p;
@@ -1597,29 +2135,37 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // The backward: (dq, dk, dv) from q, k, v, the forward's output o and lse
 // (flash_attention_fwd with a non-null lse) and the output's cotangent dout.
 // dtype and variant as for the forward; variant 1 (wgmma) is
-// kernels/flash_attention.py::backward_variant's choice and needs bf16, dk and
-// dv multiples of 8 up to 128 and 16-byte aligned q, k, v, dout; it is refused
+// kernels/flash_attention.py::variant's choice and needs bf16, dk and
+// dv multiples of 8 up to 256 and 16-byte aligned q, k, v, dout; it is refused
 // otherwise (cudaErrorInvalidValue).  lse2 and dsum are fp32 [B, H, t_pad]
-// scratch, t_pad = Tq rounded up to 64; dq_acc is fp32 zeros [B, H, t_pad, dk]
-// for variant 1 (unused by variant 0).  Returns as the forward does.
+// scratch, t_pad = Tq rounded up to 64.  scratch is fp32, for variant 1 only:
+// zeros [B, H, t_pad, dk] (dq's sums) up to head dim 128; past it, room for
+// the head groups' dK and dV, [groups, B, Tk, K, dk] then [groups, B, Tk, K,
+// dv], groups a divisor of H/K.  Returns as the forward does.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const float* lse, const void* dout, void* dq, void* dk,
-                                   void* dv, float* dq_acc, float* lse2, float* dsum, int dtype,
+                                   void* dv, float* scratch, float* lse2, float* dsum, int dtype,
                                    int variant, int B, int Tq, int Tk, int H, int K, int dk_,
-                                   int dv_, int causal, int window, float scale, void* stream) {
+                                   int dv_, int causal, int window, int groups, float scale,
+                                   void* stream) {
   Params p{q, k, v, const_cast<void*>(o), const_cast<float*>(lse), B, Tq, Tk, H, K, dk_, dv_,
            causal, window, scale};
-  BwdParams bp{p, dout, dq, dk, dv, dq_acc, lse2, dsum, (Tq + 63) / 64 * 64};
+  const int d = dk_ > dv_ ? dk_ : dv_;
+  const bool split = d > 128;  // flash_bwd_wgmma_dkdv / _dq (the wrapper's MAX_FUSED_BWD_DIM)
+  BwdParams bp{p, dout, dq, dk, dv, split ? nullptr : scratch, lse2, dsum, (Tq + 63) / 64 * 64,
+               split ? scratch : nullptr, groups};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // report this call's error, not an earlier one's
   if (variant == 1) {
     const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
-    const int d = dk_ > dv_ ? dk_ : dv_;
-    if (dtype != 1 || dk_ % 8 || dv_ % 8 || addr % 16 || d > 128 || dq_acc == nullptr)
+    if (dtype != 1 || dk_ % 8 || dv_ % 8 || addr % 16 || d > 256 || scratch == nullptr ||
+        (split && (groups < 1 || (H / K) % groups)))
       return (int)cudaErrorInvalidValue;
     int err = launch_bwd_rows<__nv_bfloat16>(bp, s);
     if (err) return err;
-    return d <= 64 ? launch_bwd_wgmma<64>(bp, s) : launch_bwd_wgmma<128>(bp, s);
+    if (d <= 64) return launch_bwd_wgmma<64>(bp, s);
+    if (d <= 128) return launch_bwd_wgmma<128>(bp, s);
+    return launch_bwd_wgmma_split<256>(bp, s);
   }
   if (dtype == 1) {
     int err = launch_bwd_rows<__nv_bfloat16>(bp, s);

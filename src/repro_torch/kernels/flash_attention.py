@@ -21,13 +21,17 @@ failure; the source file's header has the tiling.
 The forward writes each row's log-sum-exp when asked (fp32 ``[B,H,Tq]``,
 natural-log units of the scaled scores, -inf for a row with no unmasked
 key).  :func:`flash_attention_bwd` computes (dq, dk, dv) from it and the
-forward's output with the flash-backward equations: ``flash_bwd_wgmma`` for
-bf16 up to head dim 128 (tensor cores; dq summed in fp32 by bulk reductions
-whose order across blocks can change from run to run),
-``flash_bwd_simt`` for everything else (CUDA cores, exact fp32, no atomics,
-deterministic); :func:`backward_variant` makes that choice.  The reference
-has no backward kernel: its ``custom_vjp`` takes the oracle's vjp, which
-this computes up to rounding.
+forward's output with the flash-backward equations, on the tensor cores for
+every bf16 shape the forward's ``wgmma`` rule takes: ``flash_bwd_wgmma`` up
+to head dim 128 (dq summed in fp32 by bulk reductions whose order across
+blocks can change from run to run), and past it, up to 256,
+``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq`` (dK and dV of each head
+group to fp32 partials that one pass sums in a fixed order, dq recomputed
+per query tile: no atomics, deterministic).  ``flash_bwd_simt`` takes
+everything else (CUDA cores, exact fp32, no atomics, deterministic);
+:func:`variant` makes that choice too.  The reference has no backward
+kernel: its ``custom_vjp`` takes the oracle's vjp, which this computes up to
+rounding.
 
 The TPU tiling arguments (``q_block``/``k_block``, 512/1024 by default) do not
 fit Hopper's 227 KB of shared memory; the kernel picks its own tiles.
@@ -46,7 +50,7 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "wgmma": 1}
 _MAX_HEAD_DIM = 256
-_MAX_BWD_WGMMA_DIM = 128  # flash_bwd_wgmma<64>, <128>; <256> does not fit the registers
+MAX_FUSED_BWD_DIM = 128  # flash_bwd_wgmma<64>, <128>; past it, flash_bwd_wgmma_dkdv/_dq<256>
 _ROWS = 64  # the backward's query tile (t_pad in the .cu): per-row buffers are padded to it
 
 
@@ -57,7 +61,7 @@ def _lib() -> ctypes.CDLL:
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_float,
                                                                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -96,7 +100,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel variant a launch on these tensors runs.
+    """The kernel variant a launch of the forward or the backward on these
+    tensors runs.
 
     ``"wgmma"`` for bf16 that the TMA can load: dk and dv multiples of 8 (its
     strides are multiples of 16 bytes) and at most 256, from 16-byte aligned
@@ -111,13 +116,16 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "wgmma" if tma else "simt"
 
 
-def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The backward variant a launch on these tensors runs: ``"wgmma"``
-    where the forward's rule gives ``"wgmma"`` and dk, dv are at most 128
-    (the dK and dV accumulators of a 64-key slice then fit one warpgroup's
-    registers); ``"simt"`` otherwise.  The one place that states the rule."""
-    small = max(q.shape[-1], v.shape[-1]) <= _MAX_BWD_WGMMA_DIM
-    return "wgmma" if small and variant(q, k, v) == "wgmma" else "simt"
+def bwd_groups(B: int, K: int, Tk: int, group: int, sms: int) -> int:
+    """Blocks that share one (64-key tile, KV head) in the backward past head
+    dim 128: the smallest divisor of the GQA group ``group`` (= H/K) that
+    gives at least three blocks per SM, or the whole group.  At B 1 and one
+    KV head a grid of key tiles alone leaves most of the card idle, and
+    whole blocks of unequal causal work balance better the more there are;
+    each group adds one fp32 copy of dK and dV to sum."""
+    tiles = B * K * -(-Tk // _ROWS)
+    return next((n for n in range(1, group + 1) if group % n == 0 and tiles * n >= 3 * sms),
+                group)
 
 
 def flash_attention_fwd(
@@ -182,24 +190,31 @@ def flash_attention_bwd(
     if dq.numel() == 0 or dk_.numel() == 0:
         return dq.zero_(), dk_.zero_(), dv_.zero_()
     scale = 1.0 / math.sqrt(dk) if scale is None else float(scale)
-    kind = backward_variant(q, k, v)
+    kind = variant(q, k, v)
     # Per-row D = rowsum(dout * out) and lse in base 2, padded to whole
-    # query tiles; dq's fp32 sums for the wgmma variant, [B,H,t_pad,dk] so that
-    # each query tile of a head is one contiguous run.
+    # query tiles.  The wgmma variant's fp32 scratch: up to head dim 128, dq's
+    # sums, [B,H,t_pad,dk] so that each query tile of a head is one contiguous
+    # run; past it, each head group's dK and then dV, [groups,B,Tk,K,d].
     t_pad = -(-Tq // _ROWS) * _ROWS
     rows = torch.empty((2, B, H, t_pad), dtype=torch.float32, device=q.device)
-    dq_acc = (torch.zeros((B, H, t_pad, dk), dtype=torch.float32, device=q.device)
-              if kind == "wgmma" else None)
+    scratch, groups = None, 1
+    if kind == "wgmma" and max(dk, dv) <= MAX_FUSED_BWD_DIM:
+        scratch = torch.zeros((B, H, t_pad, dk), dtype=torch.float32, device=q.device)
+    elif kind == "wgmma":
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        groups = bwd_groups(B, K, Tk, H // K, sms)
+        scratch = torch.empty(groups * B * Tk * K * (dk + dv), dtype=torch.float32,
+                              device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
-            dq_acc.data_ptr() if dq_acc is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
             rows[0].data_ptr(), rows[1].data_ptr(),
             _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
-            int(causal), int(window), scale, stream,
+            int(causal), int(window), groups, scale, stream,
         )
     _raise_on(err, "flash_attention backward")
     flash_attention_bwd.launches += 1
@@ -208,7 +223,8 @@ def flash_attention_bwd(
 
 
 # Kernel launches since the last reset, in all and by variant (a backward
-# launch is one call: its row pass, its main kernels and dq's cast).
+# launch is one call: its row pass, its main kernels and the last pass that
+# casts dq, or sums and casts dk and dv).
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
 flash_attention_bwd.launches = 0

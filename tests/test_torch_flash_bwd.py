@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    backward_variant, flash_attention_bwd, flash_attention_fwd)
+    bwd_groups, flash_attention_bwd, flash_attention_fwd, variant)
 
 # tests/test_kernels.py's FLASH_CASES, dtypes by name.
 FLASH_CASES = [
@@ -37,11 +37,14 @@ GRAD_RTOL, GRAD_ROW, GRAD_FLOOR = 1.6e-2, 2e-2, 1e-3
 # and a ragged tail, a window that is no multiple of the KV tile with GQA, and
 # d 128 with H/K = 4; then the wgmma backward's schedule edges that the card
 # checks run: H/K = 1 and H/K = 8 at d 64, a last 128-key block whose second
-# half is all padding (T 4160), and a window at d 128.
+# half is all padding (T 4160), a window at d 128, and d 256 with H/K = 16
+# (dK and dV summed over 16 heads, in fp32 before the one cast, as the d-256
+# kernels sum their head groups' partials).
 BOUND_CASES = [(1, 1200, 2, 1, 64, True, 1024), (1, 333, 2, 1, 256, True, 200),
                (2, 500, 4, 2, 64, True, 77), (1, 512, 8, 2, 128, True, 0),
                (1, 512, 8, 8, 64, True, 0), (1, 512, 8, 1, 64, True, 0),
-               (1, 4160, 2, 1, 64, True, 0), (1, 600, 4, 1, 128, True, 100)]
+               (1, 4160, 2, 1, 64, True, 0), (1, 600, 4, 1, 128, True, 100),
+               (1, 320, 16, 1, 256, True, 128)]
 
 
 @pytest.fixture(scope="module")
@@ -215,24 +218,49 @@ BWD_VARIANT_CASES = [
     ((1, 40, 2, 1, 64, 64), "bfloat16", "wgmma"),    # llama3.2-1b's d 64
     ((1, 40, 4, 2, 128, 128), "bfloat16", "wgmma"),  # llama3-8b's d 128
     ((1, 40, 4, 2, 32, 16), "bfloat16", "wgmma"),    # dk != dv under 64
-    ((1, 40, 2, 1, 192, 128), "bfloat16", "simt"),   # MLA: past D 128
-    ((1, 40, 2, 1, 256, 256), "bfloat16", "simt"),   # recurrentgemma's d 256
+    ((1, 40, 2, 1, 192, 128), "bfloat16", "wgmma"),  # MLA: the d-256 kernels
+    ((1, 40, 2, 1, 256, 256), "bfloat16", "wgmma"),  # recurrentgemma's d 256
     ((1, 40, 2, 1, 64, 60), "bfloat16", "simt"),     # dv no multiple of 8
     ((1, 40, 2, 1, 64, 64), "float32", "simt"),
+    ((1, 40, 2, 1, 264, 64), "bfloat16", "simt"),    # past head dim 256
+    ((1, 40, 2, 1, 256, 256), "float32", "simt"),
 ]
 
 
 @pytest.mark.parametrize("shape,dtype,expect", BWD_VARIANT_CASES)
 def test_flash_backward_variant_dispatch(shape, dtype, expect):
     q, k, v, _ = _inputs(shape, dtype=dtype)
-    assert backward_variant(q, k, v) == expect
+    assert variant(q, k, v) == expect
 
 
 def test_flash_backward_variant_needs_aligned_storage():
     q, k, v, _ = _inputs((1, 8, 2, 1, 64, 64), dtype="bfloat16")
-    assert backward_variant(q, k, v) == "wgmma"
+    assert variant(q, k, v) == "wgmma"
     k = torch.zeros(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
-    assert backward_variant(q, k, v) == "simt"
+    assert variant(q, k, v) == "simt"
+
+
+def test_flash_backward_variant_at_d256_needs_aligned_storage():
+    q, k, v, _ = _inputs((1, 8, 2, 1, 256, 256), dtype="bfloat16")
+    assert variant(q, k, v) == "wgmma"
+    q = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+    assert variant(q, k, v) == "simt"
+
+
+# B, K, Tk, H/K, SMs -> head groups of the d-256 backward: recurrentgemma-9b's
+# training shape on an H100 (64 key tiles x 8 groups = 512 blocks, the first
+# divisor past 3 x 132), its serving batch of 4 (256 tiles x 2), H/K 16 at a
+# short T (every head its own group), and MQA at B 8 (no split needed).
+BWD_GROUP_CASES = [((1, 1, 4096, 16, 132), 8), ((4, 1, 4096, 16, 132), 2),
+                   ((1, 1, 320, 16, 132), 16), ((8, 1, 4096, 16, 132), 1)]
+
+
+@pytest.mark.parametrize("args,expect", BWD_GROUP_CASES)
+def test_bwd_groups_fill_the_card(args, expect):
+    B, K, Tk, group, sms = args
+    n = bwd_groups(*args)
+    assert n == expect and group % n == 0
+    assert n == group or B * K * -(-Tk // 64) * n >= 3 * sms
 
 
 def test_backward_wrapper_refuses_cpu_tensors():
@@ -301,21 +329,35 @@ def test_remat_block_grads_equal_the_unremated_block():
 
 # ----------------------------------------------------------- on the card --
 # (B, Tq, H, K, dk, dv[, Tk]), causal, window, dtype: FLASH_CASES, then bf16 at
-# both wgmma head dims and its tile edges, shapes past them (simt), and the
-# edges of the wgmma backward's schedule (as in chip_smoke.py's BWD_CASES).
+# every wgmma head dim and its tile edges, the edges of the wgmma
+# backward's schedules, and bf16 that stays on simt (as in chip_smoke.py's
+# BWD_CASES); an optional fifth entry offsets q, k, v from aligned storage.
 CARD_CASES = [(c[:6], c[8], c[9], c[10]) for c in FLASH_CASES] + [
     ((2, 256, 8, 2, 64, 64), True, 0, "bfloat16"),
     ((1, 200, 2, 1, 64, 64), False, 0, "bfloat16"),       # no mask, ragged tail
     ((2, 256, 8, 2, 128, 128), True, 0, "bfloat16"),      # H/K = 4 at d 128
     ((2, 500, 4, 2, 64, 64), True, 77, "bfloat16"),       # window % KV tile != 0
-    ((1, 70, 2, 1, 192, 128), True, 0, "bfloat16"),       # dk 192 / dv 128: simt
-    ((1, 300, 4, 1, 256, 256), True, 64, "bfloat16"),     # d 256: simt
+    ((1, 70, 2, 1, 192, 128), True, 0, "bfloat16"),       # dk 192 / dv 128: wgmma, d 256
+    ((1, 300, 4, 1, 256, 256), True, 64, "bfloat16"),     # d 256: wgmma
     ((1, 40, 2, 1, 64, 64), True, 0, "float32"),
     ((1, 512, 8, 8, 64, 64), True, 0, "bfloat16"),        # H/K = 1
     ((1, 512, 8, 1, 64, 64), True, 0, "bfloat16"),        # H/K = 8
     ((1, 4160, 4, 2, 64, 64), True, 0, "bfloat16"),       # last block: 64 keys of 128
     ((1, 600, 4, 1, 128, 128), True, 100, "bfloat16"),    # window at d 128
+    ((1, 320, 16, 1, 256, 256), True, 128, "bfloat16"),   # H/K = 16 at d 256
+    ((1, 200, 4, 2, 256, 256), True, 16, "bfloat16"),     # window under half a tile
+    ((1, 100, 8, 1, 256, 256, 300), True, 0, "bfloat16"),  # key tiles no query sees
+    ((1, 70, 2, 1, 64, 60), True, 0, "bfloat16"),         # dv no multiple of 8: simt
+    ((1, 130, 4, 1, 256, 256), True, 64, "bfloat16", 1),  # d 256 off by one element: simt
 ]
+
+
+def _offset_view(x, offset):
+    """x's values in storage that starts ``offset`` elements into a buffer."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 @pytest.mark.cuda
@@ -323,16 +365,21 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda):
     """Every case on the card: the forward's lse against the plain version's,
     and dq, dk, dv against the plain backward on the kernel's own output and
     lse (fp32 within 1e-4; bf16 within the per-element bound), NaN-free, on
-    the variant that ``backward_variant`` names, the launch counted.  Then
+    ``wgmma`` for bf16 that the TMA can load and ``simt`` otherwise (a case's
+    optional fifth entry puts q, k and v that many elements off 16-byte
+    aligned storage), the launch counted.  Then
     rows that see no key (Tq > Tk + window - 1): the kernel's own rule, lse
     -inf, output 0, dq 0, and dk, dv those of the other rows alone."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    for shape, causal, window, dt in CARD_CASES:
+    for shape, causal, window, dt, *offset in CARD_CASES:
         q, k, v, g = _inputs(shape, seed=7, dtype=dt, device=cuda)
+        if offset:
+            q, k, v = (_offset_view(x, *offset) for x in (q, k, v))
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=True)
         _, lse_plain = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
-        kind = backward_variant(q, k, v)
-        assert kind == ("wgmma" if dt == "bfloat16" and max(shape[4:6]) <= 128 else "simt")
+        kind = variant(q, k, v)
+        tma = dt == "bfloat16" and shape[4] % 8 == 0 and shape[5] % 8 == 0 and not offset
+        assert kind == ("wgmma" if tma else "simt"), shape
         before = flash_attention_bwd.launches_by_variant[kind]
         got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
         assert flash_attention_bwd.launches_by_variant[kind] == before + 1
