@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    with each kernel's registers, static shared memory and spill bytes (nvcc
    ``-Xptxas -v``); every ``flash_fwd_wgmma`` and ``flash_bwd_wgmma``
    instantiation (``flash_bwd_wgmma<64/128>`` and, past head dim 128,
-   ``flash_bwd_wgmma_dkdv<256>`` and ``flash_bwd_wgmma_dq<256>``) must spill
-   nothing;
+   ``flash_bwd_wgmma_dkdv<256>`` and ``flash_bwd_wgmma_dq<256>``),
+   ``rglru_scan_tma`` and ``rglru_scan_bwd_tma`` must spill nothing;
 2. every kernel against its plain PyTorch version on the card: the reference
    test shapes (fp32 at 2e-5 with TF32 off; bf16 within 2e-2 and, per
    element, within 1.6e-2 of the value plus 1e-2 of its row's RMS, NaN-free;
@@ -35,18 +35,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch can choose) and SDPA (a window as a boolean
    mask; the SDPA backend that ran is named), the backward's device time
    split by launch; then the
-   RG-LRU scan's forward and its backward kernel (``rglru_scan_bwd``) against
-   their plain versions at 1e-5 (the backward also at T 1 and with a large
-   h0), each timed at recurrentgemma-9b's prefill shape (B 4) and training
-   shape (B 1) beside its bound and its plain version (the backward's: the
-   oracle's autograd with its forward, and the plain reverse loop);
+   RG-LRU scan's forward and its backward kernel (``rglru_scan_bwd``)
+   against their plain versions at 1e-5, each case naming its variant
+   (``tma`` for every shape the TMA can address, with T no multiple of the
+   ring's stage and shorter than one, T 1, and W no multiple of its column;
+   ``lane`` for W % 4 != 0 and for inputs off 16-byte aligned storage; the
+   backward also with a large h0), each timed at recurrentgemma-9b's prefill
+   shape (B 4) and training shape (B 1) on ``tma`` and on ``lane`` (the
+   earlier kernels), beside its bound, an elementwise add over the
+   forward's bytes, its ring's configured capacity, and its plain
+   version (the backward's: the oracle's autograd with its forward, and the
+   plain reverse loop); at both shapes ``tma``'s h must equal ``lane``'s and
+   a second call's bit for bit, and the backward must repeat bit for bit
+   (its difference from ``lane`` is printed);
 3. the port against its own plain CPU path on small fp32 models
    (llama3.2-1b and recurrentgemma-9b);
 4. the main paths, each with every kernel launch counted from zero:
    ``serve("llama3.2-1b")`` at full width, batch 8 x prompt 1024 x 32
    generated tokens; then ``serve("recurrentgemma-9b")`` at full width and
    depth (38 layers, bf16), batch 4 x prompt 4096 x 32 generated tokens.
-   Every flash-attention launch of both must be ``wgmma``;
+   Every flash-attention launch of both must be ``wgmma``, every scan
+   launch ``tma``;
 5. admitted serving: llama3.2-1b's phase-4 request again, admitted through
    the lock table (``admission_slots=4``), with the kernel libraries
    unloaded first: the libraries are loaded when the slot is taken, the card
@@ -86,8 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    call), bf16 parameters, fp32 AdamW moments, 4 rows of 4096 tokens in 4
    microbatches, 6 steps at lr 3e-4 with 2 warmup steps: every loss finite,
    the 6th below the 1st, each step's launches counted from zero and equal
-   to what ``layer_plan`` implies (scan forward 40, scan backward 24, flash
-   forward 16 and flash backward 8, both required on ``wgmma``), no call of
+   to what ``layer_plan`` implies (scan forward 40 and scan backward 24,
+   both required on ``tma``, flash forward 16 and flash backward 8, both
+   required on ``wgmma``), no call of
    a plain version, with
    s/step, tokens/s, the model-FLOPs share and the peak memory; then one
    microbatch's backward timed with CUDA events (the whole, each scan
@@ -109,6 +119,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -159,13 +170,19 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # tile dropped or doubled, fails the bound where 2e-2 absolute would not.
 BF16_RTOL, BF16_ROW = 1.6e-2, 1e-2
 
-# tests/test_kernels.py's RG-LRU cases, a width that is no multiple of 32
-# with an odd T, then recurrentgemma-9b's prefill scan.  B, T, W
-RGLRU_CASES = [(2, 100, 48), (1, 64, 128), (3, 33, 20), (2, 257, 4100)]
+# tests/test_kernels.py's RG-LRU cases (T 64: one whole stage of the tma
+# variant's ring), then the ring's edges (64-step stages, 32-lane columns):
+# T no multiple of a stage (257, 4097) and shorter than one (7, 1), W a
+# multiple of 4 but not of the column (20, 36, 4100); then what the TMA
+# cannot address, which must take "lane": W % 4 != 0, and inputs one element
+# off 16-byte aligned storage.  B, T, W, offset in elements.  Then
+# recurrentgemma-9b's prefill scan.
+RGLRU_CASES = [(2, 100, 48, 0), (1, 64, 128, 0), (3, 33, 20, 0), (2, 257, 4100, 0),
+               (1, 4097, 256, 0), (2, 7, 36, 0), (2, 1, 64, 0), (2, 50, 30, 0), (2, 100, 48, 1)]
 RGLRU_SLICE = (4, 4096, 4096)
-# The scan's backward: RGLRU_CASES, T 1, and an h0 ten times the others' (every
-# case has a nonzero h0).  B, T, W, h0 scale.
-RGLRU_BWD_CASES = [(*c, 1.0) for c in RGLRU_CASES] + [(2, 1, 64, 1.0), (2, 33, 96, 10.0)]
+# The scan's backward: RGLRU_CASES and an h0 ten times the others' (every
+# case has a nonzero h0).  B, T, W, offset, h0 scale.
+RGLRU_BWD_CASES = [(*c, 1.0) for c in RGLRU_CASES] + [(2, 33, 96, 0, 10.0)]
 # recurrentgemma-9b's training scan: one row of train_4k's 4096 tokens.
 RGLRU_TRAIN = (1, 4096, 4096)
 RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
@@ -476,7 +493,7 @@ def timed_microbatch(model, batch, functions):
 
 
 def launch_counts():
-    """Every kernel wrapper's launches, and the flash ones by variant."""
+    """Every kernel wrapper's launches, in all and by variant."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
@@ -484,7 +501,8 @@ def launch_counts():
            "flash_attention_bwd": flash_attention_bwd.launches,
            "rglru_scan": rglru_scan_fwd.launches, "rglru_scan_bwd": rglru_scan_bwd.launches}
     for name, fn in (("flash_attention", flash_attention_fwd),
-                     ("flash_attention_bwd", flash_attention_bwd)):
+                     ("flash_attention_bwd", flash_attention_bwd),
+                     ("rglru_scan", rglru_scan_fwd), ("rglru_scan_bwd", rglru_scan_bwd)):
         out.update((f"{name}:{v}", c) for v, c in fn.launches_by_variant.items())
     return out
 
@@ -613,6 +631,7 @@ def main() -> int:
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import rglru_scan as scan_mod
     from repro_torch.kernels.flash_attention import (MAX_FUSED_BWD_DIM, flash_attention_bwd,
                                                      flash_attention_fwd)
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
@@ -630,7 +649,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build()
     print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    wgmma_built = set()
+    no_spill = set()
     for name in build.sources():
         for use in build.ptxas_usage(build.log_path(name).read_text()):
             kernel = use["kernel"]
@@ -638,15 +657,17 @@ def main() -> int:
                   f"static shared memory {use['static_smem']} B (dynamic: requested at "
                   f"launch), spill stores {use['spill_stores']} B, "
                   f"spill loads {use['spill_loads']} B")
-            if kernel.startswith(("flash_fwd_wgmma<", "flash_bwd_wgmma")):
-                wgmma_built.add(kernel)
+            if kernel.startswith(("flash_fwd_wgmma<", "flash_bwd_wgmma", "rglru_scan_tma",
+                                  "rglru_scan_bwd_tma")):
+                no_spill.add(kernel)
                 if use["spill_stores"] or use["spill_loads"]:
                     raise AssertionError(f"{kernel} spills registers: {use}")
     wanted = ({f"flash_fwd_wgmma<{d}>" for d in (64, 128, 256)}
               | {f"flash_bwd_wgmma<{d}>" for d in (64, 128)}
-              | {"flash_bwd_wgmma_dkdv<256>", "flash_bwd_wgmma_dq<256>"})
-    if wgmma_built != wanted:
-        raise AssertionError(f"nvcc's log shows {sorted(wgmma_built)}, expected {sorted(wanted)}")
+              | {"flash_bwd_wgmma_dkdv<256>", "flash_bwd_wgmma_dq<256>"}
+              | {"rglru_scan_tma", "rglru_scan_bwd_tma"})
+    if no_spill != wanted:
+        raise AssertionError(f"nvcc's log shows {sorted(no_spill)}, expected {sorted(wanted)}")
 
     # --------------------------------------------------------- 2. kernels --
     gen = torch.Generator(dev).manual_seed(0)
@@ -1024,12 +1045,42 @@ def main() -> int:
     records[("flash_attention", "recurrentgemma-9b train")] = fwd_rec
     records[("flash_attention_bwd", "recurrentgemma-9b train")] = bwd_rec
 
-    def scan_inputs(B, T, W):
+    def scan_inputs(B, T, W, offset=0):
+        """a, b, h0; a and b ``offset`` elements past their storage's start."""
         a = torch.sigmoid(randn(B, T, W)) * 0.6 + 0.3
-        return a, randn(B, T, W) * 0.1, randn(B, W) * 0.1
+        return off_storage(a, offset), off_storage(randn(B, T, W) * 0.1, offset), randn(B, W) * 0.1
 
-    def scan_err(a, b, h0):
-        out = rglru_scan_fwd(a, b, h0)
+    def off_storage(x, offset):
+        if not offset:
+            return x
+        return torch.empty(x.numel() + offset, device=dev)[offset:].view(x.shape).copy_(x)
+
+    def scan_want(W, offset):
+        """The variant the wrapper must launch: the TMA addresses rows of a
+        multiple of 16 bytes from 16-byte aligned storage."""
+        return "tma" if W % 4 == 0 and offset % 4 == 0 else "lane"
+
+    def launched(fn, kind, call):
+        """call() once; it must launch ``fn``'s kernel once, on ``kind``."""
+        before = dict(fn.launches_by_variant)
+        out = call()
+        if fn.launches_by_variant != {**before, kind: before[kind] + 1}:
+            raise AssertionError(f"{fn.__name__} launched {fn.launches_by_variant} after "
+                                 f"{before}, expected one {kind} launch")
+        return out
+
+    @contextlib.contextmanager
+    def scan_forced(kind):
+        """The scan wrappers with their variant fixed, for timing the one the
+        rule does not choose."""
+        saved, scan_mod.variant = scan_mod.variant, lambda *_: kind
+        try:
+            yield
+        finally:
+            scan_mod.variant = saved
+
+    def scan_err(a, b, h0, kind):
+        out = launched(rglru_scan_fwd, kind, lambda: rglru_scan_fwd(a, b, h0))
         expect = ref.rglru_scan_ref(a, b, h0)
         torch.cuda.synchronize()
         err = (out - expect).abs().max().item()
@@ -1038,9 +1089,9 @@ def main() -> int:
                                  f"{tuple(a.shape)}: max_abs_err {err}")
         return err
 
-    def scan_bwd_err(a, h, h0, g):
+    def scan_bwd_err(a, h, h0, g, kind):
         """Largest |kernel - plain| over da, db and dh0; raises beyond RGLRU_TOL."""
-        got = rglru_scan_bwd(a, h, h0, g)
+        got = launched(rglru_scan_bwd, kind, lambda: rglru_scan_bwd(a, h, h0, g))
         want = ref.rglru_scan_bwd_ref(a, h, h0, g)
         torch.cuda.synchronize()
         err = max((x - y).abs().max().item() for x, y in zip(got, want))
@@ -1050,59 +1101,116 @@ def main() -> int:
                                  f"{tuple(a.shape)}: max_abs_err {err}")
         return err
 
-    for case in RGLRU_CASES:
-        err = scan_err(*scan_inputs(*case))
-        print(f"[kernel] rglru_scan {case}: max_abs_err {err:.3e} (tol {RGLRU_TOL})")
-    for B, T, W, scale in RGLRU_BWD_CASES:
-        a, b, h0 = scan_inputs(B, T, W)
+    for B, T, W, offset in RGLRU_CASES:
+        kind = scan_want(W, offset)
+        err = scan_err(*scan_inputs(B, T, W, offset), kind)
+        print(f"[kernel] rglru_scan {(B, T, W)} (offset {offset}): {kind}, max_abs_err "
+              f"{err:.3e} (tol {RGLRU_TOL})")
+    for B, T, W, offset, scale in RGLRU_BWD_CASES:
+        kind = scan_want(W, offset)
+        a, b, h0 = scan_inputs(B, T, W, offset)
         h0 = h0 * scale
-        err = scan_bwd_err(a, rglru_scan_fwd(a, b, h0), h0, randn(B, T, W))
-        print(f"[kernel] rglru_scan_bwd {(B, T, W)} (h0 x {scale:g}): da/db/dh0 max_abs_err "
-              f"{err:.3e} (atol and rtol {RGLRU_TOL})")
+        h = off_storage(rglru_scan_fwd(a, b, h0), offset)
+        err = scan_bwd_err(a, h, h0, off_storage(randn(B, T, W), offset), kind)
+        print(f"[kernel] rglru_scan_bwd {(B, T, W)} (offset {offset}, h0 x {scale:g}): {kind}, "
+              f"da/db/dh0 max_abs_err {err:.3e} (atol and rtol {RGLRU_TOL})")
 
     def scan_record(name, shape, err, ms, plain_ms, bound_ms, bound_by, **extra):
-        return {"name": name, "variant": f"{name}_kernel", "route": "cuda",
+        return {"name": name, "variant": "tma", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
                 "replaces": "src/repro/kernels/rglru_scan.py:78", "shape": list(shape),
                 "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "library_note": "no single PyTorch call computes the recurrence", **extra}
 
+    # The tma ring as the kernel source configures it (quoted from the .cu):
+    # a configured capacity, not a reading of what the card holds in flight.
+    scan_src = (build.CSRC / "rglru_scan.cu").read_text()
+    ring_cfg = {k: int(re.search(rf"constexpr int {k} = (\d+);", scan_src)[1])
+                for k in ("LANES", "ROWS", "FWD_STAGES", "BWD_STAGES")}
+
+    def ring_text(B, W, inputs, stages):
+        blocks, lanes, rows = B * -(-W // ring_cfg["LANES"]), ring_cfg["LANES"], ring_cfg["ROWS"]
+        block_bytes = stages * inputs * rows * lanes * 4
+        per_sm = -(-blocks // sms)
+        return (f"ring capacity (configured): {blocks} blocks of {lanes} lanes, {stages} stages "
+                f"of {rows} steps = {block_bytes / 1024:.0f} KB a block, {per_sm} blocks = "
+                f"{per_sm * block_bytes / 1024:.0f} KB per SM with the blocks spread evenly")
+
     # Timed: the forward at the prefill and the training shape, the backward
-    # at both.  The forward moves a, b in and h out, one fma per element; the
-    # backward g, a, h in and da, db out, an add and two multiplies per
-    # element; both read h0 (and the backward writes dh0) once (fp32).  The
-    # backward's plain time is the oracle's autograd with its forward, as the
-    # parent tree ran it; the plain reverse loop is timed beside it.
+    # at both, each on the tma variant the rule chooses and on the lane variant
+    # (the earlier kernels).
+    # The forward moves a, b in and h out, one fma per element; the backward
+    # g, a, h in and da, db out, an add and two multiplies per element; both
+    # read h0 (and the backward writes dh0) once (fp32).  The backward's plain
+    # time is the oracle's autograd with its forward, as the parent tree ran
+    # it; the plain reverse loop is timed beside it.  tma's h must equal
+    # lane's, and a second call's, bit for bit.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     scan_times = {}
     for shape in (RGLRU_SLICE, RGLRU_TRAIN):
+        B, T, W = shape
         a, b, h0 = scan_inputs(*shape)
         g = randn(*shape)
-        err = scan_err(a, b, h0)
+        err = scan_err(a, b, h0, "tma")
         h = rglru_scan_fwd(a, b, h0)
-        bwd_err = scan_bwd_err(a, h, h0, g)
+        bwd_err = scan_bwd_err(a, h, h0, g, "tma")
+        got = rglru_scan_bwd(a, h, h0, g)
+        with scan_forced("lane"):
+            h_lane = launched(rglru_scan_fwd, "lane", lambda: rglru_scan_fwd(a, b, h0))
+            got_lane = launched(rglru_scan_bwd, "lane", lambda: rglru_scan_bwd(a, h, h0, g))
+        same = {"forward repeats": torch.equal(h, rglru_scan_fwd(a, b, h0)),
+                "forward equals lane": torch.equal(h, h_lane),
+                "backward repeats": all(map(torch.equal, got, rglru_scan_bwd(a, h, h0, g)))}
+        bwd_vs_lane = max((x - y).abs().max().item() for x, y in zip(got, got_lane))
+        print(f"[kernel] rglru_scan {shape}: tma against lane and a second call: "
+              + ", ".join(f"{k} {v}" for k, v in same.items())
+              + f"; backward tma - lane max_abs {bwd_vs_lane:.3e}")
+        if not all(same.values()):
+            raise AssertionError(f"rglru_scan at {shape} is not bit for bit: {same}")
+        del h_lane, got, got_lane
         n, n0 = a.numel(), h0.numel()
-        fwd = dict(ms=time_ms(lambda: rglru_scan_fwd(a, b, h0), 20),
+        fwd = dict(ms=time_ms(lambda: rglru_scan_fwd(a, b, h0), 50),
                    plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, warmup=1))
         fwd.update(zip(("bound_ms", "bound_by"), bound(2 * n, PEAK_FP32_FLOPS, 4 * (3 * n + n0))))
         leaves = [x.detach().requires_grad_() for x in (a, b, h0)]
-        bwd = dict(ms=time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 20),
+        bwd = dict(ms=time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 50),
                    plain_ms=time_ms(lambda: torch.autograd.grad(
                        ref.rglru_scan_ref(*leaves), leaves, g), 1, warmup=1),
                    plain_loop_ms=time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, h0, g), 1,
                                          warmup=1))
         bwd_bytes = 4 * (5 * n + 2 * n0)
         bwd.update(zip(("bound_ms", "bound_by"), bound(3 * n, PEAK_FP32_FLOPS, bwd_bytes)))
+        with scan_forced("lane"):
+            fwd["earlier_ms"] = time_ms(lambda: rglru_scan_fwd(a, b, h0), 50)
+            bwd["earlier_ms"] = time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 50)
+        # What streaming the forward's bytes takes on this card: PyTorch's
+        # elementwise a + b reads and writes the same 12 bytes per element.
+        out = torch.empty_like(a)
+        fwd["stream_ms"] = time_ms(lambda: torch.add(a, b, out=out), 50)
+        del out
+        fwd["earlier_variant"] = "lane: one thread per lane, loads 16 steps ahead in registers"
+        bwd["earlier_variant"] = ("lane: one warp per block, loads 32 steps ahead in registers; "
+                                  "it now rounds each product and sum on its own (__fmul_rn, "
+                                  "__fadd_rn), so its time is not that of the lane kernel "
+                                  "before that change")
+        rings = {"rglru_scan": ring_text(B, W, 2, ring_cfg["FWD_STAGES"]),
+                 "rglru_scan_bwd": ring_text(B, W, 3, ring_cfg["BWD_STAGES"])}
         scan_times[shape] = (err, fwd, bwd_err, bwd)
-        print(f"[kernel] rglru_scan {shape}: max_abs_err {err:.3e}; kernel {fwd['ms']:.4f} ms, "
-              f"plain {fwd['plain_ms']:.4f} ms, no library call (no single PyTorch call "
-              f"computes this recurrence), bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}: "
-              f"{4 * (3 * n + n0) / 1e6:.1f} MB); {smi}")
-        print(f"[kernel] rglru_scan_bwd {shape}: max_abs_err {bwd_err:.3e}; kernel "
-              f"{bwd['ms']:.4f} ms, plain (the oracle's autograd, forward recomputed) "
-              f"{bwd['plain_ms']:.4f} ms, plain reverse loop {bwd['plain_loop_ms']:.4f} ms, no "
-              f"library call, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}: "
-              f"{bwd_bytes / 1e6:.1f} MB), {100 * bwd['bound_ms'] / bwd['ms']:.1f} % of it; {smi}")
+        for name, rec, e, nbytes in (("rglru_scan", fwd, err, 4 * (3 * n + n0)),
+                                     ("rglru_scan_bwd", bwd, bwd_err, bwd_bytes)):
+            plain = (f"plain (the oracle's autograd, forward recomputed) {rec['plain_ms']:.4f} ms, "
+                     f"plain reverse loop {rec['plain_loop_ms']:.4f} ms"
+                     if name == "rglru_scan_bwd" else f"plain {rec['plain_ms']:.4f} ms")
+            stream = (f" (an elementwise a + b over the same bytes: {rec['stream_ms']:.4f} ms, "
+                      f"{100 * rec['bound_ms'] / rec['stream_ms']:.1f} % of the bound)"
+                      if "stream_ms" in rec else "")
+            print(f"[kernel] {name} {shape}: max_abs_err {e:.3e}; tma {rec['ms']:.4f} ms "
+                  f"({100 * rec['bound_ms'] / rec['ms']:.1f} % of the bound{stream}), lane "
+                  f"{rec['earlier_ms']:.4f} ms ({100 * rec['bound_ms'] / rec['earlier_ms']:.1f} "
+                  f"%); {plain}, no library call (no single PyTorch call computes this "
+                  f"recurrence), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                  f"{nbytes / 1e6:.1f} MB); {rings[name]}; {smi}")
         del a, b, h0, g, h, leaves
         torch.cuda.empty_cache()
     err, fwd, _, _ = scan_times[RGLRU_SLICE]
@@ -1146,7 +1254,7 @@ def main() -> int:
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
-        for fn in (flash_attention_fwd, flash_attention_bwd):
+        for fn in kernels.values():
             fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
     served = {}  # each main path's result
@@ -1173,6 +1281,7 @@ def main() -> int:
                                    gen_len=gen_len, device="cuda")
         launches = {name: fn.launches for name, fn in kernels.items()}
         flash_variants = dict(flash_attention_fwd.launches_by_variant)
+        scan_variants = dict(rglru_scan_fwd.launches_by_variant)
         toks = res["tokens"]
         print(f"[serve] {arch} full width bf16, {full.num_layers} layers, batch {batch} x "
               f"prompt {prompt_len} x {gen_len} tokens: prefill "
@@ -1181,6 +1290,7 @@ def main() -> int:
               f"{res['throughput_tok_s']:.1f} tok/s; launches "
               + ", ".join(f"{n} {c}" for n, c in launches.items())
               + " (flash by variant: " + ", ".join(f"{n} {c}" for n, c in flash_variants.items())
+              + "; scan by variant: " + ", ".join(f"{n} {c}" for n, c in scan_variants.items())
               + ")")
         torch.cuda.empty_cache()
         if tuple(toks.shape) != (batch, gen_len):
@@ -1195,6 +1305,9 @@ def main() -> int:
         if flash_variants["wgmma"] != launches["flash_attention"]:
             raise AssertionError(f"{arch} prefill launched flash attention as {flash_variants}: "
                                  "every launch must be wgmma")
+        if scan_variants["tma"] != launches["rglru_scan"]:
+            raise AssertionError(f"{arch} prefill launched the scan as {scan_variants}: "
+                                 "every launch must be tma")
         for (name, path), rec in records.items():
             if path == arch:
                 rec["launches"] = launches[name]
@@ -1561,11 +1674,13 @@ def main() -> int:
 
     def expected_counts(microbatches):
         """launch_counts()' keys: the kernels' launches and, by variant, every
-        flash launch, forward and backward, on ``wgmma``."""
+        flash launch, forward and backward, on ``wgmma`` and every scan
+        launch, forward and backward, on ``tma``."""
         out = dict.fromkeys(launch_counts(), 0)
         out.update(expected_launches(plan, microbatches))
-        out["flash_attention:wgmma"] = out["flash_attention"]
-        out["flash_attention_bwd:wgmma"] = out["flash_attention_bwd"]
+        for name, kind in (("flash_attention", "wgmma"), ("flash_attention_bwd", "wgmma"),
+                           ("rglru_scan", "tma"), ("rglru_scan_bwd", "tma")):
+            out[f"{name}:{kind}"] = out[name]
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1607,7 +1722,8 @@ def main() -> int:
           f"{pairs} pairs per row and head), {100 * share:.2f} % of "
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; launches per "
           f"step expected " + ", ".join(f"{n} {c}" for n, c in expect.items() if c)
-          + f" (flash forward and backward at d {hd} both on wgmma); calls of the plain "
+          + f" (flash forward and backward at d {hd} both on wgmma, the scan both ways on "
+          f"tma); calls of the plain "
           f"versions {plain_calls}; {smi}")
     if trained_layers != layers or len(step_counts) != n_steps:
         raise AssertionError(f"trained {trained_layers} layers in {len(step_counts)} steps")

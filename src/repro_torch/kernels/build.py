@@ -155,3 +155,13 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise for the return value of a C entry that launches a kernel: a
+    cudaError_t, or minus the CUresult of a tensor map that could not be
+    encoded; 0 is success."""
+    if err < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult {-err}")
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")

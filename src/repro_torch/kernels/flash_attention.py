@@ -67,13 +67,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err < 0:
-        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult {-err}")
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device:
@@ -153,7 +146,7 @@ def flash_attention_fwd(
             _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
             int(causal), int(window), scale, stream,
         )
-    _raise_on(err, "flash_attention")
+    build.raise_on(err, "flash_attention")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_variant[kind] += 1
     return (out, row_lse) if lse else out
@@ -216,7 +209,7 @@ def flash_attention_bwd(
             _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
             int(causal), int(window), groups, scale, stream,
         )
-    _raise_on(err, "flash_attention backward")
+    build.raise_on(err, "flash_attention backward")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_variant[kind] += 1
     return dq, dk_, dv_

@@ -10,6 +10,7 @@ are imported inside a fixture so that the card-only test also runs where JAX
 is not installed.
 """
 
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd  # noqa: E402
 from repro_torch.models import recurrent as tr  # noqa: E402
 
@@ -150,21 +152,69 @@ def test_rglru_build_raises_without_nvcc(tmp_path, monkeypatch):
         build.build(["rglru_scan"])
 
 
+# The card cases of both directions: B, T, W and the offset in elements of
+# every input from its storage.  SCAN_CASES (T 64: one whole stage of the
+# tma ring), then T no multiple of its 64-step stages (257, 4097) and
+# shorter than one (7, 1), W a multiple of 4 but not of the 32-lane column
+# (20, 36, 4100), and the shapes the tma variant cannot address, which take
+# "lane": W % 4 != 0, and a view one element off aligned storage.
+CARD_CASES = [(*c[:3], 0) for c in SCAN_CASES] + [
+    (2, 257, 4100, 0), (1, 4097, 256, 0), (2, 7, 36, 0), (2, 1, 64, 0),
+    (2, 50, 30, 0), (2, 100, 48, 1)]
+# recurrentgemma-9b's training scan, where "tma" and "lane" must agree bit for bit.
+TRAIN_SHAPE = (1, 4096, 4096)
+
+
+def _on_card(x, device, offset=0):
+    """x on the card, ``offset`` elements past the start of its storage."""
+    if not offset:
+        return x.to(device)
+    out = torch.empty(x.numel() + offset, device=device)[offset:].view(x.shape)
+    return out.copy_(x)
+
+
+def _card_inputs(B, T, W, device, offset=0, scale=1.0):
+    a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(B, T, W))
+    g = torch.from_numpy(_scan_inputs(B, T, W, seed=3)[1])
+    return (_on_card(a, device, offset), _on_card(b, device, offset), (h0 * scale).to(device),
+            _on_card(g, device, offset))
+
+
+def _launched(fn, kind, call):
+    """call() once; it must launch ``fn``'s kernel once, on variant ``kind``."""
+    before = dict(fn.launches_by_variant)
+    out = call()
+    after = dict(fn.launches_by_variant)
+    assert after == {**before, kind: before[kind] + 1}, (kind, before, after)
+    return out
+
+
 @pytest.mark.cuda
-def test_rglru_bwd_kernel_matches_plain_on_card(cuda):
-    """The backward kernel against its plain version on the forward's h:
-    every backward case, a width that is no multiple of 32 with an odd T, and
-    T 0 (zeros, no launch)."""
-    for B, T, W, _, _, scale in BWD_CASES + [(2, 257, 4100, 0, 0, 1.0)]:
-        a, b, h0 = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(B, T, W))
-        h0 = h0 * scale
-        h = rglru_scan_fwd(a, b, h0)
-        g = torch.from_numpy(_scan_inputs(B, T, W, seed=3)[1]).to(cuda)
-        got = rglru_scan_bwd(a, h, h0, g)
+def test_rglru_bwd_kernel_matches_plain_on_card(cuda, monkeypatch):
+    """The backward kernel against its plain version on the forward's h in
+    every card case, on the variant the rule names (every backward case too:
+    T 1 and a large h0), and T 0 (zeros, no launch); at the training shape
+    the tma variant against the lane one (the same arithmetic in the same
+    order), and a second call that repeats the first bit for bit."""
+    cases = [(*c[:3], 0, c[5]) for c in BWD_CASES] + [(*c, 1.0) for c in CARD_CASES]
+    for B, T, W, offset, scale in cases:
+        a, b, h0, g = _card_inputs(B, T, W, cuda, offset, scale)
+        h = _on_card(rglru_scan_fwd(a, b, h0), cuda, offset)
+        kind = "tma" if W % 4 == 0 and not offset else "lane"
+        assert scan_mod.variant(a, h, g) == kind
+        got = _launched(rglru_scan_bwd, kind, lambda: rglru_scan_bwd(a, h, h0, g))
         want = ref.rglru_scan_bwd_ref(a, h, h0, g)
         torch.cuda.synchronize()
         for x, y in zip(got, want):
             _close(x.cpu(), y.cpu(), SCAN_TOL, SCAN_TOL)
+    a, b, h0, g = _card_inputs(*TRAIN_SHAPE, cuda)
+    h = rglru_scan_fwd(a, b, h0)
+    tma = _launched(rglru_scan_bwd, "tma", lambda: rglru_scan_bwd(a, h, h0, g))
+    again = rglru_scan_bwd(a, h, h0, g)
+    monkeypatch.setattr(scan_mod, "variant", lambda *_: "lane")
+    lane = _launched(rglru_scan_bwd, "lane", lambda: rglru_scan_bwd(a, h, h0, g))
+    for x, y, z in zip(tma, again, lane):
+        assert torch.equal(x, y) and torch.equal(x, z)
     empty = torch.zeros((1, 0, 8), device=cuda)
     before = rglru_scan_bwd.launches
     da, db, dh0 = rglru_scan_bwd(empty, empty, torch.ones((1, 8), device=cuda), empty)
@@ -173,14 +223,69 @@ def test_rglru_bwd_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_rglru_kernel_matches_plain_on_card(cuda):
-    """Every case, plus a width that is no multiple of 32 with an odd T."""
-    for B, T, W in [c[:3] for c in SCAN_CASES] + [(2, 257, 4100)]:
-        a, b, h0 = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(B, T, W))
-        out = rglru_scan_fwd(a, b, h0)
+def test_rglru_kernel_matches_plain_on_card(cuda, monkeypatch):
+    """Every card case on the variant the rule names; at the training shape
+    the tma variant's h equal to the lane one's and a second call's."""
+    for B, T, W, offset in CARD_CASES:
+        a, b, h0, _ = _card_inputs(B, T, W, cuda, offset)
+        kind = "tma" if W % 4 == 0 and not offset else "lane"
+        out = _launched(rglru_scan_fwd, kind, lambda: rglru_scan_fwd(a, b, h0))
         expect = ref.rglru_scan_ref(a, b, h0)
         torch.cuda.synchronize()
         _close(out.cpu(), expect.cpu(), SCAN_TOL, SCAN_TOL)
+    a, b, h0, _ = _card_inputs(*TRAIN_SHAPE, cuda)
+    tma = _launched(rglru_scan_fwd, "tma", lambda: rglru_scan_fwd(a, b, h0))
+    again = rglru_scan_fwd(a, b, h0)
+    monkeypatch.setattr(scan_mod, "variant", lambda *_: "lane")
+    lane = _launched(rglru_scan_fwd, "lane", lambda: rglru_scan_fwd(a, b, h0))
+    assert torch.equal(tma, again) and torch.equal(tma, lane)
+
+
+# ---------------------------------------------------------------- variant --
+def _described(B, T, W, offset=0, device="cpu"):
+    """A [B,T,W] fp32 tensor ``offset`` elements past its storage's start
+    (CPU storage is 64-byte aligned); on ``meta`` its data_ptr is 0."""
+    return torch.empty(B * T * W + offset, device=device)[offset:].view(B, T, W)
+
+
+@pytest.mark.parametrize("shapes,want", [
+    pytest.param([(2, 9, 16, 0)] * 2, "tma", id="aligned"),
+    pytest.param([(1, 4096, 4096, 0)] * 3, "tma", id="training-shape"),
+    pytest.param([(2, 9, 16, 1)] * 2, "lane", id="misaligned"),
+    pytest.param([(2, 9, 16, 0), (2, 9, 16, 2)], "lane", id="second-input-misaligned"),
+    pytest.param([(2, 9, 16, 0)] * 2 + [(2, 9, 16, 4)], "tma", id="offset-by-16-bytes"),
+    pytest.param([(2, 9, 30, 0)] * 2, "lane", id="w-not-multiple-of-4"),
+    pytest.param([(2, 9, 20, 0)] * 2, "tma", id="w-multiple-of-4-not-of-the-column"),
+    pytest.param([(2, 0, 16, 0)] * 2, "lane", id="empty-t"),
+    pytest.param([(0, 9, 16, 0)] * 2, "lane", id="empty-b"),
+])
+def test_rglru_variant_rule(shapes, want):
+    assert scan_mod.variant(*(_described(*s) for s in shapes)) == want
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 2 ** 31 - 1 - 2 * scan_mod.ROWS, 4), "tma"),
+    ((1, 2 ** 31 - 2 * scan_mod.ROWS, 4), "lane"),  # no room for a stage past T
+    ((2, 2 ** 19, 2 ** 19 - 4), "tma"),
+    ((2, 2 ** 19, 2 ** 19), "lane"),         # a batch stride of 2^40 bytes
+])
+def test_rglru_variant_rule_at_the_tensor_map_limits(shape, want):
+    assert scan_mod.variant(_described(*shape, device="meta")) == want
+
+
+@pytest.mark.parametrize("err,match", [(-2, "CUresult 2"), (715, "cudaError 715")])
+def test_launch_errors_raise(err, match):
+    """A C entry's error code (a cudaError_t, or minus a CUresult of a tensor
+    map that could not be encoded) always raises, naming the call."""
+    with pytest.raises(RuntimeError, match=f"rglru_scan.*{match}"):
+        build.raise_on(err, "rglru_scan")
+    build.raise_on(0, "rglru_scan")
+
+
+def test_rglru_ring_constants_match_the_kernel_source():
+    """The variant rule's T limit counts the kernel's stage rows."""
+    src = (build.CSRC / "rglru_scan.cu").read_text()
+    assert re.search(r"constexpr int ROWS = (\d+);", src)[1] == str(scan_mod.ROWS)
 
 
 # ------------------------------------------------------------------- block --
