@@ -27,14 +27,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``simt`` for fp32 and for bf16 with a head dim no multiple of 8 or off
    16-byte aligned storage);
    then the forward and the backward at llama3-8b's training shape (head dim
-   128) and at recurrentgemma-9b's (head dim 256, MQA, window 2048: the
-   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``), each
+   128), at recurrentgemma-9b's (head dim 256, MQA, window 2048: the
+   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``) and at
+   deepseek-v2-236b's MLA (B 1, T 4096, 128 heads, dk 192 / dv 128), each
    timed beside its plain version, its bound (at d 256 also the bound of the
    seven products the split design runs, a second call that must repeat
    the first bit for bit, and the time at every head-group count the
-   launch can choose) and SDPA (a window as a boolean
-   mask; the SDPA backend that ran is named), the backward's device time
-   split by launch; then the
+   launch can choose; where dk or dv is under the kernel's D, the bound of
+   the work zero-filled to D) and SDPA (a window as a boolean mask; its
+   backends pinned to the fused ones, the math backend only where none
+   takes the shape, said so; the backend that ran is named), the
+   backward's device time split by launch; the plain versions run over
+   slices of the heads where their fp32 scores would pass ``PLAIN_BYTES``;
+   then the
    RG-LRU scan's forward and its backward kernel (``rglru_scan_bwd``)
    against their plain versions at 1e-5, each case naming its variant
    (``tma`` for every shape the TMA can address, with T no multiple of the
@@ -49,13 +54,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    a second call's bit for bit, and the backward must repeat bit for bit
    (its difference from ``lane`` is printed);
 3. the port against its own plain CPU path on small fp32 models
-   (llama3.2-1b and recurrentgemma-9b);
-4. the main paths, each with every kernel launch counted from zero:
+   (llama3.2-1b, recurrentgemma-9b and deepseek-v2-236b);
+4. the main paths, each with every kernel launch counted from zero and
+   with its peak memory and decode's weight-read floor:
    ``serve("llama3.2-1b")`` at full width, batch 8 x prompt 1024 x 32
    generated tokens; then ``serve("recurrentgemma-9b")`` at full width and
-   depth (38 layers, bf16), batch 4 x prompt 4096 x 32 generated tokens.
-   Every flash-attention launch of both must be ``wgmma``, every scan
-   launch ``tma``;
+   depth (38 layers, bf16), batch 4 x prompt 4096 x 32 generated tokens;
+   then ``serve("deepseek-v2-236b")`` at published widths cut to 4 of its 60
+   layers (``get_config`` patched in serve's namespace: the dense lead layer
+   and 3 MoE layers of 160 routed experts top-6 and 2 shared), batch 4 x
+   prompt 4096 x 32 generated tokens.  Every flash-attention launch must be
+   ``wgmma`` (one per attention layer in prefill, none in decode), every
+   scan launch ``tma``, and no plain version may run;
 5. admitted serving: llama3.2-1b's phase-4 request again, admitted through
    the lock table (``admission_slots=4``), with the kernel libraries
    unloaded first: the libraries are loaded when the slot is taken, the card
@@ -71,7 +81,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    autograd Function (fp32 and bf16, causal and windowed, GQA and MQA)
    against the plain backward and the oracle's autograd, with phase 2's
    tolerances, then three fp32 train steps of
-   llama3.2-1b and recurrentgemma-9b at smoke width on the card and on the
+   llama3.2-1b and recurrentgemma-9b (``SMOKE_TRAIN``: deepseek does not
+   train on the card yet) at smoke width on the card and on the
    CPU from one init (losses, grads' norms and final parameters within the
    CPU parity tests' atol 1e-5, rtol 1e-4; each kernel's launches printed,
    the scan backward's among them); (b) a smoke run checkpointed at
@@ -108,8 +119,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    recompute and the backward, within ``RG_TRAIN_BF16_TOL``, and a scan
    backward wrong on purpose (da from h_t) must exceed it.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
+Before each of phases 3-6 a ``[memory]`` line prints what the phases before
+it left allocated on the card, which adds to every later peak reading.  The
+last lines are the kernels' JSON record, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.  The script imports nothing of
 JAX; with no CUDA card, or without the repository beside it, it exits 1.
 """
 
@@ -159,7 +172,14 @@ FLASH_CASES = [
 FLASH_SLICES = {  # prefill attention of each main path
     "llama3.2-1b": (8, 1024, 32, 8, 64, 64, True, 0, "bfloat16"),
     "recurrentgemma-9b": (4, 4096, 16, 1, 256, 256, True, 2048, "bfloat16"),
+    # MLA: 128 heads with their own K (the latents expanded per head), dk 192
+    # = 128 nope + 64 rope, dv 128; on flash_fwd_wgmma<256>.
+    "deepseek-v2-236b": (4, 4096, 128, 128, 192, 128, True, 0, "bfloat16"),
 }
+# The plain versions run over slices of the KV heads whose fp32 scores take at
+# most this many bytes: whole, MLA's 128 heads would not fit the card
+# (34 GB of scores at B 4).  Every other shape here stays in one piece.
+PLAIN_BYTES = 2 ** 32
 # Largest |out - ref| allowed.  fp32 differs in summation order only.
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 is also held per element to |out - ref| <= BF16_RTOL |ref| + BF16_ROW
@@ -187,8 +207,17 @@ RGLRU_BWD_CASES = [(*c, 1.0) for c in RGLRU_CASES] + [(2, 33, 96, 0, 10.0)]
 RGLRU_TRAIN = (1, 4096, 4096)
 RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
 
-# Main paths: arch, batch, prompt, generated tokens.
-SERVE = [("llama3.2-1b", 8, 1024, 32), ("recurrentgemma-9b", 4, 4096, 32)]
+# Main paths: arch, batch, prompt, generated tokens, layers (None: the
+# published depth).  deepseek-v2-236b at published widths is 236 G parameters
+# over 60 layers; 4 layers (the dense lead layer and 3 MoE layers) hold 13.3 G,
+# 26.6 GB in bf16.
+SERVE = [("llama3.2-1b", 8, 1024, 32, None), ("recurrentgemma-9b", 4, 4096, 32, None),
+         ("deepseek-v2-236b", 4, 4096, 32, 4)]
+# Phase 3: the port on the card against its CPU path at smoke width.
+CHECK = ("llama3.2-1b", "recurrentgemma-9b", "deepseek-v2-236b")
+# Phase 6(a): smoke training on the card against the CPU (deepseek does not
+# train on the card yet).
+SMOKE_TRAIN = ("llama3.2-1b", "recurrentgemma-9b")
 
 # Phase 6.  Flash gradient cases (B, T, H, K, dk, dv, causal, window, dtype):
 # fp32 on simt, bf16 on wgmma; llama's d 64 GQA and recurrentgemma's d 256 MQA.
@@ -233,6 +262,10 @@ TRAIN_D128 = (1, 4096, 32, 8, 128, 128, True, 0, "bfloat16")
 # recurrentgemma-9b's attention in one training microbatch (phase 6(d)): MQA
 # at d 256 with the 2048 window, forward and backward on wgmma.
 TRAIN_RG_ATTN = (1, 4096, 16, 1, 256, 256, True, 2048, "bfloat16")
+# deepseek-v2-236b's MLA at a training microbatch's shape (one row of
+# train_4k): forward and backward on the d-256 kernels, timed in phase 2
+# ahead of training it on the card.
+TRAIN_MLA = (1, 4096, 128, 128, 192, 128, True, 0, "bfloat16")
 # The launches of one flash_attention_bwd call on each variant (``wgmma`` up
 # to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
 # kernel has in a profiler trace, and the main kernels of each.
@@ -507,6 +540,21 @@ def launch_counts():
     return out
 
 
+@contextlib.contextmanager
+def at_depth(module, layers):
+    """``get_config`` in ``module``'s namespace patched to cut every config to
+    ``layers`` layers in the block (no knob of the entry point changes); with
+    ``layers`` None, nothing is patched."""
+    real = module.get_config
+    if layers:
+        module.get_config = lambda a, smoke=False: real(a, smoke).with_overrides(
+            num_layers=layers)
+    try:
+        yield
+    finally:
+        module.get_config = real
+
+
 def counted_training(arch, layers, shape, run, device, smoke=False):
     """``train(arch)`` for ``run.total_steps`` steps at ``layers`` layers:
     ``get_config`` is patched in train's namespace for the call (no knob of
@@ -516,7 +564,7 @@ def counted_training(arch, layers, shape, run, device, smoke=False):
     from repro_torch.launch import train as train_mod
 
     step_counts = []
-    real_config, real_step = train_mod.get_config, train_mod.build_train_step
+    real_step = train_mod.build_train_step
 
     def counted_step(model, run_):
         step = real_step(model, run_)
@@ -528,15 +576,13 @@ def counted_training(arch, layers, shape, run, device, smoke=False):
             return out
         return call
 
-    train_mod.get_config = lambda a, smoke=False: real_config(a, smoke).with_overrides(
-        num_layers=layers)
     train_mod.build_train_step = counted_step
     try:
-        with counted_plain_calls() as plain_calls:
+        with at_depth(train_mod, layers), counted_plain_calls() as plain_calls:
             res = train_mod.train(arch, smoke=smoke, steps=run.total_steps, shape=shape,
                                   run=run, log_every=1, device=device)
     finally:
-        train_mod.get_config, train_mod.build_train_step = real_config, real_step
+        train_mod.build_train_step = real_step
     return res, step_counts, plain_calls
 
 
@@ -563,27 +609,99 @@ def parent_scan():
     return ParentScan
 
 
-def sdpa_backend(fn):
+def sdpa_backend(fn, tries=3):
     """The SDPA backend that ran ``fn``, read from the names of the kernels a
     profiler trace of one call shows (flash, efficient, cudnn or math), and
-    the three kernels that took the most device time."""
+    the three kernels that took the most device time.  A trace can come back
+    without device time: up to ``tries`` traces are taken, and if none has
+    any, the backend is not named."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    times = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if t > 0:
-            times[ev.key] = t
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if t > 0:
+                times[ev.key] = t
+        if times:
+            break
+    else:
+        return f"not named (no device time in {tries} profiler traces)", []
     names = " ".join(times).lower()
     backend = next((label for label, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
                                                ("efficient", ("fmha", "efficient", "mem_eff")))
                     if any(k in names for k in keys)), "math")
     top = sorted(times, key=times.get, reverse=True)[:3]
     return backend, [name[:90] for name in top]
+
+
+def head_slices(B: int, Tq: int, Tk: int, H: int, K: int):
+    """(query-head slice, KV-head slice) pairs that cover the heads in whole
+    GQA groups, each group's fp32 scores [B, H/K, Tq, Tk] together at most
+    PLAIN_BYTES (one slice wherever one group alone is more)."""
+    G = H // K
+    n = max(1, min(K, PLAIN_BYTES // (B * G * Tq * Tk * 4)))
+    return [(slice(i * G, min(i + n, K) * G), slice(i, min(i + n, K))) for i in range(0, K, n)]
+
+
+def plain_fwd(q, k, v, **mask):
+    """The plain forward (``ref.flash_attention_ref``) over the slices of
+    :func:`head_slices`, joined on the heads."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    parts = [ref.flash_attention_ref(q[:, :, hq], k[:, :, hk], v[:, :, hk], **mask)
+             for hq, hk in head_slices(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                                       k.shape[2])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+def plain_bwd_oracle(q, k, v, g, **mask):
+    """A call that runs the oracle's autograd with its forward (the plain
+    backward as the reference takes it) over the slices of :func:`head_slices`,
+    each slice its own leaves; for timing."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    parts = []
+    for hq, hk in head_slices(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2]):
+        leaves = [x.detach().requires_grad_() for x in (q[:, :, hq], k[:, :, hk], v[:, :, hk])]
+        parts.append((leaves, g[:, :, hq]))
+    return lambda: [torch.autograd.grad(ref.flash_attention_ref(*leaves, **mask), leaves, gs)
+                    for leaves, gs in parts]
+
+
+FUSED_SDPA = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_backends(q, k, v, grad=False, **kw):
+    """The SDPA backends to pin for these inputs ([B, heads, T, d]) and a
+    note: the fused ones (cuDNN, flash, efficient), so that a comparison
+    cannot fall to the math backend unseen; where none of them takes the shape
+    (the forward, and with ``grad`` its backward), the math backend, said so."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fused = [getattr(SDPBackend, name) for name in FUSED_SDPA]
+    try:
+        with sdpa_kernel(fused):
+            leaves = [x.detach().requires_grad_(grad) for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, **kw)
+            if grad:
+                torch.autograd.grad(out, leaves, torch.ones_like(out))
+        return fused, "pinned to the fused backends"
+    except RuntimeError as exc:
+        if not any(m in str(exc) for m in ("No available kernel", "No viable backend")):
+            raise
+    return [SDPBackend.MATH], "no fused SDPA backend takes this shape: the math backend"
 
 
 def attn_pairs(T: int, causal: bool, window: int):
@@ -626,6 +744,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.data import SyntheticLMDataset
@@ -635,6 +754,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (MAX_FUSED_BWD_DIM, flash_attention_bwd,
                                                      flash_attention_fwd)
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.launch.train import train
     from repro_torch.models import Model, input_specs, layer_plan
@@ -711,7 +831,7 @@ def main() -> int:
         out = flash_attention_fwd(q, k, v, causal=causal, window=window)
         kind, = (n for n, c in flash_attention_fwd.launches_by_variant.items()
                  if c != before[n])
-        expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        expect = plain_fwd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         return out, expect, kind
 
@@ -741,6 +861,23 @@ def main() -> int:
         print(f"[kernel] flash_attention {case} {kind}: max_abs_err {err:.3e} (tol {TOL[dtype]})"
               + (f", {share:.3f} of the per-element bound" if dtype == "bfloat16" else ""))
 
+    def sdpa_yardstick(q, k, v, causal, window, keep, grad=False):
+        """SDPA's inputs ([B, heads, T, d] copies of q, k, v), keyword
+        arguments (a window as a boolean mask; ``enable_gqa`` where H != K),
+        and the backends to pin with their note (:func:`sdpa_backends`)."""
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kw = dict(attn_mask=keep.to(dev)) if window else dict(is_causal=causal)
+        if q.shape[2] != k.shape[2]:
+            kw["enable_gqa"] = True
+        backends, note = sdpa_backends(qt, kt, vt, grad=grad, **kw)
+        return (qt, kt, vt), kw, backends, note
+
+    def padded_dim(dk, dv):
+        """The D of the wgmma kernels that take dk and dv (64, 128 or 256):
+        the TMA zero-fills the columns past dk and dv to D, so every product
+        they run is D wide."""
+        return next(d for d in (64, 128, 256) if max(dk, dv) <= d)
+
     records = {}  # kernel entries of the JSON line, keyed by the path they serve
     for arch, case in FLASH_SLICES.items():
         B, T, H, K, dk, dv, causal, window, dtype = case
@@ -749,33 +886,30 @@ def main() -> int:
         err, share = flash_check(case, out, expect, kind)
         del expect
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, window=window), 20)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                                           window=window), 3)
+        plain_ms = time_ms(lambda: plain_fwd(q, k, v, causal=causal, window=window), 3)
         # Work this run's inputs need: unmasked (q, k) pairs, 2 FLOP per
         # multiply-add in QK^T (dk) and PV (dv); each of q, k, v, o moved once.
-        pos = torch.arange(T)
-        keep = torch.ones(T, T, dtype=torch.bool)
-        if causal:
-            keep &= pos[None, :] <= pos[:, None]
-        if window:
-            keep &= pos[None, :] > pos[:, None] - window
-        flops = 2 * (dk + dv) * B * H * int(keep.sum())
+        keep = attn_pairs(T, causal, window)
+        pairs = B * H * int(keep.sum())
+        flops = 2 * (dk + dv) * pairs
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-        # Yardstick: SDPA on the same q, k, v, with the window as an explicit mask.
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        if window:
-            mask = keep.to(dev)
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
-        else:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        D = padded_dim(dk, dv)
+        padded_ms, _ = bound(2 * 2 * D * pairs, PEAK_BF16_FLOPS, nbytes)
+        # Yardstick: SDPA on the same q, k, v, its backends pinned.
+        (qt, kt, vt), kw, backends, note = sdpa_yardstick(q, k, v, causal, window, keep)
+        with sdpa_kernel(backends):
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), 20)
+            backend, top = sdpa_backend(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+        padded = (f"; the work flash_fwd_wgmma<{D}> runs, dk {dk} and dv {dv} zero-filled to "
+                  f"{D}, bounds it at {padded_ms:.4f} ms "
+                  f"(the needed work is {100 * bound_ms / padded_ms:.1f} % of it)"
+                  if padded_ms > bound_ms else "")
         print(f"[kernel] flash_attention {case} {kind} ({arch} prefill): max_abs_err {err:.3e}, "
               f"{share:.3f} of the per-element bound; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({note}; "
+              f"ran {backend}: {top}), bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB){padded}; {smi}")
         records[("flash_attention", arch)] = {
             "name": "flash_attention",
             "variant": kind,
@@ -790,8 +924,11 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
+            "library_backend": backend,
+            "library_note": note,
+            **({"padded_bound_ms": padded_ms} if padded_ms > bound_ms else {}),
         }
-        del q, k, v, qt, kt, vt, out
+        del q, k, v, qt, kt, vt, out, kw
         torch.cuda.empty_cache()
 
     def grad_refs(case, q, k, v, out, lse, g):
@@ -799,12 +936,20 @@ def main() -> int:
         oracle's autograd, both in fp32 on fp32 upcasts of the inputs."""
         causal, window = case[6:8]
         qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, g))
-        plain = ref.flash_attention_bwd_ref(qf, kf, vf, of, lse, gf, causal=causal,
-                                            window=window)
-        leaves = [x.clone().requires_grad_() for x in (qf, kf, vf)]
-        oracle = torch.autograd.grad(
-            ref.flash_attention_ref(*leaves, causal=causal, window=window), leaves, gf)
-        return plain, oracle
+        plain, oracle = [], []
+        for hq, hk in head_slices(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2]):
+            plain.append(ref.flash_attention_bwd_ref(
+                qf[:, :, hq], kf[:, :, hk], vf[:, :, hk], of[:, :, hq], lse[:, hq], gf[:, :, hq],
+                causal=causal, window=window))
+            leaves = [x.clone().requires_grad_() for x in (qf[:, :, hq], kf[:, :, hk],
+                                                           vf[:, :, hk])]
+            oracle.append(torch.autograd.grad(
+                ref.flash_attention_ref(*leaves, causal=causal, window=window), leaves,
+                gf[:, :, hq]))
+            del leaves
+        if len(plain) == 1:
+            return plain[0], oracle[0]
+        return tuple(tuple(torch.cat(x, dim=2) for x in zip(*parts)) for parts in (plain, oracle))
 
     def bwd_want(case):
         """The backward variant a case must launch: ``wgmma`` for bf16 that
@@ -884,28 +1029,38 @@ def main() -> int:
         del expect
         mask = dict(causal=causal, window=window)
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, **mask), 20)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **mask), 3)
+        plain_ms = time_ms(lambda: plain_fwd(q, k, v, **mask), 3)
         keep = attn_pairs(T, causal, window)
-        # Yardstick: SDPA on the same q, k, v; a window goes in as a mask.
-        sdpa_mask = (dict(attn_mask=keep.to(dev)) if window
-                     else dict(is_causal=causal))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True, **sdpa_mask), 20)
+        # Yardstick: SDPA on the same q, k, v, its backends pinned for the
+        # forward and the backward; a window goes in as a mask.
+        (qt, kt, vt), sdpa_kw, backends, sdpa_note = sdpa_yardstick(q, k, v, causal, window,
+                                                                   keep, grad=True)
+        with sdpa_kernel(backends):
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw), 20)
+            fwd_backend, fwd_top = sdpa_backend(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, **sdpa_kw))
         pairs = B * H * int(keep.sum())  # unmasked (query, key) pairs
         flops = 2 * (dk + dv) * pairs
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        D = padded_dim(dk, dv)
+        padded_ms, _ = bound(2 * 2 * D * pairs, PEAK_BF16_FLOPS, nbytes)
+        padded = (f"; the work flash_fwd_wgmma<{D}> runs, dk {dk} and dv {dv} zero-filled to "
+                  f"{D}, bounds it at {padded_ms:.4f} ms" if padded_ms > bound_ms else "")
         print(f"[kernel] flash_attention {case} {kind} ({label}): max_abs_err {err:.3e}"
               + (f", {share:.3f} of the per-element bound" if dtype == "bfloat16" else "")
-              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {pairs} pairs); {smi}")
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+              f"({sdpa_note}; ran {fwd_backend}: {fwd_top}), bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.2f} GFLOP, "
+              f"{pairs} pairs){padded}; {smi}")
         fwd = {"name": "flash_attention", "variant": kind, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:128",
                "shape": list(case), "launches": None, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms}
+               "library_ms": library_ms, "library_note": sdpa_note,
+               "library_backend": fwd_backend,
+               **({"padded_bound_ms": padded_ms} if padded_ms > bound_ms else {})}
 
         # The backward: checked against its plain version and the oracle,
         # then timed beside the oracle's autograd (its forward recomputed, as
@@ -955,17 +1110,16 @@ def main() -> int:
                   + f"; bwd_groups chooses {chosen}")
             groups_rec = {"head_groups": chosen,
                           "ms_by_head_groups": {str(n): t for n, t in by_groups.items()}}
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
-            ref.flash_attention_ref(*leaves, **mask), leaves, g), 3)
+        bwd_plain_ms = time_ms(plain_bwd_oracle(q, k, v, g, **mask), 3)
         qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_mask)
         gt = g.transpose(1, 2).contiguous()
-        bwd_library_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt,
-                                                             retain_graph=True), 20)
-        backend, top = sdpa_backend(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_mask),
-            (qt, kt, vt), gt))
+        with sdpa_kernel(backends):
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+            bwd_library_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), gt,
+                                                                 retain_graph=True), 20)
+            backend, top = sdpa_backend(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw), (qt, kt, vt), gt))
+        del o_sdpa, gt
         # Five products per unmasked pair (S, dP, dV, dK, dQ: 2 FLOP per
         # multiply-add over 3 dk + 2 dv); q, k, v, out, dout, lse read once
         # and dq, dk, dv written once.
@@ -984,11 +1138,16 @@ def main() -> int:
                            f"{bound7_ms:.4f} ms, of which the main kernels reach "
                            f"{100 * bound7_ms / main_ms:.1f} %")
             design = {"bound_7_products_ms": bound7_ms}
+            if D * 7 * 2 * pairs > flops7:  # dk, dv zero-filled to D in every product
+                bound7_padded_ms, _ = bound(2 * 7 * D * pairs, PEAK_BF16_FLOPS, bwd_bytes)
+                design_note += (f"; the seven products as the kernels run them, dk {dk} and dv "
+                                f"{dv} zero-filled to {D}, bound {bound7_padded_ms:.4f} ms")
+                design["bound_7_products_padded_ms"] = bound7_padded_ms
         print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({label}): "
               + bwd_note(dtype, bwd_err, bwd_share, bwd_l2) + repeat_note
               + f"; kernel {bwd_ms:.4f} ms, plain (the oracle's autograd, forward recomputed) "
               f"{bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms (forward and "
-              f"backward on SDPA's {backend} backend: {top}), bound "
+              f"backward on SDPA's {backend} backend, {sdpa_note}: {top}), bound "
               f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_flops / 1e9:.2f} GFLOP, "
               f"{bwd_bytes / 1e6:.1f} MB); {smi}")
         print(f"[kernel] flash_attention_bwd {case} ({label}) device ms per call by launch: "
@@ -1004,9 +1163,9 @@ def main() -> int:
                                 "the oracle's vjp",
                "shape": list(case), "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms,
                "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
-               "library_ms": bwd_library_ms, "library_backend": backend, "split_ms": split,
-               **design, **groups_rec}
-        del q, k, v, qt, kt, vt, out, lse, g, gt, o_sdpa, leaves
+               "library_ms": bwd_library_ms, "library_backend": backend,
+               "library_note": sdpa_note, "split_ms": split, **design, **groups_rec}
+        del q, k, v, qt, kt, vt, out, lse, g
         torch.cuda.empty_cache()
         return fwd, bwd
 
@@ -1044,6 +1203,15 @@ def main() -> int:
                                                 "recurrentgemma-9b training microbatch")
     records[("flash_attention", "recurrentgemma-9b train")] = fwd_rec
     records[("flash_attention_bwd", "recurrentgemma-9b train")] = bwd_rec
+    # deepseek-v2-236b's MLA at a training microbatch's shape: no main path
+    # trains it yet; its records take their wrappers' launches on llama's
+    # training path (phase 6(c)), as llama3-8b's do.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_MLA, "deepseek-v2-236b training shape")
+    for rec in (fwd_rec, bwd_rec):
+        rec["launches_note"] = ("the wrapper's launches on llama3.2-1b's training path "
+                                "(d 64); no main path trains MLA on the card yet")
+    records[("flash_attention", "deepseek-v2-236b train")] = fwd_rec
+    records[("flash_attention_bwd", "deepseek-v2-236b train")] = bwd_rec
 
     def scan_inputs(B, T, W, offset=0):
         """a, b, h0; a and b ``offset`` elements past their storage's start."""
@@ -1227,8 +1395,17 @@ def main() -> int:
         prefill_shape={"shape": list(RGLRU_SLICE), "max_abs_err": scan_times[RGLRU_SLICE][2],
                        **prefill_bwd})
 
+    def held(phase):
+        """What earlier phases leave allocated on the card: it adds to every
+        later peak-memory reading."""
+        before = torch.cuda.memory_allocated()
+        gc.collect()
+        print(f"[memory] allocated before phase {phase}: {before / 1e9:.3f} GB, "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB after a garbage collection")
+
     # -------------------------------- 3. port vs its plain path, small input --
-    for arch, _, _, _ in SERVE:
+    held(3)
+    for arch in CHECK:
         cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
         gpu = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
         cpu = Model(cfg, device="cpu")
@@ -1243,11 +1420,13 @@ def main() -> int:
             lg, cg = gpu.decode_step(cg, tok.to(dev))
             lc, cc = cpu.decode_step(cc, tok)
         torch.testing.assert_close(lg.cpu(), lc, atol=5e-3, rtol=1e-2)
-        print(f"[check] {arch} smoke fp32 (window {cfg.window}): card prefill + 4 decode "
-              f"steps match the CPU path")
+        print(f"[check] {arch} smoke fp32 (window {cfg.window}, attention {cfg.attention}, "
+              f"{'MoE' if cfg.moe else 'dense FFN'}): card prefill + 4 decode steps match the "
+              f"CPU path")
         del gpu, cpu
 
     # ----------------------------------------------------- 4. main paths --
+    held(4)
     kernels = {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
                "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd}
 
@@ -1258,15 +1437,24 @@ def main() -> int:
             fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
     served = {}  # each main path's result
-    for arch, batch, prompt_len, gen_len in SERVE:
+    for arch, batch, prompt_len, gen_len, layers in SERVE:
         full = get_config(arch)
+        if layers:
+            full = full.with_overrides(num_layers=layers)
         plan = layer_plan(full)
-        kinds = plan.pattern * plan.n_scan + plan.tail
-        expect = {"flash_attention": kinds.count("attn"), "flash_attention_bwd": 0,
+        kinds = plan.lead + plan.pattern * plan.n_scan + plan.tail
+        expect = {"flash_attention": len(kinds) - kinds.count("rec"), "flash_attention_bwd": 0,
                   "rglru_scan": kinds.count("rec"), "rglru_scan_bwd": 0}
         # Same weights and prompts as serve() draws from seed 0: the first token
         # it serves must be the argmax of these finite logits.
         model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        # What one decode step reads at least: every weight (a MoE layer's
+        # experts all go through the capacity buffer), the embedding table
+        # only in its rows where it is not also the unembedding.
+        read = sum(p.numel() * p.element_size() for p in model.parameters())
+        if not full.tie_embeddings:
+            read -= model.embed["table"].numel() * model.embed["table"].element_size()
         prompts = input_specs(full, ShapeConfig("serve", prompt_len, batch, "prefill"),
                               generator=torch.Generator(dev).manual_seed(1), device=dev)
         logits, _ = model.prefill(prompts, prompt_len + gen_len)
@@ -1277,21 +1465,30 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         reset_counts()
-        res = served[arch] = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
-                                   gen_len=gen_len, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with at_depth(serve_mod, layers), counted_plain_calls() as plain_calls:
+            res = served[arch] = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
+                                       gen_len=gen_len, device="cuda")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = {name: fn.launches for name, fn in kernels.items()}
         flash_variants = dict(flash_attention_fwd.launches_by_variant)
         scan_variants = dict(rglru_scan_fwd.launches_by_variant)
         toks = res["tokens"]
-        print(f"[serve] {arch} full width bf16, {full.num_layers} layers, batch {batch} x "
+        depth = (f"{full.num_layers} of {get_config(arch).num_layers} layers ({plan.lead} + "
+                 f"{plan.n_scan} x {plan.pattern} + {plan.tail})" if layers
+                 else f"{full.num_layers} layers")
+        print(f"[serve] {arch} full width bf16, {depth}, {n_params} parameters, batch {batch} x "
               f"prompt {prompt_len} x {gen_len} tokens: prefill "
               f"{res['prefill_seconds']:.4f} s, decode "
               f"{res['decode_seconds_per_token'] * 1e3:.3f} ms/token, "
-              f"{res['throughput_tok_s']:.1f} tok/s; launches "
+              f"{res['throughput_tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB; decode's "
+              f"weight-read floor {read / 1e9:.2f} GB a token = "
+              f"{read / PEAK_BYTES_PER_S * 1e3:.3f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
+              f"launches "
               + ", ".join(f"{n} {c}" for n, c in launches.items())
               + " (flash by variant: " + ", ".join(f"{n} {c}" for n, c in flash_variants.items())
               + "; scan by variant: " + ", ".join(f"{n} {c}" for n, c in scan_variants.items())
-              + ")")
+              + f"); calls of the plain versions {plain_calls}; {smi}")
         torch.cuda.empty_cache()
         if tuple(toks.shape) != (batch, gen_len):
             raise AssertionError(f"tokens shape {tuple(toks.shape)} != {(batch, gen_len)}")
@@ -1308,12 +1505,15 @@ def main() -> int:
         if scan_variants["tma"] != launches["rglru_scan"]:
             raise AssertionError(f"{arch} prefill launched the scan as {scan_variants}: "
                                  "every launch must be tma")
+        if plain_calls:
+            raise AssertionError(f"{arch} serving called the plain versions {plain_calls}")
         for (name, path), rec in records.items():
             if path == arch:
                 rec["launches"] = launches[name]
 
     # ----------------------------------------------- 5. admitted serving --
-    arch, batch, prompt_len, gen_len = SERVE[0]
+    held(5)
+    arch, batch, prompt_len, gen_len, _ = SERVE[0]
     kw = dict(smoke=False, batch=batch, prompt_len=prompt_len, gen_len=gen_len, device="cuda")
     bare = served[arch]
     host_us = {"admit": [], "keepalive": [], "complete": []}
@@ -1472,6 +1672,7 @@ def main() -> int:
             raise AssertionError(f"a {mode} serve's tokens differ from phase 4's")
 
     # -------------------------------------------------------- 6. training --
+    held(6)
     # (a) Flash gradients on the card, through the autograd Function, against
     # the plain backward and the oracle's autograd.
     for case in GRAD_CASES:
@@ -1496,7 +1697,7 @@ def main() -> int:
               + bwd_note(dtype, *grad_check(case, bwd_kind, grads, plain, oracle)))
         del inputs, leaves, out, g, grads, expect, lse, plain, oracle
 
-    for arch, _, _, _ in SERVE:
+    for arch in SMOKE_TRAIN:
         reset_counts()
         rows, worst = smoke_train_steps(arch, dev)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -1662,7 +1863,8 @@ def main() -> int:
     records[("flash_attention", f"{arch} train")] = fwd_rec
     records[("flash_attention_bwd", f"{arch} train")] = bwd_rec
     for name in ("flash_attention", "flash_attention_bwd"):
-        records[(name, "llama3-8b train")]["launches"] = launches[name]
+        for path in ("llama3-8b train", "deepseek-v2-236b train"):
+            records[(name, path)]["launches"] = launches[name]
     torch.cuda.empty_cache()
 
     # (d) recurrentgemma-9b training at published widths, cut to 8 layers,

@@ -1,4 +1,5 @@
-"""The GQA decoders of the JAX model zoo (dense and RG-LRU hybrid), in PyTorch."""
+"""The decoders of the JAX model zoo (dense GQA, MLA with MoE, and the RG-LRU
+hybrid), in PyTorch."""
 
 from .io import input_specs  # noqa: F401
 from .specs import ParamSpec, init_params, param_count  # noqa: F401

@@ -1,18 +1,22 @@
-"""GQA attention: train and prefill (flash kernel), decode against a KV cache.
+"""Attention: GQA and MLA, train and prefill (flash kernel), decode against
+a cache.
 
-Port of the GQA half of ``repro/models/attention.py``.  Train mode
-(:func:`gqa_attention`) and prefill call ``kernels.ops.flash_attention``
+Port of ``repro/models/attention.py``.  Train mode (:func:`gqa_attention`,
+:func:`mla_attention`) and prefill call ``kernels.ops.flash_attention``
 where the JAX package calls ``online_attention`` on the CPU (and its Pallas
 kernel with ``use_pallas``): the two implement one contract
 (``tests/test_kernels.py::test_online_attention_equals_kernel_contract``),
 and on a CPU tensor ``ops`` runs its plain quadratic version, so
 ``online_attention`` has no separate port.  Decode attention stays plain
-tensor ops, as it is in the JAX package.
+tensor ops, as it is in the JAX package: GQA against its KV cache, MLA
+(DeepSeek's multi-head latent attention) by the absorbed-weight product in
+the latent space of its compressed cache.
 
-Unlike JAX's immutable arrays, the cache here is written in place: prefill
+Unlike JAX's immutable arrays, the caches here are written in place: prefill
 copies into the buffers ``Model.cache`` allocated, and each decode step
-writes one slot.  ``KVCache.length`` is a Python int, the same for every
-layer, so the slot arithmetic never waits on the device.
+writes one slot.  ``KVCache.length`` and ``MLACache.length`` are Python
+ints, the same for every layer, so the slot arithmetic never waits on the
+device.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import rope
+from .layers import rmsnorm, rmsnorm_spec, rope
 from .specs import ParamSpec
 
 _NEG_INF = -1e30
@@ -156,5 +160,139 @@ def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache):
     cache.v[:, slot].copy_(v[:, 0])
     n_valid = min(pos + 1, S) if cfg.window > 0 else pos + 1
     out = decode_attention(q, cache.k, cache.v, n_valid)
+    y = out.reshape(B, 1, -1) @ p["wo"]
+    return y, cache._replace(length=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek V2/V3)
+# ---------------------------------------------------------------------------
+def mla_spec(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    spec: Dict = {
+        "w_dkv": ParamSpec((D, m.kv_lora_rank), ("embed", None), dtype=dtype),
+        "kv_norm": rmsnorm_spec(m.kv_lora_rank, dtype),
+        "w_uk": ParamSpec((m.kv_lora_rank, H, dn), (None, "heads", None), dtype=dtype),
+        "w_uv": ParamSpec((m.kv_lora_rank, H, dv), (None, "heads", None), dtype=dtype),
+        "w_kr": ParamSpec((D, dr), ("embed", None), dtype=dtype),
+        "wo": ParamSpec((H * dv, D), ("heads", "embed"), dtype=dtype),
+    }
+    if m.q_lora_rank:
+        spec.update(
+            w_dq=ParamSpec((D, m.q_lora_rank), ("embed", None), dtype=dtype),
+            q_norm=rmsnorm_spec(m.q_lora_rank, dtype),
+            w_uq=ParamSpec((m.q_lora_rank, H, dn + dr), (None, "heads", None), dtype=dtype),
+        )
+    else:
+        spec["wq"] = ParamSpec((D, H, dn + dr), ("embed", "heads", None), dtype=dtype)
+    return spec
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # [B, S, kv_lora] (stacked: [L, B, S, kv_lora])
+    k_rope: torch.Tensor  # [B, S, dr]
+    length: int           # tokens currently cached
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device: torch.device) -> MLACache:
+    """A zeroed cache of ``max_len`` positions: no ring buffer, no window."""
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, max_len, m.rope_head_dim), dtype=dtype, device=device),
+        length=0)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("btr,rhd->bthd", x, w)`` as one matrix product."""
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    m = cfg.mla
+    if m.q_lora_rank:
+        q = _heads(rmsnorm(p["q_norm"], x @ p["w_dq"]), p["w_uq"])
+    else:
+        q = _heads(x, p["wq"])
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latents(p, x, cfg: ModelConfig, positions):
+    c_kv = rmsnorm(p["kv_norm"], x @ p["w_dkv"])            # [B, T, r]
+    k_rope = rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
+
+
+def _mla_attend(p, x, cfg: ModelConfig):
+    """Expand the latents to per-head K/V and flash-attend; returns the
+    block's output and the latents (c_kv, k_rope) that prefill caches."""
+    B, T, _ = x.shape
+    H, dr = cfg.num_heads, cfg.mla.rope_head_dim
+    positions = torch.arange(T, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latents(p, x, cfg, positions)
+    # The kernel takes contiguous q, k, v: each concatenation is a new tensor,
+    # with k_rope broadcast over the heads.
+    k = torch.cat([_heads(c_kv, p["w_uk"]), k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = _heads(c_kv, p["w_uv"])
+    out = ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block, cfg.k_block,
+                              _mla_scale(cfg))
+    return out.reshape(B, T, -1) @ p["wo"], c_kv, k_rope
+
+
+def mla_attention(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Training MLA. x: [B, T, D] → [B, T, D]."""
+    return _mla_attend(p, x, cfg)[0]
+
+
+def mla_prefill(p, x, cfg: ModelConfig, cache: MLACache):
+    """Prefill: attend and fill ``cache``'s latents in place.
+    x: [B, T, D] → ([B, T, D], cache with length T)."""
+    T = x.shape[1]
+    y, c_kv, k_rope = _mla_attend(p, x, cfg)
+    cache.c_kv[:, :T].copy_(c_kv)
+    cache.k_rope[:, :T].copy_(k_rope)
+    cache.c_kv[:, T:].zero_()
+    cache.k_rope[:, T:].zero_()
+    return y, cache._replace(length=T)
+
+
+def mla_decode(p, x, cfg: ModelConfig, cache: MLACache):
+    """Absorbed-weight decode: score and reduce in the latent space.
+
+    q_lat = q_nope · W_uk  →  scores = q_lat · c_kv + q_rope · k_rope
+    out   = (attn · c_kv) · W_uv — the cache stays compressed end-to-end.
+    Writes the new token's latents into ``cache`` in place; returns
+    ([B, 1, D], cache with length + 1).
+    """
+    B = x.shape[0]
+    pos = cache.length
+    ppos = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, ppos)
+    c_new, kr_new = _mla_latents(p, x, cfg, ppos)
+    S = cache.c_kv.shape[1]
+    slot = min(pos, S - 1)  # the reference's dynamic_update_slice clamps
+    cache.c_kv[:, slot].copy_(c_new[:, 0])
+    cache.k_rope[:, slot].copy_(kr_new[:, 0])
+    c_kv, k_rope = cache.c_kv, cache.k_rope
+
+    q_lat = torch.einsum("bthd,rhd->bthr", q_nope, p["w_uk"])  # absorb W_uk
+    s_lat = torch.einsum("bthr,bsr->bths", q_lat, c_kv)
+    s_rope = torch.einsum("bthd,bsd->bths", q_rope, k_rope)
+    s = (s_lat + s_rope).float() * _mla_scale(cfg)
+    valid = torch.arange(S, device=x.device) < pos + 1
+    s = s.masked_fill(~valid, _NEG_INF)
+    a = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bths,bsr->bthr", a, c_kv)            # reduce in latent
+    out = torch.einsum("bthr,rhd->bthd", o_lat, p["w_uv"])     # absorb W_uv
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, cache._replace(length=pos + 1)

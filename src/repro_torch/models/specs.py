@@ -73,7 +73,9 @@ def init_params(specs, generator: torch.Generator, device: torch.device):
             raise ValueError(f"unknown init {spec.init}")
         x = torch.randn(spec.shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * std).to(spec.dtype)
+        # Scaled in place: one fp32 draw at a time is the init's peak (30 GB
+        # for deepseek-v2's stacked experts at three layers).
+        return x.mul_(std).to(spec.dtype)
 
     return _map(one, specs)
 

@@ -1,19 +1,23 @@
-"""Model assembly: embed → layer stack → tied logits, for GQA decoders built
-from ``"attn"`` and ``"rec"`` (RG-LRU) blocks.
+"""Model assembly: embed → layer stack → logits, for decoders built from
+``"attn"`` (GQA or MLA attention, with a dense or MoE FFN) and ``"rec"``
+(RG-LRU) blocks.
 
-Port of ``repro/models/transformer.py`` for the dense (``("attn",)``) and
-hybrid (``("rec", "rec", "attn")``) patterns.  The parameters mirror the JAX
-tree (``embed.table``; ``blocks.b{i}.*`` for the super-block pattern, stacked
-on a leading dim of ``n_scan``; ``tail.{j}.*`` for the unrolled trailing
-layers; ``final_norm.scale``), so ``convert.params_from_jax`` loads a JAX
-``Model.init`` tree one-to-one.  A Python loop over the stacked leading dim
-replaces ``lax.scan``.  Caches are stacked the same way and written in place.
+Port of ``repro/models/transformer.py`` for the dense (``("attn",)``), MoE
+(``("attn",)`` after ``num_dense_layers`` dense ``lead`` layers) and hybrid
+(``("rec", "rec", "attn")``) patterns.  The parameters mirror the JAX tree
+(``embed.table``; ``lead.{j}.*`` for the unrolled leading layers;
+``blocks.b{i}.*`` for the super-block pattern, stacked on a leading dim of
+``n_scan``; ``tail.{j}.*`` for the unrolled trailing layers;
+``final_norm.scale``; ``mtp.*`` for DeepSeek-V3's multi-token prediction
+head), so ``convert.params_from_jax`` loads a JAX ``Model.init`` tree
+one-to-one.  A Python loop over the stacked leading dim replaces
+``lax.scan``.  Caches are stacked the same way and written in place.
 
 Entry points: ``loss(batch)`` and ``forward(batch)`` (training: gradients
 reach every parameter, each stacked super-block under
-``torch.utils.checkpoint`` unless ``cfg.remat == "none"``), and
-``prefill(batch, max_len)`` and ``decode_step(caches, tokens)`` (serving,
-under ``torch.inference_mode``).
+``torch.utils.checkpoint`` unless ``cfg.remat == "none"``; the MoE layers'
+load-balance loss is summed), and ``prefill(batch, max_len)`` and
+``decode_step(caches, tokens)`` (serving, under ``torch.inference_mode``).
 """
 
 from __future__ import annotations
@@ -27,10 +31,11 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import recurrent as rec
 from .layers import (chunked_xent, embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, unembed, unembed_spec)
-from .specs import init_params, stack_layer_specs
+from .specs import ParamSpec, init_params, stack_layer_specs
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -60,60 +65,84 @@ def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
     if not set(cfg.block_pattern) <= {"attn", "rec"}:
         unsupported.append(f"block_pattern={cfg.block_pattern}")
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "mla"):
         unsupported.append(f"attention={cfg.attention!r}")
-    if cfg.moe is not None:
-        unsupported.append("moe")
+    if cfg.moe is not None and cfg.moe.expert_sharding != "fsdp_d":
+        unsupported.append(f"expert_sharding={cfg.moe.expert_sharding!r}")
     if cfg.frontend != "none":
         unsupported.append(f"frontend={cfg.frontend!r}")
-    if cfg.mtp_depth:
-        unsupported.append("mtp")
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA decoders of attention and RG-LRU "
-            "blocks only; not yet: "
+            f"{cfg.name}: the port runs decoders of GQA or MLA attention, dense "
+            "or MoE FFNs and RG-LRU blocks on one device; not yet: "
             + ", ".join(unsupported))
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
-    mixer = attn.gqa_spec(cfg, dtype) if kind == "attn" else rec.rglru_block_spec(cfg, dtype)
+    """``kind``: ``"attn"`` (its FFN MoE when ``cfg.moe``), ``"attn_dense"``
+    (a lead layer of a MoE model: a dense FFN of ``dense_d_ff``) or ``"rec"``."""
+    if kind == "rec":
+        mixer = rec.rglru_block_spec(cfg, dtype)
+    elif cfg.attention == "mla":
+        mixer = attn.mla_spec(cfg, dtype)
+    else:
+        mixer = attn.gqa_spec(cfg, dtype)
+    if cfg.moe is not None and kind == "attn":
+        ffn = moe_mod.moe_spec(cfg, dtype)
+    elif cfg.moe is not None:
+        ffn = mlp_spec(cfg.d_model, cfg.moe.dense_d_ff or cfg.d_ff, cfg.act, dtype)
+    else:
+        ffn = mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype)
     return {
         "ln1": rmsnorm_spec(cfg.d_model, dtype),
-        kind: mixer,
+        "rec" if kind == "rec" else "attn": mixer,
         "ln2": rmsnorm_spec(cfg.d_model, dtype),
-        "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype),
+        "ffn": ffn,
     }
 
 
 def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
     """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
-    ``KVCache`` or an ``RGLRUState`` of buffers; ``None`` in train mode) is
-    written in place.  Returns (x, cache)."""
+    ``KVCache``, ``MLACache`` or ``RGLRUState`` of buffers; ``None`` in train
+    mode) is written in place.  Returns (x, cache, aux): aux is the MoE
+    load-balance loss, ``None`` for a dense FFN."""
     h = rmsnorm(p["ln1"], x)
-    if mode == "train":
-        if kind == "attn":
-            y = attn.gqa_attention(p["attn"], h, cfg)
-        else:
+    if kind == "rec":
+        if mode == "train":
             y = rec.rglru_block(p["rec"], h, cfg)
-    elif kind == "attn":
-        step = attn.gqa_prefill if mode == "prefill" else attn.gqa_decode
-        y, cache = step(p["attn"], h, cfg, cache)
-    else:
-        if mode == "prefill":
-            y, new = rec.rglru_block_with_state(p["rec"], h, cfg, None)
         else:
-            y, new = rec.rglru_decode(p["rec"], h, cfg, cache)
-        cache.h.copy_(new.h)
-        cache.conv.copy_(new.conv)
+            if mode == "prefill":
+                y, new = rec.rglru_block_with_state(p["rec"], h, cfg, None)
+            else:
+                y, new = rec.rglru_decode(p["rec"], h, cfg, cache)
+            cache.h.copy_(new.h)
+            cache.conv.copy_(new.conv)
+    else:
+        mla = cfg.attention == "mla"
+        if mode == "train":
+            y = (attn.mla_attention if mla else attn.gqa_attention)(p["attn"], h, cfg)
+        else:
+            if mode == "prefill":
+                step = attn.mla_prefill if mla else attn.gqa_prefill
+            else:
+                step = attn.mla_decode if mla else attn.gqa_decode
+            y, cache = step(p["attn"], h, cfg, cache)
     x = x + y
-    return x + mlp(p["ffn"], rmsnorm(p["ln2"], x), cfg.act), cache
+    h = rmsnorm(p["ln2"], x)
+    if cfg.moe is not None and kind == "attn":
+        y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
+    else:
+        y, aux = mlp(p["ffn"], h, cfg.act), None
+    return x + y, cache, aux
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                  device: torch.device):
-    if kind == "attn":
-        return attn.gqa_cache_spec(cfg, batch, max_len, dtype, device)
-    return rec.rglru_state_spec(cfg, batch, device)
+    if kind == "rec":
+        return rec.rglru_state_spec(cfg, batch, device)
+    if cfg.attention == "mla":
+        return attn.mla_cache_spec(cfg, batch, max_len, dtype, device)
+    return attn.gqa_cache_spec(cfg, batch, max_len, dtype, device)
 
 
 def _stacked(cache, n: int):
@@ -137,13 +166,25 @@ def model_specs(cfg: ModelConfig) -> Dict:
     sb = {f"b{i}": _block_spec(cfg, k, dt) for i, k in enumerate(plan.pattern)}
     out: Dict[str, Any] = {
         "embed": embed_spec(cfg.vocab_size, cfg.d_model, dt),
+        "lead": [_block_spec(cfg, k, dt) for k in plan.lead],
         "blocks": stack_layer_specs(sb, plan.n_scan),
         "tail": [_block_spec(cfg, k, dt) for k in plan.tail],
         "final_norm": rmsnorm_spec(cfg.d_model, dt),
     }
     if not cfg.tie_embeddings:
         out["unembed"] = unembed_spec(cfg.vocab_size, cfg.d_model, dt)
+    if cfg.mtp_depth:
+        out["mtp"] = {
+            "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), ("embed", None), dtype=dt),
+            "block": _block_spec(cfg, _mtp_kind(cfg), dt),
+            "norm": rmsnorm_spec(cfg.d_model, dt),
+        }
     return out
+
+
+def _mtp_kind(cfg: ModelConfig) -> str:
+    """The MTP head's block: dense, also in a MoE model."""
+    return "attn_dense" if cfg.moe else "attn"
 
 
 class ParamTree(nn.Module):
@@ -172,7 +213,7 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder (dense or hybrid) on one device: ``loss`` for training,
+    """Decoder (dense, MoE or hybrid) on one device: ``loss`` for training,
     ``prefill`` then ``decode_step`` for serving.
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
@@ -190,11 +231,14 @@ class Model(nn.Module):
             generator = torch.Generator(self.device).manual_seed(0)
         params = init_params(model_specs(cfg), generator, self.device)
         self.embed = ParamTree(params["embed"])
+        self.lead = ParamTree(params["lead"])
         self.blocks = ParamTree(params["blocks"])
         self.tail = ParamTree(params["tail"])
         self.final_norm = ParamTree(params["final_norm"])
         if "unembed" in params:
             self.unembed = ParamTree(params["unembed"])
+        if "mtp" in params:
+            self.mtp = ParamTree(params["mtp"])
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -203,76 +247,119 @@ class Model(nn.Module):
 
     def cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         """Zeroed caches shaped like the JAX tree: ``blocks.b{i}`` stacks
-        ``n_scan`` layers (``KVCache`` k/v ``[n, B, S, K, hd]``, ``RGLRUState``
-        h ``[n, B, W]`` and conv ``[n, B, 3, W]``), ``tail`` holds one per layer."""
+        ``n_scan`` layers (``KVCache`` k/v ``[n, B, S, K, hd]``, ``MLACache``
+        c_kv ``[n, B, S, kv_lora]`` and k_rope ``[n, B, S, dr]``,
+        ``RGLRUState`` h ``[n, B, W]`` and conv ``[n, B, 3, W]``); ``lead``
+        and ``tail`` hold one per layer."""
         mk = lambda kind: _block_cache(self.cfg, kind, batch, max_len, self.dtype,
                                        self.device)
         plan = self.plan
         blocks = {f"b{i}": _stacked(mk(k), plan.n_scan) for i, k in enumerate(plan.pattern)}
-        return {"lead": [], "blocks": blocks, "tail": [mk(k) for k in plan.tail]}
+        return {"lead": [mk(k) for k in plan.lead], "blocks": blocks,
+                "tail": [mk(k) for k in plan.tail]}
 
     def _stack(self, x: torch.Tensor, mode: str, caches: Dict[str, Any]):
-        """Stacked super-blocks, then the tail.  Caches are written in place;
-        the returned tree carries the new KV lengths."""
+        """The lead layers, the stacked super-blocks, then the tail.  Caches
+        are written in place; the returned tree carries the new lengths."""
         plan = self.plan
+        lead = []
+        for j, kind in enumerate(plan.lead):
+            x, c, _ = _block_apply(self.cfg, kind, self.lead[str(j)], x, mode,
+                                   caches["lead"][j])
+            lead.append(c)
         blocks = caches["blocks"]
         lengths = {}  # every layer of one stack starts from the same length
         for i in range(plan.n_scan):
             p_sb = self.blocks.layer(i)
             for j, kind in enumerate(plan.pattern):
                 key = f"b{j}"
-                x, c = _block_apply(self.cfg, kind, p_sb[key], x, mode,
-                                    _layer(blocks[key], i))
+                x, c, _ = _block_apply(self.cfg, kind, p_sb[key], x, mode,
+                                       _layer(blocks[key], i))
                 if kind == "attn":
                     lengths[key] = c.length
         blocks = {k: c._replace(length=lengths[k]) if k in lengths else c
                   for k, c in blocks.items()}
         tail = []
         for j, kind in enumerate(plan.tail):
-            x, c = _block_apply(self.cfg, kind, self.tail[str(j)], x, mode,
-                                caches["tail"][j])
+            x, c, _ = _block_apply(self.cfg, kind, self.tail[str(j)], x, mode,
+                                   caches["tail"][j])
             tail.append(c)
-        return x, {"lead": [], "blocks": blocks, "tail": tail}
+        return x, {"lead": lead, "blocks": blocks, "tail": tail}
 
-    def _train_stack(self, x: torch.Tensor) -> torch.Tensor:
-        """Stacked super-blocks, each under remat unless ``cfg.remat`` is
-        ``"none"`` (the reference's per-super-block ``jax.checkpoint``), then
-        the unrolled tail."""
+    def _train_stack(self, x: torch.Tensor):
+        """The unrolled lead layers, the stacked super-blocks, each under
+        remat unless ``cfg.remat`` is ``"none"`` (the reference's
+        per-super-block ``jax.checkpoint``), then the unrolled tail.  Returns
+        (x, the sum of the MoE layers' aux losses)."""
         plan = self.plan
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def superblock(i: int, x: torch.Tensor) -> torch.Tensor:
+        def run(kind, p, x, total):
+            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None)
+            return x, total if aux is None else total + aux
+
+        def superblock(i: int, x: torch.Tensor, total: torch.Tensor):
             p_sb = self.blocks.layer(i)
             for j, kind in enumerate(plan.pattern):
-                x, _ = _block_apply(self.cfg, kind, p_sb[f"b{j}"], x, "train", None)
-            return x
+                x, total = run(kind, p_sb[f"b{j}"], x, total)
+            return x, total
 
+        for j, kind in enumerate(plan.lead):
+            x, total = run(kind, self.lead[str(j)], x, total)
         for i in range(plan.n_scan):
             if self.cfg.remat != "none":
-                x = checkpoint(superblock, i, x, use_reentrant=False)
+                x, total = checkpoint(superblock, i, x, total, use_reentrant=False)
             else:
-                x = superblock(i, x)
+                x, total = superblock(i, x, total)
         for j, kind in enumerate(plan.tail):
-            x, _ = _block_apply(self.cfg, kind, self.tail[str(j)], x, "train", None)
-        return x
+            x, total = run(kind, self.tail[str(j)], x, total)
+        return x, total
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Training-mode forward to final hidden states [B, T, D], and the
-        auxiliary loss (0: no MoE)."""
-        x = self._train_stack(embed(self.embed, batch["tokens"]))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        sum of the MoE layers' load-balance losses (0 without MoE)."""
+        x, aux = self._train_stack(embed(self.embed, batch["tokens"]))
         return rmsnorm(self.final_norm, x), aux
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
-        """Mean next-token cross-entropy over ``labels`` (and ``mask``);
-        returns (total, metrics with ``ce`` and ``loss``).  From T 2048 the
-        logits are taken in chunks (:func:`chunked_xent`)."""
-        h, _ = self.forward(batch)
-        labels, mask = batch["labels"], batch.get("mask")
+    def _xent(self, h: torch.Tensor, labels: torch.Tensor, mask) -> torch.Tensor:
+        """Cross-entropy of the logits of ``h``; from T 2048 in chunks
+        (:func:`chunked_xent`)."""
         if labels.shape[1] >= 2048:
-            ce = chunked_xent(h, self._logits, labels, mask)
-        else:
-            ce = softmax_xent(self._logits(h), labels, mask)
-        return ce, {"ce": ce, "loss": ce}
+            return chunked_xent(h, self._logits, labels, mask)
+        return softmax_xent(self._logits(h), labels, mask)
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Mean next-token cross-entropy over ``labels`` (and ``mask``), plus
+        ``aux_loss_weight`` times the MoE load-balance loss and 0.3 times
+        DeepSeek-V3's multi-token-prediction loss where the config has them;
+        returns (total, metrics with ``ce``, ``aux`` and ``mtp_ce`` where
+        they apply, and ``loss``)."""
+        cfg = self.cfg
+        h, aux = self.forward(batch)
+        ce = self._xent(h, batch["labels"], batch.get("mask"))
+        total, metrics = ce, {"ce": ce}
+        if cfg.moe is not None:
+            total = total + cfg.moe.aux_loss_weight * aux
+            metrics["aux"] = aux
+        if cfg.mtp_depth:
+            mtp_ce = self._mtp_loss(h, batch)
+            total = total + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, h: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: one extra block predicts t+2."""
+        labels = batch["labels"]
+        emb_next = embed(self.embed, labels)      # embedding of token t+1
+        z = torch.cat([h.to(emb_next.dtype), emb_next], dim=-1) @ self.mtp["proj"]
+        z, _, _ = _block_apply(self.cfg, _mtp_kind(self.cfg), self.mtp["block"], z, "train",
+                               None)
+        z = rmsnorm(self.mtp["norm"], z)
+        labels2 = torch.roll(labels, -1, dims=1)
+        mask = torch.ones(labels2.shape, dtype=torch.float32, device=labels.device)
+        mask[:, -1] = 0.0
+        return self._xent(z, labels2, mask)
 
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):

@@ -1,6 +1,8 @@
 """The port's Model against the JAX Model on the same weights: prefill logits
-and caches, then a teacher-forced greedy decode loop (llama3.2-1b and the
-recurrentgemma-9b hybrid, smoke widths, fp32)."""
+and caches, then a teacher-forced greedy decode loop (llama3.2-1b, the
+recurrentgemma-9b hybrid and the MLA + MoE deepseek-v2-236b, smoke widths,
+fp32), and the loss of both deepseek archs (ce, the MoE aux, DeepSeek-V3's
+mtp_ce)."""
 
 import pytest
 
@@ -19,6 +21,7 @@ from repro_torch.models import Model, model_specs, param_count  # noqa: E402
 
 DENSE = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b")
 HYBRID = ("recurrentgemma-9b",)
+MOE = ("deepseek-v2-236b", "deepseek-v3-671b")
 
 
 def _models(arch):
@@ -118,7 +121,57 @@ def test_recurrentgemma_prefill_then_teacher_forced_decode():
     caches_close(tc, jc, atol=5e-3, rtol=1e-2)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE + HYBRID])
+@pytest.mark.parametrize("arch", MOE)
+def test_deepseek_prefill_then_teacher_forced_decode(arch):
+    """MLA with its latent caches, a dense lead layer and MoE layers (v2's
+    softmax router and 2 shared experts, v3's sigmoid router and 1).  Each
+    step is held to JAX's same step, not to the forward: capacity is per
+    call, so a prefill may drop tokens that decode (C >= 8) never drops."""
+    jm, jp, tm = _models(arch)
+    assert tm.plan.lead == ("attn_dense",) and tm.plan.n_scan == jm.cfg.num_layers - 1
+    B, T, steps = 2, 20, 6
+    max_len = T + steps
+    tokens = _tokens(jm.cfg.vocab_size, B, T, seed=3)
+    jprefill = jax.jit(jm.prefill, static_argnums=2)
+    jdecode = jax.jit(jm.decode_step)
+
+    def caches_close(tc, jc, atol, rtol):
+        for tt, jt in ((tc["lead"][0], jc["lead"][0]), (tc["blocks"]["b0"], jc["blocks"]["b0"])):
+            _close(tt.c_kv, jt.c_kv, atol, rtol)
+            _close(tt.k_rope, jt.k_rope, atol, rtol)
+
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(tokens)}, max_len)
+    tl, tc = tm.prefill({"tokens": torch.from_numpy(tokens).long()}, max_len)
+    _close(tl, jl, atol=2e-4, rtol=1e-3)
+    caches_close(tc, jc, atol=2e-4, rtol=1e-3)
+    assert tc["lead"][0].length == tc["blocks"]["b0"].length == T
+
+    for step in range(steps):
+        tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(np.int32)
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok))
+        tl, tc = tm.decode_step(tc, torch.from_numpy(tok).long())
+        _close(tl, jl, atol=5e-3, rtol=1e-2)
+        assert tc["lead"][0].length == tc["blocks"]["b0"].length == T + step + 1
+    caches_close(tc, jc, atol=5e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_deepseek_loss_matches(arch):
+    """``Model.loss``: cross-entropy, the MoE load-balance aux (weighted into
+    the total) and, for deepseek-v3, the multi-token-prediction loss."""
+    jm, jp, tm = _models(arch)
+    tokens = _tokens(jm.cfg.vocab_size, 2, 16, seed=4)
+    labels = np.roll(tokens, -1, axis=1)
+    _, jmet = jm.loss(jp, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    _, tmet = tm.loss({"tokens": torch.from_numpy(tokens).long(),
+                       "labels": torch.from_numpy(labels).long()})
+    want = {"ce", "aux", "loss"} | ({"mtp_ce"} if arch == "deepseek-v3-671b" else set())
+    assert set(tmet) == set(jmet) == want
+    for key in want:
+        _close(tmet[key].detach(), jmet[key], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE + HYBRID + MOE])
 def test_other_archs_are_refused(arch):
     with pytest.raises(NotImplementedError, match="not yet"):
         model_specs(get_config(arch, smoke=True))
@@ -142,7 +195,26 @@ def test_hybrid_bf16_tree_loads_one_to_one():
     assert got["blocks.b0.rec.w_a"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID)
+def test_moe_bf16_tree_loads_one_to_one():
+    """JAX's bf16 deepseek-v3 tree (lead.0, blocks.b0 stacked, mtp, an
+    untied unembed) loads with strict keys; the router stays fp32."""
+    jp = JaxModel(jax_config("deepseek-v3-671b", smoke=True)).init(jax.random.PRNGKey(2))
+    sd = params_from_jax(jax.device_get(jp))
+    tm = Model(get_config("deepseek-v3-671b", smoke=True), device="cpu")
+    assert tm.get_parameter("blocks.b0.ffn.router").dtype == torch.float32  # at init too
+    tm.load_state_dict(sd)
+    got = tm.state_dict()
+    assert set(got) == set(sd)
+    assert {"lead.0.attn.w_dkv", "lead.0.ffn.wi", "blocks.b0.ffn.shared.wi",
+            "mtp.proj", "mtp.block.attn.w_uq", "unembed.w"} <= set(got)
+    for key, want in sd.items():
+        assert got[key].dtype == want.dtype, key
+        assert torch.equal(got[key], want), key
+    assert got["blocks.b0.ffn.router"].dtype == torch.float32
+    assert got["blocks.b0.ffn.wi"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE)
 def test_param_tree_matches_jax(arch):
     """Same parameter count at the published widths; same state_dict keys and
     shapes at smoke width."""

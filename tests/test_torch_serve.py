@@ -44,6 +44,46 @@ def test_serve_recurrentgemma_on_cpu():
     assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
 
 
+def test_serve_deepseek_on_cpu():
+    """MLA and MoE serve through the same entry: a dense lead layer, two MoE
+    layers, the latent caches."""
+    out = serve("deepseek-v2-236b", batch=2, prompt_len=12, gen_len=5, device="cpu")
+    assert tuple(out["tokens"].shape) == (2, 5) and out["tokens"].dtype == torch.int64
+    assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_serve_deepseek_on_card_launches_flash_per_layer(cuda):
+    """deepseek-v2 at smoke size on the card: each of its 3 MLA layers
+    launches the flash kernel once in prefill (bf16, dk 24 / dv 16: the
+    wgmma variant), decode launches none, and no plain version runs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    before = dict(flash_attention_fwd.launches_by_variant)
+    plain = [name for name in dir(ref) if name.endswith("_ref")]
+    real = {name: getattr(ref, name) for name in plain}
+    calls = []
+    try:
+        for name in plain:
+            setattr(ref, name, lambda *a, _n=name, **k: calls.append(_n) or real[_n](*a, **k))
+        out = serve("deepseek-v2-236b", batch=2, prompt_len=16, gen_len=4, device="cuda")
+    finally:
+        for name, fn in real.items():
+            setattr(ref, name, fn)
+    launched = {k: c - before[k] for k, c in flash_attention_fwd.launches_by_variant.items()}
+    assert launched == {"simt": 0, "wgmma": 3}
+    assert calls == []
+    assert tuple(out["tokens"].shape) == (2, 4)
+
+
 def test_serve_is_reproducible_from_seed():
     kw = dict(batch=3, prompt_len=10, gen_len=5, device="cpu")
     a = serve("llama3.2-1b", seed=4, **kw)["tokens"]
@@ -76,11 +116,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
         "assert {'repro_torch.optim.adamw', 'repro_torch.data.pipeline',\n"
-        "        'repro_torch.checkpoint.ckpt', 'repro_torch.launch.train'} <= set(names)\n"
+        "        'repro_torch.checkpoint.ckpt', 'repro_torch.launch.train',\n"
+        "        'repro_torch.models.moe'} <= set(names)\n"
     )
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 52
+    assert int(proc.stdout.split()[0]) >= 53
 
 
 def test_port_sources_name_no_jax_or_repro_import():
@@ -102,6 +143,13 @@ def test_example_runs_on_cpu():
 def test_example_serves_recurrentgemma_on_cpu():
     proc = _run(["examples/serve_batch_torch.py", "--arch", "recurrentgemma-9b",
                  "--device", "cpu", "--batch", "2", "--prompt-len", "20", "--gen", "3"])
+    assert proc.returncode == 0, proc.stderr
+    assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
+
+
+def test_example_serves_deepseek_on_cpu():
+    proc = _run(["examples/serve_batch_torch.py", "--arch", "deepseek-v2-236b",
+                 "--device", "cpu", "--batch", "2", "--prompt-len", "10", "--gen", "3"])
     assert proc.returncode == 0, proc.stderr
     assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
 

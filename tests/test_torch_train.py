@@ -133,7 +133,7 @@ def test_tied_embedding_grad_sums_lookup_and_logits():
     table = tm.embed["table"].detach()
     lookup, head = table.clone().requires_grad_(), table.clone().requires_grad_()
     x = tl.embed({"table": lookup}, batch["tokens"])
-    x = tm._train_stack(x)
+    x, _ = tm._train_stack(x)  # (hidden states, the MoE aux: 0 here)
     h = tl.rmsnorm(tm.final_norm, x)
     loss = tl.softmax_xent(h @ head.T, batch["labels"])
     g_lookup, g_head = torch.autograd.grad(loss, (lookup, head))
