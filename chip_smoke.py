@@ -54,7 +54,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    a second call's bit for bit, and the backward must repeat bit for bit
    (its difference from ``lane`` is printed);
 3. the port against its own plain CPU path on small fp32 models
-   (llama3.2-1b, recurrentgemma-9b and deepseek-v2-236b);
+   (llama3.2-1b, recurrentgemma-9b, deepseek-v2-236b and xlstm-1.3b);
 4. the main paths, each with every kernel launch counted from zero and
    with its peak memory and decode's weight-read floor:
    ``serve("llama3.2-1b")`` at full width, batch 8 x prompt 1024 x 32
@@ -63,7 +63,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    then ``serve("deepseek-v2-236b")`` at published widths cut to 4 of its 60
    layers (``get_config`` patched in serve's namespace: the dense lead layer
    and 3 MoE layers of 160 routed experts top-6 and 2 shared), batch 4 x
-   prompt 4096 x 32 generated tokens.  Every flash-attention launch must be
+   prompt 4096 x 32 generated tokens; then ``serve("xlstm-1.3b")`` at
+   published width and depth (48 blocks, bf16), batch 8 x prompt 2048 x 32
+   generated tokens, whose mLSTM and sLSTM blocks launch no kernel (its
+   decode floor adds the states read and written), with its own checks at
+   that width: the first mLSTM block's chunkwise form against the
+   sequential oracle over the prompt (``XLSTM_CHUNKWISE_TOL``), CUDA-event
+   times by block kind for a prefill and a decode step, and, on the same
+   config in fp32, prefill and one decode step against a forward over the
+   prompt plus that token (``XLSTM_DECODE_TOL``; a decode from fresh
+   states must miss).  Every flash-attention launch must be
    ``wgmma`` (one per attention layer in prefill, none in decode), every
    scan launch ``tma``, and no plain version may run;
 5. admitted serving: llama3.2-1b's phase-4 request again, admitted through
@@ -81,8 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    autograd Function (fp32 and bf16, causal and windowed, GQA and MQA)
    against the plain backward and the oracle's autograd, with phase 2's
    tolerances, then three fp32 train steps of
-   llama3.2-1b and recurrentgemma-9b (``SMOKE_TRAIN``: deepseek does not
-   train on the card yet) at smoke width on the card and on the
+   llama3.2-1b, recurrentgemma-9b and xlstm-1.3b (``SMOKE_TRAIN``: deepseek
+   does not train on the card yet) at smoke width on the card and on the
    CPU from one init (losses, grads' norms and final parameters within the
    CPU parity tests' atol 1e-5, rtol 1e-4; each kernel's launches printed,
    the scan backward's among them); (b) a smoke run checkpointed at
@@ -117,7 +126,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    measurement only; then that microbatch's loss and every gradient
    through the kernels against the plain versions in the forward, remat's
    recompute and the backward, within ``RG_TRAIN_BF16_TOL``, and a scan
-   backward wrong on purpose (da from h_t) must exceed it.
+   backward wrong on purpose (da from h_t) must exceed it; (e) the main
+   path's fourth part: ``train("xlstm-1.3b")`` at published width and depth
+   (48 blocks, six ``("mlstm",) * 7 + ("slstm",)`` super-blocks under
+   remat), bf16 parameters, fp32 AdamW moments, 4 rows of 2048 tokens in one
+   microbatch, 4 steps at lr 3e-4 with 1 warmup step (``XLSTM_TRAIN``):
+   every loss finite, the trained weights moved, no launch of any kernel and
+   no call of a plain version, with s/step, tokens/s, the model-FLOPs share (6
+   N per token plus the mLSTM chunkwise products, ``xlstm_step_flops``), the
+   peak memory and the losses (printed: the model does not learn measurably
+   in 4 steps from these weights, see ``XLSTM_TRAIN``); then one
+   microbatch's forward and backward timed with CUDA events, the sLSTM scans
+   over time apart (forward, remat's recompute and backward).  It holds the
+   first step's loss to the fp32 loss of the same weights (``XLSTM_LOSS_RTOL``)
+   and, in fp32 on one row at published width cut to 8 blocks, the gradient
+   against the loss's change along it (``gradient_slope``, ``XLSTM_SLOPE``).
 
 Before each of phases 3-6 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
@@ -210,14 +233,30 @@ RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
 # Main paths: arch, batch, prompt, generated tokens, layers (None: the
 # published depth).  deepseek-v2-236b at published widths is 236 G parameters
 # over 60 layers; 4 layers (the dense lead layer and 3 MoE layers) hold 13.3 G,
-# 26.6 GB in bf16.
+# 26.6 GB in bf16.  xlstm-1.3b's prompt is its published training context,
+# 2048 (arXiv:2405.04517 section 4).
 SERVE = [("llama3.2-1b", 8, 1024, 32, None), ("recurrentgemma-9b", 4, 4096, 32, None),
-         ("deepseek-v2-236b", 4, 4096, 32, 4)]
+         ("deepseek-v2-236b", 4, 4096, 32, 4), ("xlstm-1.3b", 8, 2048, 32, None)]
+# xlstm-1.3b at published width, phase 4, each in relative L2 over the whole
+# output.  The chunkwise form rounds the decay weights, the carried state and
+# the products' sums to bf16 where the sequential oracle keeps fp32: each
+# term moves by up to 2^-8 of its value; the limit is the CPU tests' bf16
+# tolerance.
+XLSTM_CHUNKWISE_TOL = 2e-2
+# Prefill and one decode step against a forward over the prompt plus that
+# token, on the same config in fp32, with tests/test_models_smoke.py's
+# tolerances (summation order only).  Not in bf16: there the forward's last
+# position reads the carried state through the bf16 roundings above, and a
+# stack of 48 random-weight blocks carries them into logits 40 % apart in
+# relative L2 (a CPU run at width 256), each as far from fp32.  A decode from
+# fresh states (the prompt forgotten) must miss.
+XLSTM_PREFILL_TOL = dict(atol=2e-4, rtol=1e-3)
+XLSTM_DECODE_TOL = dict(atol=5e-3, rtol=1e-2)
 # Phase 3: the port on the card against its CPU path at smoke width.
-CHECK = ("llama3.2-1b", "recurrentgemma-9b", "deepseek-v2-236b")
+CHECK = ("llama3.2-1b", "recurrentgemma-9b", "deepseek-v2-236b", "xlstm-1.3b")
 # Phase 6(a): smoke training on the card against the CPU (deepseek does not
 # train on the card yet).
-SMOKE_TRAIN = ("llama3.2-1b", "recurrentgemma-9b")
+SMOKE_TRAIN = ("llama3.2-1b", "recurrentgemma-9b", "xlstm-1.3b")
 
 # Phase 6.  Flash gradient cases (B, T, H, K, dk, dv, causal, window, dtype):
 # fp32 on simt, bf16 on wgmma; llama's d 64 GQA and recurrentgemma's d 256 MQA.
@@ -314,6 +353,36 @@ TRAIN = ("llama3.2-1b", 8, 4096, 8, 10)
 # (rec, rec, attn) super-blocks and the two tail rec layers): arch, layers,
 # rows per step, tokens per row, microbatches, steps.
 RG_TRAIN = ("recurrentgemma-9b", 8, 4, 4096, 4, 6)
+# Phase 6(e): xlstm-1.3b at published width and depth (48 blocks, six
+# super-blocks of 7 mLSTM and 1 sLSTM, each under remat): arch, rows per
+# step, tokens per row (the published training context), microbatches,
+# steps, peak learning rate (1 warmup step).  Cuts: global batch 256 to 4
+# rows in one microbatch, not two (the sLSTM's loop over time sets the
+# step's pace on the host, alike at 2 rows or 4: on an H100 a step took 114 s
+# in two microbatches and 47 s in one); 4 steps; no checkpoint.
+#
+# The loss is printed, not held to fall: from these initial weights the
+# model does not learn measurably in 4 steps at lr 3e-4, in fp32 as in bf16
+# (tools/xlstm_train_witness.py on an H100: the 4th loss above the 1st and
+# the first batch's loss higher under the trained weights in both), and the
+# port's fp32 is JAX's at 48 blocks (tests/test_torch_xlstm_depth.py).  The
+# phase holds instead (1) the first step's loss against the fp32 loss of the
+# same weights on the same batch, within XLSTM_LOSS_RTOL: the CPU test at 48
+# blocks reads the port's bf16 2.3e-4 and JAX's 7.2e-4 from fp32, an H100
+# 1.2e-4 here; (2) the gradient at published width, in fp32 on one row: the
+# loss's change between the weights moved by -t g and by +t g against g
+# times the displacement that the weights took (after rounding), t set so
+# that each side's first-order change is the given change, within the given
+# tolerance.  Depth and row are cut for this check alone: at 48 blocks, or
+# at 2048 tokens, the loss curves off its tangent before the change along it
+# rises above fp32's rounding (the witness's slope leg: ratios -46 to 2.1 at
+# 48 blocks and 256 tokens, -0.12 to 0.21 at 8 blocks and 2048).  At 8
+# blocks and 256 tokens an H100 reads 0.993 (0.69 at 1e-2), the CPU 1.008
+# (vocabulary 1024); a gradient of the wrong scale or sign reads far off.
+XLSTM_TRAIN = ("xlstm-1.3b", 4, 2048, 1, 4, 3e-4)
+XLSTM_LOSS_RTOL = 2e-3
+# The gradient check: blocks, tokens on the row, change a side, tolerance.
+XLSTM_SLOPE = (8, 256, 1e-3, 0.05)
 # Its microbatch through the kernels against the plain versions, read as
 # TRAIN_BF16_TOL.  On an H100 the kernels read 3.9e-5, 2.0e-2 (the last tail
 # layer's w_a) and 3.3e-4; a scan backward wrong on purpose (da from h_t) 0,
@@ -609,12 +678,10 @@ def parent_scan():
     return ParentScan
 
 
-def sdpa_backend(fn, tries=3):
-    """The SDPA backend that ran ``fn``, read from the names of the kernels a
-    profiler trace of one call shows (flash, efficient, cudnn or math), and
-    the three kernels that took the most device time.  A trace can come back
-    without device time: up to ``tries`` traces are taken, and if none has
-    any, the backend is not named."""
+def device_times(fn, tries=1):
+    """{name: (device us, count)} of each kernel and copy in a torch.profiler
+    trace of one call of ``fn``.  A trace can come back without device time:
+    up to ``tries`` traces are taken, and {} is returned if none has any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -625,18 +692,28 @@ def sdpa_backend(fn, tries=3):
             torch.cuda.synchronize()
         times = {}
         for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            if t > 0:
-                times[ev.key] = t
+            us = getattr(ev, "self_device_time_total", None)
+            us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
+            if us > 0:
+                times[ev.key] = (us, ev.count)
         if times:
-            break
-    else:
+            return times
+    return {}
+
+
+def sdpa_backend(fn, tries=3):
+    """The SDPA backend that ran ``fn``, read from the names of the kernels a
+    profiler trace of one call shows (flash, efficient, cudnn or math), and
+    the three kernels that took the most device time; not named if none of
+    ``tries`` traces has device time."""
+    times = device_times(fn, tries)
+    if not times:
         return f"not named (no device time in {tries} profiler traces)", []
     names = " ".join(times).lower()
     backend = next((label for label, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
                                                ("efficient", ("fmha", "efficient", "mem_eff")))
                     if any(k in names for k in keys)), "math")
-    top = sorted(times, key=times.get, reverse=True)[:3]
+    top = sorted(times, key=lambda n: times[n][0], reverse=True)[:3]
     return backend, [name[:90] for name in top]
 
 
@@ -732,6 +809,220 @@ def grad_gaps(got, want):
     return abs(loss - loss_w) / abs(loss_w), l2[worst], max(norm.values()), worst
 
 
+def rel_l2(got, want) -> float:
+    """|got - want| / |want| over every element, in fp32."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def gradient_slope(model, batch, changes):
+    """For each ``change``: the loss of ``batch`` at the weights moved by -t g
+    and by +t g (g the gradient there, t = change / |g|^2), as (measured
+    change between the two, the first-order prediction g . (the displacement
+    the weights took)).  The weights are left moved."""
+    import torch
+
+    from repro_torch.launch.steps import grad_fn
+
+    _, _, grads = grad_fn(model, 1)(batch)
+    params = dict(model.named_parameters())
+    gg = sum(float(torch.sum(g.double() ** 2)) for g in grads.values())
+    base = {k: p.detach().clone() for k, p in params.items()}
+    out = []
+    for change in changes:
+        loss, moved = {}, {}
+        with torch.no_grad():
+            for sign in (-1, 1):
+                for k, p in params.items():
+                    p.copy_(base[k] + sign * (change / gg) * grads[k])
+                loss[sign] = model.loss(batch)[0].item()
+                moved[sign] = sum(float(torch.sum(grads[k].double() * (p.double() - base[k])))
+                                  for k, p in params.items())
+        out.append((loss[1] - loss[-1], moved[1] - moved[-1]))
+    return out
+
+
+@contextlib.contextmanager
+def timed_block_kinds():
+    """CUDA events around each block that ``Model`` runs in the block; yields
+    {kind: [(start, end)]}."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    log = {}
+    real = transformer._block_apply
+
+    def call(cfg, kind, *args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(cfg, kind, *args)
+        end.record()
+        log.setdefault(kind, []).append((start, end))
+        return out
+
+    transformer._block_apply = call
+    try:
+        yield log
+    finally:
+        transformer._block_apply = real
+
+
+def event_ms(pairs) -> float:
+    """The summed time of (start, end) event pairs, in ms, once they ended."""
+    for _, end in pairs:
+        end.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs)
+
+
+@contextlib.contextmanager
+def timed_slstm_scans():
+    """CUDA events around each sLSTM scan over time in the block, forward
+    calls (a step's forward, then remat's recompute) and, through hooks on the
+    scan's input and output, each backward; yields {"forward": [(start, end)],
+    "backward": [(start, end)]}.  A recompute's hooks never fire: its graph
+    only refills the saved tensors."""
+    import torch
+
+    from repro_torch.models import xlstm
+
+    log = {"forward": [], "backward": []}
+    real = xlstm._slstm_scan_local
+
+    def scan(p_r, wx, state, cfg):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        hs, new = real(p_r, wx, state, cfg)
+        end.record()
+        log["forward"].append((start, end))
+        if hs.requires_grad and wx.requires_grad:
+            back = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+            def done(grad):  # returns None: the gradient passes unchanged
+                back[1].record()
+                log["backward"].append(back)
+
+            hs.register_hook(lambda grad: back[0].record())
+            wx.register_hook(done)
+        return hs, new
+
+    xlstm._slstm_scan_local = scan
+    try:
+        yield log
+    finally:
+        xlstm._slstm_scan_local = real
+
+
+def xlstm_serving_checks(model, tokens):
+    """At ``model``'s width and depth, on the prompt ``tokens`` [B, T]: the
+    first mLSTM block's chunkwise form against the sequential oracle, and
+    CUDA-event times by block kind for a prefill and one decode step; then,
+    on the same config in fp32 from the same seed, that prefill and decode
+    step against a forward over the prompt plus the token, and a decode from
+    fresh states that must miss.  Returns the readings and raises where a
+    check fails."""
+    import torch
+
+    from repro_torch.models import Model, layers, xlstm
+
+    cfg = model.cfg
+    j = cfg.block_pattern.index("mlstm")
+    p = model.blocks.layer(0)[f"b{j}"]
+    with torch.no_grad():
+        x = layers.rmsnorm(p["ln"], layers.embed(model.embed, tokens))
+        chunked, _ = xlstm.mlstm_block(p["cell"], x, cfg)
+        chunk_err = rel_l2(chunked, xlstm.mlstm_reference(p["cell"], x, cfg))
+    del x, chunked
+    if chunk_err > XLSTM_CHUNKWISE_TOL:
+        raise AssertionError(f"mlstm_chunkwise against mlstm_reference: {chunk_err}")
+
+    B, T = tokens.shape
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=tokens.device,
+                        generator=torch.Generator(tokens.device).manual_seed(9))
+    with timed_block_kinds() as log:
+        _, caches = model.prefill({"tokens": tokens}, T + 1)
+    prefill_ms = {kind: (len(ev), event_ms(ev)) for kind, ev in log.items()}
+    with timed_block_kinds() as log:
+        model.decode_step(caches, tok)
+    decode_ms = {kind: (len(ev), event_ms(ev)) for kind, ev in log.items()}
+    # Every block of the config timed once in each: a block that Model ran
+    # past the timer would drop out of the split unseen.
+    plan = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.num_layers)]
+    want = {kind: plan.count(kind) for kind in set(plan)}
+    for label, got in (("prefill", prefill_ms), ("decode", decode_ms)):
+        if {kind: n for kind, (n, _) in got.items()} != want:
+            raise AssertionError(f"{label} timed blocks {got}, expected {want}")
+    # One more decode step under the profiler: its kernels' device time and,
+    # in the same call, its time on the host clock (which the profiler's own
+    # work lengthens a little), so the step's idle share.
+    host = {}
+
+    def step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.decode_step(caches, tok)
+        torch.cuda.synchronize()
+        host["ms"] = (time.perf_counter() - t) * 1e3
+
+    trace = device_times(step)
+    busy_ms = sum(us for us, _ in trace.values()) / 1e3 if trace else None
+    top = sorted(((us / 1e3, n, name[:60]) for name, (us, n) in trace.items()), reverse=True)[:3]
+    step_ms = host["ms"]
+    del caches
+
+    f32 = Model(cfg.with_overrides(dtype="float32"), device=tokens.device,
+                generator=torch.Generator(tokens.device).manual_seed(0))
+    logits_p, caches = f32.prefill({"tokens": tokens}, T + 1)
+    logits_d, _ = f32.decode_step(caches, tok)
+    del caches
+    logits_w, _ = f32.decode_step(f32.cache(B, T + 1), tok)
+    with torch.no_grad():
+        h, _ = f32.forward({"tokens": torch.cat([tokens, tok], dim=1)})
+        ref_p, ref_d = f32._logits(h[:, -2:-1]), f32._logits(h[:, -1:])
+    del h, f32
+    torch.testing.assert_close(logits_p, ref_p, **XLSTM_PREFILL_TOL,
+                               msg=lambda m: f"fp32 prefill against the forward: {m}")
+    torch.testing.assert_close(logits_d, ref_d, **XLSTM_DECODE_TOL,
+                               msg=lambda m: f"fp32 decode against the forward: {m}")
+    if torch.allclose(logits_w, ref_d, **XLSTM_DECODE_TOL):
+        raise AssertionError("the decode check does not see a forgotten prompt")
+    return {"chunkwise": chunk_err, "prefill": rel_l2(logits_p, ref_p),
+            "decode": rel_l2(logits_d, ref_d), "fresh decode": rel_l2(logits_w, ref_d),
+            "decode max": (logits_d - ref_d).abs().max().item(),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms, "step_ms": step_ms,
+            "busy_ms": busy_ms, "top": top}
+
+
+def mlstm_pairs(T: int, chunk: int) -> int:
+    """The (query, key) pairs that the chunkwise form's products inside each
+    chunk keep over T steps: a chunk of r real steps keeps r (r + 1) / 2."""
+    K = min(chunk, T)
+    return sum(r * (r + 1) // 2 for r in (min(K, T - s) for s in range(0, T, K)))
+
+
+def mlstm_flops(cfg, T: int) -> int:
+    """Forward FLOPs (2 per multiply-add) of one mLSTM layer's chunkwise
+    products for one row of T tokens, all heads: QK^T and W V over the kept
+    pairs inside each chunk, the carried state's read (q C and q n) and its
+    update (the weighted k v^T)."""
+    H = cfg.num_heads
+    dh = int(cfg.xlstm.proj_factor_m * cfg.d_model) // H
+    dqk = dh // 2
+    return 2 * H * (mlstm_pairs(T, cfg.xlstm.chunk) * (dqk + dh)
+                    + T * (2 * dqk * dh + dqk))
+
+
+def xlstm_step_flops(cfg, n_params: int, rows: int, T: int):
+    """Model FLOPs of one xLSTM training step, and the mLSTM products' part:
+    6 N per token, plus :func:`mlstm_flops` three times (forward and
+    backward) in every mLSTM layer of every row.  Remat's recompute is not
+    model work and is not counted."""
+    n_mlstm = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "mlstm"
+                  for i in range(cfg.num_layers))
+    mlstm = 3 * rows * n_mlstm * mlstm_flops(cfg, T)
+    return 6 * n_params * rows * T + mlstm, mlstm
+
+
 def main() -> int:
     import torch
 
@@ -757,7 +1048,7 @@ def main() -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.launch.train import train
-    from repro_torch.models import Model, input_specs, layer_plan
+    from repro_torch.models import MLSTMState, Model, SLSTMState, input_specs, layer_plan
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
@@ -996,20 +1287,15 @@ def main() -> int:
         """Device ms of each launch of one flash_attention_bwd call on the
         ``kind`` key of BWD_LAUNCHES, the mean of torch.profiler's kernel
         times over ``calls`` calls."""
-        from torch.profiler import ProfilerActivity, profile
-
         launches = BWD_LAUNCHES[kind]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
-            torch.cuda.synchronize()
+        trace = device_times(lambda: [flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                                          window=window) for _ in range(calls)])
         us, count = dict.fromkeys(launches, 0.0), dict.fromkeys(launches, 0)
-        for ev in prof.key_averages():
+        for name, (t, n) in trace.items():
             for part, key in launches.items():
-                if key in ev.key:
-                    us[part] += (getattr(ev, "device_time_total", None)
-                                 or getattr(ev, "cuda_time_total", 0))
-                    count[part] += ev.count
+                if key in name:
+                    us[part] += t
+                    count[part] += n
         # The trace may miss a launch at its edges; more than one per call is
         # a fault.
         if not all(0 < count[n] <= calls and us[n] > 0 for n in launches):
@@ -1420,9 +1706,10 @@ def main() -> int:
             lg, cg = gpu.decode_step(cg, tok.to(dev))
             lc, cc = cpu.decode_step(cc, tok)
         torch.testing.assert_close(lg.cpu(), lc, atol=5e-3, rtol=1e-2)
+        ffn = ("MoE" if cfg.moe else "dense FFN" if "attn" in cfg.block_pattern
+               else "xLSTM blocks")
         print(f"[check] {arch} smoke fp32 (window {cfg.window}, attention {cfg.attention}, "
-              f"{'MoE' if cfg.moe else 'dense FFN'}): card prefill + 4 decode steps match the "
-              f"CPU path")
+              f"{ffn}): card prefill + 4 decode steps match the CPU path")
         del gpu, cpu
 
     # ----------------------------------------------------- 4. main paths --
@@ -1443,8 +1730,9 @@ def main() -> int:
             full = full.with_overrides(num_layers=layers)
         plan = layer_plan(full)
         kinds = plan.lead + plan.pattern * plan.n_scan + plan.tail
-        expect = {"flash_attention": len(kinds) - kinds.count("rec"), "flash_attention_bwd": 0,
-                  "rglru_scan": kinds.count("rec"), "rglru_scan_bwd": 0}
+        expect = {"flash_attention": kinds.count("attn") + kinds.count("attn_dense"),
+                  "flash_attention_bwd": 0, "rglru_scan": kinds.count("rec"),
+                  "rglru_scan_bwd": 0}
         # Same weights and prompts as serve() draws from seed 0: the first token
         # it serves must be the argmax of these finite logits.
         model = Model(full, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -1457,11 +1745,35 @@ def main() -> int:
             read -= model.embed["table"].numel() * model.embed["table"].element_size()
         prompts = input_specs(full, ShapeConfig("serve", prompt_len, batch, "prefill"),
                               generator=torch.Generator(dev).manual_seed(1), device=dev)
-        logits, _ = model.prefill(prompts, prompt_len + gen_len)
+        logits, caches = model.prefill(prompts, prompt_len + gen_len)
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} full-width prefill logits are not finite")
         first = torch.argmax(logits[:, -1], dim=-1).cpu()
-        del model, logits, prompts
+        # For xLSTM the floor also reads and writes every layer's state.
+        state = sum(t.numel() * t.element_size() for group in caches.values()
+                    for c in (group.values() if isinstance(group, dict) else group)
+                    if isinstance(c, (MLSTMState, SLSTMState)) for t in c)
+        del logits, caches
+        if "mlstm" in full.block_pattern:
+            xl = xlstm_serving_checks(model, prompts["tokens"])
+            times = lambda ms: ", ".join(f"{n} {k} blocks {t:.2f} ms" for k, (n, t) in ms.items())
+            print(f"[serve] {arch} full width bf16, batch {batch} x prompt {prompt_len}: "
+                  f"mlstm_chunkwise against mlstm_reference (block 0) relative L2 "
+                  f"{xl['chunkwise']:.3e} (limit {XLSTM_CHUNKWISE_TOL}); in fp32 against a forward "
+                  f"over the prompt and one more token, relative L2 of the logits: prefill "
+                  f"{xl['prefill']:.3e}, one decode step {xl['decode']:.3e} (largest "
+                  f"|difference| {xl['decode max']:.3e}; {XLSTM_DECODE_TOL}), a decode from "
+                  f"fresh states {xl['fresh decode']:.3e}; by block kind (CUDA events, bf16): "
+                  f"prefill "
+                  f"{times(xl['prefill_ms'])}, one decode step {times(xl['decode_ms'])}; one "
+                  f"decode step under the profiler {xl['step_ms']:.2f} ms on the host clock, its "
+                  f"kernels "
+                  + ("not measured (no device time in the trace)" if xl["busy_ms"] is None else
+                     f"{xl['busy_ms']:.2f} ms on the device (idle share "
+                     f"{1 - xl['busy_ms'] / xl['step_ms']:.1%}), the most: "
+                     + "; ".join(f"{ms:.2f} ms in {n} x {name}" for ms, n, name in xl["top"]))
+                  + f"; {smi}")
+        del model, prompts
         torch.cuda.empty_cache()
 
         reset_counts()
@@ -1482,8 +1794,10 @@ def main() -> int:
               f"{res['prefill_seconds']:.4f} s, decode "
               f"{res['decode_seconds_per_token'] * 1e3:.3f} ms/token, "
               f"{res['throughput_tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB; decode's "
-              f"weight-read floor {read / 1e9:.2f} GB a token = "
-              f"{read / PEAK_BYTES_PER_S * 1e3:.3f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
+              f"weight-read floor {read / 1e9:.2f} GB a token"
+              + (f" plus {state / 1e9:.2f} GB of state read and as much written" if state else "")
+              + f" = {(read + 2 * state) / PEAK_BYTES_PER_S * 1e3:.3f} ms at "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
               f"launches "
               + ", ".join(f"{n} {c}" for n, c in launches.items())
               + " (flash by variant: " + ", ".join(f"{n} {c}" for n, c in flash_variants.items())
@@ -2009,6 +2323,116 @@ def main() -> int:
             rec["launches_per_step"] = launches[name] // n_steps
     records[("rglru_scan_bwd", f"{arch} train")]["ms_in_step"] = per_call["scan"]
     records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = per_call["attention"]
+
+    # (e) xlstm-1.3b at published width and depth: its blocks launch no kernel
+    # of the port, and the sLSTM's loop over time runs on the host.
+    arch, rows, seq, micro, n_steps, lr = XLSTM_TRAIN
+    cfg = get_config(arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(learning_rate=lr, warmup_steps=1, total_steps=n_steps,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        shape = ShapeConfig(f"train_{seq}", seq, rows, "train")
+        res, step_counts, plain_calls = counted_training(arch, None, shape, run, "cuda")
+        train_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res["history"]
+    n_params = sum(t.numel() for t in res["final_state"]["params"].values())
+    trained_layers = res["config"].num_layers
+    # The first step's batch under the initial and the trained weights: the
+    # steps' own losses are each on another batch, whose spread (steps 1 and
+    # 2 run one set of weights) the run's few updates need not exceed.
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(run.seed))
+    first = SyntheticLMDataset(cfg, shape, seed=run.seed).batch(0)
+    first = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in first.items()}
+    with torch.no_grad():
+        before = model.loss(first)[0].item()
+        f32 = Model(cfg.with_overrides(dtype="float32"), device=dev,
+                    generator=torch.Generator(dev).manual_seed(run.seed))
+        f32.load_state_dict(model.state_dict())  # the bf16 weights, upcast
+        before_f32 = f32.loss(first)[0].item()
+        del f32
+        model.load_state_dict(res["final_state"]["params"])
+        after = model.loss(first)[0].item()
+    del res, first
+    torch.cuda.empty_cache()
+    for h in hist:
+        print(f"[train] {arch} step {h['step']}: loss {h['loss']:.6f}, grad-norm "
+              f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s")
+    step_s = statistics.mean(h["seconds_per_step"] for h in hist[1:])
+    tokens = rows * seq
+    model_flops, mlstm_part = xlstm_step_flops(cfg, n_params, rows, seq)
+    share = model_flops / step_s / PEAK_BF16_FLOPS
+    plan = layer_plan(cfg)
+    print(f"[train] {arch} published width and depth ({cfg.num_layers} blocks: {plan.n_scan} x "
+          f"{plan.pattern.count('mlstm')} mlstm + {plan.pattern.count('slstm')} slstm), bf16 "
+          f"(fp32 moments, block remat), {n_params} parameters, {rows} rows x {seq} tokens in "
+          f"{micro} microbatches, lr {run.learning_rate} (warmup {run.warmup_steps}): "
+          f"{step_s:.4f} s per step after the first (mean of steps 2-{n_steps}), "
+          f"{tokens / step_s:.1f} tokens/s, model FLOPs {model_flops / 1e12:.2f} T per step "
+          f"({mlstm_part / 1e12:.2f} T of mLSTM chunkwise products), {100 * share:.3f} % of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; {train_s:.1f} s "
+          f"in train(); the first step's batch: loss {before:.6f} under the initial weights, "
+          f"{after:.6f} under the trained ones, {before_f32:.6f} under the initial ones in "
+          f"fp32 (relative gap {abs(before - before_f32) / before_f32:.3e}, limit "
+          f"{XLSTM_LOSS_RTOL}); the 4th step's loss below the 1st's: "
+          f"{hist[-1]['loss'] < hist[0]['loss']}; launches of any kernel "
+          f"{sum(sum(c.values()) for c in step_counts)}; calls of the plain versions "
+          f"{plain_calls}; {smi}")
+    if trained_layers != 48 or len(step_counts) != n_steps:
+        raise AssertionError(f"trained {trained_layers} layers in {len(step_counts)} steps")
+    if any(any(c.values()) for c in step_counts) or plain_calls:
+        raise AssertionError(f"{arch} training launched {step_counts} and called the plain "
+                             f"versions {plain_calls}, expected neither")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
+    if after == before:
+        raise AssertionError(f"training left the loss of its first batch at {before}")
+    if not abs(before - before_f32) / before_f32 < XLSTM_LOSS_RTOL:
+        raise AssertionError(f"the first batch's loss in bf16 {before}, in fp32 {before_f32}")
+
+    # One microbatch's forward and backward, with the sLSTM scans over time
+    # timed apart (their forward, remat's recompute and their backward).
+    mb = SyntheticLMDataset(cfg, ShapeConfig("mb", seq, rows // micro, "train"), seed=0).batch(0)
+    mb = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in mb.items()}
+    with timed_slstm_scans() as scans:
+        fwd_ms, bwd_ms, _ = timed_microbatch(model, mb, {})
+    del model, mb
+    torch.cuda.empty_cache()
+    n_slstm = plan.n_scan * plan.pattern.count("slstm")
+    if len(scans["forward"]) != 2 * n_slstm or len(scans["backward"]) != n_slstm:
+        raise AssertionError(f"timed {len(scans['forward'])} sLSTM scan forwards and "
+                             f"{len(scans['backward'])} backwards, expected {2 * n_slstm} and "
+                             f"{n_slstm}")
+    scan_fwd = event_ms(scans["forward"][:n_slstm])
+    scan_rec = event_ms(scans["forward"][n_slstm:])
+    scan_bwd = event_ms(scans["backward"])
+    scan_all = scan_fwd + scan_rec + scan_bwd
+    print(f"[train] {arch} one microbatch ({rows // micro} x {seq}): forward {fwd_ms:.2f} ms, "
+          f"backward {bwd_ms:.2f} ms (with remat's recompute); the sLSTM scans over time: "
+          f"forward {scan_fwd:.2f} ms, recompute {scan_rec:.2f} ms, backward {scan_bwd:.2f} ms "
+          f"in {n_slstm} calls each, {scan_all:.2f} ms = "
+          f"{100 * scan_all / (fwd_ms + bwd_ms):.1f} % of the microbatch; {smi}")
+
+    # The gradient at published width, in fp32 on one row of the first
+    # batch, depth and row cut (XLSTM_SLOPE): the loss's change along it
+    # against its prediction.
+    layers_s, seq_s, change, tol = XLSTM_SLOPE
+    cut = cfg.with_overrides(dtype="float32", num_layers=layers_s)
+    f32 = Model(cut, device=dev, generator=torch.Generator(dev).manual_seed(run.seed))
+    row = SyntheticLMDataset(cut, ShapeConfig("row", seq_s, 1, "train"), seed=run.seed).batch(0)
+    row = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in row.items()}
+    [(measured, predicted)] = gradient_slope(f32, row, [change])
+    del f32, row
+    torch.cuda.empty_cache()
+    print(f"[train] {arch} fp32 gradient at published width, {layers_s} blocks, 1 x {seq_s}: "
+          f"the loss moved {measured:.6e} between -t g and +t g, predicted {predicted:.6e} "
+          f"(ratio {measured / predicted:.4f}, limit 1 +- {tol}); {smi}")
+    if not abs(measured / predicted - 1) < tol:
+        raise AssertionError(f"{arch}'s gradient predicts a change of {predicted} along it, "
+                             f"the loss moved {measured}")
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

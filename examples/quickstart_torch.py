@@ -1,14 +1,16 @@
 """Quickstart for the PyTorch port: train a small LM and watch the loss fall.
 
     PYTHONPATH=src python examples/quickstart_torch.py [--arch llama3.2-1b] [--device cpu]
+    PYTHONPATH=src python examples/quickstart_torch.py --arch xlstm-1.3b --device cpu
 
 The port's counterpart of ``examples/quickstart.py``: the reduced ("smoke")
-config of a GQA architecture, trained by ``repro_torch.launch.train.train``
-on the CUDA card, or on the CPU with ``--device cpu``.  On the card every
+config of an architecture, trained by ``repro_torch.launch.train.train`` on
+the CUDA card, or on the CPU with ``--device cpu``.  On the card every
 attention layer runs the hand-written flash kernels forward and backward
 (the smoke config is fp32, so their CUDA-core variants, which repeat a run
 bit for bit); on the CPU their plain PyTorch versions run, the backward from
-the same flash-backward equations.
+the same flash-backward equations.  xlstm-1.3b's mLSTM and sLSTM blocks
+launch no kernel of the port: they run as PyTorch ops on either device.
 """
 
 import argparse

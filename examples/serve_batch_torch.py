@@ -8,7 +8,10 @@ default; 0 serves without admission).
         --batch 8 --prompt-len 1024 --gen 32
     PYTHONPATH=src python examples/serve_batch_torch.py --device cuda --full \
         --arch recurrentgemma-9b --batch 4 --prompt-len 4096 --gen 32
+    PYTHONPATH=src python examples/serve_batch_torch.py --device cuda --full \
+        --arch xlstm-1.3b --batch 8 --prompt-len 2048 --gen 32
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu --arch deepseek-v2-236b
+    PYTHONPATH=src python examples/serve_batch_torch.py --device cpu --arch xlstm-1.3b
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu
 """
 

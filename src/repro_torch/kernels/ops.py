@@ -32,8 +32,9 @@ from . import build, ref
 from .flash_attention import flash_attention_bwd, flash_attention_fwd
 from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
-# The kernel that a layer of each kind launches on a CUDA tensor.
-KERNEL_OF = {"attn": "flash_attention", "rec": "rglru_scan"}
+# The kernel that a layer of each kind launches on a CUDA tensor (None: the
+# xLSTM blocks run as PyTorch ops and launch none of this package's kernels).
+KERNEL_OF = {"attn": "flash_attention", "rec": "rglru_scan", "mlstm": None, "slstm": None}
 
 
 def _flash_fwd(q, k, v, causal, window, scale, lse=False):
@@ -127,8 +128,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
 def prepare(kinds: Iterable[str]) -> List[str]:
     """Build (one nvcc per stale source, in parallel) and load the kernels
     that layers of these kinds launch, so that no later launch waits on a
-    build; return their names."""
-    names = sorted({KERNEL_OF[k] for k in kinds})
+    build; return their names (none for kinds without a kernel)."""
+    names = sorted({KERNEL_OF[k] for k in kinds} - {None})
     build.build(names)
     for name in names:
         build.load(name)

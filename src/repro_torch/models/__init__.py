@@ -1,6 +1,7 @@
-"""The decoders of the JAX model zoo (dense GQA, MLA with MoE, and the RG-LRU
-hybrid), in PyTorch."""
+"""The decoders of the JAX model zoo (dense GQA, MLA with MoE, the RG-LRU
+hybrid and xLSTM), in PyTorch."""
 
 from .io import input_specs  # noqa: F401
 from .specs import ParamSpec, init_params, param_count  # noqa: F401
 from .transformer import Model, layer_plan, model_specs  # noqa: F401
+from .xlstm import MLSTMState, SLSTMState  # noqa: F401

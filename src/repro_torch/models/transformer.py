@@ -1,10 +1,11 @@
 """Model assembly: embed → layer stack → logits, for decoders built from
-``"attn"`` (GQA or MLA attention, with a dense or MoE FFN) and ``"rec"``
-(RG-LRU) blocks.
+``"attn"`` (GQA or MLA attention, with a dense or MoE FFN), ``"rec"``
+(RG-LRU), ``"mlstm"`` and ``"slstm"`` (xLSTM) blocks.
 
 Port of ``repro/models/transformer.py`` for the dense (``("attn",)``), MoE
-(``("attn",)`` after ``num_dense_layers`` dense ``lead`` layers) and hybrid
-(``("rec", "rec", "attn")``) patterns.  The parameters mirror the JAX tree
+(``("attn",)`` after ``num_dense_layers`` dense ``lead`` layers), hybrid
+(``("rec", "rec", "attn")``) and xLSTM (``("mlstm",) * 7 + ("slstm",)``)
+patterns.  The parameters mirror the JAX tree
 (``embed.table``; ``lead.{j}.*`` for the unrolled leading layers;
 ``blocks.b{i}.*`` for the super-block pattern, stacked on a leading dim of
 ``n_scan``; ``tail.{j}.*`` for the unrolled trailing layers;
@@ -33,6 +34,7 @@ from ..device import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
+from . import xlstm as xl
 from .layers import (chunked_xent, embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, unembed, unembed_spec)
 from .specs import ParamSpec, init_params, stack_layer_specs
@@ -63,9 +65,10 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if not set(cfg.block_pattern) <= {"attn", "rec"}:
+    kinds = set(cfg.block_pattern)
+    if not kinds <= {"attn", "rec", "mlstm", "slstm"}:
         unsupported.append(f"block_pattern={cfg.block_pattern}")
-    if cfg.attention not in ("gqa", "mla"):
+    if cfg.attention not in ("gqa", "mla") and (cfg.attention != "none" or "attn" in kinds):
         unsupported.append(f"attention={cfg.attention!r}")
     if cfg.moe is not None and cfg.moe.expert_sharding != "fsdp_d":
         unsupported.append(f"expert_sharding={cfg.moe.expert_sharding!r}")
@@ -74,13 +77,18 @@ def _check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the port runs decoders of GQA or MLA attention, dense "
-            "or MoE FFNs and RG-LRU blocks on one device; not yet: "
+            "or MoE FFNs, RG-LRU and xLSTM blocks on one device; not yet: "
             + ", ".join(unsupported))
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
     """``kind``: ``"attn"`` (its FFN MoE when ``cfg.moe``), ``"attn_dense"``
-    (a lead layer of a MoE model: a dense FFN of ``dense_d_ff``) or ``"rec"``."""
+    (a lead layer of a MoE model: a dense FFN of ``dense_d_ff``), ``"rec"``,
+    or ``"mlstm"`` and ``"slstm"`` (a norm and the cell, no FFN of its own)."""
+    if kind == "mlstm":
+        return {"ln": rmsnorm_spec(cfg.d_model, dtype), "cell": xl.mlstm_block_spec(cfg, dtype)}
+    if kind == "slstm":
+        return {"ln": rmsnorm_spec(cfg.d_model, dtype), "cell": xl.slstm_block_spec(cfg, dtype)}
     if kind == "rec":
         mixer = rec.rglru_block_spec(cfg, dtype)
     elif cfg.attention == "mla":
@@ -101,11 +109,27 @@ def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
     }
 
 
+_XLSTM = {"mlstm": (xl.mlstm_block, xl.mlstm_decode),
+          "slstm": (xl.slstm_block, xl.slstm_decode)}
+
+
 def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
     """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
-    ``KVCache``, ``MLACache`` or ``RGLRUState`` of buffers; ``None`` in train
-    mode) is written in place.  Returns (x, cache, aux): aux is the MoE
-    load-balance loss, ``None`` for a dense FFN."""
+    ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState`` or
+    ``SLSTMState`` of buffers; ``None`` in train mode) is written in place.
+    Returns (x, cache, aux): aux is the MoE load-balance loss, ``None`` for a
+    dense FFN or an xLSTM block."""
+    if kind in _XLSTM:
+        block, decode = _XLSTM[kind]
+        h = rmsnorm(p["ln"], x)
+        if mode == "train":
+            return x + block(p["cell"], h, cfg)[0], None, None
+        # Prefill starts from a fresh state, whatever the cache holds.
+        y, new = block(p["cell"], h, cfg) if mode == "prefill" else decode(
+            p["cell"], h, cfg, cache)
+        for buf, t in zip(cache, new):
+            buf.copy_(t)
+        return x + y, cache, None
     h = rmsnorm(p["ln1"], x)
     if kind == "rec":
         if mode == "train":
@@ -138,6 +162,10 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                  device: torch.device):
+    if kind == "mlstm":
+        return xl.mlstm_state_spec(cfg, batch, device)
+    if kind == "slstm":
+        return xl.slstm_state_spec(cfg, batch, device)
     if kind == "rec":
         return rec.rglru_state_spec(cfg, batch, device)
     if cfg.attention == "mla":
@@ -146,7 +174,8 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
 
 
 def _stacked(cache, n: int):
-    """``n`` copies of a zeroed cache, stacked on a new leading dim."""
+    """``n`` copies of a fresh cache (the xLSTM states' m at -1e30 too),
+    stacked on a new leading dim."""
     return cache._replace(**{f: t.expand(n, *t.shape).clone()
                              for f, t in cache._asdict().items()
                              if isinstance(t, torch.Tensor)})
@@ -213,7 +242,7 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder (dense, MoE or hybrid) on one device: ``loss`` for training,
+    """Decoder (dense, MoE, hybrid or xLSTM) on one device: ``loss`` for training,
     ``prefill`` then ``decode_step`` for serving.
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
@@ -246,11 +275,14 @@ class Model(nn.Module):
         return unembed(self.unembed, h)
 
     def cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """Zeroed caches shaped like the JAX tree: ``blocks.b{i}`` stacks
+        """Fresh caches shaped like the JAX tree: ``blocks.b{i}`` stacks
         ``n_scan`` layers (``KVCache`` k/v ``[n, B, S, K, hd]``, ``MLACache``
         c_kv ``[n, B, S, kv_lora]`` and k_rope ``[n, B, S, dr]``,
-        ``RGLRUState`` h ``[n, B, W]`` and conv ``[n, B, 3, W]``); ``lead``
-        and ``tail`` hold one per layer."""
+        ``RGLRUState`` h ``[n, B, W]`` and conv ``[n, B, 3, W]``,
+        ``MLSTMState`` c ``[n, B, H, dqk, dh]``, n ``[n, B, H, dqk]`` and m
+        ``[n, B, H]``, ``SLSTMState`` c, n, m and h ``[n, B, D]``; every m
+        at -1e30, everything else zero); ``lead`` and ``tail`` hold one per
+        layer."""
         mk = lambda kind: _block_cache(self.cfg, kind, batch, max_len, self.dtype,
                                        self.device)
         plan = self.plan

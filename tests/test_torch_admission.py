@@ -294,6 +294,29 @@ def test_prepare_builds_each_kernel_once_in_one_parallel_build(monkeypatch):
     assert loads == ["flash_attention", "rglru_scan", "flash_attention"]
 
 
+def test_admitted_xlstm_serve_matches_bare_and_prepares_no_kernel(monkeypatch):
+    """The xLSTM kinds launch no kernel of the port: ``prepare`` builds and
+    loads nothing for them (an unknown kind still raises), and an admitted
+    xlstm serve gives the bare serve's tokens with the usual lease counters."""
+    builds, loads = [], []
+    monkeypatch.setattr(build, "build", lambda names: builds.append(list(names)))
+    monkeypatch.setattr(build, "load", loads.append)
+    assert ops.prepare(("mlstm", "slstm")) == []
+    assert ops.prepare(("mlstm",) * 7 + ("slstm",)) == []
+    assert ops.prepare(("rec", "mlstm", "attn", "slstm")) == ["flash_attention", "rglru_scan"]
+    with pytest.raises(KeyError):
+        ops.prepare(("mlstm", "conv"))
+    assert builds == [[], [], ["flash_attention", "rglru_scan"]]
+    assert loads == ["flash_attention", "rglru_scan"]
+
+    bare = serve("xlstm-1.3b", device="cpu", seed=3, **SERVE_KW)
+    out = serve("xlstm-1.3b", device="cpu", seed=3, admission_slots=2, **SERVE_KW)
+    assert torch.equal(out["tokens"], bare["tokens"])
+    adm = out["admission"]
+    assert adm["grants"] == 1 and adm["fast_renews"] == 3 and adm["expirations"] == 0
+    assert adm["local_rdma_ops"] == 0 and adm["slot_key"] == "serve/slot0"
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -1,8 +1,8 @@
 """The port's Model against the JAX Model on the same weights: prefill logits
 and caches, then a teacher-forced greedy decode loop (llama3.2-1b, the
-recurrentgemma-9b hybrid and the MLA + MoE deepseek-v2-236b, smoke widths,
-fp32), and the loss of both deepseek archs (ce, the MoE aux, DeepSeek-V3's
-mtp_ce)."""
+recurrentgemma-9b hybrid, the MLA + MoE deepseek-v2-236b and xlstm-1.3b,
+smoke widths, fp32), and the loss of both deepseek archs (ce, the MoE aux,
+DeepSeek-V3's mtp_ce) and of xlstm-1.3b."""
 
 import pytest
 
@@ -22,6 +22,7 @@ from repro_torch.models import Model, model_specs, param_count  # noqa: E402
 DENSE = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b")
 HYBRID = ("recurrentgemma-9b",)
 MOE = ("deepseek-v2-236b", "deepseek-v3-671b")
+SSM = ("xlstm-1.3b",)
 
 
 def _models(arch):
@@ -171,7 +172,52 @@ def test_deepseek_loss_matches(arch):
         _close(tmet[key].detach(), jmet[key], atol=1e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE + HYBRID + MOE])
+def test_xlstm_prefill_then_teacher_forced_decode():
+    """A 21-token prompt (no multiple of the smoke chunk of 8: the state
+    passes the padding unchanged), then 8 decode steps; every state field
+    of both block kinds (c, n, m, and h for the sLSTM) matches JAX's."""
+    jm, jp, tm = _models("xlstm-1.3b")
+    assert tm.plan.pattern == ("mlstm", "slstm") and jm.cfg.xlstm.chunk == 8
+    B, T, steps = 2, 21, 8
+    max_len = T + steps
+    tokens = _tokens(jm.cfg.vocab_size, B, T, seed=5)
+    jprefill = jax.jit(jm.prefill, static_argnums=2)
+    jdecode = jax.jit(jm.decode_step)
+
+    def caches_close(tc, jc, atol, rtol):
+        for key, fields in (("b0", ("c", "n", "m")), ("b1", ("c", "n", "m", "h"))):
+            tt, jt = tc["blocks"][key], jc["blocks"][key]
+            assert tt._fields == jt._fields
+            for f in fields:
+                _close(getattr(tt, f), getattr(jt, f), atol, rtol)
+
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(tokens)}, max_len)
+    tl, tc = tm.prefill({"tokens": torch.from_numpy(tokens).long()}, max_len)
+    _close(tl, jl, atol=2e-4, rtol=1e-3)
+    caches_close(tc, jc, atol=2e-4, rtol=1e-3)
+    assert tuple(tc["blocks"]["b0"].c.shape) == (2, B, 4, 16, 32)
+
+    for step in range(steps):
+        tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(np.int32)
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok))
+        tl, tc = tm.decode_step(tc, torch.from_numpy(tok).long())
+        _close(tl, jl, atol=5e-3, rtol=1e-2)
+    caches_close(tc, jc, atol=5e-3, rtol=1e-2)
+
+
+def test_xlstm_loss_matches():
+    jm, jp, tm = _models("xlstm-1.3b")
+    tokens = _tokens(jm.cfg.vocab_size, 2, 20, seed=6)
+    labels = np.roll(tokens, -1, axis=1)
+    _, jmet = jm.loss(jp, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    _, tmet = tm.loss({"tokens": torch.from_numpy(tokens).long(),
+                       "labels": torch.from_numpy(labels).long()})
+    assert set(tmet) == set(jmet) == {"ce", "loss"}
+    for key in ("ce", "loss"):
+        _close(tmet[key].detach(), jmet[key], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE + HYBRID + MOE + SSM])
 def test_other_archs_are_refused(arch):
     with pytest.raises(NotImplementedError, match="not yet"):
         model_specs(get_config(arch, smoke=True))
@@ -214,7 +260,7 @@ def test_moe_bf16_tree_loads_one_to_one():
     assert got["blocks.b0.ffn.wi"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE)
+@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE + SSM)
 def test_param_tree_matches_jax(arch):
     """Same parameter count at the published widths; same state_dict keys and
     shapes at smoke width."""

@@ -52,6 +52,17 @@ def test_serve_deepseek_on_cpu():
     assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
 
 
+def test_serve_xlstm_on_cpu():
+    """mLSTM and sLSTM blocks serve through the same entry: a prompt of 13
+    (no multiple of the smoke chunk of 8), their states carried in place
+    through decode; the same seed serves the same tokens."""
+    out = serve("xlstm-1.3b", batch=2, prompt_len=13, gen_len=5, device="cpu", seed=1)
+    assert tuple(out["tokens"].shape) == (2, 5) and out["tokens"].dtype == torch.int64
+    assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
+    again = serve("xlstm-1.3b", batch=2, prompt_len=13, gen_len=5, device="cpu", seed=1)
+    assert torch.equal(out["tokens"], again["tokens"])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -150,6 +161,13 @@ def test_example_serves_recurrentgemma_on_cpu():
 def test_example_serves_deepseek_on_cpu():
     proc = _run(["examples/serve_batch_torch.py", "--arch", "deepseek-v2-236b",
                  "--device", "cpu", "--batch", "2", "--prompt-len", "10", "--gen", "3"])
+    assert proc.returncode == 0, proc.stderr
+    assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
+
+
+def test_example_serves_xlstm_on_cpu():
+    proc = _run(["examples/serve_batch_torch.py", "--arch", "xlstm-1.3b",
+                 "--device", "cpu", "--batch", "2", "--prompt-len", "11", "--gen", "3"])
     assert proc.returncode == 0, proc.stderr
     assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
 

@@ -1,6 +1,6 @@
 """The port's training path against the JAX package's, on the same weights
-and batches: loss and every parameter's gradient (llama3.2-1b and the
-recurrentgemma-9b hybrid, smoke widths, fp32), chunked cross-entropy, remat,
+and batches: loss and every parameter's gradient (llama3.2-1b, the
+recurrentgemma-9b hybrid and xlstm-1.3b, smoke widths, fp32), chunked cross-entropy, remat,
 the tied embedding, the port's own forward against its prefill and decode,
 and the card check of ``chip_smoke.py`` phase 6(a) at its smallest case.
 The train step and the trainer are in ``tests/test_torch_steps.py``."""
@@ -24,8 +24,9 @@ from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 
-ARCHS = ("llama3.2-1b", "recurrentgemma-9b")
-SUPPORTED = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b", "recurrentgemma-9b")
+ARCHS = ("llama3.2-1b", "recurrentgemma-9b", "xlstm-1.3b")
+SUPPORTED = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b", "recurrentgemma-9b",
+             "xlstm-1.3b")
 # fp32 on both sides: summation order only.
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -241,6 +242,96 @@ def test_flash_grads_and_train_steps_on_card_match_cpu(cuda):
     for key, p in cpu.named_parameters():
         torch.testing.assert_close(card.get_parameter(key).detach().cpu(), p.detach(),
                                    **GRAD_TOL)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch only inside main)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("T", [64, 40, 5])
+def test_xlstm_flop_count_of_phase_6e_matches_the_ports_products(T):
+    """chip_smoke.py phase 6(e)'s count of the mLSTM chunkwise products: on
+    T a whole number of chunks (or one chunk shorter than the configured
+    size), torch's FLOP counter over the port's ``mlstm_chunkwise`` reads the
+    count plus the masked pairs, which the port multiplies and the count
+    leaves out."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import xlstm as tx
+
+    cs = _chip_smoke()
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    B, H, K = 2, cfg.num_heads, min(cfg.xlstm.chunk, T)
+    dh = int(cfg.xlstm.proj_factor_m * cfg.d_model) // H
+    dqk = dh // 2
+    gen = torch.Generator().manual_seed(0)
+    q, k = (torch.randn(B, T, H, dqk, generator=gen) for _ in range(2))
+    v = torch.randn(B, T, H, dh, generator=gen)
+    li, lf = (torch.randn(B, T, H, generator=gen) for _ in range(2))
+    with FlopCounterMode(display=False) as counter:
+        tx.mlstm_chunkwise(q, k, v, li, lf, tx.mlstm_state_spec(cfg, B, "cpu"),
+                           cfg.xlstm.chunk)
+    masked = (T // K) * K * K - cs.mlstm_pairs(T, cfg.xlstm.chunk)
+    assert counter.get_total_flops() == B * (cs.mlstm_flops(cfg, T)
+                                             + 2 * H * (dqk + dh) * masked)
+
+
+def test_xlstm_flop_count_of_phase_6e_at_published_width():
+    """The kept pairs against a mask built pair by pair (a T with a ragged
+    last chunk), and the count at phase 6(e)'s shape by hand: 4 heads, dqk
+    512, dh 1024, 32 chunks of 64 keeping 2080 pairs each, 42 mLSTM layers."""
+    cs = _chip_smoke()
+    for T, chunk in ((21, 8), (2048, 64), (5, 8)):
+        t = torch.arange(T)
+        K = min(chunk, T)
+        mask = (t[:, None] // K == t[None, :] // K) & (t[None, :] <= t[:, None])
+        assert cs.mlstm_pairs(T, chunk) == int(mask.sum())
+    cfg = get_config("xlstm-1.3b")
+    per_row = 2 * 4 * (32 * 2080 * (512 + 1024) + 2048 * (2 * 512 * 1024 + 512))
+    assert cs.mlstm_flops(cfg, 2048) == per_row == 18_006_147_072
+    total, mlstm = cs.xlstm_step_flops(cfg, 1_843_460_432, 4, 2048)
+    assert mlstm == 3 * 4 * 42 * per_row
+    assert total == 6 * 1_843_460_432 * 4 * 2048 + mlstm
+
+
+@pytest.mark.parametrize("wrong", [None, 0.5, -1.0])
+def test_gradient_slope_of_phase_6e_holds_the_gradient(monkeypatch, wrong):
+    """chip_smoke.py phase 6(e)'s gradient check on xlstm-1.3b's smoke config
+    in fp32: the port's gradient predicts the loss's change along it within
+    the tolerance of XLSTM_SLOPE; a gradient at half its size or of the wrong
+    sign (the gradient function scaled) reads twice or minus the change."""
+    from repro_torch.launch import steps
+
+    cs = _chip_smoke()
+    cfg = get_config("xlstm-1.3b", smoke=True).with_overrides(dtype="float32")
+    model = Model(cfg, device="cpu", generator=torch.Generator("cpu").manual_seed(0))
+    batch = _torch(_batch(cfg.vocab_size, 1, 64, seed=7))
+    if wrong is not None:
+        real = steps.grad_fn
+
+        def scaled(model_, n=1):
+            fn = real(model_, n)
+
+            def call(b):
+                loss, metrics, grads = fn(b)
+                return loss, metrics, {k: wrong * g for k, g in grads.items()}
+            return call
+        monkeypatch.setattr(steps, "grad_fn", scaled)
+    _, _, change, tol = cs.XLSTM_SLOPE
+    [(measured, predicted)] = cs.gradient_slope(model, batch, [change])
+    ratio = measured / predicted
+    if wrong is None:
+        assert abs(ratio - 1) < tol, ratio
+    else:
+        np.testing.assert_allclose(ratio, 1 / wrong, rtol=tol)
 
 
 def test_run_config_is_the_references():

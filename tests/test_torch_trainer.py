@@ -79,3 +79,12 @@ def test_quickstart_example_learns_on_cpu(tmp_path):
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "(LEARNING)" in proc.stdout.splitlines()[-1]
+
+
+def test_quickstart_example_learns_xlstm_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), TMPDIR=str(tmp_path))
+    proc = subprocess.run([sys.executable, "examples/quickstart_torch.py", "--device", "cpu",
+                           "--arch", "xlstm-1.3b", "--steps", "10"],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "(LEARNING)" in proc.stdout.splitlines()[-1]
