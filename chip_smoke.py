@@ -28,8 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    16-byte aligned storage);
    then the forward and the backward at llama3-8b's training shape (head dim
    128), at recurrentgemma-9b's (head dim 256, MQA, window 2048: the
-   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``) and at
-   deepseek-v2-236b's MLA (B 1, T 4096, 128 heads, dk 192 / dv 128), each
+   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``), at
+   deepseek-v2-236b's MLA (B 1, T 4096, 128 heads, dk 192 / dv 128) and at
+   hubert-xlarge's (B 4, T 1500, 16 heads of d 80, no causal mask), each
    timed beside its plain version, its bound (at d 256 also the bound of the
    seven products the split design runs, a second call that must repeat
    the first bit for bit, and the time at every head-group count the
@@ -54,7 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    a second call's bit for bit, and the backward must repeat bit for bit
    (its difference from ``lane`` is printed);
 3. the port against its own plain CPU path on small fp32 models
-   (llama3.2-1b, recurrentgemma-9b, deepseek-v2-236b and xlstm-1.3b);
+   (llama3.2-1b, recurrentgemma-9b, deepseek-v2-236b, xlstm-1.3b, the
+   internvl2-76b vision stub's prefill and decode, and the hubert-xlarge
+   encoder's logits);
 4. the main paths, each with every kernel launch counted from zero and
    with its peak memory and decode's weight-read floor:
    ``serve("llama3.2-1b")`` at full width, batch 8 x prompt 1024 x 32
@@ -72,9 +75,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    times by block kind for a prefill and a decode step, and, on the same
    config in fp32, prefill and one decode step against a forward over the
    prompt plus that token (``XLSTM_DECODE_TOL``; a decode from fresh
-   states must miss).  Every flash-attention launch must be
-   ``wgmma`` (one per attention layer in prefill, none in decode), every
-   scan launch ``tma``, and no plain version may run;
+   states must miss); then ``serve("internvl2-76b")`` at published widths
+   cut to 8 of its 80 layers, batch 4 x a prompt of 256 stub image
+   embeddings and 1792 text tokens x 32 generated tokens.  Every
+   flash-attention launch must be ``wgmma`` (one per attention layer in
+   prefill, none in decode), every scan launch ``tma``, and no plain version
+   may run.  Then the encoder: hubert-xlarge at published width and depth
+   (48 layers) through ``build_encode_step``, batch 8 x 1500 frames, one
+   ``wgmma`` flash launch per layer and no plain call, with its seconds,
+   frames/s, model-FLOPs share and peak memory, and its logits beside those
+   with the plain flash version in the kernel's place;
 5. admitted serving: llama3.2-1b's phase-4 request again, admitted through
    the lock table (``admission_slots=4``), with the kernel libraries
    unloaded first: the libraries are loaded when the slot is taken, the card
@@ -90,8 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    autograd Function (fp32 and bf16, causal and windowed, GQA and MQA)
    against the plain backward and the oracle's autograd, with phase 2's
    tolerances, then three fp32 train steps of
-   llama3.2-1b, recurrentgemma-9b and xlstm-1.3b (``SMOKE_TRAIN``: deepseek
-   does not train on the card yet) at smoke width on the card and on the
+   llama3.2-1b, recurrentgemma-9b, xlstm-1.3b, hubert-xlarge and
+   internvl2-76b (``SMOKE_TRAIN``: deepseek does not train on the card yet)
+   at smoke width on the card and on the
    CPU from one init (losses, grads' norms and final parameters within the
    CPU parity tests' atol 1e-5, rtol 1e-4; each kernel's launches printed,
    the scan backward's among them); (b) a smoke run checkpointed at
@@ -140,12 +151,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    over time apart (forward, remat's recompute and backward).  It holds the
    first step's loss to the fp32 loss of the same weights (``XLSTM_LOSS_RTOL``)
    and, in fp32 on one row at published width cut to 8 blocks, the gradient
-   against the loss's change along it (``gradient_slope``, ``XLSTM_SLOPE``).
+   against the loss's change along it (``gradient_slope``, ``XLSTM_SLOPE``);
+   (f) ``train("hubert-xlarge")`` at published width and depth (48 layers
+   under remat, no causal mask), bf16 parameters, fp32 AdamW moments, 8 rows
+   of 1500 frames in 2 microbatches, 6 steps at lr 3e-4 with 2 warmup steps
+   (``HUBERT_TRAIN``): every loss finite, each step's launches 192 flash and
+   96 flash backward, all ``wgmma``, no call of a plain version, the weight
+   matrices moved and ``embed.table``'s moments still zero (its gradient
+   exactly zero: the audio stub replaces the embedding), with s/step,
+   frames/s, the model-FLOPs share, the peak memory and the losses (printed:
+   the stub's embeddings carry nothing of the labels); then one microbatch
+   through the kernels against the plain versions in the forward, remat's
+   recompute and the backward, within ``HUBERT_TRAIN_BF16_TOL``, and a
+   recompute with the causal mask on purpose must exceed it.
 
 Before each of phases 3-6 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
-last lines are the kernels' JSON record, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.  The script imports nothing of
+last lines are the script's seconds, the kernels' JSON record, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
 JAX; with no CUDA card, or without the repository beside it, it exits 1.
 """
 
@@ -174,7 +197,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # wgmma), then bf16 cases at every wgmma head dim (D 64, 128, 256) and its
 # edges: a window, d 128 with H/K = 4, dk 192 / dv 128 (MLA), recurrentgemma's
 # windowed MQA at d 256, Tq no multiple of the 128-row work tile at d 256
-# with a window, and a window that is no multiple of the KV tile.
+# with a window, and a window that is no multiple of the KV tile; then bf16
+# without the causal mask (the encoder's attention): hubert's d 80 on
+# flash_fwd_wgmma<128> (columns 80-127 zero-filled by the TMA) with a T that
+# no tile divides, GQA at d 64, and d 128.
 # B, T, H, K, dk, dv, causal, window, dtype
 FLASH_CASES = [
     (2, 64, 4, 2, 32, 32, True, 0, "float32"),
@@ -191,6 +217,9 @@ FLASH_CASES = [
     (1, 300, 4, 1, 256, 256, True, 64, "bfloat16"),
     (2, 333, 4, 2, 256, 256, True, 200, "bfloat16"),
     (2, 500, 4, 2, 64, 64, True, 77, "bfloat16"),
+    (2, 300, 4, 4, 80, 80, False, 0, "bfloat16"),
+    (1, 200, 8, 2, 64, 64, False, 0, "bfloat16"),
+    (1, 130, 4, 2, 128, 128, False, 0, "bfloat16"),
 ]
 FLASH_SLICES = {  # prefill attention of each main path
     "llama3.2-1b": (8, 1024, 32, 8, 64, 64, True, 0, "bfloat16"),
@@ -198,6 +227,11 @@ FLASH_SLICES = {  # prefill attention of each main path
     # MLA: 128 heads with their own K (the latents expanded per head), dk 192
     # = 128 nope + 64 rope, dv 128; on flash_fwd_wgmma<256>.
     "deepseek-v2-236b": (4, 4096, 128, 128, 192, 128, True, 0, "bfloat16"),
+    # hubert-xlarge's encode: 16 heads of d 80 over every pair of 1500 frames
+    # (30 s of audio at 20 ms a frame), on flash_fwd_wgmma<128>.
+    "hubert-xlarge": (8, 1500, 16, 16, 80, 80, False, 0, "bfloat16"),
+    # internvl2-76b's prefill: 64 heads over 8 KV heads at d 128.
+    "internvl2-76b": (4, 2048, 64, 8, 128, 128, True, 0, "bfloat16"),
 }
 # The plain versions run over slices of the KV heads whose fp32 scores take at
 # most this many bytes: whole, MLA's 128 heads would not fit the card
@@ -234,9 +268,22 @@ RGLRU_TOL = 1e-5  # atol and rtol: fp32, fma against mul-then-add rounding only
 # published depth).  deepseek-v2-236b at published widths is 236 G parameters
 # over 60 layers; 4 layers (the dense lead layer and 3 MoE layers) hold 13.3 G,
 # 26.6 GB in bf16.  xlstm-1.3b's prompt is its published training context,
-# 2048 (arXiv:2405.04517 section 4).
+# 2048 (arXiv:2405.04517 section 4).  internvl2-76b at published widths cut
+# from 80 to 8 layers is 8.946 G parameters, 17.9 GB in bf16; its prompt is
+# one image's 256 stub patch embeddings, then 1792 text tokens.
 SERVE = [("llama3.2-1b", 8, 1024, 32, None), ("recurrentgemma-9b", 4, 4096, 32, None),
-         ("deepseek-v2-236b", 4, 4096, 32, 4), ("xlstm-1.3b", 8, 2048, 32, None)]
+         ("deepseek-v2-236b", 4, 4096, 32, 4), ("xlstm-1.3b", 8, 2048, 32, None),
+         ("internvl2-76b", 4, 2048, 32, 8)]
+# The encoder's main path (phase 4): hubert-xlarge at published width and
+# depth (48 layers, 945.0 M parameters) through build_encode_step: arch,
+# batch, frames.  1500 frames are 30 s of audio at the 20 ms frame rate of
+# HuBERT's CNN feature extractor (arXiv:2106.07447), whose output the audio
+# stub stands in for.
+ENCODE = ("hubert-xlarge", 8, 1500)
+# Its logits against those with the plain flash version in the kernel's
+# place, in relative L2 over the whole output: an H100 read 1.385e-02 (bf16
+# rounding carried through 48 layers); a wrong mask moves every row.
+ENCODE_PLAIN_TOL = 5e-2
 # xlstm-1.3b at published width, phase 4, each in relative L2 over the whole
 # output.  The chunkwise form rounds the decay weights, the carried state and
 # the products' sums to bf16 where the sequential oracle keeps fp32: each
@@ -253,10 +300,12 @@ XLSTM_CHUNKWISE_TOL = 2e-2
 XLSTM_PREFILL_TOL = dict(atol=2e-4, rtol=1e-3)
 XLSTM_DECODE_TOL = dict(atol=5e-3, rtol=1e-2)
 # Phase 3: the port on the card against its CPU path at smoke width.
-CHECK = ("llama3.2-1b", "recurrentgemma-9b", "deepseek-v2-236b", "xlstm-1.3b")
+CHECK = ("llama3.2-1b", "recurrentgemma-9b", "deepseek-v2-236b", "xlstm-1.3b",
+         "hubert-xlarge", "internvl2-76b")
 # Phase 6(a): smoke training on the card against the CPU (deepseek does not
 # train on the card yet).
-SMOKE_TRAIN = ("llama3.2-1b", "recurrentgemma-9b", "xlstm-1.3b")
+SMOKE_TRAIN = ("llama3.2-1b", "recurrentgemma-9b", "xlstm-1.3b", "hubert-xlarge",
+               "internvl2-76b")
 
 # Phase 6.  Flash gradient cases (B, T, H, K, dk, dv, causal, window, dtype):
 # fp32 on simt, bf16 on wgmma; llama's d 64 GQA and recurrentgemma's d 256 MQA.
@@ -278,8 +327,12 @@ GRAD_CASES = [
 # optional tenth entry): key tiles past the last query see no query tile, so
 # every head group of theirs walks no step; then bf16 that the TMA cannot
 # load, on the simt backward: dv 60, and d 256 with q, k and v one element
-# off 16-byte aligned storage (an optional eleventh entry).  bwd_want names
-# the variant each case must launch.
+# off 16-byte aligned storage (an optional eleventh entry); then bf16
+# without the causal mask, each key tile walking every query tile: hubert's
+# d 80 on flash_bwd_wgmma<128> (dq's fp32 reductions go out in 32-column
+# boxes, the one at columns 64-95 clipped at 80) with a T that no tile
+# divides, GQA at d 64, and d 128.  bwd_want names the variant each case must
+# launch.
 BWD_CASES = GRAD_CASES + [
     (2, 256, 8, 2, 128, 128, True, 0, "bfloat16"),
     (2, 500, 4, 2, 64, 64, True, 77, "bfloat16"),
@@ -294,6 +347,9 @@ BWD_CASES = GRAD_CASES + [
     (1, 100, 8, 1, 256, 256, True, 0, "bfloat16", 300),
     (1, 70, 2, 1, 64, 60, True, 0, "bfloat16"),
     (1, 130, 4, 1, 256, 256, True, 64, "bfloat16", None, 1),
+    (2, 300, 4, 4, 80, 80, False, 0, "bfloat16"),
+    (1, 200, 8, 2, 64, 64, False, 0, "bfloat16"),
+    (1, 130, 4, 2, 128, 128, False, 0, "bfloat16"),
 ]
 # llama3-8b's attention at train_4k's length (B, T, H, K, dk, dv, causal,
 # window, dtype), timed in phase 2: the flash kernels at head dim 128.
@@ -305,6 +361,10 @@ TRAIN_RG_ATTN = (1, 4096, 16, 1, 256, 256, True, 2048, "bfloat16")
 # train_4k): forward and backward on the d-256 kernels, timed in phase 2
 # ahead of training it on the card.
 TRAIN_MLA = (1, 4096, 128, 128, 192, 128, True, 0, "bfloat16")
+# hubert-xlarge's attention in one training microbatch (phase 6(f)): 4 rows of
+# 1500 frames, 16 heads of d 80, no causal mask; forward and backward on
+# wgmma at D 128.
+TRAIN_HUBERT_ATTN = (4, 1500, 16, 16, 80, 80, False, 0, "bfloat16")
 # The launches of one flash_attention_bwd call on each variant (``wgmma`` up
 # to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
 # kernel has in a profiler trace, and the main kernels of each.
@@ -389,6 +449,21 @@ XLSTM_SLOPE = (8, 256, 1e-3, 0.05)
 # 1.44 (the first super-block's lam) and 2.4e-2.  The limits sit about five,
 # two and five times above the kernels.
 RG_TRAIN_BF16_TOL = {"loss": 2e-4, "grad": 4e-2, "norm": 1.5e-3}
+# Phase 6(f): hubert-xlarge at published width and depth (48 layers, each its
+# own super-block under remat), bf16 parameters, fp32 AdamW moments: arch,
+# rows per step, frames per row, microbatches, steps, peak learning rate (2
+# warmup steps).  Cut: global batch, to 8 rows of 30 s of audio; no
+# checkpoint.  The loss is printed, not held to fall: the audio stub's
+# embeddings are drawn independently of the labels (data/pipeline.py), so the
+# model can learn at most the labels' marginal distribution.
+HUBERT_TRAIN = ("hubert-xlarge", 8, 1500, 2, 6, 3e-4)
+# Its microbatch (4 x 1500) through the kernels against the plain versions,
+# read as TRAIN_BF16_TOL.  On an H100 the kernels read 1.9e-5, 1.9e-2 (the
+# first layer's wq) and 1.8e-4; the limits sit about five, two and five
+# times above.  A recompute wrong on purpose (the causal mask in remat's
+# calls, against the forward's lse) gives gradients that are not finite,
+# which read as infinitely far.
+HUBERT_TRAIN_BF16_TOL = {"loss": 1e-4, "grad": 4e-2, "norm": 1e-3}
 # The ops-level functions that the plain versions replace in a microbatch.
 KERNEL_ENTRIES = ("_flash_fwd", "_flash_bwd", "_scan_fwd", "_scan_bwd")
 
@@ -411,6 +486,7 @@ def smoke_train_steps(arch: str, dev, steps: int = 3):
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.launch.train import to_device
     from repro_torch.models import Model
 
     cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
@@ -424,7 +500,7 @@ def smoke_train_steps(arch: str, dev, steps: int = 3):
     data = SyntheticLMDataset(cfg, ShapeConfig("smoke", 64, 4, "train"), seed=0)
     rows = []
     for i in range(steps):
-        batch = {k: torch.from_numpy(v).long() for k, v in data.batch(i).items()}
+        batch = {k: to_device(v, torch.device("cpu")) for k, v in data.batch(i).items()}
         out = {}
         for k, m in models.items():
             states[k], metrics = fns[k](states[k], {n: t.to(m.device) for n, t in batch.items()})
@@ -480,10 +556,11 @@ def plain_entries(wrong_scan_bwd: bool = False):
 
 
 def microbatch_grads(model, batch, swap=None):
-    """One microbatch's loss and every parameter's gradient; ``swap`` maps
-    names of :data:`KERNEL_ENTRIES` to functions that ``ops`` calls in their
-    place (the forward, remat's recompute and the backward), the autograd
-    Functions staying as they are."""
+    """One microbatch's loss and every parameter's gradient (zeros for one the
+    loss does not read); ``swap`` maps names of :data:`KERNEL_ENTRIES` to
+    functions that ``ops`` calls in their place (the forward, remat's
+    recompute and the backward), the autograd Functions staying as they
+    are."""
     import torch
 
     from repro_torch.kernels import ops
@@ -494,10 +571,11 @@ def microbatch_grads(model, batch, swap=None):
         setattr(ops, name, fn)
     try:
         loss, _ = model.loss(batch)
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return loss.item(), dict(zip(names, grads))
 
 
@@ -511,6 +589,19 @@ def expected_launches(plan, microbatches: int):
 
     return {"flash_attention": count("attn", 1), "flash_attention_bwd": count("attn", 0),
             "rglru_scan": count("rec", 1), "rglru_scan_bwd": count("rec", 0)}
+
+
+def expected_counts(plan, microbatches):
+    """launch_counts()' keys for one training step: the kernels' launches
+    (:func:`expected_launches`) and, by variant, every flash launch, forward
+    and backward, on ``wgmma`` and every scan launch, forward and backward,
+    on ``tma``."""
+    out = dict.fromkeys(launch_counts(), 0)
+    out.update(expected_launches(plan, microbatches))
+    for name, kind in (("flash_attention", "wgmma"), ("flash_attention_bwd", "wgmma"),
+                       ("rglru_scan", "tma"), ("rglru_scan_bwd", "tma")):
+        out[f"{name}:{kind}"] = out[name]
+    return out
 
 
 @contextlib.contextmanager
@@ -585,7 +676,7 @@ def timed_microbatch(model, batch, functions):
         start.record()
         loss, _ = model.loss(batch)
         mid.record()
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
         end.record()
         end.synchronize()
     del loss, grads
@@ -797,16 +888,23 @@ def attn_pairs(T: int, causal: bool, window: int):
 def grad_gaps(got, want):
     """(relative loss gap, worst leaf's |g - g'| / |g'|, worst leaf's
     relative gap of the norms, that leaf's name) between two
-    :func:`microbatch_grads` readings, in fp32."""
+    :func:`microbatch_grads` readings, in fp32.  A leaf whose gradient is
+    zero in ``want`` (a parameter the loss does not read) gaps 0 where
+    ``got``'s is zero too, and infinitely otherwise; a gap that is not a
+    number (a NaN in either gradient or loss) reads as infinite."""
     (loss, grads), (loss_w, grads_w) = got, want
+    finite = lambda x: x if not math.isnan(x) else math.inf
     l2, norm = {}, {}
     for key, w in grads_w.items():
         g, w = grads[key].float(), w.float()
         wn = w.norm().item()
-        l2[key] = (g - w).norm().item() / wn
-        norm[key] = abs(g.norm().item() - wn) / wn
+        if wn == 0:
+            l2[key] = norm[key] = math.inf if g.any() else 0.0
+            continue
+        l2[key] = finite((g - w).norm().item() / wn)
+        norm[key] = finite(abs(g.norm().item() - wn) / wn)
     worst = max(l2, key=l2.get)
-    return abs(loss - loss_w) / abs(loss_w), l2[worst], max(norm.values()), worst
+    return finite(abs(loss - loss_w) / abs(loss_w)), l2[worst], max(norm.values()), worst
 
 
 def rel_l2(got, want) -> float:
@@ -1047,9 +1145,12 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import BatchAdmission, serve
-    from repro_torch.launch.train import train
+    from repro_torch.launch.steps import build_encode_step
+    from repro_torch.launch.train import to_device, train
     from repro_torch.models import MLSTMState, Model, SLSTMState, input_specs, layer_plan
+    from repro_torch.models.attention import KVCache, MLACache
 
+    started = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1429,6 +1530,12 @@ def main() -> int:
                 design_note += (f"; the seven products as the kernels run them, dk {dk} and dv "
                                 f"{dv} zero-filled to {D}, bound {bound7_padded_ms:.4f} ms")
                 design["bound_7_products_padded_ms"] = bound7_padded_ms
+        elif split_kind == "wgmma" and D > max(dk, dv):  # the TMA zero-fills dk, dv to D
+            bwd_padded_ms, _ = bound(2 * 5 * D * pairs, PEAK_BF16_FLOPS, bwd_bytes)
+            design_note = (f"; the five products as flash_bwd_wgmma<{D}> runs them, dk {dk} and "
+                           f"dv {dv} zero-filled to {D}, bound {bwd_padded_ms:.4f} ms, of which "
+                           f"the main kernel reaches {100 * bwd_padded_ms / main_ms:.1f} %")
+            design = {"padded_bound_ms": bwd_padded_ms}
         print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({label}): "
               + bwd_note(dtype, bwd_err, bwd_share, bwd_l2) + repeat_note
               + f"; kernel {bwd_ms:.4f} ms, plain (the oracle's autograd, forward recomputed) "
@@ -1498,6 +1605,12 @@ def main() -> int:
                                 "(d 64); no main path trains MLA on the card yet")
     records[("flash_attention", "deepseek-v2-236b train")] = fwd_rec
     records[("flash_attention_bwd", "deepseek-v2-236b train")] = bwd_rec
+    # hubert-xlarge's training microbatch (d 80, no causal mask); its records
+    # take phase 6(f)'s launches.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_HUBERT_ATTN,
+                                                "hubert-xlarge training microbatch")
+    records[("flash_attention", "hubert-xlarge train")] = fwd_rec
+    records[("flash_attention_bwd", "hubert-xlarge train")] = bwd_rec
 
     def scan_inputs(B, T, W, offset=0):
         """a, b, h0; a and b ``offset`` elements past their storage's start."""
@@ -1697,8 +1810,18 @@ def main() -> int:
         cpu = Model(cfg, device="cpu")
         cpu.load_state_dict(gpu.state_dict())
         prompt = input_specs(cfg, ShapeConfig("p", 24, 2, "prefill"),
-                             generator=torch.Generator().manual_seed(1), device="cpu")
-        lg, cg = gpu.prefill({"tokens": prompt["tokens"].to(dev)}, 32)
+                             generator=torch.Generator().manual_seed(1), device="cpu",
+                             dtype=torch.float32)
+        on_card = {k: v.to(dev) for k, v in prompt.items()}
+        if not cfg.causal:  # an encoder: every position's logits, no decode
+            lg = build_encode_step(gpu)(on_card)
+            lc = build_encode_step(cpu)(prompt)
+            torch.testing.assert_close(lg.cpu(), lc, atol=2e-4, rtol=1e-3)
+            print(f"[check] {arch} smoke fp32 (no causal mask, {cfg.frontend} stub frontend): "
+                  f"card encode logits {tuple(lg.shape)} match the CPU path")
+            del gpu, cpu
+            continue
+        lg, cg = gpu.prefill(on_card, 32)
         lc, cc = cpu.prefill(prompt, 32)
         for step in range(4):
             torch.testing.assert_close(lg.cpu(), lc, atol=2e-4, rtol=1e-3)
@@ -1708,8 +1831,9 @@ def main() -> int:
         torch.testing.assert_close(lg.cpu(), lc, atol=5e-3, rtol=1e-2)
         ffn = ("MoE" if cfg.moe else "dense FFN" if "attn" in cfg.block_pattern
                else "xLSTM blocks")
+        front = f", {cfg.frontend} stub frontend" if cfg.frontend != "none" else ""
         print(f"[check] {arch} smoke fp32 (window {cfg.window}, attention {cfg.attention}, "
-              f"{ffn}): card prefill + 4 decode steps match the CPU path")
+              f"{ffn}{front}): card prefill + 4 decode steps match the CPU path")
         del gpu, cpu
 
     # ----------------------------------------------------- 4. main paths --
@@ -1749,11 +1873,18 @@ def main() -> int:
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} full-width prefill logits are not finite")
         first = torch.argmax(logits[:, -1], dim=-1).cpu()
-        # For xLSTM the floor also reads and writes every layer's state.
-        state = sum(t.numel() * t.element_size() for group in caches.values()
-                    for c in (group.values() if isinstance(group, dict) else group)
+        # For xLSTM the floor also reads and writes every layer's state; for
+        # attention, each decode step reads its caches up to the step's
+        # length (the mean over the decode steps; a window caps it at S).
+        layer_caches = [c for group in caches.values()
+                        for c in (group.values() if isinstance(group, dict) else group)]
+        state = sum(t.numel() * t.element_size() for c in layer_caches
                     if isinstance(c, (MLSTMState, SLSTMState)) for t in c)
-        del logits, caches
+        S = min(prompt_len + gen_len, full.window) if full.window else prompt_len + gen_len
+        kv = (sum(t.numel() * t.element_size() for c in layer_caches
+                  if isinstance(c, (KVCache, MLACache)) for t in c if isinstance(t, torch.Tensor))
+              * statistics.mean(min(prompt_len + i + 1, S) for i in range(gen_len - 1)) / S)
+        del logits, caches, layer_caches
         if "mlstm" in full.block_pattern:
             xl = xlstm_serving_checks(model, prompts["tokens"])
             times = lambda ms: ", ".join(f"{n} {k} blocks {t:.2f} ms" for k, (n, t) in ms.items())
@@ -1796,7 +1927,9 @@ def main() -> int:
               f"{res['throughput_tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB; decode's "
               f"weight-read floor {read / 1e9:.2f} GB a token"
               + (f" plus {state / 1e9:.2f} GB of state read and as much written" if state else "")
-              + f" = {(read + 2 * state) / PEAK_BYTES_PER_S * 1e3:.3f} ms at "
+              + (f" plus {kv / 1e9:.3f} GB of KV cache read (the mean over the decode steps)"
+                 if kv else "")
+              + f" = {(read + 2 * state + kv) / PEAK_BYTES_PER_S * 1e3:.3f} ms at "
               f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
               f"launches "
               + ", ".join(f"{n} {c}" for n, c in launches.items())
@@ -1824,6 +1957,74 @@ def main() -> int:
         for (name, path), rec in records.items():
             if path == arch:
                 rec["launches"] = launches[name]
+
+    # The encoder's main path: hubert-xlarge at published width and depth,
+    # encoded through build_encode_step with every launch counted from zero;
+    # then the same inputs with the plain flash version in the kernel's place.
+    arch, batch, frames = ENCODE
+    cfg = get_config(arch)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_read = n_params - model.embed["table"].numel()  # the stub replaces the embedding
+    encode = build_encode_step(model)
+    inputs = input_specs(cfg, ShapeConfig("encode", frames, batch, "prefill"),
+                         generator=torch.Generator(dev).manual_seed(1), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_plain_calls() as plain_calls:
+        t = time.perf_counter()
+        logits = encode(inputs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_variants = dict(flash_attention_fwd.launches_by_variant)
+    finite = bool(torch.isfinite(logits).all())
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        encode(inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    encode_s = statistics.median(times)
+    real_fwd = ops._flash_fwd
+    ops._flash_fwd = plain_entries()["_flash_fwd"]
+    try:
+        plain_gap = rel_l2(logits, encode(inputs))
+    finally:
+        ops._flash_fwd = real_fwd
+    # Model FLOPs of one encode: 2 per weight read per frame, and the
+    # attention's QK^T and PV (2 FLOP per multiply-add over dk + dv) over every
+    # (query, key) pair of each row, in every layer.
+    attn_flops = 2 * 2 * hd * H * frames * frames * batch * L
+    model_flops = 2 * n_read * batch * frames + attn_flops
+    print(f"[encode] {arch} published width and depth bf16, {L} layers, {n_params} parameters "
+          f"({n_read} read: the audio stub replaces the token embedding), batch {batch} x "
+          f"{frames} frames ({frames * 0.02:g} s of audio at 20 ms a frame): logits "
+          f"{tuple(logits.shape)}, finite {finite}; first call {first_s:.4f} s, then "
+          f"{[round(x, 5) for x in times]} s (median {encode_s:.5f} s, "
+          f"{batch * frames / encode_s:.1f} frames/s), model FLOPs {model_flops / 1e12:.2f} T "
+          f"({attn_flops / 1e12:.2f} T attention over all {frames * frames} pairs per row and "
+          f"head), {100 * model_flops / encode_s / PEAK_BF16_FLOPS:.2f} % of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; launches "
+          + ", ".join(f"{n} {c}" for n, c in launches.items())
+          + " (flash by variant: " + ", ".join(f"{n} {c}" for n, c in flash_variants.items())
+          + f"); calls of the plain versions {plain_calls}; the plain flash version in the "
+          f"kernel's place: logits relative L2 {plain_gap:.3e} (limit {ENCODE_PLAIN_TOL}); {smi}")
+    expect = {"flash_attention": L, "flash_attention_bwd": 0, "rglru_scan": 0,
+              "rglru_scan_bwd": 0}
+    if tuple(logits.shape) != (batch, frames, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{arch} encode gave logits {tuple(logits.shape)}, finite {finite}")
+    if not plain_gap <= ENCODE_PLAIN_TOL:
+        raise AssertionError(f"{arch} encode's logits sit {plain_gap} from the plain version's")
+    if launches != expect or flash_variants["wgmma"] != L or plain_calls:
+        raise AssertionError(f"{arch} encode launched {launches} ({flash_variants}), expected "
+                             f"{expect} all wgmma, and called the plain versions {plain_calls}")
+    records[("flash_attention", arch)]["launches"] = launches["flash_attention"]
+    del model, encode, inputs, logits
+    torch.cuda.empty_cache()
 
     # ----------------------------------------------- 5. admitted serving --
     held(5)
@@ -2188,17 +2389,6 @@ def main() -> int:
     plan = layer_plan(cfg)
     H, hd = cfg.num_heads, cfg.resolved_head_dim
 
-    def expected_counts(microbatches):
-        """launch_counts()' keys: the kernels' launches and, by variant, every
-        flash launch, forward and backward, on ``wgmma`` and every scan
-        launch, forward and backward, on ``tma``."""
-        out = dict.fromkeys(launch_counts(), 0)
-        out.update(expected_launches(plan, microbatches))
-        for name, kind in (("flash_attention", "wgmma"), ("flash_attention_bwd", "wgmma"),
-                           ("rglru_scan", "tma"), ("rglru_scan_bwd", "tma")):
-            out[f"{name}:{kind}"] = out[name]
-        return out
-
     with tempfile.TemporaryDirectory() as tmp:
         run = RunConfig(learning_rate=3e-4, warmup_steps=2, total_steps=n_steps,
                         microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
@@ -2228,7 +2418,7 @@ def main() -> int:
     attn_flops = 3 * 2 * 2 * hd * H * pairs * rows * n_attn
     model_flops = 6 * n_params * tokens + attn_flops
     share = model_flops / step_s / PEAK_BF16_FLOPS
-    expect = expected_counts(micro)
+    expect = expected_counts(plan, micro)
     print(f"[train] {arch} published widths at {trained_layers} layers ({plan.n_scan} x "
           f"{plan.pattern} + {plan.tail}), bf16 (fp32 moments, block remat), {n_params} "
           f"parameters, {rows} rows x {seq} tokens in {micro} microbatches, lr "
@@ -2306,9 +2496,9 @@ def main() -> int:
           f"|g - g_plain| / |g_plain| {gaps[1]:.3e} ({gaps[3]}; limit {tol['grad']}); worst leaf "
           f"norm gap {gaps[2]:.3e} (limit {tol['norm']}); a scan backward wrong on purpose "
           f"(da from h_t): {wrong[0]:.3e}, {wrong[1]:.3e} ({wrong[3]}), {wrong[2]:.3e}")
-    if mb_launches != expected_counts(1) or plain_launches:
+    if mb_launches != expected_counts(plan, 1) or plain_launches:
         raise AssertionError(f"the kernels' microbatch launched {mb_launches}, expected "
-                             f"{expected_counts(1)}; the plain one {plain_launches}")
+                             f"{expected_counts(plan, 1)}; the plain one {plain_launches}")
     if not (gaps[0] <= tol["loss"] and gaps[1] <= tol["grad"] and gaps[2] <= tol["norm"]):
         raise AssertionError(f"{arch} training through the kernels disagrees with the plain "
                              f"versions at published widths: {gaps}")
@@ -2434,6 +2624,168 @@ def main() -> int:
         raise AssertionError(f"{arch}'s gradient predicts a change of {predicted} along it, "
                              f"the loss moved {measured}")
 
+    # (f) hubert-xlarge at published width and depth through train(): every
+    # step's launches counted from zero, then one microbatch through the
+    # kernels against the plain versions.
+    arch, rows, frames, micro, n_steps, lr = HUBERT_TRAIN
+    cfg = get_config(arch)
+    plan = layer_plan(cfg)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(learning_rate=lr, warmup_steps=2, total_steps=n_steps,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        shape = ShapeConfig(f"train_{frames}", frames, rows, "train")
+        res, step_counts, plain_calls = counted_training(arch, None, shape, run, "cuda")
+        train_s = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res["history"]
+    final = res["final_state"]
+    n_params = sum(t.numel() for t in final["params"].values())
+    n_read = n_params - final["params"]["embed.table"].numel()
+    # The moments of embed.table stay exactly zero only if every gradient it
+    # got was exactly zero.  Every weight matrix the step reads must have
+    # moved from its init; the norm scales (1 at init) need not, since a step
+    # of lr 3e-4 is under half of bf16's spacing at 1 (2^-7).
+    table_moments = [bool(final["opt"][m]["embed.table"].any()) for m in ("mu", "nu")]
+    init = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(run.seed))
+    unmoved = [k for k, p in init.named_parameters()
+               if k != "embed.table" and not k.endswith(".scale")
+               and torch.equal(p, final["params"][k])]
+    del res, final, init
+    torch.cuda.empty_cache()
+    for h, counts in zip(hist, step_counts):
+        print(f"[train] {arch} step {h['step']}: loss {h['loss']:.6f}, grad-norm "
+              f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s; launches "
+              + ", ".join(f"{n} {c}" for n, c in counts.items() if c))
+    step_s = statistics.mean(h["seconds_per_step"] for h in hist[1:])
+    tokens = rows * frames
+    # Model FLOPs: 6 per weight read per frame (the stub replaces the token
+    # embedding, which the step never reads), plus the attention's QK^T and PV
+    # (2 FLOP per multiply-add over dk + dv) over every (query, key) pair of
+    # each row, three times (forward and backward) in every layer.  Remat's
+    # recompute is not model work and is not counted.
+    attn_flops = 3 * 2 * 2 * hd * H * frames * frames * rows * L
+    model_flops = 6 * n_read * tokens + attn_flops
+    expect = expected_counts(plan, micro)
+    print(f"[train] {arch} published width and depth ({L} layers, no causal mask), bf16 (fp32 "
+          f"moments, block remat), {n_params} parameters, {rows} rows x {frames} frames in "
+          f"{micro} microbatches (reduced: the global batch), lr {run.learning_rate} (warmup "
+          f"{run.warmup_steps}): {step_s:.4f} s per step after the first (mean of steps "
+          f"2-{n_steps}), "
+          f"{tokens / step_s:.1f} frames/s, model FLOPs {model_flops / 1e12:.2f} T per step "
+          f"({attn_flops / 1e12:.2f} T attention over all {frames * frames} pairs per row and "
+          f"head), {100 * model_flops / step_s / PEAK_BF16_FLOPS:.2f} % of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; {train_s:.1f} s "
+          f"in train(); losses {[round(h['loss'], 6) for h in hist]} (printed, not held to "
+          f"fall: the stub's embeddings are drawn independently of the labels); launches per "
+          f"step expected " + ", ".join(f"{n} {c}" for n, c in expect.items() if c)
+          + f"; embed.table's AdamW moments nonzero {table_moments} (its gradient exactly "
+          f"zero at every step: False, False); weight matrices left at their init "
+          f"{unmoved or 'none'}; calls of the plain versions {plain_calls}; {smi}")
+    if len(step_counts) != n_steps:
+        raise AssertionError(f"{arch} trained {len(step_counts)} steps, expected {n_steps}")
+    if any(c != expect for c in step_counts) or plain_calls:
+        raise AssertionError(f"{arch} training launched {step_counts}, expected {expect} per "
+                             f"step, and called the plain versions {plain_calls} times, "
+                             f"expected never")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
+    if any(table_moments) or unmoved:
+        raise AssertionError(f"embed.table's moments nonzero {table_moments}; weights that did "
+                             f"not move {unmoved}")
+
+    # One microbatch's forward and backward, with events around the whole and
+    # around each attention backward (the kernel): what two of them leave of
+    # the step is the optimizer, the data and the host.
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    mb = SyntheticLMDataset(cfg, ShapeConfig("mb", frames, rows // micro, "train"),
+                            seed=0).batch(0)
+    mb = {k: to_device(v, dev) for k, v in mb.items()}
+    for _ in range(2):  # the first warms up; the second is reported
+        fwd_ms, bwd_ms, timed = timed_microbatch(model, mb, {"attention": ops._FlashAttention})
+    attn_ms = sum(t for t, _ in timed["attention"])
+    attn_calls = len(timed["attention"])
+    print(f"[train] {arch} one microbatch ({rows // micro} x {frames}): forward {fwd_ms:.2f} ms, "
+          f"backward {bwd_ms:.2f} ms (with remat's recompute), of which the attention backward "
+          f"(the kernel) {attn_ms:.2f} ms in {attn_calls} calls = "
+          f"{100 * attn_ms / bwd_ms:.1f} %, {attn_ms / attn_calls:.3f} ms per call; "
+          f"{micro} microbatches {micro * (fwd_ms + bwd_ms):.1f} ms of the "
+          f"{step_s * 1e3:.1f} ms step; {smi}")
+    # The same microbatch under the profiler: its kernels' device time and,
+    # in the same call, its host time, so the card's idle share, and the
+    # kernels that took the most.
+    host = {}
+
+    def one_microbatch():
+        t = time.perf_counter()
+        loss, _ = model.loss(mb)
+        torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+        torch.cuda.synchronize()
+        host["ms"] = (time.perf_counter() - t) * 1e3
+
+    trace = device_times(one_microbatch)
+    busy_ms = sum(us for us, _ in trace.values()) / 1e3
+    top = sorted(((us / 1e3, n, name[:70]) for name, (us, n) in trace.items()), reverse=True)
+    print(f"[train] {arch} one microbatch under the profiler: {host['ms']:.1f} ms on the host "
+          f"clock, its kernels "
+          + ("not measured (no device time in the trace)" if not trace else
+             f"{busy_ms:.1f} ms on the device (idle share {1 - busy_ms / host['ms']:.1%}), the "
+             f"most: " + "; ".join(f"{ms:.1f} ms in {n} x {name}" for ms, n, name in top[:8]))
+          + f"; {smi}")
+
+    # That microbatch through the kernels against the plain versions in the
+    # forward, remat's recompute and the backward; then a recompute wrong on
+    # purpose (the causal mask in remat's calls) must exceed the limits.
+    plain = plain_entries()
+    calls = []
+
+    def wrong_recompute(q, k, v, causal, window, scale, lse=False):
+        calls.append(None)  # the first L calls are the forward, then remat's
+        return plain["_flash_fwd"](q, k, v, causal or len(calls) > L, window, scale, lse)
+
+    before = launch_counts()
+    kernel_run = microbatch_grads(model, mb)
+    mb_launches = {k: c - before[k] for k, c in launch_counts().items()}
+    before = launch_counts()
+    plain_run = microbatch_grads(model, mb, plain)
+    plain_launches = {k: c - before[k] for k, c in launch_counts().items() if c != before[k]}
+    wrong_run = microbatch_grads(model, mb, {**plain, "_flash_fwd": wrong_recompute})
+    del model
+    gaps = grad_gaps(kernel_run, plain_run)
+    wrong = grad_gaps(wrong_run, plain_run)
+    table_zero = [not run_[1]["embed.table"].any() for run_ in (kernel_run, plain_run)]
+    tol = HUBERT_TRAIN_BF16_TOL
+    print(f"[train] {arch} one microbatch ({rows // micro} x {frames}), kernels (launches "
+          + ", ".join(f"{n} {c}" for n, c in mb_launches.items() if c)
+          + f") vs plain versions in forward, recompute and backward: loss {kernel_run[0]:.6f} "
+          f"vs {plain_run[0]:.6f}, relative gap {gaps[0]:.3e} (limit {tol['loss']}); worst leaf "
+          f"|g - g_plain| / |g_plain| {gaps[1]:.3e} ({gaps[3]}; limit {tol['grad']}); worst leaf "
+          f"norm gap {gaps[2]:.3e} (limit {tol['norm']}); embed.table's gradient exactly zero "
+          f"(kernels, plain) {table_zero}; a wrong recompute (causal): {wrong[0]:.3e}, "
+          f"{wrong[1]:.3e} ({wrong[3]}), {wrong[2]:.3e}; {smi}")
+    if mb_launches != expected_counts(plan, 1) or plain_launches:
+        raise AssertionError(f"the kernels' microbatch launched {mb_launches}, expected "
+                             f"{expected_counts(plan, 1)}; the plain one {plain_launches}")
+    if not all(table_zero):
+        raise AssertionError(f"embed.table's gradient is not exactly zero: {table_zero}")
+    if not (gaps[0] <= tol["loss"] and gaps[1] <= tol["grad"] and gaps[2] <= tol["norm"]):
+        raise AssertionError(f"{arch} training through the kernels disagrees with the plain "
+                             f"versions at published width: {gaps}")
+    if wrong[1] <= tol["grad"]:
+        raise AssertionError(f"the gradient check does not see a wrong recompute: {wrong}")
+    del kernel_run, plain_run, wrong_run, mb
+    torch.cuda.empty_cache()
+    for (name, path), rec in records.items():
+        if path == f"{arch} train":
+            rec["launches"] = launches[name]
+            rec["launches_per_step"] = launches[name] // n_steps
+    records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = attn_ms / attn_calls
+
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - started:.1f} s; {smi}")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

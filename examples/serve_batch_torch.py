@@ -12,6 +12,7 @@ default; 0 serves without admission).
         --arch xlstm-1.3b --batch 8 --prompt-len 2048 --gen 32
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu --arch deepseek-v2-236b
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu --arch xlstm-1.3b
+    PYTHONPATH=src python examples/serve_batch_torch.py --device cpu --arch internvl2-76b
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu
 """
 

@@ -3,8 +3,7 @@
 A copy of the JAX package's registry (plain dataclasses), so the port imports
 nothing of it.  Every architecture has a full CONFIG (the published figures)
 and a SMOKE config (same family, reduced width/depth) used by CPU tests.  The
-port's ``Model`` runs the decoders without a frontend whose blocks are
-``"attn"`` and ``"rec"``.
+port's ``Model`` runs all of them.
 """
 
 from importlib import import_module

@@ -360,6 +360,9 @@ def serve(
     admission: Optional[BatchAdmission] = None,
 ) -> Dict:
     """Serve one batch of random prompts with random weights drawn from ``seed``.
+    A vision-frontend decoder's prompt of ``prompt_len`` positions is its
+    ``frontend_tokens`` stub image embeddings, then the text tokens; an
+    encoder (``causal`` False) has no decode path and is refused.
 
     Returns ``tokens`` ([batch, gen_len] int64 on the CPU), ``prefill_seconds``,
     ``decode_seconds_per_token`` and ``throughput_tok_s``; with admission, also

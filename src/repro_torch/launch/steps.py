@@ -1,4 +1,4 @@
-"""The train step on one device.
+"""The train step and the encoder's serving step on one device.
 
 Port of the single-device (``flat``) half of ``repro/launch/steps.py``: a
 train state mirrors the reference's ``{"params", "opt": {"step", "mu",
@@ -58,15 +58,17 @@ def grad_fn(model: Model, microbatches: int = 1) -> Callable:
     """``fn(batch) -> (loss, metrics, grads)``, the reference's ``_grad_fn``:
     with ``microbatches > 1`` each slice of the batch rows gets its own
     backward, its gradients are summed in fp32 buffers and divided by the
-    count (as are loss and metrics).  ``grads`` maps ``state_dict`` keys to
-    tensors, in the parameters' dtype when there is one microbatch."""
+    count (as are loss and metrics).  ``grads`` maps every parameter's
+    ``state_dict`` key to a tensor (zeros where the loss does not read the
+    parameter), in the parameters' dtype when there is one microbatch."""
     names = [name for name, _ in model.named_parameters()]
     tensors = [p for _, p in model.named_parameters()]
     n = microbatches
 
     def value_and_grad(batch):
         loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, tensors)
+        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(tensors, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def accumulated(batch):
@@ -114,3 +116,17 @@ def build_train_step(model: Model, run: RunConfig, npods: int = 1) -> Callable:
         return new_state, metrics
 
     return step
+
+
+def build_encode_step(model: Model) -> Callable:
+    """``encode(batch) -> logits [B, T, V]`` for an encoder (hubert's
+    "prefill"): the training-mode forward over every position, then the
+    logits, under ``torch.inference_mode``; the reference's
+    ``build_encode_step``."""
+
+    @torch.inference_mode()
+    def encode(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        h, _ = model.forward(batch)
+        return model._logits(h)
+
+    return encode

@@ -21,6 +21,7 @@ import tempfile
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager, load_checkpoint
@@ -31,6 +32,14 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..models import Model, layer_plan
 from .steps import build_train_step, init_train_state, restore_train_state
+
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A batch array on ``device``: integers (tokens, labels) as ``int64``,
+    floating arrays (a stub frontend's embeddings) as ``float32``, the dtype
+    that JAX's ``device_put`` keeps; the model casts them."""
+    dtype = torch.float32 if np.issubdtype(array.dtype, np.floating) else torch.int64
+    return torch.from_numpy(array).to(device, dtype)
 
 
 def train(
@@ -77,7 +86,7 @@ def train(
     try:
         t_last, n_since = time.perf_counter(), 0
         for i in range(start_step, steps):
-            batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in next(it).items()}
+            batch = {k: to_device(v, dev) for k, v in next(it).items()}
             state, metrics = step_fn(state, batch)
             n_since += 1
             if (i + 1) % log_every == 0 or i == steps - 1:

@@ -1,5 +1,6 @@
-"""The decoders of the JAX model zoo (dense GQA, MLA with MoE, the RG-LRU
-hybrid and xLSTM), in PyTorch."""
+"""The models of the JAX model zoo (dense GQA, MLA with MoE, the RG-LRU
+hybrid, xLSTM, and the audio and vision stub frontends with the non-causal
+encoder), in PyTorch."""
 
 from .io import input_specs  # noqa: F401
 from .specs import ParamSpec, init_params, param_count  # noqa: F401

@@ -1,11 +1,16 @@
-"""Model assembly: embed → layer stack → logits, for decoders built from
+"""Model assembly: inputs → layer stack → logits, for decoders built from
 ``"attn"`` (GQA or MLA attention, with a dense or MoE FFN), ``"rec"``
-(RG-LRU), ``"mlstm"`` and ``"slstm"`` (xLSTM) blocks.
+(RG-LRU), ``"mlstm"`` and ``"slstm"`` (xLSTM) blocks, and for the non-causal
+encoder (``cfg.causal`` False).
 
 Port of ``repro/models/transformer.py`` for the dense (``("attn",)``), MoE
 (``("attn",)`` after ``num_dense_layers`` dense ``lead`` layers), hybrid
 (``("rec", "rec", "attn")``) and xLSTM (``("mlstm",) * 7 + ("slstm",)``)
-patterns.  The parameters mirror the JAX tree
+patterns, and for the stub frontends: ``"audio"`` (the batch's ``embeds``
+``[B, T, D]`` replace the token embedding, which the model then never reads)
+and ``"vision"`` (``embeds`` ``[B, frontend_tokens, D]`` ahead of the
+embedded ``tokens``; the loss covers the text positions only).  The
+parameters mirror the JAX tree
 (``embed.table``; ``lead.{j}.*`` for the unrolled leading layers;
 ``blocks.b{i}.*`` for the super-block pattern, stacked on a leading dim of
 ``n_scan``; ``tail.{j}.*`` for the unrolled trailing layers;
@@ -15,10 +20,12 @@ one-to-one.  A Python loop over the stacked leading dim replaces
 ``lax.scan``.  Caches are stacked the same way and written in place.
 
 Entry points: ``loss(batch)`` and ``forward(batch)`` (training: gradients
-reach every parameter, each stacked super-block under
+reach every parameter the inputs use, each stacked super-block under
 ``torch.utils.checkpoint`` unless ``cfg.remat == "none"``; the MoE layers'
 load-balance loss is summed), and ``prefill(batch, max_len)`` and
 ``decode_step(caches, tokens)`` (serving, under ``torch.inference_mode``).
+An encoder is served by ``forward`` then ``_logits``
+(``launch.steps.build_encode_step``).
 """
 
 from __future__ import annotations
@@ -72,12 +79,13 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append(f"attention={cfg.attention!r}")
     if cfg.moe is not None and cfg.moe.expert_sharding != "fsdp_d":
         unsupported.append(f"expert_sharding={cfg.moe.expert_sharding!r}")
-    if cfg.frontend != "none":
+    if cfg.frontend not in ("none", "audio", "vision"):
         unsupported.append(f"frontend={cfg.frontend!r}")
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoders of GQA or MLA attention, dense "
-            "or MoE FFNs, RG-LRU and xLSTM blocks on one device; not yet: "
+            f"{cfg.name}: the port runs decoders and encoders of GQA or MLA "
+            "attention, dense or MoE FFNs, RG-LRU and xLSTM blocks, with the "
+            "audio or vision stub frontend, on one device; not yet: "
             + ", ".join(unsupported))
 
 
@@ -242,8 +250,8 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder (dense, MoE, hybrid or xLSTM) on one device: ``loss`` for training,
-    ``prefill`` then ``decode_step`` for serving.
+    """Decoder (dense, MoE, hybrid or xLSTM) or encoder on one device: ``loss``
+    for training, ``prefill`` then ``decode_step`` for serving a decoder.
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
     on that device; seed 0 when omitted), with the JAX package's initializers.
@@ -347,10 +355,21 @@ class Model(nn.Module):
             x, total = run(kind, self.tail[str(j)], x, total)
         return x, total
 
+    def _embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The stack's input [B, T, D]: the audio stub's ``embeds`` in the
+        model dtype; else the embedded ``tokens``, the vision stub's
+        ``embeds`` (in the embedding's dtype) ahead of them."""
+        if self.cfg.frontend == "audio":
+            return batch["embeds"].to(self.dtype)
+        x = embed(self.embed, batch["tokens"])
+        if self.cfg.frontend == "vision":
+            x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+        return x
+
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Training-mode forward to final hidden states [B, T, D], and the
         sum of the MoE layers' load-balance losses (0 without MoE)."""
-        x, aux = self._train_stack(embed(self.embed, batch["tokens"]))
+        x, aux = self._train_stack(self._embed_inputs(batch))
         return rmsnorm(self.final_norm, x), aux
 
     def _xent(self, h: torch.Tensor, labels: torch.Tensor, mask) -> torch.Tensor:
@@ -368,6 +387,8 @@ class Model(nn.Module):
         they apply, and ``loss``)."""
         cfg = self.cfg
         h, aux = self.forward(batch)
+        if cfg.frontend == "vision":
+            h = h[:, cfg.frontend_tokens:]  # the loss covers the text positions only
         ce = self._xent(h, batch["labels"], batch.get("mask"))
         total, metrics = ce, {"ce": ce}
         if cfg.moe is not None:
@@ -396,9 +417,8 @@ class Model(nn.Module):
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         """Process the prompt; returns (last-token logits [B, 1, V], caches)."""
-        tokens = batch["tokens"]
-        x = embed(self.embed, tokens)
-        caches = self.cache(tokens.shape[0], max_len)
+        x = self._embed_inputs(batch)
+        caches = self.cache(x.shape[0], max_len)
         x, caches = self._stack(x, "prefill", caches)
         h = rmsnorm(self.final_norm, x[:, -1:])
         return self._logits(h), caches

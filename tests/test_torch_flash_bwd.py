@@ -39,12 +39,13 @@ GRAD_RTOL, GRAD_ROW, GRAD_FLOOR = 1.6e-2, 2e-2, 1e-3
 # checks run: H/K = 1 and H/K = 8 at d 64, a last 128-key block whose second
 # half is all padding (T 4160), a window at d 128, and d 256 with H/K = 16
 # (dK and dV summed over 16 heads, in fp32 before the one cast, as the d-256
-# kernels sum their head groups' partials).
+# kernels sum their head groups' partials); and hubert's rows of 1500 keys at
+# d 80 with no causal mask.
 BOUND_CASES = [(1, 1200, 2, 1, 64, True, 1024), (1, 333, 2, 1, 256, True, 200),
                (2, 500, 4, 2, 64, True, 77), (1, 512, 8, 2, 128, True, 0),
                (1, 512, 8, 8, 64, True, 0), (1, 512, 8, 1, 64, True, 0),
                (1, 4160, 2, 1, 64, True, 0), (1, 600, 4, 1, 128, True, 100),
-               (1, 320, 16, 1, 256, True, 128)]
+               (1, 320, 16, 1, 256, True, 128), (1, 1500, 2, 2, 80, False, 0)]
 
 
 @pytest.fixture(scope="module")
@@ -143,7 +144,8 @@ def test_lse_is_logsumexp_of_masked_scaled_scores(case):
 # (B, Tq, H, K, dk, dv, Tk), causal, window: FLASH_CASES' shapes, and one
 # with more queries than keys, whose last rows see no key (Tq > Tk + window - 1).
 BWD_REF_CASES = [(c[:6], c[8], c[9], c[10]) for c in FLASH_CASES] + [
-    ((1, 60, 4, 2, 16, 8, 30), True, 12, "float32")]
+    ((1, 60, 4, 2, 16, 8, 30), True, 12, "float32"),
+    ((1, 45, 4, 4, 80, 80), False, 0, "float32")]  # hubert's d 80, no causal mask
 
 
 @pytest.mark.parametrize("shape,causal,window,dt", BWD_REF_CASES)
@@ -217,6 +219,7 @@ def test_grad_bound_rejects_dropped_kv_tile(case):
 BWD_VARIANT_CASES = [
     ((1, 40, 2, 1, 64, 64), "bfloat16", "wgmma"),    # llama3.2-1b's d 64
     ((1, 40, 4, 2, 128, 128), "bfloat16", "wgmma"),  # llama3-8b's d 128
+    ((1, 40, 4, 4, 80, 80), "bfloat16", "wgmma"),    # hubert's d 80 on the D-128 kernel
     ((1, 40, 4, 2, 32, 16), "bfloat16", "wgmma"),    # dk != dv under 64
     ((1, 40, 2, 1, 192, 128), "bfloat16", "wgmma"),  # MLA: the d-256 kernels
     ((1, 40, 2, 1, 256, 256), "bfloat16", "wgmma"),  # recurrentgemma's d 256
@@ -349,6 +352,12 @@ CARD_CASES = [(c[:6], c[8], c[9], c[10]) for c in FLASH_CASES] + [
     ((1, 100, 8, 1, 256, 256, 300), True, 0, "bfloat16"),  # key tiles no query sees
     ((1, 70, 2, 1, 64, 60), True, 0, "bfloat16"),         # dv no multiple of 8: simt
     ((1, 130, 4, 1, 256, 256), True, 64, "bfloat16", 1),  # d 256 off by one element: simt
+    # No causal mask: hubert's d 80 on flash_bwd_wgmma<128> (dq's box at
+    # columns 64-95 clipped at 80) with a T that no tile divides, GQA at d 64,
+    # and d 128.
+    ((2, 300, 4, 4, 80, 80), False, 0, "bfloat16"),
+    ((1, 200, 8, 2, 64, 64), False, 0, "bfloat16"),
+    ((1, 130, 4, 2, 128, 128), False, 0, "bfloat16"),
 ]
 
 

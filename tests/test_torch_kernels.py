@@ -41,6 +41,7 @@ VARIANT_CASES = [(c[:6], c[10], "simt" if c[10] == "float32" else "wgmma")
                  for c in FLASH_CASES] + [
     ((1, 70, 2, 1, 192, 128), "bfloat16", "wgmma"),   # MLA: D 256 covers dk 192
     ((1, 130, 4, 2, 128, 128), "bfloat16", "wgmma"),  # llama3-8b's d 128
+    ((2, 300, 4, 4, 80, 80), "bfloat16", "wgmma"),    # hubert's d 80: D 128 covers it
     ((1, 300, 4, 1, 256, 256), "bfloat16", "wgmma"),  # recurrentgemma's d 256
     ((1, 40, 2, 1, 4, 4), "bfloat16", "simt"),        # 8-byte rows: no TMA stride
     ((1, 40, 2, 1, 64, 60), "bfloat16", "simt"),      # dv no multiple of 8
@@ -58,6 +59,11 @@ CARD_CASES = [
     (2, 333, 4, 2, 256, 256, 0, 0, True, 200, "bfloat16"),  # Tq % 128 != 0, window
     (2, 500, 4, 2, 64, 64, 0, 0, True, 77, "bfloat16"),     # window % KV tile != 0
     (1, 40, 2, 1, 4, 4, 0, 0, True, 0, "bfloat16"),         # simt
+    # No causal mask: hubert's d 80 (wgmma<128>, columns 80-127 zero-filled)
+    # with a T that no tile divides, GQA at d 64, and d 128.
+    (2, 300, 4, 4, 80, 80, 0, 0, False, 0, "bfloat16"),
+    (1, 200, 8, 2, 64, 64, 0, 0, False, 0, "bfloat16"),
+    (1, 130, 4, 2, 128, 128, 0, 0, False, 0, "bfloat16"),
 ]
 
 
@@ -218,9 +224,11 @@ def test_flash_variant_needs_aligned_storage(operand):
     assert variant(*qkv) == "simt"
 
 
-# B, T, H, K, d, causal, window: a late row of 1024 keys, and d 256 with a
-# window and a ragged last tile.
-BOUND_CASES = [(1, 1200, 2, 1, 64, True, 1024), (1, 333, 2, 1, 256, True, 200)]
+# B, T, H, K, d, causal, window: a late row of 1024 keys, d 256 with a
+# window and a ragged last tile, and hubert's rows of 1500 keys at d 80 with
+# no causal mask.
+BOUND_CASES = [(1, 1200, 2, 1, 64, True, 1024), (1, 333, 2, 1, 256, True, 200),
+               (1, 1500, 2, 2, 80, False, 0)]
 
 
 def _bound_inputs(case):

@@ -1,8 +1,12 @@
 """The port's Model against the JAX Model on the same weights: prefill logits
 and caches, then a teacher-forced greedy decode loop (llama3.2-1b, the
 recurrentgemma-9b hybrid, the MLA + MoE deepseek-v2-236b and xlstm-1.3b,
-smoke widths, fp32), and the loss of both deepseek archs (ce, the MoE aux,
-DeepSeek-V3's mtp_ce) and of xlstm-1.3b."""
+smoke widths, fp32), the loss of both deepseek archs (ce, the MoE aux,
+DeepSeek-V3's mtp_ce) and of xlstm-1.3b, what the port still refuses, and
+every arch's parameter tree (the frontends' models are held against JAX in
+tests/test_torch_frontends.py)."""
+
+import dataclasses
 
 import pytest
 
@@ -23,6 +27,7 @@ DENSE = ("llama3.2-1b", "llama3-8b", "glm4-9b", "codeqwen1.5-7b")
 HYBRID = ("recurrentgemma-9b",)
 MOE = ("deepseek-v2-236b", "deepseek-v3-671b")
 SSM = ("xlstm-1.3b",)
+FRONTEND = ("hubert-xlarge", "internvl2-76b")
 
 
 def _models(arch):
@@ -217,10 +222,27 @@ def test_xlstm_loss_matches():
         _close(tmet[key].detach(), jmet[key], atol=1e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE + HYBRID + MOE + SSM])
-def test_other_archs_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="not yet"):
+def test_every_arch_is_supported():
+    assert set(ARCHS) == set(DENSE + HYBRID + MOE + SSM + FRONTEND)
+    for arch in ARCHS:
         model_specs(get_config(arch, smoke=True))
+
+
+def _unknown_block_kind():
+    return get_config("llama3.2-1b", smoke=True).with_overrides(block_pattern=("attn", "conv"))
+
+
+def _experts_over_two_axes():
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="ep2d"))
+
+
+@pytest.mark.parametrize("make_cfg", [_unknown_block_kind, _experts_over_two_axes])
+def test_other_archs_are_refused(make_cfg):
+    """What the port still refuses: a block kind it does not know, and MoE
+    experts sharded other than ``fsdp_d`` (a multi-GPU layout)."""
+    with pytest.raises(NotImplementedError, match="not yet"):
+        model_specs(make_cfg())
 
 
 def test_hybrid_bf16_tree_loads_one_to_one():
@@ -260,7 +282,7 @@ def test_moe_bf16_tree_loads_one_to_one():
     assert got["blocks.b0.ffn.wi"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE + SSM)
+@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE + SSM + FRONTEND)
 def test_param_tree_matches_jax(arch):
     """Same parameter count at the published widths; same state_dict keys and
     shapes at smoke width."""

@@ -95,6 +95,17 @@ def test_serve_deepseek_on_card_launches_flash_per_layer(cuda):
     assert tuple(out["tokens"].shape) == (2, 4)
 
 
+def test_serve_internvl2_on_cpu():
+    """The vision stub serves through the same entry: a prompt of 16
+    positions is 4 image embeddings then 12 text tokens, and decode goes on
+    from it; the same seed serves the same tokens."""
+    kw = dict(batch=2, prompt_len=16, gen_len=4, device="cpu", seed=2)
+    out = serve("internvl2-76b", **kw)
+    assert tuple(out["tokens"].shape) == (2, 4) and out["tokens"].dtype == torch.int64
+    assert bool(((out["tokens"] >= 0) & (out["tokens"] < 256)).all())
+    assert torch.equal(out["tokens"], serve("internvl2-76b", **kw)["tokens"])
+
+
 def test_serve_is_reproducible_from_seed():
     kw = dict(batch=3, prompt_len=10, gen_len=5, device="cpu")
     a = serve("llama3.2-1b", seed=4, **kw)["tokens"]
@@ -168,6 +179,13 @@ def test_example_serves_deepseek_on_cpu():
 def test_example_serves_xlstm_on_cpu():
     proc = _run(["examples/serve_batch_torch.py", "--arch", "xlstm-1.3b",
                  "--device", "cpu", "--batch", "2", "--prompt-len", "11", "--gen", "3"])
+    assert proc.returncode == 0, proc.stderr
+    assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
+
+
+def test_example_serves_internvl2_on_cpu():
+    proc = _run(["examples/serve_batch_torch.py", "--arch", "internvl2-76b",
+                 "--device", "cpu", "--batch", "2", "--prompt-len", "12", "--gen", "3"])
     assert proc.returncode == 0, proc.stderr
     assert "generated 2 sequences x 3 tokens on cpu" in proc.stdout
 
