@@ -29,8 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    then the forward and the backward at llama3-8b's training shape (head dim
    128), at recurrentgemma-9b's (head dim 256, MQA, window 2048: the
    backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``), at
-   deepseek-v2-236b's MLA (B 1, T 4096, 128 heads, dk 192 / dv 128) and at
-   hubert-xlarge's (B 4, T 1500, 16 heads of d 80, no causal mask), each
+   deepseek-v2-236b's MLA in phase 6(g)'s microbatch (B 2, T 4096, 128
+   heads, dk 192 / dv 128), at hubert-xlarge's (B 4, T 1500, 16 heads of
+   d 80, no causal mask) and at internvl2-76b's in phase 6(h)'s microbatch
+   (B 1, T 2048, 64 heads over 8 at d 128), each
    timed beside its plain version, its bound (at d 256 also the bound of the
    seven products the split design runs, a second call that must repeat
    the first bit for bit, and the time at every head-group count the
@@ -100,12 +102,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    autograd Function (fp32 and bf16, causal and windowed, GQA and MQA)
    against the plain backward and the oracle's autograd, with phase 2's
    tolerances, then three fp32 train steps of
-   llama3.2-1b, recurrentgemma-9b, xlstm-1.3b, hubert-xlarge and
-   internvl2-76b (``SMOKE_TRAIN``: deepseek does not train on the card yet)
-   at smoke width on the card and on the
+   llama3.2-1b, recurrentgemma-9b, xlstm-1.3b, hubert-xlarge,
+   internvl2-76b, deepseek-v2-236b and deepseek-v3-671b (``SMOKE_TRAIN``;
+   the MLA archs with their up-projections conditioned,
+   :func:`condition_mla`, at lr ``SMOKE_MLA_LR``) at smoke width on the
+   card and on the
    CPU from one init (losses, grads' norms and final parameters within the
    CPU parity tests' atol 1e-5, rtol 1e-4; each kernel's launches printed,
-   the scan backward's among them); (b) a smoke run checkpointed at
+   the scan backward's among them, and equal to what ``layer_plan`` implies,
+   a MoE model's dense lead layers and deepseek-v3's MTP block attending
+   once each way outside remat); (b) a smoke run checkpointed at
    step 3 and resumed through step 6 gives an uninterrupted run's losses
    exactly; (c) the main path's second half: ``train("llama3.2-1b")`` at its
    published widths (16 layers, bf16 parameters, fp32 AdamW moments, block
@@ -163,7 +169,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    the stub's embeddings carry nothing of the labels); then one microbatch
    through the kernels against the plain versions in the forward, remat's
    recompute and the backward, within ``HUBERT_TRAIN_BF16_TOL``, and a
-   recompute with the causal mask on purpose must exceed it.
+   recompute with the causal mask on purpose must exceed it; (g)
+   ``train("deepseek-v2-236b")`` at published widths cut to 2 of its 60
+   layers (the dense lead layer and one MoE layer of 160 routed experts
+   top-6 and 2 shared, 5.359 G parameters), bf16 parameters, fp32 AdamW
+   moments, block remat, 2 rows of 4096 tokens in one microbatch, 4 steps
+   at lr 3e-4 with 1 warmup step (``DEEPSEEK_TRAIN``), and (h)
+   ``train("internvl2-76b")`` at published widths cut to 1 of its 80 layers
+   (2.957 G parameters), 4 rows of 2048 positions (256 stub image
+   embeddings, then 1792 text tokens) in 4 microbatches, 4 steps
+   (``INTERNVL2_TRAIN``), each through :func:`published_width_training`:
+   every loss finite, every weight matrix moved (the router and the experts
+   among them), each step's launches counted from zero and equal to what
+   ``layer_plan`` implies (flash forward 3 and backward 2 for deepseek,
+   forward 8 and backward 4 for internvl2, all ``wgmma``), no call of a
+   plain version, with s/step, positions/s, the model-FLOPs share (6 per
+   active weight per position: 6 of 160 routed experts, no embedding
+   lookup, the unembedding at the text positions; plus attention) and the
+   peak memory; then one microbatch timed (the attention backward apart)
+   and through the kernels against the plain versions in the forward,
+   remat's recompute and the backward, within ``DEEPSEEK_TRAIN_BF16_TOL`` and
+   ``INTERNVL2_TRAIN_BF16_TOL``, and a recompute without the causal mask on
+   purpose must exceed them.
 
 Before each of phases 3-6 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
@@ -302,10 +329,20 @@ XLSTM_DECODE_TOL = dict(atol=5e-3, rtol=1e-2)
 # Phase 3: the port on the card against its CPU path at smoke width.
 CHECK = ("llama3.2-1b", "recurrentgemma-9b", "deepseek-v2-236b", "xlstm-1.3b",
          "hubert-xlarge", "internvl2-76b")
-# Phase 6(a): smoke training on the card against the CPU (deepseek does not
-# train on the card yet).
+# Phase 6(a): smoke training on the card against the CPU, every arch the port
+# trains (the MLA archs with their up-projections conditioned: see
+# condition_mla).
 SMOKE_TRAIN = ("llama3.2-1b", "recurrentgemma-9b", "xlstm-1.3b", "hubert-xlarge",
-               "internvl2-76b")
+               "internvl2-76b", "deepseek-v2-236b", "deepseek-v3-671b")
+# Their peak learning rate there (the others take 1e-3).  At 1e-3 an H100 read
+# one element of deepseek-v3's embed.table 1.096 times TRAIN_TOL from the CPU
+# after the third step, every other parameter under 0.05 of it, every step-0
+# gradient under 0.11 and every moment under 0.002: that element's row first
+# has a gradient at step 3, its own 2.1e-7, under the card-CPU difference of
+# that tensor's gradients (up to 2.1e-6), and AdamW's eps term (1e-8) turns a
+# difference of a quarter of such a gradient into 2 % of lr in its update.
+# An update's difference scales with lr.
+SMOKE_MLA_LR = 1e-4
 
 # Phase 6.  Flash gradient cases (B, T, H, K, dk, dv, causal, window, dtype):
 # fp32 on simt, bf16 on wgmma; llama's d 64 GQA and recurrentgemma's d 256 MQA.
@@ -357,10 +394,12 @@ TRAIN_D128 = (1, 4096, 32, 8, 128, 128, True, 0, "bfloat16")
 # recurrentgemma-9b's attention in one training microbatch (phase 6(d)): MQA
 # at d 256 with the 2048 window, forward and backward on wgmma.
 TRAIN_RG_ATTN = (1, 4096, 16, 1, 256, 256, True, 2048, "bfloat16")
-# deepseek-v2-236b's MLA at a training microbatch's shape (one row of
-# train_4k): forward and backward on the d-256 kernels, timed in phase 2
-# ahead of training it on the card.
-TRAIN_MLA = (1, 4096, 128, 128, 192, 128, True, 0, "bfloat16")
+# deepseek-v2-236b's MLA in phase 6(g)'s microbatch (two rows of train_4k):
+# forward and backward on the d-256 kernels.
+TRAIN_MLA = (2, 4096, 128, 128, 192, 128, True, 0, "bfloat16")
+# internvl2-76b's attention in phase 6(h)'s microbatch: one row of 2048
+# positions (256 image embeddings, then text), 64 heads over 8 at d 128.
+TRAIN_INTERNVL2_ATTN = (1, 2048, 64, 8, 128, 128, True, 0, "bfloat16")
 # hubert-xlarge's attention in one training microbatch (phase 6(f)): 4 rows of
 # 1500 frames, 16 heads of d 80, no causal mask; forward and backward on
 # wgmma at D 128.
@@ -464,6 +503,31 @@ HUBERT_TRAIN = ("hubert-xlarge", 8, 1500, 2, 6, 3e-4)
 # calls, against the forward's lse) gives gradients that are not finite,
 # which read as infinitely far.
 HUBERT_TRAIN_BF16_TOL = {"loss": 1e-4, "grad": 4e-2, "norm": 1e-3}
+# Phase 6(g): deepseek-v2-236b at published widths cut to 2 of its 60 layers
+# (the dense lead layer and one MoE layer of 160 routed experts top-6 and 2
+# shared: 5.359 G parameters), bf16 parameters, fp32 AdamW moments, block
+# remat: arch, layers, rows per step, tokens per row (train_4k's), microbatches,
+# steps, peak learning rate (1 warmup step).  Cuts: depth 60 to 2, global
+# batch 256 to 2 rows.  One microbatch: the state alone is 64.3 GB (2 + 2 + 8
+# bytes a parameter for the weights, the gradients and the moments), and a
+# second microbatch adds fp32 accumulators of every gradient (21.4 GB).
+DEEPSEEK_TRAIN = ("deepseek-v2-236b", 2, 2, 4096, 1, 4, 3e-4)
+# Its microbatch (2 x 4096) through the kernels against the plain versions,
+# read as TRAIN_BF16_TOL.  On an H100 the kernels read 1.457e-5, 1.542e-1
+# (the routed experts' wo: the attention's bf16 rounding moves the router's
+# inputs, and a choice that flips moves its experts' gradients whole) and
+# 1.63e-3; a recompute without the causal mask 0, 1.098 (the router) and
+# 0.312.  The limits sit about five, two and five times above the kernels.
+DEEPSEEK_TRAIN_BF16_TOL = {"loss": 7.5e-5, "grad": 0.3, "norm": 8e-3}
+# Phase 6(h): internvl2-76b at published widths cut to 1 of its 80 layers
+# (2.957 G parameters), 4 rows of 2048 positions (256 stub image embeddings,
+# then 1792 text tokens; the loss over the text) in 4 microbatches, 4 steps.
+# Cuts: depth 80 to 1, the global batch to 4 rows.
+INTERNVL2_TRAIN = ("internvl2-76b", 1, 4, 2048, 4, 4, 3e-4)
+# Its microbatch (1 x 2048), read as above: on an H100 the kernels read
+# 1.226e-5, 8.75e-3 (embed.table) and 1.42e-4; a recompute without the
+# causal mask 0, 0.906 (the layer's ln2 scale) and 0.298.
+INTERNVL2_TRAIN_BF16_TOL = {"loss": 6e-5, "grad": 2e-2, "norm": 7e-4}
 # The ops-level functions that the plain versions replace in a microbatch.
 KERNEL_ENTRIES = ("_flash_fwd", "_flash_bwd", "_scan_fwd", "_scan_bwd")
 
@@ -476,11 +540,31 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
+def condition_mla(model) -> None:
+    """Scale each MLA up-projection (``w_uq``, ``w_uk``, ``w_uv``, each
+    ``[..., rank, heads, d]``) by sqrt(heads / rank) in place: drawn at
+    1 / sqrt(rank), the fan-in of the rank it contracts over, where the
+    reference's initializer reads the heads axis (4 at smoke width).  At the
+    draws as they are, the smoke models' attention scores have a standard
+    deviation near 8 and their gradients are finer than fp32 resolves: a
+    relative change of 1e-7 in ``embed.table`` moves deepseek-v3's by up to
+    86 times TRAIN_TOL, so two fp32 runs that differ in summation order
+    alone (card and CPU) disagree by more than it
+    (``tests/test_torch_moe_train.py``)."""
+    import torch
+
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            if key.rsplit(".", 1)[-1] in ("w_uq", "w_uk", "w_uv"):
+                p.mul_(math.sqrt(p.shape[-2] / p.shape[-3]))
+
+
 def smoke_train_steps(arch: str, dev, steps: int = 3):
     """``steps`` fp32 train steps of ``arch``'s smoke config on ``dev`` and on
-    the CPU from one init (drawn on ``dev``); two microbatches per step.
-    Returns each step's (loss on dev, loss on CPU, grad-norm on dev, on CPU)
-    and the largest parameter difference; raises on a disagreement."""
+    the CPU from one init (drawn on ``dev``; MLA's up-projections conditioned,
+    :func:`condition_mla`); two microbatches per step.  Returns each step's
+    (loss on dev, loss on CPU, grad-norm on dev, on CPU) and the largest
+    parameter difference; raises on a disagreement."""
     import torch
 
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
@@ -490,8 +574,12 @@ def smoke_train_steps(arch: str, dev, steps: int = 3):
     from repro_torch.models import Model
 
     cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
-    run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=steps, microbatches=2)
+    mla = cfg.attention == "mla"
+    run = RunConfig(learning_rate=SMOKE_MLA_LR if mla else 1e-3, warmup_steps=1,
+                    total_steps=steps, microbatches=2)
     card = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    if mla:
+        condition_mla(card)
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
     models = {"card": card, "cpu": cpu}
@@ -535,17 +623,34 @@ def resumed_losses(arch: str, dev, directory: str):
 
 def plain_entries(wrong_scan_bwd: bool = False):
     """The plain versions in place of ``ops``' kernel entries
-    (:data:`KERNEL_ENTRIES`); with ``wrong_scan_bwd``, a scan backward that
-    is wrong on purpose: da from h_t in place of h_{t-1}."""
+    (:data:`KERNEL_ENTRIES`), flash attention's over the slices of
+    :func:`head_slices` (whole, MLA's 128 heads at 2 x 4096 take 17 GB of
+    fp32 scores, and the backward three times that); with
+    ``wrong_scan_bwd``, a scan backward that is wrong on purpose: da from
+    h_t in place of h_{t-1}."""
+    import torch
+
     from repro_torch.kernels import ref
+
+    def slices(q, k):
+        return head_slices(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2])
 
     def flash_fwd(q, k, v, causal, window, scale, lse=False):
         fn = ref.flash_attention_lse_ref if lse else ref.flash_attention_ref
-        return fn(q, k, v, causal=causal, window=window, scale=scale)
+        parts = [fn(q[:, :, hq], k[:, :, hk], v[:, :, hk], causal=causal, window=window,
+                    scale=scale) for hq, hk in slices(q, k)]
+        if len(parts) == 1:
+            return parts[0]
+        if not lse:
+            return torch.cat(parts, dim=2)
+        return torch.cat([o for o, _ in parts], dim=2), torch.cat([m for _, m in parts], dim=1)
 
     def flash_bwd(q, k, v, out, lse, g, causal, window, scale):
-        return ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
-                                           window=window, scale=scale)
+        parts = [ref.flash_attention_bwd_ref(q[:, :, hq], k[:, :, hk], v[:, :, hk],
+                                             out[:, :, hq], lse[:, hq], g[:, :, hq],
+                                             causal=causal, window=window, scale=scale)
+                 for hq, hk in slices(q, k)]
+        return parts[0] if len(parts) == 1 else tuple(torch.cat(x, dim=2) for x in zip(*parts))
 
     def scan_bwd(a, h, h0, g):
         da, db, dh0 = ref.rglru_scan_bwd_ref(a, h, h0, g)
@@ -579,25 +684,38 @@ def microbatch_grads(model, batch, swap=None):
     return loss.item(), dict(zip(names, grads))
 
 
-def expected_launches(plan, microbatches: int):
+def expected_launches(plan, microbatches: int, mtp_depth: int = 0):
     """Kernel launches of one training step under block remat: per
     microbatch, each layer's forward once and the stacked super-blocks' once
-    more in remat's recompute, and each layer's backward once."""
+    more in remat's recompute, and each layer's backward once; a MoE model's
+    dense lead layers and DeepSeek-V3's MTP block (``mtp_depth``) attend
+    outside remat, once each way."""
     def count(kind, recompute):
-        return microbatches * ((1 + recompute) * plan.n_scan * plan.pattern.count(kind)
-                               + plan.tail.count(kind))
+        once = plan.tail.count(kind) + plan.lead.count(f"{kind}_dense")
+        if kind == "attn":
+            once += mtp_depth
+        return microbatches * ((1 + recompute) * plan.n_scan * plan.pattern.count(kind) + once)
 
     return {"flash_attention": count("attn", 1), "flash_attention_bwd": count("attn", 0),
             "rglru_scan": count("rec", 1), "rglru_scan_bwd": count("rec", 0)}
 
 
-def expected_counts(plan, microbatches):
+def forward_flash_calls(cfg) -> int:
+    """The flash calls of one microbatch's forward, ahead of remat's
+    recompute: every attention layer's and the MTP block's, one each, as
+    many as the backward's."""
+    from repro_torch.models import layer_plan
+
+    return expected_launches(layer_plan(cfg), 1, cfg.mtp_depth)["flash_attention_bwd"]
+
+
+def expected_counts(plan, microbatches, mtp_depth: int = 0):
     """launch_counts()' keys for one training step: the kernels' launches
     (:func:`expected_launches`) and, by variant, every flash launch, forward
     and backward, on ``wgmma`` and every scan launch, forward and backward,
     on ``tma``."""
     out = dict.fromkeys(launch_counts(), 0)
-    out.update(expected_launches(plan, microbatches))
+    out.update(expected_launches(plan, microbatches, mtp_depth))
     for name, kind in (("flash_attention", "wgmma"), ("flash_attention_bwd", "wgmma"),
                        ("rglru_scan", "tma"), ("rglru_scan_bwd", "tma")):
         out[f"{name}:{kind}"] = out[name]
@@ -701,6 +819,43 @@ def launch_counts():
 
 
 @contextlib.contextmanager
+def timed_optimizer():
+    """CUDA events around each AdamW update that a train step makes in the
+    block (the global norm, the clip factor and the chunked update); yields
+    a list of (start, end)."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    log = []
+    real = steps.adamw_update
+
+    def update(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        log.append((start, end))
+        return out
+
+    steps.adamw_update = update
+    try:
+        yield log
+    finally:
+        steps.adamw_update = real
+
+
+def reset_counts():
+    """Every kernel wrapper's launches, in all and by variant, set to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+
+    for fn in (flash_attention_fwd, flash_attention_bwd, rglru_scan_fwd, rglru_scan_bwd):
+        fn.launches = 0
+        fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+
+
+@contextlib.contextmanager
 def at_depth(module, layers):
     """``get_config`` in ``module``'s namespace patched to cut every config to
     ``layers`` layers in the block (no knob of the entry point changes); with
@@ -744,6 +899,205 @@ def counted_training(arch, layers, shape, run, device, smoke=False):
     finally:
         train_mod.build_train_step = real_step
     return res, step_counts, plain_calls
+
+
+def train_step_flops(cfg, params, rows: int, T: int):
+    """Model FLOPs of one training step of a decoder over ``rows`` x ``T``
+    positions, and the attention's part: 6 per active weight per position it
+    is used at (a MoE layer's routed experts count top_k of num_experts of
+    theirs; the embedding table, a lookup, none; the unembedding only at the
+    positions the loss covers: a vision stub's image positions are left
+    out), plus causal attention's QK^T and PV (2 FLOP per multiply-add over
+    dk + dv) over the T(T+1)/2 unmasked pairs of each row and head, three
+    times (forward and backward) in every attention layer.  Remat's
+    recompute and the capacity buffer's empty slots are not model work and
+    are not counted.  ``params``: {key: tensor}."""
+    from repro_torch.models import layer_plan
+
+    text = T - cfg.frontend_tokens if cfg.frontend == "vision" else T
+    head = "embed.table" if cfg.tie_embeddings else "unembed.w"
+    stack = unembed = 0.0
+    for key, p in params.items():
+        n = p.numel()
+        if key == head:
+            unembed = n
+        elif key == "embed.table":
+            continue
+        elif (cfg.moe and key.endswith(("ffn.wi", "ffn.wo")) and p.ndim >= 3
+              and p.shape[-3] == cfg.moe.num_experts):
+            stack += n * cfg.moe.top_k / cfg.moe.num_experts
+        else:
+            stack += n
+    if cfg.attention == "mla":
+        dk, dv = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim
+    else:
+        dk = dv = cfg.resolved_head_dim
+    plan = layer_plan(cfg)
+    n_attn = (len(plan.lead) + plan.n_scan * plan.pattern.count("attn")
+              + plan.tail.count("attn"))
+    attn = 3 * 2 * (dk + dv) * cfg.num_heads * (T * (T + 1) // 2) * rows * n_attn
+    return 6 * (stack * T + unembed * text) * rows + attn, attn, stack + unembed
+
+
+def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, smi,
+                             smoke=False, device="cuda"):
+    """Phases 6(g) and 6(h): ``train(arch)`` at published widths cut to
+    ``layers`` layers (``get_config`` patched in train's namespace), bf16
+    parameters, fp32 AdamW moments, block remat, ``rows`` x ``seq`` positions
+    a step in ``micro`` microbatches, ``n_steps`` steps at peak ``lr`` (1
+    warmup step), each step's launches counted from zero.  It must show
+    every loss finite, the weight matrices moved (the router and the experts
+    among them), each step's flash launches as ``layer_plan`` implies, all
+    ``wgmma``, and no call of a plain version; it prints s/step, positions/s,
+    the model-FLOPs share (:func:`train_step_flops`) and the peak memory.
+    Then one microbatch's forward and backward timed with CUDA events, the
+    attention backward apart, and that microbatch's loss and every gradient
+    through the kernels against the plain versions in the forward, remat's
+    recompute and the backward, within ``tol``; a recompute without the
+    causal mask, wrong on purpose, must exceed it.  Returns the run's
+    launches and the attention backward's ms per call in the microbatch.
+    ``smoke`` and ``device="cpu"`` rehearse the phase on the CPU at smoke
+    width, where no kernel launches."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import Model, layer_plan
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = get_config(arch, smoke=smoke).with_overrides(num_layers=layers)
+    plan = layer_plan(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(learning_rate=lr, warmup_steps=1, total_steps=n_steps,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        reset_counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        shape = ShapeConfig(f"train_{seq}", seq, rows, "train")
+        with timed_optimizer() if on_card else contextlib.nullcontext([]) as updates:
+            res, step_counts, plain_calls = counted_training(arch, layers, shape, run, device,
+                                                             smoke=smoke)
+        train_s = time.perf_counter() - t
+    adamw_ms = [start.elapsed_time(end) for start, end in updates[1:]] if on_card else []
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else math.nan
+    hist = res["history"]
+    trained = res["final_state"]["params"]
+    del res  # the moments: 8 bytes a parameter
+    gc.collect()
+    n_params = sum(t.numel() for t in trained.values())
+    model_flops, attn_flops, active = train_step_flops(cfg, trained, rows, seq)
+    init = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(run.seed))
+    # Every weight matrix must have moved from its init; the norm scales (1 at
+    # init) need not: a step of lr 3e-4 is under half of bf16's spacing at 1.
+    unmoved = [k for k, p in init.named_parameters()
+               if not k.endswith(".scale") and torch.equal(p, trained[k])]
+    del init, trained
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    for h, counts in zip(hist, step_counts):
+        print(f"[train] {arch} {layers} layers step {h['step']}: loss {h['loss']:.6f}, grad-norm "
+              f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s; launches "
+              + ", ".join(f"{n} {c}" for n, c in counts.items() if c))
+    step_s = statistics.mean(h["seconds_per_step"] for h in hist[1:])
+    expect = (expected_counts(plan, micro, cfg.mtp_depth) if on_card
+              else dict.fromkeys(launch_counts(), 0))
+    moe = (f", {cfg.moe.num_experts} routed experts top-{cfg.moe.top_k} and "
+           f"{cfg.moe.num_shared} shared" if cfg.moe else "")
+    print(f"[train] {arch} published widths at {layers} of {get_config(arch).num_layers} layers "
+          f"({plan.lead} + {plan.n_scan} x {plan.pattern} + {plan.tail}{moe}), bf16 (fp32 "
+          f"moments, block remat), {n_params} parameters ({active:.0f} active a position), "
+          f"{rows} rows x {seq} positions in {micro} microbatches (reduced: depth and the "
+          f"global batch), lr {run.learning_rate} (warmup {run.warmup_steps}): {step_s:.4f} s per "
+          f"step after the first (mean of steps 2-{n_steps}), {rows * seq / step_s:.1f} "
+          f"positions/s, model FLOPs {model_flops / 1e12:.2f} T per step ({attn_flops / 1e12:.2f} "
+          f"T attention), {100 * model_flops / step_s / PEAK_BF16_FLOPS:.2f} % of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; the AdamW "
+          f"update (norm, clip, chunked update; CUDA events, steps 2-{n_steps}) "
+          + (f"{statistics.mean(adamw_ms):.1f} ms = "
+             f"{100 * statistics.mean(adamw_ms) / 1e3 / step_s:.1f} % of the step"
+             if adamw_ms else "not measured")
+          + f"; {train_s:.1f} s in train(); losses {[round(h['loss'], 6) for h in hist]}; "
+          f"launches per step expected " + ", ".join(f"{n} {c}" for n, c in expect.items() if c)
+          + f"; weight matrices left at their init {unmoved or 'none'}; calls of the plain "
+          f"versions {plain_calls}; {smi}")
+    if len(step_counts) != n_steps or len(hist) != n_steps:
+        raise AssertionError(f"{arch} trained {len(step_counts)} steps, expected {n_steps}")
+    if any(c != expect for c in step_counts) or (plain_calls and on_card):
+        raise AssertionError(f"{arch} training launched {step_counts}, expected {expect} per "
+                             f"step, and called the plain versions {plain_calls} times, "
+                             f"expected never")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
+    if unmoved:
+        raise AssertionError(f"{arch}: weights that did not move {unmoved}")
+
+    # One microbatch, timed, then through the kernels against the plain
+    # versions; the wrong recompute drops the causal mask in remat's calls,
+    # which come after the forward's.
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    mb = SyntheticLMDataset(cfg, ShapeConfig("mb", seq, rows // micro, "train"), seed=0).batch(0)
+    mb = {k: to_device(v, dev) for k, v in mb.items()}
+    attn_ms = None
+    if on_card:
+        fwd_ms, bwd_ms, timed = timed_microbatch(model, mb, {"attention": ops._FlashAttention})
+        attn = timed["attention"]
+        attn_ms = sum(t for t, _ in attn) / len(attn)
+        print(f"[train] {arch} {layers} layers, one microbatch ({rows // micro} x {seq}): forward "
+              f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (with remat's recompute), of which the "
+              f"attention backward (the kernel) {attn_ms * len(attn):.2f} ms in {len(attn)} calls "
+              f"= {100 * attn_ms * len(attn) / bwd_ms:.1f} %, {attn_ms:.3f} ms and "
+              f"{max(p for _, p in attn) / 1e9:.2f} GB of transient memory per call; {micro} "
+              f"microbatches {micro * (fwd_ms + bwd_ms):.1f} ms of the {step_s * 1e3:.1f} ms "
+              f"step; {smi}")
+    plain = plain_entries()
+    forward = forward_flash_calls(cfg)
+    calls = []
+
+    def wrong_recompute(q, k, v, causal, window, scale, lse=False):
+        calls.append(None)  # the forward's calls first, then remat's
+        return plain["_flash_fwd"](q, k, v, causal and len(calls) <= forward, window, scale,
+                                   lse)
+
+    before = launch_counts()
+    kernel_run = microbatch_grads(model, mb)
+    mb_launches = {k: c - before[k] for k, c in launch_counts().items()}
+    before = launch_counts()
+    plain_run = microbatch_grads(model, mb, plain)
+    plain_launches = {k: c - before[k] for k, c in launch_counts().items() if c != before[k]}
+    gaps = grad_gaps(kernel_run, plain_run)
+    del kernel_run
+    wrong_run = microbatch_grads(model, mb, {**plain, "_flash_fwd": wrong_recompute})
+    wrong = grad_gaps(wrong_run, plain_run)
+    del model, mb, plain_run, wrong_run
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mb_expect = (expected_counts(plan, 1, cfg.mtp_depth) if on_card
+                 else dict.fromkeys(launch_counts(), 0))
+    print(f"[train] {arch} {layers} layers, one microbatch ({rows // micro} x {seq}), kernels "
+          f"(launches " + ", ".join(f"{n} {c}" for n, c in mb_launches.items() if c)
+          + f") vs plain versions in forward, recompute and backward: relative loss gap "
+          f"{gaps[0]:.3e} (limit {tol['loss']}); worst leaf |g - g_plain| / |g_plain| "
+          f"{gaps[1]:.3e} ({gaps[3]}; limit {tol['grad']}); worst leaf norm gap {gaps[2]:.3e} "
+          f"(limit {tol['norm']}); a recompute without the causal mask: {wrong[0]:.3e}, "
+          f"{wrong[1]:.3e} ({wrong[3]}), {wrong[2]:.3e}; {smi}")
+    if mb_launches != mb_expect or plain_launches or len(calls) != forward + plan.n_scan * (
+            plan.pattern.count("attn")):
+        raise AssertionError(f"the kernels' microbatch launched {mb_launches}, expected "
+                             f"{mb_expect}; the plain one {plain_launches}; the wrong run "
+                             f"called the plain forward {len(calls)} times")
+    if not (gaps[0] <= tol["loss"] and gaps[1] <= tol["grad"] and gaps[2] <= tol["norm"]):
+        raise AssertionError(f"{arch} training through the kernels disagrees with the plain "
+                             f"versions at published widths: {gaps}")
+    if wrong[1] <= tol["grad"]:
+        raise AssertionError(f"the gradient check does not see a wrong recompute: {wrong}")
+    return launches, attn_ms
 
 
 def parent_scan():
@@ -896,15 +1250,27 @@ def grad_gaps(got, want):
     finite = lambda x: x if not math.isnan(x) else math.inf
     l2, norm = {}, {}
     for key, w in grads_w.items():
-        g, w = grads[key].float(), w.float()
-        wn = w.norm().item()
+        gn, wn, dn = chunked_norms(grads[key], w)
         if wn == 0:
-            l2[key] = norm[key] = math.inf if g.any() else 0.0
+            l2[key] = norm[key] = math.inf if gn != 0 else 0.0
             continue
-        l2[key] = finite((g - w).norm().item() / wn)
-        norm[key] = finite(abs(g.norm().item() - wn) / wn)
+        l2[key] = finite(dn / wn)
+        norm[key] = finite(abs(gn - wn) / wn)
     worst = max(l2, key=l2.get)
     return finite(abs(loss - loss_w) / abs(loss_w)), l2[worst], max(norm.values()), worst
+
+
+def chunked_norms(g, w, chunk: int = 2 ** 26):
+    """(|g|, |w|, |g - w|) in fp32, over slices of at most ``chunk``
+    elements (a whole fp32 copy of deepseek-v2's routed experts is 10 GB)."""
+    import torch
+
+    sums = [0.0, 0.0, 0.0]
+    for a, b in zip(g.reshape(-1).split(chunk), w.reshape(-1).split(chunk)):
+        a, b = a.float(), b.float()
+        for i, x in enumerate((a, b, a - b)):
+            sums[i] += torch.linalg.vector_norm(x).item() ** 2
+    return tuple(math.sqrt(x) for x in sums)
 
 
 def rel_l2(got, want) -> float:
@@ -1596,15 +1962,17 @@ def main() -> int:
                                                 "recurrentgemma-9b training microbatch")
     records[("flash_attention", "recurrentgemma-9b train")] = fwd_rec
     records[("flash_attention_bwd", "recurrentgemma-9b train")] = bwd_rec
-    # deepseek-v2-236b's MLA at a training microbatch's shape: no main path
-    # trains it yet; its records take their wrappers' launches on llama's
-    # training path (phase 6(c)), as llama3-8b's do.
-    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_MLA, "deepseek-v2-236b training shape")
-    for rec in (fwd_rec, bwd_rec):
-        rec["launches_note"] = ("the wrapper's launches on llama3.2-1b's training path "
-                                "(d 64); no main path trains MLA on the card yet")
+    # deepseek-v2-236b's MLA in phase 6(g)'s microbatch; its records take
+    # phase 6(g)'s launches.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_MLA, "deepseek-v2-236b training microbatch")
     records[("flash_attention", "deepseek-v2-236b train")] = fwd_rec
     records[("flash_attention_bwd", "deepseek-v2-236b train")] = bwd_rec
+    # internvl2-76b's training microbatch (d 128, 64 heads over 8); its records
+    # take phase 6(h)'s launches.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_INTERNVL2_ATTN,
+                                                "internvl2-76b training microbatch")
+    records[("flash_attention", "internvl2-76b train")] = fwd_rec
+    records[("flash_attention_bwd", "internvl2-76b train")] = bwd_rec
     # hubert-xlarge's training microbatch (d 80, no causal mask); its records
     # take phase 6(f)'s launches.
     fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_HUBERT_ATTN,
@@ -1840,12 +2208,6 @@ def main() -> int:
     held(4)
     kernels = {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
                "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd}
-
-    def reset_counts():
-        for fn in kernels.values():
-            fn.launches = 0
-        for fn in kernels.values():
-            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
     served = {}  # each main path's result
     for arch, batch, prompt_len, gen_len, layers in SERVE:
@@ -2216,14 +2578,17 @@ def main() -> int:
         reset_counts()
         rows, worst = smoke_train_steps(arch, dev)
         launches = {name: fn.launches for name, fn in kernels.items()}
-        print(f"[train] {arch} smoke fp32, 3 steps x 2 microbatches, card vs CPU from one init: "
+        smoke_cfg = get_config(arch, smoke=True)
+        lr = SMOKE_MLA_LR if smoke_cfg.attention == "mla" else 1e-3
+        print(f"[train] {arch} smoke fp32, 3 steps x 2 microbatches at lr {lr:g}, card vs CPU "
+              f"from one init: "
               f"losses {[(round(a, 6), round(b, 6)) for a, b, _, _ in rows]}, grad-norms "
               f"{[(round(c, 6), round(d, 6)) for _, _, c, d in rows]}, largest parameter "
               f"difference {worst:.3e} (atol {TRAIN_TOL['atol']}, rtol {TRAIN_TOL['rtol']}); "
               f"card launches " + ", ".join(f"{n} {c}" for n, c in launches.items()))
         # 3 steps of 2 microbatches.
         expect = {name: 3 * c for name, c in
-                  expected_launches(layer_plan(get_config(arch, smoke=True)), 2).items()}
+                  expected_launches(layer_plan(smoke_cfg), 2, smoke_cfg.mtp_depth).items()}
         if launches != expect:
             raise AssertionError(f"{arch} smoke training launched {launches}, expected {expect}")
 
@@ -2378,8 +2743,7 @@ def main() -> int:
     records[("flash_attention", f"{arch} train")] = fwd_rec
     records[("flash_attention_bwd", f"{arch} train")] = bwd_rec
     for name in ("flash_attention", "flash_attention_bwd"):
-        for path in ("llama3-8b train", "deepseek-v2-236b train"):
-            records[(name, path)]["launches"] = launches[name]
+        records[(name, "llama3-8b train")]["launches"] = launches[name]
     torch.cuda.empty_cache()
 
     # (d) recurrentgemma-9b training at published widths, cut to 8 layers,
@@ -2784,6 +3148,20 @@ def main() -> int:
             rec["launches"] = launches[name]
             rec["launches_per_step"] = launches[name] // n_steps
     records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = attn_ms / attn_calls
+
+    # (g) deepseek-v2-236b at published widths, 2 of 60 layers, and (h)
+    # internvl2-76b at published widths, 1 of 80 layers, through train().
+    for (arch, layers, rows, seq, micro, n_steps, lr), tol in (
+            (DEEPSEEK_TRAIN, DEEPSEEK_TRAIN_BF16_TOL), (INTERNVL2_TRAIN, INTERNVL2_TRAIN_BF16_TOL)):
+        held(f"6 ({arch})")
+        launches, attn_ms = published_width_training(arch, layers, rows, seq, micro, n_steps,
+                                                     lr, tol, smi)
+        for (name, path), rec in records.items():
+            if path == f"{arch} train":
+                rec["launches"] = launches[name]
+                rec["launches_per_step"] = launches[name] // n_steps
+        records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = attn_ms
+        torch.cuda.empty_cache()
 
     print(f"[time] chip_smoke.py ran {time.perf_counter() - started:.1f} s; {smi}")
     print(json.dumps({"kernels": list(records.values())}))

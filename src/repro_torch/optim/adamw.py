@@ -14,6 +14,13 @@ Parameters and moments are dicts of tensors under one set of keys; unlike the
 reference's pure function, the update writes them in place, so a training
 step holds no second copy of either.  The step count is a 0-d int32 tensor,
 and the learning rate may be a tensor: nothing here waits on the device.
+
+The update and the global norm walk each tensor in slices of its flattened
+storage of at most :data:`CHUNK_ELEMENTS` elements, so that no fp32
+temporary holds a whole tensor: deepseek-v2's stacked routed experts
+(``blocks.b0.ffn.wi``, 2.5 G elements at one MoE layer) would take 10 GB for
+each.  The update is elementwise, so every element gets the bits it would
+get in one piece; the norm's sum changes only in its order.
 """
 
 from __future__ import annotations
@@ -24,6 +31,10 @@ import torch
 
 Tensors = Dict[str, torch.Tensor]
 
+# The most elements of one tensor that the update and the norm take at once
+# (2^26: 256 MB for each fp32 temporary).
+CHUNK_ELEMENTS = 2 ** 26
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor   # [] int32: updates taken
@@ -31,9 +42,15 @@ class AdamWState(NamedTuple):
     nu: Tensors
 
 
+def _chunks(t: torch.Tensor):
+    """Slices of ``t``'s flattened view, each at most CHUNK_ELEMENTS long."""
+    return t.view(-1).split(CHUNK_ELEMENTS)
+
+
 def global_norm(tensors: Tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors.values()))
+    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
+                          for t in tensors.values() for c in _chunks(t.contiguous())))
 
 
 def adamw_init(params: Tensors, state_dtype=torch.float32) -> AdamWState:
@@ -69,14 +86,15 @@ def adamw_update(
     b1c = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=step.device), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), stepf)
     for key, p in params.items():
-        m, v = state.mu[key], state.nu[key]
-        g = grads[key].float() * scale
-        m_new = b1 * m.float() + (1 - b1) * g
-        v_new = b2 * v.float() + (1 - b2) * g * g
-        delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + eps)
         wd = weight_decay if p.ndim >= 2 else 0.0
-        p32 = p.float()
-        p.copy_(p32 - lr * (delta + wd * p32))
-        m.copy_(m_new)
-        v.copy_(v_new)
+        for pc, gc, m, v in zip(*map(_chunks, (p, grads[key].contiguous(), state.mu[key],
+                                               state.nu[key]))):
+            g = gc.float() * scale
+            m_new = b1 * m.float() + (1 - b1) * g
+            v_new = b2 * v.float() + (1 - b2) * g * g
+            delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + eps)
+            p32 = pc.float()
+            pc.copy_(p32 - lr * (delta + wd * p32))
+            m.copy_(m_new)
+            v.copy_(v_new)
     return AdamWState(step=step, mu=state.mu, nu=state.nu), {"grad_norm": gnorm}

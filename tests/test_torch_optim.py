@@ -17,6 +17,7 @@ from repro.optim import adamw_init as jax_adamw_init  # noqa: E402
 from repro.optim import cosine_schedule as jax_cosine_schedule  # noqa: E402
 from repro_torch.configs import RunConfig  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, global_norm  # noqa: E402
 
 
@@ -68,6 +69,50 @@ def test_bf16_moments_are_stored_in_bf16_and_computed_in_fp32():
     assert torch.equal(st.mu["w"], (0.1 * g32).to(torch.bfloat16))
     assert torch.equal(st.nu["w"], (0.05 * g32 * g32).to(torch.bfloat16))
     assert torch.equal(p["w"], torch.ones((2, 3), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype,state_dtype", [(torch.float32, torch.float32),
+                                               (torch.bfloat16, torch.float32),
+                                               (torch.bfloat16, torch.bfloat16)])
+def test_chunked_update_gives_the_whole_tensors_bits(monkeypatch, dtype, state_dtype):
+    """A chunk of 7 elements walks a 5 x 9 tensor in 6 full chunks and a
+    tail of 3 (and a 1-D tensor, a 0-d one and one under a chunk): three
+    steps give parameters, mu and nu bit for bit as one chunk does; the
+    global norm moves only in its summation order.  The gradients' norm
+    stays under the clip, so the clip factor is exactly 1 both ways."""
+    rng = np.random.default_rng(0)
+    shapes = {"w": (5, 9), "b": (11,), "s": (), "t": (2, 3)}
+    init = {k: torch.as_tensor(rng.standard_normal(s).astype(np.float32)).to(dtype)
+            for k, s in shapes.items()}
+    grads = [{k: torch.as_tensor(0.05 * rng.standard_normal(s).astype(np.float32)).to(dtype)
+              for k, s in shapes.items()} for _ in range(3)]
+    assert adamw.CHUNK_ELEMENTS == 2 ** 26
+    runs = {}
+    for chunk in (2 ** 26, 7):
+        monkeypatch.setattr(adamw, "CHUNK_ELEMENTS", chunk)
+        p = {k: v.clone() for k, v in init.items()}
+        st = adamw_init(p, state_dtype)
+        norms = []
+        for i, g in enumerate(grads):
+            st, m = adamw_update(p, g, st, lr=torch.tensor(0.05 * (i + 1)), grad_clip=1.0)
+            assert float(m["grad_norm"]) < 1.0
+            norms.append(m["grad_norm"])
+        runs[chunk] = (p, st, norms)
+    (p1, st1, n1), (p7, st7, n7) = runs[2 ** 26], runs[7]
+    assert len(adamw._chunks(init["w"])) == 7 and adamw._chunks(init["w"])[-1].numel() == 3
+    for group, a, b in (("params", p1, p7), ("mu", st1.mu, st7.mu), ("nu", st1.nu, st7.nu)):
+        for k in shapes:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (group, k)
+            assert a[k].shape == shapes[k]
+    for x, y in zip(n1, n7):
+        torch.testing.assert_close(x, y, atol=0, rtol=1e-6)
+
+
+def test_chunked_global_norm_reads_every_chunk(monkeypatch):
+    monkeypatch.setattr(adamw, "CHUNK_ELEMENTS", 4)
+    t = {"a": torch.arange(10, dtype=torch.bfloat16).reshape(2, 5), "b": torch.ones(3)}
+    want = np.sqrt(sum(i * i for i in range(10)) + 3)
+    np.testing.assert_allclose(float(global_norm(t)), want, rtol=1e-7)
 
 
 def test_cosine_schedule_shape():
