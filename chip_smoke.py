@@ -190,9 +190,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    and through the kernels against the plain versions in the forward,
    remat's recompute and the backward, within ``DEEPSEEK_TRAIN_BF16_TOL`` and
    ``INTERNVL2_TRAIN_BF16_TOL``, and a recompute without the causal mask on
-   purpose must exceed them.
+   purpose must exceed them;
+7. training in pods: ``train("llama3.2-1b")`` at published width and depth
+   on a 2 pods x 1 data mesh (``POD_TRAIN``), two ranks spawned with
+   ``launch.mesh.spawn_ranks`` (they share the card where it is the only
+   one; the pod exchange then goes over gloo through host memory), 6(c)'s
+   global batch of 8 x 4096 at lr 3e-4 split as 4 rows in 4 microbatches a
+   rank, 3 steps each of ``flat``, ``sync``, ``sync`` + int8 and ``local``
+   with budget 2 (:func:`pod_rank`), held by :func:`check_pod_training`:
+   flat and sync agree step by step (``POD_LOSS_RTOL``) and their first
+   loss with 6(c)'s (``POD_FIRST_RTOL``), a planted fault (one step of sync
+   with every rank on pod 0's rows, ``POD_FAULT``) lies outside both, int8
+   within ``POD_INT8_ATOL`` of exact after three steps, local's pods part after steps 1 and 3 and are bit-identical after
+   step 2 (the other modes' after every step), each step's wire bytes on
+   each group equal ``core/asymmetry.py``'s formulas, and each rank's
+   launches are 6(c)'s per-row share, all ``wgmma``, with no call of a
+   plain version; it prints each mode's seconds and exchange seconds per
+   step, each group's backend, and each rank's peak memory and
+   ``mem_get_info``.
 
-Before each of phases 3-6 a ``[memory]`` line prints what the phases before
+Before each of phases 3-7 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds, the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -202,6 +219,7 @@ JAX; with no CUDA card, or without the repository beside it, it exits 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -528,6 +546,35 @@ INTERNVL2_TRAIN = ("internvl2-76b", 1, 4, 2048, 4, 4, 3e-4)
 # 1.226e-5, 8.75e-3 (embed.table) and 1.42e-4; a recompute without the
 # causal mask 0, 0.906 (the layer's ln2 scale) and 0.298.
 INTERNVL2_TRAIN_BF16_TOL = {"loss": 6e-5, "grad": 2e-2, "norm": 7e-4}
+# Phase 7: llama3.2-1b at published width and depth trained in 2 pods x 1
+# data, one rank a pod (two processes; they share the card where it is the
+# only one): arch, global rows, tokens per row, microbatches per rank (4 rows
+# each: phase 6(c)'s 1 x 4096 microbatch), steps per mode, peak learning
+# rate.  Warmup 0, so that the first update moves the parameters (local
+# mode's pods must part after step 1); 6(c)'s warmup of 2 would not.
+POD_TRAIN = ("llama3.2-1b", 8, 4096, 4, 3, 3e-4)
+POD_MESH = ((2, 1), ("pod", "data"))
+POD_MODES = (("flat", {"sync_mode": "flat"}), ("sync", {"sync_mode": "sync"}),
+             ("sync+int8", {"sync_mode": "sync", "compress_int8": True}),
+             ("local", {"sync_mode": "local", "sync_budget": 2}))
+# flat's step 1 against 6(c)'s step 1, relative: a mean of the same 8 rows'
+# losses from the same weights and kernels, summed in another order (a few
+# fp32 ulps, under 1e-6; it read 0 in every run on an H100).
+POD_FIRST_RTOL = 1e-6
+# flat against sync, step by step, relative.  Step 1 is again the same rows;
+# later steps apply gradients summed over other splits of the rows (flat
+# hands each rank every second row, sync each pod 4 consecutive rows) and so
+# rounded elsewhere, and an update's bf16 rounding then lands on another
+# value for a few elements.  Sound runs read 6.3e-6, 6.9e-6, 3.5e-6 and
+# 1.46e-5 on an H100 (700 W); the planted fault (``POD_FAULT``) read 4.3e-4,
+# and must read above this limit, and above POD_FIRST_RTOL against 6(c).
+POD_LOSS_RTOL = 5e-5
+# The planted fault: sync in which every rank takes pod 0's rows (a wrong
+# split of the batch), one step.
+POD_FAULT = ("fault: sync on pod 0's rows", {"sync_mode": "sync"})
+# sync with int8 against exact sync after three steps, absolute
+# (tests/test_system.py's bound for the JAX package).
+POD_INT8_ATOL = 5e-3
 # The ops-level functions that the plain versions replace in a microbatch.
 KERNEL_ENTRIES = ("_flash_fwd", "_flash_bwd", "_scan_fwd", "_scan_bwd")
 
@@ -881,8 +928,8 @@ def counted_training(arch, layers, shape, run, device, smoke=False):
     step_counts = []
     real_step = train_mod.build_train_step
 
-    def counted_step(model, run_):
-        step = real_step(model, run_)
+    def counted_step(model, run_, mesh=None):
+        step = real_step(model, run_, mesh)
 
         def call(state, batch):
             before = launch_counts()
@@ -937,6 +984,217 @@ def train_step_flops(cfg, params, rows: int, T: int):
               + plan.tail.count("attn"))
     attn = 3 * 2 * (dk + dv) * cfg.num_heads * (T * (T + 1) // 2) * rows * n_attn
     return 6 * (stack * T + unembed * text) * rows + attn, attn, stack + unembed
+
+
+def param_digest(params) -> int:
+    """A digest of the parameters' bits: the sum over every element of its
+    bits (as an integer) times a fixed pseudo-random weight of its position,
+    wrapping in int64.  Equal bits give equal digests; one element that
+    differs changes it, but for a chance near 2^-64."""
+    import torch
+
+    chunk = 2 ** 24
+    some = next(iter(params.values()))
+    weights = torch.randint(1, 2 ** 62, (chunk,), dtype=torch.int64, device=some.device,
+                            generator=torch.Generator(some.device).manual_seed(0))
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    total = torch.zeros((), dtype=torch.int64, device=some.device)
+    for p in params.values():
+        flat = p.detach().reshape(-1).view(bits[p.element_size()]).to(torch.int64)
+        for i in range(0, flat.numel(), chunk):
+            part = flat[i:i + chunk]
+            total += (part * weights[:part.numel()]).sum()
+    return int(total)
+
+
+def pod_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
+    """One rank of phase 7, spawned (``launch.mesh.spawn_ranks``):
+    ``train(arch)`` on the ``POD_MESH`` in each mode of ``POD_MODES``, then
+    one step of ``POD_FAULT`` (``rank_rows`` patched to hand every rank pod
+    0's rows), with
+    ``build_train_step`` wrapped (in train's namespace) to count each step's
+    launches from zero and take a :func:`param_digest` after it (its own
+    seconds apart, after a device synchronisation).  Returns, per mode, the
+    history, the steps' launches, digests and digest seconds, the calls of
+    the plain versions, the groups' backends, the parameters' count and
+    leaves, the peak memory and ``mem_get_info`` at the end."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+
+    real_step, real_rows, out = train_mod.build_train_step, steps_mod.rank_rows, []
+    for name, kw in POD_MODES + (POD_FAULT,):
+        steps, seen = [], {}
+        mode_steps = 1 if name == POD_FAULT[0] else n_steps
+
+        def counted_step(model, run_, mesh=None):
+            step = real_step(model, run_, mesh)
+            seen.update(backends=dict(mesh.backends), device=str(mesh.device),
+                        coords=dict(mesh.coords))
+
+            def call(state, batch):
+                before = launch_counts()
+                new_state, metrics = step(state, batch)
+                counts = {k: c - before[k] for k, c in launch_counts().items()}
+                if mesh.device.type == "cuda":
+                    torch.cuda.synchronize(mesh.device)
+                t0 = time.perf_counter()
+                digest = param_digest(new_state["params"])
+                steps.append({"launches": counts, "digest": digest,
+                              "digest_s": time.perf_counter() - t0})
+                return new_state, metrics
+            return call
+
+        train_mod.build_train_step = counted_step
+        if name == POD_FAULT[0]:
+            steps_mod.rank_rows = lambda batch, mesh, *a: real_rows(
+                batch, dataclasses.replace(mesh, coords={**mesh.coords, "pod": 0}), *a)
+        try:
+            with tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain:
+                if device is None:
+                    torch.cuda.reset_peak_memory_stats()
+                run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+                                microbatches=micro, checkpoint_every=10 ** 9,
+                                checkpoint_dir=tmp, **kw)
+                res = train_mod.train(arch, smoke=smoke, steps=mode_steps,
+                                      shape=ShapeConfig("train_4k", seq, rows, "train"),
+                                      mesh_shape=POD_MESH[0], mesh_axes=POD_MESH[1], run=run,
+                                      log_every=1, device=device)
+        finally:
+            train_mod.build_train_step, steps_mod.rank_rows = real_step, real_rows
+        params = res["final_state"]["params"]
+        rec = {"mode": name, "history": res["history"], "steps": steps, "plain": dict(plain),
+               "n_params": sum(p.numel() for p in params.values()), "n_leaves": len(params),
+               **seen}
+        del res, params
+        gc.collect()
+        if device is None:
+            torch.cuda.empty_cache()
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["free_total_gb"] = tuple(b / 1e9 for b in torch.cuda.mem_get_info())
+        out.append(rec)
+    return out
+
+
+def pod_wire_bytes(mode, n_params, n_leaves, n_metrics, step, budget=2):
+    """The wire bytes per rank that one step of ``mode`` must count on each
+    group of the 2 x 1 pod mesh, by ``core/asymmetry.py``'s formulas:
+    gradients fp32 (several microbatches), ``n_metrics`` fp32 values
+    averaged over the world, one (grad-norm) over the pods in local mode."""
+    from repro_torch.core.asymmetry import all_gather_wire_bytes, allreduce_wire_bytes
+
+    P, grads = 2, 4 * n_params
+    world = {"world": allreduce_wire_bytes(4 * n_metrics, P)}
+    if mode == "flat":
+        # one all-reduce per leaf: the sum of the formula over the leaves is
+        # the formula of their sum (it is linear)
+        return {"world": world["world"] + allreduce_wire_bytes(grads, P)}
+    if mode == "sync":
+        return {"pod": allreduce_wire_bytes(grads, P), **world}
+    if mode == "sync+int8":
+        return {"pod": all_gather_wire_bytes(P * n_params, P)
+                + all_gather_wire_bytes(P * 4 * n_leaves, P), **world}
+    reconcile = allreduce_wire_bytes(grads, P) if step % budget == 0 else 0.0
+    return {"pod": allreduce_wire_bytes(4, P) + reconcile, **world}
+
+
+def check_pod_training(ranks, first_loss, per_step, smi):
+    """Phase 7's checks and lines over the ranks' :func:`pod_rank` records:
+    (1) flat and sync agree step by step within ``POD_LOSS_RTOL``, their
+    first loss with ``first_loss`` (6(c)'s; None: not held) within
+    ``POD_FIRST_RTOL``, and the ``POD_FAULT`` run's loss lies outside both; (2)
+    int8 within ``POD_INT8_ATOL`` of sync after the last step; (3) in local
+    mode the pods' parameters differ after steps 1 and 3 and are equal
+    after step 2 (the other modes: equal after every step); (4) each step's
+    wire bytes on each group equal :func:`pod_wire_bytes`; (5) each step's
+    launches on each rank equal ``per_step``, all ``wgmma``, and no plain
+    version is called (``per_step`` None, on the CPU: no launch, and the plain
+    versions run).  Returns each mode's losses."""
+    by_mode = {rec["mode"]: [r[i] for r in ranks] for i, rec in enumerate(ranks[0])}
+    fault = by_mode.pop(POD_FAULT[0])[0]["history"][0]["loss"]
+    losses = {}
+    for mode, recs in by_mode.items():
+        hist = recs[0]["history"]
+        losses[mode] = [h["loss"] for h in hist]
+        for rank, rec in enumerate(recs):
+            if [h["loss"] for h in rec["history"]] != losses[mode]:
+                raise AssertionError(f"{mode}: rank {rank}'s losses differ from rank 0's")
+        n_metrics = len(set(hist[0]) - {"grad_norm", "step", "seconds_per_step",
+                                        "wire_bytes", "exchange_seconds"})
+        for i, h in enumerate(hist):
+            want = pod_wire_bytes(mode, recs[0]["n_params"], recs[0]["n_leaves"], n_metrics,
+                                  i + 1)
+            for rank, rec in enumerate(recs):
+                got = rec["history"][i]["wire_bytes"]
+                if got != want:
+                    raise AssertionError(f"{mode} step {i + 1} rank {rank}: wire bytes {got}, "
+                                         f"asymmetry's formulas {want}")
+        digests = [[s["digest"] for s in rec["steps"]] for rec in recs]
+        equal = [a == b for a, b in zip(*digests)]
+        want_equal = ([i % 2 == 1 for i in range(len(equal))] if mode == "local"
+                      else [True] * len(equal))
+        if equal != want_equal:
+            raise AssertionError(f"{mode}: the pods' parameters equal after each step "
+                                 f"{equal}, expected {want_equal}")
+        for rank, rec in enumerate(recs):
+            if per_step is not None and rec["plain"]:
+                raise AssertionError(f"{mode} rank {rank} called the plain versions "
+                                     f"{rec['plain']}")
+            for i, s in enumerate(rec["steps"]):
+                got = {k: s["launches"][k] for k in (per_step or {})}
+                wgmma = {k: s["launches"].get(f"{k}:wgmma", 0) for k in ("flash_attention",
+                                                                         "flash_attention_bwd")}
+                if per_step is None and any(s["launches"].values()):
+                    raise AssertionError(f"{mode} rank {rank}: launches on the CPU")
+                if per_step is not None and (got != per_step or any(
+                        wgmma[k] != per_step[k] for k in wgmma)):
+                    raise AssertionError(f"{mode} step {i + 1} rank {rank}: launches "
+                                         f"{s['launches']}, expected {per_step}, all wgmma")
+        step_s = [h["seconds_per_step"] - s["digest_s"]
+                  for h, s in zip(hist, recs[0]["steps"])]
+        exch = [sum(h["exchange_seconds"].values()) for h in hist]
+        print(f"[pods] {mode}: losses {losses[mode]}, grad-norms "
+              f"{[round(h['grad_norm'], 6) for h in hist]}; s per step "
+              f"{[round(t, 4) for t in step_s]} (the digest's "
+              f"{[round(s['digest_s'], 4) for s in recs[0]['steps']]} s taken out), "
+              f"exchange s per step {[round(t, 4) for t in exch]} "
+              f"({[{g: round(t, 4) for g, t in h['exchange_seconds'].items()} for h in hist]}); "
+              f"wire bytes per step {[h['wire_bytes'] for h in hist]} = asymmetry's formulas; "
+              f"pods' parameters equal after each step {equal}; backends {recs[0]['backends']}; "
+              f"launches per step and rank "
+              f"{ {k: c for k, c in recs[0]['steps'][0]['launches'].items() if c} }; calls of the "
+              f"plain versions {recs[0]['plain']}; {smi}")
+        for rank, rec in enumerate(recs):
+            if "peak_gb" in rec:
+                print(f"[pods] {mode} rank {rank} on {rec['device']}: peak memory "
+                      f"{rec['peak_gb']:.2f} GB, mem_get_info free {rec['free_total_gb'][0]:.2f} "
+                      f"of {rec['free_total_gb'][1]:.2f} GB")
+    flat, sync = losses["flat"], losses["sync"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(flat, sync))
+    first = abs(flat[0] - first_loss) / abs(first_loss) if first_loss is not None else 0.0
+    print(f"[pods] flat against sync: largest relative loss gap {rel:.3e} (limit "
+          f"{POD_LOSS_RTOL}); step 1 against 6(c)'s step 1 ({first_loss}): {first:.3e} "
+          f"(limit {POD_FIRST_RTOL})")
+    if rel > POD_LOSS_RTOL or first > POD_FIRST_RTOL:
+        raise AssertionError(f"flat {flat} and sync {sync} (6(c)'s step 1: {first_loss}) "
+                             f"differ beyond {POD_LOSS_RTOL} (step 1: {POD_FIRST_RTOL})")
+    fault_rel = abs(fault - sync[0]) / abs(sync[0])
+    fault_first = abs(fault - first_loss) / abs(first_loss) if first_loss is not None else None
+    print(f"[pods] the planted fault ({POD_FAULT[0]}), step 1: loss {fault}, {fault_rel:.3e} "
+          f"from sync's, {fault_first if fault_first is None else f'{fault_first:.3e}'} from "
+          f"6(c)'s; it must exceed {POD_LOSS_RTOL} and {POD_FIRST_RTOL}")
+    if not (fault_rel > POD_LOSS_RTOL and (fault_first is None or fault_first > POD_FIRST_RTOL)):
+        raise AssertionError(f"the planted fault's loss {fault} lies within the limits of "
+                             f"sync's {sync[0]}: the checks cannot tell a wrong split")
+    gap = abs(losses["sync+int8"][-1] - sync[-1])
+    print(f"[pods] int8 against exact sync after step {len(sync)}: {gap:.3e} "
+          f"(limit {POD_INT8_ATOL})")
+    if not gap < POD_INT8_ATOL:
+        raise AssertionError(f"int8 loss {losses['sync+int8'][-1]} is {gap} from exact "
+                             f"{sync[-1]}")
+    return losses
 
 
 def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, smi,
@@ -1512,6 +1770,7 @@ def main() -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import BatchAdmission, serve
     from repro_torch.launch.steps import build_encode_step
+    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.launch.train import to_device, train
     from repro_torch.models import MLSTMState, Model, SLSTMState, input_specs, layer_plan
     from repro_torch.models.attention import KVCache, MLACache
@@ -2622,6 +2881,7 @@ def main() -> int:
     n_params = sum(t.numel() for t in res["final_state"]["params"].values())
     del res
     torch.cuda.empty_cache()
+    train_first_loss = hist[0]["loss"]  # held against phase 7's first step
     for h in hist:
         print(f"[train] {arch} full width step {h['step']}: loss {h['loss']:.6f}, grad-norm "
               f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s")
@@ -3162,6 +3422,34 @@ def main() -> int:
                 rec["launches_per_step"] = launches[name] // n_steps
         records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = attn_ms
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 7. training in pods --
+    # llama3.2-1b at published width and depth on a 2 pods x 1 data mesh, two
+    # ranks spawned (they share the card where it is the only one), in each
+    # pod mode; each rank's launches counted from zero around each step.
+    held(7)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[memory] before phase 7's ranks: this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved; mem_get_info free "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB")
+    arch, rows, seq, micro, n_steps, lr = POD_TRAIN
+    n_ranks = math.prod(POD_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    if torch.cuda.device_count() < n_ranks:
+        print(f"[pods] {n_ranks} ranks sharing one {name} ({limit}); pod exchange over gloo "
+              "through host memory")
+    else:
+        print(f"[pods] {n_ranks} ranks, each on its own {name} ({limit})")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(pod_rank, n_ranks, (arch, rows, seq, micro, n_steps, lr), timeout=900)
+    check_pod_training(ranks, train_first_loss,
+                       expected_launches(layer_plan(get_config(arch)), micro), smi)
+    print(f"[pods] {arch} at published width and depth, {rows} x {seq} tokens a step over "
+          f"{n_ranks} ranks ({micro} microbatches of one row each), {n_steps} steps in each of "
+          f"{[m for m, _ in POD_MODES]} at lr {lr}: phase 7 took "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
 
     print(f"[time] chip_smoke.py ran {time.perf_counter() - started:.1f} s; {smi}")
     print(json.dumps({"kernels": list(records.values())}))

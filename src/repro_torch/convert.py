@@ -7,7 +7,7 @@ arrays (``jax.device_get``).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,14 +36,27 @@ def params_from_jax(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def train_state_from_jax(state: Any) -> Dict[str, Any]:
-    """A JAX train state ``{"params", "opt": {"step", "mu", "nu"}}`` as the
-    port's: the same keys, each tree flattened as :func:`params_from_jax`
-    does (load it with ``launch.steps.restore_train_state``)."""
+def train_state_from_jax(state: Any, pod: Optional[int] = None) -> Dict[str, Any]:
+    """A JAX train state ``{"params", "opt": {"step", "mu", "nu"}}`` (and
+    ``"ef"``) as the port's: the same keys, each tree flattened as
+    :func:`params_from_jax` does (load it with
+    ``launch.steps.restore_train_state``).  A multi-pod state, whose leaves
+    carry a leading pod dim as ``train_state_specs(model, run, npods)`` lays
+    them out (every leaf in ``local`` mode, ``ef`` under int8 ``sync``),
+    gives pod ``pod``'s slice."""
     opt = state["opt"]
-    return {
-        "params": params_from_jax(state["params"]),
-        "opt": {"step": _to_tensor(opt["step"]),
-                "mu": params_from_jax(opt["mu"]),
-                "nu": params_from_jax(opt["nu"])},
-    }
+    local = np.ndim(opt["step"]) == 1
+    if (local or "ef" in state) and pod is None:
+        raise ValueError("a multi-pod train state: name the pod whose slice to take")
+
+    def tree(t, has_pod: bool) -> Dict[str, torch.Tensor]:
+        flat = params_from_jax(t)
+        return {k: v[pod] for k, v in flat.items()} if has_pod else flat
+
+    step = _to_tensor(opt["step"])
+    out = {"params": tree(state["params"], local),
+           "opt": {"step": step[pod] if local else step,
+                   "mu": tree(opt["mu"], local), "nu": tree(opt["nu"], local)}}
+    if "ef" in state:
+        out["ef"] = tree(state["ef"], True)
+    return out

@@ -3,7 +3,9 @@
 Each source is one shared library with a plain C interface, so it compiles
 in seconds (no PyTorch headers).  The build happens at first use; a library
 is rebuilt when its source is newer.  Several sources build in parallel, one
-nvcc each.  nvcc runs with ``-Xptxas -v``; its output is kept beside each
+nvcc each, under an exclusive lock on ``build/build.lock`` (``flock``,
+released by the kernel if the process dies): processes that start together
+on a fresh tree, as the ranks of a mesh do, compile each source once.  nvcc runs with ``-Xptxas -v``; its output is kept beside each
 library (``build/lib<name>.log``) and :func:`ptxas_usage` reads each kernel's
 registers and spill bytes from it.  Nothing here runs when the module is
 imported: the CPU tests import every module on machines with no nvcc.
@@ -11,7 +13,9 @@ imported: the CPU tests import every module on machines with no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import re
 import shutil
@@ -65,10 +69,28 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
     processes that build at the same time do not see half-written libraries.
     """
     names = sources() if names is None else list(names)
-    todo = [n for n in names if _stale(n)]
-    if not todo:
+    if not any(_stale(n) for n in names):
         return []
+    with _build_lock():
+        # Again under the lock: another process may have built them meanwhile.
+        todo = [n for n in names if _stale(n)]
+        if todo:
+            _compile(todo)
+    return todo
+
+
+@contextlib.contextmanager
+def _build_lock():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(todo: List[str]) -> None:
     nvcc = _nvcc()
     procs = {}
     for n in todo:
@@ -87,7 +109,6 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
             os.replace(tmp, lib_path(n))
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return todo
 
 
 _LENGTH = re.compile(r"\d+")

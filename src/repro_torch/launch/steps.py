@@ -1,48 +1,167 @@
-"""The train step and the encoder's serving step on one device.
+"""The train step over a mesh of data-parallel ranks, and the encoder's
+serving step.
 
-Port of the single-device (``flat``) half of ``repro/launch/steps.py``: a
-train state mirrors the reference's ``{"params", "opt": {"step", "mu",
-"nu"}}``, with the model's own parameters (and the moments) as flat dicts
+Port of ``repro/launch/steps.py``.  A train state mirrors the reference's
+``{"params", "opt": {"step", "mu", "nu"}}`` (plus ``"ef"`` under int8
+exchange), with the model's own parameters (and the moments) as flat dicts
 under ``state_dict`` keys, updated in place.  Gradient accumulation follows
 ``_grad_fn``: each microbatch's gradients are taken on their own, cast to
 fp32, summed in fp32 buffers and divided by the count, never accumulated in
 the parameters' dtype.  The learning rate is the schedule at the step count
 *before* the update, so the first update (lr 0 with warmup) moves only the
-moments.  The pod-axis modes (``sync``, ``local``, int8 exchange) wait for
-the port's multi-GPU work.
+moments.
+
+Each rank of a :class:`~repro_torch.launch.mesh.Mesh` runs the step on its
+rows of the global batch (:func:`rank_rows`) and holds a whole replica of
+its pod's state; the pod modes (``RunConfig.sync_mode``) are the
+reference's, where a pod dim is a rank's ``pod`` coordinate:
+
+  flat  — the paper-baseline: rows split over (pod × data) jointly; one
+          all-reduce mean of each gradient over the world.
+  sync  — the cohort schedule (``core/cohort.py``): reduce-scatter over
+          ``data``, the fragment's all-reduce over ``pod``, all-gather over
+          ``data``; numerically ``flat``.  With ``compress_int8`` the pod hop
+          carries int8 with error feedback (``cohort.pod_sync_grads``).
+  local — budgeted: per-pod parameters and optimizer state, gradients
+          averaged inside the pod only, and the pods' *parameters* (not the
+          moments) averaged after every ``sync_budget``-th update.
+
+With one pod every mode is ``flat``; a mesh of one rank runs the
+one-device step, with no collective.  Loss and metrics are averaged over
+the world, the optimizer's over pods (``local``) as the reference does.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import RunConfig
+from ..core.cohort import (SyncConfig, bucket_mean, flat_all_reduce, pod_average_params,
+                           pod_sync_grads)
 from ..models import Model
 from ..optim import AdamWState, adamw_init, adamw_update, cosine_schedule
+from .mesh import Mesh
 
-def _check_one_pod(run: RunConfig, npods: int) -> None:
-    if npods != 1:
+
+def _one_rank(model: Model) -> Mesh:
+    dev = next(model.parameters()).device
+    return Mesh(axes=("data",), shape={"data": 1}, coords={"data": 0}, device=dev)
+
+
+def pod_mode(run: RunConfig, mesh: Mesh) -> str:
+    """The reference's mode for ``run`` on ``mesh``: ``run.sync_mode`` with
+    more than one pod, else ``flat``."""
+    mode = run.sync_mode if mesh.size("pod") > 1 else "flat"
+    mode = "flat" if mode == "none" else mode
+    if mode not in ("flat", "sync", "local"):
+        raise ValueError(f"sync_mode {run.sync_mode!r}")
+    return mode
+
+
+def _check_layout(model: Model, run: RunConfig, mesh: Mesh) -> None:
+    """MoE capacity is computed over the rows one step sees: in the
+    reference all of the batch in ``flat`` and a pod's rows in ``sync`` and
+    ``local``.  A rank sees as many only with one data rank per pod."""
+    cfg = model.cfg
+    if cfg.moe is None or mesh.world_size == 1:
+        return
+    mode = pod_mode(run, mesh)
+    if mode == "flat" or mesh.size("data") > 1:
         raise NotImplementedError(
-            f"the port trains on one device; sync_mode={run.sync_mode!r} "
-            f"(compress_int8={run.compress_int8}) over {npods} pods waits for "
-            "its multi-GPU port")
+            f"{cfg.name}: MoE over mesh {mesh.shape} in {mode} mode would route with a "
+            "capacity other than the reference's; the port trains MoE across ranks only "
+            "in sync or local mode with data 1 until the next multi-GPU slice")
 
 
-def init_train_state(model: Model, run: RunConfig, npods: int = 1) -> Dict[str, Any]:
+def rank_rows(batch: Dict[str, torch.Tensor], mesh: Mesh, mode: str,
+              microbatches: int) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch, as the reference lays them out:
+    in ``sync`` and ``local`` pod ``p`` takes rows ``p·B/P …`` (``_pod_split``)
+    and data rank ``d`` the ``d``-th of each microbatch's share of those; in
+    ``flat`` rank ``p·D + d`` takes that share of each microbatch of the whole
+    batch.  So the rank's own microbatches are its shares of the reference's."""
+    if mesh.world_size == 1:
+        return batch
+    P, D = mesh.size("pod"), mesh.size("data")
+    p, d = mesh.coords.get("pod", 0), mesh.coords.get("data", 0)
+    outer, inner, o, i = (1, P * D, 0, p * D + d) if mode == "flat" else (P, D, p, d)
+    m = max(microbatches, 1)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % (outer * m * inner):
+        raise ValueError(f"a batch of {rows} rows does not split over {outer} x {inner} "
+                         f"ranks in {m} microbatches")
+    per = rows // (outer * m * inner)
+    return {k: v.reshape(outer, m, inner, per, *v.shape[1:])[o, :, i].reshape(
+        m * per, *v.shape[1:]) for k, v in batch.items()}
+
+
+def init_train_state(model: Model, run: RunConfig, mesh: Optional[Mesh] = None
+                     ) -> Dict[str, Any]:
     """The train state over ``model``'s parameters (the tensors themselves,
-    not copies) and zeroed moments in ``run.optimizer_state_dtype``."""
-    _check_one_pod(run, npods)
+    not copies) and zeroed moments in ``run.optimizer_state_dtype``; under
+    int8 ``sync`` over pods also ``ef``, fp32 zeros (the error feedback)."""
     params = dict(model.named_parameters())
     opt = adamw_init(params, getattr(torch, run.optimizer_state_dtype))
-    return {"params": params, "opt": {"step": opt.step, "mu": opt.mu, "nu": opt.nu}}
+    state = {"params": params, "opt": {"step": opt.step, "mu": opt.mu, "nu": opt.nu}}
+    if mesh is not None and pod_mode(run, mesh) == "sync" and run.compress_int8:
+        state["ef"] = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                       for k, p in params.items()}
+    return state
+
+
+def _pod_groups(run: RunConfig, mesh: Mesh) -> Tuple[str, ...]:
+    """The state's top-level groups that carry a leading pod dim in the
+    reference's layout (``train_state_specs``): all in ``local`` mode,
+    ``ef`` under int8 ``sync``."""
+    if mesh.size("pod") == 1:
+        return ()
+    return ("params", "opt") if pod_mode(run, mesh) == "local" else ("ef",)
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+@torch.no_grad()
+def checkpoint_tree(state: Dict[str, Any], run: RunConfig, mesh: Mesh) -> Dict[str, Any]:
+    """``state`` in the JAX package's checkpoint layout: the groups of
+    :func:`_pod_groups` gathered over the pod group into a leading pod dim.
+    Every rank of the pod group that holds rank 0 (data coordinate 0) must
+    call it; other ranks get ``state`` back.  The gathers count in a traffic
+    record of their own, not the steps'."""
+    groups = _pod_groups(run, mesh)
+    if not groups or mesh.coords.get("data", 0) != 0:
+        return state
+    P, traffic = mesh.size("pod"), mesh.traffic
+    mesh.traffic = type(traffic)()
+    try:
+        gather = lambda t: mesh.all_gather(t.reshape(-1), "pod").view(P, *t.shape)
+        return {k: _map(v, gather) if k in groups else v for k, v in state.items()}
+    finally:
+        mesh.traffic = traffic
+
+
+def checkpoint_like(state: Dict[str, Any], run: RunConfig, mesh: Mesh) -> Dict[str, Any]:
+    """The shapes of :func:`checkpoint_tree` (``meta`` tensors), for
+    ``load_checkpoint``."""
+    groups, P = _pod_groups(run, mesh), mesh.size("pod")
+    pod_dim = lambda t: torch.empty((P, *t.shape), dtype=t.dtype, device="meta")
+    return {k: _map(v, pod_dim) if k in groups else v for k, v in state.items()}
+
+
+def pod_slice(tree: Dict[str, Any], run: RunConfig, mesh: Mesh) -> Dict[str, Any]:
+    """This rank's pod's slice of a tree in the checkpoint layout."""
+    groups, p = _pod_groups(run, mesh), mesh.coords.get("pod", 0)
+    return {k: _map(v, lambda t: t[p]) if k in groups else v for k, v in tree.items()}
 
 
 @torch.no_grad()
 def restore_train_state(state: Dict[str, Any], restored: Dict[str, Any]) -> None:
     """Copy a restored (or converted) tree into ``state`` in place: every
-    tensor keeps its device and dtype; the step count is replaced."""
+    tensor keeps its device and dtype (``ef`` too, where ``state`` has it);
+    the step count is replaced."""
     for group, live in (("params", state["params"]),
                         ("mu", state["opt"]["mu"]), ("nu", state["opt"]["nu"])):
         new = restored["params"] if group == "params" else restored["opt"][group]
@@ -50,6 +169,9 @@ def restore_train_state(state: Dict[str, Any], restored: Dict[str, Any]) -> None
             raise KeyError(f"{group}: keys differ: {sorted(set(new) ^ set(live))}")
         for key, t in live.items():
             t.copy_(new[key])
+    if "ef" in state:
+        for key, t in state["ef"].items():
+            t.copy_(restored["ef"][key])
     step = state["opt"]["step"]
     state["opt"]["step"] = torch.as_tensor(restored["opt"]["step"]).to(step.device, step.dtype)
 
@@ -92,17 +214,33 @@ def grad_fn(model: Model, microbatches: int = 1) -> Callable:
     return fn
 
 
-def build_train_step(model: Model, run: RunConfig, npods: int = 1) -> Callable:
-    """``step(state, batch) -> (state, metrics)``: loss and gradients over
-    ``run.microbatches`` slices of the batch rows (:func:`grad_fn`), then one
-    AdamW update of ``state`` in place.  ``metrics`` holds 0-d tensors
-    (``ce``, ``loss``, ``grad_norm``), so a step never waits on the device."""
-    _check_one_pod(run, npods)
+def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) -> Callable:
+    """``step(state, batch) -> (state, metrics)`` on this rank of ``mesh``
+    (default: one rank on the model's device): the rank's rows of the global
+    ``batch`` (:func:`rank_rows`), loss and gradients over
+    ``run.microbatches`` slices of them (:func:`grad_fn`), the exchange of
+    ``run.sync_mode``, then one AdamW update of ``state`` in place.
+    ``metrics`` holds 0-d tensors (``ce``, ``loss``, ``grad_norm``), so a
+    step on one rank never waits on the device."""
+    mesh = mesh or _one_rank(model)
+    _check_layout(model, run, mesh)
+    mode = pod_mode(run, mesh)
     grads_of = grad_fn(model, run.microbatches)
+    world, P = mesh.world_size, mesh.size("pod")
+    sync = SyncConfig(mode, run.sync_budget, run.compress_int8)
 
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
-        loss, metrics, grads = grads_of(batch)
+        loss, metrics, grads = grads_of(rank_rows(batch, mesh, mode, run.microbatches))
+        if world > 1:
+            if mode == "flat":
+                grads = {k: g.div_(world) for k, g in flat_all_reduce(grads, mesh).items()}
+            elif mode == "sync":
+                ef = state["ef"] if run.compress_int8 else None
+                grads, _ = pod_sync_grads(grads, sync, mesh, ef)
+            else:
+                grads = bucket_mean(grads, mesh, "data")
         opt = AdamWState(state["opt"]["step"], state["opt"]["mu"], state["opt"]["nu"])
+        before = opt.step
         lr = cosine_schedule(opt.step, peak_lr=run.learning_rate,
                              warmup=run.warmup_steps, total=run.total_steps)
         opt, om = adamw_update(state["params"], grads, opt, lr,
@@ -110,7 +248,19 @@ def build_train_step(model: Model, run: RunConfig, npods: int = 1) -> Callable:
         del grads
         new_state = {"params": state["params"],
                      "opt": {"step": opt.step, "mu": opt.mu, "nu": opt.nu}}
-        metrics = dict(metrics)
+        if "ef" in state:
+            new_state["ef"] = state["ef"]
+        metrics = {**metrics, "loss": loss}
+        if world > 1:
+            # Loss and metrics: the mean over every rank's rows; the
+            # optimizer's differ between pods only in local mode.
+            vec = mesh.all_reduce(torch.stack(list(metrics.values())).float(), "world")
+            metrics = dict(zip(metrics, (vec / world).unbind()))
+            if mode == "local":
+                vec = mesh.all_reduce(torch.stack(list(om.values())).float(), "pod")
+                om = dict(zip(om, (vec / P).unbind()))
+                pod_average_params(state["params"], sync, mesh, int(before))
+        loss = metrics.pop("loss")
         metrics.update(om)
         metrics["loss"] = loss
         return new_state, metrics

@@ -79,12 +79,19 @@ def test_port_core_exports_the_control_plane():
              "make_scheduler", "BudgetedMCSLock", "InflatedKeyQueue",
              "ModifiedPetersonLock", "ALock", "BrokenMixedCASLock", "FilterLock",
              "NaiveRCASLock", "RPCLock"]
-    for name in names:
+    # The data plane: the reference's cohort collectives and cost model,
+    # with the H100 in place of the TPU.
+    data_plane = ["SyncConfig", "cohort_all_reduce", "flat_all_reduce", "pod_average_params",
+                  "pod_sync_grads", "all_gather_wire_bytes", "all_to_all_wire_bytes",
+                  "allreduce_wire_bytes", "cohort_vs_flat_dcn_bytes",
+                  "reduce_scatter_wire_bytes"]
+    for name in names + data_plane:
         assert hasattr(jcore, name) and hasattr(tcore, name), name
         obj = getattr(tcore, name)
         if inspect.isclass(obj) or inspect.isfunction(obj):
             assert obj.__module__.startswith("repro_torch.core."), (name, obj.__module__)
-    assert not hasattr(tcore, "cohort_all_reduce") and not hasattr(tcore, "modelcheck")
+    assert hasattr(tcore, "H100") and not hasattr(tcore, "TPUv5e")
+    assert not hasattr(tcore, "wrap_step_with_pod_sync") and not hasattr(tcore, "modelcheck")
 
 
 def test_port_coord_exports_what_the_reference_exports():

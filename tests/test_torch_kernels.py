@@ -6,6 +6,7 @@ modules are imported inside a fixture so that the card-only test at the end
 also runs where JAX is not installed.
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -204,6 +205,28 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["flash_attention"])
+
+
+def test_builds_started_together_compile_each_source_once(tmp_path, monkeypatch):
+    """Two builds of a fresh tree at once, as the ranks of a mesh start:
+    under the build lock each source compiles once.  The stub nvcc notes
+    each call, takes 0.3 s and writes its ``-o`` file."""
+    csrc, calls, nvcc = tmp_path / "csrc", tmp_path / "calls", tmp_path / "nvcc"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text("")
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> {calls}\nsleep 0.3\n'
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(build.build, ["a", "b"]) for _ in range(2)]
+        done = [f.result(timeout=60) for f in futures]
+    assert sorted(map(sorted, done)) == [[], ["a", "b"]]
+    assert len(calls.read_text().splitlines()) == 2
+    assert not any(build._stale(name) for name in ("a", "b"))
 
 
 @pytest.mark.parametrize("shape,dtype,expect", VARIANT_CASES)

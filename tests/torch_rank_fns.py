@@ -1,0 +1,127 @@
+"""Functions that the multi-rank CPU tests run in each spawned rank
+(``repro_torch.launch.mesh.spawn_ranks``).  They import torch and the port
+only, so that a rank starts without JAX; each returns numpy arrays."""
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import RunConfig, ShapeConfig, get_config
+from repro_torch.core.cohort import (SyncConfig, bucket_mean, cohort_all_reduce,
+                                     flat_all_reduce, pod_sync_grads)
+from repro_torch.launch import train as train_mod
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import build_train_step, init_train_state
+from repro_torch.models import Model
+
+POD_DATA = ("pod", "data")
+
+
+def _numpy(tree):
+    return {k: v.detach().numpy().copy() for k, v in tree.items()}
+
+
+def _wire(mesh, fn):
+    """``fn()``'s result and the wire bytes it put on each group."""
+    mesh.traffic.reset()
+    out = fn()
+    return out, dict(mesh.traffic.wire_bytes)
+
+
+def cohort_checks(g):
+    """On a 2 x 2 mesh: the cohort and flat all-reduces of a 27-element tree
+    (rank ``r`` adds ``r``) and the bytes each puts on each group; those of
+    a 64-element bucket, and of its all-reduce over ``pod`` alone; then 24
+    int8 exchanges of the same gradient ``g`` with error feedback and the
+    running mean's worst error after each."""
+    mesh = make_mesh((2, 2), POD_DATA, "cpu")
+    r = dist.get_rank()
+    tree = lambda: {"w": torch.arange(24, dtype=torch.float32).view(4, 6) + r,
+                    "b": torch.full((3,), 0.5) + r}
+    cohort, cohort_bytes = _wire(mesh, lambda: cohort_all_reduce(tree(), mesh))
+    flat, flat_bytes = _wire(mesh, lambda: flat_all_reduce(tree(), mesh))
+    even = lambda: {"g": torch.ones(64)}
+    _, even_cohort = _wire(mesh, lambda: cohort_all_reduce(even(), mesh))
+    _, even_flat = _wire(mesh, lambda: flat_all_reduce(even(), mesh))
+    _, even_pod = _wire(mesh, lambda: bucket_mean(even(), mesh, "pod"))
+
+    cfg = SyncConfig(mode="sync", compress_int8=True)
+    grads, ef = {"w": torch.from_numpy(g)}, {"w": torch.zeros(g.shape)}
+    acc, errs = torch.zeros(g.shape), []
+    for i in range(24):
+        mean, ef = pod_sync_grads(dict(grads), cfg, mesh, ef)  # it empties the dict
+        acc += mean["w"]
+        errs.append(float((acc / (i + 1) - grads["w"]).abs().max()))
+    return {"cohort": _numpy(cohort), "flat": _numpy(flat), "cohort_bytes": cohort_bytes,
+            "flat_bytes": flat_bytes, "even_cohort": even_cohort, "even_flat": even_flat,
+            "even_pod": even_pod, "ef_errors": errs, "backends": dict(mesh.backends)}
+
+
+def _model(arch, params):
+    model = Model(get_config(arch, smoke=True).with_overrides(dtype="float32"), device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    return model
+
+
+def step_modes(arch, shape, params, batches, runs):
+    """For each ``RunConfig`` keyword set of ``runs``: ``arch`` (smoke, fp32,
+    from ``params``) stepped over ``batches`` on a mesh of ``shape`` over
+    (pod, data).  Returns, per run, the losses, grad-norms, wire bytes per
+    step on each group, and this rank's final parameters (and ``ef``)."""
+    mesh = make_mesh(shape, POD_DATA, "cpu")
+    out = []
+    for kw in runs:
+        model = _model(arch, params)
+        run = RunConfig(total_steps=10, **kw)
+        state, step = init_train_state(model, run, mesh), build_train_step(model, run, mesh)
+        losses, norms, wire = [], [], []
+        for b in batches:
+            mesh.traffic.reset()
+            state, m = step(state, {"tokens": torch.from_numpy(b[:, :-1]).long(),
+                                    "labels": torch.from_numpy(b[:, 1:]).long()})
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            wire.append(dict(mesh.traffic.wire_bytes))
+        out.append({"loss": losses, "grad_norm": norms, "wire": wire,
+                    "params": _numpy(state["params"]),
+                    "ef": _numpy(state["ef"]) if "ef" in state else None})
+    return {"coords": mesh.coords, "runs": out}
+
+
+def train_fp32(arch, shape, steps, run_kw, resume=False):
+    """``train(arch)`` (smoke, fp32) on a mesh of ``shape`` over (pod, data),
+    two ranks per host, logging every step; returns its history."""
+    real = train_mod.get_config
+    train_mod.get_config = lambda a, smoke: real(a, smoke).with_overrides(dtype="float32")
+    try:
+        out = train_mod.train(arch, steps=steps, shape=ShapeConfig("t", 16, 8, "train"),
+                              mesh_shape=shape, mesh_axes=POD_DATA, run=RunConfig(**run_kw),
+                              resume=resume, log_every=1,
+                              num_hosts=max(int(np.prod(shape)) // 2, 1), device="cpu")
+    finally:
+        train_mod.get_config = real
+    return out["history"]
+
+
+def cli_main(argv):
+    """The training CLI (``train.main``) with ``argv``, inside the ranks'
+    process group."""
+    train_mod.main(argv)
+
+
+def ranks_main(jobs):
+    """Each ``(name, args)`` of ``jobs`` in turn (``name`` a function of this
+    module); their results, in order."""
+    return [globals()[name](*args) for name, args in jobs]
+
+
+def chip_smoke_pod_rank(*args):
+    """chip_smoke.py's phase-7 rank (``pod_rank``), the script loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.pod_rank(*args)
