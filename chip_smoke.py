@@ -207,9 +207,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches are 6(c)'s per-row share, all ``wgmma``, with no call of a
    plain version; it prints each mode's seconds and exchange seconds per
    step, each group's backend, and each rank's peak memory and
-   ``mem_get_info``.
+   ``mem_get_info``;
+8. FSDP and tensor parallelism (``sharding/rules.py`` and
+   ``sharding/shard.py``): llama3.2-1b at published width and depth, (a)
+   served with phase 4's request on a ``(data 1, model 2)`` mesh
+   (:func:`tp_serve_rank`, two ranks): the prefill's last-token logits
+   within ``TP_LOGITS_RTOL`` of phase 4's, every first token equal, the
+   ``model`` group's bytes of the prefill and of each decode step equal to
+   ``core/asymmetry.py``'s formulas, 16 flash launches a prefill on
+   ``wgmma`` and no plain call (:func:`check_tp_serving`); (b) trained 3
+   steps of 4 x 4096 on ``(data 2, model 2)`` (:func:`tp_train_rank`, four
+   ranks): step 1's loss and grad-norm within ``TP_LOSS_RTOL`` and
+   ``TP_NORM_RTOL`` of a one-rank run of the same weights and batch made
+   here first, each group's bytes a step equal to the formulas
+   (:func:`tp_wire_bytes`), each rank's parameter and moment bytes its
+   blocks' by the rules (:func:`shard_bytes`), 32 flash and 16 flash
+   backward launches a rank and step on ``wgmma`` and no plain call
+   (:func:`check_tp_training`); in both, a planted fault (``wi`` split
+   contiguously, :func:`contiguous_wi`) must lie outside every limit. It
+   prints prefill s, decode ms/token, s and exchange s per step by group,
+   the backends, and each rank's parameter bytes and peak memory.
 
-Before each of phases 3-7 a ``[memory]`` line prints what the phases before
+Before each of phases 3-8 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds, the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -277,6 +296,9 @@ FLASH_SLICES = {  # prefill attention of each main path
     "hubert-xlarge": (8, 1500, 16, 16, 80, 80, False, 0, "bfloat16"),
     # internvl2-76b's prefill: 64 heads over 8 KV heads at d 128.
     "internvl2-76b": (4, 2048, 64, 8, 128, 128, True, 0, "bfloat16"),
+    # llama3.2-1b's prefill on a rank of model 2 (phase 8(a)): its 16 query
+    # heads over 4 KV heads.
+    "llama3.2-1b model 2": (8, 1024, 16, 4, 64, 64, True, 0, "bfloat16"),
 }
 # The plain versions run over slices of the KV heads whose fp32 scores take at
 # most this many bytes: whole, MLA's 128 heads would not fit the card
@@ -422,6 +444,9 @@ TRAIN_INTERNVL2_ATTN = (1, 2048, 64, 8, 128, 128, True, 0, "bfloat16")
 # 1500 frames, 16 heads of d 80, no causal mask; forward and backward on
 # wgmma at D 128.
 TRAIN_HUBERT_ATTN = (4, 1500, 16, 16, 80, 80, False, 0, "bfloat16")
+# llama3.2-1b's attention on a rank of data 2 x model 2 (phase 8(b)): its 2
+# rows, its 16 query heads over 4 KV heads.
+TRAIN_TP_ATTN = (2, 4096, 16, 4, 64, 64, True, 0, "bfloat16")
 # The launches of one flash_attention_bwd call on each variant (``wgmma`` up
 # to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
 # kernel has in a profiler trace, and the main kernels of each.
@@ -575,6 +600,28 @@ POD_FAULT = ("fault: sync on pod 0's rows", {"sync_mode": "sync"})
 # sync with int8 against exact sync after three steps, absolute
 # (tests/test_system.py's bound for the JAX package).
 POD_INT8_ATOL = 5e-3
+# Phase 8: FSDP and tensor parallelism from sharding/rules.py on a (data,
+# model) mesh, llama3.2-1b at published width and depth, its ranks spawned
+# as phase 7's (they share the card where it is the only one).  (a) serving
+# phase 4's request (SERVE[0]: 8 x 1024 prompt, 32 tokens) at model 2; (b)
+# training at data 2 x model 2: global rows, tokens per row, microbatches a
+# rank (2 rows each), steps, peak learning rate.  Cut from 6(c): the global
+# batch, 8 rows to 4.
+TP_SERVE_MESH = ((1, 2), ("data", "model"))
+TP_TRAIN_MESH = ((2, 2), ("data", "model"))
+TP_TRAIN = ("llama3.2-1b", 4, 4096, 1, 3, 3e-4)
+# (a) the prefill's last-token logits against phase 4's one-rank logits, in
+# relative L2 over the batch; (b) step 1's loss and grad-norm against a
+# one-rank run of the same weights and batch, relative.  The sharded path
+# rounds its partial products to bf16 on each rank before it sums them; the
+# planted fault (``wi`` split contiguously, so that one model rank holds all
+# of gate and the other all of up) must lie outside every limit.  On an H100
+# (700 W) a sound run read 1.73e-2, 1.06e-5 and 3.7e-6, the fault 1.31,
+# 7.5e-4 and 2.2e-2; at smoke width on the CPU (the rehearsal) sound 9.7e-3,
+# 3.4e-6 and 4.6e-4, the fault 1.21, 6.1e-5 and 2.3e-2.
+TP_LOGITS_RTOL = 5e-2
+TP_LOSS_RTOL = 3e-5
+TP_NORM_RTOL = 5e-3
 # The ops-level functions that the plain versions replace in a microbatch.
 KERNEL_ENTRIES = ("_flash_fwd", "_flash_bwd", "_scan_fwd", "_scan_bwd")
 
@@ -1195,6 +1242,424 @@ def check_pod_training(ranks, first_loss, per_step, smi):
         raise AssertionError(f"int8 loss {losses['sync+int8'][-1]} is {gap} from exact "
                              f"{sync[-1]}")
     return losses
+
+
+def cpu_mesh(shape, axes=("data", "model")):
+    """A rank's ``Mesh`` of ``shape`` with no process group: what the rules
+    and the byte formulas read of a mesh."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(axes=tuple(axes), shape=dict(zip(axes, shape)), coords=dict.fromkeys(axes, 0),
+                device=torch.device("cpu"))
+
+
+@contextlib.contextmanager
+def contiguous_wi():
+    """The planted fault of phase 8: models built in the block split swiglu's
+    ``wi`` ``[gate | up]`` contiguously over ``model`` (model rank 0 holds
+    all of gate), as a sharding that ignores the fused layout would."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding.shard import Placement
+
+    real = transformer.param_layout
+    transformer.param_layout = lambda *a: {k: Placement(p.spec) for k, p in real(*a).items()}
+    try:
+        yield
+    finally:
+        transformer.param_layout = real
+
+
+def shard_bytes(cfg, shape):
+    """(parameter bytes, fp32 moment bytes) of one rank's blocks on a
+    ``(data, model)`` mesh of ``shape``, from the rules alone."""
+    import torch
+
+    from repro_torch.models import model_specs
+    from repro_torch.sharding.shard import named_leaves, param_layout
+
+    mesh = cpu_mesh(shape)
+    specs = dict(named_leaves(model_specs(cfg)))
+    layout = param_layout(model_specs(cfg), cfg.act, mesh)
+    numel = {k: math.prod(n // math.prod(mesh.size(a) for a in layout[k].axes(d))
+                          for d, n in enumerate(s.shape)) for k, s in specs.items()}
+    params = sum(n * torch.empty((), dtype=specs[k].dtype).element_size()
+                 for k, n in numel.items())
+    return params, 8 * sum(numel.values())
+
+
+def tp_wire_bytes(cfg, shape, rows, seq, micro, n_metrics):
+    """The wire bytes per rank that one train step on a ``(data, model)``
+    mesh of ``shape`` must count on each group, by ``core/asymmetry.py``'s
+    formulas, for ``rows`` global rows of ``seq`` positions in ``micro``
+    microbatches a rank.  ``data``: per microbatch each parameter's block
+    gathered whole over ``data`` on use (a stacked super-block's twice under
+    remat: the forward and the recompute; the rest once) and its gradient
+    reduce-scattered in fp32 once; a leaf whole on ``data`` averaged in one
+    fp32 bucket; the ``n_metrics`` metrics averaged over the data ranks
+    (``world`` without a model axis).  ``model``: per microbatch Megatron's
+    *g* after the vocab-parallel embedding and after each attention and FFN
+    output in the forward, and in remat's recompute all but a super-block's
+    last (nothing that the backward keeps depends on it, so the recompute
+    stops before it); *f*'s in the backward, two a layer and one ahead of the
+    logits; the cross-entropy's max, sum of exponents and label logit over
+    the vocab shards, recomputed per chunk of ``chunked_xent``.  ``world``:
+    the global norm's sum."""
+    import torch
+
+    from repro_torch.core.asymmetry import (all_gather_wire_bytes, allreduce_wire_bytes,
+                                            reduce_scatter_wire_bytes)
+    from repro_torch.models import layer_plan, model_specs
+    from repro_torch.sharding.shard import named_leaves, param_layout
+
+    mesh = cpu_mesh(shape)
+    D, M = shape
+    layout = param_layout(model_specs(cfg), cfg.act, mesh)
+    plan = layer_plan(cfg)
+    remat = cfg.remat != "none"
+    out = {}
+
+    def add(group, b):
+        if b:
+            out[group] = out.get(group, 0.0) + b
+
+    whole = 0
+    for key, spec in named_leaves(model_specs(cfg)):
+        pl = layout[key]
+        n = math.prod(spec.shape) // math.prod(mesh.size("model") for d in range(len(spec.shape))
+                                               if "model" in pl.axes(d))
+        size = torch.empty((), dtype=spec.dtype).element_size()
+        if key == "embed.table" and cfg.frontend == "audio" and not cfg.tie_embeddings:
+            continue  # never read: never gathered
+        if pl.dim_of("data") is None:
+            whole += n
+            continue
+        uses = 2 if remat and key.startswith("blocks.") else 1
+        add("data", micro * (uses * all_gather_wire_bytes(n * size, D)
+                             + reduce_scatter_wire_bytes(4 * n, D)))
+    if D > 1:
+        add("data", allreduce_wire_bytes(4 * whole, D))
+        add("data" if M > 1 else "world", allreduce_wire_bytes(4 * n_metrics, D))
+    add("world", allreduce_wire_bytes(4, D * M))
+    if M > 1:
+        b = rows // D // micro
+        esize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+        text = seq - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+        vocab = "model" in layout["embed.table" if cfg.tie_embeddings else "unembed.w"].axes(
+            0 if cfg.tie_embeddings else 1)
+        n_attn = plan.pattern.count("attn")
+        layers = plan.n_scan * n_attn + plan.lead.count("attn") + plan.tail.count("attn")
+        recompute = plan.n_scan * (2 * n_attn - 1) if remat else 0
+        act = allreduce_wire_bytes(b * seq * cfg.d_model * esize, M)
+        per = (4 * layers + recompute) * act
+        if vocab:
+            per += allreduce_wire_bytes(b * text * cfg.d_model * esize, M)  # f ahead of logits
+            if cfg.frontend != "audio":
+                per += allreduce_wire_bytes(b * text * cfg.d_model * esize, M)  # embedding
+            chunked = text >= 2048 and text % 1024 == 0
+            per += (2 if chunked else 1) * 3 * allreduce_wire_bytes(4 * b * text, M)
+        add("model", micro * per)
+    return out
+
+
+def tp_serve_wire_bytes(cfg, model_size, batch, positions):
+    """The ``model`` group's wire bytes per rank of one prefill over
+    ``positions`` (1: one decode step) on a mesh of one data rank: *g* after
+    the vocab-parallel embedding and after each attention and FFN output, and
+    the last position's logits gathered over the vocab shards."""
+    import torch
+
+    from repro_torch.core.asymmetry import all_gather_wire_bytes, allreduce_wire_bytes
+    from repro_torch.models import layer_plan
+
+    plan = layer_plan(cfg)
+    layers = (plan.n_scan * plan.pattern.count("attn") + plan.lead.count("attn")
+              + plan.tail.count("attn"))
+    esize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    act = allreduce_wire_bytes(batch * positions * cfg.d_model * esize, model_size)
+    return {"model": (2 * layers + 1) * act
+            + all_gather_wire_bytes(batch * cfg.vocab_size * esize, model_size)}
+
+
+def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None):
+    """One rank of phase 8(a), spawned: ``serve(arch)`` on ``TP_SERVE_MESH``
+    with the launches counted from zero around it, ``Model.prefill`` and
+    ``decode_step`` wrapped to record the prefill's last-token logits, the
+    launches of each call and the wire bytes it put on each group; then one
+    prefill of the same prompts under :func:`contiguous_wi`.  Returns the
+    tokens, logits, the fault's logits, times, launches, bytes, the
+    parameter bytes held, the plain versions' calls and the peak memory."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model, input_specs, rank_inputs
+
+    rec = {"decode_bytes": [], "decode_launches": []}
+    cfg = get_config(arch, smoke=smoke)
+
+    class Recorded(Model):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["mesh"] = self.mesh
+            rec["param_bytes"] = sum(p.numel() * p.element_size() for p in self.parameters())
+
+        def _call(self, fn, *args):
+            before, counts = dict(self.mesh.traffic.wire_bytes), launch_counts()
+            out = fn(*args)
+            wire = {g: b - before.get(g, 0.0) for g, b in self.mesh.traffic.wire_bytes.items()}
+            return out, wire, {k: c - counts[k] for k, c in launch_counts().items()}
+
+        def prefill(self, batch_, max_len):
+            (logits, caches), rec["prefill_bytes"], rec["prefill_launches"] = self._call(
+                super().prefill, batch_, max_len)
+            rec["logits"] = logits[:, -1].float().cpu().numpy()
+            return logits, caches
+
+        def decode_step(self, caches, tokens):
+            out, wire, launches = self._call(super().decode_step, caches, tokens)
+            rec["decode_bytes"].append(wire)
+            rec["decode_launches"].append(launches)
+            return out
+
+    serve_mod.Model = Recorded
+    try:
+        with counted_plain_calls() as plain:
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            res = serve_mod.serve(arch, smoke=smoke, batch=batch, prompt_len=prompt_len,
+                                  gen_len=gen_len, mesh_shape=TP_SERVE_MESH[0],
+                                  mesh_axes=TP_SERVE_MESH[1], device=device)
+            launches = launch_counts()
+    finally:
+        serve_mod.Model = Model
+    mesh = rec.pop("mesh")
+    out = {"tokens": res["tokens"].numpy(), "prefill_s": res["prefill_seconds"],
+           "decode_ms": res["decode_seconds_per_token"] * 1e3, "launches": launches,
+           "plain": dict(plain), "backends": dict(mesh.backends), "device": str(mesh.device),
+           **rec}
+    if device is None:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del res
+    gc.collect()
+    with contiguous_wi():
+        fault = Model(cfg, device=mesh.device,
+                      generator=torch.Generator(mesh.device).manual_seed(0), mesh=mesh)
+    pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
+    prompts = rank_inputs(input_specs(cfg, pshape,
+                                      generator=torch.Generator(mesh.device).manual_seed(1),
+                                      device=mesh.device), cfg, pshape, fault.mesh)
+    logits, _ = fault.prefill(prompts, prompt_len + gen_len)
+    out["fault_logits"] = logits[:, -1].float().cpu().numpy()
+    return out
+
+
+def check_tp_serving(ranks, cfg, batch, prompt_len, ref_logits, ref_tokens, smi):
+    """Phase 8(a)'s checks and lines over the ranks' :func:`tp_serve_rank`
+    records, against the one-rank ``ref_logits`` (numpy ``[batch, V]``) and
+    ``ref_tokens``: each rank's prefill logits within ``TP_LOGITS_RTOL`` in
+    relative L2 and the fault's outside it; every row's first token equal to
+    the one rank's; the ``model`` group's bytes of the prefill and of each
+    decode step equal :func:`tp_serve_wire_bytes`; on the card (``smi`` not
+    None) 16 flash launches a prefill, all ``wgmma``, none in decode, and no
+    call of a plain version (on the CPU: no launch).  Returns the largest
+    relative L2."""
+    import numpy as np
+
+    M = TP_SERVE_MESH[0][1]
+    rel = lambda a: float(np.linalg.norm(a - ref_logits) / np.linalg.norm(ref_logits))
+    worst, fault = 0.0, []
+    for rank, r in enumerate(ranks):
+        gap, fgap = rel(r["logits"]), rel(r["fault_logits"])
+        worst, fault = max(worst, gap), fault + [fgap]
+        if not gap <= TP_LOGITS_RTOL:
+            raise AssertionError(f"rank {rank}: prefill logits {gap:.3e} from one rank's "
+                                 f"(limit {TP_LOGITS_RTOL})")
+        if not fgap > TP_LOGITS_RTOL:
+            raise AssertionError(f"rank {rank}: the planted fault's logits lie {fgap:.3e} from "
+                                 f"one rank's, within {TP_LOGITS_RTOL}: the check cannot tell")
+        if not np.array_equal(r["tokens"][:, 0], ref_tokens[:, 0]):
+            raise AssertionError(f"rank {rank}: first tokens {r['tokens'][:, 0]} differ from "
+                                 f"one rank's {ref_tokens[:, 0]}")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"rank {rank}'s tokens differ from rank 0's")
+        want = tp_serve_wire_bytes(cfg, M, batch, prompt_len)
+        if r["prefill_bytes"] != want:
+            raise AssertionError(f"rank {rank}: prefill wire bytes {r['prefill_bytes']}, "
+                                 f"asymmetry's formulas {want}")
+        want_d = tp_serve_wire_bytes(cfg, M, batch, 1)
+        if any(w != want_d for w in r["decode_bytes"]):
+            raise AssertionError(f"rank {rank}: decode wire bytes {r['decode_bytes'][:2]}..., "
+                                 f"asymmetry's formulas {want_d}")
+        flash = {k: v for k, v in r["prefill_launches"].items() if v}
+        decode = {k: v for d in r["decode_launches"] for k, v in d.items() if v}
+        if smi is not None:
+            n = forward_flash_calls(cfg)
+            if (flash != {"flash_attention": n, "flash_attention:wgmma": n} or decode
+                    or r["plain"]):
+                raise AssertionError(f"rank {rank}: prefill launches {flash}, decode {decode}, "
+                                     f"plain versions {r['plain']}; expected {n} flash, all "
+                                     "wgmma, and no plain call")
+        elif flash or decode:
+            raise AssertionError(f"rank {rank}: launches on the CPU")
+    same = int((ranks[0]["tokens"] == ref_tokens).sum())
+    print(f"[tp] serving {cfg.name} on {dict(zip(*reversed(TP_SERVE_MESH)))}: prefill logits "
+          f"against one rank's, relative L2 {[round(rel(r['logits']), 6) for r in ranks]} "
+          f"(limit {TP_LOGITS_RTOL}); the planted fault (wi split contiguously) "
+          f"{[round(f, 4) for f in fault]}; first tokens equal; {same} of {ref_tokens.size} "
+          f"tokens equal one rank's; prefill s {[round(r['prefill_s'], 4) for r in ranks]}, "
+          f"decode ms/token {[round(r['decode_ms'], 3) for r in ranks]}; model-group wire "
+          f"bytes per prefill {ranks[0]['prefill_bytes']} and per token "
+          f"{ranks[0]['decode_bytes'][0]} = asymmetry's formulas; flash launches per rank "
+          f"and prefill {[r['prefill_launches'].get('flash_attention', 0) for r in ranks]} "
+          f"(wgmma {[r['prefill_launches'].get('flash_attention:wgmma', 0) for r in ranks]}); "
+          f"calls of the plain versions {ranks[0]['plain']}; backends {ranks[0]['backends']}; "
+          f"{smi}")
+    one = shard_bytes(cfg, (1, 1))[0]
+    for rank, r in enumerate(ranks):
+        print(f"[tp] serving rank {rank} on {r['device']}: parameters {r['param_bytes']} B "
+              f"against one rank's {one} B ({r['param_bytes'] / one:.4f})"
+              + (f", peak memory {r['peak_gb']:.2f} GB" if "peak_gb" in r else ""))
+    return worst
+
+
+def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
+    """One rank of phase 8(b), spawned: ``train(arch)`` on ``TP_TRAIN_MESH``
+    with ``build_train_step`` wrapped (in train's namespace) to count each
+    step's launches from zero; then one step of a model under
+    :func:`contiguous_wi` on step 1's batch.  Returns the history, the
+    steps' launches, the plain versions' calls, the groups' backends, the
+    parameter and moment bytes held, the fault's loss and grad-norm, and the
+    peak memory."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models import Model
+
+    real_step, steps, seen = train_mod.build_train_step, [], {}
+
+    def counted_step(model, run_, mesh=None):
+        step = real_step(model, run_, mesh)
+        seen.update(mesh=mesh, cfg=model.cfg, run=run_)
+
+        def call(state, batch):
+            seen.setdefault("batch", batch)
+            before = launch_counts()
+            new_state, metrics = step(state, batch)
+            steps.append({k: c - before[k] for k, c in launch_counts().items()})
+            return new_state, metrics
+        return call
+
+    train_mod.build_train_step = counted_step
+    try:
+        with tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain:
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+                            microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+            res = train_mod.train(arch, smoke=smoke, steps=n_steps,
+                                  shape=ShapeConfig("train_4k", seq, rows, "train"),
+                                  mesh_shape=TP_TRAIN_MESH[0], mesh_axes=TP_TRAIN_MESH[1],
+                                  run=run, log_every=1, device=device)
+    finally:
+        train_mod.build_train_step = real_step
+    state, mesh = res["final_state"], seen["mesh"]
+    out = {"history": res["history"], "steps": steps, "plain": dict(plain),
+           "backends": dict(mesh.backends), "device": str(mesh.device),
+           "coords": dict(mesh.coords),
+           "param_bytes": sum(p.numel() * p.element_size() for p in state["params"].values()),
+           "moment_bytes": sum(t.numel() * t.element_size() for g in ("mu", "nu")
+                               for t in state["opt"][g].values())}
+    if device is None:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del res, state
+    gc.collect()
+    if device is None:
+        torch.cuda.empty_cache()
+    with contiguous_wi():
+        fault = Model(seen["cfg"], device=mesh.device,
+                      generator=torch.Generator(mesh.device).manual_seed(seen["run"].seed),
+                      mesh=mesh)
+    _, m = build_train_step(fault, seen["run"], mesh)(init_train_state(fault, seen["run"], mesh),
+                                                      seen["batch"])
+    out["fault"] = (float(m["loss"]), float(m["grad_norm"]))
+    return out
+
+
+def check_tp_training(ranks, cfg, ref, per_step, smi):
+    """Phase 8(b)'s checks and lines over the ranks' :func:`tp_train_rank`
+    records: every rank's losses equal; step 1's loss and grad-norm within
+    ``TP_LOSS_RTOL`` and ``TP_NORM_RTOL`` of ``ref`` (a one-rank run's step
+    1, (loss, grad-norm)) and the planted fault's outside both; each step's
+    wire bytes on each group equal :func:`tp_wire_bytes`; each rank's
+    parameter and moment bytes equal its blocks' by the rules
+    (:func:`shard_bytes`); each step's launches equal ``per_step``, all
+    ``wgmma``, with no plain call (``per_step`` None, on the CPU: none).
+    Returns step 1's gaps."""
+    arch, rows, seq, micro, n_steps, lr = TP_TRAIN
+    shape = TP_TRAIN_MESH[0]
+    hist = ranks[0]["history"]
+    losses = [h["loss"] for h in hist]
+    n_metrics = len(set(hist[0]) - {"grad_norm", "step", "seconds_per_step", "wire_bytes",
+                                    "exchange_seconds"})
+    want = tp_wire_bytes(cfg, shape, rows, seq, micro, n_metrics)
+    params, moments = shard_bytes(cfg, shape)
+    for rank, r in enumerate(ranks):
+        if [h["loss"] for h in r["history"]] != losses:
+            raise AssertionError(f"rank {rank}'s losses differ from rank 0's")
+        for i, h in enumerate(r["history"]):
+            if h["wire_bytes"] != want:
+                raise AssertionError(f"step {i + 1} rank {rank}: wire bytes {h['wire_bytes']}, "
+                                     f"asymmetry's formulas {want}")
+        if (r["param_bytes"], r["moment_bytes"]) != (params, moments):
+            raise AssertionError(f"rank {rank} holds {r['param_bytes']} B of parameters and "
+                                 f"{r['moment_bytes']} B of moments; its blocks by the rules "
+                                 f"are {params} and {moments} B")
+        if per_step is not None and r["plain"]:
+            raise AssertionError(f"rank {rank} called the plain versions {r['plain']}")
+        for i, s in enumerate(r["steps"]):
+            got = {k: s[k] for k in (per_step or {})}
+            wgmma = {k: s.get(f"{k}:wgmma", 0) for k in ("flash_attention",
+                                                         "flash_attention_bwd")}
+            if per_step is None and any(s.values()):
+                raise AssertionError(f"rank {rank}: launches on the CPU")
+            if per_step is not None and (got != per_step or any(
+                    wgmma[k] != per_step[k] for k in wgmma)):
+                raise AssertionError(f"step {i + 1} rank {rank}: launches {s}, expected "
+                                     f"{per_step}, all wgmma")
+    gaps = (abs(losses[0] - ref[0]) / abs(ref[0]), abs(hist[0]["grad_norm"] - ref[1]) / ref[1])
+    fault = ranks[0]["fault"]
+    fgaps = (abs(fault[0] - ref[0]) / abs(ref[0]), abs(fault[1] - ref[1]) / ref[1])
+    print(f"[tp] training {arch} on {dict(zip(*reversed(TP_TRAIN_MESH)))}: losses {losses}, "
+          f"grad-norms {[h['grad_norm'] for h in hist]}; step 1 against one rank's "
+          f"(loss {ref[0]}, grad-norm {ref[1]}): relative {gaps[0]:.3e} and {gaps[1]:.3e} "
+          f"(limits {TP_LOSS_RTOL}, {TP_NORM_RTOL}); the planted fault (wi split "
+          f"contiguously), step 1: loss {fault[0]}, grad-norm {fault[1]}, relative "
+          f"{fgaps[0]:.3e} and {fgaps[1]:.3e}; s per step "
+          f"{[round(h['seconds_per_step'], 4) for h in hist]}, exchange s per step "
+          f"{[{g: round(t, 4) for g, t in h['exchange_seconds'].items()} for h in hist]}; "
+          f"wire bytes per step {hist[0]['wire_bytes']} = asymmetry's formulas; backends "
+          f"{ranks[0]['backends']}; launches per step and rank "
+          f"{ {k: c for k, c in ranks[0]['steps'][0].items() if c} }; calls of the plain "
+          f"versions {ranks[0]['plain']}; {smi}")
+    one = shard_bytes(cfg, (1, 1))
+    for rank, r in enumerate(ranks):
+        print(f"[tp] training rank {rank} {r['coords']} on {r['device']}: parameters "
+              f"{r['param_bytes']} B and moments {r['moment_bytes']} B = its blocks by the "
+              f"rules, {(r['param_bytes'] + r['moment_bytes']) / sum(one):.4f} of one rank's "
+              f"{sum(one) / 1e9:.3f} GB"
+              + (f"; peak memory {r['peak_gb']:.2f} GB" if "peak_gb" in r else ""))
+    if gaps[0] > TP_LOSS_RTOL or gaps[1] > TP_NORM_RTOL:
+        raise AssertionError(f"step 1 on {shape}: loss {losses[0]}, grad-norm "
+                             f"{hist[0]['grad_norm']} against one rank's {ref}: {gaps}")
+    if not (fgaps[0] > TP_LOSS_RTOL and fgaps[1] > TP_NORM_RTOL):
+        raise AssertionError(f"the planted fault's step 1 {fault} lies within the limits of "
+                             f"one rank's {ref}: the checks cannot tell")
+    return gaps
 
 
 def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, smi,
@@ -2238,6 +2703,12 @@ def main() -> int:
                                                 "hubert-xlarge training microbatch")
     records[("flash_attention", "hubert-xlarge train")] = fwd_rec
     records[("flash_attention_bwd", "hubert-xlarge train")] = bwd_rec
+    # llama3.2-1b's attention on a rank of data 2 x model 2; its records
+    # take phase 8(b)'s launches of one rank.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_TP_ATTN,
+                                                "llama3.2-1b rank of data 2 x model 2")
+    records[("flash_attention", "llama3.2-1b model 2 train")] = fwd_rec
+    records[("flash_attention_bwd", "llama3.2-1b model 2 train")] = bwd_rec
 
     def scan_inputs(B, T, W, offset=0):
         """a, b, h0; a and b ``offset`` elements past their storage's start."""
@@ -2494,6 +2965,8 @@ def main() -> int:
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{arch} full-width prefill logits are not finite")
         first = torch.argmax(logits[:, -1], dim=-1).cpu()
+        if arch == SERVE[0][0]:
+            tp_ref_logits = logits[:, -1].float().cpu().numpy()  # held in phase 8(a)
         # For xLSTM the floor also reads and writes every layer's state; for
         # attention, each decode step reads its caches up to the step's
         # length (the mean over the decode steps; a window caps it at S).
@@ -3450,6 +3923,54 @@ def main() -> int:
           f"{n_ranks} ranks ({micro} microbatches of one row each), {n_steps} steps in each of "
           f"{[m for m, _ in POD_MODES]} at lr {lr}: phase 7 took "
           f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+    # ------------------------------- 8. FSDP and tensor parallelism --
+    # llama3.2-1b at published width and depth on (data, model) meshes, the
+    # parameters sharded by sharding/rules.py: (a) phase 4's request served
+    # at model 2, (b) trained at data 2 x model 2; each rank's launches
+    # counted from zero around its serve() and each of its steps.
+    held(8)
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    arch, batch, prompt_len, gen_len, _ = SERVE[0]
+    n_ranks = math.prod(TP_SERVE_MESH[0])
+    print(f"[tp] {n_ranks} ranks sharing one {name} ({limit}); the model group's exchange over "
+          "gloo through host memory" if torch.cuda.device_count() < n_ranks else
+          f"[tp] {n_ranks} ranks, each on its own {name} ({limit})")
+    ranks = spawn_ranks(tp_serve_rank, n_ranks, (arch, batch, prompt_len, gen_len), timeout=600)
+    check_tp_serving(ranks, get_config(arch), batch, prompt_len, tp_ref_logits,
+                     served[arch]["tokens"].numpy(), smi)
+    records[("flash_attention", f"{arch} model 2")]["launches"] = (
+        ranks[0]["launches"]["flash_attention"])
+    del ranks
+    arch, rows, seq, micro, n_steps, lr = TP_TRAIN
+    n_data = TP_TRAIN_MESH[0][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # The one-rank reference: the same weights and first batch, each data
+        # rank's rows in a microbatch of their own.
+        one = train(arch, smoke=False, steps=1, shape=ShapeConfig("train_4k", seq, rows, "train"),
+                    run=RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+                                  microbatches=n_data * micro, checkpoint_every=10 ** 9,
+                                  checkpoint_dir=tmp), log_every=1, device="cuda")
+    ref = (one["history"][0]["loss"], one["history"][0]["grad_norm"])
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_ranks = math.prod(TP_TRAIN_MESH[0])
+    ranks = spawn_ranks(tp_train_rank, n_ranks, (arch, rows, seq, micro, n_steps, lr),
+                        timeout=900)
+    check_tp_training(ranks, get_config(arch), ref,
+                      expected_launches(layer_plan(get_config(arch)), micro), smi)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        rec = records[(name, f"{arch} model 2 train")]
+        rec["launches"] = sum(s[name] for s in ranks[0]["steps"])
+        rec["launches_per_step"] = rec["launches"] // n_steps
+        rec["launches_note"] = f"rank 0's of {n_ranks} ranks"
+    del ranks
+    print(f"[tp] {arch} at published width and depth: served on {TP_SERVE_MESH[0]} and trained "
+          f"{n_steps} steps of {rows} x {seq} tokens on {TP_TRAIN_MESH[0]} over "
+          f"{TP_TRAIN_MESH[1]}: phase 8 took {time.perf_counter() - t8:.1f} s; {smi}")
 
     print(f"[time] chip_smoke.py ran {time.perf_counter() - started:.1f} s; {smi}")
     print(json.dumps({"kernels": list(records.values())}))

@@ -36,6 +36,16 @@ def params_from_jax(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def shard_params(params: Dict[str, torch.Tensor], model) -> Dict[str, torch.Tensor]:
+    """This rank's blocks of a whole tree (:func:`params_from_jax`'s) for
+    ``model``'s mesh and layout, to load with ``model.load_state_dict``; the
+    tree itself where the model is not sharded.  Every layout thus starts
+    from one JAX init."""
+    from .sharding.shard import shard_tree
+
+    return params if model.mesh is None else shard_tree(params, model.layout, model.mesh)
+
+
 def train_state_from_jax(state: Any, pod: Optional[int] = None) -> Dict[str, Any]:
     """A JAX train state ``{"params", "opt": {"step", "mu", "nu"}}`` (and
     ``"ef"``) as the port's: the same keys, each tree flattened as

@@ -6,9 +6,12 @@ devices that one program drives; here each device is driven by its own
 process (a *rank*), and :func:`make_mesh` gives a rank what it needs to
 take part: the axis sizes, its coordinates, its device, and one process
 group per axis of size above 1 (and one over the whole world).  Axes are
-``pod`` (the slow, remote fabric), ``data`` (the fast, local one) and
-``model``, which must be 1: tensor parallelism waits for the next slice
-(``sharding/rules.py`` as FSDP/TP on a ``DeviceMesh``).
+``pod`` (the slow, remote fabric), ``data`` and ``model`` (the fast, local
+ones).  On a mesh of one pod, parameters are sharded by
+``sharding/rules.py``: FSDP on ``data``, tensor parallelism on ``model``
+(``sharding/shard.py``).  Pods keep a whole replica each (``core/cohort.py``
+reconciles them), so a mesh with ``pod`` and ``model`` both above 1 is
+refused.
 
 **Backends.**  Each group's backend is decided once, when the mesh is made,
 from the topology that the ranks exchange (host name and device of each):
@@ -55,7 +58,7 @@ TIMEOUT = timedelta(seconds=300)
 @dataclass
 class Traffic:
     """What the collectives put on each group (``pod``, ``data``,
-    ``world``): calls, wire bytes per rank by ``asymmetry``'s formulas, and
+    ``model``, ``world``): calls, wire bytes per rank by ``asymmetry``'s formulas, and
     host seconds."""
 
     calls: Dict[str, int] = field(default_factory=dict)
@@ -83,8 +86,8 @@ def group_backend(members: Sequence[Tuple[str, str]]) -> str:
 
 @dataclass
 class Mesh:
-    """One rank's view of the mesh.  ``groups`` maps ``pod``, ``data`` (each
-    axis of size above 1) and ``world`` (when there is more than one rank) to
+    """One rank's view of the mesh.  ``groups`` maps ``pod``, ``data``,
+    ``model`` (each axis of size above 1) and ``world`` (when there is more than one rank) to
     this rank's process group; ``backends`` to their backends."""
 
     axes: Tuple[str, ...]
@@ -238,10 +241,10 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
     if len(shape) != len(axes) or len(set(axes)) != len(axes) or not set(axes) <= set(AXES):
         raise ValueError(f"mesh {shape} over {axes}: axes are distinct names of {AXES}")
     sizes = dict(zip(axes, shape))
-    if sizes.get("model", 1) > 1:
+    if sizes.get("model", 1) > 1 and sizes.get("pod", 1) > 1:
         raise NotImplementedError(
-            f"mesh {sizes}: a model axis above 1 (tensor parallelism) waits for the "
-            "port's next multi-GPU slice, sharding/rules.py as FSDP/TP on a DeviceMesh")
+            f"mesh {sizes}: pods keep a whole replica each; pods combined with tensor "
+            "parallelism (or FSDP) wait for ROADMAP's item 3e")
     world = math.prod(shape)
     if world > 1 and not (dist.is_initialized() and dist.get_world_size() == world):
         raise RuntimeError(f"mesh {sizes} needs an initialised process group of {world} "

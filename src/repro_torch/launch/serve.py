@@ -1,8 +1,12 @@
 """Batched serving: prefill a prompt batch, then greedy decode.
 
 Port of ``repro/launch/serve.py``.  ``serve`` is the library entry (used by
-``examples/serve_batch_torch.py`` and ``chip_smoke.py``); ``main`` is the CLI.
-Meshes are a later slice of the port.
+``examples/serve_batch_torch.py`` and ``chip_smoke.py``); ``main`` is the CLI,
+which, like the reference's, has no mesh flags.  On a ``(data, model)`` mesh
+every rank calls ``serve`` inside one process group: the request's rows go
+on ``data``, the parameters and KV caches on ``model`` by the rules
+(``sharding/``), the last-token logits are gathered over ``model`` for the
+greedy argmax, and every rank returns the whole batch's tokens.
 
 Request-batch **admission** is a lock-table client
 (:class:`BatchAdmission`, the reference's class over the port's own copy of
@@ -28,13 +32,15 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..configs import ShapeConfig, get_config
 from ..coord import CoordinationService, LeaseMode, RecoverableClient
 from ..core import Overloaded
-from ..device import resolve_device
 from ..kernels import ops
-from ..models import Model, input_specs
+from ..models import Model, input_specs, rank_inputs
+from ..sharding.shard import gather_rows
+from .mesh import make_mesh
 
 
 class BatchAdmission:
@@ -352,6 +358,8 @@ def serve(
     batch: int = 4,
     prompt_len: int = 32,
     gen_len: int = 16,
+    mesh_shape=(1, 1),
+    mesh_axes=("data", "model"),
     greedy: bool = True,
     seed: int = 0,
     device=None,
@@ -364,6 +372,11 @@ def serve(
     ``frontend_tokens`` stub image embeddings, then the text tokens; an
     encoder (``causal`` False) has no decode path and is refused.
 
+    On the mesh ``mesh_shape`` over ``mesh_axes`` (``launch.mesh.make_mesh``,
+    every rank calling) each rank serves its rows; with admission, rank 0
+    takes, renews and releases the lease while the others wait on it, so the
+    lock table sees one grant a request.
+
     Returns ``tokens`` ([batch, gen_len] int64 on the CPU), ``prefill_seconds``,
     ``decode_seconds_per_token`` and ``throughput_tok_s``; with admission, also
     ``admission``: :meth:`BatchAdmission.stats` with the slot's ``slot_key``
@@ -371,17 +384,20 @@ def serve(
     shared across calls and server threads; ``admission_slots`` alone builds a
     private table, useful for its telemetry but contended by no one else.
     """
-    dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     if not cfg.causal:
         raise ValueError(f"{arch} is encoder-only: no decode path")
-    if admission is None and admission_slots > 0:
+    mesh = make_mesh(mesh_shape, mesh_axes, device)
+    dev, lead = mesh.device, not any(mesh.coords.values())
+    if admission is None and admission_slots > 0 and lead:
         admission = BatchAdmission(num_slots=admission_slots, ttl=admission_ttl)
-    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(seed),
+                  mesh=mesh)
     max_len = prompt_len + gen_len
-    prompts = input_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"),
-                          generator=torch.Generator(dev).manual_seed(seed + 1),
-                          device=dev)
+    pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
+    prompts = rank_inputs(input_specs(cfg, pshape,
+                                      generator=torch.Generator(dev).manual_seed(seed + 1),
+                                      device=dev), cfg, pshape, model.mesh)
     sampler = torch.Generator(dev).manual_seed(seed + 2)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
@@ -394,9 +410,12 @@ def serve(
     # and loaded: the slot TTL budgets batch execution, and an nvcc build
     # that outlasted it would expire a healthy batch's lease and let the slot
     # be granted twice.
-    if admission and dev.type == "cuda":
+    if dev.type == "cuda" and (admission or mesh.world_size > 1):
         ops.prepare(cfg.block_pattern)
+    admission = admission if lead else None
     slot = admission.admit(timeout=admission_ttl) if admission else None
+    if mesh.world_size > 1:
+        dist.barrier(group=mesh.groups["world"])  # the other ranks wait on the lease
     try:
         t0 = _clock(dev)
         logits, caches = model.prefill(prompts, max_len)
@@ -421,7 +440,7 @@ def serve(
         if admission:
             admission.complete(slot)
 
-    tokens = torch.cat(generated, dim=1).cpu()
+    tokens = gather_rows(torch.cat(generated, dim=1), model.mesh).cpu()
     out = {
         "tokens": tokens,
         "prefill_seconds": prefill_s,

@@ -12,9 +12,15 @@ the parameters' dtype.  The learning rate is the schedule at the step count
 moments.
 
 Each rank of a :class:`~repro_torch.launch.mesh.Mesh` runs the step on its
-rows of the global batch (:func:`rank_rows`) and holds a whole replica of
-its pod's state; the pod modes (``RunConfig.sync_mode``) are the
-reference's, where a pod dim is a rank's ``pod`` coordinate:
+rows of the global batch (:func:`rank_rows`; every model rank of one data
+coordinate takes the same rows).  On a mesh of one pod with ``data`` or
+``model`` above 1 a rank holds only its blocks of the state
+(``sharding/shard.py``): the model's backward reduce-scatters each
+gradient over ``data`` in fp32 as it leaves its FSDP gather, the step
+divides the sums by ``D`` (a leaf whole on ``data`` is averaged over it),
+and the global norm is taken over the shards.  Over pods a rank holds a
+whole replica of its pod's state; the pod modes (``RunConfig.sync_mode``)
+are the reference's, where a pod dim is a rank's ``pod`` coordinate:
 
   flat  — the paper-baseline: rows split over (pod × data) jointly; one
           all-reduce mean of each gradient over the world.
@@ -37,11 +43,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import RunConfig
+from ..configs.base import RunConfig, ShapeConfig
 from ..core.cohort import (SyncConfig, bucket_mean, flat_all_reduce, pod_average_params,
                            pod_sync_grads)
-from ..models import Model
-from ..optim import AdamWState, adamw_init, adamw_update, cosine_schedule
+from ..models import Model, rank_inputs
+from ..optim import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
+from ..sharding.shard import (gather_model, gather_rows, gather_tree, shard_tree, sharded,
+                              whole_shape)
 from .mesh import Mesh
 
 
@@ -72,7 +80,8 @@ def _check_layout(model: Model, run: RunConfig, mesh: Mesh) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE over mesh {mesh.shape} in {mode} mode would route with a "
             "capacity other than the reference's; the port trains MoE across ranks only "
-            "in sync or local mode with data 1 until the next multi-GPU slice")
+            "in sync or local mode with data 1 until the multi-GPU slice of expert "
+            "parallelism, ROADMAP's item 3c")
 
 
 def rank_rows(batch: Dict[str, torch.Tensor], mesh: Mesh, mode: str,
@@ -81,7 +90,8 @@ def rank_rows(batch: Dict[str, torch.Tensor], mesh: Mesh, mode: str,
     in ``sync`` and ``local`` pod ``p`` takes rows ``p·B/P …`` (``_pod_split``)
     and data rank ``d`` the ``d``-th of each microbatch's share of those; in
     ``flat`` rank ``p·D + d`` takes that share of each microbatch of the whole
-    batch.  So the rank's own microbatches are its shares of the reference's."""
+    batch.  So the rank's own microbatches are its shares of the reference's.
+    The model coordinate takes no part: model ranks share their rows."""
     if mesh.world_size == 1:
         return batch
     P, D = mesh.size("pod"), mesh.size("data")
@@ -124,35 +134,60 @@ def _map(tree, fn):
     return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
+def _by_leaf(state: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``fn(leaves)`` on each flat tree of sharded leaves of a train state
+    (``params``, ``mu``, ``nu``); the step count as it is."""
+    opt = state["opt"]
+    return {"params": fn(state["params"]),
+            "opt": {"step": opt["step"], "mu": fn(opt["mu"]), "nu": fn(opt["nu"])}}
+
+
 @torch.no_grad()
-def checkpoint_tree(state: Dict[str, Any], run: RunConfig, mesh: Mesh) -> Dict[str, Any]:
-    """``state`` in the JAX package's checkpoint layout: the groups of
-    :func:`_pod_groups` gathered over the pod group into a leading pod dim.
-    Every rank of the pod group that holds rank 0 (data coordinate 0) must
-    call it; other ranks get ``state`` back.  The gathers count in a traffic
-    record of their own, not the steps'."""
+def checkpoint_tree(state: Dict[str, Any], run: RunConfig, mesh: Mesh,
+                    layout=None) -> Dict[str, Any]:
+    """``state`` in the JAX package's checkpoint layout: on a sharded mesh
+    every tensor whole (``layout``: the model's, ``sharding.shard``; every
+    rank must call it), over pods the groups of :func:`_pod_groups` gathered
+    over the pod group into a leading pod dim (every rank of the pod group
+    that holds rank 0, data coordinate 0, must call it; other ranks get
+    ``state`` back).  The gathers count in a traffic record of their own,
+    not the steps'."""
     groups = _pod_groups(run, mesh)
-    if not groups or mesh.coords.get("data", 0) != 0:
+    whole = layout is not None and sharded(mesh)
+    if not whole and (not groups or mesh.coords.get("data", 0) != 0):
         return state
     P, traffic = mesh.size("pod"), mesh.traffic
     mesh.traffic = type(traffic)()
     try:
+        if whole:
+            return _by_leaf(state, lambda tree: gather_tree(tree, layout, mesh))
         gather = lambda t: mesh.all_gather(t.reshape(-1), "pod").view(P, *t.shape)
         return {k: _map(v, gather) if k in groups else v for k, v in state.items()}
     finally:
         mesh.traffic = traffic
 
 
-def checkpoint_like(state: Dict[str, Any], run: RunConfig, mesh: Mesh) -> Dict[str, Any]:
+def checkpoint_like(state: Dict[str, Any], run: RunConfig, mesh: Mesh,
+                    layout=None) -> Dict[str, Any]:
     """The shapes of :func:`checkpoint_tree` (``meta`` tensors), for
     ``load_checkpoint``."""
+    if layout is not None and sharded(mesh):
+        whole = lambda tree: {k: torch.empty(whole_shape(t.shape, layout[k], mesh),
+                                             dtype=t.dtype, device="meta")
+                              for k, t in tree.items()}
+        return _by_leaf(state, whole)
     groups, P = _pod_groups(run, mesh), mesh.size("pod")
     pod_dim = lambda t: torch.empty((P, *t.shape), dtype=t.dtype, device="meta")
     return {k: _map(v, pod_dim) if k in groups else v for k, v in state.items()}
 
 
-def pod_slice(tree: Dict[str, Any], run: RunConfig, mesh: Mesh) -> Dict[str, Any]:
-    """This rank's pod's slice of a tree in the checkpoint layout."""
+def pod_slice(tree: Dict[str, Any], run: RunConfig, mesh: Mesh,
+              layout=None) -> Dict[str, Any]:
+    """This rank's slice of a tree in the checkpoint layout: its pod's, and
+    on a sharded mesh its blocks of each whole tensor (``layout``: the
+    model's).  A checkpoint of any mesh loads on any other this way."""
+    if layout is not None and sharded(mesh):
+        return _by_leaf(tree, lambda t: shard_tree(t, layout, mesh))
     groups, p = _pod_groups(run, mesh), mesh.coords.get("pod", 0)
     return {k: _map(v, lambda t: t[p]) if k in groups else v for k, v in tree.items()}
 
@@ -223,15 +258,25 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
     ``metrics`` holds 0-d tensors (``ce``, ``loss``, ``grad_norm``), so a
     step on one rank never waits on the device."""
     mesh = mesh or _one_rank(model)
+    if sharded(mesh) and model.mesh is not mesh:
+        raise ValueError(f"the model holds no blocks of mesh {mesh.shape}: build it there")
     _check_layout(model, run, mesh)
     mode = pod_mode(run, mesh)
     grads_of = grad_fn(model, run.microbatches)
     world, P = mesh.world_size, mesh.size("pod")
+    rows = P * mesh.size("data")  # ranks with rows of their own
     sync = SyncConfig(mode, run.sync_budget, run.compress_int8)
+    shards = model.mesh is not None
+    replicas = {k: pl.replicas(mesh) for k, pl in model.layout.items()} if shards else None
+    norm_sum = lambda t: mesh.all_reduce(t, ("data", "model"))
 
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         loss, metrics, grads = grads_of(rank_rows(batch, mesh, mode, run.microbatches))
-        if world > 1:
+        gnorm = None
+        if shards:
+            grads = data_mean(grads, model.layout, mesh)
+            gnorm = global_norm(grads, replicas, norm_sum)
+        elif world > 1:
             if mode == "flat":
                 grads = {k: g.div_(world) for k, g in flat_all_reduce(grads, mesh).items()}
             elif mode == "sync":
@@ -244,22 +289,24 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
         lr = cosine_schedule(opt.step, peak_lr=run.learning_rate,
                              warmup=run.warmup_steps, total=run.total_steps)
         opt, om = adamw_update(state["params"], grads, opt, lr,
-                               weight_decay=run.weight_decay, grad_clip=run.grad_clip)
+                               weight_decay=run.weight_decay, grad_clip=run.grad_clip,
+                               gnorm=gnorm)
         del grads
         new_state = {"params": state["params"],
                      "opt": {"step": opt.step, "mu": opt.mu, "nu": opt.nu}}
         if "ef" in state:
             new_state["ef"] = state["ef"]
         metrics = {**metrics, "loss": loss}
-        if world > 1:
-            # Loss and metrics: the mean over every rank's rows; the
-            # optimizer's differ between pods only in local mode.
-            vec = mesh.all_reduce(torch.stack(list(metrics.values())).float(), "world")
-            metrics = dict(zip(metrics, (vec / world).unbind()))
-            if mode == "local":
-                vec = mesh.all_reduce(torch.stack(list(om.values())).float(), "pod")
-                om = dict(zip(om, (vec / P).unbind()))
-                pod_average_params(state["params"], sync, mesh, int(before))
+        if rows > 1:
+            # Loss and metrics: the mean over every rank's rows (model ranks
+            # share theirs); the optimizer's differ between pods only in
+            # local mode.
+            vec = mesh.all_reduce(torch.stack(list(metrics.values())).float(), ("pod", "data"))
+            metrics = dict(zip(metrics, (vec / rows).unbind()))
+        if world > 1 and mode == "local":
+            vec = mesh.all_reduce(torch.stack(list(om.values())).float(), "pod")
+            om = dict(zip(om, (vec / P).unbind()))
+            pod_average_params(state["params"], sync, mesh, int(before))
         loss = metrics.pop("loss")
         metrics.update(om)
         metrics["loss"] = loss
@@ -268,15 +315,42 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
     return step
 
 
-def build_encode_step(model: Model) -> Callable:
+def data_mean(grads: Dict[str, torch.Tensor], layout, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The mean over ``data`` of a sharded model's gradients: a leaf split on
+    ``data`` arrives summed over it (the reduce-scatter as it leaves its
+    FSDP gather) and is divided by ``D``; a leaf whole on ``data`` (where
+    ``fit_pspec`` left the dim) is averaged over it through one fp32 bucket.
+    A leaf whole on ``model`` has the same gradient on every model rank
+    (*f* sits after each norm)."""
+    D = mesh.size("data")
+    if D == 1:
+        return grads
+    whole = {k: g for k, g in grads.items() if layout[k].dim_of("data") is None}
+    out = {k: g.div(D) for k, g in grads.items() if k not in whole}
+    if whole:
+        out.update(bucket_mean(whole, mesh, "data"))
+    return {k: out[k] for k in grads}
+
+
+def build_encode_step(model: Model, mesh: Optional[Mesh] = None) -> Callable:
     """``encode(batch) -> logits [B, T, V]`` for an encoder (hubert's
     "prefill"): the training-mode forward over every position, then the
     logits, under ``torch.inference_mode``; the reference's
-    ``build_encode_step``."""
+    ``build_encode_step``.  On a sharded ``mesh`` (the one the model was
+    built on) each rank encodes its rows of the global ``batch`` and returns
+    the whole logits, gathered over ``model`` and ``data``."""
+    if sharded(mesh) and mesh is not model.mesh:
+        raise ValueError(f"the model holds no blocks of mesh {mesh.shape}: build it there")
+    on = model.mesh
 
     @torch.inference_mode()
     def encode(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        h, _ = model.forward(batch)
-        return model._logits(h)
+        head = model._head()
+        if on is not None:
+            rows = next(iter(batch.values())).shape[0]
+            batch = rank_inputs(batch, model.cfg, ShapeConfig("encode", 0, rows, "prefill"), on)
+        h, _ = model.forward(batch, head)
+        logits = gather_model(model._logits(h, head), model.vocab_tp)
+        return gather_rows(logits, on) if on is not None else logits
 
     return encode

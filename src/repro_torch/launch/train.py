@@ -5,20 +5,27 @@ Port of ``repro/launch/train.py``.  ``train`` is the library entry (used by
 CLI.  On a mesh of more than one rank every rank calls ``train`` inside one
 initialised process group (``launch.mesh.spawn_ranks`` starts such ranks on
 one host); each draws the same global batch from the stateless pipeline and
-the step takes its rows.  Fault-tolerance wiring as in the reference:
+the step takes its rows.  On a ``(data, model)`` mesh of one pod each rank
+holds only its blocks of the parameters and moments (FSDP on ``data``, TP
+on ``model``: ``sharding/shard.py``).  Fault-tolerance wiring as in the
+reference:
 
 * checkpoint every ``run.checkpoint_every`` steps — async, atomic,
-  integrity-checked, in the JAX package's file format and layout for the
-  pod mode (a leading pod dim in ``local`` mode and for ``ef``, gathered
-  over the pod group); rank 0 writes, its writer elected through the
-  paper's ALock (``repro_torch.coord``);
+  integrity-checked, in the JAX package's file format and layout: whole
+  tensors (gathered over ``data`` and ``model``; swiglu's ``wi`` as ``[gate
+  | up]``), with a leading pod dim in ``local`` mode and for ``ef``
+  (gathered over the pod group); rank 0 writes, its writer elected through
+  the paper's ALock (``repro_torch.coord``);
 * restart: ``resume=True`` restores the newest verified checkpoint on every
-  rank (each takes its pod's slice) and the data pipeline continues at the
-  restored step (stateless batch addressing).
+  rank (each takes its pod's slice and its blocks, so a checkpoint of one
+  mesh resumes on another) and the data pipeline continues at the restored
+  step (stateless batch addressing).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch llama3.2-1b --mesh-shape 2,1 --mesh-axes pod,data --sync-mode local
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-1b --mesh-shape 2,2 --mesh-axes data,model
 """
 
 from __future__ import annotations
@@ -81,7 +88,8 @@ def train(
     shape = shape or ShapeConfig("e2e", seq_len=128, global_batch=8, kind="train")
     mesh = make_mesh(mesh_shape, mesh_axes, device)
     dev, rank0 = mesh.device, not any(mesh.coords.values())
-    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(run.seed))
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(run.seed),
+                  mesh=mesh)
     if dev.type == "cuda":
         plan = layer_plan(cfg)
         ops.prepare(plan.pattern + plan.tail)  # no build inside the timed loop
@@ -93,9 +101,9 @@ def train(
     start_step = 0
     if resume:
         try:
-            restored, start_step, _ = load_checkpoint(run.checkpoint_dir,
-                                                      checkpoint_like(state, run, mesh))
-            restore_train_state(state, pod_slice(restored, run, mesh))
+            restored, start_step, _ = load_checkpoint(
+                run.checkpoint_dir, checkpoint_like(state, run, mesh, model.layout))
+            restore_train_state(state, pod_slice(restored, run, mesh, model.layout))
             print(f"[train] resumed from step {start_step}")
         except FileNotFoundError:
             pass
@@ -126,7 +134,7 @@ def train(
                     print(f"[train] step {i + 1}/{steps} loss={m['loss']:.4f} "
                           f"grad_norm={m['grad_norm']:.3f} ({m['seconds_per_step']:.2f}s/step)")
             if (i + 1) % ckpt.every == 0:
-                tree = checkpoint_tree(state, run, mesh)
+                tree = checkpoint_tree(state, run, mesh, model.layout)
                 if rank0:
                     ckpt.maybe_save(i + 1, tree, extra={"arch": arch})
                 del tree

@@ -12,6 +12,12 @@ tensor ops, as it is in the JAX package: GQA against its KV cache, MLA
 (DeepSeek's multi-head latent attention) by the absorbed-weight product in
 the latent space of its compressed cache.
 
+Under tensor parallelism a rank holds a contiguous block of the query heads
+and of the KV heads (``wq``/``wk``/``wv`` split on their output dim, ``wo``
+on its input dim), so the head counts come from the weights' shapes: with
+``K % M == 0`` local query head ``i`` reads local KV head ``i // (H/K)``,
+the reference's map.
+
 Unlike JAX's immutable arrays, the caches here are written in place: prefill
 copies into the buffers ``Model.cache`` allocated, and each decode step
 writes one slot.  ``KVCache.length`` and ``MLACache.length`` are Python
@@ -87,18 +93,25 @@ class KVCache(NamedTuple):
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                   device: torch.device) -> KVCache:
-    """A zeroed cache; ``S = min(max_len, window)`` when windowed."""
-    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+                   device: torch.device, model_size: int = 1) -> KVCache:
+    """A zeroed cache; ``S = min(max_len, window)`` when windowed; a rank's
+    ``K / model_size`` KV heads."""
+    K, hd = cfg.num_kv_heads // model_size, cfg.resolved_head_dim
     S = min(max_len, cfg.window) if cfg.window else max_len
     shape = (batch, S, K, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
 
 
+def _heads_of(p, cfg: ModelConfig):
+    """(query heads, KV heads, head dim) that ``p``'s weights hold."""
+    hd = cfg.resolved_head_dim
+    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd, hd
+
+
 def _project_qkv(p, x, cfg: ModelConfig, positions):
     B, T, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    H, K, hd = _heads_of(p, cfg)
     q = (x @ p["wq"]).reshape(B, T, H, hd)
     k = (x @ p["wk"]).reshape(B, T, K, hd)
     v = (x @ p["wv"]).reshape(B, T, K, hd)
@@ -146,7 +159,7 @@ def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache):
     """One decode step. x: [B, 1, D]; writes the new token's K/V into
     ``cache`` in place and returns ([B, 1, D], cache with length + 1)."""
     B = x.shape[0]
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    H, K, hd = _heads_of(p, cfg)
     pos = cache.length  # absolute position of the new token
     q = (x @ p["wq"]).reshape(B, 1, H, hd)
     k = (x @ p["wk"]).reshape(B, 1, K, hd)

@@ -3,7 +3,9 @@
 Port of ``repro/models/io.py``'s concrete half.  The ``[audio]`` and
 ``[vlm]`` frontends are stubs, as in the reference: the batch carries
 precomputed frame or patch embeddings at ``d_model``, ``0.02`` times a
-standard normal draw.
+standard normal draw.  On a mesh a rank takes its rows of each input as
+``sharding.rules.batch_pspec`` lays them on ``data`` (:func:`rank_inputs`),
+the frontends' ``embeds`` with the tokens.
 """
 
 from __future__ import annotations
@@ -48,3 +50,25 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, generator: torch.Genera
     if shape.kind == "train":
         batch["labels"] = tokens(T - cfg.frontend_tokens if cfg.frontend == "vision" else T)
     return batch
+
+
+def rank_inputs(batch: Dict[str, torch.Tensor], cfg: ModelConfig, shape: ShapeConfig,
+                mesh) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: every input that ``batch_pspec``
+    puts on ``data`` in ``D`` equal row blocks, data rank ``d`` the
+    ``d``-th (a rank of no data axis: ``batch`` itself)."""
+    from ..sharding.rules import batch_pspec  # the rules import this package
+
+    D = mesh.size("data") if mesh is not None else 1
+    if D == 1:
+        return batch
+    d, specs = mesh.coords["data"], batch_pspec(cfg, shape)
+    out = {}
+    for k, v in batch.items():
+        if specs.get(k, (None,))[0] == "data":
+            if v.shape[0] % D:
+                raise ValueError(f"{k}: {v.shape[0]} rows do not split over {D} data ranks")
+            n = v.shape[0] // D
+            v = v[d * n:(d + 1) * n]
+        out[k] = v
+    return out

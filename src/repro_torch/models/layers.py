@@ -1,8 +1,12 @@
 """Shared layers: norms, MLPs, embeddings, RoPE, losses.
 
 Port of ``repro/models/layers.py``: (spec function, plain function) pairs over
-explicit parameter trees.  ``ashard`` has no counterpart: the port runs on one
-device, so activation sharding constraints are dropped.
+explicit parameter trees.  ``ashard`` has no counterpart: a rank computes on
+its own block of each activation (``sharding/shard.py``).  Where the vocab
+dim is sharded over ``model`` (``tp``: the rank's mesh), the embedding looks
+up the rank's vocab range and sums over ``model``, and the cross-entropy
+reads vocab-sharded logits, summing the max, the exponents and the label's
+logit over ``model``; the ``[B, T, V]`` logits are never gathered.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.shard import max_over_model, reduce_from_model
 from .specs import ParamSpec
 
 
@@ -74,8 +79,18 @@ def embed_spec(vocab: int, d_model: int, dtype=torch.bfloat16) -> Dict:
     }
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["table"])
+def embed(p, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The rows of ``p["table"]`` for ``tokens``.  ``tp``: the table holds
+    the rank's vocab range ``[m·V/M, (m+1)·V/M)``; tokens outside it look
+    up zeros, and the sum over ``model`` gives every rank the whole
+    embedding (each token's row comes from exactly one rank)."""
+    if tp is None:
+        return F.embedding(tokens, p["table"])
+    rows = p["table"].shape[0]
+    local = tokens - tp.coords["model"] * rows
+    inside = (local >= 0) & (local < rows)
+    out = F.embedding(torch.where(inside, local, 0), p["table"])
+    return reduce_from_model(torch.where(inside[..., None], out, 0), tp)
 
 
 def unembed_spec(vocab: int, d_model: int, dtype=torch.bfloat16) -> Dict:
@@ -104,20 +119,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ------------------------------------------------------------------ losses --
-def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _nll(logits: torch.Tensor, labels: torch.Tensor, tp=None) -> torch.Tensor:
     """Per-position ``logsumexp - gold`` in fp32.  The gold logit is a gather:
     the reference's one-hot contraction exists for XLA's partitioner and gives
-    the same fp32 value."""
+    the same fp32 value.  ``tp``: ``logits`` are the rank's vocab range; the
+    max (no gradient: logsumexp's does not depend on it), the sum of
+    exponents and the label's logit are summed over ``model``."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return logz - gold
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logz - gold
+    V = logits.shape[-1]
+    m = max_over_model(logits.detach().amax(dim=-1), tp)
+    sumexp = reduce_from_model(torch.sum(torch.exp(logits - m[..., None]), dim=-1), tp)
+    local = labels.long() - tp.coords["model"] * V
+    inside = (local >= 0) & (local < V)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(inside, gold, 0.0), tp)
+    return m + torch.log(sumexp) - gold
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean cross-entropy in fp32. logits [..., V], labels int [...]."""
-    nll = _nll(logits, labels)
+                 mask: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """Mean cross-entropy in fp32. logits [..., V] (``tp``: the rank's vocab
+    range), labels int [...]."""
+    nll = _nll(logits, labels, tp)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -126,24 +153,25 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_xent(hidden: torch.Tensor, logits_fn: Callable[[torch.Tensor], torch.Tensor],
                  labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                 chunk: int = 1024) -> torch.Tensor:
+                 chunk: int = 1024, tp=None) -> torch.Tensor:
     """Cross-entropy without materialising [B, T, V] logits.
 
     Chunks of ``chunk`` positions along T, in order, each under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` scan body),
     so that one chunk's logits live at a time in forward and backward.
     ``logits_fn(h_chunk) -> [B, c, V]``.  Falls back to :func:`softmax_xent`
-    when T is not a multiple of ``chunk``.
+    when T is not a multiple of ``chunk``.  ``tp``: ``logits_fn`` gives the
+    rank's vocab range (:func:`_nll`).
     """
     B, T, _ = hidden.shape
     if T % chunk != 0:
-        return softmax_xent(logits_fn(hidden), labels, mask)
+        return softmax_xent(logits_fn(hidden), labels, mask, tp)
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
     mask = mask.float()
 
     def body(hc, yc, mc):
-        nll = _nll(logits_fn(hc), yc) * mc
+        nll = _nll(logits_fn(hc), yc, tp) * mc
         return torch.sum(nll), torch.sum(mc)
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)

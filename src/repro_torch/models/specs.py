@@ -3,14 +3,17 @@
 Port of ``repro/models/specs.py``: the same ``ParamSpec`` tree declares every
 parameter (shape, logical axes, initializer), and ``init_params`` draws it on
 the target device.  The draws differ from ``jax.random``'s; tests that need
-equal weights convert the JAX tree with ``repro_torch.convert``.
+equal weights convert the JAX tree with ``repro_torch.convert``.  From the
+same declaration :func:`pspec_tree` derives each parameter's partition spec
+under logical-to-mesh rules (``repro_torch/sharding/rules.py``): a tuple with
+one mesh-axis name, a tuple of names, or ``None`` per dim.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,6 +81,30 @@ def init_params(specs, generator: torch.Generator, device: torch.device):
         return x.mul_(std).to(spec.dtype)
 
     return _map(one, specs)
+
+
+def pspec(*entries) -> Tuple:
+    """A partition spec: one entry per dim, ``None``, a mesh-axis name or a
+    tuple of names; a tuple of one name is that name, as ``PartitionSpec``
+    normalises it."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries)
+
+
+def logical_to_pspec(logical: Sequence[Optional[str]], rules: Dict) -> Tuple:
+    """Map logical axis names to mesh axes via rules; unknown names error."""
+    out = []
+    for name in logical:
+        if name is None:
+            out.append(None)
+        else:
+            if name not in rules:
+                raise KeyError(f"no sharding rule for logical axis {name!r}")
+            out.append(rules[name])
+    return pspec(*out)
+
+
+def pspec_tree(specs, rules: Dict):
+    return _map(lambda s: logical_to_pspec(s.logical, rules), specs)
 
 
 def param_count(specs) -> int:

@@ -26,6 +26,16 @@ load-balance loss is summed), and ``prefill(batch, max_len)`` and
 ``decode_step(caches, tokens)`` (serving, under ``torch.inference_mode``).
 An encoder is served by ``forward`` then ``_logits``
 (``launch.steps.build_encode_step``).
+
+On a mesh (``launch.mesh.Mesh`` of one pod with ``data`` or ``model`` above
+1) the model holds only this rank's block of each parameter
+(``sharding/shard.py``, under ``sharding/rules.py``) and takes this rank's
+rows: FSDP gathers each parameter's ``data`` dim on use, inside each
+super-block's remat'd function (the recompute gathers again, so no gathered
+weight outlives its block); tensor parallelism runs the rank's query and KV
+heads, MLP columns and vocab range, with Megatron's *f* after each norm and
+*g* after each row-parallel product.  Prefill and decode return the whole
+vocab's logits (gathered over ``model`` for the argmax).
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
 from . import xlstm as xl
+from ..sharding.shard import (copy_to_model, gather_model, gather_on_use, model_parallel,
+                              param_layout, reduce_from_model, shard, sharded)
 from .layers import (chunked_xent, embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, unembed, unembed_spec)
 from .specs import ParamSpec, init_params, stack_layer_specs
@@ -85,8 +97,36 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs decoders and encoders of GQA or MLA "
             "attention, dense or MoE FFNs, RG-LRU and xLSTM blocks, with the "
-            "audio or vision stub frontend, on one device; not yet: "
-            + ", ".join(unsupported))
+            "audio or vision stub frontend; not yet: " + ", ".join(unsupported))
+
+
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
+    """What a sharded mesh refuses, never replicating a layer silently: MoE
+    at data or model above 1 (expert parallelism is ROADMAP's item 3c), and
+    at model above 1 RG-LRU, MLA and xLSTM blocks and head counts that do not
+    divide by the model axis (item 3d)."""
+    if not sharded(mesh):
+        return
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE over mesh {mesh.shape} would route with a capacity other "
+            "than the reference's; expert parallelism waits for ROADMAP's item 3c")
+    M = mesh.size("model")
+    if M == 1:
+        return
+    kinds = set(cfg.block_pattern)
+    refused = sorted(kinds & {"rec", "mlstm", "slstm"})
+    if cfg.attention == "mla":
+        refused.append("mla attention")
+    if refused:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism (model {M}) of {refused} blocks waits for "
+            "ROADMAP's item 3d")
+    if cfg.num_heads % M or cfg.num_kv_heads % M or cfg.d_ff % M:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_heads} query heads, {cfg.num_kv_heads} KV heads and "
+            f"d_ff {cfg.d_ff} do not all divide by model {M}; the reference's fallback "
+            "(head dim on model) waits for ROADMAP's item 3d")
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
@@ -121,10 +161,12 @@ _XLSTM = {"mlstm": (xl.mlstm_block, xl.mlstm_decode),
           "slstm": (xl.slstm_block, xl.slstm_decode)}
 
 
-def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
+def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None):
     """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
     ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState`` or
     ``SLSTMState`` of buffers; ``None`` in train mode) is written in place.
+    ``tp`` (a GQA block with a dense FFN over a model axis): *f* after each
+    norm, *g* after the attention's and the FFN's output products.
     Returns (x, cache, aux): aux is the MoE load-balance loss, ``None`` for a
     dense FFN or an xLSTM block."""
     if kind in _XLSTM:
@@ -138,7 +180,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
         for buf, t in zip(cache, new):
             buf.copy_(t)
         return x + y, cache, None
-    h = rmsnorm(p["ln1"], x)
+    h = copy_to_model(rmsnorm(p["ln1"], x), tp)
     if kind == "rec":
         if mode == "train":
             y = rec.rglru_block(p["rec"], h, cfg)
@@ -159,17 +201,17 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache):
             else:
                 step = attn.mla_decode if mla else attn.gqa_decode
             y, cache = step(p["attn"], h, cfg, cache)
-    x = x + y
-    h = rmsnorm(p["ln2"], x)
+    x = x + reduce_from_model(y, tp)
+    h = copy_to_model(rmsnorm(p["ln2"], x), tp)
     if cfg.moe is not None and kind == "attn":
         y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
     else:
         y, aux = mlp(p["ffn"], h, cfg.act), None
-    return x + y, cache, aux
+    return x + reduce_from_model(y, tp), cache, aux
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
-                 device: torch.device):
+                 device: torch.device, model_size: int = 1):
     if kind == "mlstm":
         return xl.mlstm_state_spec(cfg, batch, device)
     if kind == "slstm":
@@ -178,7 +220,7 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
         return rec.rglru_state_spec(cfg, batch, device)
     if cfg.attention == "mla":
         return attn.mla_cache_spec(cfg, batch, max_len, dtype, device)
-    return attn.gqa_cache_spec(cfg, batch, max_len, dtype, device)
+    return attn.gqa_cache_spec(cfg, batch, max_len, dtype, device, model_size)
 
 
 def _stacked(cache, n: int):
@@ -193,6 +235,18 @@ def _layer(cache, i: int):
     """Views of layer ``i`` of a stacked cache."""
     return cache._replace(**{f: t[i] for f, t in cache._asdict().items()
                              if isinstance(t, torch.Tensor)})
+
+
+def cache_tree(cfg: ModelConfig, batch: int, max_len: int, device, model_size: int = 1
+               ) -> Dict[str, Any]:
+    """Fresh caches shaped like the JAX tree (:meth:`Model.cache`) for
+    ``batch`` rows, a rank's ``K / model_size`` KV heads; on the ``meta``
+    device, their shapes alone (``sharding.rules.cache_pspecs``)."""
+    plan, dtype, device = layer_plan(cfg), _DTYPES[cfg.dtype], torch.device(device)
+    mk = lambda kind: _block_cache(cfg, kind, batch, max_len, dtype, device, model_size)
+    blocks = {f"b{i}": _stacked(mk(k), plan.n_scan) for i, k in enumerate(plan.pattern)}
+    return {"lead": [mk(k) for k in plan.lead], "blocks": blocks,
+            "tail": [mk(k) for k in plan.tail]}
 
 
 def model_specs(cfg: ModelConfig) -> Dict:
@@ -244,29 +298,52 @@ class ParamTree(nn.Module):
 
     def layer(self, i: int) -> Dict[str, Any]:
         """The tree of every parameter's slice ``[i]`` along the stacked dim."""
-        out = {name: mod.layer(i) for name, mod in self.named_children()}
-        out.update((name, t[i]) for name, t in self.named_parameters(recurse=False))
+        return self.tree(i=i)
+
+    def tree(self, use=None, prefix: str = "", i: Optional[int] = None) -> Dict[str, Any]:
+        """The nested dict of the parameters (with ``i``, each one's slice
+        ``[i]`` along the stacked dim), each passed through ``use(key, t)``
+        when given, ``key`` its ``state_dict`` key under ``prefix``."""
+        out = {name: mod.tree(use, f"{prefix}.{name}", i) for name, mod in self.named_children()}
+        for name, t in self.named_parameters(recurse=False):
+            t = t if i is None else t[i]
+            out[name] = t if use is None else use(f"{prefix}.{name}", t)
         return out
 
 
 class Model(nn.Module):
-    """Decoder (dense, MoE, hybrid or xLSTM) or encoder on one device: ``loss``
-    for training, ``prefill`` then ``decode_step`` for serving a decoder.
+    """Decoder (dense, MoE, hybrid or xLSTM) or encoder on one device or on a
+    rank of ``mesh``: ``loss`` for training, ``prefill`` then ``decode_step``
+    for serving a decoder.
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
     on that device; seed 0 when omitted), with the JAX package's initializers.
+    On a sharded mesh every rank draws the whole tree and keeps its block of
+    each tensor, so every layout starts from the one-device weights (init
+    peaks at one whole replica a rank; meta-device init is ROADMAP's item 4).
+    ``layout`` maps each ``state_dict`` key to its ``sharding.shard.Placement``.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.plan = layer_plan(cfg)
         self.dtype = _DTYPES[cfg.dtype]
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        _check_mesh(cfg, mesh)
+        specs = model_specs(cfg)
+        self.mesh = mesh if sharded(mesh) else None
+        self.layout = param_layout(specs, cfg.act, self.mesh)
+        self.tp = model_parallel(self.mesh)
+        vocab_dim = (self.layout["embed.table"].axes(0) if cfg.tie_embeddings
+                     else self.layout["unembed.w"].axes(1))
+        self.vocab_tp = self.tp if "model" in vocab_dim else None
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        params = init_params(model_specs(cfg), generator, self.device)
+        params = init_params(specs, generator, self.device)
+        if self.mesh is not None:
+            params = _shard_nested(params, self.layout, self.mesh)
         self.embed = ParamTree(params["embed"])
         self.lead = ParamTree(params["lead"])
         self.blocks = ParamTree(params["blocks"])
@@ -277,10 +354,43 @@ class Model(nn.Module):
         if "mtp" in params:
             self.mtp = ParamTree(params["mtp"])
 
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+    def _use(self, key: str, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        """Parameter ``key`` (or one layer's slice of it) whole over
+        ``data``: the FSDP all-gather on use."""
+        if self.mesh is None:
+            return t
+        return gather_on_use(t, self.layout[key], self.mesh, stacked)
+
+    def _params(self, name: str, i: Optional[int] = None) -> Dict[str, Any]:
+        """The subtree ``name`` (``"lead.0"``, ``"blocks"``, ...; with ``i``
+        the stacked blocks' layer ``i``), each tensor whole over ``data``."""
+        tree = self
+        for part in name.split("."):
+            tree = tree[part] if isinstance(tree, ParamTree) else getattr(tree, part)
+        return tree.tree(lambda k, t: self._use(k, t, i is not None), name, i)
+
+    def _head(self) -> Dict[str, Any]:
+        """The parameters around the stack, each gathered once for a forward:
+        ``embed`` (not for the audio stub unless tied: its table is never
+        read), ``final_norm`` and ``unembed``."""
+        out = {"final_norm": self._params("final_norm")}
+        if self.cfg.frontend != "audio" or self.cfg.tie_embeddings:
+            out["embed"] = self._params("embed")
+        if not self.cfg.tie_embeddings:
+            out["unembed"] = self._params("unembed")
+        return out
+
+    def _logits(self, h: torch.Tensor, head: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """Logits of ``h``: the rank's vocab range where the vocab is sharded
+        over ``model`` (apply *f* to ``h`` first when training)."""
+        head = head or self._head()
         if self.cfg.tie_embeddings:
-            return h @ self.embed["table"].T
-        return unembed(self.unembed, h)
+            return h @ head["embed"]["table"].T
+        return unembed(head["unembed"], h)
+
+    def _whole_logits(self, h: torch.Tensor, head: Dict[str, Any]) -> torch.Tensor:
+        """Logits of ``h`` over the whole vocab (no gradient)."""
+        return gather_model(self._logits(h, head), self.vocab_tp)
 
     def cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         """Fresh caches shaped like the JAX tree: ``blocks.b{i}`` stacks
@@ -290,13 +400,10 @@ class Model(nn.Module):
         ``MLSTMState`` c ``[n, B, H, dqk, dh]``, n ``[n, B, H, dqk]`` and m
         ``[n, B, H]``, ``SLSTMState`` c, n, m and h ``[n, B, D]``; every m
         at -1e30, everything else zero); ``lead`` and ``tail`` hold one per
-        layer."""
-        mk = lambda kind: _block_cache(self.cfg, kind, batch, max_len, self.dtype,
-                                       self.device)
-        plan = self.plan
-        blocks = {f"b{i}": _stacked(mk(k), plan.n_scan) for i, k in enumerate(plan.pattern)}
-        return {"lead": [mk(k) for k in plan.lead], "blocks": blocks,
-                "tail": [mk(k) for k in plan.tail]}
+        layer.  ``batch``: this rank's rows; on a model axis, the rank's
+        ``K / M`` KV heads."""
+        M = self.tp.size("model") if self.tp is not None else 1
+        return cache_tree(self.cfg, batch, max_len, self.device, M)
 
     def _stack(self, x: torch.Tensor, mode: str, caches: Dict[str, Any]):
         """The lead layers, the stacked super-blocks, then the tail.  Caches
@@ -304,80 +411,88 @@ class Model(nn.Module):
         plan = self.plan
         lead = []
         for j, kind in enumerate(plan.lead):
-            x, c, _ = _block_apply(self.cfg, kind, self.lead[str(j)], x, mode,
-                                   caches["lead"][j])
+            x, c, _ = _block_apply(self.cfg, kind, self._params(f"lead.{j}"), x, mode,
+                                   caches["lead"][j], self.tp)
             lead.append(c)
         blocks = caches["blocks"]
         lengths = {}  # every layer of one stack starts from the same length
         for i in range(plan.n_scan):
-            p_sb = self.blocks.layer(i)
+            p_sb = self._params("blocks", i)
             for j, kind in enumerate(plan.pattern):
                 key = f"b{j}"
                 x, c, _ = _block_apply(self.cfg, kind, p_sb[key], x, mode,
-                                       _layer(blocks[key], i))
+                                       _layer(blocks[key], i), self.tp)
                 if kind == "attn":
                     lengths[key] = c.length
         blocks = {k: c._replace(length=lengths[k]) if k in lengths else c
                   for k, c in blocks.items()}
         tail = []
         for j, kind in enumerate(plan.tail):
-            x, c, _ = _block_apply(self.cfg, kind, self.tail[str(j)], x, mode,
-                                   caches["tail"][j])
+            x, c, _ = _block_apply(self.cfg, kind, self._params(f"tail.{j}"), x, mode,
+                                   caches["tail"][j], self.tp)
             tail.append(c)
         return x, {"lead": lead, "blocks": blocks, "tail": tail}
 
     def _train_stack(self, x: torch.Tensor):
         """The unrolled lead layers, the stacked super-blocks, each under
         remat unless ``cfg.remat`` is ``"none"`` (the reference's
-        per-super-block ``jax.checkpoint``), then the unrolled tail.  Returns
-        (x, the sum of the MoE layers' aux losses)."""
+        per-super-block ``jax.checkpoint``), then the unrolled tail.  Each
+        super-block gathers its FSDP shards inside the remat'd function.
+        Returns (x, the sum of the MoE layers' aux losses)."""
         plan = self.plan
         total = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def run(kind, p, x, total):
-            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None)
+            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None, self.tp)
             return x, total if aux is None else total + aux
 
         def superblock(i: int, x: torch.Tensor, total: torch.Tensor):
-            p_sb = self.blocks.layer(i)
+            p_sb = self._params("blocks", i)
             for j, kind in enumerate(plan.pattern):
                 x, total = run(kind, p_sb[f"b{j}"], x, total)
             return x, total
 
         for j, kind in enumerate(plan.lead):
-            x, total = run(kind, self.lead[str(j)], x, total)
+            x, total = run(kind, self._params(f"lead.{j}"), x, total)
         for i in range(plan.n_scan):
             if self.cfg.remat != "none":
                 x, total = checkpoint(superblock, i, x, total, use_reentrant=False)
             else:
                 x, total = superblock(i, x, total)
         for j, kind in enumerate(plan.tail):
-            x, total = run(kind, self.tail[str(j)], x, total)
+            x, total = run(kind, self._params(f"tail.{j}"), x, total)
         return x, total
 
-    def _embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _embed_inputs(self, batch: Dict[str, torch.Tensor], head: Dict[str, Any]
+                      ) -> torch.Tensor:
         """The stack's input [B, T, D]: the audio stub's ``embeds`` in the
         model dtype; else the embedded ``tokens``, the vision stub's
         ``embeds`` (in the embedding's dtype) ahead of them."""
         if self.cfg.frontend == "audio":
             return batch["embeds"].to(self.dtype)
-        x = embed(self.embed, batch["tokens"])
+        x = embed(head["embed"], batch["tokens"], self.vocab_tp)
         if self.cfg.frontend == "vision":
             x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
         return x
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
+    def forward(self, batch: Dict[str, torch.Tensor], head: Optional[Dict[str, Any]] = None):
         """Training-mode forward to final hidden states [B, T, D], and the
         sum of the MoE layers' load-balance losses (0 without MoE)."""
-        x, aux = self._train_stack(self._embed_inputs(batch))
-        return rmsnorm(self.final_norm, x), aux
+        head = head or self._head()
+        x, aux = self._train_stack(self._embed_inputs(batch, head))
+        return rmsnorm(head["final_norm"], x), aux
 
-    def _xent(self, h: torch.Tensor, labels: torch.Tensor, mask) -> torch.Tensor:
+    def _xent(self, h: torch.Tensor, labels: torch.Tensor, mask, head: Dict[str, Any]
+              ) -> torch.Tensor:
         """Cross-entropy of the logits of ``h``; from T 2048 in chunks
-        (:func:`chunked_xent`)."""
+        (:func:`chunked_xent`).  A vocab sharded over ``model``: *f* on
+        ``h``, then the vocab-parallel cross-entropy."""
+        tp = self.vocab_tp
+        h = copy_to_model(h, tp)
+        logits = lambda hc: self._logits(hc, head)
         if labels.shape[1] >= 2048:
-            return chunked_xent(h, self._logits, labels, mask)
-        return softmax_xent(self._logits(h), labels, mask)
+            return chunked_xent(h, logits, labels, mask, tp=tp)
+        return softmax_xent(logits(h), labels, mask, tp)
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """Mean next-token cross-entropy over ``labels`` (and ``mask``), plus
@@ -386,25 +501,28 @@ class Model(nn.Module):
         returns (total, metrics with ``ce``, ``aux`` and ``mtp_ce`` where
         they apply, and ``loss``)."""
         cfg = self.cfg
-        h, aux = self.forward(batch)
+        head = self._head()
+        h, aux = self.forward(batch, head)
         if cfg.frontend == "vision":
             h = h[:, cfg.frontend_tokens:]  # the loss covers the text positions only
-        ce = self._xent(h, batch["labels"], batch.get("mask"))
+        ce = self._xent(h, batch["labels"], batch.get("mask"), head)
         total, metrics = ce, {"ce": ce}
         if cfg.moe is not None:
             total = total + cfg.moe.aux_loss_weight * aux
             metrics["aux"] = aux
         if cfg.mtp_depth:
-            mtp_ce = self._mtp_loss(h, batch)
+            mtp_ce = self._mtp_loss(h, batch, head)
             total = total + 0.3 * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         metrics["loss"] = total
         return total, metrics
 
-    def _mtp_loss(self, h: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """DeepSeek-V3 multi-token prediction: one extra block predicts t+2."""
+    def _mtp_loss(self, h: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  head: Dict[str, Any]) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: one extra block predicts t+2
+        (a MoE model: never sharded)."""
         labels = batch["labels"]
-        emb_next = embed(self.embed, labels)      # embedding of token t+1
+        emb_next = embed(head["embed"], labels)   # embedding of token t+1
         z = torch.cat([h.to(emb_next.dtype), emb_next], dim=-1) @ self.mtp["proj"]
         z, _, _ = _block_apply(self.cfg, _mtp_kind(self.cfg), self.mtp["block"], z, "train",
                                None)
@@ -412,20 +530,35 @@ class Model(nn.Module):
         labels2 = torch.roll(labels, -1, dims=1)
         mask = torch.ones(labels2.shape, dtype=torch.float32, device=labels.device)
         mask[:, -1] = 0.0
-        return self._xent(z, labels2, mask)
+        return self._xent(z, labels2, mask, head)
 
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
-        """Process the prompt; returns (last-token logits [B, 1, V], caches)."""
-        x = self._embed_inputs(batch)
+        """Process the prompt (this rank's rows); returns (last-token logits
+        [B, 1, V], caches)."""
+        head = self._head()
+        x = self._embed_inputs(batch, head)
         caches = self.cache(x.shape[0], max_len)
         x, caches = self._stack(x, "prefill", caches)
-        h = rmsnorm(self.final_norm, x[:, -1:])
-        return self._logits(h), caches
+        h = rmsnorm(head["final_norm"], x[:, -1:])
+        return self._whole_logits(h, head), caches
 
     @torch.inference_mode()
     def decode_step(self, caches: Dict[str, Any], tokens: torch.Tensor):
         """One token for every sequence. tokens: [B, 1] → logits [B, 1, V]."""
-        x = embed(self.embed, tokens)
+        head = self._head()
+        x = embed(head["embed"], tokens, self.vocab_tp)
         x, caches = self._stack(x, "decode", caches)
-        return self._logits(rmsnorm(self.final_norm, x)), caches
+        return self._whole_logits(rmsnorm(head["final_norm"], x), head), caches
+
+
+def _shard_nested(tree, layout, mesh, prefix: str = ""):
+    """This rank's block of each tensor of a nested params tree (a list's
+    entries keyed ``0``, ``1``, ... as ``ParamTree`` keys them); each whole
+    tensor is let go once its block is taken."""
+    if isinstance(tree, dict):
+        return {k: _shard_nested(v, layout, mesh, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shard_nested(v, layout, mesh, f"{prefix}.{i}") for i, v in enumerate(tree)]
+    return shard(tree, layout[prefix], mesh)

@@ -21,11 +21,17 @@ temporary holds a whole tensor: deepseek-v2's stacked routed experts
 (``blocks.b0.ffn.wi``, 2.5 G elements at one MoE layer) would take 10 GB for
 each.  The update is elementwise, so every element gets the bits it would
 get in one piece; the norm's sum changes only in its order.
+
+Over the shards of a mesh (``sharding/shard.py``) the same update runs on
+each rank's blocks, which keep their ndim, so weight decay keeps its rule on
+the *logical* ndim; the global norm sums each rank's squares, each leaf's
+divided by the count of ranks that hold it (a norm scale replicated on
+``model`` counts once), and all-reduces the sum before the root.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -47,10 +53,19 @@ def _chunks(t: torch.Tensor):
     return t.view(-1).split(CHUNK_ELEMENTS)
 
 
-def global_norm(tensors: Tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
-                          for t in tensors.values() for c in _chunks(t.contiguous())))
+def global_norm(tensors: Tensors, replicas: Optional[Dict[str, int]] = None,
+                all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32.  Over shards:
+    ``replicas`` maps each key to the count of ranks that hold each of its
+    elements, and ``all_reduce`` sums a 1-element fp32 tensor over the ranks
+    (in place)."""
+    if replicas is None:
+        return torch.sqrt(sum(torch.sum(torch.square(c.float()))
+                              for t in tensors.values() for c in _chunks(t.contiguous())))
+    local = sum(sum(torch.sum(torch.square(c.float())) for c in _chunks(t.contiguous()))
+                / replicas[k] for k, t in tensors.items())
+    return torch.sqrt(all_reduce(local.reshape(1)).reshape(()))
 
 
 def adamw_init(params: Tensors, state_dtype=torch.float32) -> AdamWState:
@@ -75,10 +90,13 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     grad_clip: float = 1.0,
+    gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[AdamWState, Dict[str, torch.Tensor]]:
-    """One AdamW step, written into ``params``, ``state.mu`` and ``state.nu``.
+    """One AdamW step, written into ``params``, ``state.mu`` and ``state.nu``;
+    ``gnorm`` the gradients' global norm where the caller took it over
+    shards (else :func:`global_norm` of ``grads``).
     Returns (the state with its step advanced, metrics with ``grad_norm``)."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
              if grad_clip else 1.0)
     step = state.step + 1

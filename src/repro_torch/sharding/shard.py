@@ -1,0 +1,284 @@
+"""FSDP and tensor parallelism over the ranks of a mesh: the explicit form
+of what GSPMD does for the reference under ``sharding/rules.py``.
+
+A rank of a ``(data, model)`` mesh (``launch.mesh.Mesh``) holds, of every
+parameter, the block that the fitted partition spec assigns it: ``1/D`` of
+each dim on ``data`` (FSDP) and ``1/M`` of each dim on ``model`` (TP), in
+the order of the rank's coordinates.  The one exception to a contiguous
+split is a fused swiglu projection (``wi`` ``[D, 2·d_ff]`` = ``[gate |
+up]``): each of its two blocks is split on its own, so that a model rank's
+shard is ``[gate_m | up_m]`` and ``torch.chunk(h, 2)`` stays local
+(:func:`fused_blocks`).  :func:`shard_tree` and :func:`gather_tree` agree on
+that layout, and so does every checkpoint, which holds whole tensors.
+
+The collectives of the sharded step, as autograd functions:
+
+* :func:`gather_on_use` — all-gather a parameter's ``data`` dim in the
+  forward; reduce-scatter its gradient over ``data`` in fp32 in the
+  backward (a sum over the data ranks: the step divides it by ``D``);
+* :func:`copy_to_model` (Megatron's *f*) — the identity in the forward, an
+  all-reduce over ``model`` in the backward, before each column-parallel
+  product (placed after the norm, so that a norm scale replicated on
+  ``model`` gets the same gradient on every model rank);
+* :func:`reduce_from_model` (Megatron's *g*) — an all-reduce over ``model``
+  in the forward, the identity in the backward, after each row-parallel
+  product.
+
+Pods keep a whole replica (``core/cohort.py``), so a mesh with ``pod`` above
+1 is not sharded here (:func:`sharded`).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+SHARD_AXES = ("data", "model")
+
+
+@dataclass(frozen=True)
+class Placement:
+    """One parameter's place on the mesh: its fitted partition spec (one
+    entry per dim of the stored tensor) and the number of blocks its last dim
+    is fused from (2 for swiglu's ``[gate | up]``)."""
+
+    spec: Tuple
+    blocks: int = 1
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        entry = self.spec[dim] if dim < len(self.spec) else None
+        return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dim that ``axis`` shards, or None."""
+        for d in range(len(self.spec)):
+            if axis in self.axes(d):
+                return d
+        return None
+
+    def replicas(self, mesh) -> int:
+        """How many ranks of the (data, model) mesh hold each element."""
+        used = {a for d in range(len(self.spec)) for a in self.axes(d)}
+        return math.prod(mesh.size(a) for a in SHARD_AXES if a not in used)
+
+    def blocks_of(self, dim: int) -> int:
+        return self.blocks if dim == len(self.spec) - 1 else 1
+
+
+def sharded(mesh) -> bool:
+    """Whether ``mesh`` shards parameters: data or model above 1, one pod."""
+    return (mesh is not None and mesh.size("pod") == 1
+            and (mesh.size("data") > 1 or mesh.size("model") > 1))
+
+
+def model_parallel(mesh):
+    """``mesh`` where its model axis is above 1, else None (no TP)."""
+    return mesh if sharded(mesh) and mesh.size("model") > 1 else None
+
+
+def named_leaves(tree, prefix=""):
+    """(``state_dict`` key, leaf) pairs of a nested dict/list tree: a list's
+    entries are keyed ``0``, ``1``, ... as ``convert.params_from_jax`` does."""
+    if isinstance(tree, dict):
+        pairs = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        pairs = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        yield prefix, tree
+        return
+    for k, v in pairs:
+        yield from named_leaves(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+def fused_blocks(key: str, spec, act: str) -> int:
+    """2 for a swiglu projection fused as ``[gate | up]`` on its last dim
+    (a dense FFN's ``wi``, the sLSTM block's ``ffn_wi``), else 1.
+    (:func:`param_layout` splits the dim whole where a block does not
+    divide, as the sLSTM's 2 x 85 at smoke width on model 2.)"""
+    name = key.rsplit(".", 1)[-1]
+    fused = (name == "ffn_wi" or (name == "wi" and act == "swiglu"))
+    return 2 if fused and spec.logical[-1] == "mlp" else 1
+
+
+def param_layout(specs, act: str, mesh) -> Dict[str, Placement]:
+    """Each parameter's :class:`Placement` by ``state_dict`` key: the rules'
+    spec fitted to the shape (``fit_pspec``) on a sharded mesh, every dim
+    whole otherwise."""
+    from .rules import PARAM_RULES, fit_pspec  # the rules import the models, which import this
+
+    out = {}
+    for key, spec in named_leaves(specs):
+        if sharded(mesh):
+            logical = tuple(None if n is None else PARAM_RULES[n] for n in spec.logical)
+            ps = fit_pspec(logical, spec.shape, mesh)
+        else:
+            ps = (None,) * len(spec.shape)
+        pl = Placement(ps, fused_blocks(key, spec, act))
+        split = math.prod(mesh.size(a) for a in pl.axes(len(ps) - 1)) if ps else 1
+        if pl.blocks > 1 and spec.shape[-1] % (pl.blocks * split):
+            pl = Placement(ps)  # a block that does not split: the whole dim splits
+        out[key] = pl
+    return out
+
+
+def whole_shape(shape, pl: Placement, mesh) -> Tuple[int, ...]:
+    """The whole tensor's shape from a block's."""
+    return tuple(n * math.prod(mesh.size(a) for a in pl.axes(d)) for d, n in enumerate(shape))
+
+
+def _index(axes, mesh) -> Tuple[int, int]:
+    """The rank's row-major index over ``axes`` and their joint size."""
+    c = 0
+    for a in axes:
+        c = c * mesh.size(a) + mesh.coords.get(a, 0)
+    return c, math.prod(mesh.size(a) for a in axes)
+
+
+def shard(t: torch.Tensor, pl: Placement, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` (a new contiguous tensor)."""
+    for d in range(t.ndim):
+        axes = pl.axes(d)
+        if not axes:
+            continue
+        c, n = _index(axes, mesh)
+        b = pl.blocks_of(d)
+        t = t.unflatten(d, (b, n, t.shape[d] // (b * n))).narrow(d + 1, c, 1).flatten(d, d + 2)
+    return t.contiguous().clone()
+
+
+def _gather(t: torch.Tensor, dim: int, axis: str, mesh, blocks: int = 1) -> torch.Tensor:
+    """All-gather ``t`` along ``dim`` over ``axis``; with ``blocks`` the
+    pieces interleave block by block."""
+    a = mesh.size(axis)
+    if a == 1:
+        return t
+    moved = t.movedim(dim, 0).contiguous()
+    full = mesh.all_gather(moved.view(-1), axis).view(a, *moved.shape)
+    if blocks > 1:
+        full = full.unflatten(1, (blocks, -1)).transpose(0, 1)
+    return full.reshape(a * moved.shape[0], *moved.shape[1:]).movedim(0, dim)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, axis: str, mesh, blocks: int = 1
+                    ) -> torch.Tensor:
+    """Sum ``t`` over ``axis`` and keep this rank's piece along ``dim`` (the
+    inverse layout of :func:`_gather`)."""
+    a = mesh.size(axis)
+    if a == 1:
+        return t
+    moved = t.movedim(dim, 0)
+    rest = moved.shape[1:]
+    if blocks > 1:
+        moved = moved.unflatten(0, (blocks, a, -1)).transpose(0, 1)
+    flat = moved.reshape(-1).contiguous()
+    return mesh.reduce_scatter(flat, axis).view(-1, *rest).movedim(0, dim)
+
+
+def gather(t: torch.Tensor, pl: Placement, mesh, axes=SHARD_AXES) -> torch.Tensor:
+    """The tensor whole over ``axes`` from this rank's block (every rank of
+    those axes' groups must call it); no autograd.  A dim split over a tuple
+    of axes gathers its last axis first (the split is row-major)."""
+    for d in range(t.ndim):
+        for axis in reversed(pl.axes(d)):
+            if axis in axes:
+                t = _gather(t, d, axis, mesh, pl.blocks_of(d))
+    return t
+
+
+def shard_tree(full: Dict[str, torch.Tensor], layout: Dict[str, Placement], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's block of each whole tensor of a flat ``state_dict``-keyed
+    tree (keys that ``layout`` lacks, like the step count, stay as they are)."""
+    return {k: shard(t, layout[k], mesh) if k in layout else t for k, t in full.items()}
+
+
+@torch.no_grad()
+def gather_tree(shards: Dict[str, torch.Tensor], layout: Dict[str, Placement], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """The whole tensors back from every rank's blocks (every rank calls it);
+    for checkpoints and tests."""
+    return {k: gather(t, layout[k], mesh) if k in layout else t for k, t in shards.items()}
+
+
+# ------------------------------------------------------------- autograd --
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, blocks):
+        ctx.dim, ctx.mesh, ctx.blocks, ctx.dtype = dim, mesh, blocks, t.dtype
+        return _gather(t, dim, "data", mesh, blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        rs = _reduce_scatter(g.float(), ctx.dim, "data", ctx.mesh, ctx.blocks)
+        return rs.to(ctx.dtype), None, None, None
+
+
+def gather_on_use(t: torch.Tensor, pl: Placement, mesh, stacked: bool = False
+                  ) -> torch.Tensor:
+    """``t`` (a block of a parameter; with ``stacked`` one layer's slice of a
+    stacked one) whole over ``data``: an all-gather in the forward, an fp32
+    reduce-scatter of the gradient in the backward."""
+    d = pl.dim_of("data")
+    if d is None or mesh is None or mesh.size("data") == 1:
+        return t
+    d -= int(stacked)
+    return _GatherOnUse.apply(t, d, mesh, pl.blocks_of(d + int(stacked)))
+
+
+def _all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    out = x.contiguous().clone()
+    mesh.all_reduce(out.view(-1), "model", op)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is, its gradient all-reduced over
+    ``model``; ``tp`` None (no model axis): ``x``."""
+    return x if tp is None else _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """Megatron's *g*: the sum of ``x`` over ``model``, its gradient as it
+    is; ``tp`` None: ``x``."""
+    return x if tp is None else _ReduceFromModel.apply(x, tp)
+
+
+def max_over_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``model`` (no gradient)."""
+    return x if tp is None else _all_reduce(x.detach(), tp, "max")
+
+
+def gather_model(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """``x`` whole along ``dim`` over ``model`` (no gradient): vocab-sharded
+    logits for the argmax."""
+    return x if tp is None else _gather(x.detach(), dim % x.ndim, "model", tp)
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's rows of ``x`` (dim 0), in data order (no gradient)."""
+    return x if mesh is None else _gather(x.detach(), 0, "data", mesh)
+

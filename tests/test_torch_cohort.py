@@ -124,7 +124,9 @@ def test_mesh_of_one_rank_and_refused_meshes():
     assert mesh.world_size == 1 and mesh.coords == {"data": 0, "model": 0}
     t = torch.ones(3)
     assert mesh.all_reduce(t, "data") is t and not mesh.traffic.calls
-    with pytest.raises(NotImplementedError, match="next multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match="pods keep a whole replica"):
+        make_mesh((2, 1, 2), ("pod", "data", "model"), "cpu")
+    with pytest.raises(RuntimeError, match="initialised process group of 2"):
         make_mesh((1, 2), ("data", "model"), "cpu")
     with pytest.raises(RuntimeError, match="initialised process group of 2"):
         make_mesh((2, 1), ("pod", "data"), "cpu")

@@ -139,7 +139,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "assert not bad, bad\n"
         "assert {'repro_torch.optim.adamw', 'repro_torch.data.pipeline',\n"
         "        'repro_torch.checkpoint.ckpt', 'repro_torch.launch.train',\n"
-        "        'repro_torch.models.moe'} <= set(names)\n"
+        "        'repro_torch.models.moe', 'repro_torch.sharding.rules',\n"
+        "        'repro_torch.sharding.shard'} <= set(names)\n"
     )
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr

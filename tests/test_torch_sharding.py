@@ -1,0 +1,221 @@
+"""The port's sharding rules against the JAX package's, and its shard and
+gather of a parameter tree.
+
+For every config (published and smoke), from the spec trees alone (nothing
+is allocated): ``param_pspecs``, ``fit_pspec`` of each leaf, ``batch_pspec``
+and ``cache_pspecs`` equal JAX's on ``(data, model)`` meshes of (2, 2),
+(1, 2) and (16, 16).  Then ``shard_tree`` and ``gather_tree`` on a (2, 2)
+mesh whose four ranks are threads here (no process group): the round trip
+returns the tree bit for bit, swiglu's ``wi`` shards as ``[gate_m | up_m]``,
+and a dim that ``fit_pspec`` leaves whole stays whole.  Last, the refusals
+of tensor parallelism that this slice does not take."""
+
+import threading
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.sharding import rules as jax_rules  # noqa: E402
+from repro_torch.configs import ARCHS, ShapeConfig, get_config  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.models import Model, model_specs  # noqa: E402
+from repro_torch.models.transformer import cache_tree  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
+from repro_torch.sharding.shard import (gather_tree, param_layout, shard,  # noqa: E402
+                                        shard_tree)
+
+MESHES = [(2, 2), (1, 2), (16, 16)]
+CASES = [(arch, smoke) for arch in ARCHS for smoke in (False, True)]
+
+
+def _fake(shape):
+    """What the rules read of a mesh: its axis sizes."""
+    return types.SimpleNamespace(shape=dict(zip(("data", "model"), shape)))
+
+
+def _flat(tree, prefix=""):
+    """(path, leaf) pairs of dicts, lists and named tuples; a partition spec
+    (a tuple) is a leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list) or hasattr(tree, "_fields"):
+        items = (((f if hasattr(tree, "_fields") else str(i)), v)
+                 for i, (f, v) in enumerate(zip(getattr(tree, "_fields", tree), tree)))
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out += _flat(v, f"{prefix}.{k}" if prefix else str(k))
+    return out
+
+
+def _specs(tree, prefix=""):
+    """(key, ParamSpec) pairs of either package's spec tree."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _specs(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _specs(v, f"{prefix}.{i}")]
+    return [(prefix, tree)]
+
+
+@pytest.mark.parametrize("arch,smoke", CASES)
+def test_param_and_fitted_pspecs_equal_jax(arch, smoke):
+    want = dict(_specs(JaxModel(jax_config(arch, smoke=smoke)).specs()))
+    got = dict(_specs(model_specs(get_config(arch, smoke=smoke))))
+    assert set(got) == set(want)
+    jax_ps = dict(_flat(jax_rules.param_pspecs(JaxModel(jax_config(arch, smoke=smoke)).specs())))
+    port_ps = dict(_flat(rules.param_pspecs(model_specs(get_config(arch, smoke=smoke)))))
+    for key, spec in got.items():
+        assert port_ps[key] == tuple(jax_ps[key]), key
+        for shape in MESHES:
+            fake = _fake(shape)
+            assert (rules.fit_pspec(port_ps[key], spec.shape, fake)
+                    == tuple(jax_rules.fit_pspec(jax_ps[key], want[key].shape, fake))), (key, shape)
+
+
+@pytest.mark.parametrize("arch,smoke", CASES)
+def test_batch_and_cache_pspecs_equal_jax(arch, smoke):
+    jcfg, cfg = jax_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeConfig("s", 2048, 32, kind)
+        for axes in (("data",), ("pod", "data")):
+            want = jax_rules.batch_pspec(jcfg, shape, batch_axes=axes)
+            got = rules.batch_pspec(cfg, shape, batch_axes=axes)
+            assert got == {k: tuple(v) for k, v in want.items()}, (kind, axes)
+    if not cfg.causal:
+        return
+    spec = JaxModel(jcfg).cache(32, 2048, as_spec=True)
+    tree = cache_tree(cfg, 32, 2048, "meta")
+    for shape in MESHES:
+        want = _flat(jax_rules.cache_pspecs(spec, mesh=_fake(shape)))
+        got = _flat(rules.cache_pspecs(tree, mesh=_fake(shape)))
+        assert [(k, v) for k, v in got] == [(k, tuple(v)) for k, v in want], shape
+
+
+class ThreadMesh(Mesh):
+    """A rank of a mesh whose ranks are threads of this process: its
+    all-gather meets the others at a barrier (every rank gathers the same
+    tensors in the same order, as ``gather_tree`` does)."""
+
+    def __init__(self, shape, rank, hub):
+        sizes = dict(zip(("data", "model"), shape))
+        super().__init__(axes=("data", "model"), shape=sizes,
+                         coords={"data": rank // shape[1], "model": rank % shape[1]},
+                         device=torch.device("cpu"))
+        self.rank, self.hub = rank, hub
+
+    def all_gather(self, t, axes):
+        slots, barrier = self.hub
+        slots[self.rank] = t
+        barrier.wait()
+        M, other = self.shape["model"], "model" if axes == "data" else "data"
+        coord = lambda r: {"data": r // M, "model": r % M}[other]
+        out = torch.cat([slots[r] for r in sorted(slots) if coord(r) == self.coords[other]])
+        barrier.wait()
+        return out
+
+
+def _round_trip(full, layout, shape):
+    world = shape[0] * shape[1]
+    hub = ({}, threading.Barrier(world))
+    meshes = [ThreadMesh(shape, r, hub) for r in range(world)]
+    blocks = [shard_tree(full, layout, m) for m in meshes]
+    out = [None] * world
+
+    def run(r):
+        out[r] = gather_tree(blocks[r], layout, meshes[r])
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    return meshes, blocks, out
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "hubert-xlarge", "recurrentgemma-9b",
+                                  "xlstm-1.3b", "deepseek-v2-236b"])
+def test_shard_then_gather_is_the_tree_bit_for_bit(arch):
+    """Smoke width on a (2, 2) mesh; hubert with a vocab of 63, which
+    ``fit_pspec`` leaves whole on ``model``."""
+    cfg = get_config(arch, smoke=True)
+    if arch == "hubert-xlarge":
+        cfg = cfg.with_overrides(vocab_size=63)
+    full = {k: v.detach() for k, v in Model(cfg, device="cpu").state_dict().items()}
+    layout = param_layout(model_specs(cfg), cfg.act, ThreadMesh((2, 2), 0, None))
+    meshes, blocks, out = _round_trip(full, layout, (2, 2))
+    for r, tree in enumerate(out):
+        assert set(tree) == set(full)
+        for key, t in full.items():
+            assert torch.equal(tree[key], t), (r, key)
+    for m, b in zip(meshes, blocks):
+        for key, t in full.items():
+            want = [n // (2 if ax else 1) for n, ax in zip(t.shape, layout[key].spec)]
+            assert list(b[key].shape) == want, key
+        if arch == "hubert-xlarge":
+            assert layout["unembed.w"].spec == ("data", None)
+            assert b["unembed.w"].shape[1] == 63
+        fused = [k for k in full if layout[k].blocks == 2]
+        # xlstm's smoke sLSTM FFN is 2 x 85 wide: no block splits in two, so
+        # the whole dim splits (a contiguous split, as GSPMD's).
+        assert bool(fused) == (cfg.act == "swiglu" and arch != "xlstm-1.3b"), fused
+        for key in fused:
+            w = full[key]
+            gate, up = w.chunk(2, dim=-1)
+            n, c = gate.shape[-1] // 2, m.coords["model"]
+            half = w.shape[-2] // 2
+            rows = slice(m.coords["data"] * half, (m.coords["data"] + 1) * half)
+            want = torch.cat([gate[..., rows, c * n:(c + 1) * n],
+                              up[..., rows, c * n:(c + 1) * n]], dim=-1)
+            assert torch.equal(b[key], want), key
+
+
+def test_contiguous_split_would_hand_out_gate_alone():
+    """The trap that the [gate_m | up_m] layout avoids: model rank 0's block
+    of a contiguous split is all gate."""
+    cfg = get_config("llama3.2-1b", smoke=True)
+    w = torch.arange(64 * 256, dtype=torch.float32).view(64, 256)
+    layout = param_layout(model_specs(cfg), cfg.act, ThreadMesh((1, 2), 0, None))
+    pl = layout["blocks.b0.ffn.wi"]
+    mesh = ThreadMesh((1, 2), 0, None)
+    fused = shard(w[None], pl, mesh)[0]
+    contiguous = shard(w[None], type(pl)(pl.spec), mesh)[0]
+    assert torch.equal(contiguous, w[:, :128])
+    assert torch.equal(fused, torch.cat([w[:, :64], w[:, 128:192]], dim=1))
+
+
+def _mesh(shape):
+    return Mesh(axes=("data", "model"), shape=dict(zip(("data", "model"), shape)),
+                coords={"data": 0, "model": 0}, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch,what", [("recurrentgemma-9b", "'rec'"),
+                                       ("deepseek-v2-236b", "MoE"),
+                                       ("xlstm-1.3b", "'mlstm', 'slstm'")])
+def test_model_axis_refuses_blocks_it_does_not_shard(arch, what):
+    with pytest.raises(NotImplementedError, match=what):
+        Model(get_config(arch, smoke=True), device="cpu", mesh=_mesh((1, 2)))
+
+
+def test_model_axis_refuses_heads_that_do_not_divide():
+    """Smoke llama has 4 query heads over 2 KV heads: model 4 splits no KV
+    head; model 3 splits neither."""
+    for shape in ((1, 4), (1, 3)):
+        with pytest.raises(NotImplementedError, match="do not all divide"):
+            Model(get_config("llama3.2-1b", smoke=True), device="cpu", mesh=_mesh(shape))
+
+
+def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():
+    with pytest.raises(NotImplementedError, match="item 3c"):
+        Model(get_config("deepseek-v2-236b", smoke=True), device="cpu", mesh=_mesh((2, 1)))
+    model = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", mesh=_mesh((2, 1)))
+    full = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu")
+    for key, p in full.state_dict().items():
+        pl = model.layout[key]
+        assert tuple(model.state_dict()[key].shape) == tuple(
+            n // (2 if "data" in pl.axes(d) else 1) for d, n in enumerate(p.shape)), key
+    assert model.layout["blocks.b0.rec.lam"].spec == (None, None)

@@ -7,14 +7,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import RunConfig, ShapeConfig, get_config
+from repro_torch.convert import shard_params
 from repro_torch.core.cohort import (SyncConfig, bucket_mean, cohort_all_reduce,
                                      flat_all_reduce, pod_sync_grads)
+from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_train_step, init_train_state
-from repro_torch.models import Model
+from repro_torch.models import Model, rank_inputs
+from repro_torch.sharding.shard import gather_tree
 
 POD_DATA = ("pod", "data")
+DATA_MODEL = ("data", "model")
 
 
 def _numpy(tree):
@@ -88,19 +92,126 @@ def step_modes(arch, shape, params, batches, runs):
     return {"coords": mesh.coords, "runs": out}
 
 
-def train_fp32(arch, shape, steps, run_kw, resume=False):
-    """``train(arch)`` (smoke, fp32) on a mesh of ``shape`` over (pod, data),
+def train_fp32(arch, shape, steps, run_kw, resume=False, axes=POD_DATA):
+    """``train(arch)`` (smoke, fp32) on a mesh of ``shape`` over ``axes``,
     two ranks per host, logging every step; returns its history."""
     real = train_mod.get_config
     train_mod.get_config = lambda a, smoke: real(a, smoke).with_overrides(dtype="float32")
     try:
         out = train_mod.train(arch, steps=steps, shape=ShapeConfig("t", 16, 8, "train"),
-                              mesh_shape=shape, mesh_axes=POD_DATA, run=RunConfig(**run_kw),
+                              mesh_shape=shape, mesh_axes=axes, run=RunConfig(**run_kw),
                               resume=resume, log_every=1,
                               num_hosts=max(int(np.prod(shape)) // 2, 1), device="cpu")
     finally:
         train_mod.get_config = real
     return out["history"]
+
+
+def _fp32(arch):
+    return get_config(arch, smoke=True).with_overrides(dtype="float32")
+
+
+def _sharded(arch, params, mesh):
+    """``arch`` (smoke, fp32) on ``mesh`` holding this rank's blocks of the
+    whole ``params`` (numpy, ``state_dict`` keys)."""
+    model = Model(_fp32(arch), device="cpu", mesh=mesh)
+    model.load_state_dict(shard_params({k: torch.from_numpy(v) for k, v in params.items()},
+                                       model))
+    return model
+
+
+def _batch(b, cfg):
+    """A train batch from a token array [B, T + 1] (the frontends' embeds
+    drawn from the tokens' values, as the tests' one-process runs do)."""
+    out = {"tokens": torch.from_numpy(b[:, :-1]).long(),
+           "labels": torch.from_numpy(b[:, 1:]).long()}
+    if cfg.frontend == "audio":
+        out = {"embeds": torch.from_numpy(np.sin(b[:, :-1, None] * np.arange(cfg.d_model)))
+               .float() * 0.02, "labels": out["labels"]}
+    elif cfg.frontend == "vision":
+        ft = cfg.frontend_tokens
+        out = {"embeds": torch.from_numpy(np.cos(b[:, :ft, None] * np.arange(cfg.d_model)))
+               .float() * 0.02, "tokens": out["tokens"][:, ft:], "labels": out["labels"][:, ft:]}
+    return out
+
+
+def tp_steps(arch, shape, params, batches, run_kw):
+    """``arch`` (smoke, fp32, from the whole ``params``) stepped over
+    ``batches`` on a ``(data, model)`` mesh of ``shape``.  Returns the
+    losses, grad-norms, wire bytes per step, and the final parameters
+    gathered whole."""
+    mesh = make_mesh(shape, DATA_MODEL, "cpu")
+    model = _sharded(arch, params, mesh)
+    run = RunConfig(total_steps=10, **run_kw)
+    state, step = init_train_state(model, run, mesh), build_train_step(model, run, mesh)
+    losses, norms, wire = [], [], []
+    for b in batches:
+        mesh.traffic.reset()
+        state, m = step(state, _batch(b, model.cfg))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        wire.append(dict(mesh.traffic.wire_bytes))
+    whole = gather_tree(dict(state["params"]), model.layout, mesh)
+    return {"loss": losses, "grad_norm": norms, "wire": wire, "params": _numpy(whole),
+            "coords": dict(mesh.coords)}
+
+
+def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len):
+    """``serve(arch)`` (smoke, fp32) on a ``(data, model)`` mesh of
+    ``shape``, its weights the whole ``params`` and its prompts ``prompts``
+    (numpy) in place of its own draws; returns every rank's tokens."""
+    class Loaded(Model):
+        def __init__(self, cfg, **kw):
+            super().__init__(cfg, **kw)
+            self.load_state_dict(shard_params(
+                {k: torch.from_numpy(v) for k, v in params.items()}, self))
+
+    real = (serve_mod.Model, serve_mod.get_config, serve_mod.input_specs)
+    serve_mod.Model = Loaded
+    serve_mod.get_config = lambda a, smoke: _fp32(a)
+    serve_mod.input_specs = lambda *a, **kw: {k: torch.from_numpy(v).long()
+                                              for k, v in prompts.items()}
+    try:
+        out = serve_mod.serve(arch, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                              mesh_shape=shape, mesh_axes=DATA_MODEL, device="cpu")
+    finally:
+        serve_mod.Model, serve_mod.get_config, serve_mod.input_specs = real
+    return out["tokens"].numpy()
+
+
+def tp_logits(arch, shape, params, prompts, max_len):
+    """This rank's rows' last-token logits of a prefill of ``prompts`` and of
+    one greedy decode step after it, over the whole vocab, on a ``(data,
+    model)`` mesh of ``shape``."""
+    mesh = make_mesh(shape, DATA_MODEL, "cpu")
+    model = _sharded(arch, params, mesh)
+    rows = next(iter(prompts.values())).shape[0]
+    batch = rank_inputs({k: torch.from_numpy(v).long() for k, v in prompts.items()},
+                        model.cfg, ShapeConfig("s", 0, rows, "prefill"), model.mesh)
+    logits, caches = model.prefill(batch, max_len)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    step, _ = model.decode_step(caches, tok)
+    return {"prefill": logits[:, -1].numpy(), "decode": step[:, -1].numpy(),
+            "coords": dict(mesh.coords)}
+
+
+def tp_serve_admitted(arch, shape, slots):
+    """``serve(arch)`` (smoke) on a ``(data, model)`` mesh of ``shape``
+    with ``slots`` admission slots: this rank's tokens and its admission
+    record (rank 0 alone holds the lease)."""
+    out = serve_mod.serve(arch, batch=2, prompt_len=8, gen_len=10, mesh_shape=shape,
+                          mesh_axes=DATA_MODEL, device="cpu", admission_slots=slots)
+    return out["tokens"].numpy(), out.get("admission")
+
+
+def tp_encode(arch, shape, params, embeds):
+    """``build_encode_step`` of ``arch`` (smoke, fp32) on a ``(data, model)``
+    mesh of ``shape`` over the global ``embeds``: the whole logits."""
+    from repro_torch.launch.steps import build_encode_step
+
+    mesh = make_mesh(shape, DATA_MODEL, "cpu")
+    model = _sharded(arch, params, mesh)
+    return build_encode_step(model, model.mesh)({"embeds": torch.from_numpy(embeds)}).numpy()
 
 
 def cli_main(argv):
@@ -125,3 +236,24 @@ def chip_smoke_pod_rank(*args):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     return cs.pod_rank(*args)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def chip_smoke_tp_serve_rank(*args):
+    """chip_smoke.py's phase-8(a) rank (``tp_serve_rank``)."""
+    return _chip_smoke().tp_serve_rank(*args)
+
+
+def chip_smoke_tp_train_rank(*args):
+    """chip_smoke.py's phase-8(b) rank (``tp_train_rank``)."""
+    return _chip_smoke().tp_train_rank(*args)
