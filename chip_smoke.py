@@ -144,8 +144,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the kernels against the plain versions in the forward, remat's
    recompute and the backward, within ``RG_TRAIN_BF16_TOL``, and a scan
    backward wrong on purpose (da from h_t) must exceed it; (e) the main
-   path's fourth part: ``train("xlstm-1.3b")`` at published width and depth
-   (48 blocks, six ``("mlstm",) * 7 + ("slstm",)`` super-blocks under
+   path's fourth part: ``train("xlstm-1.3b")`` at published width cut to 16
+   of its 48 blocks (two ``("mlstm",) * 7 + ("slstm",)`` super-blocks under
    remat), bf16 parameters, fp32 AdamW moments, 4 rows of 2048 tokens in one
    microbatch, 4 steps at lr 3e-4 with 1 warmup step (``XLSTM_TRAIN``):
    every loss finite, the trained weights moved, no launch of any kernel and
@@ -226,11 +226,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    (:func:`check_tp_training`); in both, a planted fault (``wi`` split
    contiguously, :func:`contiguous_wi`) must lie outside every limit. It
    prints prefill s, decode ms/token, s and exchange s per step by group,
-   the backends, and each rank's parameter bytes and peak memory.
+   the backends, and each rank's parameter bytes and peak memory;
+9. expert parallelism (``models/moe.py``'s all-to-all island) and MLA's
+   tensor parallelism: deepseek-v2-236b at published widths cut to 2 of its
+   60 layers, on the reference's production MoE settings (``ep_a2a``, 16
+   groups: :func:`ep_config`), two ranks on ``(data 1, model 2)`` (each 80
+   of the 160 experts and 64 of the 128 heads), held to a one-rank run of
+   the same weights made here first whose MoE routes each model rank's
+   slice as a group of its own (:func:`island_groups`,
+   :func:`ep_references`): (a) phase 4's deepseek request served
+   (:func:`ep_serve_rank`): the prefill's last-token logits within
+   ``EP_LOGITS_RTOL``, every first token the one rank's, the ``model``
+   group's bytes of the prefill and of each decode step equal to the
+   formulas (:func:`ep_serve_wire_bytes`), 2 flash launches a prefill on
+   ``wgmma`` and no plain call, the dropped choices printed
+   (:func:`check_ep_serving`); (b) 6(g)'s 2 x 4096 trained 3 steps with
+   bf16 AdamW moments (:func:`ep_train_rank`): step 1's loss and
+   grad-norm within ``EP_LOSS_RTOL`` and ``EP_NORM_RTOL``, each step's
+   bytes equal to the formulas (:func:`ep_wire_bytes`: the island's
+   all-to-alls in the forward, remat's recompute and the backward among
+   them), each rank's parameter and moment bytes its blocks' by the rules,
+   3 flash and 2 flash backward launches a rank and step on ``wgmma``
+   (:func:`check_ep_training`); in both, a planted fault (the results
+   returned in reverse source order, :func:`wrong_source_order`) must lie
+   outside every limit.  Phase 2 times flash at a rank's shapes (64 heads,
+   B 4 and B 2 x 4096).
 
-Before each of phases 3-8 a ``[memory]`` line prints what the phases before
+Before each of phases 3-9 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
-last lines are the script's seconds, the kernels' JSON record, the card's
+last lines are the script's seconds (and whether they passed ``TARGET_S``),
+the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
 JAX; with no CUDA card, or without the repository beside it, it exits 1.
 """
@@ -299,6 +324,9 @@ FLASH_SLICES = {  # prefill attention of each main path
     # llama3.2-1b's prefill on a rank of model 2 (phase 8(a)): its 16 query
     # heads over 4 KV heads.
     "llama3.2-1b model 2": (8, 1024, 16, 4, 64, 64, True, 0, "bfloat16"),
+    # deepseek-v2-236b's MLA prefill on a rank of model 2 (phase 9(a)): its
+    # 64 of the 128 heads.
+    "deepseek-v2-236b model 2": (4, 4096, 64, 64, 192, 128, True, 0, "bfloat16"),
 }
 # The plain versions run over slices of the KV heads whose fp32 scores take at
 # most this many bytes: whole, MLA's 128 heads would not fit the card
@@ -447,6 +475,9 @@ TRAIN_HUBERT_ATTN = (4, 1500, 16, 16, 80, 80, False, 0, "bfloat16")
 # llama3.2-1b's attention on a rank of data 2 x model 2 (phase 8(b)): its 2
 # rows, its 16 query heads over 4 KV heads.
 TRAIN_TP_ATTN = (2, 4096, 16, 4, 64, 64, True, 0, "bfloat16")
+# deepseek-v2-236b's MLA on a rank of model 2 (phase 9(b)): 6(g)'s 2 rows,
+# 64 of the 128 heads.
+TRAIN_EP_ATTN = (2, 4096, 64, 64, 192, 128, True, 0, "bfloat16")
 # The launches of one flash_attention_bwd call on each variant (``wgmma`` up
 # to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
 # kernel has in a profiler trace, and the main kernels of each.
@@ -495,10 +526,13 @@ TRAIN = ("llama3.2-1b", 8, 4096, 8, 10)
 # (rec, rec, attn) super-blocks and the two tail rec layers): arch, layers,
 # rows per step, tokens per row, microbatches, steps.
 RG_TRAIN = ("recurrentgemma-9b", 8, 4, 4096, 4, 6)
-# Phase 6(e): xlstm-1.3b at published width and depth (48 blocks, six
-# super-blocks of 7 mLSTM and 1 sLSTM, each under remat): arch, rows per
-# step, tokens per row (the published training context), microbatches,
-# steps, peak learning rate (1 warmup step).  Cuts: global batch 256 to 4
+# Phase 6(e): xlstm-1.3b at published width cut to 16 of its 48 blocks (two
+# super-blocks of 7 mLSTM and 1 sLSTM, each under remat): arch, blocks, rows
+# per step, tokens per row (the published training context), microbatches,
+# steps, peak learning rate (1 warmup step).  Cuts: depth 48 to 16 (a step
+# at 48 blocks took ~47-52 s on an H100, the phase ~200-225 s of the
+# script's time limit; 48 blocks stay in phase 4's serving and in
+# tests/test_torch_xlstm_depth.py); global batch 256 to 4
 # rows in one microbatch, not two (the sLSTM's loop over time sets the
 # step's pace on the host, alike at 2 rows or 4: on an H100 a step took 114 s
 # in two microbatches and 47 s in one); 4 steps; no checkpoint.
@@ -521,7 +555,7 @@ RG_TRAIN = ("recurrentgemma-9b", 8, 4, 4096, 4, 6)
 # 48 blocks and 256 tokens, -0.12 to 0.21 at 8 blocks and 2048).  At 8
 # blocks and 256 tokens an H100 reads 0.993 (0.69 at 1e-2), the CPU 1.008
 # (vocabulary 1024); a gradient of the wrong scale or sign reads far off.
-XLSTM_TRAIN = ("xlstm-1.3b", 4, 2048, 1, 4, 3e-4)
+XLSTM_TRAIN = ("xlstm-1.3b", 16, 4, 2048, 1, 4, 3e-4)
 XLSTM_LOSS_RTOL = 2e-3
 # The gradient check: blocks, tokens on the row, change a side, tolerance.
 XLSTM_SLOPE = (8, 256, 1e-3, 0.05)
@@ -622,6 +656,47 @@ TP_TRAIN = ("llama3.2-1b", 4, 4096, 1, 3, 3e-4)
 TP_LOGITS_RTOL = 5e-2
 TP_LOSS_RTOL = 3e-5
 TP_NORM_RTOL = 5e-3
+# Phase 9: expert parallelism (models/moe.py's island) with MLA's tensor
+# parallelism: deepseek-v2-236b at published widths cut to 2 of its 60 layers
+# (the dense lead layer and one MoE layer of 160 routed experts top-6 and 2
+# shared: 5.359 G parameters) on the reference's production MoE settings
+# (src/repro/launch/dryrun.py: ep_a2a, 16 groups), on (data 1, model 2): two
+# ranks spawned as phase 7's (they share the card where it is the only one),
+# each with 80 of the experts and 64 of the 128 heads.  (a) phase 4's
+# deepseek request: rows, prompt, generated tokens; (b) 6(g)'s 2 x 4096 in
+# one microbatch: rows, tokens per row, microbatches, steps, peak learning
+# rate (warmup 0), AdamW moments in bf16 as the reference's production run
+# for this arch (fp32 moments would take the two ranks' state to 64 GB of the
+# card's 80).  (2, 2) and deepseek-v3's 2-D layout wait for meta-device init
+# (ROADMAP's item 4): four ranks drawing the whole tree would pass 80 GB.
+EP_MESH = ((1, 2), ("data", "model"))
+EP_LAYERS = 2
+EP_SERVE = ("deepseek-v2-236b", 4, 4096, 32)
+EP_TRAIN = ("deepseek-v2-236b", 2, 4096, 1, 3, 3e-4)
+# Against a one-rank run of the same weights in which each model rank's slice
+# is routed as a group of its own (island_groups): (a) the prefill's
+# last-token logits in relative L2 over the batch; (b) step 1's loss and
+# grad-norm, relative.  The ranks round their partial sums (MLA's heads, the
+# shared experts) to bf16 before they add them.  On an H100 (700 W) a sound
+# run read 1.716e-2, 2.85e-6 and 9.35e-6; the planted fault (results in
+# reverse source order) 2.224e-2, 1.917e-5 and 6.49e-6: at the reference's
+# init the router's softmax over 160 experts gives each chosen expert a gate
+# near 1/160, so the routed experts move the logits and the grad-norm less
+# than the bf16 sharding does, and only the loss of these three tells the
+# fault.  What does: the island's output against the one-rank route of the
+# same inputs on the same rank (island_probe: each slice a group, every
+# expert's weights gathered over model), in relative L2 over a call: 0 in
+# the sound runs (serving and training, on the H100 and at smoke width on
+# the CPU), 1.39 under the fault.  The fault must lie outside it in (a) and
+# (b), and outside the loss's limit; the limit leaves room for expert
+# products that another batch shape would round otherwise.
+EP_LOGITS_RTOL = 5e-2
+EP_LOSS_RTOL = 1e-5
+EP_NORM_RTOL = 1e-4
+EP_ISLAND_RTOL = 1e-2
+# The script's target time (ROADMAP), half of its 1200 s time limit: the
+# last line before the JSON says when a run went over it.
+TARGET_S = 600
 # The ops-level functions that the plain versions replace in a microbatch.
 KERNEL_ENTRIES = ("_flash_fwd", "_flash_bwd", "_scan_fwd", "_scan_bwd")
 
@@ -1271,22 +1346,24 @@ def contiguous_wi():
         transformer.param_layout = real
 
 
-def shard_bytes(cfg, shape):
-    """(parameter bytes, fp32 moment bytes) of one rank's blocks on a
-    ``(data, model)`` mesh of ``shape``, from the rules alone."""
+def shard_bytes(cfg, shape, moment_bytes=8, keys=None):
+    """(parameter bytes, AdamW moment bytes: ``moment_bytes`` a parameter
+    element, 8 for fp32 moments) of one rank's blocks on a ``(data, model)``
+    mesh of ``shape``, from the rules alone; with ``keys``, of the leaves
+    whose key holds that string."""
     import torch
 
     from repro_torch.models import model_specs
     from repro_torch.sharding.shard import named_leaves, param_layout
 
     mesh = cpu_mesh(shape)
-    specs = dict(named_leaves(model_specs(cfg)))
+    specs = {k: s for k, s in named_leaves(model_specs(cfg)) if keys is None or keys in k}
     layout = param_layout(model_specs(cfg), cfg.act, mesh)
     numel = {k: math.prod(n // math.prod(mesh.size(a) for a in layout[k].axes(d))
                           for d, n in enumerate(s.shape)) for k, s in specs.items()}
     params = sum(n * torch.empty((), dtype=specs[k].dtype).element_size()
                  for k, n in numel.items())
-    return params, 8 * sum(numel.values())
+    return params, moment_bytes * sum(numel.values())
 
 
 def tp_wire_bytes(cfg, shape, rows, seq, micro, n_metrics):
@@ -1382,6 +1459,104 @@ def tp_serve_wire_bytes(cfg, model_size, batch, positions):
             + all_gather_wire_bytes(batch * cfg.vocab_size * esize, model_size)}
 
 
+def recorded_model(rec, drops=None):
+    """A ``Model`` that records into ``rec``: itself (``model``), its
+    parameter bytes, the prefill's last-token logits, and the launches and
+    wire bytes of the prefill and of each decode step; with ``drops`` (a
+    :func:`counted_drops` log) the choices the prefill's MoE calls dropped."""
+    from repro_torch.models import Model
+
+    rec.update(decode_bytes=[], decode_launches=[])
+
+    class Recorded(Model):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["model"] = self
+            rec["param_bytes"] = sum(p.numel() * p.element_size() for p in self.parameters())
+
+        def _call(self, fn, *args):
+            before, counts = dict(self.mesh.traffic.wire_bytes), launch_counts()
+            out = fn(*args)
+            wire = {g: b - before.get(g, 0.0) for g, b in self.mesh.traffic.wire_bytes.items()}
+            return out, wire, {k: c - counts[k] for k, c in launch_counts().items()}
+
+        def prefill(self, batch_, max_len):
+            n = len(drops or ())
+            (logits, caches), rec["prefill_bytes"], rec["prefill_launches"] = self._call(
+                super().prefill, batch_, max_len)
+            rec["logits"] = logits[:, -1].float().cpu().numpy()
+            if drops is not None:
+                rec["prefill_drops"] = [int(d) for d in drops[n:]]
+            return logits, caches
+
+        def decode_step(self, caches, tokens):
+            out, wire, launches = self._call(super().decode_step, caches, tokens)
+            rec["decode_bytes"].append(wire)
+            rec["decode_launches"].append(launches)
+            return out
+
+    return Recorded
+
+
+@contextlib.contextmanager
+def counted_steps(train_mod, steps, seen):
+    """``build_train_step`` wrapped in train's namespace for the block: each
+    step's launches, counted from zero, appended to ``steps``; ``seen``
+    takes the mesh, the config, the run and step 1's batch."""
+    real = train_mod.build_train_step
+
+    def counted_step(model, run_, mesh=None):
+        step = real(model, run_, mesh)
+        seen.update(mesh=mesh, cfg=model.cfg, run=run_)
+
+        def call(state, batch):
+            seen.setdefault("batch", batch)
+            before = launch_counts()
+            new_state, metrics = step(state, batch)
+            steps.append({k: c - before[k] for k, c in launch_counts().items()})
+            return new_state, metrics
+        return call
+
+    train_mod.build_train_step = counted_step
+    try:
+        yield
+    finally:
+        train_mod.build_train_step = real
+
+
+def check_rank_steps(ranks, want, blocks, per_step):
+    """The checks that phases 8(b) and 9(b) share, over the ranks' records:
+    every rank's losses equal; each step's wire bytes on each group equal
+    ``want``; each rank's (parameter, moment) bytes equal ``blocks``; each
+    step's launches equal ``per_step``, all ``wgmma``, with no plain call
+    (``per_step`` None, on the CPU: no launch)."""
+    losses = [h["loss"] for h in ranks[0]["history"]]
+    for rank, r in enumerate(ranks):
+        if [h["loss"] for h in r["history"]] != losses:
+            raise AssertionError(f"rank {rank}'s losses differ from rank 0's")
+        for i, h in enumerate(r["history"]):
+            if h["wire_bytes"] != want:
+                raise AssertionError(f"step {i + 1} rank {rank}: wire bytes {h['wire_bytes']}, "
+                                     f"asymmetry's formulas {want}")
+        if (r["param_bytes"], r["moment_bytes"]) != blocks:
+            raise AssertionError(f"rank {rank} holds {r['param_bytes']} B of parameters and "
+                                 f"{r['moment_bytes']} B of moments; its blocks by the rules "
+                                 f"are {blocks[0]} and {blocks[1]} B")
+        if per_step is not None and r["plain"]:
+            raise AssertionError(f"rank {rank} called the plain versions {r['plain']}")
+        for i, s in enumerate(r["steps"]):
+            got = {k: s[k] for k in (per_step or {})}
+            wgmma = {k: s.get(f"{k}:wgmma", 0) for k in ("flash_attention",
+                                                         "flash_attention_bwd")}
+            if per_step is None and any(s.values()):
+                raise AssertionError(f"rank {rank}: launches on the CPU")
+            if per_step is not None and (got != per_step or any(
+                    wgmma[k] != per_step[k] for k in wgmma)):
+                raise AssertionError(f"step {i + 1} rank {rank}: launches {s}, expected "
+                                     f"{per_step}, all wgmma")
+    return losses
+
+
 def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None):
     """One rank of phase 8(a), spawned: ``serve(arch)`` on ``TP_SERVE_MESH``
     with the launches counted from zero around it, ``Model.prefill`` and
@@ -1396,33 +1571,9 @@ def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None):
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model, input_specs, rank_inputs
 
-    rec = {"decode_bytes": [], "decode_launches": []}
+    rec = {}
     cfg = get_config(arch, smoke=smoke)
-
-    class Recorded(Model):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            rec["mesh"] = self.mesh
-            rec["param_bytes"] = sum(p.numel() * p.element_size() for p in self.parameters())
-
-        def _call(self, fn, *args):
-            before, counts = dict(self.mesh.traffic.wire_bytes), launch_counts()
-            out = fn(*args)
-            wire = {g: b - before.get(g, 0.0) for g, b in self.mesh.traffic.wire_bytes.items()}
-            return out, wire, {k: c - counts[k] for k, c in launch_counts().items()}
-
-        def prefill(self, batch_, max_len):
-            (logits, caches), rec["prefill_bytes"], rec["prefill_launches"] = self._call(
-                super().prefill, batch_, max_len)
-            rec["logits"] = logits[:, -1].float().cpu().numpy()
-            return logits, caches
-
-        def decode_step(self, caches, tokens):
-            out, wire, launches = self._call(super().decode_step, caches, tokens)
-            rec["decode_bytes"].append(wire)
-            rec["decode_launches"].append(launches)
-            return out
-
+    Recorded = recorded_model(rec)
     serve_mod.Model = Recorded
     try:
         with counted_plain_calls() as plain:
@@ -1435,7 +1586,7 @@ def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None):
             launches = launch_counts()
     finally:
         serve_mod.Model = Model
-    mesh = rec.pop("mesh")
+    mesh = rec.pop("model").mesh
     out = {"tokens": res["tokens"].numpy(), "prefill_s": res["prefill_seconds"],
            "decode_ms": res["decode_seconds_per_token"] * 1e3, "launches": launches,
            "plain": dict(plain), "backends": dict(mesh.backends), "device": str(mesh.device),
@@ -1525,6 +1676,26 @@ def check_tp_serving(ranks, cfg, batch, prompt_len, ref_logits, ref_tokens, smi)
     return worst
 
 
+def trained_rank(res, steps, plain, mesh, device):
+    """What a spawned rank of phase 8(b) or 9(b) returns of its ``train()``
+    run ``res``: the history, the steps' launches, the plain versions'
+    calls, the groups' backends, its coordinates, the parameter and moment
+    bytes it holds, and on the card its peak memory and ``mem_get_info``."""
+    import torch
+
+    state = res["final_state"]
+    out = {"history": res["history"], "steps": steps, "plain": dict(plain),
+           "backends": dict(mesh.backends), "device": str(mesh.device),
+           "coords": dict(mesh.coords),
+           "param_bytes": sum(p.numel() * p.element_size() for p in state["params"].values()),
+           "moment_bytes": sum(t.numel() * t.element_size() for g in ("mu", "nu")
+                               for t in state["opt"][g].values())}
+    if device is None:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["mem_get_info"] = [x / 1e9 for x in torch.cuda.mem_get_info()]
+    return out
+
+
 def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
     """One rank of phase 8(b), spawned: ``train(arch)`` on ``TP_TRAIN_MESH``
     with ``build_train_step`` wrapped (in train's namespace) to count each
@@ -1540,43 +1711,20 @@ def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None)
     from repro_torch.launch.steps import build_train_step, init_train_state
     from repro_torch.models import Model
 
-    real_step, steps, seen = train_mod.build_train_step, [], {}
-
-    def counted_step(model, run_, mesh=None):
-        step = real_step(model, run_, mesh)
-        seen.update(mesh=mesh, cfg=model.cfg, run=run_)
-
-        def call(state, batch):
-            seen.setdefault("batch", batch)
-            before = launch_counts()
-            new_state, metrics = step(state, batch)
-            steps.append({k: c - before[k] for k, c in launch_counts().items()})
-            return new_state, metrics
-        return call
-
-    train_mod.build_train_step = counted_step
-    try:
-        with tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain:
-            if device is None:
-                torch.cuda.reset_peak_memory_stats()
-            run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
-                            microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
-            res = train_mod.train(arch, smoke=smoke, steps=n_steps,
-                                  shape=ShapeConfig("train_4k", seq, rows, "train"),
-                                  mesh_shape=TP_TRAIN_MESH[0], mesh_axes=TP_TRAIN_MESH[1],
-                                  run=run, log_every=1, device=device)
-    finally:
-        train_mod.build_train_step = real_step
-    state, mesh = res["final_state"], seen["mesh"]
-    out = {"history": res["history"], "steps": steps, "plain": dict(plain),
-           "backends": dict(mesh.backends), "device": str(mesh.device),
-           "coords": dict(mesh.coords),
-           "param_bytes": sum(p.numel() * p.element_size() for p in state["params"].values()),
-           "moment_bytes": sum(t.numel() * t.element_size() for g in ("mu", "nu")
-                               for t in state["opt"][g].values())}
-    if device is None:
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del res, state
+    steps, seen = [], {}
+    with (tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain,
+          counted_steps(train_mod, steps, seen)):
+        if device is None:
+            torch.cuda.reset_peak_memory_stats()
+        run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        res = train_mod.train(arch, smoke=smoke, steps=n_steps,
+                              shape=ShapeConfig("train_4k", seq, rows, "train"),
+                              mesh_shape=TP_TRAIN_MESH[0], mesh_axes=TP_TRAIN_MESH[1],
+                              run=run, log_every=1, device=device)
+    mesh = seen["mesh"]
+    out = trained_rank(res, steps, plain, mesh, device)
+    del res
     gc.collect()
     if device is None:
         torch.cuda.empty_cache()
@@ -1598,39 +1746,16 @@ def check_tp_training(ranks, cfg, ref, per_step, smi):
     wire bytes on each group equal :func:`tp_wire_bytes`; each rank's
     parameter and moment bytes equal its blocks' by the rules
     (:func:`shard_bytes`); each step's launches equal ``per_step``, all
-    ``wgmma``, with no plain call (``per_step`` None, on the CPU: none).
-    Returns step 1's gaps."""
+    ``wgmma``, with no plain call (:func:`check_rank_steps`).  Returns step
+    1's gaps."""
     arch, rows, seq, micro, n_steps, lr = TP_TRAIN
     shape = TP_TRAIN_MESH[0]
     hist = ranks[0]["history"]
     losses = [h["loss"] for h in hist]
     n_metrics = len(set(hist[0]) - {"grad_norm", "step", "seconds_per_step", "wire_bytes",
                                     "exchange_seconds"})
-    want = tp_wire_bytes(cfg, shape, rows, seq, micro, n_metrics)
-    params, moments = shard_bytes(cfg, shape)
-    for rank, r in enumerate(ranks):
-        if [h["loss"] for h in r["history"]] != losses:
-            raise AssertionError(f"rank {rank}'s losses differ from rank 0's")
-        for i, h in enumerate(r["history"]):
-            if h["wire_bytes"] != want:
-                raise AssertionError(f"step {i + 1} rank {rank}: wire bytes {h['wire_bytes']}, "
-                                     f"asymmetry's formulas {want}")
-        if (r["param_bytes"], r["moment_bytes"]) != (params, moments):
-            raise AssertionError(f"rank {rank} holds {r['param_bytes']} B of parameters and "
-                                 f"{r['moment_bytes']} B of moments; its blocks by the rules "
-                                 f"are {params} and {moments} B")
-        if per_step is not None and r["plain"]:
-            raise AssertionError(f"rank {rank} called the plain versions {r['plain']}")
-        for i, s in enumerate(r["steps"]):
-            got = {k: s[k] for k in (per_step or {})}
-            wgmma = {k: s.get(f"{k}:wgmma", 0) for k in ("flash_attention",
-                                                         "flash_attention_bwd")}
-            if per_step is None and any(s.values()):
-                raise AssertionError(f"rank {rank}: launches on the CPU")
-            if per_step is not None and (got != per_step or any(
-                    wgmma[k] != per_step[k] for k in wgmma)):
-                raise AssertionError(f"step {i + 1} rank {rank}: launches {s}, expected "
-                                     f"{per_step}, all wgmma")
+    check_rank_steps(ranks, tp_wire_bytes(cfg, shape, rows, seq, micro, n_metrics),
+                     shard_bytes(cfg, shape), per_step)
     gaps = (abs(losses[0] - ref[0]) / abs(ref[0]), abs(hist[0]["grad_norm"] - ref[1]) / ref[1])
     fault = ranks[0]["fault"]
     fgaps = (abs(fault[0] - ref[0]) / abs(ref[0]), abs(fault[1] - ref[1]) / ref[1])
@@ -1659,6 +1784,496 @@ def check_tp_training(ranks, cfg, ref, per_step, smi):
     if not (fgaps[0] > TP_LOSS_RTOL and fgaps[1] > TP_NORM_RTOL):
         raise AssertionError(f"the planted fault's step 1 {fault} lies within the limits of "
                              f"one rank's {ref}: the checks cannot tell")
+    return gaps
+
+
+def ep_config(smoke=False):
+    """Phase 9's config: deepseek-v2-236b (published widths, or smoke width)
+    cut to ``EP_LAYERS`` layers, on the reference's production MoE settings
+    (``src/repro/launch/dryrun.py``: ``ep_a2a``, 16 groups)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(EP_SERVE[0], smoke=smoke)
+    return cfg.with_overrides(num_layers=EP_LAYERS, moe=dataclasses.replace(
+        cfg.moe, expert_sharding="ep_a2a", groups=16))
+
+
+@contextlib.contextmanager
+def island_groups(model_size):
+    """Phase 9's one-rank reference: each MoE call whose T divides by
+    ``model_size`` routes model rank i's slice of every row as group i, as
+    the island does (its capacity is per slice); other calls (decode) as
+    they are."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import mlp
+
+    real = moe_mod.moe_ffn
+
+    def sliced(p, x, cfg, mesh=None):
+        B, T, D = x.shape
+        if mesh is not None or T % model_size:
+            return real(p, x, cfg, mesh)
+        M, Tl = model_size, T // model_size
+        yg, aux = moe_mod._scatter_moe(
+            p, x.unflatten(1, (M, Tl)).transpose(0, 1).reshape(M, B * Tl, D), cfg.moe)
+        y = yg.reshape(M, B, Tl, D).transpose(0, 1).reshape(B, T, D)
+        return (y + mlp(p["shared"], x, "swiglu") if cfg.moe.num_shared else y), aux
+
+    moe_mod.moe_ffn = sliced
+    try:
+        yield
+    finally:
+        moe_mod.moe_ffn = real
+
+
+@contextlib.contextmanager
+def wrong_source_order():
+    """Phase 9's planted fault: the island's results come back with their
+    chunks in reverse source order (every second exchange of the island's
+    forward is the return)."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    real, calls = moe_mod.all_to_all, [0]
+
+    def exchange(t, axes, mesh):
+        calls[0] += 1
+        out = real(t, axes, mesh)
+        return torch.flip(out, [0]) if calls[0] % 2 == 0 else out
+
+    moe_mod.all_to_all = exchange
+    try:
+        yield
+    finally:
+        moe_mod.all_to_all = real
+
+
+@contextlib.contextmanager
+def island_probe(log):
+    """The first call of ``models/moe.py``'s island in the block also runs,
+    on the same inputs, the one-rank route of the MoE (each model rank's
+    slice a group of its own, every expert's weights gathered over
+    ``model``) and appends the relative L2 gap of the island's output from
+    it to ``log`` (the 1-D layout at data 1).  The probe's gathers count in
+    a traffic record of their own."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding.shard import _gather
+
+    real = moe_mod._island
+
+    def probed(p, x, xf, m, mesh):
+        y, aux = real(p, x, xf, m, mesh)
+        if log:
+            return y, aux
+        traffic, mesh.traffic = mesh.traffic, type(mesh.traffic)()
+        try:
+            with torch.no_grad():
+                whole = {"router": p["router"].detach(),
+                         **{w: _gather(p[w].detach(), 0, "model", mesh) for w in ("wi", "wo")}}
+                M, (B, T, D) = mesh.size("model"), x.shape
+                ref, _ = moe_mod._scatter_moe(
+                    whole, x.detach().unflatten(1, (M, T // M)).transpose(0, 1).reshape(
+                        M, B * T // M, D), m)
+                del whole
+                ref = ref.reshape(M, B, T // M, D).transpose(0, 1).reshape(B, T, D).float()
+                log.append(float((y.detach().float() - ref).norm() / ref.norm()))
+        finally:
+            mesh.traffic = traffic
+        return y, aux
+
+    moe_mod._island = probed
+    try:
+        yield
+    finally:
+        moe_mod._island = real
+
+
+@contextlib.contextmanager
+def counted_drops(log):
+    """``models/moe.py``'s ``_slots`` wrapped: each call appends the choices
+    it drops (position at the capacity or past it), a 0-d tensor, to
+    ``log``."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod._slots
+
+    def slots(flat_e, pos, C, E, local=None):
+        log.append((pos >= C).sum())
+        return real(flat_e, pos, C, E, local)
+
+    moe_mod._slots = slots
+    try:
+        yield
+    finally:
+        moe_mod._slots = real
+
+
+def ep_serve_wire_bytes(cfg, model_size, batch, positions):
+    """The ``model`` group's wire bytes per rank of one prefill over
+    ``positions`` (1: one decode step) on a mesh of one data rank: *g* after
+    the vocab-parallel embedding and after each attention and FFN output
+    (a MoE layer's: the shared experts'), and where the island runs (T a
+    multiple of the model axis) per MoE layer its two all-to-alls of the
+    ``[E·C, D]`` send buffer and the gather of the token slices; then the
+    last position's logits gathered over the vocab shards."""
+    import torch
+
+    from repro_torch.core.asymmetry import (all_gather_wire_bytes, all_to_all_wire_bytes,
+                                            allreduce_wire_bytes)
+    from repro_torch.models import layer_plan
+    from repro_torch.models.moe import _capacity
+
+    M, m, plan = model_size, cfg.moe, layer_plan(cfg)
+    esize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    tokens = batch * positions * cfg.d_model * esize
+    out = ((2 * cfg.num_layers + 1) * allreduce_wire_bytes(tokens, M)
+           + all_gather_wire_bytes(batch * cfg.vocab_size * esize, M))
+    if positions % M == 0:
+        C = _capacity(batch * positions // M, m)
+        n_moe = cfg.num_layers - len(plan.lead)
+        out += n_moe * (2 * all_to_all_wire_bytes(m.num_experts * C * cfg.d_model * esize, M)
+                        + all_gather_wire_bytes(tokens, M))
+    return {"model": out}
+
+
+def ep_wire_bytes(cfg, model_size, rows, seq):
+    """The wire bytes per rank that one train step of one microbatch on a
+    mesh of (data 1, model ``model_size``) must count, by
+    ``core/asymmetry.py``'s formulas.  ``model``: in the forward *g* after
+    the vocab-parallel embedding and after each attention and FFN output,
+    and per MoE layer (the island) its two all-to-alls of the ``[E·C, D]``
+    send buffer and the gather of the token slices; in remat's recompute of
+    each super-block the same but its last *g* (the shared experts', which
+    nothing that the backward keeps depends on); in the backward *f* ahead
+    of the logits, MLA's three *f*'s (on the query latent, the KV latent and
+    the rope key), a dense FFN's *f*, and per MoE layer the FFN input's *f*,
+    the gates' *f* and the two all-to-alls again; the cross-entropy's max,
+    sum of exponents and label logit over the vocab shards, per chunk of
+    ``chunked_xent`` and again in its backward.  ``world``: the global
+    norm's sum."""
+    import torch
+
+    from repro_torch.core.asymmetry import (all_gather_wire_bytes, all_to_all_wire_bytes,
+                                            allreduce_wire_bytes)
+    from repro_torch.models import layer_plan
+    from repro_torch.models.moe import _capacity
+
+    M, m, mla, plan = model_size, cfg.moe, cfg.mla, layer_plan(cfg)
+    esize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    pos = rows * seq
+    act = allreduce_wire_bytes(pos * cfg.d_model * esize, M)
+    a2a = 2 * all_to_all_wire_bytes(
+        m.num_experts * _capacity(pos // M, m) * cfg.d_model * esize, M)
+    island = a2a + all_gather_wire_bytes(pos * cfg.d_model * esize, M)
+    n_moe = cfg.num_layers - len(plan.lead)
+    forward = act + 2 * cfg.num_layers * act + n_moe * island
+    recompute = plan.n_scan * (len(plan.pattern) * (2 * act + island) - act)
+    latents = allreduce_wire_bytes(
+        pos * (mla.q_lora_rank + mla.kv_lora_rank + mla.rope_head_dim) * esize, M)
+    backward = (act + cfg.num_layers * latents + len(plan.lead) * act
+                + n_moe * (act + allreduce_wire_bytes(4 * pos * m.top_k, M) + a2a))
+    chunked = seq >= 2048 and seq % 1024 == 0
+    xent = (2 if chunked else 1) * 3 * allreduce_wire_bytes(4 * pos, M)
+    return {"model": forward + recompute + backward + xent,
+            "world": allreduce_wire_bytes(4, M)}
+
+
+def ep_references(serving, training, smoke=False, device="cuda"):
+    """Phase 9's one-rank references under :func:`island_groups`: the
+    last-token logits (numpy ``[batch, V]``) of the prefill of ``serving``'s
+    request (rows, prompt, generated tokens; ``serve()``'s weights and
+    prompts), and step 1's (loss, grad-norm) of ``train()`` on ``training``
+    (rows, tokens per row, microbatches, steps, peak lr; bf16 moments)."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model, input_specs
+
+    cfg, M, dev = ep_config(smoke), EP_MESH[0][1], torch.device(device)
+    batch, prompt_len, gen_len = serving
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    prompts = input_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"),
+                          generator=torch.Generator(dev).manual_seed(1), device=dev)
+    with island_groups(M):
+        logits = model.prefill(prompts, prompt_len + gen_len)[0][:, -1].float().cpu().numpy()
+    del model, prompts
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rows, seq, micro, n_steps, lr = training
+    real = train_mod.get_config
+    train_mod.get_config = lambda a, smoke=False: cfg
+    try:
+        with tempfile.TemporaryDirectory() as tmp, island_groups(M):
+            run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+                            microbatches=micro, optimizer_state_dtype="bfloat16",
+                            checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+            hist = train_mod.train(cfg.name, smoke=smoke, steps=1,
+                                   shape=ShapeConfig("train_4k", seq, rows, "train"), run=run,
+                                   log_every=1, device=device)["history"]
+    finally:
+        train_mod.get_config = real
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return logits, (hist[0]["loss"], hist[0]["grad_norm"])
+
+
+def ep_serve_rank(batch, prompt_len, gen_len, smoke=False, device=None):
+    """One rank of phase 9(a), spawned: ``serve()`` of :func:`ep_config` on
+    ``EP_MESH`` (``get_config`` patched in serve's namespace) with the
+    launches counted from zero around it, ``Model.prefill`` and
+    ``decode_step`` wrapped to record the prefill's last-token logits, the
+    launches and wire bytes of each call and the choices each MoE call
+    dropped; then two prefills of the same prompts on the same model under
+    :func:`island_probe`, the second also under :func:`wrong_source_order`."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import input_specs, rank_inputs
+
+    cfg, rec, drops = ep_config(smoke), {}, []
+    Recorded = recorded_model(rec, drops)
+
+    real = serve_mod.Model, serve_mod.get_config
+    serve_mod.Model, serve_mod.get_config = Recorded, lambda a, smoke=False: cfg
+    try:
+        with counted_plain_calls() as plain, counted_drops(drops):
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            res = serve_mod.serve(cfg.name, smoke=smoke, batch=batch, prompt_len=prompt_len,
+                                  gen_len=gen_len, mesh_shape=EP_MESH[0],
+                                  mesh_axes=EP_MESH[1], device=device)
+            launches = launch_counts()
+    finally:
+        serve_mod.Model, serve_mod.get_config = real
+    model = rec.pop("model")
+    mesh = model.mesh
+    out = {"tokens": res["tokens"].numpy(), "prefill_s": res["prefill_seconds"],
+           "decode_ms": res["decode_seconds_per_token"] * 1e3, "launches": launches,
+           "plain": dict(plain), "backends": dict(mesh.backends), "device": str(mesh.device),
+           "exchange_s": dict(mesh.traffic.seconds),
+           "decode_drops": sum(int(d) for d in drops) - sum(rec["prefill_drops"]), **rec}
+    if device is None:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["mem_get_info"] = [x / 1e9 for x in torch.cuda.mem_get_info()]
+    del res
+    pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
+    prompts = rank_inputs(input_specs(cfg, pshape,
+                                      generator=torch.Generator(mesh.device).manual_seed(1),
+                                      device=mesh.device), cfg, pshape, mesh)
+    sound, fault = [], []
+    with island_probe(sound):
+        model.prefill(prompts, prompt_len + gen_len)
+    with wrong_source_order(), island_probe(fault):
+        logits, _ = model.prefill(prompts, prompt_len + gen_len)
+    out["fault_logits"] = logits[:, -1].float().cpu().numpy()
+    out["island_gap"], out["fault_island_gap"] = sound[0], fault[0]
+    return out
+
+
+def ep_train_rank(rows, seq, micro, n_steps, lr, smoke=False, device=None):
+    """One rank of phase 9(b), spawned: ``train()`` of :func:`ep_config` on
+    ``EP_MESH`` with bf16 AdamW moments, ``build_train_step`` wrapped (in
+    train's namespace) to count each step's launches from zero; then one
+    step of a fresh model on step 1's batch under
+    :func:`wrong_source_order`.  Returns the history, the steps' launches,
+    the plain versions' calls, the groups' backends, the parameter and
+    moment bytes held, the fault's loss and grad-norm, and the peak
+    memory."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models import Model
+
+    cfg, steps, seen = ep_config(smoke), [], {}
+    real_cfg = train_mod.get_config
+    train_mod.get_config = lambda a, smoke=False: cfg
+    try:
+        with (tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain,
+              counted_steps(train_mod, steps, seen)):
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+                            microbatches=micro, optimizer_state_dtype="bfloat16",
+                            checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+            res = train_mod.train(cfg.name, smoke=smoke, steps=n_steps,
+                                  shape=ShapeConfig("train_4k", seq, rows, "train"),
+                                  mesh_shape=EP_MESH[0], mesh_axes=EP_MESH[1], run=run,
+                                  log_every=1, device=device)
+    finally:
+        train_mod.get_config = real_cfg
+    mesh = seen["mesh"]
+    out = trained_rank(res, steps, plain, mesh, device)
+    del res
+    gc.collect()
+    if device is None:
+        torch.cuda.empty_cache()
+    fault = Model(cfg, device=mesh.device,
+                  generator=torch.Generator(mesh.device).manual_seed(seen["run"].seed),
+                  mesh=mesh)
+    sound, wrong = [], []
+    with torch.no_grad(), island_probe(sound):
+        fault.loss(seen["batch"])            # step 1's forward, probed
+    with wrong_source_order(), island_probe(wrong):
+        _, m = build_train_step(fault, seen["run"], mesh)(
+            init_train_state(fault, seen["run"], mesh), seen["batch"])
+    out["fault"] = (float(m["loss"]), float(m["grad_norm"]))
+    out["island_gap"], out["fault_island_gap"] = sound[0], wrong[0]
+    return out
+
+
+def check_ep_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
+    """Phase 9(a)'s checks and lines over the ranks' :func:`ep_serve_rank`
+    records, against the one-rank ``ref_logits`` (numpy ``[batch, V]``,
+    routed by :func:`island_groups`): each rank's prefill logits within
+    ``EP_LOGITS_RTOL`` in relative L2 (the fault's printed); the island's
+    output within ``EP_ISLAND_RTOL`` of the one-rank route of its inputs
+    (:func:`island_probe`) and the fault's outside it; every row's first
+    token the one rank's argmax; the ``model`` group's bytes of
+    the prefill and of each decode step equal :func:`ep_serve_wire_bytes`;
+    on the card (``smi`` not None) one flash launch a prefill per MLA layer,
+    all ``wgmma``, none in decode, and no call of a plain version (on the
+    CPU: no launch).  Returns the largest relative L2."""
+    import numpy as np
+
+    M = EP_MESH[0][1]
+    rel = lambda a: float(np.linalg.norm(a - ref_logits) / np.linalg.norm(ref_logits))
+    first = ref_logits.argmax(-1)
+    worst, fault = 0.0, []
+    for rank, r in enumerate(ranks):
+        gap, fgap = rel(r["logits"]), rel(r["fault_logits"])
+        worst, fault = max(worst, gap), fault + [fgap]
+        if not gap <= EP_LOGITS_RTOL:
+            raise AssertionError(f"rank {rank}: prefill logits {gap:.3e} from one rank's "
+                                 f"(limit {EP_LOGITS_RTOL})")
+        if not r["island_gap"] <= EP_ISLAND_RTOL:
+            raise AssertionError(f"rank {rank}: the island's output lies {r['island_gap']:.3e} "
+                                 f"from the one-rank route (limit {EP_ISLAND_RTOL})")
+        if not r["fault_island_gap"] > EP_ISLAND_RTOL:
+            raise AssertionError(f"rank {rank}: the planted fault's island output lies "
+                                 f"{r['fault_island_gap']:.3e} from the one-rank route, within "
+                                 f"{EP_ISLAND_RTOL}: the check cannot tell")
+        if not np.array_equal(r["tokens"][:, 0], first):
+            raise AssertionError(f"rank {rank}: first tokens {r['tokens'][:, 0]} differ from "
+                                 f"one rank's {first}")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"rank {rank}'s tokens differ from rank 0's")
+        want = ep_serve_wire_bytes(cfg, M, batch, prompt_len)
+        if r["prefill_bytes"] != want:
+            raise AssertionError(f"rank {rank}: prefill wire bytes {r['prefill_bytes']}, "
+                                 f"asymmetry's formulas {want}")
+        want_d = ep_serve_wire_bytes(cfg, M, batch, 1)
+        if any(w != want_d for w in r["decode_bytes"]):
+            raise AssertionError(f"rank {rank}: decode wire bytes {r['decode_bytes'][:2]}..., "
+                                 f"asymmetry's formulas {want_d}")
+        flash = {k: v for k, v in r["prefill_launches"].items() if v}
+        decode = {k: v for d in r["decode_launches"] for k, v in d.items() if v}
+        if smi is not None:
+            n = forward_flash_calls(cfg)
+            if (flash != {"flash_attention": n, "flash_attention:wgmma": n} or decode
+                    or r["plain"]):
+                raise AssertionError(f"rank {rank}: prefill launches {flash}, decode {decode}, "
+                                     f"plain versions {r['plain']}; expected {n} flash, all "
+                                     "wgmma, and no plain call")
+        elif flash or decode:
+            raise AssertionError(f"rank {rank}: launches on the CPU")
+    same = int((ranks[0]["tokens"][:, 0] == first).sum())
+    print(f"[ep] serving {cfg.name} ({cfg.num_layers} layers, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k} on {cfg.moe.expert_sharding}, {cfg.moe.groups} groups) on "
+          f"{dict(zip(*reversed(EP_MESH)))}: prefill logits against one rank's (each model "
+          f"rank's slice routed as a group), relative L2 "
+          f"{[round(rel(r['logits']), 6) for r in ranks]} (limit {EP_LOGITS_RTOL}); the island's "
+          f"output against the one-rank route of its inputs "
+          f"{[r['island_gap'] for r in ranks]} (limit {EP_ISLAND_RTOL}); "
+          f"the planted fault (results in reverse source order): logits "
+          f"{[round(f, 6) for f in fault]}, island "
+          f"{[round(r['fault_island_gap'], 4) for r in ranks]}; first tokens "
+          f"equal ({same} of {len(first)}); prefill s {[round(r['prefill_s'], 4) for r in ranks]}"
+          f", decode ms/token {[round(r['decode_ms'], 3) for r in ranks]}; exchange s by group "
+          f"{[{g: round(t, 4) for g, t in r['exchange_s'].items()} for r in ranks]}; model-group "
+          f"wire bytes per prefill {ranks[0]['prefill_bytes']} and per token "
+          f"{ranks[0]['decode_bytes'][0]} = asymmetry's formulas; dropped choices of the MoE "
+          f"layer in the prefill by rank {[r['prefill_drops'] for r in ranks]}, in "
+          f"{len(ranks[0]['decode_bytes'])} decode steps {[r['decode_drops'] for r in ranks]}; "
+          f"flash launches per rank and prefill "
+          f"{[r['prefill_launches'].get('flash_attention', 0) for r in ranks]} (wgmma "
+          f"{[r['prefill_launches'].get('flash_attention:wgmma', 0) for r in ranks]}); calls of "
+          f"the plain versions {ranks[0]['plain']}; backends {ranks[0]['backends']}; {smi}")
+    for rank, r in enumerate(ranks):
+        print(f"[ep] serving rank {rank} on {r['device']}: parameters {r['param_bytes']} B"
+              + (f", peak memory {r['peak_gb']:.2f} GB, mem_get_info free "
+                 f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
+                 if "peak_gb" in r else ""))
+    return worst
+
+
+def check_ep_training(ranks, cfg, ref, per_step, smi):
+    """Phase 9(b)'s checks and lines over the ranks' :func:`ep_train_rank`
+    records: every rank's losses equal; step 1's loss and grad-norm within
+    ``EP_LOSS_RTOL`` and ``EP_NORM_RTOL`` of ``ref`` (a one-rank run's step
+    1 under :func:`island_groups`, (loss, grad-norm)), the island's output
+    in step 1's forward within ``EP_ISLAND_RTOL`` of the one-rank route of
+    its inputs (:func:`island_probe`), and the planted fault's loss and
+    island output outside their limits (its grad-norm printed); each
+    step's wire bytes on each group equal :func:`ep_wire_bytes`; each
+    rank's parameter and bf16 moment bytes equal its blocks' by the rules
+    (:func:`shard_bytes`); each step's launches equal ``per_step``, all
+    ``wgmma``, with no plain call (:func:`check_rank_steps`).  Returns step
+    1's gaps."""
+    arch, rows, seq, micro, n_steps, lr = EP_TRAIN
+    M = EP_MESH[0][1]
+    hist = ranks[0]["history"]
+    losses = [h["loss"] for h in hist]
+    experts = shard_bytes(cfg, EP_MESH[0], moment_bytes=4, keys="blocks.b0.ffn.w")
+    check_rank_steps(ranks, ep_wire_bytes(cfg, M, rows // micro, seq),
+                     shard_bytes(cfg, EP_MESH[0], moment_bytes=4), per_step)
+    gaps = (abs(losses[0] - ref[0]) / abs(ref[0]), abs(hist[0]["grad_norm"] - ref[1]) / ref[1])
+    fault = ranks[0]["fault"]
+    fgaps = (abs(fault[0] - ref[0]) / abs(ref[0]), abs(fault[1] - ref[1]) / ref[1])
+    print(f"[ep] training {arch} ({cfg.num_layers} layers) on "
+          f"{dict(zip(*reversed(EP_MESH)))}: losses {losses}, grad-norms "
+          f"{[h['grad_norm'] for h in hist]}; step 1 against one rank's (loss {ref[0]}, "
+          f"grad-norm {ref[1]}): relative {gaps[0]:.3e} and {gaps[1]:.3e} (limits "
+          f"{EP_LOSS_RTOL}, {EP_NORM_RTOL}); the planted fault (results in reverse source "
+          f"order), step 1: loss {fault[0]}, grad-norm {fault[1]}, relative {fgaps[0]:.3e} and "
+          f"{fgaps[1]:.3e}; s per step {[round(h['seconds_per_step'], 4) for h in hist]}, "
+          f"exchange s per step "
+          f"{[{g: round(t, 4) for g, t in h['exchange_seconds'].items()} for h in hist]}; wire "
+          f"bytes per step {hist[0]['wire_bytes']} = asymmetry's formulas; backends "
+          f"{ranks[0]['backends']}; launches per step and rank "
+          f"{ {k: c for k, c in ranks[0]['steps'][0].items() if c} }; calls of the plain "
+          f"versions {ranks[0]['plain']}; {smi}")
+    one = shard_bytes(cfg, (1, 1), moment_bytes=4)
+    one_experts = shard_bytes(cfg, (1, 1), moment_bytes=4, keys="blocks.b0.ffn.w")
+    for rank, r in enumerate(ranks):
+        print(f"[ep] training rank {rank} {r['coords']} on {r['device']}: parameters "
+              f"{r['param_bytes']} B and bf16 moments {r['moment_bytes']} B = its blocks by the "
+              f"rules, {(r['param_bytes'] + r['moment_bytes']) / sum(one):.4f} of one rank's "
+              f"{sum(one) / 1e9:.3f} GB (the routed experts' "
+              f"{sum(experts) / sum(one_experts):.4f})"
+              + (f"; peak memory {r['peak_gb']:.2f} GB, mem_get_info free "
+                 f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
+                 if "peak_gb" in r else ""))
+    island = [r["island_gap"] for r in ranks]
+    fisland = [r["fault_island_gap"] for r in ranks]
+    print(f"[ep] training: the island's output in step 1's forward against the one-rank route "
+          f"of its inputs {island} (limit {EP_ISLAND_RTOL}); the planted fault's {fisland}")
+    if gaps[0] > EP_LOSS_RTOL or gaps[1] > EP_NORM_RTOL or max(island) > EP_ISLAND_RTOL:
+        raise AssertionError(f"step 1 on {EP_MESH[0]}: loss {losses[0]}, grad-norm "
+                             f"{hist[0]['grad_norm']} against one rank's {ref}: {gaps}; the "
+                             f"island {island}")
+    if not (fgaps[0] > EP_LOSS_RTOL and min(fisland) > EP_ISLAND_RTOL):
+        raise AssertionError(f"the planted fault's step 1 {fault} and island {fisland} lie "
+                             f"within the limits of one rank's {ref}: the checks cannot tell")
     return gaps
 
 
@@ -2709,6 +3324,12 @@ def main() -> int:
                                                 "llama3.2-1b rank of data 2 x model 2")
     records[("flash_attention", "llama3.2-1b model 2 train")] = fwd_rec
     records[("flash_attention_bwd", "llama3.2-1b model 2 train")] = bwd_rec
+    # deepseek-v2-236b's MLA on a rank of model 2; its records take phase
+    # 9(b)'s launches of one rank.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_EP_ATTN,
+                                                "deepseek-v2-236b rank of model 2")
+    records[("flash_attention", "deepseek-v2-236b model 2 train")] = fwd_rec
+    records[("flash_attention_bwd", "deepseek-v2-236b model 2 train")] = bwd_rec
 
     def scan_inputs(B, T, W, offset=0):
         """a, b, h0; a and b ``offset`` elements past their storage's start."""
@@ -3613,8 +4234,8 @@ def main() -> int:
 
     # (e) xlstm-1.3b at published width and depth: its blocks launch no kernel
     # of the port, and the sLSTM's loop over time runs on the host.
-    arch, rows, seq, micro, n_steps, lr = XLSTM_TRAIN
-    cfg = get_config(arch)
+    arch, layers, rows, seq, micro, n_steps, lr = XLSTM_TRAIN
+    cfg = get_config(arch).with_overrides(num_layers=layers)
     with tempfile.TemporaryDirectory() as tmp:
         run = RunConfig(learning_rate=lr, warmup_steps=1, total_steps=n_steps,
                         microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
@@ -3622,7 +4243,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         shape = ShapeConfig(f"train_{seq}", seq, rows, "train")
-        res, step_counts, plain_calls = counted_training(arch, None, shape, run, "cuda")
+        res, step_counts, plain_calls = counted_training(arch, layers, shape, run, "cuda")
         train_s = time.perf_counter() - t
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
@@ -3653,7 +4274,7 @@ def main() -> int:
     model_flops, mlstm_part = xlstm_step_flops(cfg, n_params, rows, seq)
     share = model_flops / step_s / PEAK_BF16_FLOPS
     plan = layer_plan(cfg)
-    print(f"[train] {arch} published width and depth ({cfg.num_layers} blocks: {plan.n_scan} x "
+    print(f"[train] {arch} published width at {cfg.num_layers} of 48 blocks ({plan.n_scan} x "
           f"{plan.pattern.count('mlstm')} mlstm + {plan.pattern.count('slstm')} slstm), bf16 "
           f"(fp32 moments, block remat), {n_params} parameters, {rows} rows x {seq} tokens in "
           f"{micro} microbatches, lr {run.learning_rate} (warmup {run.warmup_steps}): "
@@ -3668,7 +4289,7 @@ def main() -> int:
           f"{hist[-1]['loss'] < hist[0]['loss']}; launches of any kernel "
           f"{sum(sum(c.values()) for c in step_counts)}; calls of the plain versions "
           f"{plain_calls}; {smi}")
-    if trained_layers != 48 or len(step_counts) != n_steps:
+    if trained_layers != layers or len(step_counts) != n_steps:
         raise AssertionError(f"trained {trained_layers} layers in {len(step_counts)} steps")
     if any(any(c.values()) for c in step_counts) or plain_calls:
         raise AssertionError(f"{arch} training launched {step_counts} and called the plain "
@@ -3972,7 +4593,50 @@ def main() -> int:
           f"{n_steps} steps of {rows} x {seq} tokens on {TP_TRAIN_MESH[0]} over "
           f"{TP_TRAIN_MESH[1]}: phase 8 took {time.perf_counter() - t8:.1f} s; {smi}")
 
-    print(f"[time] chip_smoke.py ran {time.perf_counter() - started:.1f} s; {smi}")
+    # ------------------------ 9. expert parallelism and MLA's TP --
+    # deepseek-v2-236b at published widths, 2 of 60 layers, on the reference's
+    # production MoE settings over (data 1, model 2): (a) phase 4's deepseek
+    # request served, (b) 6(g)'s batch trained 3 steps; each held to a
+    # one-rank run of the same weights made here first, whose MoE routes each
+    # model rank's slice as a group of its own (island_groups).
+    held(9)
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    cfg = ep_config()
+    arch, batch, prompt_len, gen_len = EP_SERVE
+    _, rows, seq, micro, n_steps, lr = EP_TRAIN
+    n_ranks = math.prod(EP_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    print(f"[ep] {n_ranks} ranks sharing one {name} ({limit}); the model group's exchange over "
+          "gloo through host memory" if torch.cuda.device_count() < n_ranks else
+          f"[ep] {n_ranks} ranks, each on its own {name} ({limit})")
+    ref_logits, ref_train = ep_references((batch, prompt_len, gen_len),
+                                          (rows, seq, micro, n_steps, lr))
+    free, total = torch.cuda.mem_get_info()
+    print(f"[ep] one-rank references in {time.perf_counter() - t9:.1f} s: step 1 loss "
+          f"{ref_train[0]}, grad-norm {ref_train[1]}; before the ranks this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, mem_get_info free {free / 1e9:.2f} "
+          f"of {total / 1e9:.2f} GB")
+    ranks = spawn_ranks(ep_serve_rank, n_ranks, (batch, prompt_len, gen_len), timeout=600)
+    check_ep_serving(ranks, cfg, batch, prompt_len, ref_logits, smi)
+    records[("flash_attention", f"{arch} model 2")]["launches"] = (
+        ranks[0]["launches"]["flash_attention"])
+    del ranks
+    ranks = spawn_ranks(ep_train_rank, n_ranks, (rows, seq, micro, n_steps, lr), timeout=900)
+    check_ep_training(ranks, cfg, ref_train, expected_launches(layer_plan(cfg), micro), smi)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        rec = records[(name, f"{arch} model 2 train")]
+        rec["launches"] = sum(s[name] for s in ranks[0]["steps"])
+        rec["launches_per_step"] = rec["launches"] // n_steps
+        rec["launches_note"] = f"rank 0's of {n_ranks} ranks"
+    del ranks
+    print(f"[ep] {arch} at published widths, {cfg.num_layers} of 60 layers: served on "
+          f"{EP_MESH[0]} and trained {n_steps} steps of {rows} x {seq} tokens over "
+          f"{EP_MESH[1]}: phase 9 took {time.perf_counter() - t9:.1f} s; {smi}")
+
+    ran = time.perf_counter() - started
+    print(f"[time] chip_smoke.py ran {ran:.1f} s"
+          + (f", over the {TARGET_S} s target" if ran > TARGET_S else "") + f"; {smi}")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

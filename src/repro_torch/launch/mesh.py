@@ -20,7 +20,7 @@ where ranks of the group share a GPU.  The mesh prints the choice.  A gloo
 group given CUDA tensors stages them through pinned host buffers.
 
 **Collectives** (:meth:`Mesh.all_reduce`, :meth:`Mesh.reduce_scatter`,
-:meth:`Mesh.all_gather`) run on 1-D tensors in slices of at most
+:meth:`Mesh.all_gather`, :meth:`Mesh.all_to_all`) run on 1-D tensors in slices of at most
 :data:`CHUNK_ELEMENTS` elements, through the list forms of
 ``torch.distributed``'s calls.  Each call adds to :class:`Traffic` the
 bytes it puts on its group, by ``core/asymmetry.py``'s formulas, and the
@@ -44,8 +44,8 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..core.asymmetry import (all_gather_wire_bytes, allreduce_wire_bytes,
-                              reduce_scatter_wire_bytes)
+from ..core.asymmetry import (all_gather_wire_bytes, all_to_all_wire_bytes,
+                              allreduce_wire_bytes, reduce_scatter_wire_bytes)
 from ..device import resolve_device
 
 AXES = ("pod", "data", "model")
@@ -218,6 +218,35 @@ class Mesh:
                         out[i * f + lo:i * f + lo + n].copy_(d)
 
         self._run(name, all_gather_wire_bytes(a * f * t.element_size(), a), body)
+        return out
+
+    def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The 1-D ``t`` split into ``a`` equal pieces, piece ``i`` sent to the
+        group's rank ``i``; returns the pieces received, in the group's rank
+        order (``t.numel()`` must divide by the group's size ``a``)."""
+        name = self.group_name(axes)
+        a = self.group_size(name)
+        if a == 1:
+            return t
+        f = t.numel() // a
+        if f * a != t.numel():
+            raise ValueError(f"{t.numel()} elements do not split over {a} ranks")
+        out = torch.empty_like(t)
+        group, step = self.groups[name], max(CHUNK_ELEMENTS // a, 1)
+
+        def body(staged):
+            if not staged:
+                dist.all_to_all_single(out, t, group=group)
+                return
+            for lo in range(0, f, step):
+                n = min(step, f - lo)
+                h = self._host(t.dtype, 0, a * n)
+                h.view(a, n).copy_(t.view(a, f)[:, lo:lo + n])
+                dst = self._host(t.dtype, 1, a * n)
+                dist.all_to_all_single(dst, h, group=group)
+                out.view(a, f)[:, lo:lo + n].copy_(dst.view(a, n))
+
+        self._run(name, all_to_all_wire_bytes(t.numel() * t.element_size(), a), body)
         return out
 
 

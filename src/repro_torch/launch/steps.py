@@ -71,17 +71,22 @@ def pod_mode(run: RunConfig, mesh: Mesh) -> str:
 def _check_layout(model: Model, run: RunConfig, mesh: Mesh) -> None:
     """MoE capacity is computed over the rows one step sees: in the
     reference all of the batch in ``flat`` and a pod's rows in ``sync`` and
-    ``local``.  A rank sees as many only with one data rank per pod."""
+    ``local``.  On a mesh of one pod the model routes the reference's groups
+    across its data ranks (``models/moe.py``).  Over pods a rank holds a
+    whole replica and routes its own rows, which are a pod's rows only with
+    one data rank a pod and outside ``flat``; the rest waits for pods with
+    FSDP and TP, ROADMAP's item 3e."""
     cfg = model.cfg
-    if cfg.moe is None or mesh.world_size == 1:
+    if cfg.moe is None or mesh.world_size == 1 or sharded(mesh):
         return
     mode = pod_mode(run, mesh)
     if mode == "flat" or mesh.size("data") > 1:
         raise NotImplementedError(
-            f"{cfg.name}: MoE over mesh {mesh.shape} in {mode} mode would route with a "
-            "capacity other than the reference's; the port trains MoE across ranks only "
-            "in sync or local mode with data 1 until the multi-GPU slice of expert "
-            "parallelism, ROADMAP's item 3c")
+            f"{cfg.name}: MoE over mesh {mesh.shape} in {mode} mode would route each rank's "
+            "rows as groups of their own, a capacity other than the reference's (a flat "
+            "step's groups span the pods, a pod's its data ranks); over pods the port "
+            "trains MoE only in sync or local mode with data 1 until pods take FSDP and "
+            "TP, the multi-GPU slice of ROADMAP's item 3e")
 
 
 def rank_rows(batch: Dict[str, torch.Tensor], mesh: Mesh, mode: str,

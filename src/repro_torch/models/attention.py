@@ -16,7 +16,11 @@ Under tensor parallelism a rank holds a contiguous block of the query heads
 and of the KV heads (``wq``/``wk``/``wv`` split on their output dim, ``wo``
 on its input dim), so the head counts come from the weights' shapes: with
 ``K % M == 0`` local query head ``i`` reads local KV head ``i // (H/K)``,
-the reference's map.
+the reference's map.  MLA's up-projections (``w_uq``, ``w_uk``, ``w_uv``)
+and ``wo`` hold the rank's heads; its down-projections, their norms and
+``w_kr`` are whole on every model rank, so Megatron's *f* sits on the
+latents where they meet the rank's heads (``tp``), and the latent cache
+stays whole on every model rank.
 
 Unlike JAX's immutable arrays, the caches here are written in place: prefill
 copies into the buffers ``Model.cache`` allocated, and each decode step
@@ -34,6 +38,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding.shard import copy_to_model
 from .layers import rmsnorm, rmsnorm_spec, rope
 from .specs import ParamSpec
 
@@ -224,12 +229,14 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
-def _mla_q(p, x, cfg: ModelConfig, positions):
+def _mla_q(p, x, cfg: ModelConfig, positions, tp=None):
+    """Queries of the heads that ``p`` holds; *f* on the input of their
+    projection (``tp``: the model axis of a sharded mesh)."""
     m = cfg.mla
     if m.q_lora_rank:
-        q = _heads(rmsnorm(p["q_norm"], x @ p["w_dq"]), p["w_uq"])
+        q = _heads(copy_to_model(rmsnorm(p["q_norm"], x @ p["w_dq"]), tp), p["w_uq"])
     else:
-        q = _heads(x, p["wq"])
+        q = _heads(copy_to_model(x, tp), p["wq"])
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, rope(q_rope, positions, cfg.rope_theta)
 
@@ -244,34 +251,36 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
 
 
-def _mla_attend(p, x, cfg: ModelConfig):
-    """Expand the latents to per-head K/V and flash-attend; returns the
-    block's output and the latents (c_kv, k_rope) that prefill caches."""
+def _mla_attend(p, x, cfg: ModelConfig, tp=None):
+    """Expand the latents to per-head K/V of the heads that ``p`` holds and
+    flash-attend; returns the block's output (the rank's partial sum under
+    ``tp``) and the latents (c_kv, k_rope) that prefill caches."""
     B, T, _ = x.shape
-    H, dr = cfg.num_heads, cfg.mla.rope_head_dim
+    H, dr = p["w_uk"].shape[1], cfg.mla.rope_head_dim
     positions = torch.arange(T, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, tp)
     c_kv, k_rope = _mla_latents(p, x, cfg, positions)
+    ck, kr = copy_to_model(c_kv, tp), copy_to_model(k_rope, tp)
     # The kernel takes contiguous q, k, v: each concatenation is a new tensor,
     # with k_rope broadcast over the heads.
-    k = torch.cat([_heads(c_kv, p["w_uk"]), k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    k = torch.cat([_heads(ck, p["w_uk"]), kr[:, :, None, :].expand(B, T, H, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    v = _heads(c_kv, p["w_uv"])
+    v = _heads(ck, p["w_uv"])
     out = ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block, cfg.k_block,
                               _mla_scale(cfg))
     return out.reshape(B, T, -1) @ p["wo"], c_kv, k_rope
 
 
-def mla_attention(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """Training MLA. x: [B, T, D] → [B, T, D]."""
-    return _mla_attend(p, x, cfg)[0]
+def mla_attention(p, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Training MLA. x: [B, T, D] (before *f*) → [B, T, D]."""
+    return _mla_attend(p, x, cfg, tp)[0]
 
 
-def mla_prefill(p, x, cfg: ModelConfig, cache: MLACache):
+def mla_prefill(p, x, cfg: ModelConfig, cache: MLACache, tp=None):
     """Prefill: attend and fill ``cache``'s latents in place.
     x: [B, T, D] → ([B, T, D], cache with length T)."""
     T = x.shape[1]
-    y, c_kv, k_rope = _mla_attend(p, x, cfg)
+    y, c_kv, k_rope = _mla_attend(p, x, cfg, tp)
     cache.c_kv[:, :T].copy_(c_kv)
     cache.k_rope[:, :T].copy_(k_rope)
     cache.c_kv[:, T:].zero_()
@@ -279,18 +288,19 @@ def mla_prefill(p, x, cfg: ModelConfig, cache: MLACache):
     return y, cache._replace(length=T)
 
 
-def mla_decode(p, x, cfg: ModelConfig, cache: MLACache):
+def mla_decode(p, x, cfg: ModelConfig, cache: MLACache, tp=None):
     """Absorbed-weight decode: score and reduce in the latent space.
 
     q_lat = q_nope · W_uk  →  scores = q_lat · c_kv + q_rope · k_rope
     out   = (attn · c_kv) · W_uv — the cache stays compressed end-to-end.
     Writes the new token's latents into ``cache`` in place; returns
-    ([B, 1, D], cache with length + 1).
+    ([B, 1, D], cache with length + 1).  The heads are those ``p`` holds;
+    the cache is whole.
     """
     B = x.shape[0]
     pos = cache.length
     ppos = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg, ppos)
+    q_nope, q_rope = _mla_q(p, x, cfg, ppos, tp)
     c_new, kr_new = _mla_latents(p, x, cfg, ppos)
     S = cache.c_kv.shape[1]
     slot = min(pos, S - 1)  # the reference's dynamic_update_slice clamps

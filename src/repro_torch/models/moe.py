@@ -1,44 +1,83 @@
 """Mixture-of-Experts FFN (DeepSeek-style: shared + routed, fine-grained).
 
-Port of ``repro/models/moe.py`` for one device.  Dispatch is capacity-based,
-group-local and free of one-hot tensors: tokens are split into G groups
-(``MoEConfig.groups``, 1 on one card), each group ranks its (token, choice)
-pairs per expert by a stable sort, scatters them into a ``[G, E, C, D]``
-capacity buffer, runs the expert products as one batched product, and
-gathers the outputs back weighted by the router's gates.  Choices past an
-expert's capacity C drop, in the reference's order: the first C of an
-expert's (token, choice) pairs in (token, k) order keep their slots.
+Port of ``repro/models/moe.py``.  Dispatch is capacity-based, group-local
+and free of one-hot tensors: tokens are split into G groups
+(``MoEConfig.groups``), each group ranks its (token, choice) pairs per
+expert by a stable sort, scatters them into a ``[G, E, C, D]`` capacity
+buffer, runs the expert products as one batched product, and gathers the
+outputs back weighted by the router's gates.  Choices past an expert's
+capacity C drop, in the reference's order: the first C of an expert's
+(token, choice) pairs in (token, k) order keep their slots.
 
 The combine sums each token's k gated rows over k in a fixed order (the
 reference scatter-adds them), so a run on the card repeats bit for bit.
 The dense one-hot dispatch (:func:`_onehot_moe`) is the numerical oracle of
-the tests, as in the reference.  The reference's expert-parallel island
-(``expert_sharding="ep_a2a"``, an all-to-all over a mesh) has no port: the
-port runs on one device, where only the ``fsdp_d`` layout applies.
+the tests, as in the reference.
+
+Over the ranks of a ``(data, model)`` mesh (``launch.mesh.Mesh``) the
+reference's two routes:
+
+* the expert-parallel island (``expert_sharding="ep_a2a"`` with ``model``
+  above 1 and T a multiple of it; the reference's ``_manual_ep_moe``): each
+  model rank takes its ``T / M`` slice of every row as a group of its own,
+  fills an ``[ep, e_loc·C, D]`` send buffer (capacity C per source and
+  expert), sends each expert's slots to the rank that owns it in one
+  all-to-all over the EP group (``model``; ``(data, model)`` where E
+  divides by 256, one block of experts a rank), runs its own experts,
+  returns the results by a second all-to-all, combines them, and gathers
+  the slices over ``model``: its output is whole on every model rank;
+* otherwise the scatter path (``fsdp_d``, and the island's fallback, decode
+  among it): the experts lie on ``model``, every model rank routes the same
+  tokens in the reference's groups of the whole microbatch, runs its own
+  experts only and leaves a partial sum for the block's *g*.  One group
+  over several data ranks continues each expert's slots across them (an
+  all-gather of the ``[E]`` counts over ``data``).
+
+Either way the router runs whole on every model rank, on the FFN input
+before *f*, and its gates pass through *f*: a model rank's experts (or
+token slice) see only their share of the gates' gradient, which *f* sums,
+so the router's weights get the same whole gradient on every model rank.
+The experts read the input after *f*.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..sharding.shard import (all_to_all, copy_to_model, gather_data, gather_slices,
+                              model_parallel, reduce_from_model)
 from .layers import mlp, mlp_spec
 from .specs import ParamSpec
+
+
+def two_d(m: MoEConfig) -> bool:
+    """Whether the island's experts lie on ``(data, model)`` jointly (one
+    block a rank; the reference's ``E % 256 == 0`` branch)."""
+    return m.expert_sharding == "ep_a2a" and m.num_experts % 256 == 0
 
 
 def moe_spec(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
     m: MoEConfig = cfg.moe
     D, E, Fe = cfg.d_model, m.num_experts, m.d_expert
+    # (wi, wo) logical axes: experts on model with d_model FSDP on data, or
+    # for the island's E % 256 layout experts on (data, model) jointly.
+    if two_d(m):
+        wi_l = wo_l = ("expert2d", None, None)
+    elif m.expert_sharding == "ep_a2a":
+        wi_l, wo_l = ("expert", "embed", None), ("expert", "mlp_fsdp", None)
+    else:
+        wi_l, wo_l = ("expert", "embed", None), ("expert", None, "embed")
     spec: Dict = {
         # The router stays fp32 whatever the model's dtype.
         "router": ParamSpec((D, E), ("embed", None), init="normal", scale=0.006,
                             dtype=torch.float32),
         # Fused gate+up per expert.
-        "wi": ParamSpec((E, D, 2 * Fe), ("expert", "embed", None), dtype=dtype),
-        "wo": ParamSpec((E, Fe, D), ("expert", None, "embed"), dtype=dtype),
+        "wi": ParamSpec((E, D, 2 * Fe), wi_l, dtype=dtype),
+        "wo": ParamSpec((E, Fe, D), wo_l, dtype=dtype),
     }
     if m.num_shared:
         spec["shared"] = mlp_spec(D, m.num_shared * Fe, "swiglu", dtype)
@@ -73,48 +112,108 @@ def _capacity(tokens_per_group: int, m: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for tiling
 
 
-def _route(p, xg: torch.Tensor, m: MoEConfig, C: int):
-    """Router and capacity slots of xg [G, S, D]: (gates [G, S, k] fp32,
-    slot [G, S*k] in (token, k) order, E*C for a dropped choice, aux)."""
+def _ranks(router: torch.Tensor, xg: torch.Tensor, m: MoEConfig):
+    """The fp32 router over xg [G, S, D]: gates [G, S, k], the experts of
+    the (token, choice) pairs in (token, k) order [G, S*k], each pair's
+    rank among its expert's pairs [G, S*k], the counts [G, E] and the
+    probabilities [G, S, E]."""
     G, S, _ = xg.shape
     E, k = m.num_experts, m.top_k
-    logits = xg.float() @ p["router"]                       # fp32 [G, S, E]
-    probs = _router_probs(logits, m)
+    probs = _router_probs(xg.float() @ router, m)           # fp32 [G, S, E]
     gates, idx = _topk_gates(probs, m)                      # [G, S, k]
-
     flat_e = idx.reshape(G, S * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     ranks = torch.empty_like(order).scatter_(             # rank within group
         -1, order, torch.arange(S * k, device=xg.device).expand(G, -1))
     counts = torch.zeros((G, E), dtype=torch.int64, device=xg.device).scatter_add_(
         -1, flat_e, torch.ones_like(flat_e))
-    aux = aux_load_balance_loss(probs, counts, m)
     starts = torch.cumsum(counts, dim=-1) - counts          # exclusive prefix
     pos = ranks - torch.gather(starts, -1, flat_e)
-    slot = torch.where(pos < C, flat_e * C + pos, E * C)    # overflow → dropped
-    return gates, slot, aux
+    return gates, flat_e, pos, counts, probs
 
 
-def _scatter_moe(p, xg: torch.Tensor, m: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xg: [G, S, D] → (y [G, S, D], aux). Capacity overflow tokens drop."""
+def _slots(flat_e: torch.Tensor, pos: torch.Tensor, C: int, E: int,
+           local: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each (token, choice)'s row of the capacity buffer of the experts
+    ``local`` (their global ids; every expert when None): the expert's index
+    there times C plus its position; ``n·C`` (n experts) for a choice that
+    drops (position C or more) or goes to an expert of another rank."""
+    if local is None:
+        return torch.where(pos < C, flat_e * C + pos, E * C)   # overflow → dropped
+    n = local.numel()
+    index = torch.full((E,), -1, dtype=torch.int64, device=flat_e.device)
+    index[local] = torch.arange(n, device=flat_e.device)
+    li = index[flat_e]
+    return torch.where((pos < C) & (li >= 0), li * C + pos, n * C)
+
+
+def _route(p, xg: torch.Tensor, m: MoEConfig, C: int):
+    """Router and capacity slots of xg [G, S, D]: (gates [G, S, k] fp32,
+    slot [G, S*k] in (token, k) order, E*C for a dropped choice, aux)."""
+    gates, flat_e, pos, counts, probs = _ranks(p["router"], xg, m)
+    aux = aux_load_balance_loss(probs, counts, m)
+    return gates, _slots(flat_e, pos, C, m.num_experts), aux
+
+
+def _experts(wi: torch.Tensor, wo: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' swiglu FFN over their slots, xe [G, e, C, D]."""
+    h = torch.einsum("gecd,edf->gecf", xe, wi)
+    gate_h, up_h = torch.chunk(h, 2, dim=-1)
+    h = F.silu(gate_h) * up_h
+    return torch.einsum("gecf,efd->gecd", h, wo)
+
+
+def _combine(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Each token's k rows of ye [G, n·C, D] (row n·C: zeros) weighted by
+    the gates [G, S, k] and summed over k in a fixed order → [G, S, D]."""
+    G, S, k = gates.shape
+    ye = torch.cat([ye, ye.new_zeros((G, 1, ye.shape[-1]))], dim=1)
+    garange = torch.arange(G, device=ye.device)[:, None]
+    picked = ye[garange, slot] * gates.reshape(G, S * k, 1).to(ye.dtype)  # [G, S*k, D]
+    return picked.reshape(G, S, k, -1).sum(dim=2)
+
+
+def _scatter_moe(p, xg: torch.Tensor, m: MoEConfig, xf: Optional[torch.Tensor] = None,
+                 local: Optional[torch.Tensor] = None, tp=None, span=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xg: [G, S, D] → (y [G, S, D], aux). Capacity overflow tokens drop.
+
+    Over ranks: ``xf`` the tokens that the experts read (xg after *f*; the
+    router reads xg), ``local`` the global ids of the experts whose weights
+    ``p`` holds (every expert when None: y is then whole, else this rank's
+    partial sum), ``tp`` the model axis (*f* on the gates), and ``span`` the
+    mesh where one group spans its data ranks: an expert's slots continue
+    after those the data ranks before this one filled, and the load-balance
+    loss reads the whole group's counts."""
     G, S, D = xg.shape
     E, k = m.num_experts, m.top_k
-    C = _capacity(S, m)
-    gates, slot, aux = _route(p, xg, m, C)
+    xf = xg if xf is None else xf
+    Dn = span.size("data") if span is not None else 1
+    C = _capacity(S * Dn, m)
+    if span is None and local is None:
+        gates, slot, aux = _route(p, xg, m, C)
+    else:
+        gates, flat_e, pos, counts, probs = _ranks(p["router"], xg, m)
+        if span is not None:
+            every = span.all_gather(counts.reshape(-1), "data").view(Dn, E)
+            pos = pos + every[:span.coords["data"]].sum(0)[flat_e]
+            # The group's counts with this rank's probabilities: the data
+            # ranks' mean of this is the reference's loss over the group.
+            f = every.sum(0).float() / (S * Dn * k)
+            aux = m.num_experts * torch.sum(f * probs.float().mean(dim=1)[0])
+        else:
+            aux = aux_load_balance_loss(probs, counts, m)
+        gates = copy_to_model(gates, tp)
+        slot = _slots(flat_e, pos, C, E, local)
+    n = E if local is None else local.numel()
     garange = torch.arange(G, device=xg.device)[:, None]
     token_of = torch.arange(S, device=xg.device).repeat_interleave(k)  # [S*k]
 
-    # Each kept slot receives one token; row E*C collects the dropped ones
+    # Each kept slot receives one token; row n*C collects the dropped ones
     # and is cut off unread.
-    xe = xg.new_zeros((G, E * C + 1, D)).index_put((garange, slot), xg[:, token_of])
-    h = torch.einsum("gecd,edf->gecf", xe[:, :E * C].reshape(G, E, C, D), p["wi"])
-    gate_h, up_h = torch.chunk(h, 2, dim=-1)
-    h = F.silu(gate_h) * up_h
-    ye = torch.einsum("gecf,efd->gecd", h, p["wo"]).reshape(G, E * C, D)
-    ye = torch.cat([ye, ye.new_zeros((G, 1, D))], dim=1)
-
-    picked = ye[garange, slot] * gates.reshape(G, S * k, 1).to(ye.dtype)  # [G, S*k, D]
-    return picked.reshape(G, S, k, D).sum(dim=2), aux
+    xe = xf.new_zeros((G, n * C + 1, D)).index_put((garange, slot), xf[:, token_of])
+    ye = _experts(p["wi"], p["wo"], xe[:, :n * C].reshape(G, n, C, D))
+    return _combine(ye.reshape(G, n * C, D), slot, gates), aux
 
 
 def _onehot_moe(p, xg: torch.Tensor, m: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,14 +249,95 @@ def _onehot_moe(p, xg: torch.Tensor, m: MoEConfig) -> Tuple[torch.Tensor, torch.
     return torch.einsum("sec,ecd->sd", combine, ye)[None], aux
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN. x: [B, T, D] → (y [B, T, D], aux scalar)."""
+def _island(p, x: torch.Tensor, xf: torch.Tensor, m: MoEConfig, mesh
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel island (the reference's ``_manual_ep_body``):
+    x and xf ``[B, T, D]`` (the rank's rows, before and after *f*) → (y
+    ``[B, T, D]`` whole on every model rank, aux).  The router runs on every
+    slice, so that aux is the slices' mean (the reference's ``pmean`` over
+    ``model``) on every model rank alike; the rank sends its own slice."""
+    M, mi = mesh.size("model"), mesh.coords["model"]
+    B, T, D = x.shape
+    E, k = m.num_experts, m.top_k
+    axes = ("data", "model") if two_d(m) else "model"
+    ep = M * (mesh.size("data") if two_d(m) else 1)
+    e_loc = E // ep
+    Tl = T // M
+    S = B * Tl
+    # Group i: model rank i's slice of every row, in (row, position) order.
+    slices = x.unflatten(1, (M, Tl)).transpose(0, 1).reshape(M, S, D)
+    gates, flat_e, pos, counts, probs = _ranks(p["router"], slices, m)
+    aux = aux_load_balance_loss(probs, counts, m)
+    gates = copy_to_model(gates, model_parallel(mesh))[mi:mi + 1]
+    C = _capacity(S, m)                          # per (source, expert)
+    slot = _slots(flat_e[mi:mi + 1], pos[mi:mi + 1], C, E)       # [1, S*k]
+    token_of = torch.arange(S, device=x.device).repeat_interleave(k)
+    xs = xf[:, mi * Tl:(mi + 1) * Tl].reshape(S, D)
+
+    send = xs.new_zeros((E * C + 1, D)).index_put((slot[0],), xs[token_of])
+    recv = all_to_all(send[:E * C].view(ep, e_loc * C, D), axes, mesh)
+    # My experts' slots from every source: [e_loc, ep·C, D].
+    xe = recv.view(ep, e_loc, C, D).transpose(0, 1).reshape(1, e_loc, ep * C, D)
+    ye = _experts(p["wi"], p["wo"], xe)[0]
+    ye = ye.reshape(e_loc, ep, C, D).transpose(0, 1).reshape(ep, e_loc * C, D)
+    back = all_to_all(ye, axes, mesh).reshape(1, E * C, D)
+    y = _combine(back, slot, gates.reshape(1, S, k))[0]
+    return gather_slices(y.reshape(B, Tl, D), model_parallel(mesh), dim=1), aux
+
+
+def _local_experts(p, m: MoEConfig, mesh):
+    """(wi, wo, global ids of their experts or None for all) of the scatter
+    path over ``mesh``: the island's jointly split blocks gathered over
+    ``data`` first."""
+    wi, wo = p["wi"], p["wo"]
+    n, E = wi.shape[0], m.num_experts
+    if n == E:
+        return wi, wo, None
+    M, mi = mesh.size("model"), mesh.coords["model"]
+    if n * M == E:                                # experts on model
+        return wi, wo, torch.arange(mi * n, (mi + 1) * n, device=wi.device)
+    wi, wo = gather_data(wi, 0, mesh), gather_data(wo, 0, mesh)
+    # Block (d·M + mi) of each data rank d, in data order.
+    ids = [(d * M + mi) * n + j for d in range(mesh.size("data")) for j in range(n)]
+    return wi, wo, torch.tensor(ids, device=wi.device)
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN. x: [B, T, D] → (y [B, T, D], aux scalar).
+
+    On a sharded ``mesh`` x is the rank's rows, the same on every model rank
+    (the FFN input before *f*), and y is whole: the island's output as it
+    is, the shared experts' and the scatter path's partial sums through
+    *g*."""
     m = cfg.moe
     B, T, D = x.shape
-    S = B * T
-    G = m.groups if (m.groups >= 1 and S % m.groups == 0) else 1
-    yg, aux = _scatter_moe(p, x.reshape(G, S // G, D), m)
-    y = yg.reshape(B, T, D)
+    tp = model_parallel(mesh)
+    xf = copy_to_model(x, tp)
+    whole = None
+    if m.expert_sharding == "ep_a2a" and tp is not None and T % tp.size("model") == 0:
+        whole, aux = _island(p, x, xf, m, mesh)
+        y = None
+    else:
+        Dn = mesh.size("data") if mesh is not None else 1
+        S = B * T * Dn                             # the microbatch's tokens
+        G = m.groups if (m.groups >= 1 and S % m.groups == 0) else 1
+        if G % Dn and G != 1:
+            raise NotImplementedError(
+                f"{cfg.name}: {G} MoE groups over {Dn} data ranks: a group would straddle "
+                "data ranks, whose capacity the port does not reproduce (use a multiple of "
+                "the data ranks, or 1)")
+        g = G // Dn if G % Dn == 0 else 1
+        wi, wo, local = _local_experts(p, m, mesh)
+        span = mesh if G % Dn else None
+        yg, aux = _scatter_moe({"router": p["router"], "wi": wi, "wo": wo},
+                               x.reshape(g, B * T // g, D), m, xf.reshape(g, B * T // g, D),
+                               local, tp, span)
+        y = yg.reshape(B, T, D)
     if m.num_shared:
-        y = y + mlp(p["shared"], x, "swiglu")
-    return y, aux
+        shared = mlp(p["shared"], xf, "swiglu")
+        y = shared if y is None else y + shared
+    if y is None:
+        return whole, aux
+    y = reduce_from_model(y, tp)
+    return y if whole is None else whole + y, aux

@@ -33,9 +33,13 @@ On a mesh (``launch.mesh.Mesh`` of one pod with ``data`` or ``model`` above
 rows: FSDP gathers each parameter's ``data`` dim on use, inside each
 super-block's remat'd function (the recompute gathers again, so no gathered
 weight outlives its block); tensor parallelism runs the rank's query and KV
-heads, MLP columns and vocab range, with Megatron's *f* after each norm and
-*g* after each row-parallel product.  Prefill and decode return the whole
-vocab's logits (gathered over ``model`` for the argmax).
+heads (MLA's up-projections), MLP columns, experts and vocab range, with
+Megatron's *f* after each norm (MLA: on its latents, ``models/attention.py``;
+MoE: ``models/moe.py``) and *g* after each row-parallel product.  The MoE
+FFN's output is whole: the expert-parallel island's as it is, the partial
+sums through *g*.  Experts split over ``(data, model)`` jointly are not
+gathered on use: the island runs its own block of them.  Prefill and decode
+return the whole vocab's logits (gathered over ``model`` for the argmax).
 """
 
 from __future__ import annotations
@@ -89,8 +93,9 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append(f"block_pattern={cfg.block_pattern}")
     if cfg.attention not in ("gqa", "mla") and (cfg.attention != "none" or "attn" in kinds):
         unsupported.append(f"attention={cfg.attention!r}")
-    if cfg.moe is not None and cfg.moe.expert_sharding != "fsdp_d":
-        unsupported.append(f"expert_sharding={cfg.moe.expert_sharding!r}")
+    if cfg.moe is not None and cfg.moe.expert_sharding not in ("fsdp_d", "ep_a2a"):
+        # fsdp_f and ep2d are layouts the reference leaves to GSPMD.
+        unsupported.append(f"MoE expert_sharding={cfg.moe.expert_sharding!r}")
     if cfg.frontend not in ("none", "audio", "vision"):
         unsupported.append(f"frontend={cfg.frontend!r}")
     if unsupported:
@@ -101,32 +106,31 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """What a sharded mesh refuses, never replicating a layer silently: MoE
-    at data or model above 1 (expert parallelism is ROADMAP's item 3c), and
-    at model above 1 RG-LRU, MLA and xLSTM blocks and head counts that do not
-    divide by the model axis (item 3d)."""
+    """What a sharded mesh refuses, never replicating a layer silently: at
+    model above 1, RG-LRU and xLSTM blocks, and head counts or a d_ff that
+    do not divide by the model axis (ROADMAP's item 3d), and experts that
+    do not.  MoE runs on any other (data, model) mesh (``models/moe.py``)."""
     if not sharded(mesh):
         return
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE over mesh {mesh.shape} would route with a capacity other "
-            "than the reference's; expert parallelism waits for ROADMAP's item 3c")
     M = mesh.size("model")
     if M == 1:
         return
-    kinds = set(cfg.block_pattern)
-    refused = sorted(kinds & {"rec", "mlstm", "slstm"})
-    if cfg.attention == "mla":
-        refused.append("mla attention")
+    refused = sorted(set(cfg.block_pattern) & {"rec", "mlstm", "slstm"})
     if refused:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism (model {M}) of {refused} blocks waits for "
             "ROADMAP's item 3d")
-    if cfg.num_heads % M or cfg.num_kv_heads % M or cfg.d_ff % M:
+    kv = cfg.num_heads if cfg.attention == "mla" else cfg.num_kv_heads
+    if cfg.num_heads % M or kv % M or cfg.d_ff % M:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} query heads, {cfg.num_kv_heads} KV heads and "
+            f"{cfg.name}: {cfg.num_heads} query heads, {kv} KV heads and "
             f"d_ff {cfg.d_ff} do not all divide by model {M}; the reference's fallback "
             "(head dim on model) waits for ROADMAP's item 3d")
+    ep = M * (mesh.size("data") if cfg.moe is not None and moe_mod.two_d(cfg.moe) else 1)
+    if cfg.moe is not None and cfg.moe.num_experts % ep:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.moe.num_experts} experts do not divide over {ep} ranks: the "
+            "reference's island needs a whole block of experts a rank")
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
@@ -161,12 +165,14 @@ _XLSTM = {"mlstm": (xl.mlstm_block, xl.mlstm_decode),
           "slstm": (xl.slstm_block, xl.slstm_decode)}
 
 
-def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None):
+def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
+                 mesh=None):
     """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
     ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState`` or
     ``SLSTMState`` of buffers; ``None`` in train mode) is written in place.
-    ``tp`` (a GQA block with a dense FFN over a model axis): *f* after each
-    norm, *g* after the attention's and the FFN's output products.
+    ``tp`` (the model axis of ``mesh``, a sharded mesh): *f* after each norm
+    (MLA and MoE place theirs inside), *g* after the attention's and a dense
+    FFN's output products; the MoE FFN returns its output whole.
     Returns (x, cache, aux): aux is the MoE load-balance loss, ``None`` for a
     dense FFN or an xLSTM block."""
     if kind in _XLSTM:
@@ -180,7 +186,10 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None):
         for buf, t in zip(cache, new):
             buf.copy_(t)
         return x + y, cache, None
-    h = copy_to_model(rmsnorm(p["ln1"], x), tp)
+    mla = kind != "rec" and cfg.attention == "mla"
+    h = rmsnorm(p["ln1"], x)
+    if not mla:
+        h = copy_to_model(h, tp)
     if kind == "rec":
         if mode == "train":
             y = rec.rglru_block(p["rec"], h, cfg)
@@ -191,23 +200,25 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None):
                 y, new = rec.rglru_decode(p["rec"], h, cfg, cache)
             cache.h.copy_(new.h)
             cache.conv.copy_(new.conv)
-    else:
-        mla = cfg.attention == "mla"
+    elif mla:
         if mode == "train":
-            y = (attn.mla_attention if mla else attn.gqa_attention)(p["attn"], h, cfg)
+            y = attn.mla_attention(p["attn"], h, cfg, tp)
         else:
-            if mode == "prefill":
-                step = attn.mla_prefill if mla else attn.gqa_prefill
-            else:
-                step = attn.mla_decode if mla else attn.gqa_decode
+            step = attn.mla_prefill if mode == "prefill" else attn.mla_decode
+            y, cache = step(p["attn"], h, cfg, cache, tp)
+    else:
+        if mode == "train":
+            y = attn.gqa_attention(p["attn"], h, cfg)
+        else:
+            step = attn.gqa_prefill if mode == "prefill" else attn.gqa_decode
             y, cache = step(p["attn"], h, cfg, cache)
     x = x + reduce_from_model(y, tp)
-    h = copy_to_model(rmsnorm(p["ln2"], x), tp)
+    h = rmsnorm(p["ln2"], x)
     if cfg.moe is not None and kind == "attn":
-        y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
-    else:
-        y, aux = mlp(p["ffn"], h, cfg.act), None
-    return x + reduce_from_model(y, tp), cache, aux
+        y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg, mesh)
+        return x + y, cache, aux
+    y = mlp(p["ffn"], copy_to_model(h, tp), cfg.act)
+    return x + reduce_from_model(y, tp), cache, None
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
@@ -356,10 +367,16 @@ class Model(nn.Module):
 
     def _use(self, key: str, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
         """Parameter ``key`` (or one layer's slice of it) whole over
-        ``data``: the FSDP all-gather on use."""
+        ``data``: the FSDP all-gather on use; a dim split over ``data`` and
+        ``model`` jointly (the island's experts) as it is: the MoE FFN
+        gathers it where it needs it."""
         if self.mesh is None:
             return t
-        return gather_on_use(t, self.layout[key], self.mesh, stacked)
+        pl = self.layout[key]
+        d = pl.dim_of("data")
+        if d is not None and len(pl.axes(d)) > 1:
+            return t
+        return gather_on_use(t, pl, self.mesh, stacked)
 
     def _params(self, name: str, i: Optional[int] = None) -> Dict[str, Any]:
         """The subtree ``name`` (``"lead.0"``, ``"blocks"``, ...; with ``i``
@@ -412,7 +429,7 @@ class Model(nn.Module):
         lead = []
         for j, kind in enumerate(plan.lead):
             x, c, _ = _block_apply(self.cfg, kind, self._params(f"lead.{j}"), x, mode,
-                                   caches["lead"][j], self.tp)
+                                   caches["lead"][j], self.tp, self.mesh)
             lead.append(c)
         blocks = caches["blocks"]
         lengths = {}  # every layer of one stack starts from the same length
@@ -421,7 +438,7 @@ class Model(nn.Module):
             for j, kind in enumerate(plan.pattern):
                 key = f"b{j}"
                 x, c, _ = _block_apply(self.cfg, kind, p_sb[key], x, mode,
-                                       _layer(blocks[key], i), self.tp)
+                                       _layer(blocks[key], i), self.tp, self.mesh)
                 if kind == "attn":
                     lengths[key] = c.length
         blocks = {k: c._replace(length=lengths[k]) if k in lengths else c
@@ -429,7 +446,7 @@ class Model(nn.Module):
         tail = []
         for j, kind in enumerate(plan.tail):
             x, c, _ = _block_apply(self.cfg, kind, self._params(f"tail.{j}"), x, mode,
-                                   caches["tail"][j], self.tp)
+                                   caches["tail"][j], self.tp, self.mesh)
             tail.append(c)
         return x, {"lead": lead, "blocks": blocks, "tail": tail}
 
@@ -443,7 +460,7 @@ class Model(nn.Module):
         total = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def run(kind, p, x, total):
-            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None, self.tp)
+            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None, self.tp, self.mesh)
             return x, total if aux is None else total + aux
 
         def superblock(i: int, x: torch.Tensor, total: torch.Tensor):
@@ -519,14 +536,14 @@ class Model(nn.Module):
 
     def _mtp_loss(self, h: torch.Tensor, batch: Dict[str, torch.Tensor],
                   head: Dict[str, Any]) -> torch.Tensor:
-        """DeepSeek-V3 multi-token prediction: one extra block predicts t+2
-        (a MoE model: never sharded)."""
+        """DeepSeek-V3 multi-token prediction: one extra block predicts t+2."""
         labels = batch["labels"]
-        emb_next = embed(head["embed"], labels)   # embedding of token t+1
-        z = torch.cat([h.to(emb_next.dtype), emb_next], dim=-1) @ self.mtp["proj"]
-        z, _, _ = _block_apply(self.cfg, _mtp_kind(self.cfg), self.mtp["block"], z, "train",
-                               None)
-        z = rmsnorm(self.mtp["norm"], z)
+        mtp = self._params("mtp")
+        emb_next = embed(head["embed"], labels, self.vocab_tp)   # embedding of token t+1
+        z = torch.cat([h.to(emb_next.dtype), emb_next], dim=-1) @ mtp["proj"]
+        z, _, _ = _block_apply(self.cfg, _mtp_kind(self.cfg), mtp["block"], z, "train",
+                               None, self.tp, self.mesh)
+        z = rmsnorm(mtp["norm"], z)
         labels2 = torch.roll(labels, -1, dims=1)
         mask = torch.ones(labels2.shape, dtype=torch.float32, device=labels.device)
         mask[:, -1] = 0.0

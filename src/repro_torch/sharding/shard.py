@@ -22,7 +22,12 @@ The collectives of the sharded step, as autograd functions:
   ``model`` gets the same gradient on every model rank);
 * :func:`reduce_from_model` (Megatron's *g*) — an all-reduce over ``model``
   in the forward, the identity in the backward, after each row-parallel
-  product.
+  product;
+* :func:`all_to_all` — the expert-parallel exchange (``models/moe.py``'s
+  island): piece ``i`` of dim 0 to rank ``i`` of a group, the gradient back
+  by the same exchange;
+* :func:`gather_slices` — the island's output slices whole over ``model``;
+  in the backward the rank keeps its own slice of the gradient.
 
 Pods keep a whole replica (``core/cohort.py``), so a mesh with ``pod`` above
 1 is not sharded here (:func:`sharded`).
@@ -216,6 +221,14 @@ class _GatherOnUse(torch.autograd.Function):
         return rs.to(ctx.dtype), None, None, None
 
 
+def gather_data(t: torch.Tensor, dim: int, mesh, blocks: int = 1) -> torch.Tensor:
+    """``t`` whole along ``dim`` over ``data`` (an all-gather), its gradient
+    reduce-scattered over ``data`` in fp32 (``mesh`` None or data 1: ``t``)."""
+    if mesh is None or mesh.size("data") == 1:
+        return t
+    return _GatherOnUse.apply(t, dim, mesh, blocks)
+
+
 def gather_on_use(t: torch.Tensor, pl: Placement, mesh, stacked: bool = False
                   ) -> torch.Tensor:
     """``t`` (a block of a parameter; with ``stacked`` one layer's slice of a
@@ -224,8 +237,7 @@ def gather_on_use(t: torch.Tensor, pl: Placement, mesh, stacked: bool = False
     d = pl.dim_of("data")
     if d is None or mesh is None or mesh.size("data") == 1:
         return t
-    d -= int(stacked)
-    return _GatherOnUse.apply(t, d, mesh, pl.blocks_of(d + int(stacked)))
+    return gather_data(t, d - int(stacked), mesh, pl.blocks_of(d))
 
 
 def _all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
@@ -265,6 +277,47 @@ def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
     """Megatron's *g*: the sum of ``x`` over ``model``, its gradient as it
     is; ``tp`` None: ``x``."""
     return x if tp is None else _ReduceFromModel.apply(x, tp)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return mesh.all_to_all(t.contiguous().view(-1), axes).view(t.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Piece i of the output came from rank i: its gradient goes back there,
+        # which is the same exchange.
+        return ctx.mesh.all_to_all(g.contiguous().view(-1), ctx.axes).view(g.shape), None, None
+
+
+def all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """``t`` ``[a, ...]`` exchanged over the group of ``axes`` (``a`` ranks):
+    piece ``i`` of dim 0 goes to the group's rank ``i``, and piece ``i`` of
+    the result came from it."""
+    return _AllToAll.apply(t, axes, mesh)
+
+
+class _GatherSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh):
+        ctx.dim, ctx.mesh, ctx.n = dim, mesh, t.shape[dim]
+        return _gather(t, dim, "model", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The gathered tensor feeds what every model rank computes alike, so
+        # the gradient that arrives is the same on every model rank: each
+        # keeps the gradient of its own slice, and nothing is summed.
+        m = ctx.mesh.coords["model"]
+        return g.narrow(ctx.dim, m * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_slices(t: torch.Tensor, tp, dim: int = 1) -> torch.Tensor:
+    """Every model rank's slice of ``t`` along ``dim``, in model order (``tp``
+    None: ``t``); the backward keeps the rank's own slice of the gradient."""
+    return t if tp is None else _GatherSlices.apply(t, dim % t.ndim, tp)
 
 
 def max_over_model(x: torch.Tensor, tp) -> torch.Tensor:

@@ -1,0 +1,328 @@
+"""MoE's scatter path over gloo ranks and MLA's tensor parallelism against
+the JAX package's GSPMD, the block's *g* rule, phase 9 of ``chip_smoke.py``
+rehearsed at smoke width, and what the port still refuses.
+
+JAX runs once, in a subprocess with four host devices (``conftest``'s
+``run_multidevice``), its cases in threads: deepseek-v2 smoke on the
+``fsdp_d`` layout (experts on ``model``, d_model FSDP on ``data``) at (data
+2, model 1) with one MoE group (its slots continue across the data ranks)
+and with two (one on each), at (2, 2), and at (1, 2), where MLA runs a
+rank's heads; each two steps of ``build_train_step`` in two microbatches,
+and at (2, 2) the logits of ``build_prefill_step`` and of one
+``build_decode_step``.  Beside it the port runs on 2 gloo ranks in one spawn
+and on 4 in another, from the same initial parameters, in fp32 within
+``GRAD_TOL``; the parameters are conditioned and the learning rate is 1e-4,
+as in ``tests/test_torch_ep.py``.
+
+The 2-rank spawn also runs the island (``ep_a2a`` at (1, 2)) as it is and
+with its output summed over ``model`` (the block's *g* on an output that is
+already whole), each against one process whose MoE routes each model rank's
+slice as a group of its own (``chip_smoke.py``'s ``island_groups``), and
+phase 9's ranks at smoke width in bf16 (``ep_serve_rank``,
+``ep_train_rank``), whose checks must pass and must fail on planted
+faults."""
+
+import copy
+import dataclasses
+import math
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from repro.configs import ShapeConfig as JaxShapeConfig  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.models import input_specs as jax_input_specs  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.launch.mesh import Mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.steps import build_train_step, init_train_state  # noqa: E402
+from repro_torch.models import Model, model_specs  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+
+import torch_rank_fns  # noqa: E402
+from conftest import run_multidevice  # noqa: E402
+from test_torch_ep import JAX_REF, conditioned  # noqa: E402
+
+GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+V2 = "deepseek-v2-236b"
+SERVE = (4, 8, 4)
+FSDP = {"expert_sharding": "fsdp_d"}
+CASES = [
+    dict(name="g1_21", arch=V2, mesh=(2, 1), moe=FSDP, B=8, T=16, steps=2, micro=2, lr=1e-4),
+    dict(name="g2_21", arch=V2, mesh=(2, 1), moe=dict(FSDP, groups=2), B=8, T=16, steps=2,
+         micro=2, lr=1e-4),
+    dict(name="mla_12", arch=V2, mesh=(1, 2), moe=FSDP, B=8, T=16, steps=2, micro=2, lr=1e-4),
+    dict(name="fsdp_22", arch=V2, mesh=(2, 2), moe=FSDP, B=8, T=16, steps=2, micro=2, lr=1e-4,
+         serve=SERVE),
+]
+BY_NAME = {c["name"]: c for c in CASES}
+# The island at (1, 2): sound, and with its output summed over model.
+ISLAND = dict(name="island", arch=V2, mesh=(1, 2), moe={"expert_sharding": "ep_a2a"}, B=8,
+              T=16, steps=2, micro=2, lr=1e-4)
+# chip_smoke.py's phase 9 at smoke width (bf16): serving rows, prompt,
+# generated tokens; training rows, tokens per row (2048: the chunked
+# vocab-parallel cross-entropy, as at 4096), microbatches, steps, lr.
+REHEARSE_SERVE, REHEARSE_TRAIN = (4, 64, 6), (2, 2048, 1, 1, 3e-4)
+# Phase 9's limits at smoke width on the CPU (bf16): a sound run read 1.55e-2
+# (logits), 3.2e-5 (loss), 3.2e-3 (grad-norm) and 0 (the island against the
+# one-rank route of its inputs, in serving and in training), the planted
+# fault 4.6e-2, 2.0e-4, 7.1e-3 and 1.35.
+REHEARSE_LIMITS = dict(EP_LOGITS_RTOL=5e-2, EP_LOSS_RTOL=1e-4, EP_NORM_RTOL=5e-3,
+                       EP_ISLAND_RTOL=1e-2)
+
+
+def _cfg(c, framework_config):
+    cfg = framework_config(c["arch"], smoke=True).with_overrides(dtype="float32")
+    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **c["moe"]))
+
+
+def _params(c):
+    cfg = _cfg(c, jax_config)
+    tree = conditioned(jax.device_get(JaxModel(cfg).init(jax.random.PRNGKey(0))))
+    return cfg, {k: v.numpy() for k, v in params_from_jax(tree).items()}
+
+
+def _batches(c, vocab):
+    return np.random.default_rng(7).integers(0, vocab, (c["steps"], c["B"], c["T"] + 1))
+
+
+def _run(c):
+    return dict(learning_rate=c["lr"], warmup_steps=0, microbatches=c["micro"])
+
+
+def _jobs(c, fn="tp_steps"):
+    cfg, params = _params(c)
+    jobs = [(fn, (c["arch"], c["mesh"], params, _batches(c, cfg.vocab_size), _run(c),
+                  c["moe"]))]
+    if c.get("serve"):
+        bs, plen, glen = c["serve"]
+        prompts = {k: np.asarray(v) for k, v in jax_input_specs(
+            cfg, JaxShapeConfig("serve", plen, bs, "prefill"), concrete=True,
+            rng=jax.random.PRNGKey(1)).items()}
+        jobs.append(("tp_logits", (c["arch"], c["mesh"], params, prompts, plen + glen,
+                                   c["moe"])))
+    return jobs
+
+
+def _one_island(cs):
+    """One process of the island case whose MoE routes each model rank's
+    slice as a group (phase 9's reference): losses and grad-norms."""
+    _, params = _params(ISLAND)
+    model = Model(_cfg(ISLAND, get_config), device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    run = RunConfig(total_steps=10, **_run(ISLAND))
+    state, step = init_train_state(model, run), build_train_step(model, run)
+    losses, norms = [], []
+    with cs.island_groups(ISLAND["mesh"][1]):
+        for b in _batches(ISLAND, model.cfg.vocab_size):
+            state, m = step(state, torch_rank_fns._batch(b, model.cfg))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    return {"loss": losses, "grad_norm": norms}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The JAX subprocess and the two spawns side by side; meanwhile, here,
+    the one-process references of the island and of phase 9."""
+    cs = torch_rank_fns._chip_smoke()
+    out = tmp_path_factory.mktemp("jax_moe_mesh") / "ref.npz"
+    head = f"CASES, OUT = {CASES!r}, {str(out)!r}\n"
+    pool = ThreadPoolExecutor(3)
+    jax_run = pool.submit(run_multidevice, head + JAX_REF, devices=4, timeout=600)
+    two = [c for c in CASES if math.prod(c["mesh"]) == 2]
+    jobs2 = [j for c in two for j in _jobs(c)]
+    jobs2 += _jobs(ISLAND) + _jobs(ISLAND, "island_summed_steps")
+    jobs2 += [("chip_smoke_ep_serve_rank", (*REHEARSE_SERVE, True, "cpu")),
+              ("chip_smoke_ep_train_rank", (*REHEARSE_TRAIN, True, "cpu"))]
+    jobs4 = _jobs(BY_NAME["fsdp_22"])
+    with pool:
+        ranks2 = pool.submit(spawn_ranks, torch_rank_fns.ranks_main, 2, (jobs2,), timeout=600)
+        ranks4 = pool.submit(spawn_ranks, torch_rank_fns.ranks_main, 4, (jobs4,), timeout=600)
+        island = _one_island(cs)
+        rehearsal = cs.ep_references(REHEARSE_SERVE, REHEARSE_TRAIN, smoke=True, device="cpu")
+        ranks = {2: ranks2.result(), 4: ranks4.result()}
+        assert "OK ref" in jax_run.result()
+    with np.load(out) as f:
+        ref = {k: f[k] for k in f.files}
+    port = {}
+    for n, cases in ((2, two), (4, [BY_NAME["fsdp_22"]])):
+        for rank in ranks[n]:
+            results = iter(rank)
+            for c in cases:
+                got = port.setdefault(c["name"], [])
+                got.append({"steps": next(results)})
+                if c.get("serve"):
+                    got[-1]["logits"] = next(results)
+            if n == 2:
+                for name in ("island", "island_summed", "ep_serve", "ep_train"):
+                    port.setdefault(name, []).append(next(results))
+    return {"jax": ref, "port": port, "island": island, "rehearsal": rehearsal, "cs": cs}
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in CASES])
+def test_scatter_path_steps_as_jax(runs, name):
+    """Every rank's losses and grad-norms, and the final parameters gathered
+    whole, against JAX's GSPMD train step: one group over two data ranks,
+    two groups one on each, MLA and the experts over model 2, and both."""
+    ref = runs["jax"]
+    want = {k[len(name) + 8:]: v for k, v in ref.items() if k.startswith(f"{name}/params/")}
+    data, model = BY_NAME[name]["mesh"]
+    for rank in runs["port"][name]:
+        res = rank["steps"]
+        np.testing.assert_allclose(res["loss"], ref[f"{name}/loss"], **GRAD_TOL)
+        np.testing.assert_allclose(res["grad_norm"], ref[f"{name}/grad_norm"], **GRAD_TOL)
+        assert set(res["params"]) == set(want)
+        for key, w in want.items():
+            np.testing.assert_allclose(res["params"][key], w, err_msg=f"{res['coords']} {key}",
+                                       **GRAD_TOL)
+        assert all(("data" in w) == (data > 1) and ("model" in w) == (model > 1)
+                   for w in res["wire"])
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in CASES if c.get("serve")])
+def test_mla_prefill_and_decode_logits_match_jax(runs, name):
+    """MLA on a rank's heads (its latent cache whole on every model rank)
+    and the experts' partial sums: each rank's rows' last-token logits of
+    the prefill and of one decode step against JAX's."""
+    ref, c = runs["jax"], BY_NAME[name]
+    rows = c["serve"][0] // c["mesh"][0]
+    for rank in runs["port"][name]:
+        res = rank["logits"]
+        sl = slice(res["coords"]["data"] * rows, (res["coords"]["data"] + 1) * rows)
+        np.testing.assert_allclose(res["prefill"], ref[f"{name}/prefill"][sl], **GRAD_TOL)
+        np.testing.assert_allclose(res["decode"], ref[f"{name}/decode"][sl], **GRAD_TOL)
+
+
+def test_island_output_must_not_pass_through_g(runs):
+    """The island's output is whole on every model rank: as it is, the steps
+    are one process's whose MoE routes each slice as a group; through the
+    block's *g* (summed over model, doubled) they lie far outside
+    GRAD_TOL."""
+    one = runs["island"]
+    for sound, summed in zip(runs["port"]["island"], runs["port"]["island_summed"]):
+        np.testing.assert_allclose(sound["loss"], one["loss"], **GRAD_TOL)
+        np.testing.assert_allclose(sound["grad_norm"], one["grad_norm"], **GRAD_TOL)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(summed["loss"], one["loss"], **GRAD_TOL)
+        # It read 1.8e-3, 18 times the tolerance.
+        gap = abs(summed["loss"][0] - one["loss"][0]) / one["loss"][0]
+        assert gap > 10 * GRAD_TOL["rtol"], gap
+
+
+@pytest.fixture
+def rehearsal_limits(runs):
+    cs = runs["cs"]
+    real = {k: getattr(cs, k) for k in REHEARSE_LIMITS}
+    train = cs.EP_TRAIN
+    for k, v in REHEARSE_LIMITS.items():
+        setattr(cs, k, v)
+    cs.EP_TRAIN = (V2, *REHEARSE_TRAIN)
+    try:
+        yield cs
+    finally:
+        for k, v in real.items():
+            setattr(cs, k, v)
+        cs.EP_TRAIN = train
+
+
+def test_phase_9_serving_rehearses_at_smoke_width(runs, rehearsal_limits):
+    """Phase 9(a) on CPU ranks: its checks pass (logits, the island against
+    the one-rank route of its inputs, first tokens, the model group's bytes
+    of the prefill and of each decode step equal to the formulas); they fail
+    when a decode step counts 4 bytes more and when the planted fault's
+    island output reads as the sound one's."""
+    cs, (logits, _) = rehearsal_limits, runs["rehearsal"]
+    cfg = cs.ep_config(smoke=True)
+    batch, plen, _ = REHEARSE_SERVE
+    serving = runs["port"]["ep_serve"]
+    assert cs.check_ep_serving(serving, cfg, batch, plen, logits, None) <= cs.EP_LOGITS_RTOL
+    extra = copy.deepcopy(serving)
+    extra[1]["decode_bytes"][2]["model"] += 4
+    with pytest.raises(AssertionError, match="decode wire bytes"):
+        cs.check_ep_serving(extra, cfg, batch, plen, logits, None)
+    assert all(r["fault_island_gap"] > cs.EP_ISLAND_RTOL >= r["island_gap"] for r in serving)
+    blind = copy.deepcopy(serving)
+    blind[0]["fault_island_gap"] = blind[0]["island_gap"]
+    with pytest.raises(AssertionError, match="cannot tell"):
+        cs.check_ep_serving(blind, cfg, batch, plen, logits, None)
+
+
+def test_phase_9_training_rehearses_at_smoke_width(runs, rehearsal_limits):
+    """Phase 9(b) on CPU ranks: its checks pass (step 1 against one rank's,
+    each step's bytes equal to the formulas: the island's all-to-alls in the
+    forward, remat's recompute and the backward among them, each rank's
+    parameter and bf16 moment bytes its blocks', the island against the
+    one-rank route of its inputs); they fail when a step counts 4 bytes
+    more, when the fault's loss or its island output reads as the sound
+    one's, and when a rank holds a whole replica's state."""
+    cs, (_, ref) = rehearsal_limits, runs["rehearsal"]
+    cfg = cs.ep_config(smoke=True)
+    training = runs["port"]["ep_train"]
+    gaps = cs.check_ep_training(training, cfg, ref, None, None)
+    assert all(map(math.isfinite, gaps))
+    extra = copy.deepcopy(training)
+    extra[1]["history"][0]["wire_bytes"]["model"] += 4
+    with pytest.raises(AssertionError, match="wire bytes"):
+        cs.check_ep_training(extra, cfg, ref, None, None)
+    blind = copy.deepcopy(training)
+    blind[0]["fault"] = (blind[0]["history"][0]["loss"], blind[0]["history"][0]["grad_norm"])
+    with pytest.raises(AssertionError, match="cannot tell"):
+        cs.check_ep_training(blind, cfg, ref, None, None)
+    blind = copy.deepcopy(training)
+    blind[1]["fault_island_gap"] = blind[1]["island_gap"]
+    with pytest.raises(AssertionError, match="cannot tell"):
+        cs.check_ep_training(blind, cfg, ref, None, None)
+    whole = copy.deepcopy(training)
+    whole[1]["param_bytes"], whole[1]["moment_bytes"] = cs.shard_bytes(cfg, (1, 1),
+                                                                       moment_bytes=4)
+    with pytest.raises(AssertionError, match="its blocks by the rules"):
+        cs.check_ep_training(whole, cfg, ref, None, None)
+
+
+def _mesh(shape):
+    return Mesh(axes=("data", "model"), shape=dict(zip(("data", "model"), shape)),
+                coords={"data": 0, "model": 0}, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("layout", ["fsdp_f", "ep2d"])
+def test_gspmd_only_layouts_are_refused(layout):
+    """The layouts that the reference leaves to GSPMD have no port."""
+    cfg = get_config(V2, smoke=True)
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding=layout))
+    with pytest.raises(NotImplementedError, match=f"expert_sharding='{layout}'"):
+        model_specs(cfg)
+    with pytest.raises(NotImplementedError, match="not yet"):
+        Model(cfg, device="cpu", mesh=_mesh((1, 2)))
+
+
+def test_groups_that_straddle_data_ranks_are_refused():
+    """2 groups over 4 data ranks: a group would span two of them with its
+    capacity; 1 group (it spans every rank) and 4 (one each) are taken."""
+    cfg = get_config(V2, smoke=True)
+    p = Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"]
+    x = torch.zeros(2, 4, cfg.d_model, dtype=torch.bfloat16)
+    bad = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=2))
+    with pytest.raises(NotImplementedError, match="straddle"):
+        moe_mod.moe_ffn(p, x, bad, _mesh((4, 1)))
+    four = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=4))
+    y, _ = moe_mod.moe_ffn(p, x[:1], four, _mesh((4, 1)))  # 1 row of 4 on each of 4 ranks
+    assert y.shape == (1, 4, cfg.d_model)
+
+
+def test_experts_that_do_not_divide_are_refused():
+    """6 experts over model 4: a rank would hold no whole block of them."""
+    cfg = get_config(V2, smoke=True)
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, num_experts=6))
+    with pytest.raises(NotImplementedError, match="6 experts do not divide over 4 ranks"):
+        Model(cfg, device="cpu", mesh=_mesh((1, 4)))
+
+
+def test_rglru_at_model_2_is_refused():
+    with pytest.raises(NotImplementedError, match="item 3d"):
+        Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", mesh=_mesh((1, 2)))

@@ -7,9 +7,13 @@ and ``cache_pspecs`` equal JAX's on ``(data, model)`` meshes of (2, 2),
 (1, 2) and (16, 16).  Then ``shard_tree`` and ``gather_tree`` on a (2, 2)
 mesh whose four ranks are threads here (no process group): the round trip
 returns the tree bit for bit, swiglu's ``wi`` shards as ``[gate_m | up_m]``,
-and a dim that ``fit_pspec`` leaves whole stays whole.  Last, the refusals
-of tensor parallelism that this slice does not take."""
+and a dim that ``fit_pspec`` leaves whole stays whole.  The expert-parallel
+layouts (``ep_a2a``, experts on ``model`` with FSDP on ``data``, or on
+``(data, model)`` jointly where E divides by 256) against JAX's for both MoE
+configs.  Last, the refusals of tensor parallelism that the port does not
+take."""
 
+import dataclasses
 import threading
 import types
 
@@ -69,6 +73,40 @@ def test_param_and_fitted_pspecs_equal_jax(arch, smoke):
     assert set(got) == set(want)
     jax_ps = dict(_flat(jax_rules.param_pspecs(JaxModel(jax_config(arch, smoke=smoke)).specs())))
     port_ps = dict(_flat(rules.param_pspecs(model_specs(get_config(arch, smoke=smoke)))))
+    for key, spec in got.items():
+        assert port_ps[key] == tuple(jax_ps[key]), key
+        for shape in MESHES:
+            fake = _fake(shape)
+            assert (rules.fit_pspec(port_ps[key], spec.shape, fake)
+                    == tuple(jax_rules.fit_pspec(jax_ps[key], want[key].shape, fake))), (key, shape)
+
+
+def _ep_a2a(cfg, experts=None):
+    moe = dataclasses.replace(cfg.moe, expert_sharding="ep_a2a",
+                              num_experts=experts or cfg.moe.num_experts)
+    return cfg.with_overrides(moe=moe)
+
+
+@pytest.mark.parametrize("arch,smoke,experts", [
+    (a, smoke, e) for a in ("deepseek-v2-236b", "deepseek-v3-671b") for smoke in (False, True)
+    for e in (None, 256)])
+def test_ep_a2a_layouts_equal_jax(arch, smoke, experts):
+    """The island's expert layouts: deepseek-v2's 160 experts (and either
+    config's smoke 8) on ``model`` with ``wi``'s d_model and ``wo``'s FFN dim
+    FSDP on ``data``; deepseek-v3's 256 (and the smokes overridden to 256)
+    on ``(data, model)`` jointly.  The specs and their fits equal JAX's."""
+    jcfg = _ep_a2a(jax_config(arch, smoke=smoke), experts)
+    cfg = _ep_a2a(get_config(arch, smoke=smoke), experts)
+    want = dict(_specs(JaxModel(jcfg).specs()))
+    got = dict(_specs(model_specs(cfg)))
+    assert set(got) == set(want)
+    jax_ps = dict(_flat(jax_rules.param_pspecs(JaxModel(jcfg).specs())))
+    port_ps = dict(_flat(rules.param_pspecs(model_specs(cfg))))
+    two_d = cfg.moe.num_experts % 256 == 0
+    assert port_ps["blocks.b0.ffn.wi"] == ((None, ("data", "model"), None, None) if two_d
+                                           else (None, "model", "data", None))
+    assert port_ps["blocks.b0.ffn.wo"] == ((None, ("data", "model"), None, None) if two_d
+                                           else (None, "model", "data", None))
     for key, spec in got.items():
         assert port_ps[key] == tuple(jax_ps[key]), key
         for shape in MESHES:
@@ -197,8 +235,13 @@ def _mesh(shape):
                                        ("deepseek-v2-236b", "MoE"),
                                        ("xlstm-1.3b", "'mlstm', 'slstm'")])
 def test_model_axis_refuses_blocks_it_does_not_shard(arch, what):
+    """RG-LRU and xLSTM blocks; of MoE the layouts that the reference leaves
+    to GSPMD (``fsdp_f`` here)."""
+    cfg = get_config(arch, smoke=True)
+    if cfg.moe is not None:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="fsdp_f"))
     with pytest.raises(NotImplementedError, match=what):
-        Model(get_config(arch, smoke=True), device="cpu", mesh=_mesh((1, 2)))
+        Model(cfg, device="cpu", mesh=_mesh((1, 2)))
 
 
 def test_model_axis_refuses_heads_that_do_not_divide():
@@ -210,8 +253,17 @@ def test_model_axis_refuses_heads_that_do_not_divide():
 
 
 def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        Model(get_config("deepseek-v2-236b", smoke=True), device="cpu", mesh=_mesh((2, 1)))
+    """MoE at data 2 is refused where its groups would straddle the data
+    ranks (3 groups over 2: the reference's capacity is not reproduced);
+    recurrentgemma's FSDP takes every leaf."""
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=3))
+    p = Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"]
+    with pytest.raises(NotImplementedError, match="straddle"):
+        moe_mod.moe_ffn(p, torch.zeros(3, 4, cfg.d_model, dtype=torch.bfloat16), cfg,
+                        _mesh((2, 1)))
     model = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", mesh=_mesh((2, 1)))
     full = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu")
     for key, p in full.state_dict().items():

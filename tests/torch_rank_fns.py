@@ -2,6 +2,8 @@
 (``repro_torch.launch.mesh.spawn_ranks``).  They import torch and the port
 only, so that a rank starts without JAX; each returns numpy arrays."""
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -107,14 +109,17 @@ def train_fp32(arch, shape, steps, run_kw, resume=False, axes=POD_DATA):
     return out["history"]
 
 
-def _fp32(arch):
-    return get_config(arch, smoke=True).with_overrides(dtype="float32")
+def _fp32(arch, moe=None):
+    """``arch``'s smoke config in fp32, its MoE config's fields ``moe``
+    (a dict) replaced."""
+    cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
+    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **moe)) if moe else cfg
 
 
-def _sharded(arch, params, mesh):
-    """``arch`` (smoke, fp32) on ``mesh`` holding this rank's blocks of the
-    whole ``params`` (numpy, ``state_dict`` keys)."""
-    model = Model(_fp32(arch), device="cpu", mesh=mesh)
+def _sharded(arch, params, mesh, moe=None):
+    """``arch`` (smoke, fp32, MoE fields ``moe``) on ``mesh`` holding this
+    rank's blocks of the whole ``params`` (numpy, ``state_dict`` keys)."""
+    model = Model(_fp32(arch, moe), device="cpu", mesh=mesh)
     model.load_state_dict(shard_params({k: torch.from_numpy(v) for k, v in params.items()},
                                        model))
     return model
@@ -135,13 +140,29 @@ def _batch(b, cfg):
     return out
 
 
-def tp_steps(arch, shape, params, batches, run_kw):
-    """``arch`` (smoke, fp32, from the whole ``params``) stepped over
-    ``batches`` on a ``(data, model)`` mesh of ``shape``.  Returns the
-    losses, grad-norms, wire bytes per step, and the final parameters
-    gathered whole."""
+def counted_drops(calls):
+    """Wrap ``models/moe.py``'s ``_slots`` to append to ``calls`` the
+    choices that each call drops (position past the capacity)."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod._slots
+
+    def slots(flat_e, pos, C, E, local=None):
+        calls.append(int((pos >= C).sum()))
+        return real(flat_e, pos, C, E, local)
+
+    moe_mod._slots = slots
+
+
+def tp_steps(arch, shape, params, batches, run_kw, moe=None):
+    """``arch`` (smoke, fp32, MoE fields ``moe``, from the whole ``params``)
+    stepped over ``batches`` on a ``(data, model)`` mesh of ``shape``.
+    Returns the losses, grad-norms, wire bytes per step, the final
+    parameters gathered whole, and the choices each MoE call dropped."""
     mesh = make_mesh(shape, DATA_MODEL, "cpu")
-    model = _sharded(arch, params, mesh)
+    model = _sharded(arch, params, mesh, moe)
+    drops = []
+    counted_drops(drops)
     run = RunConfig(total_steps=10, **run_kw)
     state, step = init_train_state(model, run, mesh), build_train_step(model, run, mesh)
     losses, norms, wire = [], [], []
@@ -153,10 +174,10 @@ def tp_steps(arch, shape, params, batches, run_kw):
         wire.append(dict(mesh.traffic.wire_bytes))
     whole = gather_tree(dict(state["params"]), model.layout, mesh)
     return {"loss": losses, "grad_norm": norms, "wire": wire, "params": _numpy(whole),
-            "coords": dict(mesh.coords)}
+            "coords": dict(mesh.coords), "drops": drops}
 
 
-def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len):
+def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, moe=None):
     """``serve(arch)`` (smoke, fp32) on a ``(data, model)`` mesh of
     ``shape``, its weights the whole ``params`` and its prompts ``prompts``
     (numpy) in place of its own draws; returns every rank's tokens."""
@@ -168,7 +189,7 @@ def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len):
 
     real = (serve_mod.Model, serve_mod.get_config, serve_mod.input_specs)
     serve_mod.Model = Loaded
-    serve_mod.get_config = lambda a, smoke: _fp32(a)
+    serve_mod.get_config = lambda a, smoke: _fp32(a, moe)
     serve_mod.input_specs = lambda *a, **kw: {k: torch.from_numpy(v).long()
                                               for k, v in prompts.items()}
     try:
@@ -179,12 +200,12 @@ def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len):
     return out["tokens"].numpy()
 
 
-def tp_logits(arch, shape, params, prompts, max_len):
+def tp_logits(arch, shape, params, prompts, max_len, moe=None):
     """This rank's rows' last-token logits of a prefill of ``prompts`` and of
     one greedy decode step after it, over the whole vocab, on a ``(data,
     model)`` mesh of ``shape``."""
     mesh = make_mesh(shape, DATA_MODEL, "cpu")
-    model = _sharded(arch, params, mesh)
+    model = _sharded(arch, params, mesh, moe)
     rows = next(iter(prompts.values())).shape[0]
     batch = rank_inputs({k: torch.from_numpy(v).long() for k, v in prompts.items()},
                         model.cfg, ShapeConfig("s", 0, rows, "prefill"), model.mesh)
@@ -257,3 +278,33 @@ def chip_smoke_tp_serve_rank(*args):
 def chip_smoke_tp_train_rank(*args):
     """chip_smoke.py's phase-8(b) rank (``tp_train_rank``)."""
     return _chip_smoke().tp_train_rank(*args)
+
+
+def island_summed_steps(arch, shape, params, batches, run_kw, moe):
+    """:func:`tp_steps` with the island's output summed over ``model`` (the
+    block's *g* applied to an output that is already whole): the wrong rule
+    that the tests must catch."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding.shard import model_parallel, reduce_from_model
+
+    real = moe_mod._island
+
+    def summed(p, x, xf, m, mesh):
+        y, aux = real(p, x, xf, m, mesh)
+        return reduce_from_model(y, model_parallel(mesh)), aux
+
+    moe_mod._island = summed
+    try:
+        return tp_steps(arch, shape, params, batches, run_kw, moe)
+    finally:
+        moe_mod._island = real
+
+
+def chip_smoke_ep_serve_rank(*args):
+    """chip_smoke.py's phase-9(a) rank (``ep_serve_rank``)."""
+    return _chip_smoke().ep_serve_rank(*args)
+
+
+def chip_smoke_ep_train_rank(*args):
+    """chip_smoke.py's phase-9(b) rank (``ep_train_rank``)."""
+    return _chip_smoke().ep_train_rank(*args)
