@@ -144,10 +144,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the kernels against the plain versions in the forward, remat's
    recompute and the backward, within ``RG_TRAIN_BF16_TOL``, and a scan
    backward wrong on purpose (da from h_t) must exceed it; (e) the main
-   path's fourth part: ``train("xlstm-1.3b")`` at published width cut to 16
-   of its 48 blocks (two ``("mlstm",) * 7 + ("slstm",)`` super-blocks under
+   path's fourth part: ``train("xlstm-1.3b")`` at published width cut to 8
+   of its 48 blocks (one ``("mlstm",) * 7 + ("slstm",)`` super-block under
    remat), bf16 parameters, fp32 AdamW moments, 4 rows of 2048 tokens in one
-   microbatch, 4 steps at lr 3e-4 with 1 warmup step (``XLSTM_TRAIN``):
+   microbatch, 2 steps at lr 3e-4 with 1 warmup step (``XLSTM_TRAIN``):
    every loss finite, the trained weights moved, no launch of any kernel and
    no call of a plain version, with s/step, tokens/s, the model-FLOPs share (6
    N per token plus the mLSTM chunkwise products, ``xlstm_step_flops``), the
@@ -215,7 +215,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    within ``TP_LOGITS_RTOL`` of phase 4's, every first token equal, the
    ``model`` group's bytes of the prefill and of each decode step equal to
    ``core/asymmetry.py``'s formulas, 16 flash launches a prefill on
-   ``wgmma`` and no plain call (:func:`check_tp_serving`); (b) trained 3
+   ``wgmma`` and no plain call (:func:`check_tp_serving`); (b) trained 2
    steps of 4 x 4096 on ``(data 2, model 2)`` (:func:`tp_train_rank`, four
    ranks): step 1's loss and grad-norm within ``TP_LOSS_RTOL`` and
    ``TP_NORM_RTOL`` of a one-rank run of the same weights and batch made
@@ -240,7 +240,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    group's bytes of the prefill and of each decode step equal to the
    formulas (:func:`ep_serve_wire_bytes`), 2 flash launches a prefill on
    ``wgmma`` and no plain call, the dropped choices printed
-   (:func:`check_ep_serving`); (b) 6(g)'s 2 x 4096 trained 3 steps with
+   (:func:`check_ep_serving`); (b) 6(g)'s 2 x 4096 trained 2 steps with
    bf16 AdamW moments (:func:`ep_train_rank`): step 1's loss and
    grad-norm within ``EP_LOSS_RTOL`` and ``EP_NORM_RTOL``, each step's
    bytes equal to the formulas (:func:`ep_wire_bytes`: the island's
@@ -250,9 +250,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    (:func:`check_ep_training`); in both, a planted fault (the results
    returned in reverse source order, :func:`wrong_source_order`) must lie
    outside every limit.  Phase 2 times flash at a rank's shapes (64 heads,
-   B 4 and B 2 x 4096).
+   B 4 and B 2 x 4096);
+10. tensor parallelism for RG-LRU and xLSTM blocks, and the head-dim split
+   of KV heads that do not divide over ``model``: recurrentgemma-9b at
+   published widths cut to 6(d)'s 8 layers and xlstm-1.3b cut to 6(e)'s 8
+   blocks (xlstm in fp32, see ``TPR_SERVE``), two ranks on ``(data 1,
+   model 2)`` spawned as phase 7's (:func:`tp_recurrent_rank`): each served
+   with its phase-4 request
+   (:func:`tp_serve_rank`) and held to one rank's prefill of the same cut
+   on the same prompts (:func:`check_tp_recurrent_serving`: the last-token
+   logits within ``TP_LOGITS_RTOL``, every first token the one rank's
+   argmax, the ``model`` group's bytes of the prefill and of each decode
+   step equal to :func:`tpr_wire_bytes`, per prefill one flash launch an
+   attention layer on ``wgmma`` and one scan launch an RG-LRU layer on
+   ``tma``, none in decode, no plain call); each trained (``TPR_TRAIN``:
+   recurrentgemma 6(d)'s run cut to 2 steps, xlstm one step of 4 x 256,
+   :func:`tp_train_rank`) with step 1's loss and grad-norm within phase 8's
+   limits of one rank's step 1 of the same run (6(d)'s for recurrentgemma),
+   each step's bytes
+   equal to the formulas, each rank's parameter and moment bytes its
+   blocks', and each step's launches what ``layer_plan`` implies, flash on
+   ``wgmma`` and the scan on ``tma`` (:func:`check_tp_recurrent_training`);
+   two planted faults must lie outside their limits: RoPE on a rank's
+   head-dim slice before the gather (:func:`rope_before_gather`, in
+   recurrentgemma's prefill logits) and ``w_if``'s partial through *g* then
+   sliced (:func:`w_if_through_g`, in the fp32 gradient of ``w_up`` at the
+   initial weights on 6(e)'s slope row, each rank's block against one
+   rank's within ``TPR_GRAD_RTOL``: :func:`grad_probe`,
+   :func:`check_grad_probe`).  Phase 2 times flash and the scan at a rank's
+   shapes (8 query heads over the one KV head at d 256; 2048 channels).
 
-Before each of phases 3-9 a ``[memory]`` line prints what the phases before
+Before each of phases 3-10 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds (and whether they passed ``TARGET_S``),
 the kernels' JSON record, the card's
@@ -327,6 +355,9 @@ FLASH_SLICES = {  # prefill attention of each main path
     # deepseek-v2-236b's MLA prefill on a rank of model 2 (phase 9(a)): its
     # 64 of the 128 heads.
     "deepseek-v2-236b model 2": (4, 4096, 64, 64, 192, 128, True, 0, "bfloat16"),
+    # recurrentgemma-9b's prefill on a rank of model 2 (phase 10(a)): its 8
+    # query heads over the one KV head, gathered whole (the head-dim split).
+    "recurrentgemma-9b model 2": (4, 4096, 8, 1, 256, 256, True, 2048, "bfloat16"),
 }
 # The plain versions run over slices of the KV heads whose fp32 scores take at
 # most this many bytes: whole, MLA's 128 heads would not fit the card
@@ -352,6 +383,9 @@ BF16_RTOL, BF16_ROW = 1.6e-2, 1e-2
 RGLRU_CASES = [(2, 100, 48, 0), (1, 64, 128, 0), (3, 33, 20, 0), (2, 257, 4100, 0),
                (1, 4097, 256, 0), (2, 7, 36, 0), (2, 1, 64, 0), (2, 50, 30, 0), (2, 100, 48, 1)]
 RGLRU_SLICE = (4, 4096, 4096)
+# Its scans on a rank of model 2 (phase 10(a)): the prefill's and a training
+# microbatch's, each over the rank's 2048 channels.
+RGLRU_TP_SLICE, RGLRU_TP_TRAIN = (4, 4096, 2048), (1, 4096, 2048)
 # The scan's backward: RGLRU_CASES and an h0 ten times the others' (every
 # case has a nonzero h0).  B, T, W, offset, h0 scale.
 RGLRU_BWD_CASES = [(*c, 1.0) for c in RGLRU_CASES] + [(2, 33, 96, 0, 10.0)]
@@ -478,6 +512,9 @@ TRAIN_TP_ATTN = (2, 4096, 16, 4, 64, 64, True, 0, "bfloat16")
 # deepseek-v2-236b's MLA on a rank of model 2 (phase 9(b)): 6(g)'s 2 rows,
 # 64 of the 128 heads.
 TRAIN_EP_ATTN = (2, 4096, 64, 64, 192, 128, True, 0, "bfloat16")
+# recurrentgemma-9b's attention on a rank of model 2 (phase 10(a)): 6(d)'s
+# microbatch, 8 query heads over the one KV head gathered whole.
+TRAIN_TPR_ATTN = (1, 4096, 8, 1, 256, 256, True, 2048, "bfloat16")
 # The launches of one flash_attention_bwd call on each variant (``wgmma`` up
 # to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
 # kernel has in a profiler trace, and the main kernels of each.
@@ -526,16 +563,18 @@ TRAIN = ("llama3.2-1b", 8, 4096, 8, 10)
 # (rec, rec, attn) super-blocks and the two tail rec layers): arch, layers,
 # rows per step, tokens per row, microbatches, steps.
 RG_TRAIN = ("recurrentgemma-9b", 8, 4, 4096, 4, 6)
-# Phase 6(e): xlstm-1.3b at published width cut to 16 of its 48 blocks (two
-# super-blocks of 7 mLSTM and 1 sLSTM, each under remat): arch, blocks, rows
-# per step, tokens per row (the published training context), microbatches,
-# steps, peak learning rate (1 warmup step).  Cuts: depth 48 to 16 (a step
-# at 48 blocks took ~47-52 s on an H100, the phase ~200-225 s of the
-# script's time limit; 48 blocks stay in phase 4's serving and in
-# tests/test_torch_xlstm_depth.py); global batch 256 to 4
+# Phase 6(e): xlstm-1.3b at published width cut to 8 of its 48 blocks (one
+# super-block of 7 mLSTM and 1 sLSTM under remat): arch, blocks, rows per
+# step, tokens per row (the published training context), microbatches,
+# steps, peak learning rate (1 warmup step).  Cuts: depth 48 to 8 (a step at
+# 48 blocks took ~47-52 s on an H100, the phase ~200-225 s of the script's
+# time limit; at 16 blocks 16.3 s, 74 s in train(); 8 leaves room for phase
+# 10, whose one-rank reference this run's step 1 is; 48 blocks stay in phase
+# 4's serving and in tests/test_torch_xlstm_depth.py); global batch 256 to 4
 # rows in one microbatch, not two (the sLSTM's loop over time sets the
 # step's pace on the host, alike at 2 rows or 4: on an H100 a step took 114 s
-# in two microbatches and 47 s in one); 4 steps; no checkpoint.
+# in two microbatches and 47 s in one); 2 steps (the script's time); no
+# checkpoint.
 #
 # The loss is printed, not held to fall: from these initial weights the
 # model does not learn measurably in 4 steps at lr 3e-4, in fp32 as in bf16
@@ -555,7 +594,7 @@ RG_TRAIN = ("recurrentgemma-9b", 8, 4, 4096, 4, 6)
 # 48 blocks and 256 tokens, -0.12 to 0.21 at 8 blocks and 2048).  At 8
 # blocks and 256 tokens an H100 reads 0.993 (0.69 at 1e-2), the CPU 1.008
 # (vocabulary 1024); a gradient of the wrong scale or sign reads far off.
-XLSTM_TRAIN = ("xlstm-1.3b", 16, 4, 2048, 1, 4, 3e-4)
+XLSTM_TRAIN = ("xlstm-1.3b", 8, 4, 2048, 1, 2, 3e-4)
 XLSTM_LOSS_RTOL = 2e-3
 # The gradient check: blocks, tokens on the row, change a side, tolerance.
 XLSTM_SLOPE = (8, 256, 1e-3, 0.05)
@@ -643,7 +682,7 @@ POD_INT8_ATOL = 5e-3
 # batch, 8 rows to 4.
 TP_SERVE_MESH = ((1, 2), ("data", "model"))
 TP_TRAIN_MESH = ((2, 2), ("data", "model"))
-TP_TRAIN = ("llama3.2-1b", 4, 4096, 1, 3, 3e-4)
+TP_TRAIN = ("llama3.2-1b", 4, 4096, 1, 2, 3e-4)
 # (a) the prefill's last-token logits against phase 4's one-rank logits, in
 # relative L2 over the batch; (b) step 1's loss and grad-norm against a
 # one-rank run of the same weights and batch, relative.  The sharded path
@@ -672,7 +711,7 @@ TP_NORM_RTOL = 5e-3
 EP_MESH = ((1, 2), ("data", "model"))
 EP_LAYERS = 2
 EP_SERVE = ("deepseek-v2-236b", 4, 4096, 32)
-EP_TRAIN = ("deepseek-v2-236b", 2, 4096, 1, 3, 3e-4)
+EP_TRAIN = ("deepseek-v2-236b", 2, 4096, 1, 2, 3e-4)
 # Against a one-rank run of the same weights in which each model rank's slice
 # is routed as a group of its own (island_groups): (a) the prefill's
 # last-token logits in relative L2 over the batch; (b) step 1's loss and
@@ -694,6 +733,43 @@ EP_LOGITS_RTOL = 5e-2
 EP_LOSS_RTOL = 1e-5
 EP_NORM_RTOL = 1e-4
 EP_ISLAND_RTOL = 1e-2
+# Phase 10: tensor parallelism for RG-LRU and xLSTM blocks, and the head-dim
+# split of KV heads that do not divide over model, on (data 1, model 2): two
+# ranks spawned as phase 7's (they share the card where it is the only one).
+# Served: each (arch, config fields, rows, prompt, generated tokens, planted
+# fault); recurrentgemma-9b at 6(d)'s cut (8 of 38 layers: two (rec, rec,
+# attn) super-blocks and two tail rec layers) with phase 4's request,
+# xlstm-1.3b at 6(e)'s (one super-block of 7 mLSTM and 1 sLSTM blocks) with
+# phase 4's, in fp32: in bf16 the TP ranks' other rounding of the same sums
+# moved its logits 0.19 in relative L2 and step 1's grad-norm 4 % from one
+# rank's on an H100 (phase 4's XLSTM_PREFILL_TOL says why: its blocks carry
+# bf16 rounding into the logits).  Each served cut is held to one rank's
+# prefill of it on the same prompts.
+TPR_MESH = ((1, 2), ("data", "model"))
+TPR_XLSTM = {"num_layers": XLSTM_TRAIN[1], "dtype": "float32"}
+TPR_SERVE = ((RG_TRAIN[0], {"num_layers": RG_TRAIN[1]}, *SERVE[1][1:4], "rope_before_gather"),
+             (XLSTM_TRAIN[0], TPR_XLSTM, *SERVE[3][1:4], None))
+# Trained: each (arch, config fields, rows, tokens per row, microbatches,
+# steps, peak lr, warmup steps), held to one rank's step 1: recurrentgemma-9b
+# 6(d)'s run cut to 2 steps, whose step 1 is 6(d)'s (at 2 of its rows a step,
+# 4 microbatches' bytes halved, step 1's loss read 4.86e-5 from one rank's on
+# an H100, over the 3e-5 limit, where 6(d)'s 4 rows read 1.15e-6: the limit
+# sits at this arch's bf16 rounding over ranks); xlstm-1.3b one step of 4
+# rows of 6(e)'s slope row length in fp32, held to one rank's step made here
+# (at 2048 tokens the sLSTM's loop over time makes a step 13-18 s).
+TPR_TRAIN = ((RG_TRAIN[0], {"num_layers": RG_TRAIN[1]}, *RG_TRAIN[2:5], 2, 3e-4, 2),
+             (XLSTM_TRAIN[0], TPR_XLSTM, XLSTM_TRAIN[2], XLSTM_SLOPE[1], 1, 1,
+              XLSTM_TRAIN[6], 1))
+# The mLSTM's planted fault (w_if_through_g) leaves the forward as it is and
+# drops part of the gates' gradient, which flows into w_up.  The probe reads
+# w_up's gradient in fp32 at the initial weights on 6(e)'s slope row (arch,
+# layers, tokens, key), each rank's block against one rank's, in relative
+# L2.  On an H100 (700 W) one rank's gradient moved 5.7e-4 between the row
+# taken once and twice, and 7.0e-4 between the card and its host's CPU (the
+# xLSTM's exponential gates carry fp32's summation order that far); the
+# ranks read 3.6e-4 and 3.8e-4, the fault 0.50 and 0.52.
+TPR_PROBE = (XLSTM_TRAIN[0], XLSTM_SLOPE[0], XLSTM_SLOPE[1], "blocks.b0.cell.w_up")
+TPR_GRAD_RTOL = 5e-3
 # The script's target time (ROADMAP), half of its 1200 s time limit: the
 # last line before the JSON says when a run went over it.
 TARGET_S = 600
@@ -1025,14 +1101,15 @@ def reset_counts():
 
 
 @contextlib.contextmanager
-def at_depth(module, layers):
+def at_depth(module, layers, **over):
     """``get_config`` in ``module``'s namespace patched to cut every config to
-    ``layers`` layers in the block (no knob of the entry point changes); with
-    ``layers`` None, nothing is patched."""
+    ``layers`` layers in the block, and to set its fields ``over`` (no knob
+    of the entry point changes); with neither, nothing is patched."""
     real = module.get_config
     if layers:
-        module.get_config = lambda a, smoke=False: real(a, smoke).with_overrides(
-            num_layers=layers)
+        over["num_layers"] = layers
+    if over:
+        module.get_config = lambda a, smoke=False: real(a, smoke).with_overrides(**over)
     try:
         yield
     finally:
@@ -1525,11 +1602,12 @@ def counted_steps(train_mod, steps, seen):
 
 
 def check_rank_steps(ranks, want, blocks, per_step):
-    """The checks that phases 8(b) and 9(b) share, over the ranks' records:
-    every rank's losses equal; each step's wire bytes on each group equal
-    ``want``; each rank's (parameter, moment) bytes equal ``blocks``; each
-    step's launches equal ``per_step``, all ``wgmma``, with no plain call
-    (``per_step`` None, on the CPU: no launch)."""
+    """The checks that phases 8(b), 9(b) and 10 share, over the ranks'
+    records: every rank's losses equal; each step's wire bytes on each group
+    equal ``want``; each rank's (parameter, moment) bytes equal ``blocks``;
+    each step's launches of ``per_step``'s keys equal it, flash's all
+    ``wgmma``, with no plain call (``per_step`` None, on the CPU: no
+    launch).  Returns rank 0's losses."""
     losses = [h["loss"] for h in ranks[0]["history"]]
     for rank, r in enumerate(ranks):
         if [h["loss"] for h in r["history"]] != losses:
@@ -1557,32 +1635,36 @@ def check_rank_steps(ranks, want, blocks, per_step):
     return losses
 
 
-def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None):
-    """One rank of phase 8(a), spawned: ``serve(arch)`` on ``TP_SERVE_MESH``
-    with the launches counted from zero around it, ``Model.prefill`` and
+def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None, over=None,
+                  mesh_spec=TP_SERVE_MESH, fault="contiguous_wi"):
+    """One rank of phase 8(a) (and of 10), spawned: ``serve(arch)`` (its
+    config's fields ``over`` set by :func:`at_depth`) on ``mesh_spec`` with the
+    launches counted from zero around it, ``Model.prefill`` and
     ``decode_step`` wrapped to record the prefill's last-token logits, the
     launches of each call and the wire bytes it put on each group; then one
-    prefill of the same prompts under :func:`contiguous_wi`.  Returns the
-    tokens, logits, the fault's logits, times, launches, bytes, the
-    parameter bytes held, the plain versions' calls and the peak memory."""
+    prefill of the same prompts by a model built and run under the planted
+    fault (``fault``, the name of a context manager here: phase 8's
+    :func:`contiguous_wi`; None: no fault).  Returns the tokens, logits, the
+    fault's logits, times, launches, bytes, the parameter bytes held, the
+    plain versions' calls and the peak memory."""
     import torch
 
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model, input_specs, rank_inputs
 
-    rec = {}
-    cfg = get_config(arch, smoke=smoke)
+    rec, over = {}, over or {}
+    cfg = get_config(arch, smoke=smoke).with_overrides(**over)
     Recorded = recorded_model(rec)
     serve_mod.Model = Recorded
     try:
-        with counted_plain_calls() as plain:
+        with counted_plain_calls() as plain, at_depth(serve_mod, None, **over):
             if device is None:
                 torch.cuda.reset_peak_memory_stats()
             reset_counts()
             res = serve_mod.serve(arch, smoke=smoke, batch=batch, prompt_len=prompt_len,
-                                  gen_len=gen_len, mesh_shape=TP_SERVE_MESH[0],
-                                  mesh_axes=TP_SERVE_MESH[1], device=device)
+                                  gen_len=gen_len, mesh_shape=mesh_spec[0],
+                                  mesh_axes=mesh_spec[1], device=device)
             launches = launch_counts()
     finally:
         serve_mod.Model = Model
@@ -1595,14 +1677,16 @@ def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None):
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del res
     gc.collect()
-    with contiguous_wi():
-        fault = Model(cfg, device=mesh.device,
-                      generator=torch.Generator(mesh.device).manual_seed(0), mesh=mesh)
+    if fault is None:
+        return out
     pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
-    prompts = rank_inputs(input_specs(cfg, pshape,
-                                      generator=torch.Generator(mesh.device).manual_seed(1),
-                                      device=mesh.device), cfg, pshape, fault.mesh)
-    logits, _ = fault.prefill(prompts, prompt_len + gen_len)
+    with globals()[fault]():
+        wrong = Model(cfg, device=mesh.device,
+                      generator=torch.Generator(mesh.device).manual_seed(0), mesh=mesh)
+        prompts = rank_inputs(input_specs(cfg, pshape,
+                                          generator=torch.Generator(mesh.device).manual_seed(1),
+                                          device=mesh.device), cfg, pshape, wrong.mesh)
+        logits, _ = wrong.prefill(prompts, prompt_len + gen_len)
     out["fault_logits"] = logits[:, -1].float().cpu().numpy()
     return out
 
@@ -1696,14 +1780,17 @@ def trained_rank(res, steps, plain, mesh, device):
     return out
 
 
-def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
-    """One rank of phase 8(b), spawned: ``train(arch)`` on ``TP_TRAIN_MESH``
-    with ``build_train_step`` wrapped (in train's namespace) to count each
-    step's launches from zero; then one step of a model under
-    :func:`contiguous_wi` on step 1's batch.  Returns the history, the
-    steps' launches, the plain versions' calls, the groups' backends, the
-    parameter and moment bytes held, the fault's loss and grad-norm, and the
-    peak memory."""
+def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None, over=None,
+                  mesh_spec=TP_TRAIN_MESH, fault="contiguous_wi", warmup=0):
+    """One rank of phase 8(b) (and of 10), spawned: ``train(arch)`` (its
+    config's fields ``over`` set by :func:`at_depth`) on ``mesh_spec`` with
+    ``build_train_step`` wrapped (in train's namespace) to count each step's
+    launches from zero; then, unless ``fault`` is None, one step of a model
+    built and run under the planted fault (the name of a context manager
+    here: phase 8's :func:`contiguous_wi`) on step 1's batch.  Returns the
+    history, the steps' launches, the plain versions' calls, the groups'
+    backends, the parameter and moment bytes held, the fault's loss and
+    grad-norm, and the peak memory."""
     import torch
 
     from repro_torch.configs import RunConfig, ShapeConfig
@@ -1713,14 +1800,14 @@ def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None)
 
     steps, seen = [], {}
     with (tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain,
-          counted_steps(train_mod, steps, seen)):
+          counted_steps(train_mod, steps, seen), at_depth(train_mod, None, **(over or {}))):
         if device is None:
             torch.cuda.reset_peak_memory_stats()
-        run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
+        run = RunConfig(learning_rate=lr, warmup_steps=warmup, total_steps=n_steps,
                         microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
         res = train_mod.train(arch, smoke=smoke, steps=n_steps,
                               shape=ShapeConfig("train_4k", seq, rows, "train"),
-                              mesh_shape=TP_TRAIN_MESH[0], mesh_axes=TP_TRAIN_MESH[1],
+                              mesh_shape=mesh_spec[0], mesh_axes=mesh_spec[1],
                               run=run, log_every=1, device=device)
     mesh = seen["mesh"]
     out = trained_rank(res, steps, plain, mesh, device)
@@ -1728,12 +1815,14 @@ def tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None)
     gc.collect()
     if device is None:
         torch.cuda.empty_cache()
-    with contiguous_wi():
-        fault = Model(seen["cfg"], device=mesh.device,
+    if fault is None:
+        return out
+    with globals()[fault]():
+        wrong = Model(seen["cfg"], device=mesh.device,
                       generator=torch.Generator(mesh.device).manual_seed(seen["run"].seed),
                       mesh=mesh)
-    _, m = build_train_step(fault, seen["run"], mesh)(init_train_state(fault, seen["run"], mesh),
-                                                      seen["batch"])
+        _, m = build_train_step(wrong, seen["run"], mesh)(
+            init_train_state(wrong, seen["run"], mesh), seen["batch"])
     out["fault"] = (float(m["loss"]), float(m["grad_norm"]))
     return out
 
@@ -2275,6 +2364,405 @@ def check_ep_training(ranks, cfg, ref, per_step, smi):
         raise AssertionError(f"the planted fault's step 1 {fault} and island {fisland} lie "
                              f"within the limits of one rank's {ref}: the checks cannot tell")
     return gaps
+
+
+@contextlib.contextmanager
+def rope_before_gather():
+    """Phase 10's planted fault in the head-dim split: each rank rotates its
+    own contiguous slice of k's columns, as if it were whole heads of
+    ``hd/M``, before the gather (RoPE pairs ``x[:d/2]`` with ``x[d/2:]`` of a
+    whole head, which no slice holds)."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rope
+    from repro_torch.sharding.shard import all_gather_model
+
+    real = attention._kv_whole
+
+    def kv_whole(p, x, cfg, positions, tp):
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        k = rope((x @ p["wk"]).unflatten(-1, (K, -1)), positions, cfg.rope_theta).flatten(-2)
+        kv = all_gather_model(torch.stack([k, x @ p["wv"]]), tp)
+        return kv.unflatten(-1, (K, hd)).unbind(0)
+
+    attention._kv_whole = kv_whole
+    try:
+        yield
+    finally:
+        attention._kv_whole = real
+
+
+@contextlib.contextmanager
+def w_if_through_g():
+    """Phase 10's planted fault in the mLSTM: ``w_if``'s partial summed over
+    ``model`` by *g* and the rank's heads then sliced out.  The forward is
+    the sound one; *g*'s identity backward leaves each rank only its own
+    heads' share of the gates' gradient, so the rest of it never reaches
+    ``w_up`` (the sum over ``model`` that the reduce-scatter's backward
+    makes is lost)."""
+    from repro_torch.models import xlstm
+    from repro_torch.sharding.shard import reduce_from_model
+
+    real = xlstm.reduce_scatter_model
+
+    def summed_then_sliced(x, tp, dim=-1, blocks=1):
+        if tp is None:
+            return x
+        dim, M = dim % x.ndim, tp.size("model")
+        whole = reduce_from_model(x, tp)
+        return whole.unflatten(dim, (blocks, M, -1)).select(dim + 1, tp.coords["model"]).flatten(
+            dim, dim + 1)
+
+    xlstm.reduce_scatter_model = summed_then_sliced
+    try:
+        yield
+    finally:
+        xlstm.reduce_scatter_model = real
+
+
+def tpr_layer_bytes(cfg, kind, M, pos, cache=0):
+    """One layer's ``model``-group wire bytes per rank over ``pos`` positions
+    (rows times positions), by ``core/asymmetry.py``'s formulas: (the
+    forward's exchanges in order, whether the last is the output's *g*, the
+    backward's sum).  ``cache``: a decode step's cache positions, which the
+    head-dim split gathers whole.  RG-LRU: the gates' partials
+    reduce-scattered ``[pos, 2W]``, *g* after the block and after the FFN;
+    backward the gates' all-gather, *f* after each norm, and the all-gathers
+    of ``b_a``, ``b_i`` and ``lam``'s slices.  GQA attention: where the KV
+    heads do not split, k and v gathered whole (and in decode the cache),
+    their gradient reduce-scattered; *g* and *f* as above.  mLSTM: ``w_if``'s
+    fp32 partials reduce-scattered ``[pos, 2H]``, the squares' fp32 sum
+    all-reduced, *g*; backward their all-gather and all-reduce, *f*, and the
+    all-gathers of ``b_if``'s and ``gnorm.scale``'s slices.  sLSTM: the FFN
+    as ``[gate_m | up_m]`` *g* and *f*; split contiguously the projection
+    gathered and *f*; whole, nothing."""
+    import torch
+
+    from repro_torch.core.asymmetry import (all_gather_wire_bytes, allreduce_wire_bytes,
+                                            reduce_scatter_wire_bytes)
+
+    e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    act = allreduce_wire_bytes(pos * cfg.d_model * e, M)
+    ag = lambda n: all_gather_wire_bytes(n, M)
+    if kind == "rec":
+        W = cfg.rglru.width or cfg.d_model
+        rs = reduce_scatter_wire_bytes(pos * 2 * W * e, M)
+        return [rs, act, act], True, ag(pos * 2 * W * e) + 2 * act + ag(W * e) * 2 + ag(W * 4)
+    if kind == "attn":
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        if K % M == 0:
+            return [act, act], True, 2 * act
+        kv = 2 * pos * K * hd * e
+        gathers = [ag(kv)] + ([ag(kv * cache)] if cache else [])
+        return gathers + [act, act], True, reduce_scatter_wire_bytes(kv, M) + 2 * act
+    if kind == "mlstm":
+        H, inner = cfg.num_heads, int(cfg.xlstm.proj_factor_m * cfg.d_model)
+        gates, squares = pos * 2 * H * 4, allreduce_wire_bytes(pos * 4, M)
+        return ([reduce_scatter_wire_bytes(gates, M), squares, act], True,
+                ag(gates) + squares + act + ag(2 * H * 4) + ag(inner * e))
+    dff = int(cfg.xlstm.proj_factor_s * cfg.d_model)
+    if dff % M == 0:
+        return [act], True, act
+    if (2 * dff) % M == 0:
+        return [ag(pos * 2 * dff * e)], False, act
+    return [], False, 0
+
+
+def tpr_wire_bytes(cfg, M, rows, positions, micro=0, cache=0):
+    """The ``model`` group's wire bytes per rank on a mesh of one data rank
+    and ``M`` model ranks (:func:`tpr_layer_bytes`): with ``micro`` 0 one
+    prefill over ``positions`` (1 with ``cache``: a decode step) of
+    ``rows``: *g* after the vocab-parallel embedding, each layer's forward
+    and the last position's logits gathered over the vocab shards; with
+    ``micro`` microbatches, one train step of ``rows`` rows: per microbatch
+    the forward, remat's recompute of each super-block (all but its last
+    *g*, which nothing that the backward keeps depends on), the backward
+    and *f* ahead of the logits, and the cross-entropy's max, sum of
+    exponents and label logit over the vocab shards (twice per chunk of
+    ``chunked_xent``); ``world``: the global norm's sum."""
+    import torch
+
+    from repro_torch.core.asymmetry import all_gather_wire_bytes, allreduce_wire_bytes
+    from repro_torch.models import layer_plan
+
+    plan = layer_plan(cfg)
+    e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    b = rows // max(micro, 1)
+    pos = b * positions
+    vocab = cfg.vocab_size % M == 0  # the rules split the vocab where it divides
+    act = allreduce_wire_bytes(pos * cfg.d_model * e, M) if vocab else 0
+    kinds = list(plan.lead) + list(plan.pattern) * plan.n_scan + list(plan.tail)
+    layers = {k: tpr_layer_bytes(cfg, k, M, pos, cache) for k in set(kinds)}
+    forward = act + sum(sum(layers[k][0]) for k in kinds)
+    if not micro:
+        return {"model": forward + vocab * all_gather_wire_bytes(rows * cfg.vocab_size * e, M)}
+    last = layers[plan.pattern[-1]]
+    recompute = plan.n_scan * (sum(sum(layers[k][0]) for k in plan.pattern)
+                               - (last[0][-1] if last[1] else 0))
+    chunked = positions >= 2048 and positions % 1024 == 0
+    xent = vocab * (2 if chunked else 1) * 3 * allreduce_wire_bytes(4 * pos, M)
+    backward = act + sum(layers[k][2] for k in kinds)
+    return {"model": micro * (forward + recompute + backward + xent),
+            "world": allreduce_wire_bytes(4, M)}
+
+
+def grad_probe(arch, layers, seq, key, smoke=False, device=None, mesh=None):
+    """The fp32 gradient of parameter ``key`` of ``arch`` (published width
+    cut to ``layers`` layers, or smoke width) at its initial weights on the
+    first row's first ``seq`` tokens of 6(e)'s batch (6(e)'s slope row), as
+    one rank computes it whole (``mesh`` None) or as this rank of ``mesh``
+    computes its block: sound and under :func:`w_if_through_g`."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import Model
+
+    cfg = get_config(arch, smoke=smoke).with_overrides(dtype="float32")
+    if layers:
+        cfg = cfg.with_overrides(num_layers=layers)
+    dev = mesh.device if mesh is not None else torch.device(device or "cuda")
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0), mesh=mesh)
+    row = SyntheticLMDataset(cfg, ShapeConfig("row", seq, 1, "train"), seed=0).batch(0)
+    row = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in row.items()}
+    param = dict(model.named_parameters())[key]
+    out = {}
+    for name, ctx in (("sound", contextlib.nullcontext), ("fault", w_if_through_g)):
+        with ctx():
+            g, = torch.autograd.grad(model.loss(row)[0], [param])
+        out[name] = g.cpu().numpy()
+    return out
+
+
+def one_rank_step(arch, over, rows, seq, micro, lr, warmup, smoke=False, device="cuda"):
+    """Step 1's (loss, grad-norm) of ``train(arch)`` on one rank, its
+    config's fields ``over`` set (:func:`at_depth`)."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train as train_mod
+
+    with tempfile.TemporaryDirectory() as tmp, at_depth(train_mod, None, **over):
+        run = RunConfig(learning_rate=lr, warmup_steps=warmup, total_steps=1,
+                        microbatches=micro, checkpoint_every=10 ** 9, checkpoint_dir=tmp)
+        hist = train_mod.train(arch, smoke=smoke, steps=1,
+                               shape=ShapeConfig("train_4k", seq, rows, "train"), run=run,
+                               log_every=1, device=device)["history"]
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return hist[0]["loss"], hist[0]["grad_norm"]
+
+
+def tp_recurrent_rank(serving, training, probe, smoke=False, device=None):
+    """One rank of phase 10, spawned: :func:`tp_serve_rank` on ``TPR_MESH``
+    for each (arch, config fields, batch, prompt, generated tokens, fault)
+    of ``serving``, :func:`tp_train_rank` for each (arch, config fields,
+    rows, tokens per row, microbatches, steps, peak lr, warmup) of
+    ``training`` (no fault: phase 10's training fault is the probe's), then
+    :func:`grad_probe` of ``probe`` (arch, layers, tokens, key) on the mesh.
+    Returns their records."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    def free():
+        gc.collect()
+        if device is None:
+            torch.cuda.empty_cache()
+
+    out = {"serve": [], "train": []}
+    for arch, over, batch, prompt_len, gen_len, fault in serving:
+        out["serve"].append(tp_serve_rank(arch, batch, prompt_len, gen_len, smoke, device,
+                                          over, TPR_MESH, fault))
+        free()
+    for arch, over, rows, seq, micro, n_steps, lr, warmup in training:
+        out["train"].append(tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke, device,
+                                          over, TPR_MESH, None, warmup))
+        free()
+    mesh = make_mesh(*TPR_MESH, device=device)
+    out["probe"] = grad_probe(*probe, smoke=smoke, mesh=mesh)
+    out["coords"] = dict(mesh.coords)
+    return out
+
+
+def check_tp_recurrent_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
+    """Phase 10's serving checks over the ranks' :func:`tp_serve_rank`
+    records of ``cfg`` (cut to its depth), against the one-rank
+    ``ref_logits`` (numpy ``[batch, V]``): each rank's prefill logits within
+    ``TP_LOGITS_RTOL`` in relative L2, and where the rank ran a fault its
+    logits outside it; every row's first token the one rank's argmax and
+    every rank's tokens rank 0's; the ``model`` group's bytes of the
+    prefill and of each decode step equal :func:`tpr_wire_bytes`; on the
+    card (``smi`` not None) per prefill one flash launch an attention layer
+    on ``wgmma`` and one scan launch an RG-LRU layer on ``tma``, none in
+    decode, and no plain call (on the CPU: no launch).  Returns the largest
+    relative L2."""
+    import numpy as np
+
+    from repro_torch.models import layer_plan
+
+    M = TPR_MESH[0][1]
+    rel = lambda a: float(np.linalg.norm(a - ref_logits) / np.linalg.norm(ref_logits))
+    first = ref_logits.argmax(-1)
+    plan = layer_plan(cfg)
+    per = lambda k: plan.n_scan * plan.pattern.count(k) + plan.tail.count(k)
+    want_launches = {k: v for k, v in (
+        ("flash_attention", per("attn")), ("flash_attention:wgmma", per("attn")),
+        ("rglru_scan", per("rec")), ("rglru_scan:tma", per("rec"))) if v}
+    S = min(prompt_len + len(ranks[0]["decode_bytes"]) + 1, cfg.window or 1 << 62)
+    want = tpr_wire_bytes(cfg, M, batch, prompt_len)
+    want_d = tpr_wire_bytes(cfg, M, batch, 1, cache=S)
+    worst, fault = 0.0, []
+    for rank, r in enumerate(ranks):
+        gap = rel(r["logits"])
+        worst = max(worst, gap)
+        if not gap <= TP_LOGITS_RTOL:
+            raise AssertionError(f"{cfg.name} rank {rank}: prefill logits {gap:.3e} from one "
+                                 f"rank's (limit {TP_LOGITS_RTOL})")
+        if "fault_logits" in r:
+            fault.append(rel(r["fault_logits"]))
+            if not fault[-1] > TP_LOGITS_RTOL:
+                raise AssertionError(f"{cfg.name} rank {rank}: the planted fault's logits lie "
+                                     f"{fault[-1]:.3e} from one rank's, within "
+                                     f"{TP_LOGITS_RTOL}: the check cannot tell")
+        if not np.array_equal(r["tokens"][:, 0], first):
+            raise AssertionError(f"{cfg.name} rank {rank}: first tokens {r['tokens'][:, 0]} "
+                                 f"differ from one rank's {first}")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"{cfg.name} rank {rank}'s tokens differ from rank 0's")
+        if r["prefill_bytes"] != want:
+            raise AssertionError(f"{cfg.name} rank {rank}: prefill wire bytes "
+                                 f"{r['prefill_bytes']}, asymmetry's formulas {want}")
+        if any(w != want_d for w in r["decode_bytes"]):
+            raise AssertionError(f"{cfg.name} rank {rank}: decode wire bytes "
+                                 f"{r['decode_bytes'][:2]}..., asymmetry's formulas {want_d}")
+        launched = {k: v for k, v in r["prefill_launches"].items() if v}
+        decode = {k: v for d in r["decode_launches"] for k, v in d.items() if v}
+        if smi is not None and (launched != want_launches or decode or r["plain"]):
+            raise AssertionError(f"{cfg.name} rank {rank}: prefill launches {launched}, "
+                                 f"decode {decode}, plain versions {r['plain']}; expected "
+                                 f"{want_launches}, none in decode, no plain call")
+        if smi is None and (launched or decode):
+            raise AssertionError(f"{cfg.name} rank {rank}: launches on the CPU")
+    print(f"[tpr] serving {cfg.name} ({cfg.num_layers} layers) on "
+          f"{dict(zip(*reversed(TPR_MESH)))}: prefill logits against one rank's, relative L2 "
+          f"{[round(rel(r['logits']), 6) for r in ranks]} (limit {TP_LOGITS_RTOL})"
+          + (f"; the planted fault (RoPE on the rank's head-dim slice before the gather) "
+             f"{[round(f, 4) for f in fault]}" if fault else "")
+          + f"; first tokens equal; prefill s {[round(r['prefill_s'], 4) for r in ranks]}, "
+          f"decode ms/token {[round(r['decode_ms'], 3) for r in ranks]}; model-group wire bytes "
+          f"per prefill {ranks[0]['prefill_bytes']} and per token {ranks[0]['decode_bytes'][0]} "
+          f"= asymmetry's formulas; launches per rank and prefill {ranks[0]['prefill_launches']}"
+          f"; calls of the plain versions {ranks[0]['plain']}; backends {ranks[0]['backends']}; "
+          f"{smi}")
+    one = shard_bytes(cfg, (1, 1))[0]
+    for rank, r in enumerate(ranks):
+        print(f"[tpr] serving {cfg.name} rank {rank} on {r['device']}: parameters "
+              f"{r['param_bytes']} B against one rank's {one} B ({r['param_bytes'] / one:.4f}; "
+              f"the leaves split on model {tpr_split_share(cfg, r['param_bytes']):.4f})"
+              + (f", peak memory {r['peak_gb']:.2f} GB" if "peak_gb" in r else ""))
+    return worst, fault
+
+
+def tpr_split_share(cfg, param_bytes):
+    """Of a rank's ``param_bytes`` on ``TPR_MESH``, the share of the leaves
+    that the rules split on ``model``: (``param_bytes`` less the bytes of the
+    leaves whole on ``model``) over those split leaves' whole bytes."""
+    import torch
+
+    from repro_torch.models import model_specs
+    from repro_torch.sharding.shard import named_leaves, param_layout
+
+    layout = param_layout(model_specs(cfg), cfg.act, cpu_mesh(TPR_MESH[0]))
+    whole = {True: 0, False: 0}
+    for key, spec in named_leaves(model_specs(cfg)):
+        size = math.prod(spec.shape) * torch.empty((), dtype=spec.dtype).element_size()
+        whole[layout[key].dim_of("model") is not None] += size
+    return (param_bytes - whole[False]) / whole[True]
+
+
+def check_tp_recurrent_training(ranks, cfg, run, ref, smi):
+    """Phase 10's training checks over the ranks' :func:`tp_train_rank`
+    records of ``cfg`` (cut to its depth) trained with ``run`` (rows, tokens
+    per row, microbatches, steps), by :func:`check_rank_steps`: every rank's
+    losses equal; each step's wire bytes equal :func:`tpr_wire_bytes`; each
+    rank's parameter and moment bytes its blocks' by the rules
+    (:func:`shard_bytes`); each step's launches on the card (``smi`` not
+    None) ``expected_counts``: flash forward and backward on ``wgmma``, the
+    scan's on ``tma``, and no plain call (on the CPU: no launch); then step
+    1's loss and grad-norm within ``TP_LOSS_RTOL`` and ``TP_NORM_RTOL`` of
+    ``ref`` (a one-rank run's step 1, (loss, grad-norm)).  Returns step 1's
+    gaps."""
+    from repro_torch.models import layer_plan
+
+    rows, seq, micro, n_steps = run
+    hist = ranks[0]["history"]
+    losses = check_rank_steps(ranks, tpr_wire_bytes(cfg, TPR_MESH[0][1], rows, seq, micro),
+                              shard_bytes(cfg, TPR_MESH[0]),
+                              expected_counts(layer_plan(cfg), micro) if smi else None)
+    if len(losses) != n_steps:
+        raise AssertionError(f"{cfg.name}: {len(losses)} steps, expected {n_steps}")
+    gaps = (abs(losses[0] - ref[0]) / abs(ref[0]), abs(hist[0]["grad_norm"] - ref[1]) / ref[1])
+    print(f"[tpr] training {cfg.name} ({cfg.num_layers} layers) on "
+          f"{dict(zip(*reversed(TPR_MESH)))}, {rows} x {seq} in {micro} microbatches: losses "
+          f"{losses}, grad-norms {[h['grad_norm'] for h in hist]}; step 1 against one rank's "
+          f"(loss {ref[0]}, grad-norm {ref[1]}): relative {gaps[0]:.3e} and {gaps[1]:.3e} "
+          f"(limits {TP_LOSS_RTOL}, {TP_NORM_RTOL}); s per step "
+          f"{[round(h['seconds_per_step'], 4) for h in hist]}, exchange s per step "
+          f"{[{g: round(t, 4) for g, t in h['exchange_seconds'].items()} for h in hist]}; wire "
+          f"bytes per step {hist[0]['wire_bytes']} = asymmetry's formulas; launches per step and "
+          f"rank { {k: c for k, c in ranks[0]['steps'][0].items() if c} }; calls of the plain "
+          f"versions {ranks[0]['plain']}; {smi}")
+    one = shard_bytes(cfg, (1, 1))
+    for rank, r in enumerate(ranks):
+        print(f"[tpr] training {cfg.name} rank {rank} on {r['device']}: parameters "
+              f"{r['param_bytes']} B and moments {r['moment_bytes']} B = its blocks by the "
+              f"rules, {(r['param_bytes'] + r['moment_bytes']) / sum(one):.4f} of one rank's "
+              f"{sum(one) / 1e9:.3f} GB"
+              + (f"; peak memory {r['peak_gb']:.2f} GB, mem_get_info free "
+                 f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
+                 if "peak_gb" in r else ""))
+    if gaps[0] > TP_LOSS_RTOL or gaps[1] > TP_NORM_RTOL:
+        raise AssertionError(f"{cfg.name} step 1 on {TPR_MESH[0]}: loss {losses[0]}, grad-norm "
+                             f"{hist[0]['grad_norm']} against one rank's {ref}: {gaps}")
+    return gaps
+
+
+def check_grad_probe(ranks, cfg, key, ref):
+    """Phase 10's probe of the mLSTM's gradient over the ranks'
+    :func:`grad_probe` records against one rank's whole gradient ``ref``:
+    each rank's block of it (its layout on ``TPR_MESH``) in relative L2
+    within ``TPR_GRAD_RTOL``, and under :func:`w_if_through_g` outside it.
+    Returns (the sound gaps, the fault's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model_specs
+    from repro_torch.sharding.shard import param_layout, shard
+
+    axes = TPR_MESH[1]
+    pl = param_layout(model_specs(cfg), cfg.act, cpu_mesh(TPR_MESH[0]))[key]
+    gaps = {"sound": [], "fault": []}
+    for r in ranks:
+        mesh = Mesh(axes=axes, shape=dict(zip(axes, TPR_MESH[0])), coords=r["coords"],
+                    device=torch.device("cpu"))
+        want = shard(torch.from_numpy(ref), pl, mesh).numpy()
+        for name in gaps:
+            gaps[name].append(float(np.linalg.norm(r["probe"][name] - want) / np.linalg.norm(want)))
+    print(f"[tpr] {cfg.name}'s fp32 gradient of {key} at the initial weights on one row, each "
+          f"rank's block against one rank's, relative L2: {gaps['sound']} (limit "
+          f"{TPR_GRAD_RTOL}); the planted fault (w_if's partial through g, then sliced) "
+          f"{gaps['fault']}")
+    if not max(gaps["sound"]) <= TPR_GRAD_RTOL:
+        raise AssertionError(f"{key}'s gradient lies {gaps['sound']} from one rank's "
+                             f"(limit {TPR_GRAD_RTOL})")
+    if not min(gaps["fault"]) > TPR_GRAD_RTOL:
+        raise AssertionError(f"the planted fault's gradient of {key} lies {gaps['fault']} from "
+                             f"one rank's, within {TPR_GRAD_RTOL}: the check cannot tell")
+    return gaps["sound"], gaps["fault"]
 
 
 def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, smi,
@@ -3330,6 +3818,12 @@ def main() -> int:
                                                 "deepseek-v2-236b rank of model 2")
     records[("flash_attention", "deepseek-v2-236b model 2 train")] = fwd_rec
     records[("flash_attention_bwd", "deepseek-v2-236b model 2 train")] = bwd_rec
+    # recurrentgemma-9b's attention on a rank of model 2; its records take
+    # phase 10(a)'s launches of one rank.
+    fwd_rec, bwd_rec = attention_at_train_shape(TRAIN_TPR_ATTN,
+                                                "recurrentgemma-9b rank of model 2")
+    records[("flash_attention", "recurrentgemma-9b model 2 train")] = fwd_rec
+    records[("flash_attention_bwd", "recurrentgemma-9b model 2 train")] = bwd_rec
 
     def scan_inputs(B, T, W, offset=0):
         """a, b, h0; a and b ``offset`` elements past their storage's start."""
@@ -3434,7 +3928,7 @@ def main() -> int:
     # lane's, and a second call's, bit for bit.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     scan_times = {}
-    for shape in (RGLRU_SLICE, RGLRU_TRAIN):
+    for shape in (RGLRU_SLICE, RGLRU_TRAIN, RGLRU_TP_SLICE, RGLRU_TP_TRAIN):
         B, T, W = shape
         a, b, h0 = scan_inputs(*shape)
         g = randn(*shape)
@@ -3460,16 +3954,20 @@ def main() -> int:
                    plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, warmup=1))
         fwd.update(zip(("bound_ms", "bound_by"), bound(2 * n, PEAK_FP32_FLOPS, 4 * (3 * n + n0))))
         leaves = [x.detach().requires_grad_() for x in (a, b, h0)]
+        # A rank's prefill scan (phase 10) has no backward: its plain
+        # versions, seconds at this shape, are not timed.
+        timed_bwd = shape != RGLRU_TP_SLICE
         bwd = dict(ms=time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 50),
                    plain_ms=time_ms(lambda: torch.autograd.grad(
                        ref.rglru_scan_ref(*leaves), leaves, g), 1, warmup=1),
                    plain_loop_ms=time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, h0, g), 1,
-                                         warmup=1))
+                                         warmup=1)) if timed_bwd else {}
         bwd_bytes = 4 * (5 * n + 2 * n0)
         bwd.update(zip(("bound_ms", "bound_by"), bound(3 * n, PEAK_FP32_FLOPS, bwd_bytes)))
         with scan_forced("lane"):
             fwd["earlier_ms"] = time_ms(lambda: rglru_scan_fwd(a, b, h0), 50)
-            bwd["earlier_ms"] = time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 50)
+            if timed_bwd:
+                bwd["earlier_ms"] = time_ms(lambda: rglru_scan_bwd(a, h, h0, g), 50)
         # What streaming the forward's bytes takes on this card: PyTorch's
         # elementwise a + b reads and writes the same 12 bytes per element.
         out = torch.empty_like(a)
@@ -3484,7 +3982,7 @@ def main() -> int:
                  "rglru_scan_bwd": ring_text(B, W, 3, ring_cfg["BWD_STAGES"])}
         scan_times[shape] = (err, fwd, bwd_err, bwd)
         for name, rec, e, nbytes in (("rglru_scan", fwd, err, 4 * (3 * n + n0)),
-                                     ("rglru_scan_bwd", bwd, bwd_err, bwd_bytes)):
+                                     ("rglru_scan_bwd", bwd, bwd_err, bwd_bytes))[:1 + timed_bwd]:
             plain = (f"plain (the oracle's autograd, forward recomputed) {rec['plain_ms']:.4f} ms, "
                      f"plain reverse loop {rec['plain_loop_ms']:.4f} ms"
                      if name == "rglru_scan_bwd" else f"plain {rec['plain_ms']:.4f} ms")
@@ -3512,6 +4010,17 @@ def main() -> int:
                       "of ref.rglru_scan_ref",
         prefill_shape={"shape": list(RGLRU_SLICE), "max_abs_err": scan_times[RGLRU_SLICE][2],
                        **prefill_bwd})
+    # A rank of model 2 (phase 10(a)); the records take its launches.
+    err, fwd, _, _ = scan_times[RGLRU_TP_SLICE]
+    records[("rglru_scan", "recurrentgemma-9b model 2")] = scan_record(
+        "rglru_scan", RGLRU_TP_SLICE, err, **fwd)
+    err, fwd, bwd_err, bwd = scan_times[RGLRU_TP_TRAIN]
+    records[("rglru_scan", "recurrentgemma-9b model 2 train")] = scan_record(
+        "rglru_scan", RGLRU_TP_TRAIN, err, **fwd)
+    records[("rglru_scan_bwd", "recurrentgemma-9b model 2 train")] = scan_record(
+        "rglru_scan_bwd", RGLRU_TP_TRAIN, bwd_err, **bwd,
+        replaces_note="the backward of its custom_vjp (src/repro/kernels/ops.py:63-78), the vjp "
+                      "of ref.rglru_scan_ref")
 
     def held(phase):
         """What earlier phases leave allocated on the card: it adds to every
@@ -4117,6 +4626,7 @@ def main() -> int:
         launches = {name: fn.launches for name, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
+    tpr_first = {arch: (hist[0]["loss"], hist[0]["grad_norm"])}  # phase 10's reference
     n_params = sum(t.numel() for t in res["final_state"]["params"].values())
     trained_layers = res["config"].num_layers
     del res
@@ -4285,7 +4795,7 @@ def main() -> int:
           f"in train(); the first step's batch: loss {before:.6f} under the initial weights, "
           f"{after:.6f} under the trained ones, {before_f32:.6f} under the initial ones in "
           f"fp32 (relative gap {abs(before - before_f32) / before_f32:.3e}, limit "
-          f"{XLSTM_LOSS_RTOL}); the 4th step's loss below the 1st's: "
+          f"{XLSTM_LOSS_RTOL}); the last step's loss below the 1st's: "
           f"{hist[-1]['loss'] < hist[0]['loss']}; launches of any kernel "
           f"{sum(sum(c.values()) for c in step_counts)}; calls of the plain versions "
           f"{plain_calls}; {smi}")
@@ -4596,7 +5106,7 @@ def main() -> int:
     # ------------------------ 9. expert parallelism and MLA's TP --
     # deepseek-v2-236b at published widths, 2 of 60 layers, on the reference's
     # production MoE settings over (data 1, model 2): (a) phase 4's deepseek
-    # request served, (b) 6(g)'s batch trained 3 steps; each held to a
+    # request served, (b) 6(g)'s batch trained 2 steps; each held to a
     # one-rank run of the same weights made here first, whose MoE routes each
     # model rank's slice as a group of its own (island_groups).
     held(9)
@@ -4633,6 +5143,65 @@ def main() -> int:
     print(f"[ep] {arch} at published widths, {cfg.num_layers} of 60 layers: served on "
           f"{EP_MESH[0]} and trained {n_steps} steps of {rows} x {seq} tokens over "
           f"{EP_MESH[1]}: phase 9 took {time.perf_counter() - t9:.1f} s; {smi}")
+
+    # ------- 10. TP for RG-LRU and xLSTM blocks, and the head-dim split --
+    # recurrentgemma-9b (8 layers) and xlstm-1.3b (8 blocks) at published
+    # widths on (data 1, model 2): each served and trained, held to one rank;
+    # the mLSTM's gradient probed in fp32.
+    held(10)
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    n_ranks = math.prod(TPR_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    print(f"[tpr] {n_ranks} ranks sharing one {name} ({limit}); the model group's exchange "
+          "over gloo through host memory" if torch.cuda.device_count() < n_ranks else
+          f"[tpr] {n_ranks} ranks, each on its own {name} ({limit})")
+    tpr_logits = {}
+    for arch, over, batch, prompt_len, gen_len, _ in TPR_SERVE:
+        cfg = get_config(arch).with_overrides(**over)
+        model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        prompts = input_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"),
+                              generator=torch.Generator(dev).manual_seed(1), device=dev)
+        logits, _ = model.prefill(prompts, prompt_len + gen_len)
+        tpr_logits[arch] = logits[:, -1].float().cpu().numpy()
+        del model, prompts, logits, _
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, over, rows, seq, micro, _, lr, warmup in TPR_TRAIN:
+        if arch not in tpr_first:
+            tpr_first[arch] = one_rank_step(arch, over, rows, seq, micro, lr, warmup)
+    probe_ref = grad_probe(*TPR_PROBE, device="cuda")["sound"]
+    torch.cuda.empty_cache()
+    print(f"[tpr] one-rank references in {time.perf_counter() - t10:.1f} s (the prefills; "
+          f"step 1 of 6(d) and of xlstm-1.3b's fp32 run, {tpr_first}; the probe's fp32 "
+          "gradient)")
+    ranks = spawn_ranks(tp_recurrent_rank, n_ranks, (TPR_SERVE, TPR_TRAIN, TPR_PROBE),
+                        timeout=900)
+    for i, (arch, over, batch, prompt_len, gen_len, _) in enumerate(TPR_SERVE):
+        check_tp_recurrent_serving([r["serve"][i] for r in ranks],
+                                   get_config(arch).with_overrides(**over), batch, prompt_len,
+                                   tpr_logits[arch], smi)
+    for i, (arch, over, rows, seq, micro, n_steps, _, _) in enumerate(TPR_TRAIN):
+        check_tp_recurrent_training([r["train"][i] for r in ranks],
+                                    get_config(arch).with_overrides(**over),
+                                    (rows, seq, micro, n_steps), tpr_first[arch], smi)
+    check_grad_probe(ranks, get_config(TPR_PROBE[0]).with_overrides(num_layers=TPR_PROBE[1]),
+                     TPR_PROBE[3], probe_ref)
+    rg_serve, rg_train = ranks[0]["serve"][0], ranks[0]["train"][0]
+    for name in ("flash_attention", "rglru_scan"):
+        records[(name, "recurrentgemma-9b model 2")]["launches"] = rg_serve["launches"][name]
+    for name in ("flash_attention", "flash_attention_bwd", "rglru_scan", "rglru_scan_bwd"):
+        rec = records[(name, "recurrentgemma-9b model 2 train")]
+        rec["launches"] = sum(st[name] for st in rg_train["steps"])
+        rec["launches_per_step"] = rec["launches"] // len(rg_train["steps"])
+        rec["launches_note"] = f"rank 0's of {n_ranks} ranks"
+    for r in ranks:
+        print(f"[tpr] rank {r['coords']}: peak memory by job "
+              f"{[round(j['peak_gb'], 2) for j in r['serve'] + r['train'] if 'peak_gb' in j]} GB")
+    del ranks, rg_serve, rg_train
+    print(f"[tpr] recurrentgemma-9b and xlstm-1.3b at published widths cut to 8 layers, served "
+          f"and trained on {TPR_MESH[0]} over {TPR_MESH[1]}: phase 10 took "
+          f"{time.perf_counter() - t10:.1f} s; {smi}")
 
     ran = time.perf_counter() - started
     print(f"[time] chip_smoke.py ran {ran:.1f} s"

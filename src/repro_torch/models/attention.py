@@ -16,7 +16,25 @@ Under tensor parallelism a rank holds a contiguous block of the query heads
 and of the KV heads (``wq``/``wk``/``wv`` split on their output dim, ``wo``
 on its input dim), so the head counts come from the weights' shapes: with
 ``K % M == 0`` local query head ``i`` reads local KV head ``i // (H/K)``,
-the reference's map.  MLA's up-projections (``w_uq``, ``w_uk``, ``w_uv``)
+the reference's map.  Where the KV heads do not split (``K % M``) but
+their ``K·hd`` columns do, ``wk`` and ``wv`` split those columns
+contiguously, so a rank holds a slice of a KV head's head dim
+(recurrentgemma-9b on model 2: 128 of its one head's 256).  RoPE pairs
+``x[:d/2]`` with ``x[d/2:]``, so such a slice cannot be rotated alone: prefill
+and training gather k and v whole over ``model`` first
+(``sharding.shard.all_gather_model``, whose backward sums dk and dv over
+the ranks whose query heads read them), rotate, and run flash with the
+rank's ``H/M`` query heads against the KV heads they read.  The cache then
+holds, as the reference's ``_cache_leaf_pspec`` puts ``hd`` on ``model``,
+the rank's ``hd/M`` slice of every KV head of the rotated k and of v
+``[B, S, K, hd/M]``.  Decode gathers the new token's k and v whole (to
+rotate k), writes its slice, and gathers the cache whole over ``model``
+for its query heads: per layer and step an all-gather of ``2·B·K·hd``
+elements and one of ``2·B·S·K·hd`` (:func:`gqa_decode`).  Splitting the
+scores over ``hd`` instead would move ``B·H·S`` fp32 partial scores, but
+also every query head's q and output slices: four exchanges a layer where
+this takes two, and on a card whose ranks talk through host memory a call
+costs more than these bytes.  MLA's up-projections (``w_uq``, ``w_uk``, ``w_uv``)
 and ``wo`` hold the rank's heads; its down-projections, their norms and
 ``w_kr`` are whole on every model rank, so Megatron's *f* sits on the
 latents where they meet the rank's heads (``tp``), and the latent cache
@@ -38,7 +56,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..sharding.shard import copy_to_model
+from ..sharding.shard import all_gather_model, copy_to_model, gather_model
 from .layers import rmsnorm, rmsnorm_spec, rope
 from .specs import ParamSpec
 
@@ -97,11 +115,22 @@ class KVCache(NamedTuple):
     length: int          # tokens currently cached
 
 
+def head_dim_split(cfg: ModelConfig, model_size: int) -> bool:
+    """Whether a rank of ``model_size`` holds a slice of the KV heads' head
+    dim: the KV heads do not split over ``model``."""
+    return model_size > 1 and cfg.num_kv_heads % model_size != 0
+
+
 def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device: torch.device, model_size: int = 1) -> KVCache:
     """A zeroed cache; ``S = min(max_len, window)`` when windowed; a rank's
-    ``K / model_size`` KV heads."""
-    K, hd = cfg.num_kv_heads // model_size, cfg.resolved_head_dim
+    ``K / model_size`` KV heads, or where they do not split its
+    ``hd / model_size`` slice of every head."""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if head_dim_split(cfg, model_size):
+        hd //= model_size
+    else:
+        K //= model_size
     S = min(max_len, cfg.window) if cfg.window else max_len
     shape = (batch, S, K, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -109,38 +138,83 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def _heads_of(p, cfg: ModelConfig):
-    """(query heads, KV heads, head dim) that ``p``'s weights hold."""
+    """(query heads, KV heads, head dim) that ``p``'s weights hold (the KV
+    heads only where they split over ``model``)."""
     hd = cfg.resolved_head_dim
     return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd, hd
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
+def _split(tp, cfg: ModelConfig):
+    """``tp`` where its ranks hold slices of the KV heads' head dim, else None."""
+    return tp if tp is not None and head_dim_split(cfg, tp.size("model")) else None
+
+
+def _kv_whole(p, x, cfg: ModelConfig, positions, tp):
+    """k (rotated) and v ``[B, T, K, hd]`` whole from the rank's contiguous
+    ``K·hd/M`` columns of ``wk`` and ``wv``: one all-gather over ``model``
+    of both, then RoPE over whole heads."""
+    kv = all_gather_model(torch.stack([x @ p["wk"], x @ p["wv"]]), tp)
+    k, v = kv.unflatten(-1, (cfg.num_kv_heads, cfg.resolved_head_dim)).unbind(0)
+    return rope(k, positions, cfg.rope_theta), v
+
+
+def _read_heads(k: torch.Tensor, H: int, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The KV heads of whole ``k`` ``[B, T, K, d]`` that the rank's ``H``
+    query heads read, in the grouping flash takes: the one head where the
+    rank's queries lie in one head's group, else one a query head."""
+    K = cfg.num_kv_heads
+    per = cfg.num_heads // K
+    first = tp.coords["model"] * H
+    if per % H == 0:
+        return k.narrow(2, first // per, 1)
+    return k.index_select(2, torch.arange(first, first + H, device=k.device) // per)
+
+
+def _cache_slice(t: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's ``hd/M`` slice of every head of ``t`` ``[..., K, hd]``."""
+    n = t.shape[-1] // tp.size("model")
+    return t.narrow(-1, tp.coords["model"] * n, n)
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions, tp=None):
+    """q, k, v of the rank's heads; under the head-dim split (``tp``) k and v
+    whole (:func:`_kv_whole`)."""
     B, T, _ = x.shape
     H, K, hd = _heads_of(p, cfg)
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    q = rope((x @ p["wq"]).reshape(B, T, H, hd), positions, cfg.rope_theta)
+    if tp is not None:
+        return (q, *_kv_whole(p, x, cfg, positions, tp))
     k = (x @ p["wk"]).reshape(B, T, K, hd)
     v = (x @ p["wv"]).reshape(B, T, K, hd)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    return q, rope(k, positions, cfg.rope_theta), v
 
 
-def gqa_attention(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """Training self-attention. x: [B, T, D] → [B, T, D]."""
+def _flash(q, k, v, cfg: ModelConfig, tp):
+    if tp is not None:
+        k, v = (_read_heads(t, q.shape[2], cfg, tp).contiguous() for t in (k, v))
+    return ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block, cfg.k_block)
+
+
+def gqa_attention(p, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Training self-attention. x: [B, T, D] → [B, T, D].  ``tp``: the
+    model axis (x after *f*, the output the rank's partial sum)."""
     B, T, _ = x.shape
+    tp = _split(tp, cfg)
     positions = torch.arange(T, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block,
-                              cfg.k_block)
-    return out.reshape(B, T, -1) @ p["wo"]
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    return _flash(q, k, v, cfg, tp).reshape(B, T, -1) @ p["wo"]
 
 
-def gqa_prefill(p, x, cfg: ModelConfig, cache: KVCache):
+def gqa_prefill(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
     """Prefill: run attention AND fill ``cache`` in place (ring-buffered if
     windowed).  x: [B, T, D] → ([B, T, D], cache with length T)."""
     B, T, _ = x.shape
+    tp = _split(tp, cfg)
     positions = torch.arange(T, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block,
-                              cfg.k_block)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    out = _flash(q, k, v, cfg, tp)
+    if tp is not None:
+        k, v = _cache_slice(k, tp), _cache_slice(v, tp)
     S = cache.k.shape[1]
     if T >= S:
         ck, cv = k[:, T - S:], v[:, T - S:]
@@ -160,24 +234,28 @@ def gqa_prefill(p, x, cfg: ModelConfig, cache: KVCache):
     return y, cache._replace(length=T)
 
 
-def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache):
+def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
     """One decode step. x: [B, 1, D]; writes the new token's K/V into
-    ``cache`` in place and returns ([B, 1, D], cache with length + 1)."""
+    ``cache`` in place and returns ([B, 1, D], cache with length + 1).
+    Under the head-dim split the cache is gathered whole over ``model`` for
+    the rank's query heads (the module's docstring counts its bytes)."""
     B = x.shape[0]
-    H, K, hd = _heads_of(p, cfg)
+    tp = _split(tp, cfg)
     pos = cache.length  # absolute position of the new token
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
-    k = (x @ p["wk"]).reshape(B, 1, K, hd)
-    v = (x @ p["wv"]).reshape(B, 1, K, hd)
     ppos = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = rope(q, ppos, cfg.rope_theta)
-    k = rope(k, ppos, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, cfg, ppos, tp)
+    if tp is not None:
+        k, v = _cache_slice(k, tp), _cache_slice(v, tp)
     S = cache.k.shape[1]
     slot = pos % S if cfg.window > 0 else min(pos, S - 1)
     cache.k[:, slot].copy_(k[:, 0])
     cache.v[:, slot].copy_(v[:, 0])
     n_valid = min(pos + 1, S) if cfg.window > 0 else pos + 1
-    out = decode_attention(q, cache.k, cache.v, n_valid)
+    kc, vc = cache.k, cache.v
+    if tp is not None:
+        kc, vc = (_read_heads(t, q.shape[2], cfg, tp)
+                  for t in gather_model(torch.stack([kc, vc]), tp).unbind(0))
+    out = decode_attention(q, kc, vc, n_valid)
     y = out.reshape(B, 1, -1) @ p["wo"]
     return y, cache._replace(length=pos + 1)
 

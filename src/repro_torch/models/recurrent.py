@@ -17,6 +17,21 @@ kernel from the saved h (``rglru_scan_bwd``); on the CPU both are their plain
 loops.
 Decode is a one-step update in plain ops.  ``h`` and the carried conv inputs
 stay fp32 in a bf16 model; the matmuls run in x's dtype.
+
+Under tensor parallelism (``tp``, the model axis of a sharded mesh) a rank
+runs its ``W/M`` channels: ``w_x``, ``w_gate``, ``conv_w`` and ``conv_b``
+hold them (split on ``mlp``), so the branch, the gate and the causal conv
+need no exchange.  ``w_a`` and ``w_i`` ``[W, W]`` hold the rank's *rows*:
+the rank's products are partial sums over all ``W`` outputs, and one
+reduce-scatter over ``model`` (``sharding.shard.reduce_scatter_model``)
+carries both gates' partials to their sums on the rank's channels.  ``b_a``,
+``b_i`` and ``lam``, whole on every model rank, are cut to those channels
+(``slice_model``).  The scan runs on ``[B, T, W/M]``; ``w_out`` holds the
+rank's rows, and the caller's *g* sums its output.  The state
+(:class:`RGLRUState`) holds the rank's channels, ``h [B, W/M]`` and ``conv
+[B, 3, W/M]``, where the reference's ``cache_pspecs`` replicates them over
+``model``: the rank's scan produces only its channels, and decode reads only
+those.
 """
 
 from __future__ import annotations
@@ -28,6 +43,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding.shard import reduce_scatter_model, slice_model
 from .specs import ParamSpec
 
 
@@ -51,14 +67,15 @@ def rglru_block_spec(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
 
 
 class RGLRUState(NamedTuple):
-    h: torch.Tensor       # [B, W] recurrent state (fp32)
+    h: torch.Tensor       # [B, W] recurrent state (fp32); a rank's [B, W/M]
     conv: torch.Tensor    # [B, conv_width-1, W] trailing inputs (fp32)
 
 
-def rglru_state_spec(cfg: ModelConfig, batch: int, device: torch.device) -> RGLRUState:
-    """A zeroed state."""
+def rglru_state_spec(cfg: ModelConfig, batch: int, device: torch.device,
+                     model_size: int = 1) -> RGLRUState:
+    """A zeroed state of a rank's ``W / model_size`` channels."""
     g = cfg.rglru
-    W = g.width or cfg.d_model
+    W = (g.width or cfg.d_model) // model_size
     return RGLRUState(
         h=torch.zeros((batch, W), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, g.conv_width - 1, W), dtype=torch.float32, device=device),
@@ -75,14 +92,23 @@ def _causal_conv(p, x: torch.Tensor, conv_width: int) -> torch.Tensor:
     return out + p["conv_b"]
 
 
-def _gates(p, x: torch.Tensor, c: float):
+def _gates(p, x: torch.Tensor, c: float, tp=None):
+    """(a, b) of the scan on x's channels, each contiguous [B, T, W] fp32
+    (under ``tp``, the rank's channels: the partial products reduce-scattered
+    over ``model``)."""
     # The products run in x's dtype and are cast to fp32 after, as in the reference.
-    r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"].float())
-    i = torch.sigmoid((x @ p["w_i"]).float() + p["b_i"].float())
-    log_a = -c * F.softplus(p["lam"]) * r      # [B, T, W] fp32
+    if tp is None:
+        ga, gi = x @ p["w_a"], x @ p["w_i"]
+    else:
+        both = torch.cat([x @ p["w_a"], x @ p["w_i"]], dim=-1)
+        ga, gi = reduce_scatter_model(both, tp, -1, blocks=2).chunk(2, dim=-1)
+    b_a, b_i, lam = (slice_model(p[k], tp) for k in ("b_a", "b_i", "lam"))
+    r = torch.sigmoid(ga.float() + b_a.float())
+    i = torch.sigmoid(gi.float() + b_i.float())
+    log_a = -c * F.softplus(lam) * r           # [B, T, W] fp32
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return a, beta * i * x.float()
+    return a.contiguous(), (beta * i * x.float()).contiguous()
 
 
 def _tail_pad(z: torch.Tensor, n: int) -> torch.Tensor:
@@ -93,13 +119,14 @@ def _tail_pad(z: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def rglru_block_with_state(
-    p, x: torch.Tensor, cfg: ModelConfig, state: Optional[RGLRUState]
+    p, x: torch.Tensor, cfg: ModelConfig, state: Optional[RGLRUState], tp=None
 ) -> Tuple[torch.Tensor, RGLRUState]:
     """x: [B, T, D] → ([B, T, D], state after the last token).  ``state=None``
-    starts from zeros (prefill)."""
+    starts from zeros (prefill).  ``tp``: x after *f*, the output the rank's
+    partial sum."""
     g = cfg.rglru
     B, T, D = x.shape
-    W = g.width or D
+    W = p["w_x"].shape[-1]
     z = x @ p["w_x"]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")  # jax.nn.gelu's default form
     if state is not None:
@@ -111,25 +138,25 @@ def rglru_block_with_state(
         zc = _causal_conv(p, z, g.conv_width)
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
         tail = _tail_pad(z, g.conv_width - 1)
-    a, b = _gates(p, zc, g.c)
+    a, b = _gates(p, zc, g.c, tp)
     h = ops.rglru_scan(a, b, h0.contiguous())
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     return out, RGLRUState(h=h[:, -1], conv=tail.float())
 
 
-def rglru_block(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def rglru_block(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Training forward (zero initial state). x: [B, T, D] → [B, T, D]."""
-    return rglru_block_with_state(p, x, cfg, None)[0]
+    return rglru_block_with_state(p, x, cfg, None, tp)[0]
 
 
-def rglru_decode(p, x: torch.Tensor, cfg: ModelConfig, state: RGLRUState):
+def rglru_decode(p, x: torch.Tensor, cfg: ModelConfig, state: RGLRUState, tp=None):
     """One-token step. x: [B, 1, D] → ([B, 1, D], new state)."""
     g = cfg.rglru
     z = x @ p["w_x"]                                               # [B, 1, W]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     hist = torch.cat([state.conv.to(z.dtype), z], dim=1)           # [B, cw, W]
     zc = torch.einsum("btw,tw->bw", hist, p["conv_w"]) + p["conv_b"]
-    a, b = _gates(p, zc[:, None, :], g.c)
+    a, b = _gates(p, zc[:, None, :], g.c, tp)
     h = a[:, 0] * state.h + b[:, 0]
     out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
     return out, RGLRUState(h=h, conv=hist[:, 1:].float())

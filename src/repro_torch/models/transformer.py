@@ -33,9 +33,11 @@ On a mesh (``launch.mesh.Mesh`` of one pod with ``data`` or ``model`` above
 rows: FSDP gathers each parameter's ``data`` dim on use, inside each
 super-block's remat'd function (the recompute gathers again, so no gathered
 weight outlives its block); tensor parallelism runs the rank's query and KV
-heads (MLA's up-projections), MLP columns, experts and vocab range, with
-Megatron's *f* after each norm (MLA: on its latents, ``models/attention.py``;
-MoE: ``models/moe.py``) and *g* after each row-parallel product.  The MoE
+heads (where the KV heads do not split, a slice of their head dim; MLA's
+up-projections), MLP columns, RG-LRU channels, mLSTM heads, experts and
+vocab range, with Megatron's *f* after each norm (MLA: on its latents,
+``models/attention.py``; MoE: ``models/moe.py``; the sLSTM: after its group
+norm, ``models/xlstm.py``) and *g* after each row-parallel product.  The MoE
 FFN's output is whole: the expert-parallel island's as it is, the partial
 sums through *g*.  Experts split over ``(data, model)`` jointly are not
 gathered on use: the island runs its own block of them.  Prefill and decode
@@ -107,25 +109,28 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def _check_mesh(cfg: ModelConfig, mesh) -> None:
     """What a sharded mesh refuses, never replicating a layer silently: at
-    model above 1, RG-LRU and xLSTM blocks, and head counts or a d_ff that
-    do not divide by the model axis (ROADMAP's item 3d), and experts that
-    do not.  MoE runs on any other (data, model) mesh (``models/moe.py``)."""
+    model above 1, query heads, a d_ff, an RG-LRU width or an mLSTM inner
+    width that do not divide by the model axis, KV heads whose count and
+    whose ``K·hd`` columns both do not, and experts that do not.  MoE runs on
+    any other (data, model) mesh (``models/moe.py``)."""
     if not sharded(mesh):
         return
     M = mesh.size("model")
     if M == 1:
         return
-    refused = sorted(set(cfg.block_pattern) & {"rec", "mlstm", "slstm"})
-    if refused:
+    kinds = set(cfg.block_pattern)
+    widths = {"query heads": cfg.num_heads, "d_ff": cfg.d_ff}
+    if "rec" in kinds:
+        widths["RG-LRU width"] = cfg.rglru.width or cfg.d_model
+    if "mlstm" in kinds:
+        widths["mLSTM inner width"] = int(cfg.xlstm.proj_factor_m * cfg.d_model)
+    bad = [f"{name} {n}" for name, n in widths.items() if n % M]
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if "attn" in kinds and cfg.attention == "gqa" and K % M and K * hd % M:
+        bad.append(f"KV heads {K} and their {K * hd} columns")
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (model {M}) of {refused} blocks waits for "
-            "ROADMAP's item 3d")
-    kv = cfg.num_heads if cfg.attention == "mla" else cfg.num_kv_heads
-    if cfg.num_heads % M or kv % M or cfg.d_ff % M:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} query heads, {kv} KV heads and "
-            f"d_ff {cfg.d_ff} do not all divide by model {M}; the reference's fallback "
-            "(head dim on model) waits for ROADMAP's item 3d")
+            f"{cfg.name}: {', '.join(bad)} do not all divide by model {M}")
     ep = M * (mesh.size("data") if cfg.moe is not None and moe_mod.two_d(cfg.moe) else 1)
     if cfg.moe is not None and cfg.moe.num_experts % ep:
         raise NotImplementedError(
@@ -171,18 +176,19 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
     ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState`` or
     ``SLSTMState`` of buffers; ``None`` in train mode) is written in place.
     ``tp`` (the model axis of ``mesh``, a sharded mesh): *f* after each norm
-    (MLA and MoE place theirs inside), *g* after the attention's and a dense
-    FFN's output products; the MoE FFN returns its output whole.
+    (MLA, MoE and the xLSTM blocks place theirs inside), *g* after the
+    attention's, the RG-LRU's and a dense FFN's output products; the MoE FFN
+    and the xLSTM blocks return their output whole.
     Returns (x, cache, aux): aux is the MoE load-balance loss, ``None`` for a
     dense FFN or an xLSTM block."""
     if kind in _XLSTM:
         block, decode = _XLSTM[kind]
         h = rmsnorm(p["ln"], x)
         if mode == "train":
-            return x + block(p["cell"], h, cfg)[0], None, None
+            return x + block(p["cell"], h, cfg, None, tp)[0], None, None
         # Prefill starts from a fresh state, whatever the cache holds.
-        y, new = block(p["cell"], h, cfg) if mode == "prefill" else decode(
-            p["cell"], h, cfg, cache)
+        y, new = block(p["cell"], h, cfg, None, tp) if mode == "prefill" else decode(
+            p["cell"], h, cfg, cache, tp)
         for buf, t in zip(cache, new):
             buf.copy_(t)
         return x + y, cache, None
@@ -192,12 +198,12 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
         h = copy_to_model(h, tp)
     if kind == "rec":
         if mode == "train":
-            y = rec.rglru_block(p["rec"], h, cfg)
+            y = rec.rglru_block(p["rec"], h, cfg, tp)
         else:
             if mode == "prefill":
-                y, new = rec.rglru_block_with_state(p["rec"], h, cfg, None)
+                y, new = rec.rglru_block_with_state(p["rec"], h, cfg, None, tp)
             else:
-                y, new = rec.rglru_decode(p["rec"], h, cfg, cache)
+                y, new = rec.rglru_decode(p["rec"], h, cfg, cache, tp)
             cache.h.copy_(new.h)
             cache.conv.copy_(new.conv)
     elif mla:
@@ -208,10 +214,10 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
             y, cache = step(p["attn"], h, cfg, cache, tp)
     else:
         if mode == "train":
-            y = attn.gqa_attention(p["attn"], h, cfg)
+            y = attn.gqa_attention(p["attn"], h, cfg, tp)
         else:
             step = attn.gqa_prefill if mode == "prefill" else attn.gqa_decode
-            y, cache = step(p["attn"], h, cfg, cache)
+            y, cache = step(p["attn"], h, cfg, cache, tp)
     x = x + reduce_from_model(y, tp)
     h = rmsnorm(p["ln2"], x)
     if cfg.moe is not None and kind == "attn":
@@ -224,11 +230,11 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                  device: torch.device, model_size: int = 1):
     if kind == "mlstm":
-        return xl.mlstm_state_spec(cfg, batch, device)
+        return xl.mlstm_state_spec(cfg, batch, device, model_size)
     if kind == "slstm":
         return xl.slstm_state_spec(cfg, batch, device)
     if kind == "rec":
-        return rec.rglru_state_spec(cfg, batch, device)
+        return rec.rglru_state_spec(cfg, batch, device, model_size)
     if cfg.attention == "mla":
         return attn.mla_cache_spec(cfg, batch, max_len, dtype, device)
     return attn.gqa_cache_spec(cfg, batch, max_len, dtype, device, model_size)
@@ -251,8 +257,9 @@ def _layer(cache, i: int):
 def cache_tree(cfg: ModelConfig, batch: int, max_len: int, device, model_size: int = 1
                ) -> Dict[str, Any]:
     """Fresh caches shaped like the JAX tree (:meth:`Model.cache`) for
-    ``batch`` rows, a rank's ``K / model_size`` KV heads; on the ``meta``
-    device, their shapes alone (``sharding.rules.cache_pspecs``)."""
+    ``batch`` rows, a rank's share of ``model_size``: its KV heads (or its
+    slice of their head dim), RG-LRU channels and mLSTM heads; on the
+    ``meta`` device, their shapes alone (``sharding.rules.cache_pspecs``)."""
     plan, dtype, device = layer_plan(cfg), _DTYPES[cfg.dtype], torch.device(device)
     mk = lambda kind: _block_cache(cfg, kind, batch, max_len, dtype, device, model_size)
     blocks = {f"b{i}": _stacked(mk(k), plan.n_scan) for i, k in enumerate(plan.pattern)}
@@ -418,7 +425,9 @@ class Model(nn.Module):
         ``[n, B, H]``, ``SLSTMState`` c, n, m and h ``[n, B, D]``; every m
         at -1e30, everything else zero); ``lead`` and ``tail`` hold one per
         layer.  ``batch``: this rank's rows; on a model axis, the rank's
-        ``K / M`` KV heads."""
+        ``K / M`` KV heads (where they do not split, ``[.., K, hd / M]``),
+        ``W / M`` RG-LRU channels and ``H / M`` mLSTM heads (the sLSTM's
+        state whole)."""
         M = self.tp.size("model") if self.tp is not None else 1
         return cache_tree(self.cfg, batch, max_len, self.device, M)
 

@@ -1,8 +1,9 @@
 """xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar
 memory, sequential) — Beck et al., arXiv:2405.04517.
 
-Port of ``repro/models/xlstm.py`` on one device (the reference's
-``shard_map`` island for the sLSTM scan has no counterpart).  mLSTM
+Port of ``repro/models/xlstm.py`` (the reference's ``shard_map`` island
+for the sLSTM scan has no counterpart: on a mesh its cell runs whole on
+every model rank, as the island's does).  mLSTM
 recurrence per head (stabiliser m):
 
     log i_t, log f_t = gate projections (log f via logsigmoid)
@@ -23,6 +24,31 @@ the carried C and n are rounded to q's dtype before the inter-chunk products
 and the state update is summed in fp32; the sLSTM's h_{t-1} is cast to the
 recurrent weights' dtype before its product.  States are fp32, and ``m``
 starts at -1e30.
+
+Under tensor parallelism (``tp``, the model axis of a sharded mesh) the
+mLSTM runs a rank's ``H/M`` heads: ``w_up`` and ``w_og`` (split on ``mlp``)
+hold their contiguous ``inner/M`` columns and ``wq``, ``wk``, ``wv`` their
+heads, so the head count comes from the weights.  ``w_if`` ``[inner, 2H]``
+holds the rank's rows: its partial ``[B, T, 2H]`` is reduce-scattered over
+``model`` to the rank's heads of each half (``log i`` heads, then ``raw f``
+heads; ``sharding.shard.reduce_scatter_model`` with two blocks), and
+``b_if``, whole on every rank, is cut the same way.  The group norm is an
+RMS norm over the whole inner width: the rank's sum of squares is summed
+over ``model`` by ``all_reduce_model``, whose backward sums too (each
+rank's normalised slice feeds its own work), and ``gnorm.scale`` is cut to
+the rank's columns.  ``w_down`` holds the rank's rows, and *g* sums the
+block's output.  The state holds the rank's heads, ``c [B, H/M, dqk, dh]``,
+``n`` and ``m``; the reference's cache rule puts ``model`` on ``dqk`` of
+``c`` instead (it was written for ``[B, S, K, hd]`` caches), which no rank's
+recurrence could use without an exchange each step.  The sLSTM cell stays
+whole on every model rank, as the reference chooses (an exchange a time step
+would cost far more than the idle axis): ``w_in``, ``r`` and ``gnorm`` are
+replicated and no exchange runs inside the loop over time.  Its FFN is
+tensor-parallel: *f* after ``gnorm``, ``ffn_wi`` as ``[gate_m | up_m]`` and
+*g* after ``ffn_wo``.  Where the gate does not split in two over ``model``
+(``sharding.shard.param_layout`` then splits ``ffn_wi``'s columns
+contiguously and leaves ``ffn_wo`` whole, as at smoke width), the projection
+is gathered whole over ``model`` and the rest runs whole, with no *g*.
 """
 
 from __future__ import annotations
@@ -34,6 +60,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, XLSTMConfig
+from ..sharding.shard import (all_reduce_model, copy_to_model, gather_slices,
+                              reduce_from_model, reduce_scatter_model, slice_model)
 from .layers import rmsnorm, rmsnorm_spec
 from .specs import ParamSpec
 
@@ -69,14 +97,16 @@ def mlstm_block_spec(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
 
 
 class MLSTMState(NamedTuple):
-    c: torch.Tensor   # [B, H, dqk, dh] fp32
+    c: torch.Tensor   # [B, H, dqk, dh] fp32 (a rank's H/M heads)
     n: torch.Tensor   # [B, H, dqk] fp32
     m: torch.Tensor   # [B, H] fp32
 
 
-def mlstm_state_spec(cfg: ModelConfig, batch: int, device: torch.device) -> MLSTMState:
-    """A fresh state: C and n zero, m at -1e30."""
-    H = cfg.num_heads
+def mlstm_state_spec(cfg: ModelConfig, batch: int, device: torch.device,
+                     model_size: int = 1) -> MLSTMState:
+    """A fresh state of a rank's ``H / model_size`` heads: C and n zero, m at
+    -1e30."""
+    H = cfg.num_heads // model_size
     _, dh, dqk = _mlstm_dims(cfg)
     return MLSTMState(
         c=torch.zeros((batch, H, dqk, dh), dtype=torch.float32, device=device),
@@ -85,16 +115,18 @@ def mlstm_state_spec(cfg: ModelConfig, batch: int, device: torch.device) -> MLST
     )
 
 
-def _mlstm_qkv_gates(p, x2: torch.Tensor, cfg: ModelConfig):
+def _mlstm_qkv_gates(p, x2: torch.Tensor, cfg: ModelConfig, tp=None):
     """x2: [B, T, inner] → q, k, v [B, T, H, *] in x2's dtype, log_i and
-    log_f [B, T, H] fp32."""
-    H = cfg.num_heads
+    log_f [B, T, H] fp32, H the heads that the weights hold (``tp``: the
+    rank's, ``x2`` its columns)."""
+    H = p["wq"].shape[0]
     B, T, inner = x2.shape
     z = x2.reshape(B, T, H, inner // H)
     q = torch.einsum("bthd,hde->bthe", z, p["wq"])
     k = torch.einsum("bthd,hde->bthe", z, p["wk"]) / math.sqrt(p["wq"].shape[-1])
     v = torch.einsum("bthd,hde->bthe", z, p["wv"])
-    gif = x2.float() @ p["w_if"] + p["b_if"]
+    gif = (reduce_scatter_model(x2.float() @ p["w_if"], tp, -1, blocks=2)
+           + slice_model(p["b_if"], tp, blocks=2))
     log_i, raw_f = torch.chunk(gif, 2, dim=-1)            # [B, T, H]
     return q, k, v, log_i, F.logsigmoid(raw_f)
 
@@ -174,40 +206,58 @@ def mlstm_step(q1, k1, v1, li1, lf1, state: MLSTMState):
     return h, MLSTMState(c=C, n=n, m=m_new)
 
 
-def _mlstm_out(p, h: torch.Tensor, og: torch.Tensor, dtype) -> torch.Tensor:
-    """The gated, group-normed cell output through the down projection."""
+def _group_norm(p, h: torch.Tensor, tp, eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rmsnorm`` over the whole inner width of ``h`` (under ``tp``
+    the rank's columns, the squares summed over ``model``)."""
+    if tp is None:
+        return rmsnorm(p, h, eps)
+    hf = h.float()
+    width = hf.shape[-1] * tp.size("model")
+    var = all_reduce_model(torch.sum(hf * hf, dim=-1, keepdim=True), tp) / width
+    scale = slice_model(p["scale"], tp)
+    return (hf * torch.rsqrt(var + eps) * scale.float()).to(h.dtype)
+
+
+def _mlstm_out(p, h: torch.Tensor, og: torch.Tensor, dtype, tp=None) -> torch.Tensor:
+    """The gated, group-normed cell output through the down projection, and
+    under ``tp`` *g*."""
     h = h.reshape(*og.shape).to(dtype)
-    return (rmsnorm(p["gnorm"], h) * og) @ p["w_down"]
+    return reduce_from_model((_group_norm(p["gnorm"], h, tp) * og) @ p["w_down"], tp)
+
+
+def _mlstm_in(p, x: torch.Tensor, cfg: ModelConfig, tp):
+    """*f*, the up projection, the output gate, q, k, v and the gates."""
+    x = copy_to_model(x, tp)
+    x2 = x @ p["w_up"]
+    og = torch.sigmoid(x @ p["w_og"])
+    return og, *_mlstm_qkv_gates(p, x2, cfg, tp)
 
 
 def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[MLSTMState] = None) -> Tuple[torch.Tensor, MLSTMState]:
+                state: Optional[MLSTMState] = None, tp=None
+                ) -> Tuple[torch.Tensor, MLSTMState]:
     """Full mLSTM block.  x [B, T, D] → ([B, T, D], state); ``state=None``
-    starts from a fresh state (training and prefill)."""
-    x2 = x @ p["w_up"]
-    og = torch.sigmoid(x @ p["w_og"])
-    q, k, v, li, lf = _mlstm_qkv_gates(p, x2, cfg)
+    starts from a fresh state (training and prefill).  ``tp``: the model
+    axis; the output is whole (summed by *g*)."""
+    og, q, k, v, li, lf = _mlstm_in(p, x, cfg, tp)
     if state is None:
-        state = mlstm_state_spec(cfg, x.shape[0], x.device)
+        state = mlstm_state_spec(cfg, x.shape[0], x.device,
+                                 cfg.num_heads // q.shape[2])
     h, new_state = mlstm_chunkwise(q, k, v, li, lf, state, cfg.xlstm.chunk)
-    return _mlstm_out(p, h, og, x.dtype), new_state
+    return _mlstm_out(p, h, og, x.dtype, tp), new_state
 
 
-def mlstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: MLSTMState):
+def mlstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: MLSTMState, tp=None):
     """One-token step.  x [B, 1, D] → ([B, 1, D], new state)."""
-    x2 = x @ p["w_up"]
-    og = torch.sigmoid(x @ p["w_og"])
-    q, k, v, li, lf = _mlstm_qkv_gates(p, x2, cfg)
+    og, q, k, v, li, lf = _mlstm_in(p, x, cfg, tp)
     h, new_state = mlstm_step(q[:, 0], k[:, 0], v[:, 0], li[:, 0], lf[:, 0], state)
-    return _mlstm_out(p, h, og, x.dtype), new_state
+    return _mlstm_out(p, h, og, x.dtype, tp), new_state
 
 
 def mlstm_reference(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Sequential oracle: :func:`mlstm_step` over time from a fresh state
     (the tests' and the card check's reference for the chunkwise form)."""
-    x2 = x @ p["w_up"]
-    og = torch.sigmoid(x @ p["w_og"])
-    q, k, v, li, lf = _mlstm_qkv_gates(p, x2, cfg)
+    og, q, k, v, li, lf = _mlstm_in(p, x, cfg, None)
     s = mlstm_state_spec(cfg, x.shape[0], x.device)
     hs = []
     for t in range(x.shape[1]):
@@ -300,24 +350,39 @@ def _slstm_scan_local(p_r, wx: torch.Tensor, state: SLSTMState, cfg: ModelConfig
     return torch.stack(hs, dim=1), state
 
 
-def _slstm_ffn(p, h: torch.Tensor) -> torch.Tensor:
-    """The group norm, then the position-wise gated FFN."""
+def _slstm_ffn(p, h: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The group norm, then the position-wise gated FFN; the output whole.
+    ``tp``: with ``ffn_wi`` as ``[gate_m | up_m]`` and ``ffn_wo``'s rows the
+    rank's, *f* after the norm and *g* after ``ffn_wo``; with ``ffn_wi``'s
+    columns split contiguously and ``ffn_wo`` whole, *f* and the projection
+    gathered whole; with ``ffn_wi`` whole, no exchange."""
     h = rmsnorm(p["gnorm"], h)
-    g, u = torch.chunk(h @ p["ffn_wi"], 2, dim=-1)
-    return (F.silu(g) * u) @ p["ffn_wo"]
+    wi, wo = p["ffn_wi"], p["ffn_wo"]
+    dff = int(cfg.xlstm.proj_factor_s * cfg.d_model)
+    if tp is None or wi.shape[-1] == 2 * dff:
+        proj, paired = h @ wi, False
+    else:
+        proj, paired = copy_to_model(h, tp) @ wi, wo.shape[0] < dff
+        if not paired:
+            proj = gather_slices(proj, tp, -1)
+    g, u = torch.chunk(proj, 2, dim=-1)
+    y = (F.silu(g) * u) @ wo
+    return reduce_from_model(y, tp) if paired else y
 
 
 def slstm_block(p, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[SLSTMState] = None) -> Tuple[torch.Tensor, SLSTMState]:
+                state: Optional[SLSTMState] = None, tp=None
+                ) -> Tuple[torch.Tensor, SLSTMState]:
     """x [B, T, D] → ([B, T, D], state), sequential over T; ``state=None``
-    starts from a fresh state."""
+    starts from a fresh state.  ``tp``: the model axis; the cell runs whole
+    on every model rank, the output is whole."""
     if state is None:
         state = slstm_state_spec(cfg, x.shape[0], x.device)
     hs, new_state = _slstm_scan_local(p["r"], x @ p["w_in"], state, cfg)
-    return _slstm_ffn(p, hs.to(x.dtype)), new_state
+    return _slstm_ffn(p, hs.to(x.dtype), cfg, tp), new_state
 
 
-def slstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: SLSTMState):
+def slstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: SLSTMState, tp=None):
     """One-token step.  x [B, 1, D] → ([B, 1, D], new state)."""
     new_state = _slstm_cell(p, (x @ p["w_in"])[:, 0], state, cfg)
-    return _slstm_ffn(p, new_state.h[:, None].to(x.dtype)), new_state
+    return _slstm_ffn(p, new_state.h[:, None].to(x.dtype), cfg, tp), new_state

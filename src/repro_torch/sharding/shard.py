@@ -23,6 +23,25 @@ The collectives of the sharded step, as autograd functions:
 * :func:`reduce_from_model` (Megatron's *g*) — an all-reduce over ``model``
   in the forward, the identity in the backward, after each row-parallel
   product;
+* :func:`reduce_scatter_model` — the sum over ``model`` of a rank's
+  partial products, the rank's slice of it kept, in the forward; the
+  gradient all-gathered in the backward (the partials of a row-parallel
+  product whose output feeds the rank's own channels or heads: the RG-LRU's
+  gates, the mLSTM's input and forget gates);
+* :func:`all_gather_model` — its adjoint: a tensor whole over ``model`` in
+  the forward, the gradient summed over ``model`` and scattered in the
+  backward (k and v gathered whole for a rank's query heads where the KV
+  heads do not split over ``model``);
+* :func:`all_reduce_model` — the sum over ``model`` in the forward and the
+  backward, where the sum feeds rank-specific work (the mLSTM's group norm
+  over the whole inner width).  *g*'s identity backward is right only where
+  every model rank then computes the same thing: after *g*, a slice of the
+  result would keep only the gradient of the rank's own slice;
+* :func:`slice_model` — a parameter replicated over ``model`` cut to the
+  rank's slice in the forward; its gradient, nonzero only on that slice on
+  each rank, all-gathered in the backward so that every model rank holds
+  the same whole gradient (the biases and decay of the RG-LRU's gates, the
+  mLSTM's gate bias and group-norm scale);
 * :func:`all_to_all` — the expert-parallel exchange (``models/moe.py``'s
   island): piece ``i`` of dim 0 to rank ``i`` of a group, the gradient back
   by the same exchange;
@@ -277,6 +296,83 @@ def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
     """Megatron's *g*: the sum of ``x`` over ``model``, its gradient as it
     is; ``tp`` None: ``x``."""
     return x if tp is None else _ReduceFromModel.apply(x, tp)
+
+
+class _ReduceScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, blocks):
+        ctx.dim, ctx.mesh, ctx.blocks = dim, mesh, blocks
+        return _reduce_scatter(x, dim, "model", mesh, blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, "model", ctx.mesh, ctx.blocks), None, None, None
+
+
+class _AllGatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _gather(x, dim, "model", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each rank's work read the whole tensor: its gradient is the sum of
+        # theirs, of which the rank keeps its own slice.
+        return _reduce_scatter(g, ctx.dim, "model", ctx.mesh), None, None
+
+
+class _AllReduceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh), None
+
+
+class _SliceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, blocks):
+        ctx.dim, ctx.mesh, ctx.blocks = dim, mesh, blocks
+        M, m = mesh.size("model"), mesh.coords["model"]
+        n = t.shape[dim] // (blocks * M)
+        return t.unflatten(dim, (blocks, M, n)).narrow(dim + 1, m, 1).flatten(
+            dim, dim + 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, "model", ctx.mesh, ctx.blocks), None, None, None
+
+
+def reduce_scatter_model(x: torch.Tensor, tp, dim: int = -1, blocks: int = 1) -> torch.Tensor:
+    """The sum of the partials ``x`` over ``model``, this rank's ``1/M`` of
+    it along ``dim`` (with ``blocks``: of each of the dim's ``blocks``
+    blocks); the gradient all-gathered.  ``tp`` None: ``x``."""
+    return x if tp is None else _ReduceScatterModel.apply(x, dim % x.ndim, tp, blocks)
+
+
+def all_gather_model(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` along ``dim``, in model order; the gradient
+    summed over ``model`` and this rank's slice kept.  ``tp`` None: ``x``."""
+    return x if tp is None else _AllGatherModel.apply(x, dim % x.ndim, tp)
+
+
+def all_reduce_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The sum of ``x`` over ``model``, its gradient summed over ``model``
+    too (the sum feeds work that differs between model ranks).  ``tp``
+    None: ``x``."""
+    return x if tp is None else _AllReduceModel.apply(x, tp)
+
+
+def slice_model(t: torch.Tensor, tp, dim: int = 0, blocks: int = 1) -> torch.Tensor:
+    """This rank's ``1/M`` along ``dim`` (of each of its ``blocks`` blocks) of
+    ``t``, which every model rank holds whole; the gradient all-gathered,
+    so that every model rank's whole gradient is the same.  ``tp`` None:
+    ``t``."""
+    return t if tp is None else _SliceModel.apply(t, dim % t.ndim, tp, blocks)
 
 
 class _AllToAll(torch.autograd.Function):

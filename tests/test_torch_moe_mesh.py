@@ -324,5 +324,11 @@ def test_experts_that_do_not_divide_are_refused():
 
 
 def test_rglru_at_model_2_is_refused():
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", mesh=_mesh((1, 2)))
+    """RG-LRU blocks take model 2 where their width divides
+    (``tests/test_torch_tp_recurrent.py`` holds them to JAX); a width that
+    does not divide is refused by name."""
+    cfg = get_config("recurrentgemma-9b", smoke=True)
+    Model(cfg, device="cpu", mesh=_mesh((1, 2)))
+    odd = cfg.with_overrides(rglru=dataclasses.replace(cfg.rglru, width=65))
+    with pytest.raises(NotImplementedError, match="RG-LRU width 65"):
+        Model(odd, device="cpu", mesh=_mesh((1, 2)))

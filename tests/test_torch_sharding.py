@@ -231,12 +231,10 @@ def _mesh(shape):
                 coords={"data": 0, "model": 0}, device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("arch,what", [("recurrentgemma-9b", "'rec'"),
-                                       ("deepseek-v2-236b", "MoE"),
-                                       ("xlstm-1.3b", "'mlstm', 'slstm'")])
+@pytest.mark.parametrize("arch,what", [("deepseek-v2-236b", "MoE")])
 def test_model_axis_refuses_blocks_it_does_not_shard(arch, what):
-    """RG-LRU and xLSTM blocks; of MoE the layouts that the reference leaves
-    to GSPMD (``fsdp_f`` here)."""
+    """Of MoE the layouts that the reference leaves to GSPMD (``fsdp_f``
+    here)."""
     cfg = get_config(arch, smoke=True)
     if cfg.moe is not None:
         cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="fsdp_f"))
@@ -244,12 +242,63 @@ def test_model_axis_refuses_blocks_it_does_not_shard(arch, what):
         Model(cfg, device="cpu", mesh=_mesh((1, 2)))
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_model_axis_builds_recurrent_blocks_by_the_rules(arch):
+    """RG-LRU and xLSTM blocks on (1, 2): every leaf holds the block of its
+    whole shape that ``param_layout`` assigns a rank, and the caches hold a
+    rank's RG-LRU channels and mLSTM heads (the sLSTM's state whole)."""
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, device="cpu", mesh=_mesh((1, 2)))
+    full = Model(cfg, device="cpu")
+    for key, p in full.state_dict().items():
+        pl = model.layout[key]
+        assert tuple(model.state_dict()[key].shape) == tuple(
+            n // (2 if "model" in pl.axes(d) else 1) for d, n in enumerate(p.shape)), key
+    split = [k for k, pl in model.layout.items() if pl.dim_of("model") is not None]
+    assert any(".cell.w_if" in k or ".rec.w_a" in k for k in split), split
+    # The dim each stacked cache splits: channels, the one KV head's head
+    # dim, the mLSTM's heads; the sLSTM's state stays whole.
+    halved = {"RGLRUState": -1, "KVCache": -1, "MLSTMState": 2}
+    caches, whole = model.cache(2, 8), full.cache(2, 8)
+    for name, c in caches["blocks"].items():
+        for field, t in c._asdict().items():
+            if isinstance(t, torch.Tensor):
+                want = list(getattr(whole["blocks"][name], field).shape)
+                if type(c).__name__ in halved:
+                    want[halved[type(c).__name__]] //= 2
+                assert list(t.shape) == want, (name, field)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "glm4-9b"])
+def test_model_axis_4_splits_the_kv_heads_head_dim(arch):
+    """Smoke llama3.2-1b and glm4-9b have 2 KV heads: on model 4 no rank
+    holds a whole one, so ``wk`` and ``wv`` split their ``K·hd`` columns
+    contiguously (a rank holds half a head) and the KV cache holds each
+    rank's ``hd/4`` of every head, as the reference's cache rule puts
+    ``hd`` on ``model``."""
+    cfg = get_config(arch, smoke=True)
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    assert K == 2
+    model = Model(cfg, device="cpu", mesh=_mesh((1, 4)))
+    p = model.blocks.layer(0)["b0"]["attn"]
+    assert tuple(p["wk"].shape) == tuple(p["wv"].shape) == (cfg.d_model, K * hd // 4)
+    assert tuple(p["wq"].shape) == (cfg.d_model, cfg.num_heads * hd // 4)
+    cache = model.cache(3, 8)["blocks"]["b0"]
+    assert tuple(cache.k.shape) == tuple(cache.v.shape) == (model.plan.n_scan, 3, 8, K, hd // 4)
+    specs = rules.cache_pspecs(cache_tree(cfg, 3, 8, "meta", 4), mesh=_fake((1, 4)))
+    assert specs["blocks"]["b0"].k == (None, "data", None, None, "model")
+
+
 def test_model_axis_refuses_heads_that_do_not_divide():
-    """Smoke llama has 4 query heads over 2 KV heads: model 4 splits no KV
-    head; model 3 splits neither."""
-    for shape in ((1, 4), (1, 3)):
-        with pytest.raises(NotImplementedError, match="do not all divide"):
-            Model(get_config("llama3.2-1b", smoke=True), device="cpu", mesh=_mesh(shape))
+    """Smoke llama has 4 query heads over 2 KV heads: model 3 splits
+    neither; and KV heads whose count and ``K·hd`` columns both do not
+    divide are refused by name, the query heads and d_ff dividing."""
+    with pytest.raises(NotImplementedError, match="do not all divide"):
+        Model(get_config("llama3.2-1b", smoke=True), device="cpu", mesh=_mesh((1, 3)))
+    cfg = get_config("llama3.2-1b", smoke=True).with_overrides(
+        num_heads=6, num_kv_heads=1, head_dim=5, d_ff=96)
+    with pytest.raises(NotImplementedError, match="KV heads 1 and their 5 columns"):
+        Model(cfg, device="cpu", mesh=_mesh((1, 3)))
 
 
 def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():

@@ -109,17 +109,18 @@ def train_fp32(arch, shape, steps, run_kw, resume=False, axes=POD_DATA):
     return out["history"]
 
 
-def _fp32(arch, moe=None):
+def _fp32(arch, moe=None, over=None):
     """``arch``'s smoke config in fp32, its MoE config's fields ``moe``
-    (a dict) replaced."""
-    cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
+    (a dict) replaced, and its own fields ``over`` (a dict)."""
+    cfg = get_config(arch, smoke=True).with_overrides(dtype="float32", **(over or {}))
     return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **moe)) if moe else cfg
 
 
-def _sharded(arch, params, mesh, moe=None):
-    """``arch`` (smoke, fp32, MoE fields ``moe``) on ``mesh`` holding this
-    rank's blocks of the whole ``params`` (numpy, ``state_dict`` keys)."""
-    model = Model(_fp32(arch, moe), device="cpu", mesh=mesh)
+def _sharded(arch, params, mesh, moe=None, over=None):
+    """``arch`` (smoke, fp32, MoE fields ``moe``, fields ``over``) on
+    ``mesh`` holding this rank's blocks of the whole ``params`` (numpy,
+    ``state_dict`` keys)."""
+    model = Model(_fp32(arch, moe, over), device="cpu", mesh=mesh)
     model.load_state_dict(shard_params({k: torch.from_numpy(v) for k, v in params.items()},
                                        model))
     return model
@@ -154,13 +155,14 @@ def counted_drops(calls):
     moe_mod._slots = slots
 
 
-def tp_steps(arch, shape, params, batches, run_kw, moe=None):
-    """``arch`` (smoke, fp32, MoE fields ``moe``, from the whole ``params``)
-    stepped over ``batches`` on a ``(data, model)`` mesh of ``shape``.
-    Returns the losses, grad-norms, wire bytes per step, the final
-    parameters gathered whole, and the choices each MoE call dropped."""
+def tp_steps(arch, shape, params, batches, run_kw, moe=None, over=None):
+    """``arch`` (smoke, fp32, MoE fields ``moe``, fields ``over``, from the
+    whole ``params``) stepped over ``batches`` on a ``(data, model)`` mesh
+    of ``shape``.  Returns the losses, grad-norms, wire bytes per step, the
+    final parameters gathered whole, and the choices each MoE call
+    dropped."""
     mesh = make_mesh(shape, DATA_MODEL, "cpu")
-    model = _sharded(arch, params, mesh, moe)
+    model = _sharded(arch, params, mesh, moe, over)
     drops = []
     counted_drops(drops)
     run = RunConfig(total_steps=10, **run_kw)
@@ -200,12 +202,21 @@ def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, moe=None)
     return out["tokens"].numpy()
 
 
-def tp_logits(arch, shape, params, prompts, max_len, moe=None):
+def tp_logits(arch, shape, params, prompts, max_len, moe=None, over=None, fault=None):
     """This rank's rows' last-token logits of a prefill of ``prompts`` and of
     one greedy decode step after it, over the whole vocab, on a ``(data,
-    model)`` mesh of ``shape``."""
+    model)`` mesh of ``shape`` (``fault``: under the context manager of
+    ``chip_smoke.py`` of that name)."""
+    import contextlib
+
     mesh = make_mesh(shape, DATA_MODEL, "cpu")
-    model = _sharded(arch, params, mesh, moe)
+    model = _sharded(arch, params, mesh, moe, over)
+    with getattr(_chip_smoke(), fault)() if fault else contextlib.nullcontext():
+        return _logits(model, prompts, max_len)
+
+
+def _logits(model, prompts, max_len):
+    mesh = model.mesh
     rows = next(iter(prompts.values())).shape[0]
     batch = rank_inputs({k: torch.from_numpy(v).long() for k, v in prompts.items()},
                         model.cfg, ShapeConfig("s", 0, rows, "prefill"), model.mesh)
@@ -278,6 +289,43 @@ def chip_smoke_tp_serve_rank(*args):
 def chip_smoke_tp_train_rank(*args):
     """chip_smoke.py's phase-8(b) rank (``tp_train_rank``)."""
     return _chip_smoke().tp_train_rank(*args)
+
+
+def chip_smoke_tp_recurrent_rank(*args):
+    """chip_smoke.py's phase-10 rank (``tp_recurrent_rank``)."""
+    return _chip_smoke().tp_recurrent_rank(*args)
+
+
+def model_axis_grads(xs, ws, t, dims):
+    """On a mesh of one data rank and ``M`` model ranks, this rank's
+    gradients through ``sharding/shard.py``'s four exchanges over
+    ``model`` of the loss sum over ranks of ``(y · w).sum()``: ``y`` the
+    reduce-scatter (two blocks along ``dims[0]``), the all-reduce and the
+    all-gather (along ``dims[1]``) of this rank's ``xs[rank]``, and the
+    slice (two blocks along ``dims[2]``) of ``t``, which every rank holds
+    whole; ``ws[rank]`` each of their weights.  Returns the outputs and the
+    gradients of ``x`` and ``t``."""
+    from repro_torch.sharding.shard import (all_gather_model, all_reduce_model,
+                                            reduce_scatter_model, slice_model)
+
+    M = len(xs)
+    mesh = make_mesh((1, M), DATA_MODEL, "cpu")
+    m = mesh.coords["model"]
+    tp = mesh
+    out = {}
+    for name, fn in (("reduce_scatter", lambda x: reduce_scatter_model(x, tp, dims[0], 2)),
+                     ("all_reduce", lambda x: all_reduce_model(x, tp)),
+                     ("all_gather", lambda x: all_gather_model(x, tp, dims[1]))):
+        x = torch.from_numpy(xs[m]).requires_grad_()
+        y = fn(x)
+        w = torch.from_numpy(ws[name][m])
+        g, = torch.autograd.grad((y * w).sum(), [x])
+        out[name] = (y.detach().numpy(), g.numpy())
+    whole = torch.from_numpy(t).requires_grad_()
+    y = slice_model(whole, tp, dims[2], 2)
+    g, = torch.autograd.grad((y * torch.from_numpy(ws["slice"][m])).sum(), [whole])
+    out["slice"] = (y.detach().numpy(), g.numpy())
+    return out
 
 
 def island_summed_steps(arch, shape, params, batches, run_kw, moe):
