@@ -116,10 +116,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    exactly; (c) the main path's second half: ``train("llama3.2-1b")`` at its
    published widths (16 layers, bf16 parameters, fp32 AdamW moments, block
    remat), ``train_4k``'s 4096 tokens per row at global batch 8 in 8
-   microbatches, 10 steps at lr 3e-4 with 2 warmup steps, launches counted
+   microbatches, 6 steps at lr 3e-4 with 2 warmup steps, launches counted
    from zero: every loss finite, 256 flash launches and 128 flash backward
    launches per step, all ``wgmma``, no call of a plain version, and the
-   10th loss below the 1st; then one microbatch's backward timed with CUDA
+   6th loss below the 1st; then one microbatch's backward timed with CUDA
    events around the whole and around each attention backward (the
    kernel); then that microbatch's loss and every gradient through the
    kernels against the same with the plain versions in the forward, remat's
@@ -191,20 +191,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    remat's recompute and the backward, within ``DEEPSEEK_TRAIN_BF16_TOL`` and
    ``INTERNVL2_TRAIN_BF16_TOL``, and a recompute without the causal mask on
    purpose must exceed them;
-7. training in pods: ``train("llama3.2-1b")`` at published width and depth
-   on a 2 pods x 1 data mesh (``POD_TRAIN``), two ranks spawned with
+7. training in pods: ``train("llama3.2-1b")`` at published width, cut to
+   ``POD_LAYERS`` layers, on a 2 pods x 1 data mesh (``POD_TRAIN``), two
+   ranks spawned with
    ``launch.mesh.spawn_ranks`` (they share the card where it is the only
    one; the pod exchange then goes over gloo through host memory), 6(c)'s
    global batch of 8 x 4096 at lr 3e-4 split as 4 rows in 4 microbatches a
-   rank, 3 steps each of ``flat``, ``sync``, ``sync`` + int8 and ``local``
+   rank, 2 steps each of ``flat``, ``sync``, ``sync`` + int8 and ``local``
    with budget 2 (:func:`pod_rank`), held by :func:`check_pod_training`:
    flat and sync agree step by step (``POD_LOSS_RTOL``) and their first
-   loss with 6(c)'s (``POD_FIRST_RTOL``), a planted fault (one step of sync
+   loss with one rank's step 1 of the same cut and batch
+   (``POD_FIRST_RTOL``), a planted fault (one step of sync
    with every rank on pod 0's rows, ``POD_FAULT``) lies outside both, int8
-   within ``POD_INT8_ATOL`` of exact after three steps, local's pods part after steps 1 and 3 and are bit-identical after
-   step 2 (the other modes' after every step), each step's wire bytes on
+   within ``POD_INT8_ATOL`` of exact after the last step, local's pods part
+   after step 1 and are bit-identical after step 2 (the other modes' after
+   every step), each step's wire bytes on
    each group equal ``core/asymmetry.py``'s formulas, and each rank's
-   launches are 6(c)'s per-row share, all ``wgmma``, with no call of a
+   launches are the cut's per-row share, all ``wgmma``, with no call of a
    plain version; it prints each mode's seconds and exchange seconds per
    step, each group's backend, and each rank's peak memory and
    ``mem_get_info``;
@@ -278,9 +281,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    initial weights on 6(e)'s slope row, each rank's block against one
    rank's within ``TPR_GRAD_RTOL``: :func:`grad_probe`,
    :func:`check_grad_probe`).  Phase 2 times flash and the scan at a rank's
-   shapes (8 query heads over the one KV head at d 256; 2048 channels).
+   shapes (8 query heads over the one KV head at d 256; 2048 channels);
+11. pods combined with FSDP and tensor parallelism, the reference's ``(pod,
+   data, model)`` mesh: llama3.2-1b at published width and depth on ``(pod
+   2, data 1, model 2)`` (``POD_TP_MESH``), four ranks spawned as phase 7's
+   (:func:`pod_tp_rank`), every pod holding its model ranks' blocks and
+   only those crossing ``pod``: (a) phase 4's request served, each pod its 4
+   rows (:func:`check_pod_tp_serving`: each rank's prefill held its ``(pod,
+   data)`` share of the rows, its last-token logits within
+   ``TP_LOGITS_RTOL`` of phase 4's for them, every first token phase 4's,
+   the ``model`` group's bytes of the prefill and of each decode step equal
+   to the formulas, 16 flash launches a prefill on ``wgmma``, no plain
+   call); (b) phase 8's 4 x 4096 trained 2 steps in each pod mode, 2 rows a
+   pod in 2 microbatches (``POD_TP_TRAIN``, :func:`pod_rank`), held by
+   :func:`check_pod_tp_training`: step 1 of sync and flat within phase 8's
+   limits of phase 8's one-rank step 1, flat within ``POD_LOSS_RTOL`` of
+   sync, int8 within ``POD_INT8_ATOL`` after the last step, the pods' blocks
+   at each ``(data, model)`` coordinate bit-identical after every step (in
+   local parted after step 1), each group's bytes a step equal to
+   :func:`pod_tp_wire_bytes`, each rank's parameter and moment bytes its
+   blocks', 64 flash and 32 flash backward launches a step and rank on
+   ``wgmma``; a planted fault (the pod groups built across model ranks,
+   :func:`crossed_pod_group`, two steps of sync) must part the pods' blocks
+   and move step 2's loss outside ``POD_LOSS_RTOL``.  It prints a rank's
+   state reckoned before the run (:func:`pod_tp_memory`), then each rank's
+   peak memory and ``mem_get_info``.
 
-Before each of phases 3-10 a ``[memory]`` line prints what the phases before
+Before each of phases 3-11 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds (and whether they passed ``TARGET_S``),
 the kernels' JSON record, the card's
@@ -557,8 +584,10 @@ TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
 # a recompute wrong on purpose (window 2048 in remat's calls) 0, 0.36 and
 # 6.1e-2.  The limits sit about twice and five times above the kernel.
 TRAIN_BF16_TOL = {"loss": 5e-4, "grad": 6e-2, "norm": 5e-3}
-# Full width: arch, rows per step, tokens per row, microbatches, steps.
-TRAIN = ("llama3.2-1b", 8, 4096, 8, 10)
+# Full width: arch, rows per step, tokens per row, microbatches, steps (10
+# before phase 11; 6 since, for the script's time: the 6th loss sat 0.33 %
+# below the 1st on an H100).
+TRAIN = ("llama3.2-1b", 8, 4096, 8, 6)
 # Phase 6(d): recurrentgemma-9b at published widths cut to 8 layers (two
 # (rec, rec, attn) super-blocks and the two tail rec layers): arch, layers,
 # rows per step, tokens per row, microbatches, steps.
@@ -644,20 +673,28 @@ INTERNVL2_TRAIN = ("internvl2-76b", 1, 4, 2048, 4, 4, 3e-4)
 # 1.226e-5, 8.75e-3 (embed.table) and 1.42e-4; a recompute without the
 # causal mask 0, 0.906 (the layer's ln2 scale) and 0.298.
 INTERNVL2_TRAIN_BF16_TOL = {"loss": 6e-5, "grad": 2e-2, "norm": 7e-4}
-# Phase 7: llama3.2-1b at published width and depth trained in 2 pods x 1
-# data, one rank a pod (two processes; they share the card where it is the
-# only one): arch, global rows, tokens per row, microbatches per rank (4 rows
-# each: phase 6(c)'s 1 x 4096 microbatch), steps per mode, peak learning
-# rate.  Warmup 0, so that the first update moves the parameters (local
-# mode's pods must part after step 1); 6(c)'s warmup of 2 would not.
-POD_TRAIN = ("llama3.2-1b", 8, 4096, 4, 3, 3e-4)
+# Phase 7: llama3.2-1b at published width trained in 2 pods x 1 data, one
+# rank a pod (two processes; they share the card where it is the only one):
+# arch, global rows, tokens per row, microbatches per rank (4 rows each:
+# phase 6(c)'s 1 x 4096 microbatch), steps per mode, peak learning rate.
+# Warmup 0, so that the first update moves the parameters (local mode's pods
+# must part after step 1); 6(c)'s warmup of 2 would not.  Cut from 3 steps a
+# mode to 2, and from 16 layers to POD_LAYERS, to make room for phase 11 in
+# the script's time: local's pods still part after step 1 and meet after
+# step 2 (its parting again after step 3, and int8's third step of error
+# feedback, are left to tests/test_torch_multipod_train.py on the CPU);
+# phase 11 trains every pod mode at published depth.
+POD_TRAIN = ("llama3.2-1b", 8, 4096, 4, 2, 3e-4)
+POD_LAYERS = 8
 POD_MESH = ((2, 1), ("pod", "data"))
 POD_MODES = (("flat", {"sync_mode": "flat"}), ("sync", {"sync_mode": "sync"}),
              ("sync+int8", {"sync_mode": "sync", "compress_int8": True}),
              ("local", {"sync_mode": "local", "sync_budget": 2}))
-# flat's step 1 against 6(c)'s step 1, relative: a mean of the same 8 rows'
-# losses from the same weights and kernels, summed in another order (a few
-# fp32 ulps, under 1e-6; it read 0 in every run on an H100).
+# flat's step 1 against one rank's step 1 of the same cut (6(c)'s batch and
+# microbatches at POD_LAYERS), relative: a mean of the same 8 rows' losses
+# from the same weights and kernels, summed in another order (a few fp32
+# ulps, under 1e-6; against 6(c)'s step 1 at 16 layers it read 0 in every
+# run on an H100).
 POD_FIRST_RTOL = 1e-6
 # flat against sync, step by step, relative.  Step 1 is again the same rows;
 # later steps apply gradients summed over other splits of the rows (flat
@@ -668,9 +705,9 @@ POD_FIRST_RTOL = 1e-6
 # and must read above this limit, and above POD_FIRST_RTOL against 6(c).
 POD_LOSS_RTOL = 5e-5
 # The planted fault: sync in which every rank takes pod 0's rows (a wrong
-# split of the batch), one step.
-POD_FAULT = ("fault: sync on pod 0's rows", {"sync_mode": "sync"})
-# sync with int8 against exact sync after three steps, absolute
+# split of the batch, :func:`pod_zero_rows`), one step.
+POD_FAULT = ("fault: sync on pod 0's rows", {"sync_mode": "sync"}, "pod_zero_rows", 1)
+# sync with int8 against exact sync after the last step, absolute
 # (tests/test_system.py's bound for the JAX package).
 POD_INT8_ATOL = 5e-3
 # Phase 8: FSDP and tensor parallelism from sharding/rules.py on a (data,
@@ -770,6 +807,28 @@ TPR_TRAIN = ((RG_TRAIN[0], {"num_layers": RG_TRAIN[1]}, *RG_TRAIN[2:5], 2, 3e-4,
 # ranks read 3.6e-4 and 3.8e-4, the fault 0.50 and 0.52.
 TPR_PROBE = (XLSTM_TRAIN[0], XLSTM_SLOPE[0], XLSTM_SLOPE[1], "blocks.b0.cell.w_up")
 TPR_GRAD_RTOL = 5e-3
+# Phase 11: pods combined with FSDP and tensor parallelism, the reference's
+# (pod, data, model) mesh: llama3.2-1b at published width and depth on (pod
+# 2, data 1, model 2), four ranks spawned as phase 7's (they share the card
+# where it is the only one), every pod holding its model ranks' blocks.
+# (a) serving phase 4's request (SERVE[0]: 8 x 1024 prompt, 32 tokens), each
+# pod its 4 rows, held to phase 4's one-rank logits within TP_LOGITS_RTOL;
+# (b) training phase 8's batch (TP_TRAIN: 4 rows x 4096 at lr 3e-4, warmup
+# 0): global rows, tokens per row, microbatches a rank (2 rows a pod, one row
+# each), steps in each of POD_MODES, peak learning rate; step 1 held to
+# phase 8's one-rank step 1 of the same weights and rows within TP_LOSS_RTOL
+# and TP_NORM_RTOL, flat to sync within POD_LOSS_RTOL, int8 to sync within
+# POD_INT8_ATOL.
+POD_TP_MESH = ((2, 1, 2), ("pod", "data", "model"))
+POD_TP_TRAIN = ("llama3.2-1b", 4, 4096, 2, 2, 3e-4)
+# The planted fault: the pod groups built across model ranks (pod 0's model
+# rank m with pod 1's model rank M-1-m, :func:`crossed_pod_group`), so that
+# a rank's blocks are summed with another rank's blocks of each leaf; two
+# steps of sync.  Step 1's loss comes before any exchange and cannot show
+# it: the pods' blocks at one (data, model) coordinate must part after step
+# 1, and step 2's loss must lie outside POD_LOSS_RTOL of sound sync's.
+POD_TP_FAULT = ("fault: pod groups across model ranks", {"sync_mode": "sync"},
+                "crossed_pod_group", 2)
 # The script's target time (ROADMAP), half of its 1200 s time limit: the
 # last line before the JSON says when a run went over it.
 TARGET_S = 600
@@ -1206,27 +1265,70 @@ def param_digest(params) -> int:
     return int(total)
 
 
-def pod_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
-    """One rank of phase 7, spawned (``launch.mesh.spawn_ranks``):
-    ``train(arch)`` on the ``POD_MESH`` in each mode of ``POD_MODES``, then
-    one step of ``POD_FAULT`` (``rank_rows`` patched to hand every rank pod
-    0's rows), with
+@contextlib.contextmanager
+def pod_zero_rows():
+    """Phase 7's planted fault: every rank takes pod 0's rows (``rank_rows``
+    patched in the steps' namespace), a wrong split of the batch."""
+    from repro_torch.launch import steps as steps_mod
+
+    real = steps_mod.rank_rows
+    steps_mod.rank_rows = lambda batch, mesh, *a: real(
+        batch, dataclasses.replace(mesh, coords={**mesh.coords, "pod": 0}), *a)
+    try:
+        yield
+    finally:
+        steps_mod.rank_rows = real
+
+
+@contextlib.contextmanager
+def crossed_pod_group():
+    """Phase 11's planted fault: meshes made in the block build each ``pod``
+    group of a 2-pod ``(pod, data, model)`` mesh across model ranks, pod 0's
+    model rank ``m`` with pod 1's model rank ``M - 1 - m`` (the data rank
+    kept), so that a rank's blocks are summed with another rank's blocks of
+    each leaf."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    real = mesh_mod.group_ranks
+
+    def crossed(sizes, span):
+        if tuple(span) != ("pod",):
+            return real(sizes, span)
+        D, M = sizes.get("data", 1), sizes.get("model", 1)
+        return [[d * M + m, (D + d) * M + M - 1 - m] for d in range(D) for m in range(M)]
+
+    mesh_mod.group_ranks = crossed
+    try:
+        yield
+    finally:
+        mesh_mod.group_ranks = real
+
+
+def pod_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None,
+             mesh_spec=POD_MESH, fault=POD_FAULT, over=None):
+    """One rank of phase 7 (and of 11), spawned (``launch.mesh.spawn_ranks``):
+    ``train(arch)`` (its config's fields ``over`` set by :func:`at_depth`)
+    on ``mesh_spec`` in each mode of ``POD_MODES``, then
+    ``fault[3]`` steps of ``fault`` (its run config, under the context
+    manager of this module named ``fault[2]``: phase 7's
+    :func:`pod_zero_rows`, 11's :func:`crossed_pod_group`), with
     ``build_train_step`` wrapped (in train's namespace) to count each step's
-    launches from zero and take a :func:`param_digest` after it (its own
-    seconds apart, after a device synchronisation).  Returns, per mode, the
-    history, the steps' launches, digests and digest seconds, the calls of
-    the plain versions, the groups' backends, the parameters' count and
-    leaves, the peak memory and ``mem_get_info`` at the end."""
+    launches from zero and take a :func:`param_digest` of the rank's
+    parameters (its blocks on a sharded mesh) after it (its own seconds
+    apart, after a device synchronisation).  Returns, per mode, the history,
+    the steps' launches, digests and digest seconds, the calls of the plain
+    versions, the groups' backends, the rank's coordinates, the parameters'
+    count, bytes and leaves, the moments' bytes, the peak memory and
+    ``mem_get_info`` at the end."""
     import torch
 
     from repro_torch.configs import RunConfig, ShapeConfig
-    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
 
-    real_step, real_rows, out = train_mod.build_train_step, steps_mod.rank_rows, []
-    for name, kw in POD_MODES + (POD_FAULT,):
+    real_step, out = train_mod.build_train_step, []
+    for name, kw, *_ in POD_MODES + (fault,):
         steps, seen = [], {}
-        mode_steps = 1 if name == POD_FAULT[0] else n_steps
+        mode_steps = fault[3] if name == fault[0] else n_steps
 
         def counted_step(model, run_, mesh=None):
             step = real_step(model, run_, mesh)
@@ -1247,11 +1349,10 @@ def pod_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
             return call
 
         train_mod.build_train_step = counted_step
-        if name == POD_FAULT[0]:
-            steps_mod.rank_rows = lambda batch, mesh, *a: real_rows(
-                batch, dataclasses.replace(mesh, coords={**mesh.coords, "pod": 0}), *a)
+        planted = globals()[fault[2]]() if name == fault[0] else contextlib.nullcontext()
         try:
-            with tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain:
+            with (tempfile.TemporaryDirectory() as tmp, counted_plain_calls() as plain,
+                  planted, at_depth(train_mod, None, **(over or {}))):
                 if device is None:
                     torch.cuda.reset_peak_memory_stats()
                 run = RunConfig(learning_rate=lr, warmup_steps=0, total_steps=n_steps,
@@ -1259,15 +1360,19 @@ def pod_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
                                 checkpoint_dir=tmp, **kw)
                 res = train_mod.train(arch, smoke=smoke, steps=mode_steps,
                                       shape=ShapeConfig("train_4k", seq, rows, "train"),
-                                      mesh_shape=POD_MESH[0], mesh_axes=POD_MESH[1], run=run,
+                                      mesh_shape=mesh_spec[0], mesh_axes=mesh_spec[1], run=run,
                                       log_every=1, device=device)
         finally:
-            train_mod.build_train_step, steps_mod.rank_rows = real_step, real_rows
-        params = res["final_state"]["params"]
+            train_mod.build_train_step = real_step
+        state = res["final_state"]
+        params = state["params"]
         rec = {"mode": name, "history": res["history"], "steps": steps, "plain": dict(plain),
                "n_params": sum(p.numel() for p in params.values()), "n_leaves": len(params),
+               "param_bytes": sum(p.numel() * p.element_size() for p in params.values()),
+               "moment_bytes": sum(t.numel() * t.element_size() for g in ("mu", "nu")
+                                   for t in state["opt"][g].values()),
                **seen}
-        del res, params
+        del res, state, params
         gc.collect()
         if device is None:
             torch.cuda.empty_cache()
@@ -1275,6 +1380,36 @@ def pod_rank(arch, rows, seq, micro, n_steps, lr, smoke=False, device=None):
             rec["free_total_gb"] = tuple(b / 1e9 for b in torch.cuda.mem_get_info())
         out.append(rec)
     return out
+
+
+def check_step_launches(who, steps, plain, per_step):
+    """Each training step's launches (``steps``: the counts of each step) of
+    ``per_step``'s keys equal it, flash's all on ``wgmma``, with no call of
+    a plain version (``plain``); ``per_step`` None, on the CPU: no launch."""
+    if per_step is not None and plain:
+        raise AssertionError(f"{who} called the plain versions {plain}")
+    for i, s in enumerate(steps):
+        got = {k: s[k] for k in (per_step or {})}
+        wgmma = {k: s.get(f"{k}:wgmma", 0) for k in ("flash_attention", "flash_attention_bwd")}
+        if per_step is None and any(s.values()):
+            raise AssertionError(f"{who}: launches on the CPU")
+        if per_step is not None and (got != per_step or any(
+                wgmma[k] != per_step[k] for k in wgmma)):
+            raise AssertionError(f"step {i + 1} {who}: launches {s}, expected {per_step}, "
+                                 "all wgmma")
+
+
+def pods_equal(recs):
+    """Per step, over the ranks' :func:`pod_rank` records of one mode: whether
+    the pods' parameters (their blocks on a sharded mesh) are bit-identical
+    at every ``(data, model)`` coordinate, by their digests."""
+    at = {}
+    for rec in recs:
+        c = rec["coords"]
+        at.setdefault((c.get("data", 0), c.get("model", 0)), []).append(
+            [s["digest"] for s in rec["steps"]])
+    return [all(len({d[i] for d in digests}) == 1 for digests in at.values())
+            for i in range(len(recs[0]["steps"]))]
 
 
 def pod_wire_bytes(mode, n_params, n_leaves, n_metrics, step, budget=2):
@@ -1302,11 +1437,12 @@ def pod_wire_bytes(mode, n_params, n_leaves, n_metrics, step, budget=2):
 def check_pod_training(ranks, first_loss, per_step, smi):
     """Phase 7's checks and lines over the ranks' :func:`pod_rank` records:
     (1) flat and sync agree step by step within ``POD_LOSS_RTOL``, their
-    first loss with ``first_loss`` (6(c)'s; None: not held) within
+    first loss with ``first_loss`` (one rank's step 1 of the same cut;
+    None: not held) within
     ``POD_FIRST_RTOL``, and the ``POD_FAULT`` run's loss lies outside both; (2)
     int8 within ``POD_INT8_ATOL`` of sync after the last step; (3) in local
-    mode the pods' parameters differ after steps 1 and 3 and are equal
-    after step 2 (the other modes: equal after every step); (4) each step's
+    mode the pods' parameters differ after odd steps and are equal after
+    even ones, the budget's (the other modes: equal after every step); (4) each step's
     wire bytes on each group equal :func:`pod_wire_bytes`; (5) each step's
     launches on each rank equal ``per_step``, all ``wgmma``, and no plain
     version is called (``per_step`` None, on the CPU: no launch, and the plain
@@ -1330,27 +1466,15 @@ def check_pod_training(ranks, first_loss, per_step, smi):
                 if got != want:
                     raise AssertionError(f"{mode} step {i + 1} rank {rank}: wire bytes {got}, "
                                          f"asymmetry's formulas {want}")
-        digests = [[s["digest"] for s in rec["steps"]] for rec in recs]
-        equal = [a == b for a, b in zip(*digests)]
+        equal = pods_equal(recs)
         want_equal = ([i % 2 == 1 for i in range(len(equal))] if mode == "local"
                       else [True] * len(equal))
         if equal != want_equal:
             raise AssertionError(f"{mode}: the pods' parameters equal after each step "
                                  f"{equal}, expected {want_equal}")
         for rank, rec in enumerate(recs):
-            if per_step is not None and rec["plain"]:
-                raise AssertionError(f"{mode} rank {rank} called the plain versions "
-                                     f"{rec['plain']}")
-            for i, s in enumerate(rec["steps"]):
-                got = {k: s["launches"][k] for k in (per_step or {})}
-                wgmma = {k: s["launches"].get(f"{k}:wgmma", 0) for k in ("flash_attention",
-                                                                         "flash_attention_bwd")}
-                if per_step is None and any(s["launches"].values()):
-                    raise AssertionError(f"{mode} rank {rank}: launches on the CPU")
-                if per_step is not None and (got != per_step or any(
-                        wgmma[k] != per_step[k] for k in wgmma)):
-                    raise AssertionError(f"{mode} step {i + 1} rank {rank}: launches "
-                                         f"{s['launches']}, expected {per_step}, all wgmma")
+            check_step_launches(f"{mode} rank {rank}", [st["launches"] for st in rec["steps"]],
+                                rec["plain"], per_step)
         step_s = [h["seconds_per_step"] - s["digest_s"]
                   for h, s in zip(hist, recs[0]["steps"])]
         exch = [sum(h["exchange_seconds"].values()) for h in hist]
@@ -1374,16 +1498,16 @@ def check_pod_training(ranks, first_loss, per_step, smi):
     rel = max(abs(a - b) / abs(b) for a, b in zip(flat, sync))
     first = abs(flat[0] - first_loss) / abs(first_loss) if first_loss is not None else 0.0
     print(f"[pods] flat against sync: largest relative loss gap {rel:.3e} (limit "
-          f"{POD_LOSS_RTOL}); step 1 against 6(c)'s step 1 ({first_loss}): {first:.3e} "
+          f"{POD_LOSS_RTOL}); step 1 against one rank's step 1 ({first_loss}): {first:.3e} "
           f"(limit {POD_FIRST_RTOL})")
     if rel > POD_LOSS_RTOL or first > POD_FIRST_RTOL:
-        raise AssertionError(f"flat {flat} and sync {sync} (6(c)'s step 1: {first_loss}) "
+        raise AssertionError(f"flat {flat} and sync {sync} (one rank's step 1: {first_loss}) "
                              f"differ beyond {POD_LOSS_RTOL} (step 1: {POD_FIRST_RTOL})")
     fault_rel = abs(fault - sync[0]) / abs(sync[0])
     fault_first = abs(fault - first_loss) / abs(first_loss) if first_loss is not None else None
     print(f"[pods] the planted fault ({POD_FAULT[0]}), step 1: loss {fault}, {fault_rel:.3e} "
           f"from sync's, {fault_first if fault_first is None else f'{fault_first:.3e}'} from "
-          f"6(c)'s; it must exceed {POD_LOSS_RTOL} and {POD_FIRST_RTOL}")
+          f"one rank's; it must exceed {POD_LOSS_RTOL} and {POD_FIRST_RTOL}")
     if not (fault_rel > POD_LOSS_RTOL and (fault_first is None or fault_first > POD_FIRST_RTOL)):
         raise AssertionError(f"the planted fault's loss {fault} lies within the limits of "
                              f"sync's {sync[0]}: the checks cannot tell a wrong split")
@@ -1538,7 +1662,7 @@ def tp_serve_wire_bytes(cfg, model_size, batch, positions):
 
 def recorded_model(rec, drops=None):
     """A ``Model`` that records into ``rec``: itself (``model``), its
-    parameter bytes, the prefill's last-token logits, and the launches and
+    parameter bytes, the prefill's rows and last-token logits, and the launches and
     wire bytes of the prefill and of each decode step; with ``drops`` (a
     :func:`counted_drops` log) the choices the prefill's MoE calls dropped."""
     from repro_torch.models import Model
@@ -1562,6 +1686,7 @@ def recorded_model(rec, drops=None):
             (logits, caches), rec["prefill_bytes"], rec["prefill_launches"] = self._call(
                 super().prefill, batch_, max_len)
             rec["logits"] = logits[:, -1].float().cpu().numpy()
+            rec["prefill_rows"] = int(logits.shape[0])
             if drops is not None:
                 rec["prefill_drops"] = [int(d) for d in drops[n:]]
             return logits, caches
@@ -1620,18 +1745,7 @@ def check_rank_steps(ranks, want, blocks, per_step):
             raise AssertionError(f"rank {rank} holds {r['param_bytes']} B of parameters and "
                                  f"{r['moment_bytes']} B of moments; its blocks by the rules "
                                  f"are {blocks[0]} and {blocks[1]} B")
-        if per_step is not None and r["plain"]:
-            raise AssertionError(f"rank {rank} called the plain versions {r['plain']}")
-        for i, s in enumerate(r["steps"]):
-            got = {k: s[k] for k in (per_step or {})}
-            wgmma = {k: s.get(f"{k}:wgmma", 0) for k in ("flash_attention",
-                                                         "flash_attention_bwd")}
-            if per_step is None and any(s.values()):
-                raise AssertionError(f"rank {rank}: launches on the CPU")
-            if per_step is not None and (got != per_step or any(
-                    wgmma[k] != per_step[k] for k in wgmma)):
-                raise AssertionError(f"step {i + 1} rank {rank}: launches {s}, expected "
-                                     f"{per_step}, all wgmma")
+        check_step_launches(f"rank {rank}", r["steps"], r["plain"], per_step)
     return losses
 
 
@@ -1672,7 +1786,7 @@ def tp_serve_rank(arch, batch, prompt_len, gen_len, smoke=False, device=None, ov
     out = {"tokens": res["tokens"].numpy(), "prefill_s": res["prefill_seconds"],
            "decode_ms": res["decode_seconds_per_token"] * 1e3, "launches": launches,
            "plain": dict(plain), "backends": dict(mesh.backends), "device": str(mesh.device),
-           **rec}
+           "coords": dict(mesh.coords), **rec}
     if device is None:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del res
@@ -1874,6 +1988,259 @@ def check_tp_training(ranks, cfg, ref, per_step, smi):
         raise AssertionError(f"the planted fault's step 1 {fault} lies within the limits of "
                              f"one rank's {ref}: the checks cannot tell")
     return gaps
+
+
+def pod_tp_wire_bytes(mode, cfg, shape, rows, seq, micro, n_metrics, step, n_rank,
+                      n_leaves, budget=2):
+    """The wire bytes per rank that one train step of ``mode`` must count on
+    each group of a ``(pod, data, model)`` mesh of ``shape``, by
+    ``core/asymmetry.py``'s formulas, for ``rows`` global rows of ``seq``
+    positions in ``micro`` microbatches a rank, a rank holding ``n_rank``
+    elements in ``n_leaves`` leaves: inside the pod what a pod's rows cost
+    on a ``(data, model)`` mesh (:func:`tp_wire_bytes`: FSDP's gathers and
+    reduce-scatters, TP's *g* and *f*; the global norm's sum on the pod's
+    own ranks), the ``n_metrics`` metrics averaged over the rows' ranks,
+    and over ``pod`` the rank's blocks alone: in ``flat`` and ``sync`` one
+    fp32 all-reduce of them (``micro`` above 1: the gradients are fp32
+    sums), under int8 the blocks' int8 and the leaves' scales all-gathered
+    (each scale first a max over the pod's own ranks), in ``local`` the
+    grad-norm averaged and every ``budget`` steps the parameter blocks in
+    fp32."""
+    from repro_torch.core.asymmetry import all_gather_wire_bytes, allreduce_wire_bytes
+
+    P, D, M = shape
+    mesh = cpu_mesh(shape, ("pod", "data", "model"))
+    own, rows_axes = mesh.group_name(("data", "model")), mesh.group_name(("pod", "data"))
+    pod = mesh.group_name(("pod",))
+    out = {}
+
+    def add(group, b):
+        if b:
+            out[group] = out.get(group, 0.0) + b
+
+    for group, b in tp_wire_bytes(cfg, (D, M), rows // P, seq, micro, 0).items():
+        add(own if group == "world" else group, b)
+    add(rows_axes, allreduce_wire_bytes(4 * n_metrics, P * D))
+    if mode in ("flat", "sync"):
+        add(pod, allreduce_wire_bytes(4 * n_rank, P))
+    elif mode == "sync+int8":
+        add(own, allreduce_wire_bytes(4 * n_leaves, D * M))
+        add(pod, all_gather_wire_bytes(P * n_rank, P) + all_gather_wire_bytes(P * 4 * n_leaves, P))
+    else:
+        add(pod, allreduce_wire_bytes(4, P)
+            + (allreduce_wire_bytes(4 * n_rank, P) if step % budget == 0 else 0.0))
+    return out
+
+
+def pod_tp_rank(serving, training, smoke=False, device=None):
+    """One rank of phase 11, spawned: :func:`tp_serve_rank` of ``serving``
+    (arch, rows, prompt, generated tokens) on ``POD_TP_MESH`` with no fault,
+    then :func:`pod_rank` of ``training`` (arch, rows, tokens per row,
+    microbatches, steps, peak lr) on it, each mode of ``POD_MODES`` and then
+    ``POD_TP_FAULT``."""
+    serve = tp_serve_rank(*serving, smoke, device, None, POD_TP_MESH, None)
+    return {"serve": serve,
+            "train": pod_rank(*training, smoke, device, POD_TP_MESH, POD_TP_FAULT)}
+
+
+def pod_tp_memory(cfg) -> str:
+    """Phase 11's reckoning of a rank's state on ``POD_TP_MESH``, before the
+    run: the rank's blocks of the parameters (bf16) and of the fp32 AdamW
+    moments by the rules, the fp32 gradient sums (``micro`` above 1), int8's
+    ``ef`` (one fp32 block), and init's draw of the whole tree on the rank
+    before it keeps its blocks; activations come on top."""
+    P, D, M = POD_TP_MESH[0]
+    params, moments = shard_bytes(cfg, (D, M))
+    whole = shard_bytes(cfg, (1, 1))[0]
+    blocks = moments // 8
+    return (f"parameter blocks {params / 1e9:.3f} GB, moments {moments / 1e9:.3f} GB, fp32 "
+            f"gradient sums {4 * blocks / 1e9:.3f} GB, int8's ef {4 * blocks / 1e9:.3f} GB, "
+            f"init's whole draw {whole / 1e9:.3f} GB: state "
+            f"{(params + moments + 4 * blocks) / 1e9:.3f} GB, "
+            f"{(params + moments + 8 * blocks) / 1e9:.3f} GB under int8, plus one microbatch's "
+            f"activations (1 x {POD_TP_TRAIN[2]} at {cfg.num_heads // M} heads)")
+
+
+def check_pod_tp_serving(ranks, cfg, batch, prompt_len, ref_logits, ref_tokens, smi):
+    """Phase 11(a)'s checks and lines over the ranks' :func:`tp_serve_rank`
+    records on ``POD_TP_MESH``, against phase 4's one-rank ``ref_logits``
+    (numpy ``[batch, V]``) and ``ref_tokens``: each rank's prefill held
+    ``batch / (P·D)`` rows, its pod and data rank's share, pod-major (not
+    the whole batch: the rows split over ``(pod, data)``); its last-token
+    logits within ``TP_LOGITS_RTOL`` in relative L2 of the one rank's for
+    those rows; every rank's tokens equal, their first ones the one rank's;
+    the ``model`` group's bytes of the prefill and of each decode step equal
+    :func:`tp_serve_wire_bytes` at the rank's rows; on the card (``smi`` not
+    None) one flash launch an attention layer a prefill on ``wgmma``, none
+    in decode, and no call of a plain version (on the CPU: no launch).
+    Returns the largest relative L2."""
+    import numpy as np
+
+    P, D, M = POD_TP_MESH[0]
+    share = batch // (P * D)
+    worst, gaps = 0.0, []
+    for rank, r in enumerate(ranks):
+        i = r["coords"]["pod"] * D + r["coords"]["data"]
+        want = ref_logits[i * share:(i + 1) * share]
+        gap = float(np.linalg.norm(r["logits"] - want) / np.linalg.norm(want))
+        worst, gaps = max(worst, gap), gaps + [gap]
+        if r["prefill_rows"] != share:
+            raise AssertionError(f"rank {rank} {r['coords']}: its prefill held "
+                                 f"{r['prefill_rows']} rows, its (pod, data) share is {share} "
+                                 f"of {batch}")
+        if not gap <= TP_LOGITS_RTOL:
+            raise AssertionError(f"rank {rank}: prefill logits {gap:.3e} from one rank's "
+                                 f"(limit {TP_LOGITS_RTOL})")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"rank {rank}'s tokens differ from rank 0's")
+        if not np.array_equal(r["tokens"][:, 0], ref_tokens[:, 0]):
+            raise AssertionError(f"rank {rank}: first tokens {r['tokens'][:, 0]} differ from "
+                                 f"one rank's {ref_tokens[:, 0]}")
+        for what, got, want_b in (
+                ("prefill", [r["prefill_bytes"]], tp_serve_wire_bytes(cfg, M, share, prompt_len)),
+                ("decode", r["decode_bytes"], tp_serve_wire_bytes(cfg, M, share, 1))):
+            if any(g != want_b for g in got):
+                raise AssertionError(f"rank {rank}: {what} wire bytes {got[:2]}, asymmetry's "
+                                     f"formulas {want_b}")
+        flash = {k: v for k, v in r["prefill_launches"].items() if v}
+        decode = {k: v for d in r["decode_launches"] for k, v in d.items() if v}
+        if smi is not None:
+            n = forward_flash_calls(cfg)
+            if (flash != {"flash_attention": n, "flash_attention:wgmma": n} or decode
+                    or r["plain"]):
+                raise AssertionError(f"rank {rank}: prefill launches {flash}, decode {decode}, "
+                                     f"plain versions {r['plain']}; expected {n} flash, all "
+                                     "wgmma, and no plain call")
+        elif flash or decode:
+            raise AssertionError(f"rank {rank}: launches on the CPU")
+    same = int((ranks[0]["tokens"] == ref_tokens).sum())
+    print(f"[podtp] serving {cfg.name} on {dict(zip(*reversed(POD_TP_MESH)))}: each rank's "
+          f"prefill held {[r['prefill_rows'] for r in ranks]} of {batch} rows; prefill logits "
+          f"against one rank's, relative L2 {[round(g, 6) for g in gaps]} (limit "
+          f"{TP_LOGITS_RTOL}); first tokens equal; {same} of {ref_tokens.size} tokens equal one "
+          f"rank's; prefill s {[round(r['prefill_s'], 4) for r in ranks]}, decode ms/token "
+          f"{[round(r['decode_ms'], 3) for r in ranks]}; model-group wire bytes per prefill "
+          f"{ranks[0]['prefill_bytes']} and per token {ranks[0]['decode_bytes'][0]} = "
+          f"asymmetry's formulas; flash launches per rank and prefill "
+          f"{[r['prefill_launches'].get('flash_attention', 0) for r in ranks]} (wgmma "
+          f"{[r['prefill_launches'].get('flash_attention:wgmma', 0) for r in ranks]}); calls of "
+          f"the plain versions {ranks[0]['plain']}; backends {ranks[0]['backends']}; {smi}")
+    one = shard_bytes(cfg, (1, 1))[0]
+    for rank, r in enumerate(ranks):
+        print(f"[podtp] serving rank {rank} {r['coords']} on {r['device']}: parameters "
+              f"{r['param_bytes']} B against one rank's {one} B ({r['param_bytes'] / one:.4f})"
+              + (f", peak memory {r['peak_gb']:.2f} GB" if "peak_gb" in r else ""))
+    return worst
+
+
+def check_pod_tp_training(ranks, cfg, ref, per_step, smi):
+    """Phase 11(b)'s checks and lines over the ranks' :func:`pod_rank`
+    records on ``POD_TP_MESH`` (``POD_TP_TRAIN``): in each mode every rank's
+    losses equal; each step's wire bytes on each group equal
+    :func:`pod_tp_wire_bytes`; each rank's parameter and moment bytes its
+    blocks' by the rules (:func:`shard_bytes`); the pods' blocks at each
+    ``(data, model)`` coordinate bit-identical after every step of flat,
+    sync and int8, and in local parted after odd steps and equal after even
+    ones; each step's launches ``per_step``, all ``wgmma``, with no plain
+    call (``per_step`` None, on the CPU: no launch); step 1's loss and
+    grad-norm of sync and flat within ``TP_LOSS_RTOL`` and ``TP_NORM_RTOL``
+    of ``ref`` (a one-rank step 1 of the same weights and rows; None: not
+    held), flat within ``POD_LOSS_RTOL`` of sync at every step, int8 within
+    ``POD_INT8_ATOL`` after the last; and ``POD_TP_FAULT``'s run must part
+    the pods' blocks after step 1 and lie outside ``POD_LOSS_RTOL`` of
+    sync's step 2.  Returns each mode's losses."""
+    arch, rows, seq, micro, n_steps, lr = POD_TP_TRAIN
+    P, D, M = POD_TP_MESH[0]
+    blocks = shard_bytes(cfg, (D, M))
+    by_mode = {rec["mode"]: [r[i] for r in ranks] for i, rec in enumerate(ranks[0])}
+
+    fault = by_mode.pop(POD_TP_FAULT[0])
+    losses, equal = {}, {}
+    for mode, recs in by_mode.items():
+        hist = recs[0]["history"]
+        losses[mode] = [h["loss"] for h in hist]
+        n_metrics = len(set(hist[0]) - {"grad_norm", "step", "seconds_per_step",
+                                        "wire_bytes", "exchange_seconds"})
+        for rank, rec in enumerate(recs):
+            if [h["loss"] for h in rec["history"]] != losses[mode]:
+                raise AssertionError(f"{mode}: rank {rank}'s losses differ from rank 0's")
+            if (rec["param_bytes"], rec["moment_bytes"]) != blocks:
+                raise AssertionError(f"{mode} rank {rank} holds {rec['param_bytes']} B of "
+                                     f"parameters and {rec['moment_bytes']} B of moments; its "
+                                     f"blocks by the rules are {blocks}")
+            for i, h in enumerate(rec["history"]):
+                want = pod_tp_wire_bytes(mode, cfg, POD_TP_MESH[0], rows, seq, micro, n_metrics,
+                                         i + 1, rec["n_params"], rec["n_leaves"])
+                if h["wire_bytes"] != want:
+                    raise AssertionError(f"{mode} step {i + 1} rank {rank}: wire bytes "
+                                         f"{h['wire_bytes']}, asymmetry's formulas {want}")
+            check_step_launches(f"{mode} rank {rank}", [st["launches"] for st in rec["steps"]],
+                                rec["plain"], per_step)
+        equal[mode] = pods_equal(recs)
+        want_equal = ([i % 2 == 1 for i in range(n_steps)] if mode == "local"
+                      else [True] * n_steps)
+        if equal[mode] != want_equal:
+            raise AssertionError(f"{mode}: the pods' blocks equal after each step "
+                                 f"{equal[mode]}, expected {want_equal}")
+        step_s = [h["seconds_per_step"] - s["digest_s"] for h, s in zip(hist, recs[0]["steps"])]
+        print(f"[podtp] {mode}: losses {losses[mode]}, grad-norms "
+              f"{[round(h['grad_norm'], 6) for h in hist]}; s per step "
+              f"{[round(t, 4) for t in step_s]}, exchange s per step "
+              f"{[{g: round(t, 4) for g, t in h['exchange_seconds'].items()} for h in hist]}; "
+              f"wire bytes per step {[h['wire_bytes'] for h in hist]} = asymmetry's formulas; "
+              f"pods' blocks equal after each step {equal[mode]}; launches per step and rank "
+              f"{ {k: c for k, c in recs[0]['steps'][0]['launches'].items() if c} }; calls of "
+              f"the plain versions {recs[0]['plain']}; {smi}")
+        for rank, rec in enumerate(recs):
+            if "peak_gb" in rec:
+                print(f"[podtp] {mode} rank {rank} {rec['coords']} on {rec['device']}: peak "
+                      f"memory {rec['peak_gb']:.2f} GB, mem_get_info free "
+                      f"{rec['free_total_gb'][0]:.2f} of {rec['free_total_gb'][1]:.2f} GB")
+    from repro_torch.models import model_specs
+    from repro_torch.sharding.shard import named_leaves
+
+    rec0 = by_mode["sync"][0]
+    one = shard_bytes(cfg, (1, 1))
+    pod_b = rec0["history"][0]["wire_bytes"][cpu_mesh(*POD_TP_MESH).group_name(("pod",))]
+    n_whole = sum(math.prod(spec.shape) for _, spec in named_leaves(model_specs(cfg)))
+    whole_b = pod_wire_bytes("sync", n_whole, 0, 0, 1)["pod"]
+    print(f"[podtp] each rank's parameters {rec0['param_bytes']} B and moments "
+          f"{rec0['moment_bytes']} B = its blocks by the rules, "
+          f"{(rec0['param_bytes'] + rec0['moment_bytes']) / sum(one):.4f} of one rank's "
+          f"{sum(one) / 1e9:.3f} GB; sync's pod bytes a rank and step {pod_b} against a whole "
+          f"replica's {whole_b} (phase 7's formula): {pod_b / whole_b:.4f}")
+    flat, sync = losses["flat"], losses["sync"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(flat, sync))
+    gaps = {m: (abs(losses[m][0] - ref[0]) / abs(ref[0]),
+                abs(by_mode[m][0]["history"][0]["grad_norm"] - ref[1]) / ref[1])
+            for m in ("sync", "flat")} if ref is not None else {}
+    int8 = abs(losses["sync+int8"][-1] - sync[-1])
+    f_hist = fault[0]["history"]
+    f_equal = pods_equal(fault)
+    f_rel = abs(f_hist[-1]["loss"] - sync[len(f_hist) - 1]) / abs(sync[len(f_hist) - 1])
+    print(f"[podtp] step 1 against phase 8's one rank (loss, grad-norm {ref}): "
+          f"{ {m: (f'{a:.3e}', f'{b:.3e}') for m, (a, b) in gaps.items()} } (limits "
+          f"{TP_LOSS_RTOL}, {TP_NORM_RTOL}); flat against sync: largest relative loss gap "
+          f"{rel:.3e} (limit {POD_LOSS_RTOL}); int8 against exact sync after step {len(sync)}: "
+          f"{int8:.3e} (limit {POD_INT8_ATOL})")
+    print(f"[podtp] the planted fault ({POD_TP_FAULT[0]}): losses "
+          f"{[h['loss'] for h in f_hist]}, pods' blocks equal after each step {f_equal}; step "
+          f"{len(f_hist)} {f_rel:.3e} from sync's; it must part the pods and exceed "
+          f"{POD_LOSS_RTOL}")
+    for m, (a, b) in gaps.items():
+        if a > TP_LOSS_RTOL or b > TP_NORM_RTOL:
+            raise AssertionError(f"{m} step 1: loss and grad-norm {a:.3e}, {b:.3e} from one "
+                                 f"rank's {ref}")
+    if rel > POD_LOSS_RTOL:
+        raise AssertionError(f"flat {flat} and sync {sync} differ beyond {POD_LOSS_RTOL}")
+    if not int8 < POD_INT8_ATOL:
+        raise AssertionError(f"int8 loss {losses['sync+int8'][-1]} is {int8} from exact "
+                             f"{sync[-1]}")
+    if all(f_equal) or not f_rel > POD_LOSS_RTOL:
+        raise AssertionError(f"the planted fault (pods equal {f_equal}, step {len(f_hist)} "
+                             f"{f_rel:.3e} from sync's) lies within the checks: they cannot "
+                             "tell a pod group across model ranks")
+    return losses
 
 
 def ep_config(smoke=False):
@@ -2218,6 +2585,20 @@ def ep_train_rank(rows, seq, micro, n_steps, lr, smoke=False, device=None):
     out["fault"] = (float(m["loss"]), float(m["grad_norm"]))
     out["island_gap"], out["fault_island_gap"] = sound[0], wrong[0]
     return out
+
+
+def ep_rank(serving, training, smoke=False, device=None):
+    """One rank of phase 9, spawned: :func:`ep_serve_rank` of ``serving``
+    (rows, prompt, generated tokens), then, in the same process,
+    :func:`ep_train_rank` of ``training`` (rows, tokens per row,
+    microbatches, steps, peak lr)."""
+    import torch
+
+    serve = ep_serve_rank(*serving, smoke, device)
+    gc.collect()
+    if device is None:
+        torch.cuda.empty_cache()
+    return {"serve": serve, "train": ep_train_rank(*training, smoke, device)}
 
 
 def check_ep_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
@@ -4028,7 +4409,12 @@ def main() -> int:
         before = torch.cuda.memory_allocated()
         gc.collect()
         print(f"[memory] allocated before phase {phase}: {before / 1e9:.3f} GB, "
-              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB after a garbage collection")
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB after a garbage collection; "
+              f"{time.perf_counter() - started:.1f} s into the run")
+
+    def mark(part):
+        """When a part of a phase starts, for the script's time budget."""
+        print(f"[time] {part} starts {time.perf_counter() - started:.1f} s into the run")
 
     # -------------------------------- 3. port vs its plain path, small input --
     held(3)
@@ -4454,6 +4840,7 @@ def main() -> int:
         if launches != expect:
             raise AssertionError(f"{arch} smoke training launched {launches}, expected {expect}")
 
+    mark("6(b)")
     # (b) Resume on the card.
     with tempfile.TemporaryDirectory() as tmp:
         whole, resumed = resumed_losses("llama3.2-1b", dev, tmp)
@@ -4463,6 +4850,7 @@ def main() -> int:
         raise AssertionError("the resumed run's losses differ from the uninterrupted run's")
     torch.cuda.empty_cache()
 
+    mark("6(c)")
     # (c) The main path's second half: full-width llama3.2-1b training.
     arch, rows, seq, micro, n_steps = TRAIN
     full = get_config(arch)
@@ -4484,7 +4872,6 @@ def main() -> int:
     n_params = sum(t.numel() for t in res["final_state"]["params"].values())
     del res
     torch.cuda.empty_cache()
-    train_first_loss = hist[0]["loss"]  # held against phase 7's first step
     for h in hist:
         print(f"[train] {arch} full width step {h['step']}: loss {h['loss']:.6f}, grad-norm "
               f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s")
@@ -4609,6 +4996,7 @@ def main() -> int:
         records[(name, "llama3-8b train")]["launches"] = launches[name]
     torch.cuda.empty_cache()
 
+    mark("6(d)")
     # (d) recurrentgemma-9b training at published widths, cut to 8 layers,
     # through train() with get_config patched in its namespace for the call.
     arch, layers, rows, seq, micro, n_steps = RG_TRAIN
@@ -4742,6 +5130,7 @@ def main() -> int:
     records[("rglru_scan_bwd", f"{arch} train")]["ms_in_step"] = per_call["scan"]
     records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = per_call["attention"]
 
+    mark("6(e)")
     # (e) xlstm-1.3b at published width and depth: its blocks launch no kernel
     # of the port, and the sLSTM's loop over time runs on the host.
     arch, layers, rows, seq, micro, n_steps, lr = XLSTM_TRAIN
@@ -4852,6 +5241,7 @@ def main() -> int:
         raise AssertionError(f"{arch}'s gradient predicts a change of {predicted} along it, "
                              f"the loss moved {measured}")
 
+    mark("6(f)")
     # (f) hubert-xlarge at published width and depth through train(): every
     # step's launches counted from zero, then one microbatch through the
     # kernels against the plain versions.
@@ -5028,9 +5418,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------ 7. training in pods --
-    # llama3.2-1b at published width and depth on a 2 pods x 1 data mesh, two
-    # ranks spawned (they share the card where it is the only one), in each
-    # pod mode; each rank's launches counted from zero around each step.
+    # llama3.2-1b at published width, cut to POD_LAYERS layers, on a 2 pods x
+    # 1 data mesh, two ranks spawned (they share the card where it is the
+    # only one), in each pod mode, held to one rank's step 1 of the same cut
+    # made here first; each rank's launches counted from zero around each
+    # step.
     held(7)
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
@@ -5047,12 +5439,18 @@ def main() -> int:
     else:
         print(f"[pods] {n_ranks} ranks, each on its own {name} ({limit})")
     t0 = time.perf_counter()
-    ranks = spawn_ranks(pod_rank, n_ranks, (arch, rows, seq, micro, n_steps, lr), timeout=900)
-    check_pod_training(ranks, train_first_loss,
-                       expected_launches(layer_plan(get_config(arch)), micro), smi)
-    print(f"[pods] {arch} at published width and depth, {rows} x {seq} tokens a step over "
-          f"{n_ranks} ranks ({micro} microbatches of one row each), {n_steps} steps in each of "
-          f"{[m for m, _ in POD_MODES]} at lr {lr}: phase 7 took "
+    cut = {"num_layers": POD_LAYERS}
+    first_loss, _ = one_rank_step(arch, cut, rows, seq, TRAIN[3], lr, 0)
+    print(f"[pods] one rank's step 1 at {POD_LAYERS} layers, 6(c)'s batch in {TRAIN[3]} "
+          f"microbatches: loss {first_loss}, in {time.perf_counter() - t0:.1f} s")
+    ranks = spawn_ranks(pod_rank, n_ranks, (arch, rows, seq, micro, n_steps, lr, False, None,
+                                            POD_MESH, POD_FAULT, cut), timeout=900)
+    check_pod_training(ranks, first_loss,
+                       expected_launches(layer_plan(get_config(arch).with_overrides(**cut)),
+                                         micro), smi)
+    print(f"[pods] {arch} at published width, {POD_LAYERS} of 16 layers, {rows} x {seq} tokens "
+          f"a step over {n_ranks} ranks ({micro} microbatches of one row each), {n_steps} steps "
+          f"in each of {[m for m, _ in POD_MODES]} at lr {lr}: phase 7 took "
           f"{time.perf_counter() - t0:.1f} s; {smi}")
 
     # ------------------------------- 8. FSDP and tensor parallelism --
@@ -5075,6 +5473,7 @@ def main() -> int:
     records[("flash_attention", f"{arch} model 2")]["launches"] = (
         ranks[0]["launches"]["flash_attention"])
     del ranks
+    mark("8(b)")
     arch, rows, seq, micro, n_steps, lr = TP_TRAIN
     n_data = TP_TRAIN_MESH[0][0]
     with tempfile.TemporaryDirectory() as tmp:
@@ -5085,6 +5484,7 @@ def main() -> int:
                                   microbatches=n_data * micro, checkpoint_every=10 ** 9,
                                   checkpoint_dir=tmp), log_every=1, device="cuda")
     ref = (one["history"][0]["loss"], one["history"][0]["grad_norm"])
+    tp_first = ref  # held again in phase 11
     del one
     gc.collect()
     torch.cuda.empty_cache()
@@ -5127,19 +5527,21 @@ def main() -> int:
           f"{ref_train[0]}, grad-norm {ref_train[1]}; before the ranks this process holds "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, mem_get_info free {free / 1e9:.2f} "
           f"of {total / 1e9:.2f} GB")
-    ranks = spawn_ranks(ep_serve_rank, n_ranks, (batch, prompt_len, gen_len), timeout=600)
-    check_ep_serving(ranks, cfg, batch, prompt_len, ref_logits, smi)
-    records[("flash_attention", f"{arch} model 2")]["launches"] = (
-        ranks[0]["launches"]["flash_attention"])
+    mark("9's ranks")
+    ranks = spawn_ranks(ep_rank, n_ranks, ((batch, prompt_len, gen_len),
+                                           (rows, seq, micro, n_steps, lr)), timeout=900)
+    serving, training = [r["serve"] for r in ranks], [r["train"] for r in ranks]
     del ranks
-    ranks = spawn_ranks(ep_train_rank, n_ranks, (rows, seq, micro, n_steps, lr), timeout=900)
-    check_ep_training(ranks, cfg, ref_train, expected_launches(layer_plan(cfg), micro), smi)
+    check_ep_serving(serving, cfg, batch, prompt_len, ref_logits, smi)
+    records[("flash_attention", f"{arch} model 2")]["launches"] = (
+        serving[0]["launches"]["flash_attention"])
+    check_ep_training(training, cfg, ref_train, expected_launches(layer_plan(cfg), micro), smi)
     for name in ("flash_attention", "flash_attention_bwd"):
         rec = records[(name, f"{arch} model 2 train")]
-        rec["launches"] = sum(s[name] for s in ranks[0]["steps"])
+        rec["launches"] = sum(s[name] for s in training[0]["steps"])
         rec["launches_per_step"] = rec["launches"] // n_steps
         rec["launches_note"] = f"rank 0's of {n_ranks} ranks"
-    del ranks
+    del serving, training
     print(f"[ep] {arch} at published widths, {cfg.num_layers} of 60 layers: served on "
           f"{EP_MESH[0]} and trained {n_steps} steps of {rows} x {seq} tokens over "
           f"{EP_MESH[1]}: phase 9 took {time.perf_counter() - t9:.1f} s; {smi}")
@@ -5175,6 +5577,7 @@ def main() -> int:
     print(f"[tpr] one-rank references in {time.perf_counter() - t10:.1f} s (the prefills; "
           f"step 1 of 6(d) and of xlstm-1.3b's fp32 run, {tpr_first}; the probe's fp32 "
           "gradient)")
+    mark("10's ranks")
     ranks = spawn_ranks(tp_recurrent_rank, n_ranks, (TPR_SERVE, TPR_TRAIN, TPR_PROBE),
                         timeout=900)
     for i, (arch, over, batch, prompt_len, gen_len, _) in enumerate(TPR_SERVE):
@@ -5202,6 +5605,32 @@ def main() -> int:
     print(f"[tpr] recurrentgemma-9b and xlstm-1.3b at published widths cut to 8 layers, served "
           f"and trained on {TPR_MESH[0]} over {TPR_MESH[1]}: phase 10 took "
           f"{time.perf_counter() - t10:.1f} s; {smi}")
+
+    # ------------ 11. pods combined with FSDP and tensor parallelism --
+    # llama3.2-1b at published width and depth on (pod 2, data 1, model 2):
+    # (a) phase 4's request served, each pod its rows; (b) phase 8's batch
+    # trained in every pod mode, held to phase 8's one-rank step 1, and the
+    # planted fault; each rank's launches counted from zero.
+    held(11)
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    cfg = get_config(POD_TP_TRAIN[0])
+    n_ranks = math.prod(POD_TP_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    print(f"[podtp] {n_ranks} ranks sharing one {name} ({limit}); the pod and model groups' "
+          "exchanges over gloo through host memory" if torch.cuda.device_count() < n_ranks
+          else f"[podtp] {n_ranks} ranks, each on its own {name} ({limit})")
+    print("[podtp] reckoned before the run, per rank: " + pod_tp_memory(cfg))
+    serving, training = SERVE[0][:4], POD_TP_TRAIN
+    ranks = spawn_ranks(pod_tp_rank, n_ranks, (serving, training), timeout=900)
+    check_pod_tp_serving([r["serve"] for r in ranks], cfg, serving[1], serving[2],
+                         tp_ref_logits, served[serving[0]]["tokens"].numpy(), smi)
+    check_pod_tp_training([r["train"] for r in ranks], cfg, tp_first,
+                          expected_launches(layer_plan(cfg), POD_TP_TRAIN[3]), smi)
+    del ranks
+    print(f"[podtp] {cfg.name} at published width and depth: served and trained on "
+          f"{POD_TP_MESH[0]} over {POD_TP_MESH[1]}: phase 11 took "
+          f"{time.perf_counter() - t11:.1f} s; {smi}")
 
     ran = time.perf_counter() - started
     print(f"[time] chip_smoke.py ran {ran:.1f} s"

@@ -129,79 +129,83 @@ class SyncConfig(NamedTuple):
     pod_axis: str = "pod"
 
 
-def _ef_quantize(x: torch.Tensor, err: torch.Tensor
+def _ef_quantize(x: torch.Tensor, err: torch.Tensor, absmax: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """int8 quantisation with error feedback. Returns (q, scale, new_err):
     ``y = x + err`` (fp32 for an fp32 ``err``), one fp32 scale over all of
-    ``y``, and ``y`` less its dequantisation in ``x``'s dtype."""
+    ``y`` (``absmax``: the largest ``|y|`` of the whole leaf, where ``x`` is
+    a block of it), and ``y`` less its dequantisation in ``x``'s dtype."""
     y = x + err
-    scale = torch.clamp(y.abs().max(), min=1e-30) / 127.0
+    scale = torch.clamp(y.abs().max() if absmax is None else absmax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
     deq = q.to(x.dtype) * scale.to(x.dtype)
     return q, scale, y - deq
 
 
 @torch.no_grad()
-def _int8_pod_mean(grads: Tree, ef: Tree, mesh, axis: str = "pod") -> Tree:
-    """The mean of every rank's ``grads`` over the pod's ranks and then over
-    pods, where the pod hop carries int8 with error feedback: the
-    reference's ``_int8_pod_mean`` (``launch/steps.py``), one fp32 scale per
-    leaf per pod, over the pod's whole gradient.  The pod's gradient is
-    averaged over ``data`` in each leaf's dtype (every data rank then holds
-    it whole, and quantises it as the others do, so ``ef`` stays one replica
-    per pod); rank ``d`` sends only its ``1/D`` fragment of the int8 payload
-    over ``axis`` (P·n/D int8 bytes on the wire in place of 2(P-1)/P·4n/D for
-    an fp32 all-reduce: 4× less for P=2), with the scales; the dequantised
-    sum, in each leaf's dtype, is gathered back over ``data``.  ``ef`` is
-    updated in place; ``grads`` is emptied, each leaf let go once it is
-    quantised, and the sum is taken in slices of ``CHUNK_ELEMENTS``, so that
-    no whole-gradient temporary outlives its use."""
+def int8_block_mean(grads: Tree, ef: Tree, mesh, axis: str = "pod",
+                    scale_axes: Tuple[str, ...] = ("data", "model")) -> Tree:
+    """The mean over pods of every rank's gradient *blocks* (FSDP's and
+    TP's, already averaged inside the pod), where the pod hop carries int8
+    with error feedback: the reference's ``_int8_pod_mean``, whose leaves
+    enter its ``shard_map`` whole over ``data`` and ``model`` and take one
+    fp32 scale per leaf per pod.  So each block is quantised with its
+    *leaf's* scale: the largest ``|g + ef|`` of the block, then a max over
+    the pod's own ranks (``scale_axes``); a leaf that several ranks hold
+    alike is quantised alike on each.  The int8 blocks and the scales are
+    all-gathered over ``axis`` (``P·n`` int8 bytes for a rank of ``n``
+    elements), and the dequantised blocks summed and divided by ``P`` in
+    each leaf's dtype.  ``ef`` (one fp32 block a rank) is updated in place;
+    ``grads`` is emptied, each leaf let go once it is quantised, and the sum
+    is taken in slices of ``CHUNK_ELEMENTS``."""
     from ..launch.mesh import CHUNK_ELEMENTS  # the mesh module imports this package
 
-    P, D, d = mesh.size(axis), mesh.size("data"), mesh.coords.get("data", 0)
-    g = dict(bucket_mean(grads, mesh, "data"))
-    grads.clear()
-    layout, n = _layout(g)
-    some = next(iter(g.values()))
-    q = torch.zeros(n + (-n) % D, dtype=torch.int8, device=some.device)
+    P = mesh.size(axis)
+    layout, n = _layout(grads)
+    some = next(iter(grads.values()))
+    absmax = torch.stack([(grads[key].float() + ef[key]).abs().max()
+                          for key, *_ in layout]).float()
+    mesh.all_reduce(absmax, scale_axes, "max")
+    q = torch.empty(n, dtype=torch.int8, device=some.device)
     scales = torch.empty(len(layout), dtype=torch.float32, device=some.device)
     for i, (key, _, _, o, size) in enumerate(layout):
-        qi, scales[i], new_e = _ef_quantize(g.pop(key), ef[key])
-        q[o:o + size].copy_(qi.view(-1))
+        qi, scales[i], new_e = _ef_quantize(grads.pop(key), ef[key], absmax[i])
+        q[o:o + size].copy_(qi.reshape(-1))
         ef[key].copy_(new_e)
         del qi, new_e
-    f = q.numel() // D
-    lo = d * f
-    qs = mesh.all_gather(q[lo:lo + f], axis).view(P, f)     # int8 on the slow fabric
+    qs = mesh.all_gather(q, axis).view(P, n)             # int8 on the slow fabric
     del q
     ss = mesh.all_gather(scales, axis).view(P, len(layout))
-    out = torch.zeros(f, dtype=torch.float32, device=some.device)
-    for i, (_, _, dtype, o, size) in enumerate(layout):
-        for a in range(max(o, lo), min(o + size, lo + f), CHUNK_ELEMENTS):
-            b = min(a + CHUNK_ELEMENTS, o + size, lo + f)
-            deq = qs[:, a - lo:b - lo].to(dtype) * ss[:, i:i + 1].to(dtype)
-            out[a - lo:b - lo] = torch.sum(deq, dim=0) / P
-    del qs
-    return _unflatten_bucket(mesh.all_gather(out, "data"), layout)
+    out = {}
+    for i, (key, shape, dtype, o, size) in enumerate(layout):
+        leaf = torch.empty(size, dtype=dtype, device=some.device)
+        for a in range(o, o + size, CHUNK_ELEMENTS):
+            b = min(a + CHUNK_ELEMENTS, o + size)
+            deq = qs[:, a:b].to(dtype) * ss[:, i:i + 1].to(dtype)
+            leaf[a - o:b - o] = torch.sum(deq, dim=0) / P
+        out[key] = leaf.view(shape)
+    return out
 
 
 def pod_sync_grads(grads: Tree, cfg: SyncConfig, mesh, ef_state: Optional[Tree] = None):
     """Cross-pod gradient exchange.  Returns (synced_grads, ef_state): in
-    ``sync`` mode every rank's gradients *averaged* over the pod's ranks and
-    over pods, through the cohort schedule (:func:`cohort_all_reduce`), or
-    with ``compress_int8`` through :func:`_int8_pod_mean`, which empties
-    ``grads`` and updates ``ef_state`` (fp32 zeros when ``None``) in place;
-    in any other mode ``grads`` as they are."""
+    ``sync`` mode the mean over ``cfg.pod_axis`` of every rank's gradients
+    (whole leaves, or FSDP's and TP's blocks), which the pod has averaged
+    already, through one fp32 bucket (:func:`bucket_mean`), or with
+    ``compress_int8`` in int8 with error feedback (:func:`int8_block_mean`,
+    which empties ``grads`` and updates ``ef_state``, fp32 zeros when
+    ``None``, in place); in any other mode ``grads`` as they are.  A ``pod``
+    group joins the ranks that share their ``(data, model)`` coordinates,
+    which hold the same blocks, so each rank sends only its own block over
+    the slow fabric."""
     if cfg.mode != "sync":
         return grads, ef_state
     if not cfg.compress_int8:
-        divisor = mesh.size(cfg.pod_axis) * mesh.size("data")
-        return cohort_all_reduce(grads, mesh, global_axis=cfg.pod_axis,
-                                 divisor=divisor), ef_state
+        return bucket_mean(grads, mesh, cfg.pod_axis), ef_state
     if ef_state is None:
         ef_state = {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
                     for k, g in grads.items()}
-    return _int8_pod_mean(grads, ef_state, mesh, cfg.pod_axis), ef_state
+    return int8_block_mean(grads, ef_state, mesh, cfg.pod_axis), ef_state
 
 
 @torch.no_grad()

@@ -4,14 +4,18 @@ launcher of ranks on one host.
 Port of ``repro/launch/mesh.py::make_mesh``.  A JAX mesh names axes over
 devices that one program drives; here each device is driven by its own
 process (a *rank*), and :func:`make_mesh` gives a rank what it needs to
-take part: the axis sizes, its coordinates, its device, and one process
-group per axis of size above 1 (and one over the whole world).  Axes are
-``pod`` (the slow, remote fabric), ``data`` and ``model`` (the fast, local
-ones).  On a mesh of one pod, parameters are sharded by
-``sharding/rules.py``: FSDP on ``data``, tensor parallelism on ``model``
-(``sharding/shard.py``).  Pods keep a whole replica each (``core/cohort.py``
-reconciles them), so a mesh with ``pod`` and ``model`` both above 1 is
-refused.
+take part: the axis sizes, its coordinates, its device, and its process
+groups (:func:`group_spans`): one per axis of size above 1, one over the
+whole world, and on a mesh of three axes above 1 the two that span two of
+them: the pod's own ranks, ``data+model`` (the global norm's sum, the int8
+scale's max, the MoE island over ``(data, model)``), and the rows,
+``pod+data`` (the metrics' mean, serving's row gather).  Axes are ``pod``
+(the slow, remote fabric), ``data`` and ``model`` (the fast, local ones).
+Inside each pod, parameters are sharded by ``sharding/rules.py``: FSDP on
+``data``, tensor parallelism on ``model`` (``sharding/shard.py``); the
+rules never name ``pod``, so every pod holds the same blocks and a ``pod``
+group joins the ranks that share their ``(data, model)`` coordinates
+(``core/cohort.py`` reconciles them).
 
 **Backends.**  Each group's backend is decided once, when the mesh is made,
 from the topology that the ranks exchange (host name and device of each):
@@ -49,6 +53,9 @@ from ..core.asymmetry import (all_gather_wire_bytes, all_to_all_wire_bytes,
 from ..device import resolve_device
 
 AXES = ("pod", "data", "model")
+# The groups that span two axes, where both are above 1 and a third is too
+# (else the pair spans the world): the pod's own ranks and the rows.
+PAIRS = (("data", "model"), ("pod", "data"))
 # The most elements one collective call moves (and one staging buffer holds):
 # 2^26, 256 MB in fp32.
 CHUNK_ELEMENTS = 2 ** 26
@@ -86,9 +93,10 @@ def group_backend(members: Sequence[Tuple[str, str]]) -> str:
 
 @dataclass
 class Mesh:
-    """One rank's view of the mesh.  ``groups`` maps ``pod``, ``data``,
-    ``model`` (each axis of size above 1) and ``world`` (when there is more than one rank) to
-    this rank's process group; ``backends`` to their backends."""
+    """One rank's view of the mesh.  ``groups`` maps the names of
+    :func:`group_spans` (``pod``, ``data``, ``model``, ``data+model``,
+    ``pod+data``, ``world``) to this rank's process group; ``backends`` to
+    their backends."""
 
     axes: Tuple[str, ...]
     shape: Dict[str, int]
@@ -109,19 +117,28 @@ class Mesh:
 
     def group_name(self, axes) -> str:
         """The group that spans ``axes`` (an axis name or a tuple of them):
-        ``world`` for a tuple that holds every axis of size above 1."""
+        ``world`` for a tuple that holds every axis of size above 1, the
+        axis for a tuple that holds one, a pair of :data:`PAIRS` by its
+        name (``data+model``, ``pod+data``), ``self`` for one that holds
+        none."""
         if isinstance(axes, str):
             return axes
         big = [a for a in self.axes if self.size(a) > 1]
-        inside = [a for a in axes if self.size(a) > 1]
+        inside = tuple(a for a in AXES if a in axes and self.size(a) > 1)
         if set(big) <= set(axes):
             return "world"
+        if not inside:
+            return "self"  # this rank alone: no collective runs
         if len(inside) == 1:
             return inside[0]
+        if inside in PAIRS:
+            return "+".join(inside)
         raise ValueError(f"no group spans {axes} of mesh {self.shape}")
 
     def group_size(self, name: str) -> int:
-        return self.world_size if name == "world" else self.size(name)
+        if name == "world":
+            return self.world_size
+        return 1 if name == "self" else math.prod(self.size(a) for a in name.split("+"))
 
     # ------------------------------------------------------- collectives --
     def _host(self, dtype: torch.dtype, slot: int, n: int) -> torch.Tensor:
@@ -258,6 +275,29 @@ def _coords(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
     return {ax: coords[ax] for ax in sizes}
 
 
+def group_spans(sizes: Dict[str, int]) -> Dict[str, Tuple[str, ...]]:
+    """The groups that a mesh of ``sizes`` (axis -> size, in mesh order)
+    builds, by name, each with the axes it spans: each axis of size above 1,
+    each pair of :data:`PAIRS` whose axes are both above 1 on a mesh with a
+    third above 1, and ``world``."""
+    big = [a for a in sizes if sizes[a] > 1]
+    spans = {a: (a,) for a in big}
+    if len(big) == 3:
+        spans.update({"+".join(pair): pair for pair in PAIRS})
+    spans["world"] = tuple(sizes)
+    return spans
+
+
+def group_ranks(sizes: Dict[str, int], span: Sequence[str]) -> List[List[int]]:
+    """Every group that spans ``span`` on a mesh of ``sizes``, in one order:
+    the ranks that share all coordinates outside ``span``, in rank order."""
+    groups: Dict[Tuple, List[int]] = {}
+    for r in range(math.prod(sizes.values())):
+        c = _coords(r, sizes)
+        groups.setdefault(tuple(c[ax] for ax in sizes if ax not in span), []).append(r)
+    return list(groups.values())
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
               timeout: timedelta = TIMEOUT) -> Mesh:
     """This rank's :class:`Mesh` of ``shape`` over ``axes`` (of ``pod``,
@@ -270,10 +310,6 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
     if len(shape) != len(axes) or len(set(axes)) != len(axes) or not set(axes) <= set(AXES):
         raise ValueError(f"mesh {shape} over {axes}: axes are distinct names of {AXES}")
     sizes = dict(zip(axes, shape))
-    if sizes.get("model", 1) > 1 and sizes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: pods keep a whole replica each; pods combined with tensor "
-            "parallelism (or FSDP) wait for ROADMAP's item 3e")
     world = math.prod(shape)
     if world > 1 and not (dist.is_initialized() and dist.get_world_size() == world):
         raise RuntimeError(f"mesh {sizes} needs an initialised process group of {world} "
@@ -292,16 +328,9 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
 
     topology: List[Any] = [None] * world
     dist.all_gather_object(topology, (socket.gethostname(), str(dev)))
-    spans = {ax: [ax] for ax in axes if sizes[ax] > 1}
-    spans["world"] = list(axes)
-    for name, span in spans.items():
-        # Every group of this kind, in one order on every rank: the ranks
-        # that share all coordinates outside ``span``.
-        groups: Dict[Tuple, List[int]] = {}
-        for r in range(world):
-            c = _coords(r, sizes)
-            groups.setdefault(tuple(c[ax] for ax in axes if ax not in span), []).append(r)
-        for ranks in groups.values():
+    for name, span in group_spans(sizes).items():
+        # Every group of this kind, in one order on every rank.
+        for ranks in group_ranks(sizes, span):
             backend = group_backend([topology[r] for r in ranks])
             pg = dist.new_group(ranks, backend=backend, timeout=timeout)
             if rank in ranks:

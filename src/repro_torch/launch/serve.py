@@ -2,9 +2,9 @@
 
 Port of ``repro/launch/serve.py``.  ``serve`` is the library entry (used by
 ``examples/serve_batch_torch.py`` and ``chip_smoke.py``); ``main`` is the CLI,
-which, like the reference's, has no mesh flags.  On a ``(data, model)`` mesh
-every rank calls ``serve`` inside one process group: the request's rows go
-on ``data``, the parameters and KV caches on ``model`` by the rules
+which, like the reference's, has no mesh flags.  On a ``(pod, data, model)``
+mesh every rank calls ``serve`` inside one process group: the request's rows
+go on ``(pod, data)``, the parameters and KV caches on ``model`` by the rules
 (``sharding/``), the last-token logits are gathered over ``model`` for the
 greedy argmax, and every rank returns the whole batch's tokens.
 
@@ -39,7 +39,7 @@ from ..coord import CoordinationService, LeaseMode, RecoverableClient
 from ..core import Overloaded
 from ..kernels import ops
 from ..models import Model, input_specs, rank_inputs
-from ..sharding.shard import gather_rows
+from ..sharding.shard import gather_rows, row_axes
 from .mesh import make_mesh
 
 
@@ -373,9 +373,14 @@ def serve(
     encoder (``causal`` False) has no decode path and is refused.
 
     On the mesh ``mesh_shape`` over ``mesh_axes`` (``launch.mesh.make_mesh``,
-    every rank calling) each rank serves its rows; with admission, rank 0
-    takes, renews and releases the lease while the others wait on it, so the
-    lock table sees one grant a request.
+    every rank calling) each rank serves its ``(pod, data)`` rows, pod-major
+    (``models.rank_inputs``), on its pod's blocks of the weights, and the
+    tokens are gathered over those rows; with admission, rank 0 takes, renews
+    and releases the lease while the others wait on it, so the lock table
+    sees one grant a request.  A MoE model over pods splits its rows over
+    ``data`` alone, every pod serving the whole batch
+    (``sharding.shard.row_axes``): the reference's groups span ``(pod,
+    data)``, which the port's routing does not yet (ROADMAP's item 3f).
 
     Returns ``tokens`` ([batch, gen_len] int64 on the CPU), ``prefill_seconds``,
     ``decode_seconds_per_token`` and ``throughput_tok_s``; with admission, also
@@ -397,7 +402,7 @@ def serve(
     pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
     prompts = rank_inputs(input_specs(cfg, pshape,
                                       generator=torch.Generator(dev).manual_seed(seed + 1),
-                                      device=dev), cfg, pshape, model.mesh)
+                                      device=dev), cfg, pshape, mesh)
     sampler = torch.Generator(dev).manual_seed(seed + 2)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
@@ -440,7 +445,7 @@ def serve(
         if admission:
             admission.complete(slot)
 
-    tokens = gather_rows(torch.cat(generated, dim=1), model.mesh).cpu()
+    tokens = gather_rows(torch.cat(generated, dim=1), mesh, row_axes(cfg, mesh)).cpu()
     out = {
         "tokens": tokens,
         "prefill_seconds": prefill_s,

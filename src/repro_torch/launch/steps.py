@@ -13,28 +13,33 @@ moments.
 
 Each rank of a :class:`~repro_torch.launch.mesh.Mesh` runs the step on its
 rows of the global batch (:func:`rank_rows`; every model rank of one data
-coordinate takes the same rows).  On a mesh of one pod with ``data`` or
-``model`` above 1 a rank holds only its blocks of the state
-(``sharding/shard.py``): the model's backward reduce-scatters each
-gradient over ``data`` in fp32 as it leaves its FSDP gather, the step
-divides the sums by ``D`` (a leaf whole on ``data`` is averaged over it),
-and the global norm is taken over the shards.  Over pods a rank holds a
-whole replica of its pod's state; the pod modes (``RunConfig.sync_mode``)
-are the reference's, where a pod dim is a rank's ``pod`` coordinate:
+coordinate takes the same rows).  With ``data`` or ``model`` above 1 a rank
+holds only its blocks of the state (``sharding/shard.py``), the same blocks
+in every pod: the model's backward reduce-scatters each gradient over
+``data`` in fp32 as it leaves its FSDP gather (the reference's *cohort
+election*: each rank leads a ``1/D`` fragment), the step divides the sums by
+``D`` (a leaf whole on ``data`` is averaged over it), and the global norm is
+taken over the pod's own ranks.  Over pods only those blocks cross the slow
+fabric (:func:`flat_pod_mean`, ``cohort.pod_sync_grads``); the pod modes
+(``RunConfig.sync_mode``) are the reference's, where a pod dim is a rank's
+``pod`` coordinate:
 
-  flat  — the paper-baseline: rows split over (pod × data) jointly; one
-          all-reduce mean of each gradient over the world.
-  sync  — the cohort schedule (``core/cohort.py``): reduce-scatter over
-          ``data``, the fragment's all-reduce over ``pod``, all-gather over
-          ``data``; numerically ``flat``.  With ``compress_int8`` the pod hop
-          carries int8 with error feedback (``cohort.pod_sync_grads``).
+  flat  — the paper-baseline: rows split over (pod × data) jointly; each
+          block's gradient all-reduced over ``pod`` in its dtype, leaf by
+          leaf (:func:`flat_pod_mean`).
+  sync  — the cohort schedule: the blocks' gradients all-reduced over
+          ``pod`` in one fp32 bucket; numerically ``flat``, and with FSDP
+          the same bytes.  With ``compress_int8`` the pod hop carries int8
+          with error feedback, one scale per leaf per pod
+          (``cohort.int8_block_mean``).
   local — budgeted: per-pod parameters and optimizer state, gradients
-          averaged inside the pod only, and the pods' *parameters* (not the
-          moments) averaged after every ``sync_budget``-th update.
+          averaged inside the pod only, and the pods' *parameter blocks*
+          (not the moments) averaged after every ``sync_budget``-th update.
 
 With one pod every mode is ``flat``; a mesh of one rank runs the
 one-device step, with no collective.  Loss and metrics are averaged over
-the world, the optimizer's over pods (``local``) as the reference does.
+the rows' ranks, the optimizer's over pods (``local``) as the reference's
+``vmap`` does.
 """
 
 from __future__ import annotations
@@ -48,8 +53,8 @@ from ..core.cohort import (SyncConfig, bucket_mean, flat_all_reduce, pod_average
                            pod_sync_grads)
 from ..models import Model, rank_inputs
 from ..optim import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
-from ..sharding.shard import (gather_model, gather_rows, gather_tree, shard_tree, sharded,
-                              whole_shape)
+from ..sharding.shard import (gather_model, gather_rows, gather_tree, row_axes, shard_tree,
+                              sharded, whole_shape)
 from .mesh import Mesh
 
 
@@ -71,22 +76,15 @@ def pod_mode(run: RunConfig, mesh: Mesh) -> str:
 def _check_layout(model: Model, run: RunConfig, mesh: Mesh) -> None:
     """MoE capacity is computed over the rows one step sees: in the
     reference all of the batch in ``flat`` and a pod's rows in ``sync`` and
-    ``local``.  On a mesh of one pod the model routes the reference's groups
-    across its data ranks (``models/moe.py``).  Over pods a rank holds a
-    whole replica and routes its own rows, which are a pod's rows only with
-    one data rank a pod and outside ``flat``; the rest waits for pods with
-    FSDP and TP, ROADMAP's item 3e."""
-    cfg = model.cfg
-    if cfg.moe is None or mesh.world_size == 1 or sharded(mesh):
-        return
-    mode = pod_mode(run, mesh)
-    if mode == "flat" or mesh.size("data") > 1:
+    ``local``.  A pod's rows route over its data ranks (``models/moe.py``),
+    as on a mesh of one pod, which is the reference's ``vmap`` over pods;
+    ``flat`` MoE over pods, whose groups span ``(pod, data)``, is ROADMAP's
+    item 3f."""
+    if model.cfg.moe is not None and pod_mode(run, mesh) == "flat" and mesh.size("pod") > 1:
         raise NotImplementedError(
-            f"{cfg.name}: MoE over mesh {mesh.shape} in {mode} mode would route each rank's "
-            "rows as groups of their own, a capacity other than the reference's (a flat "
-            "step's groups span the pods, a pod's its data ranks); over pods the port "
-            "trains MoE only in sync or local mode with data 1 until pods take FSDP and "
-            "TP, the multi-GPU slice of ROADMAP's item 3e")
+            f"{model.cfg.name}: flat MoE over pods (mesh {mesh.shape}): the reference's "
+            "groups span (pod, data), whose capacity the port does not reproduce; it trains "
+            "MoE over pods in sync or local mode (ROADMAP's item 3f)")
 
 
 def rank_rows(batch: Dict[str, torch.Tensor], mesh: Mesh, mode: str,
@@ -141,33 +139,41 @@ def _map(tree, fn):
 
 def _by_leaf(state: Dict[str, Any], fn) -> Dict[str, Any]:
     """``fn(leaves)`` on each flat tree of sharded leaves of a train state
-    (``params``, ``mu``, ``nu``); the step count as it is."""
+    (``params``, ``mu``, ``nu``, and ``ef`` where it has one); the step
+    count as it is."""
     opt = state["opt"]
-    return {"params": fn(state["params"]),
-            "opt": {"step": opt["step"], "mu": fn(opt["mu"]), "nu": fn(opt["nu"])}}
+    out = {"params": fn(state["params"]),
+           "opt": {"step": opt["step"], "mu": fn(opt["mu"]), "nu": fn(opt["nu"])}}
+    if "ef" in state:
+        out["ef"] = fn(state["ef"])
+    return out
 
 
 @torch.no_grad()
 def checkpoint_tree(state: Dict[str, Any], run: RunConfig, mesh: Mesh,
                     layout=None) -> Dict[str, Any]:
-    """``state`` in the JAX package's checkpoint layout: on a sharded mesh
-    every tensor whole (``layout``: the model's, ``sharding.shard``; every
-    rank must call it), over pods the groups of :func:`_pod_groups` gathered
-    over the pod group into a leading pod dim (every rank of the pod group
-    that holds rank 0, data coordinate 0, must call it; other ranks get
-    ``state`` back).  The gathers count in a traffic record of their own,
-    not the steps'."""
+    """``state`` in the JAX package's checkpoint layout
+    (``train_state_specs``): on a sharded mesh every tensor whole over
+    ``(data, model)`` (``layout``: the model's, ``sharding.shard``; every
+    rank must call it), then over pods the groups of :func:`_pod_groups`
+    stacked over the pod group into a leading pod dim (every rank of the pod
+    group that holds rank 0, data and model coordinates 0, must call it;
+    other ranks get the rest back).  The gathers count in a traffic record
+    of their own, not the steps'."""
     groups = _pod_groups(run, mesh)
     whole = layout is not None and sharded(mesh)
-    if not whole and (not groups or mesh.coords.get("data", 0) != 0):
+    lead = mesh.coords.get("data", 0) == 0 and mesh.coords.get("model", 0) == 0
+    if not whole and not (groups and lead):
         return state
     P, traffic = mesh.size("pod"), mesh.traffic
     mesh.traffic = type(traffic)()
     try:
         if whole:
-            return _by_leaf(state, lambda tree: gather_tree(tree, layout, mesh))
-        gather = lambda t: mesh.all_gather(t.reshape(-1), "pod").view(P, *t.shape)
-        return {k: _map(v, gather) if k in groups else v for k, v in state.items()}
+            state = _by_leaf(state, lambda tree: gather_tree(tree, layout, mesh))
+        if groups and lead:
+            stack = lambda t: mesh.all_gather(t.reshape(-1), "pod").view(P, *t.shape)
+            state = {k: _map(v, stack) if k in groups else v for k, v in state.items()}
+        return state
     finally:
         mesh.traffic = traffic
 
@@ -177,10 +183,9 @@ def checkpoint_like(state: Dict[str, Any], run: RunConfig, mesh: Mesh,
     """The shapes of :func:`checkpoint_tree` (``meta`` tensors), for
     ``load_checkpoint``."""
     if layout is not None and sharded(mesh):
-        whole = lambda tree: {k: torch.empty(whole_shape(t.shape, layout[k], mesh),
-                                             dtype=t.dtype, device="meta")
-                              for k, t in tree.items()}
-        return _by_leaf(state, whole)
+        state = _by_leaf(state, lambda tree: {
+            k: torch.empty(whole_shape(t.shape, layout[k], mesh), dtype=t.dtype, device="meta")
+            for k, t in tree.items()})
     groups, P = _pod_groups(run, mesh), mesh.size("pod")
     pod_dim = lambda t: torch.empty((P, *t.shape), dtype=t.dtype, device="meta")
     return {k: _map(v, pod_dim) if k in groups else v for k, v in state.items()}
@@ -190,11 +195,13 @@ def pod_slice(tree: Dict[str, Any], run: RunConfig, mesh: Mesh,
               layout=None) -> Dict[str, Any]:
     """This rank's slice of a tree in the checkpoint layout: its pod's, and
     on a sharded mesh its blocks of each whole tensor (``layout``: the
-    model's).  A checkpoint of any mesh loads on any other this way."""
-    if layout is not None and sharded(mesh):
-        return _by_leaf(tree, lambda t: shard_tree(t, layout, mesh))
+    model's).  A checkpoint of any mesh of as many pods loads on any other
+    this way."""
     groups, p = _pod_groups(run, mesh), mesh.coords.get("pod", 0)
-    return {k: _map(v, lambda t: t[p]) if k in groups else v for k, v in tree.items()}
+    tree = {k: _map(v, lambda t: t[p]) if k in groups else v for k, v in tree.items()}
+    if layout is not None and sharded(mesh):
+        tree = _by_leaf(tree, lambda t: shard_tree(t, layout, mesh))
+    return tree
 
 
 @torch.no_grad()
@@ -258,37 +265,34 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
     """``step(state, batch) -> (state, metrics)`` on this rank of ``mesh``
     (default: one rank on the model's device): the rank's rows of the global
     ``batch`` (:func:`rank_rows`), loss and gradients over
-    ``run.microbatches`` slices of them (:func:`grad_fn`), the exchange of
-    ``run.sync_mode``, then one AdamW update of ``state`` in place.
+    ``run.microbatches`` slices of them (:func:`grad_fn`), their mean over
+    ``data`` (:func:`data_mean`) and the exchange over ``pod`` of
+    ``run.sync_mode`` (:func:`flat_pod_mean` in ``flat`` mode, else
+    ``cohort.pod_sync_grads``), then one AdamW update of ``state`` in place
+    (in ``local`` mode, then the budget's parameter average over ``pod``).
     ``metrics`` holds 0-d tensors (``ce``, ``loss``, ``grad_norm``), so a
     step on one rank never waits on the device."""
     mesh = mesh or _one_rank(model)
+    _check_layout(model, run, mesh)
     if sharded(mesh) and model.mesh is not mesh:
         raise ValueError(f"the model holds no blocks of mesh {mesh.shape}: build it there")
-    _check_layout(model, run, mesh)
     mode = pod_mode(run, mesh)
     grads_of = grad_fn(model, run.microbatches)
-    world, P = mesh.world_size, mesh.size("pod")
+    P = mesh.size("pod")
     rows = P * mesh.size("data")  # ranks with rows of their own
     sync = SyncConfig(mode, run.sync_budget, run.compress_int8)
     shards = model.mesh is not None
     replicas = {k: pl.replicas(mesh) for k, pl in model.layout.items()} if shards else None
-    norm_sum = lambda t: mesh.all_reduce(t, ("data", "model"))
+    norm_sum = lambda t: mesh.all_reduce(t, ("data", "model"))  # the pod's own ranks
 
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         loss, metrics, grads = grads_of(rank_rows(batch, mesh, mode, run.microbatches))
-        gnorm = None
-        if shards:
-            grads = data_mean(grads, model.layout, mesh)
-            gnorm = global_norm(grads, replicas, norm_sum)
-        elif world > 1:
-            if mode == "flat":
-                grads = {k: g.div_(world) for k, g in flat_all_reduce(grads, mesh).items()}
-            elif mode == "sync":
-                ef = state["ef"] if run.compress_int8 else None
-                grads, _ = pod_sync_grads(grads, sync, mesh, ef)
-            else:
-                grads = bucket_mean(grads, mesh, "data")
+        grads = data_mean(grads, model.layout, mesh)
+        if mode == "flat":
+            grads = flat_pod_mean(grads, mesh)
+        else:
+            grads, _ = pod_sync_grads(grads, sync, mesh, state.get("ef"))
+        gnorm = global_norm(grads, replicas, norm_sum) if shards else None
         opt = AdamWState(state["opt"]["step"], state["opt"]["mu"], state["opt"]["nu"])
         before = opt.step
         lr = cosine_schedule(opt.step, peak_lr=run.learning_rate,
@@ -308,7 +312,7 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
             # local mode.
             vec = mesh.all_reduce(torch.stack(list(metrics.values())).float(), ("pod", "data"))
             metrics = dict(zip(metrics, (vec / rows).unbind()))
-        if world > 1 and mode == "local":
+        if P > 1 and mode == "local":
             vec = mesh.all_reduce(torch.stack(list(om.values())).float(), "pod")
             om = dict(zip(om, (vec / P).unbind()))
             pod_average_params(state["params"], sync, mesh, int(before))
@@ -318,6 +322,19 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
         return new_state, metrics
 
     return step
+
+
+def flat_pod_mean(grads: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """``flat`` mode's exchange over ``pod``: every rank's gradient blocks
+    (the pod's mean already) all-reduced leaf by leaf in their dtype and
+    divided by ``P``.  With FSDP it moves the bytes of ``sync``'s bucket; the
+    two differ only in bucketing and dtype."""
+    P = mesh.size("pod")
+    if P == 1:
+        return grads
+    # In place: a gradient that leaves its FSDP gather may be a permuted view.
+    grads = {k: g.contiguous() for k, g in grads.items()}
+    return {k: g.div_(P) for k, g in flat_all_reduce(grads, mesh, ("pod",)).items()}
 
 
 def data_mean(grads: Dict[str, torch.Tensor], layout, mesh: Mesh) -> Dict[str, torch.Tensor]:
@@ -341,21 +358,23 @@ def build_encode_step(model: Model, mesh: Optional[Mesh] = None) -> Callable:
     """``encode(batch) -> logits [B, T, V]`` for an encoder (hubert's
     "prefill"): the training-mode forward over every position, then the
     logits, under ``torch.inference_mode``; the reference's
-    ``build_encode_step``.  On a sharded ``mesh`` (the one the model was
-    built on) each rank encodes its rows of the global ``batch`` and returns
-    the whole logits, gathered over ``model`` and ``data``."""
+    ``build_encode_step``.  On a ``mesh`` of several ranks (on a sharded one,
+    the mesh the model was built on) each rank encodes its ``(pod, data)``
+    rows of the global ``batch`` (:func:`models.rank_inputs`; a MoE model
+    over pods its ``data`` rows) and returns the whole logits, gathered over
+    ``model`` and the rows."""
     if sharded(mesh) and mesh is not model.mesh:
         raise ValueError(f"the model holds no blocks of mesh {mesh.shape}: build it there")
-    on = model.mesh
 
     @torch.inference_mode()
     def encode(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         head = model._head()
-        if on is not None:
+        if mesh is not None:
             rows = next(iter(batch.values())).shape[0]
-            batch = rank_inputs(batch, model.cfg, ShapeConfig("encode", 0, rows, "prefill"), on)
+            batch = rank_inputs(batch, model.cfg, ShapeConfig("encode", 0, rows, "prefill"),
+                                mesh)
         h, _ = model.forward(batch, head)
-        logits = gather_model(model._logits(h, head), model.vocab_tp)
-        return gather_rows(logits, on) if on is not None else logits
+        return gather_rows(gather_model(model._logits(h, head), model.vocab_tp), mesh,
+                           row_axes(model.cfg, mesh))
 
     return encode

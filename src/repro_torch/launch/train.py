@@ -5,16 +5,17 @@ Port of ``repro/launch/train.py``.  ``train`` is the library entry (used by
 CLI.  On a mesh of more than one rank every rank calls ``train`` inside one
 initialised process group (``launch.mesh.spawn_ranks`` starts such ranks on
 one host); each draws the same global batch from the stateless pipeline and
-the step takes its rows.  On a ``(data, model)`` mesh of one pod each rank
-holds only its blocks of the parameters and moments (FSDP on ``data``, TP
-on ``model``: ``sharding/shard.py``).  Fault-tolerance wiring as in the
+the step takes its rows.  On a ``(pod, data, model)`` mesh each rank holds
+only its blocks of the parameters and moments (FSDP on ``data``, TP on
+``model``: ``sharding/shard.py``), the same blocks in every pod, and only
+they cross the slow fabric (``launch/steps.py``).  Fault-tolerance wiring as in the
 reference:
 
 * checkpoint every ``run.checkpoint_every`` steps — async, atomic,
   integrity-checked, in the JAX package's file format and layout: whole
   tensors (gathered over ``data`` and ``model``; swiglu's ``wi`` as ``[gate
   | up]``), with a leading pod dim in ``local`` mode and for ``ef``
-  (gathered over the pod group); rank 0 writes, its writer elected through
+  (stacked over the pod group); rank 0 writes, its writer elected through
   the paper's ALock (``repro_torch.coord``);
 * restart: ``resume=True`` restores the newest verified checkpoint on every
   rank (each takes its pod's slice and its blocks, so a checkpoint of one
@@ -26,6 +27,8 @@ reference:
         --arch llama3.2-1b --mesh-shape 2,1 --mesh-axes pod,data --sync-mode local
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch llama3.2-1b --mesh-shape 2,2 --mesh-axes data,model
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-1b --mesh-shape 2,1,2 --mesh-axes pod,data,model --sync-mode sync
 """
 
 from __future__ import annotations

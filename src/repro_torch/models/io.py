@@ -4,12 +4,13 @@ Port of ``repro/models/io.py``'s concrete half.  The ``[audio]`` and
 ``[vlm]`` frontends are stubs, as in the reference: the batch carries
 precomputed frame or patch embeddings at ``d_model``, ``0.02`` times a
 standard normal draw.  On a mesh a rank takes its rows of each input as
-``sharding.rules.batch_pspec`` lays them on ``data`` (:func:`rank_inputs`),
-the frontends' ``embeds`` with the tokens.
+``sharding.rules.batch_pspec`` lays them on ``(pod, data)``, pod-major
+(:func:`rank_inputs`), the frontends' ``embeds`` with the tokens.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -54,21 +55,29 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, generator: torch.Genera
 
 def rank_inputs(batch: Dict[str, torch.Tensor], cfg: ModelConfig, shape: ShapeConfig,
                 mesh) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch: every input that ``batch_pspec``
-    puts on ``data`` in ``D`` equal row blocks, data rank ``d`` the
-    ``d``-th (a rank of no data axis: ``batch`` itself)."""
+    """This rank's rows of a global batch, the reference's ``batch_pspec``
+    with ``batch_axes=("pod", "data")``: every input that it puts on those
+    axes in ``P·D`` equal row blocks, rank ``(p, d)`` the ``(p·D + d)``-th
+    (a rank of one pod and one data rank: ``batch`` itself).  A MoE model
+    over pods splits them over ``data`` alone (``sharding.shard.row_axes``)."""
     from ..sharding.rules import batch_pspec  # the rules import this package
+    from ..sharding.shard import row_axes
 
-    D = mesh.size("data") if mesh is not None else 1
-    if D == 1:
+    axes = row_axes(cfg, mesh)
+    n_rows = 1 if mesh is None else math.prod(mesh.size(a) for a in axes)
+    if n_rows == 1:
         return batch
-    d, specs = mesh.coords["data"], batch_pspec(cfg, shape)
+    i = 0
+    for a in axes:
+        i = i * mesh.size(a) + mesh.coords.get(a, 0)
+    specs = batch_pspec(cfg, shape, batch_axes=("pod", "data"))
     out = {}
     for k, v in batch.items():
-        if specs.get(k, (None,))[0] == "data":
-            if v.shape[0] % D:
-                raise ValueError(f"{k}: {v.shape[0]} rows do not split over {D} data ranks")
-            n = v.shape[0] // D
-            v = v[d * n:(d + 1) * n]
+        if specs.get(k, (None,))[0] == ("pod", "data"):
+            if v.shape[0] % n_rows:
+                raise ValueError(f"{k}: {v.shape[0]} rows do not split over {n_rows} "
+                                 f"{axes} ranks")
+            n = v.shape[0] // n_rows
+            v = v[i * n:(i + 1) * n]
         out[k] = v
     return out

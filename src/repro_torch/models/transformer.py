@@ -27,10 +27,10 @@ load-balance loss is summed), and ``prefill(batch, max_len)`` and
 An encoder is served by ``forward`` then ``_logits``
 (``launch.steps.build_encode_step``).
 
-On a mesh (``launch.mesh.Mesh`` of one pod with ``data`` or ``model`` above
-1) the model holds only this rank's block of each parameter
-(``sharding/shard.py``, under ``sharding/rules.py``) and takes this rank's
-rows: FSDP gathers each parameter's ``data`` dim on use, inside each
+On a mesh (``launch.mesh.Mesh`` with ``data`` or ``model`` above 1, of any
+number of pods) the model holds only this rank's block of each parameter
+(``sharding/shard.py``, under ``sharding/rules.py``; every pod the same
+blocks) and takes this rank's rows: FSDP gathers each parameter's ``data`` dim on use, inside each
 super-block's remat'd function (the recompute gathers again, so no gathered
 weight outlives its block); tensor parallelism runs the rank's query and KV
 heads (where the KV heads do not split, a slice of their head dim; MLA's

@@ -1,7 +1,7 @@
 """FSDP and tensor parallelism over the ranks of a mesh: the explicit form
 of what GSPMD does for the reference under ``sharding/rules.py``.
 
-A rank of a ``(data, model)`` mesh (``launch.mesh.Mesh``) holds, of every
+A rank of a ``(pod, data, model)`` mesh (``launch.mesh.Mesh``) holds, of every
 parameter, the block that the fitted partition spec assigns it: ``1/D`` of
 each dim on ``data`` (FSDP) and ``1/M`` of each dim on ``model`` (TP), in
 the order of the rank's coordinates.  The one exception to a contiguous
@@ -48,14 +48,17 @@ The collectives of the sharded step, as autograd functions:
 * :func:`gather_slices` — the island's output slices whole over ``model``;
   in the backward the rank keeps its own slice of the gradient.
 
-Pods keep a whole replica (``core/cohort.py``), so a mesh with ``pod`` above
-1 is not sharded here (:func:`sharded`).
+The rules never name ``pod``: every pod holds the same blocks, sharded over
+its own ``data`` and ``model`` ranks, and every collective above runs on a
+group that lies inside a pod.  ``launch/steps.py`` reconciles the pods'
+blocks over ``pod`` (``core/cohort.py``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -93,9 +96,9 @@ class Placement:
 
 
 def sharded(mesh) -> bool:
-    """Whether ``mesh`` shards parameters: data or model above 1, one pod."""
-    return (mesh is not None and mesh.size("pod") == 1
-            and (mesh.size("data") > 1 or mesh.size("model") > 1))
+    """Whether ``mesh`` shards parameters: data or model above 1, whatever
+    the number of pods."""
+    return mesh is not None and (mesh.size("data") > 1 or mesh.size("model") > 1)
 
 
 def model_parallel(mesh):
@@ -134,10 +137,12 @@ def param_layout(specs, act: str, mesh) -> Dict[str, Placement]:
     from .rules import PARAM_RULES, fit_pspec  # the rules import the models, which import this
 
     out = {}
+    # Every axis's size, also of one that the mesh does not name.
+    sizes = SimpleNamespace(shape={a: mesh.size(a) for a in SHARD_AXES}) if sharded(mesh) else None
     for key, spec in named_leaves(specs):
         if sharded(mesh):
             logical = tuple(None if n is None else PARAM_RULES[n] for n in spec.logical)
-            ps = fit_pspec(logical, spec.shape, mesh)
+            ps = fit_pspec(logical, spec.shape, sizes)
         else:
             ps = (None,) * len(spec.shape)
         pl = Placement(ps, fused_blocks(key, spec, act))
@@ -173,10 +178,11 @@ def shard(t: torch.Tensor, pl: Placement, mesh) -> torch.Tensor:
     return t.contiguous().clone()
 
 
-def _gather(t: torch.Tensor, dim: int, axis: str, mesh, blocks: int = 1) -> torch.Tensor:
-    """All-gather ``t`` along ``dim`` over ``axis``; with ``blocks`` the
-    pieces interleave block by block."""
-    a = mesh.size(axis)
+def _gather(t: torch.Tensor, dim: int, axis, mesh, blocks: int = 1) -> torch.Tensor:
+    """All-gather ``t`` along ``dim`` over ``axis`` (a name, or a tuple of
+    them gathered row-major); with ``blocks`` the pieces interleave block by
+    block."""
+    a = mesh.group_size(mesh.group_name(axis))
     if a == 1:
         return t
     moved = t.movedim(dim, 0).contiguous()
@@ -427,7 +433,20 @@ def gather_model(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
     return x if tp is None else _gather(x.detach(), dim % x.ndim, "model", tp)
 
 
-def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every data rank's rows of ``x`` (dim 0), in data order (no gradient)."""
-    return x if mesh is None else _gather(x.detach(), 0, "data", mesh)
+def row_axes(cfg, mesh) -> Tuple[str, ...]:
+    """The axes that split a served or encoded batch's rows, pod-major:
+    ``(pod, data)``, as the reference's serving steps lay them.  A MoE
+    model over pods takes ``data`` alone, every pod serving the whole batch:
+    the port routes a group over one pod's data ranks, where the
+    reference's groups span ``(pod, data)`` (ROADMAP's item 3f), so that
+    each pod's groups are the reference's."""
+    if mesh is not None and cfg.moe is not None and mesh.size("pod") > 1:
+        return ("data",)
+    return ("pod", "data")
+
+
+def gather_rows(x: torch.Tensor, mesh, axes: Tuple[str, ...] = ("pod", "data")) -> torch.Tensor:
+    """Every row rank's rows of ``x`` (dim 0) over ``axes``
+    (:func:`row_axes`), in their order (no gradient)."""
+    return x if mesh is None else _gather(x.detach(), 0, tuple(axes), mesh)
 

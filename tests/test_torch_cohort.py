@@ -17,7 +17,7 @@ from repro_torch.core.asymmetry import (H100, all_gather_wire_bytes,  # noqa: E4
                                         allreduce_wire_bytes, cohort_vs_flat_dcn_bytes,
                                         reduce_scatter_wire_bytes)
 from repro_torch.core.cohort import _ef_quantize  # noqa: E402
-from repro_torch.launch.mesh import group_backend, make_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import group_backend, group_spans, make_mesh, spawn_ranks  # noqa: E402
 
 import torch_rank_fns  # noqa: E402
 
@@ -124,7 +124,12 @@ def test_mesh_of_one_rank_and_refused_meshes():
     assert mesh.world_size == 1 and mesh.coords == {"data": 0, "model": 0}
     t = torch.ones(3)
     assert mesh.all_reduce(t, "data") is t and not mesh.traffic.calls
-    with pytest.raises(NotImplementedError, match="pods keep a whole replica"):
+    # Pods with FSDP and TP: the mesh is made by four ranks, with a group
+    # per axis above 1 and the world's (a pair of axes spans a group of its
+    # own only where all three are above 1).
+    assert group_spans({"pod": 2, "data": 1, "model": 2}) == {
+        "pod": ("pod",), "model": ("model",), "world": ("pod", "data", "model")}
+    with pytest.raises(RuntimeError, match="initialised process group of 4"):
         make_mesh((2, 1, 2), ("pod", "data", "model"), "cpu")
     with pytest.raises(RuntimeError, match="initialised process group of 2"):
         make_mesh((1, 2), ("data", "model"), "cpu")

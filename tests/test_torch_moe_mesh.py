@@ -18,8 +18,8 @@ The 2-rank spawn also runs the island (``ep_a2a`` at (1, 2)) as it is and
 with its output summed over ``model`` (the block's *g* on an output that is
 already whole), each against one process whose MoE routes each model rank's
 slice as a group of its own (``chip_smoke.py``'s ``island_groups``), and
-phase 9's ranks at smoke width in bf16 (``ep_serve_rank``,
-``ep_train_rank``), whose checks must pass and must fail on planted
+phase 9's ranks at smoke width in bf16 (``ep_rank``: ``ep_serve_rank``,
+then ``ep_train_rank``), whose checks must pass and must fail on planted
 faults."""
 
 import copy
@@ -138,8 +138,7 @@ def runs(tmp_path_factory):
     two = [c for c in CASES if math.prod(c["mesh"]) == 2]
     jobs2 = [j for c in two for j in _jobs(c)]
     jobs2 += _jobs(ISLAND) + _jobs(ISLAND, "island_summed_steps")
-    jobs2 += [("chip_smoke_ep_serve_rank", (*REHEARSE_SERVE, True, "cpu")),
-              ("chip_smoke_ep_train_rank", (*REHEARSE_TRAIN, True, "cpu"))]
+    jobs2 += [("chip_smoke_ep_rank", (REHEARSE_SERVE, REHEARSE_TRAIN, True, "cpu"))]
     jobs4 = _jobs(BY_NAME["fsdp_22"])
     with pool:
         ranks2 = pool.submit(spawn_ranks, torch_rank_fns.ranks_main, 2, (jobs2,), timeout=600)
@@ -160,8 +159,11 @@ def runs(tmp_path_factory):
                 if c.get("serve"):
                     got[-1]["logits"] = next(results)
             if n == 2:
-                for name in ("island", "island_summed", "ep_serve", "ep_train"):
+                for name in ("island", "island_summed"):
                     port.setdefault(name, []).append(next(results))
+                ep = next(results)
+                port.setdefault("ep_serve", []).append(ep["serve"])
+                port.setdefault("ep_train", []).append(ep["train"])
     return {"jax": ref, "port": port, "island": island, "rehearsal": rehearsal, "cs": cs}
 
 

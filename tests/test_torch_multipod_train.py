@@ -42,6 +42,8 @@ RUN = dict(learning_rate=1e-3, warmup_steps=0, microbatches=2)
 MODES = {"sync": dict(sync_mode="sync"),
          "int8": dict(sync_mode="sync", compress_int8=True),
          "local": dict(sync_mode="local", sync_budget=2)}
+# deepseek-v2 served on 2 pods: rows, prompt length, generated tokens.
+MOE_SERVE = (4, 8, 4)
 # fp32 on both sides: summation order only (tests/test_torch_train.py's).
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -104,6 +106,11 @@ def _batches(arch):
     return np.random.default_rng(7).integers(0, vocab, (STEPS, B, T + 1))
 
 
+def _moe_prompts():
+    vocab = get_config(MOE, smoke=True).vocab_size
+    return {"tokens": np.random.default_rng(3).integers(0, vocab, MOE_SERVE[:2])}
+
+
 def _tree(ref, prefix):
     return {k[len(prefix):]: v for k, v in ref.items() if k.startswith(prefix)}
 
@@ -136,7 +143,7 @@ def port_2(jax_ref, tmp_path_factory):
     """2 ranks, 2 pods x 1 data: deepseek-v2 in sync; then train() in local
     mode and in int8 sync, 3 steps with a checkpoint at step 3, that
     checkpoint resumed through step 4, and 4 steps uninterrupted; then the
-    CLI in local mode for 2 steps."""
+    CLI in local mode for 2 steps; then deepseek-v2 served."""
     kw = {mode: dict(**RUN, **MODES[mode], total_steps=4, checkpoint_every=3,
                      checkpoint_dir=str(tmp_path_factory.mktemp(f"ckpt_{mode}")))
           for mode in ("local", "int8")}
@@ -152,6 +159,8 @@ def port_2(jax_ref, tmp_path_factory):
         "--arch", LLAMA, "--steps", "2", "--seq-len", "16", "--batch", "8",
         "--ckpt-dir", cli_dir, "--mesh-shape", "2,1", "--mesh-axes", "pod,data",
         "--sync-mode", "local", "--device", "cpu"],)))
+    jobs.append(("pod_serve", (MOE, (2, 1), _tree(jax_ref, "moe/init/"), _moe_prompts(),
+                               *MOE_SERVE, torch_rank_fns.POD_DATA)))
     ranks = spawn_ranks(torch_rank_fns.ranks_main, 2, (jobs,), timeout=300)
     return ranks, {**kw, "cli": cli_dir}
 
@@ -243,6 +252,20 @@ def test_moe_sync_at_data_1_matches_jax(port_2, jax_ref):
             off += int(outside.sum())
             total += got.size
         assert off < total / 10 ** 4, (off, total)
+
+
+def test_moe_serves_on_two_pods_as_on_one_rank(port_2, jax_ref):
+    """serve() of deepseek-v2 (fp32) on 2 pods x 1 data: every rank serves
+    the whole batch on a whole replica, since the port routes a group over
+    one pod's rows where the reference's span (pod, data) (ROADMAP's item
+    3f), and its tokens are the port's one-rank tokens."""
+    ranks, _ = port_2
+    want, _ = torch_rank_fns.pod_serve(MOE, (1, 1), _tree(jax_ref, "moe/init/"),
+                                       _moe_prompts(), *MOE_SERVE, torch_rank_fns.DATA_MODEL)
+    for rank in ranks:
+        tokens, rows = rank[-1]
+        np.testing.assert_array_equal(tokens, want)
+        assert rows == [MOE_SERVE[0]]
 
 
 def _one_process(arch, params, run, batches):

@@ -17,10 +17,11 @@ from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_train_step, init_train_state
 from repro_torch.models import Model, rank_inputs
-from repro_torch.sharding.shard import gather_tree
+from repro_torch.sharding.shard import gather_tree, sharded
 
 POD_DATA = ("pod", "data")
 DATA_MODEL = ("data", "model")
+POD_DATA_MODEL = ("pod", "data", "model")
 
 
 def _numpy(tree):
@@ -69,15 +70,19 @@ def _model(arch, params):
     return model
 
 
-def step_modes(arch, shape, params, batches, runs):
+def step_modes(arch, shape, params, batches, runs, axes=POD_DATA):
     """For each ``RunConfig`` keyword set of ``runs``: ``arch`` (smoke, fp32,
-    from ``params``) stepped over ``batches`` on a mesh of ``shape`` over
-    (pod, data).  Returns, per run, the losses, grad-norms, wire bytes per
-    step on each group, and this rank's final parameters (and ``ef``)."""
-    mesh = make_mesh(shape, POD_DATA, "cpu")
+    from the whole ``params``; on a sharded mesh this rank's blocks of them)
+    stepped over ``batches`` on a mesh of ``shape`` over ``axes``.  Returns,
+    per run, the losses, grad-norms, wire bytes per step on each group,
+    this rank's pod's final parameters (and ``ef``), gathered whole, and the
+    elements and leaves of the rank's own blocks."""
+    mesh = make_mesh(shape, axes, "cpu")
     out = []
     for kw in runs:
-        model = _model(arch, params)
+        model = _sharded(arch, params, mesh) if sharded(mesh) else _model(arch, params)
+        whole = lambda tree: _numpy(gather_tree(dict(tree), model.layout, mesh)
+                                    if model.mesh is not None else tree)
         run = RunConfig(total_steps=10, **kw)
         state, step = init_train_state(model, run, mesh), build_train_step(model, run, mesh)
         losses, norms, wire = [], [], []
@@ -89,8 +94,10 @@ def step_modes(arch, shape, params, batches, runs):
             norms.append(m["grad_norm"].item())
             wire.append(dict(mesh.traffic.wire_bytes))
         out.append({"loss": losses, "grad_norm": norms, "wire": wire,
-                    "params": _numpy(state["params"]),
-                    "ef": _numpy(state["ef"]) if "ef" in state else None})
+                    "params": whole(state["params"]),
+                    "ef": whole(state["ef"]) if "ef" in state else None,
+                    "n_rank": sum(p.numel() for p in state["params"].values()),
+                    "n_leaves": len(state["params"])})
     return {"coords": mesh.coords, "runs": out}
 
 
@@ -179,15 +186,22 @@ def tp_steps(arch, shape, params, batches, run_kw, moe=None, over=None):
             "coords": dict(mesh.coords), "drops": drops}
 
 
-def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, moe=None):
-    """``serve(arch)`` (smoke, fp32) on a ``(data, model)`` mesh of
-    ``shape``, its weights the whole ``params`` and its prompts ``prompts``
-    (numpy) in place of its own draws; returns every rank's tokens."""
+def _served(arch, shape, axes, params, prompts, batch, prompt_len, gen_len, moe=None):
+    """``serve(arch)`` (smoke, fp32) on a mesh of ``shape`` over ``axes``, its
+    weights the whole ``params`` and its prompts ``prompts`` (numpy) in place
+    of its own draws; returns every rank's tokens and the rows of each of
+    this rank's prefills."""
+    rows = []
+
     class Loaded(Model):
         def __init__(self, cfg, **kw):
             super().__init__(cfg, **kw)
             self.load_state_dict(shard_params(
                 {k: torch.from_numpy(v) for k, v in params.items()}, self))
+
+        def prefill(self, batch_, max_len):
+            rows.append(next(iter(batch_.values())).shape[0])
+            return super().prefill(batch_, max_len)
 
     real = (serve_mod.Model, serve_mod.get_config, serve_mod.input_specs)
     serve_mod.Model = Loaded
@@ -196,10 +210,36 @@ def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, moe=None)
                                               for k, v in prompts.items()}
     try:
         out = serve_mod.serve(arch, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
-                              mesh_shape=shape, mesh_axes=DATA_MODEL, device="cpu")
+                              mesh_shape=shape, mesh_axes=axes, device="cpu")
     finally:
         serve_mod.Model, serve_mod.get_config, serve_mod.input_specs = real
-    return out["tokens"].numpy()
+    return out["tokens"].numpy(), rows
+
+
+def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, moe=None):
+    """:func:`_served` on a ``(data, model)`` mesh: every rank's tokens."""
+    return _served(arch, shape, DATA_MODEL, params, prompts, batch, prompt_len, gen_len,
+                   moe)[0]
+
+
+def pod_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, axes=POD_DATA_MODEL):
+    """:func:`_served` on a pod mesh of ``shape`` over ``axes``: every
+    rank's tokens and the rows of this rank's prefill."""
+    return _served(arch, shape, axes, params, prompts, batch, prompt_len, gen_len)
+
+
+def block_scaled_steps(*args):
+    """:func:`step_modes` where int8 takes a scale per *block* (each rank's
+    own absmax, no max over the pod's ranks): a quantiser other than the
+    reference's one scale per leaf per pod, which the tests must tell."""
+    from repro_torch.core import cohort
+
+    real = cohort.int8_block_mean
+    cohort.int8_block_mean = lambda g, e, mesh, axis="pod": real(g, e, mesh, axis, ())
+    try:
+        return step_modes(*args)
+    finally:
+        cohort.int8_block_mean = real
 
 
 def tp_logits(arch, shape, params, prompts, max_len, moe=None, over=None, fault=None):
@@ -348,11 +388,11 @@ def island_summed_steps(arch, shape, params, batches, run_kw, moe):
         moe_mod._island = real
 
 
-def chip_smoke_ep_serve_rank(*args):
-    """chip_smoke.py's phase-9(a) rank (``ep_serve_rank``)."""
-    return _chip_smoke().ep_serve_rank(*args)
+def chip_smoke_ep_rank(*args):
+    """chip_smoke.py's phase-9 rank (``ep_rank``: serving, then training)."""
+    return _chip_smoke().ep_rank(*args)
 
 
-def chip_smoke_ep_train_rank(*args):
-    """chip_smoke.py's phase-9(b) rank (``ep_train_rank``)."""
-    return _chip_smoke().ep_train_rank(*args)
+def chip_smoke_pod_tp_rank(*args):
+    """chip_smoke.py's phase-11 rank (``pod_tp_rank``)."""
+    return _chip_smoke().pod_tp_rank(*args)
