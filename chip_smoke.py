@@ -307,7 +307,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    state reckoned before the run (:func:`pod_tp_memory`), then each rank's
    peak memory and ``mem_get_info``.
 
-Before each of phases 3-11 a ``[memory]`` line prints what the phases before
+12. MoE served on ``(pod, data)`` rows: phase 9's config on ``(pod 2,
+   data 1, model 2)`` (``EP_POD_MESH``), four ranks spawned as phase 7's
+   (:func:`ep_pod_rank`, their models built :func:`one_at_a_time`), serving
+   phase 9's request with 2 rows a rank: the island inside each pod in
+   prefill (MLA flash on ``wgmma`` on every rank), the scatter path with one
+   group over both pods' rows in decode; held by
+   :func:`check_ep_pod_serving` to one rank's prefill and greedy decode
+   whose MoE routes each pod's model-rank slice as a group
+   (:func:`ep_serve_reference`): prefill and first decode logits within
+   ``EP_LOGITS_RTOL``, every rank's tokens equal and their first ones the
+   one rank's, each group's bytes equal to
+   :func:`ep_pod_serve_wire_bytes`, decode's slot offsets on pod 1 equal to
+   pod 0's counts (:func:`slot_offsets`), and a planted fault that routes
+   each pod alone (:func:`pod_alone_rows`) must fail that probe.
+
+Before each of phases 3-12 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds (and whether they passed ``TARGET_S``),
 the kernels' JSON record, the card's
@@ -829,6 +844,28 @@ POD_TP_TRAIN = ("llama3.2-1b", 4, 4096, 2, 2, 3e-4)
 # 1, and step 2's loss must lie outside POD_LOSS_RTOL of sound sync's.
 POD_TP_FAULT = ("fault: pod groups across model ranks", {"sync_mode": "sync"},
                 "crossed_pod_group", 2)
+# Phase 12: MoE served on (pod, data) rows: phase 9's config (ep_config:
+# deepseek-v2-236b at published widths cut to 2 of its 60 layers, ep_a2a, 16
+# groups) on (pod 2, data 1, model 2), four ranks spawned as phase 7's (they
+# share the card where it is the only one), each pod's model ranks holding 80
+# of the 160 experts and 64 of the 128 heads, serving phase 9's request
+# (EP_SERVE: 4 x 4096, 32 tokens), 2 rows a rank.  The prefill runs the island
+# inside each pod (capacity per source slice: a model rank's slice of its
+# pod's 2 rows); decode runs the scatter path, its one group (4 tokens do not
+# split into 16 groups) spanning both pods' rows.  Held to one rank's
+# prefill and greedy decode of the same weights and prompts whose MoE routes
+# each pod's model-rank slice as a group (island_groups with pods 2): logits
+# within EP_LOGITS_RTOL, first tokens equal (later tokens are printed: the
+# ranks' bf16 rounding flips near-tied greedy choices, after which a row goes
+# its own way, as phase 8's rows do).  At 4 rows no expert drops a decode
+# choice, so the tokens cannot tell a group over one pod from one over both;
+# the probe (slot_offsets) reads decode's slot offsets on pod 1's ranks,
+# which must be pod 0's counts, and the planted fault (pod_alone_rows, each
+# pod routed alone) must fail it.  The ranks draw their weights one at a time
+# (one_at_a_time).  Training over pods at published width does not fit one
+# card: one replica peaks at 71 GB on one rank (6(g)), and two pods hold two;
+# it is held to JAX on CPU ranks only (tests/test_torch_pod_shard.py).
+EP_POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
 # The script's target time (ROADMAP), half of its 1200 s time limit: the
 # last line before the JSON says when a run went over it.
 TARGET_S = 600
@@ -1662,7 +1699,8 @@ def tp_serve_wire_bytes(cfg, model_size, batch, positions):
 
 def recorded_model(rec, drops=None):
     """A ``Model`` that records into ``rec``: itself (``model``), its
-    parameter bytes, the prefill's rows and last-token logits, and the launches and
+    parameter bytes, the prefill's rows and last-token logits, the first
+    decode step's last-token logits, and the launches and
     wire bytes of the prefill and of each decode step; with ``drops`` (a
     :func:`counted_drops` log) the choices the prefill's MoE calls dropped."""
     from repro_torch.models import Model
@@ -1693,6 +1731,8 @@ def recorded_model(rec, drops=None):
 
         def decode_step(self, caches, tokens):
             out, wire, launches = self._call(super().decode_step, caches, tokens)
+            if not rec["decode_bytes"]:
+                rec["decode_logits"] = out[0][:, -1].float().cpu().numpy()
             rec["decode_bytes"].append(wire)
             rec["decode_launches"].append(launches)
             return out
@@ -2255,24 +2295,25 @@ def ep_config(smoke=False):
 
 
 @contextlib.contextmanager
-def island_groups(model_size):
-    """Phase 9's one-rank reference: each MoE call whose T divides by
-    ``model_size`` routes model rank i's slice of every row as group i, as
-    the island does (its capacity is per slice); other calls (decode) as
-    they are."""
+def island_groups(model_size, pods=1):
+    """Phase 9's (and 12's) one-rank reference: each MoE call whose T
+    divides by ``model_size`` routes model rank i's slice of every row of
+    pod p (the rows split into ``pods`` equal blocks) as a group, as the
+    island does on each pod's ranks (its capacity is per slice); other calls
+    (decode) as they are."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.layers import mlp
 
     real = moe_mod.moe_ffn
 
-    def sliced(p, x, cfg, mesh=None):
+    def sliced(p, x, cfg, mesh=None, rows=None):
         B, T, D = x.shape
         if mesh is not None or T % model_size:
-            return real(p, x, cfg, mesh)
-        M, Tl = model_size, T // model_size
-        yg, aux = moe_mod._scatter_moe(
-            p, x.unflatten(1, (M, Tl)).transpose(0, 1).reshape(M, B * Tl, D), cfg.moe)
-        y = yg.reshape(M, B, Tl, D).transpose(0, 1).reshape(B, T, D)
+            return real(p, x, cfg, mesh, rows)
+        P, M, Tl = pods, model_size, T // model_size
+        groups = x.reshape(P, B // P, M, Tl, D).transpose(1, 2).reshape(P * M, B // P * Tl, D)
+        yg, aux = moe_mod._scatter_moe(p, groups, cfg.moe)
+        y = yg.reshape(P, M, B // P, Tl, D).transpose(1, 2).reshape(B, T, D)
         return (y + mlp(p["shared"], x, "swiglu") if cfg.moe.num_shared else y), aux
 
     moe_mod.moe_ffn = sliced
@@ -2437,16 +2478,16 @@ def ep_wire_bytes(cfg, model_size, rows, seq):
             "world": allreduce_wire_bytes(4, M)}
 
 
-def ep_references(serving, training, smoke=False, device="cuda"):
-    """Phase 9's one-rank references under :func:`island_groups`: the
-    last-token logits (numpy ``[batch, V]``) of the prefill of ``serving``'s
-    request (rows, prompt, generated tokens; ``serve()``'s weights and
-    prompts), and step 1's (loss, grad-norm) of ``train()`` on ``training``
-    (rows, tokens per row, microbatches, steps, peak lr; bf16 moments)."""
+def ep_serve_reference(serving, pods=1, smoke=False, device="cuda", decode=False):
+    """The one-rank reference of phase 9's (``pods`` 1) or phase 12's
+    (``pods`` 2) serving under :func:`island_groups`: the last-token logits
+    (numpy ``[batch, V]``) of the prefill of ``serving``'s request (rows,
+    prompt, generated tokens; ``serve()``'s weights and prompts); with
+    ``decode``, also the logits of the first decode step and ``serve()``'s
+    greedy tokens ``[batch, generated]``."""
     import torch
 
-    from repro_torch.configs import RunConfig, ShapeConfig
-    from repro_torch.launch import train as train_mod
+    from repro_torch.configs import ShapeConfig
     from repro_torch.models import Model, input_specs
 
     cfg, M, dev = ep_config(smoke), EP_MESH[0][1], torch.device(device)
@@ -2454,12 +2495,40 @@ def ep_references(serving, training, smoke=False, device="cuda"):
     model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
     prompts = input_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"),
                           generator=torch.Generator(dev).manual_seed(1), device=dev)
-    with island_groups(M):
-        logits = model.prefill(prompts, prompt_len + gen_len)[0][:, -1].float().cpu().numpy()
-    del model, prompts
+    out = {}
+    with island_groups(M, pods):
+        logits, caches = model.prefill(prompts, prompt_len + gen_len)
+        out["logits"] = logits[:, -1].float().cpu().numpy()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        tokens = [tok]
+        for i in range(gen_len - 1 if decode else 0):
+            logits, caches = model.decode_step(caches, tok)
+            if i == 0:
+                out["decode_logits"] = logits[:, -1].float().cpu().numpy()
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            tokens.append(tok)
+    if decode:
+        out["tokens"] = torch.cat(tokens, dim=1).cpu().numpy()
+    del model, prompts, caches, logits
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+def ep_references(serving, training, smoke=False, device="cuda"):
+    """Phase 9's one-rank references under :func:`island_groups`: the
+    last-token logits (numpy ``[batch, V]``) of the prefill of ``serving``'s
+    request (:func:`ep_serve_reference`), and step 1's (loss, grad-norm) of
+    ``train()`` on ``training`` (rows, tokens per row, microbatches, steps,
+    peak lr; bf16 moments)."""
+    import torch
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train as train_mod
+
+    cfg, M, dev = ep_config(smoke), EP_MESH[0][1], torch.device(device)
+    logits = ep_serve_reference(serving, 1, smoke, device)["logits"]
     rows, seq, micro, n_steps, lr = training
     real = train_mod.get_config
     train_mod.get_config = lambda a, smoke=False: cfg
@@ -2745,6 +2814,288 @@ def check_ep_training(ranks, cfg, ref, per_step, smi):
         raise AssertionError(f"the planted fault's step 1 {fault} and island {fisland} lie "
                              f"within the limits of one rank's {ref}: the checks cannot tell")
     return gaps
+
+
+@contextlib.contextmanager
+def pod_alone_rows():
+    """Phase 12's planted fault, the route before ROADMAP's item 3f: every
+    MoE call routes its pod's rows alone (its groups over one pod's ``data``
+    ranks), where a serving step's groups span the ``(pod, data)`` ranks."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.moe_ffn
+
+    def alone(p, x, cfg, mesh=None, rows=None):
+        return real(p, x, cfg, mesh, rows and moe_mod.Rows(rows.mesh, ("data",)))
+
+    moe_mod.moe_ffn = alone
+    try:
+        yield
+    finally:
+        moe_mod.moe_ffn = real
+
+
+@contextlib.contextmanager
+def slot_offsets(log, on):
+    """Phase 12's probe: ``models/moe.py``'s ``_slots`` wrapped; while
+    ``on[0]``, each call appends to ``log`` the ``[E]`` counts of the
+    rank's (token, choice) pairs by expert and each expert's first slot
+    position among them (its offset: the slots that the group's ranks
+    before this one filled; -1 for an expert the rank did not choose),
+    numpy."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod._slots
+
+    def slots(flat_e, pos, C, E, local=None):
+        if on[0]:
+            e, p = flat_e.reshape(-1), pos.reshape(-1)
+            first = torch.full((E,), -1, dtype=p.dtype, device=p.device).scatter_reduce(
+                0, e, p, "amin", include_self=False)
+            log.append((torch.bincount(e, minlength=E).cpu().numpy(), first.cpu().numpy()))
+        return real(flat_e, pos, C, E, local)
+
+    moe_mod._slots = slots
+    try:
+        yield
+    finally:
+        moe_mod._slots = real
+
+
+def one_at_a_time(cls):
+    """``cls`` (a ``Model``) built on one rank of the process group at a
+    time, the card's cache emptied after each: a sharded model draws the
+    whole tree before it keeps its blocks (meta-device init is ROADMAP's
+    item 4), so ranks that share a card and draw at once would each hold a
+    whole replica and an fp32 draw of its largest tensor together."""
+    import torch
+    import torch.distributed as dist
+
+    class OneAtATime(cls):
+        def __init__(self, *a, **kw):
+            for r in range(dist.get_world_size()):
+                if r == dist.get_rank():
+                    super().__init__(*a, **kw)
+                    if torch.cuda.is_available():
+                        torch.cuda.empty_cache()
+                dist.barrier()
+
+    return OneAtATime
+
+
+def ep_pod_serve_wire_bytes(cfg, batch, positions):
+    """Each group's wire bytes per rank of one prefill over ``positions``
+    (1: one decode step) of ``batch`` global rows on ``EP_POD_MESH``: the
+    ``model`` group's as :func:`ep_serve_wire_bytes` at a rank's rows; on
+    the rows' group (``(pod, data)``, named ``pod`` at data 1), where the
+    scatter path runs (T no multiple of the model axis) with groups that
+    span R row ranks, per MoE layer the all-gather of every rank's ``[E]``
+    int64 counts."""
+    from repro_torch.core.asymmetry import all_gather_wire_bytes
+    from repro_torch.models import layer_plan
+    from repro_torch.sharding.shard import ROWS
+
+    (P, D, M), axes = EP_POD_MESH
+    R, m = P * D, cfg.moe
+    out = ep_serve_wire_bytes(cfg, M, batch // R, positions)
+    S = batch * positions
+    G = m.groups if S % m.groups == 0 else 1
+    if positions % M and G < R:
+        n_moe = cfg.num_layers - len(layer_plan(cfg).lead)
+        rows = cpu_mesh(EP_POD_MESH[0], axes).group_name(ROWS)
+        out[rows] = n_moe * all_gather_wire_bytes(R * m.num_experts * 8, R)
+    return out
+
+
+def ep_pod_rank(batch, prompt_len, gen_len, smoke=False, device=None):
+    """One rank of phase 12, spawned: ``serve()`` of :func:`ep_config` on
+    ``EP_POD_MESH`` (the model built :func:`one_at_a_time`) with the
+    launches counted from zero around it, ``Model.prefill`` and
+    ``decode_step`` wrapped to record the logits, launches and wire bytes
+    of each call and the choices each MoE call dropped, and decode's slot
+    offsets read by :func:`slot_offsets`; then the same model's prefill of
+    the same prompts and its greedy decode under :func:`pod_alone_rows`,
+    the offsets read again."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model, input_specs, rank_inputs
+
+    cfg, rec, drops, offsets, on = ep_config(smoke), {}, [], [], [False]
+
+    class Probed(recorded_model(rec, drops)):
+        def decode_step(self, caches, tokens):
+            on[0] = True
+            try:
+                return super().decode_step(caches, tokens)
+            finally:
+                on[0] = False
+
+    real = serve_mod.Model, serve_mod.get_config
+    serve_mod.Model, serve_mod.get_config = one_at_a_time(Probed), lambda a, smoke=False: cfg
+    try:
+        with counted_plain_calls() as plain, counted_drops(drops), slot_offsets(offsets, on):
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            res = serve_mod.serve(cfg.name, smoke=smoke, batch=batch, prompt_len=prompt_len,
+                                  gen_len=gen_len, mesh_shape=EP_POD_MESH[0],
+                                  mesh_axes=EP_POD_MESH[1], device=device)
+            launches = launch_counts()
+    finally:
+        serve_mod.Model, serve_mod.get_config = real
+    model = rec.pop("model")
+    mesh = model.mesh
+    out = {"tokens": res["tokens"].numpy(), "prefill_s": res["prefill_seconds"],
+           "decode_ms": res["decode_seconds_per_token"] * 1e3, "launches": launches,
+           "plain": dict(plain), "backends": dict(mesh.backends), "device": str(mesh.device),
+           "coords": dict(mesh.coords), "exchange_s": dict(mesh.traffic.seconds),
+           "offsets": offsets, "decode_drops": sum(int(d) for d in drops)
+           - sum(rec["prefill_drops"]), **rec}
+    if device is None:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["mem_get_info"] = [x / 1e9 for x in torch.cuda.mem_get_info()]
+    del res
+    pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
+    prompts = rank_inputs(input_specs(cfg, pshape,
+                                      generator=torch.Generator(mesh.device).manual_seed(1),
+                                      device=mesh.device), cfg, pshape, mesh)
+    # The plain model's methods: the recording ones would add to the records.
+    fault = []
+    logits, caches = Model.prefill(model, prompts, prompt_len + gen_len)
+    with pod_alone_rows(), slot_offsets(fault, [True]):
+        for _ in range(gen_len - 1):
+            logits, caches = Model.decode_step(model, caches,
+                                               logits[:, -1].argmax(-1, keepdim=True))
+    out["fault_offsets"] = fault
+    return out
+
+
+def check_span_offsets(ranks, key="offsets"):
+    """Phase 12's probe over the ranks' ``key`` logs (:func:`slot_offsets`
+    in each decode step): on every rank of a later pod each expert's offset
+    is the sum of the counts of the same model coordinate's ranks in the
+    pods before it (the group spans both pods' rows), and at least one such
+    offset is above 0 (else the probe cannot tell a group over one pod).
+    Returns the number of offsets above 0 read; raises where one differs."""
+    import numpy as np
+
+    by = {(r["coords"]["pod"], r["coords"]["model"]): r[key] for r in ranks}
+    seen = 0
+    for (p, m), log in by.items():
+        if not log:
+            raise AssertionError(f"pod {p} model rank {m}: no slot offsets read in decode")
+        for j, (counts, first) in enumerate(log):
+            before = sum((by[(q, m)][j][0] for q in range(p)), np.zeros_like(counts))
+            chosen = first >= 0
+            if not np.array_equal(first[chosen], before[chosen]):
+                bad = np.flatnonzero(chosen & (first != before))
+                raise AssertionError(
+                    f"pod {p} model rank {m}, decode call {j}: experts {bad.tolist()} start at "
+                    f"slots {first[bad].tolist()}, the counts of the pods before it are "
+                    f"{before[bad].tolist()}: the group does not span the pods' rows")
+            seen += int((first[chosen] > 0).sum())
+    if not seen:
+        raise AssertionError("no expert of a later pod had an offset above 0: the probe cannot "
+                             "tell a group over one pod")
+    return seen
+
+
+def check_ep_pod_serving(ranks, cfg, batch, prompt_len, ref, smi):
+    """Phase 12's checks and lines over the ranks' :func:`ep_pod_rank`
+    records, against the one-rank ``ref`` (:func:`ep_serve_reference` with
+    pods 2: logits, decode_logits, tokens): each rank's prefill held its
+    ``(pod, data)`` share of the rows; its prefill's and first decode step's
+    last-token logits within ``EP_LOGITS_RTOL`` in relative L2 of the one
+    rank's for those rows; every rank's tokens equal, their first ones the
+    one rank's (later ones are printed: in bf16 the ranks' rounding of the
+    sharded sums flips near-tied greedy choices, and a row goes its own way
+    after a flip, as phase 8's llama rows do); each group's
+    bytes of the prefill and of each decode step equal
+    :func:`ep_pod_serve_wire_bytes`; decode's slot offsets span the pods
+    (:func:`check_span_offsets`) and the planted fault's do not; on the
+    card (``smi`` not None) one flash launch a prefill per MLA layer on
+    ``wgmma`` on every rank, none in decode, and no call of a plain version
+    (on the CPU: no launch).  Returns the largest relative L2."""
+    import numpy as np
+
+    (P, D, M), R = EP_POD_MESH[0], EP_POD_MESH[0][0] * EP_POD_MESH[0][1]
+    share = batch // R
+    worst, gaps = 0.0, []
+    for rank, r in enumerate(ranks):
+        i = r["coords"]["pod"] * D + r["coords"]["data"]
+        rows = slice(i * share, (i + 1) * share)
+        for what, got, want in (("prefill", r["logits"], ref["logits"][rows]),
+                                ("decode", r["decode_logits"], ref["decode_logits"][rows])):
+            gap = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            worst, gaps = max(worst, gap), gaps + [gap]
+            if not gap <= EP_LOGITS_RTOL:
+                raise AssertionError(f"rank {rank} {r['coords']}: {what} logits {gap:.3e} from "
+                                     f"one rank's (limit {EP_LOGITS_RTOL})")
+        if r["prefill_rows"] != share:
+            raise AssertionError(f"rank {rank} {r['coords']}: its prefill held "
+                                 f"{r['prefill_rows']} rows, its (pod, data) share is {share} "
+                                 f"of {batch}")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"rank {rank}'s tokens differ from rank 0's")
+        if not np.array_equal(r["tokens"][:, 0], ref["tokens"][:, 0]):
+            raise AssertionError(f"rank {rank}: first tokens {r['tokens'][:, 0]} differ from "
+                                 f"one rank's {ref['tokens'][:, 0]}")
+        for what, got, want_b in (
+                ("prefill", [r["prefill_bytes"]], ep_pod_serve_wire_bytes(cfg, batch, prompt_len)),
+                ("decode", r["decode_bytes"], ep_pod_serve_wire_bytes(cfg, batch, 1))):
+            if any(g != want_b for g in got):
+                raise AssertionError(f"rank {rank}: {what} wire bytes {got[:2]}, asymmetry's "
+                                     f"formulas {want_b}")
+        flash = {k: v for k, v in r["prefill_launches"].items() if v}
+        decode = {k: v for d in r["decode_launches"] for k, v in d.items() if v}
+        if smi is not None:
+            n = forward_flash_calls(cfg)
+            if (flash != {"flash_attention": n, "flash_attention:wgmma": n} or decode
+                    or r["plain"]):
+                raise AssertionError(f"rank {rank}: prefill launches {flash}, decode {decode}, "
+                                     f"plain versions {r['plain']}; expected {n} flash, all "
+                                     "wgmma, and no plain call")
+        elif flash or decode:
+            raise AssertionError(f"rank {rank}: launches on the CPU")
+    seen = check_span_offsets(ranks)
+    try:
+        check_span_offsets(ranks, "fault_offsets")
+    except AssertionError as e:
+        fault = str(e)
+    else:
+        raise AssertionError("the planted fault's slot offsets (each pod's rows routed alone) "
+                             "pass the probe: it cannot tell")
+    print(f"[eppod] serving {cfg.name} ({cfg.num_layers} layers, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k} on {cfg.moe.expert_sharding}, {cfg.moe.groups} groups) on "
+          f"{dict(zip(*reversed(EP_POD_MESH)))}: each rank's prefill held "
+          f"{[r['prefill_rows'] for r in ranks]} of {batch} rows; prefill and first decode "
+          f"logits against one rank's (each pod's model-rank slice a group), relative L2 "
+          f"{[round(g, 6) for g in gaps]} (limit {EP_LOGITS_RTOL}); first tokens equal; "
+          f"{int((ranks[0]['tokens'] == ref['tokens']).sum())} of {ref['tokens'].size} tokens "
+          f"equal one rank's; decode's slot offsets on pod 1 "
+          f"equal pod 0's counts ({seen} offsets above 0 read), the planted fault (each pod's "
+          f"rows routed alone): {fault}; prefill s {[round(r['prefill_s'], 4) for r in ranks]}"
+          f", decode ms/token {[round(r['decode_ms'], 3) for r in ranks]}; exchange s by group "
+          f"{[{g: round(t, 4) for g, t in r['exchange_s'].items()} for r in ranks]}; wire bytes "
+          f"per prefill {ranks[0]['prefill_bytes']} and per token {ranks[0]['decode_bytes'][0]} "
+          f"= asymmetry's formulas; dropped choices in the prefill by rank "
+          f"{[r['prefill_drops'] for r in ranks]}, in {len(ranks[0]['decode_bytes'])} decode "
+          f"steps {[r['decode_drops'] for r in ranks]}; flash launches per rank and prefill "
+          f"{[r['prefill_launches'].get('flash_attention', 0) for r in ranks]} (wgmma "
+          f"{[r['prefill_launches'].get('flash_attention:wgmma', 0) for r in ranks]}); calls of "
+          f"the plain versions {ranks[0]['plain']}; backends {ranks[0]['backends']}; {smi}")
+    one = shard_bytes(cfg, (1, 1))[0]
+    for rank, r in enumerate(ranks):
+        print(f"[eppod] serving rank {rank} {r['coords']} on {r['device']}: parameters "
+              f"{r['param_bytes']} B against one rank's {one} B ({r['param_bytes'] / one:.4f})"
+              + (f", peak memory {r['peak_gb']:.2f} GB, mem_get_info free "
+                 f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
+                 if "peak_gb" in r else ""))
+    return worst
 
 
 @contextlib.contextmanager
@@ -5631,6 +5982,30 @@ def main() -> int:
     print(f"[podtp] {cfg.name} at published width and depth: served and trained on "
           f"{POD_TP_MESH[0]} over {POD_TP_MESH[1]}: phase 11 took "
           f"{time.perf_counter() - t11:.1f} s; {smi}")
+
+    # ------------------------------- 12. MoE served on (pod, data) rows --
+    # deepseek-v2-236b at phase 9's cut on (pod 2, data 1, model 2): phase 9's
+    # request served, 2 rows a rank, held to one rank whose MoE routes each
+    # pod's model-rank slice as a group; decode's slot offsets probed.
+    held(12)
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    cfg = ep_config()
+    _, batch, prompt_len, gen_len = EP_SERVE
+    n_ranks = math.prod(EP_POD_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    print(f"[eppod] {n_ranks} ranks sharing one {name} ({limit}); the pod and model groups' "
+          "exchanges over gloo through host memory" if torch.cuda.device_count() < n_ranks
+          else f"[eppod] {n_ranks} ranks, each on its own {name} ({limit})")
+    ref = ep_serve_reference((batch, prompt_len, gen_len), EP_POD_MESH[0][0], decode=True)
+    print(f"[eppod] one-rank reference in {time.perf_counter() - t12:.1f} s")
+    mark("12's ranks")
+    ranks = spawn_ranks(ep_pod_rank, n_ranks, (batch, prompt_len, gen_len), timeout=600)
+    check_ep_pod_serving(ranks, cfg, batch, prompt_len, ref, smi)
+    del ranks, ref
+    print(f"[eppod] {cfg.name} at published widths, {cfg.num_layers} of 60 layers: served on "
+          f"{EP_POD_MESH[0]} over {EP_POD_MESH[1]}: phase 12 took "
+          f"{time.perf_counter() - t12:.1f} s; {smi}")
 
     ran = time.perf_counter() - started
     print(f"[time] chip_smoke.py ran {ran:.1f} s"

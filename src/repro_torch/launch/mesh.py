@@ -142,10 +142,14 @@ class Mesh:
 
     # ------------------------------------------------------- collectives --
     def _host(self, dtype: torch.dtype, slot: int, n: int) -> torch.Tensor:
-        """A pinned host buffer of ``n`` elements (two slots per dtype)."""
+        """A pinned host buffer of ``n`` elements (two slots per dtype); a
+        normal tensor also when first asked for under ``inference_mode``
+        (a serving step's collective), so that a later call outside it can
+        write it."""
         buf = self._staging.get((dtype, slot))
         if buf is None or buf.numel() < n:
-            buf = torch.empty(max(n, CHUNK_ELEMENTS), dtype=dtype, pin_memory=True)
+            with torch.inference_mode(False):
+                buf = torch.empty(max(n, CHUNK_ELEMENTS), dtype=dtype, pin_memory=True)
             self._staging[(dtype, slot)] = buf
         return buf[:n]
 

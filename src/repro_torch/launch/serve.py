@@ -39,7 +39,7 @@ from ..coord import CoordinationService, LeaseMode, RecoverableClient
 from ..core import Overloaded
 from ..kernels import ops
 from ..models import Model, input_specs, rank_inputs
-from ..sharding.shard import gather_rows, row_axes
+from ..sharding.shard import gather_rows
 from .mesh import make_mesh
 
 
@@ -377,10 +377,9 @@ def serve(
     (``models.rank_inputs``), on its pod's blocks of the weights, and the
     tokens are gathered over those rows; with admission, rank 0 takes, renews
     and releases the lease while the others wait on it, so the lock table
-    sees one grant a request.  A MoE model over pods splits its rows over
-    ``data`` alone, every pod serving the whole batch
-    (``sharding.shard.row_axes``): the reference's groups span ``(pod,
-    data)``, which the port's routing does not yet (ROADMAP's item 3f).
+    sees one grant a request.  A MoE model's groups span the ``(pod, data)``
+    row ranks, as the reference's serving steps lay its batch
+    (``models/moe.py``).
 
     Returns ``tokens`` ([batch, gen_len] int64 on the CPU), ``prefill_seconds``,
     ``decode_seconds_per_token`` and ``throughput_tok_s``; with admission, also
@@ -445,7 +444,7 @@ def serve(
         if admission:
             admission.complete(slot)
 
-    tokens = gather_rows(torch.cat(generated, dim=1), mesh, row_axes(cfg, mesh)).cpu()
+    tokens = gather_rows(torch.cat(generated, dim=1), mesh).cpu()
     out = {
         "tokens": tokens,
         "prefill_seconds": prefill_s,

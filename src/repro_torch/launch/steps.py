@@ -24,14 +24,15 @@ fabric (:func:`flat_pod_mean`, ``cohort.pod_sync_grads``); the pod modes
 (``RunConfig.sync_mode``) are the reference's, where a pod dim is a rank's
 ``pod`` coordinate:
 
-  flat  — the paper-baseline: rows split over (pod × data) jointly; each
-          block's gradient all-reduced over ``pod`` in its dtype, leaf by
-          leaf (:func:`flat_pod_mean`).
-  sync  — the cohort schedule: the blocks' gradients all-reduced over
-          ``pod`` in one fp32 bucket; numerically ``flat``, and with FSDP
-          the same bytes.  With ``compress_int8`` the pod hop carries int8
-          with error feedback, one scale per leaf per pod
-          (``cohort.int8_block_mean``).
+  flat  — the paper-baseline: rows split over (pod × data) jointly, a MoE
+          layer's groups over them too (:func:`step_rows`); each block's
+          gradient all-reduced over ``pod`` in its dtype, leaf by leaf
+          (:func:`flat_pod_mean`).
+  sync  — the cohort schedule: a MoE layer's groups over a pod's rows; the
+          blocks' gradients all-reduced over ``pod`` in one fp32 bucket;
+          numerically ``flat`` (without MoE), and with FSDP the same bytes.
+          With ``compress_int8`` the pod hop carries int8 with error
+          feedback, one scale per leaf per pod (``cohort.int8_block_mean``).
   local — budgeted: per-pod parameters and optimizer state, gradients
           averaged inside the pod only, and the pods' *parameter blocks*
           (not the moments) averaged after every ``sync_budget``-th update.
@@ -52,8 +53,9 @@ from ..configs.base import RunConfig, ShapeConfig
 from ..core.cohort import (SyncConfig, bucket_mean, flat_all_reduce, pod_average_params,
                            pod_sync_grads)
 from ..models import Model, rank_inputs
+from ..models.moe import Rows
 from ..optim import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
-from ..sharding.shard import (gather_model, gather_rows, gather_tree, row_axes, shard_tree,
+from ..sharding.shard import (ROWS, gather_model, gather_rows, gather_tree, shard_tree,
                               sharded, whole_shape)
 from .mesh import Mesh
 
@@ -73,18 +75,13 @@ def pod_mode(run: RunConfig, mesh: Mesh) -> str:
     return mode
 
 
-def _check_layout(model: Model, run: RunConfig, mesh: Mesh) -> None:
-    """MoE capacity is computed over the rows one step sees: in the
-    reference all of the batch in ``flat`` and a pod's rows in ``sync`` and
-    ``local``.  A pod's rows route over its data ranks (``models/moe.py``),
-    as on a mesh of one pod, which is the reference's ``vmap`` over pods;
-    ``flat`` MoE over pods, whose groups span ``(pod, data)``, is ROADMAP's
-    item 3f."""
-    if model.cfg.moe is not None and pod_mode(run, mesh) == "flat" and mesh.size("pod") > 1:
-        raise NotImplementedError(
-            f"{model.cfg.name}: flat MoE over pods (mesh {mesh.shape}): the reference's "
-            "groups span (pod, data), whose capacity the port does not reproduce; it trains "
-            "MoE over pods in sync or local mode (ROADMAP's item 3f)")
+def step_rows(mode: str, mesh: Mesh) -> Rows:
+    """The ranks whose rows make up one microbatch of a step in ``mode``, as
+    the reference lays them: ``(pod, data)`` in ``flat`` (its ``_gf_axes``),
+    a pod's ``data`` ranks in ``sync`` and ``local``, whose ``vmap`` over
+    pods routes each pod's rows alone.  A MoE layer's groups lie over them
+    (``models/moe.py``)."""
+    return Rows(mesh, ROWS if mode == "flat" else ("data",))
 
 
 def rank_rows(batch: Dict[str, torch.Tensor], mesh: Mesh, mode: str,
@@ -223,19 +220,20 @@ def restore_train_state(state: Dict[str, Any], restored: Dict[str, Any]) -> None
     state["opt"]["step"] = torch.as_tensor(restored["opt"]["step"]).to(step.device, step.dtype)
 
 
-def grad_fn(model: Model, microbatches: int = 1) -> Callable:
+def grad_fn(model: Model, microbatches: int = 1, rows: Optional[Rows] = None) -> Callable:
     """``fn(batch) -> (loss, metrics, grads)``, the reference's ``_grad_fn``:
     with ``microbatches > 1`` each slice of the batch rows gets its own
     backward, its gradients are summed in fp32 buffers and divided by the
     count (as are loss and metrics).  ``grads`` maps every parameter's
     ``state_dict`` key to a tensor (zeros where the loss does not read the
-    parameter), in the parameters' dtype when there is one microbatch."""
+    parameter), in the parameters' dtype when there is one microbatch.
+    ``rows``: the ranks whose rows make up a microbatch (``Model.loss``)."""
     names = [name for name, _ in model.named_parameters()]
     tensors = [p for _, p in model.named_parameters()]
     n = microbatches
 
     def value_and_grad(batch):
-        loss, metrics = model.loss(batch)
+        loss, metrics = model.loss(batch, rows)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(tensors, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -273,11 +271,10 @@ def build_train_step(model: Model, run: RunConfig, mesh: Optional[Mesh] = None) 
     ``metrics`` holds 0-d tensors (``ce``, ``loss``, ``grad_norm``), so a
     step on one rank never waits on the device."""
     mesh = mesh or _one_rank(model)
-    _check_layout(model, run, mesh)
     if sharded(mesh) and model.mesh is not mesh:
         raise ValueError(f"the model holds no blocks of mesh {mesh.shape}: build it there")
     mode = pod_mode(run, mesh)
-    grads_of = grad_fn(model, run.microbatches)
+    grads_of = grad_fn(model, run.microbatches, step_rows(mode, mesh))
     P = mesh.size("pod")
     rows = P * mesh.size("data")  # ranks with rows of their own
     sync = SyncConfig(mode, run.sync_budget, run.compress_int8)
@@ -360,9 +357,8 @@ def build_encode_step(model: Model, mesh: Optional[Mesh] = None) -> Callable:
     logits, under ``torch.inference_mode``; the reference's
     ``build_encode_step``.  On a ``mesh`` of several ranks (on a sharded one,
     the mesh the model was built on) each rank encodes its ``(pod, data)``
-    rows of the global ``batch`` (:func:`models.rank_inputs`; a MoE model
-    over pods its ``data`` rows) and returns the whole logits, gathered over
-    ``model`` and the rows."""
+    rows of the global ``batch`` (:func:`models.rank_inputs`) and returns the
+    whole logits, gathered over ``model`` and the rows."""
     if sharded(mesh) and mesh is not model.mesh:
         raise ValueError(f"the model holds no blocks of mesh {mesh.shape}: build it there")
 
@@ -373,8 +369,7 @@ def build_encode_step(model: Model, mesh: Optional[Mesh] = None) -> Callable:
             rows = next(iter(batch.values())).shape[0]
             batch = rank_inputs(batch, model.cfg, ShapeConfig("encode", 0, rows, "prefill"),
                                 mesh)
-        h, _ = model.forward(batch, head)
-        return gather_rows(gather_model(model._logits(h, head), model.vocab_tp), mesh,
-                           row_axes(model.cfg, mesh))
+        h, _ = model.forward(batch, head, Rows(mesh) if mesh is not None else None)
+        return gather_rows(gather_model(model._logits(h, head), model.vocab_tp), mesh)
 
     return encode

@@ -10,7 +10,6 @@ standard normal draw.  On a mesh a rank takes its rows of each input as
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -58,25 +57,21 @@ def rank_inputs(batch: Dict[str, torch.Tensor], cfg: ModelConfig, shape: ShapeCo
     """This rank's rows of a global batch, the reference's ``batch_pspec``
     with ``batch_axes=("pod", "data")``: every input that it puts on those
     axes in ``P·D`` equal row blocks, rank ``(p, d)`` the ``(p·D + d)``-th
-    (a rank of one pod and one data rank: ``batch`` itself).  A MoE model
-    over pods splits them over ``data`` alone (``sharding.shard.row_axes``)."""
+    (a rank of one pod and one data rank: ``batch`` itself), for every arch:
+    a MoE model's groups span the row ranks (``models/moe.py``)."""
     from ..sharding.rules import batch_pspec  # the rules import this package
-    from ..sharding.shard import row_axes
+    from ..sharding.shard import ROWS, row_rank
 
-    axes = row_axes(cfg, mesh)
-    n_rows = 1 if mesh is None else math.prod(mesh.size(a) for a in axes)
+    i, n_rows = row_rank(mesh, ROWS)
     if n_rows == 1:
         return batch
-    i = 0
-    for a in axes:
-        i = i * mesh.size(a) + mesh.coords.get(a, 0)
-    specs = batch_pspec(cfg, shape, batch_axes=("pod", "data"))
+    specs = batch_pspec(cfg, shape, batch_axes=ROWS)
     out = {}
     for k, v in batch.items():
-        if specs.get(k, (None,))[0] == ("pod", "data"):
+        if specs.get(k, (None,))[0] == ROWS:
             if v.shape[0] % n_rows:
                 raise ValueError(f"{k}: {v.shape[0]} rows do not split over {n_rows} "
-                                 f"{axes} ranks")
+                                 f"{ROWS} ranks")
             n = v.shape[0] // n_rows
             v = v[i * n:(i + 1) * n]
         out[k] = v

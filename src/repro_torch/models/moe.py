@@ -26,12 +26,26 @@ reference's two routes:
   divides by 256, one block of experts a rank), runs its own experts,
   returns the results by a second all-to-all, combines them, and gathers
   the slices over ``model``: its output is whole on every model rank;
-* otherwise the scatter path (``fsdp_d``, and the island's fallback, decode
-  among it): the experts lie on ``model``, every model rank routes the same
+* otherwise the scatter path (``fsdp_d``, ``fsdp_f``, ``ep2d``, and the
+  island's fallback, decode among it): every model rank routes the same
   tokens in the reference's groups of the whole microbatch, runs its own
-  experts only and leaves a partial sum for the block's *g*.  One group
-  over several data ranks continues each expert's slots across them (an
-  all-gather of the ``[E]`` counts over ``data``).
+  experts only and leaves a partial sum for the block's *g*.  The experts
+  lie on ``model`` (``fsdp_d``, ``fsdp_f``: the model gathers their FSDP dim
+  on use), or on ``(data, model)`` jointly (``ep2d``, the island's 2-D
+  layout), where the weights never move: the slots of the experts that data
+  rank ``d`` holds go to it by an all-to-all over ``data``, and the results
+  come back the same way.
+
+The microbatch is the rows of every rank on the step's row axes (``rows``:
+``("pod", "data")`` in ``flat`` training and in every serving step, the
+reference's batch axes; ``("data",)`` in ``sync`` and ``local``, whose
+``vmap`` over pods routes each pod's rows alone).  With R row ranks and G
+groups, a rank holds G / R whole groups, or, where R / G is whole, one group
+spans R / G consecutive row ranks: an expert's slots continue across them in
+pod-major order (an all-gather of the ``[E]`` counts over the row ranks, of
+which each group reads its own ranks').  The island routes each model
+rank's slice of a rank's own rows; its capacity is per source slice on any
+row axes.
 
 Either way the router runs whole on every model rank, on the FFN input
 before *f*, and its gates pass through *f*: a model rank's experts (or
@@ -42,33 +56,41 @@ The experts read the input after *f*.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
-from ..sharding.shard import (all_to_all, copy_to_model, gather_data, gather_slices,
-                              model_parallel, reduce_from_model)
+from ..sharding.shard import (all_to_all, copy_to_model, gather_slices, model_parallel,
+                              reduce_from_model, ROWS, row_rank)
 from .layers import mlp, mlp_spec
 from .specs import ParamSpec
 
 
+LAYOUTS = ("fsdp_d", "fsdp_f", "ep2d", "ep_a2a")
+
+
 def two_d(m: MoEConfig) -> bool:
-    """Whether the island's experts lie on ``(data, model)`` jointly (one
-    block a rank; the reference's ``E % 256 == 0`` branch)."""
-    return m.expert_sharding == "ep_a2a" and m.num_experts % 256 == 0
+    """Whether the experts lie on ``(data, model)`` jointly, one block a rank:
+    ``ep2d``, and the island's ``E % 256 == 0`` branch."""
+    return m.expert_sharding == "ep2d" or (m.expert_sharding == "ep_a2a"
+                                           and m.num_experts % 256 == 0)
 
 
 def moe_spec(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
     m: MoEConfig = cfg.moe
     D, E, Fe = cfg.d_model, m.num_experts, m.d_expert
-    # (wi, wo) logical axes: experts on model with d_model FSDP on data, or
-    # for the island's E % 256 layout experts on (data, model) jointly.
+    # (wi, wo) logical axes (MoEConfig.expert_sharding): experts on model with
+    # d_model (fsdp_d) or the FFN dim (fsdp_f) FSDP on data, experts on (data,
+    # model) jointly (ep2d, the island's E % 256 layout), or the island's
+    # experts on model with wi's d_model and wo's FFN dim on data.
     if two_d(m):
         wi_l = wo_l = ("expert2d", None, None)
     elif m.expert_sharding == "ep_a2a":
         wi_l, wo_l = ("expert", "embed", None), ("expert", "mlp_fsdp", None)
+    elif m.expert_sharding == "fsdp_f":
+        wi_l, wo_l = ("expert", None, "mlp_fsdp"), ("expert", "mlp_fsdp", None)
     else:
         wi_l, wo_l = ("expert", "embed", None), ("expert", None, "embed")
     spec: Dict = {
@@ -155,12 +177,55 @@ def _route(p, xg: torch.Tensor, m: MoEConfig, C: int):
     return gates, _slots(flat_e, pos, C, m.num_experts), aux
 
 
+class Rows(NamedTuple):
+    """The ranks whose rows make up a step's microbatch: ``mesh`` (any
+    ``launch.mesh.Mesh``, sharded or not) and the ``axes`` the rows lie on."""
+
+    mesh: Any
+    axes: Tuple[str, ...] = ROWS
+
+
+class Span(NamedTuple):
+    """One group over ``size`` consecutive row ranks of ``rows``; ``index``
+    is this rank's, pod-major over ``rows.axes``."""
+
+    rows: Rows
+    size: int
+    index: int
+
+
+def _span_offsets(counts: torch.Tensor, span: Span) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the ``[E]`` counts of the group's ranks before this one, the
+    group's counts) from every row rank's ``counts`` (one all-gather over the
+    row ranks; the group reads its own ranks')."""
+    mesh, axes = span.rows
+    every = mesh.all_gather(counts, axes).view(-1, counts.numel())
+    lo = span.index - span.index % span.size
+    return every[lo:span.index].sum(0), every[lo:lo + span.size].sum(0)
+
+
 def _experts(wi: torch.Tensor, wo: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
     """The experts' swiglu FFN over their slots, xe [G, e, C, D]."""
     h = torch.einsum("gecd,edf->gecf", xe, wi)
     gate_h, up_h = torch.chunk(h, 2, dim=-1)
     h = F.silu(gate_h) * up_h
     return torch.einsum("gecf,efd->gecd", h, wo)
+
+
+def _exchanged_experts(wi: torch.Tensor, wo: torch.Tensor, xe: torch.Tensor, mesh
+                       ) -> torch.Tensor:
+    """:func:`_experts` where the rank holds one block of ``n`` experts of
+    ``(data, model)`` jointly and ``xe`` ``[G, Dn·n, C, D]`` holds the slots
+    of the experts of its model coordinate on every data rank, in data
+    order: the weights stay, and the slots go to their experts' data rank
+    and come back by two all-to-alls over ``data``."""
+    G, L, C, D = xe.shape
+    Dn, n = mesh.size("data"), wi.shape[0]
+    send = xe.reshape(G, Dn, n, C, D).transpose(0, 1)               # piece d → data rank d
+    recv = all_to_all(send, "data", mesh)          # my experts' slots from every data rank
+    ye = _experts(wi, wo, recv.reshape(Dn * G, n, C, D))
+    back = all_to_all(ye.reshape(Dn, G, n, C, D), "data", mesh)
+    return back.transpose(0, 1).reshape(G, L, C, D)
 
 
 def _combine(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
@@ -174,32 +239,35 @@ def _combine(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor) -> torch
 
 
 def _scatter_moe(p, xg: torch.Tensor, m: MoEConfig, xf: Optional[torch.Tensor] = None,
-                 local: Optional[torch.Tensor] = None, tp=None, span=None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 local: Optional[torch.Tensor] = None, tp=None, span: Optional[Span] = None,
+                 exchange=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """xg: [G, S, D] → (y [G, S, D], aux). Capacity overflow tokens drop.
 
     Over ranks: ``xf`` the tokens that the experts read (xg after *f*; the
-    router reads xg), ``local`` the global ids of the experts whose weights
-    ``p`` holds (every expert when None: y is then whole, else this rank's
-    partial sum), ``tp`` the model axis (*f* on the gates), and ``span`` the
-    mesh where one group spans its data ranks: an expert's slots continue
-    after those the data ranks before this one filled, and the load-balance
-    loss reads the whole group's counts."""
+    router reads xg), ``local`` the global ids of the experts whose slots
+    this rank fills (every expert when None: y is then whole, else this
+    rank's partial sum), ``tp`` the model axis (*f* on the gates), ``span``
+    where xg's one group spans several row ranks: an expert's slots continue
+    after those the group's ranks before this one filled, and the
+    load-balance loss reads the whole group's counts; ``exchange`` the mesh
+    where ``p``'s experts are one block of ``(data, model)`` and ``local``
+    those of the rank's model coordinate on every data rank
+    (:func:`_exchanged_experts`)."""
     G, S, D = xg.shape
     E, k = m.num_experts, m.top_k
     xf = xg if xf is None else xf
-    Dn = span.size("data") if span is not None else 1
-    C = _capacity(S * Dn, m)
+    n_span = span.size if span is not None else 1
+    C = _capacity(S * n_span, m)
     if span is None and local is None:
         gates, slot, aux = _route(p, xg, m, C)
     else:
         gates, flat_e, pos, counts, probs = _ranks(p["router"], xg, m)
         if span is not None:
-            every = span.all_gather(counts.reshape(-1), "data").view(Dn, E)
-            pos = pos + every[:span.coords["data"]].sum(0)[flat_e]
-            # The group's counts with this rank's probabilities: the data
-            # ranks' mean of this is the reference's loss over the group.
-            f = every.sum(0).float() / (S * Dn * k)
+            offset, total = _span_offsets(counts.reshape(-1), span)
+            pos = pos + offset[flat_e]
+            # The group's counts with this rank's probabilities: the row
+            # ranks' mean of this is the reference's loss over the groups.
+            f = total.float() / (S * n_span * k)
             aux = m.num_experts * torch.sum(f * probs.float().mean(dim=1)[0])
         else:
             aux = aux_load_balance_loss(probs, counts, m)
@@ -212,7 +280,9 @@ def _scatter_moe(p, xg: torch.Tensor, m: MoEConfig, xf: Optional[torch.Tensor] =
     # Each kept slot receives one token; row n*C collects the dropped ones
     # and is cut off unread.
     xe = xf.new_zeros((G, n * C + 1, D)).index_put((garange, slot), xf[:, token_of])
-    ye = _experts(p["wi"], p["wo"], xe[:, :n * C].reshape(G, n, C, D))
+    xe = xe[:, :n * C].reshape(G, n, C, D)
+    ye = (_experts(p["wi"], p["wo"], xe) if exchange is None
+          else _exchanged_experts(p["wi"], p["wo"], xe, exchange))
     return _combine(ye.reshape(G, n * C, D), slot, gates), aux
 
 
@@ -285,31 +355,31 @@ def _island(p, x: torch.Tensor, xf: torch.Tensor, m: MoEConfig, mesh
     return gather_slices(y.reshape(B, Tl, D), model_parallel(mesh), dim=1), aux
 
 
-def _local_experts(p, m: MoEConfig, mesh):
-    """(wi, wo, global ids of their experts or None for all) of the scatter
-    path over ``mesh``: the island's jointly split blocks gathered over
-    ``data`` first."""
-    wi, wo = p["wi"], p["wo"]
-    n, E = wi.shape[0], m.num_experts
+def _local_experts(p, m: MoEConfig, mesh) -> Tuple[Optional[torch.Tensor], Any]:
+    """(the global ids of the experts whose slots this rank fills, or None
+    for all; the mesh of :func:`_exchanged_experts`, or None) of the scatter
+    path over ``mesh``: experts on ``model``, the rank's own; experts on
+    ``(data, model)`` jointly, block ``d·M + mi`` of each data rank ``d`` in
+    data order, their slots exchanged over ``data``."""
+    n, E = p["wi"].shape[0], m.num_experts
     if n == E:
-        return wi, wo, None
+        return None, None
     M, mi = mesh.size("model"), mesh.coords["model"]
     if n * M == E:                                # experts on model
-        return wi, wo, torch.arange(mi * n, (mi + 1) * n, device=wi.device)
-    wi, wo = gather_data(wi, 0, mesh), gather_data(wo, 0, mesh)
-    # Block (d·M + mi) of each data rank d, in data order.
+        return torch.arange(mi * n, (mi + 1) * n, device=p["wi"].device), None
     ids = [(d * M + mi) * n + j for d in range(mesh.size("data")) for j in range(n)]
-    return wi, wo, torch.tensor(ids, device=wi.device)
+    return torch.tensor(ids, device=p["wi"].device), mesh
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None, rows: Optional[Rows] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: [B, T, D] → (y [B, T, D], aux scalar).
 
     On a sharded ``mesh`` x is the rank's rows, the same on every model rank
     (the FFN input before *f*), and y is whole: the island's output as it
     is, the shared experts' and the scatter path's partial sums through
-    *g*."""
+    *g*.  ``rows``: the ranks whose rows make up the microbatch (None: this
+    rank's alone), over which the scatter path's groups lie."""
     m = cfg.moe
     B, T, D = x.shape
     tp = model_parallel(mesh)
@@ -319,20 +389,19 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None
         whole, aux = _island(p, x, xf, m, mesh)
         y = None
     else:
-        Dn = mesh.size("data") if mesh is not None else 1
-        S = B * T * Dn                             # the microbatch's tokens
+        i, R = row_rank(rows.mesh, rows.axes) if rows is not None else (0, 1)
+        S = B * T * R                              # the microbatch's tokens
         G = m.groups if (m.groups >= 1 and S % m.groups == 0) else 1
-        if G % Dn and G != 1:
+        if G % R and R % G:
             raise NotImplementedError(
-                f"{cfg.name}: {G} MoE groups over {Dn} data ranks: a group would straddle "
-                "data ranks, whose capacity the port does not reproduce (use a multiple of "
-                "the data ranks, or 1)")
-        g = G // Dn if G % Dn == 0 else 1
-        wi, wo, local = _local_experts(p, m, mesh)
-        span = mesh if G % Dn else None
-        yg, aux = _scatter_moe({"router": p["router"], "wi": wi, "wo": wo},
-                               x.reshape(g, B * T // g, D), m, xf.reshape(g, B * T // g, D),
-                               local, tp, span)
+                f"{cfg.name}: {G} MoE groups over {R} row ranks {tuple(rows.axes)}: a group "
+                "would straddle a rank (the reference's groups are whole on a rank or span "
+                "whole ranks: neither of the counts divides the other)")
+        g = max(G // R, 1)
+        span = Span(rows, R // G, i) if G < R else None
+        local, exchange = _local_experts(p, m, mesh)
+        yg, aux = _scatter_moe(p, x.reshape(g, B * T // g, D), m, xf.reshape(g, B * T // g, D),
+                               local, tp, span, exchange)
         y = yg.reshape(B, T, D)
     if m.num_shared:
         shared = mlp(p["shared"], xf, "swiglu")

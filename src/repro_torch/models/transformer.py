@@ -40,7 +40,9 @@ vocab range, with Megatron's *f* after each norm (MLA: on its latents,
 norm, ``models/xlstm.py``) and *g* after each row-parallel product.  The MoE
 FFN's output is whole: the expert-parallel island's as it is, the partial
 sums through *g*.  Experts split over ``(data, model)`` jointly are not
-gathered on use: the island runs its own block of them.  Prefill and decode
+gathered on use: the island runs its own block of them, and the scatter path
+sends their slots to them (``models/moe.py``).  A MoE layer's groups lie
+over the row ranks of the step (:attr:`Model.rows`).  Prefill and decode
 return the whole vocab's logits (gathered over ``model`` for the argmax).
 """
 
@@ -95,8 +97,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append(f"block_pattern={cfg.block_pattern}")
     if cfg.attention not in ("gqa", "mla") and (cfg.attention != "none" or "attn" in kinds):
         unsupported.append(f"attention={cfg.attention!r}")
-    if cfg.moe is not None and cfg.moe.expert_sharding not in ("fsdp_d", "ep_a2a"):
-        # fsdp_f and ep2d are layouts the reference leaves to GSPMD.
+    if cfg.moe is not None and cfg.moe.expert_sharding not in moe_mod.LAYOUTS:
         unsupported.append(f"MoE expert_sharding={cfg.moe.expert_sharding!r}")
     if cfg.frontend not in ("none", "audio", "vision"):
         unsupported.append(f"frontend={cfg.frontend!r}")
@@ -108,14 +109,26 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """What a sharded mesh refuses, never replicating a layer silently: at
-    model above 1, query heads, a d_ff, an RG-LRU width or an mLSTM inner
-    width that do not divide by the model axis, KV heads whose count and
-    whose ``K·hd`` columns both do not, and experts that do not.  MoE runs on
-    any other (data, model) mesh (``models/moe.py``)."""
+    """What a sharded mesh refuses, never replicating a layer silently:
+    experts that do not divide over the ranks that split them (``model``, or
+    ``(data, model)`` for the 2-D layouts), an FFN dim of ``fsdp_f`` that
+    does not divide over ``data``; at model above 1, query heads, a d_ff, an
+    RG-LRU width or an mLSTM inner width that do not divide by the model
+    axis, and KV heads whose count and whose ``K·hd`` columns both do not.
+    MoE runs on any other mesh (``models/moe.py``)."""
     if not sharded(mesh):
         return
-    M = mesh.size("model")
+    M, m = mesh.size("model"), cfg.moe
+    if m is not None:
+        ep = M * (mesh.size("data") if moe_mod.two_d(m) else 1)
+        if m.num_experts % ep:
+            raise NotImplementedError(
+                f"{cfg.name}: {m.num_experts} experts do not divide over {ep} ranks: the "
+                f"{m.expert_sharding} layout needs a whole block of experts a rank")
+        if m.expert_sharding == "fsdp_f" and m.d_expert % mesh.size("data"):
+            raise NotImplementedError(
+                f"{cfg.name}: fsdp_f's FFN dim {m.d_expert} does not divide over data "
+                f"{mesh.size('data')}")
     if M == 1:
         return
     kinds = set(cfg.block_pattern)
@@ -131,11 +144,6 @@ def _check_mesh(cfg: ModelConfig, mesh) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} do not all divide by model {M}")
-    ep = M * (mesh.size("data") if cfg.moe is not None and moe_mod.two_d(cfg.moe) else 1)
-    if cfg.moe is not None and cfg.moe.num_experts % ep:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.moe.num_experts} experts do not divide over {ep} ranks: the "
-            "reference's island needs a whole block of experts a rank")
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
@@ -171,14 +179,15 @@ _XLSTM = {"mlstm": (xl.mlstm_block, xl.mlstm_decode),
 
 
 def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
-                 mesh=None):
+                 mesh=None, rows=None):
     """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
     ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState`` or
     ``SLSTMState`` of buffers; ``None`` in train mode) is written in place.
     ``tp`` (the model axis of ``mesh``, a sharded mesh): *f* after each norm
     (MLA, MoE and the xLSTM blocks place theirs inside), *g* after the
     attention's, the RG-LRU's and a dense FFN's output products; the MoE FFN
-    and the xLSTM blocks return their output whole.
+    and the xLSTM blocks return their output whole.  ``rows``: the ranks
+    whose rows make up the microbatch, over which a MoE FFN's groups lie.
     Returns (x, cache, aux): aux is the MoE load-balance loss, ``None`` for a
     dense FFN or an xLSTM block."""
     if kind in _XLSTM:
@@ -221,7 +230,7 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
     x = x + reduce_from_model(y, tp)
     h = rmsnorm(p["ln2"], x)
     if cfg.moe is not None and kind == "attn":
-        y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg, mesh)
+        y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg, mesh, rows)
         return x + y, cache, aux
     y = mlp(p["ffn"], copy_to_model(h, tp), cfg.act)
     return x + reduce_from_model(y, tp), cache, None
@@ -352,6 +361,9 @@ class Model(nn.Module):
         _check_mesh(cfg, mesh)
         specs = model_specs(cfg)
         self.mesh = mesh if sharded(mesh) else None
+        # A step's rows by default: the (pod, data) ranks of the mesh given,
+        # sharded or not (a MoE layer's groups lie over them).
+        self.rows = moe_mod.Rows(mesh) if mesh is not None else None
         self.layout = param_layout(specs, cfg.act, self.mesh)
         self.tp = model_parallel(self.mesh)
         vocab_dim = (self.layout["embed.table"].axes(0) if cfg.tie_embeddings
@@ -375,8 +387,8 @@ class Model(nn.Module):
     def _use(self, key: str, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
         """Parameter ``key`` (or one layer's slice of it) whole over
         ``data``: the FSDP all-gather on use; a dim split over ``data`` and
-        ``model`` jointly (the island's experts) as it is: the MoE FFN
-        gathers it where it needs it."""
+        ``model`` jointly (the 2-D experts) as it is: the MoE FFN sends the
+        tokens to them."""
         if self.mesh is None:
             return t
         pl = self.layout[key]
@@ -432,13 +444,14 @@ class Model(nn.Module):
         return cache_tree(self.cfg, batch, max_len, self.device, M)
 
     def _stack(self, x: torch.Tensor, mode: str, caches: Dict[str, Any]):
-        """The lead layers, the stacked super-blocks, then the tail.  Caches
-        are written in place; the returned tree carries the new lengths."""
-        plan = self.plan
+        """The lead layers, the stacked super-blocks, then the tail, over
+        :attr:`rows`.  Caches are written in place; the returned tree carries
+        the new lengths."""
+        plan, rows = self.plan, self.rows
         lead = []
         for j, kind in enumerate(plan.lead):
             x, c, _ = _block_apply(self.cfg, kind, self._params(f"lead.{j}"), x, mode,
-                                   caches["lead"][j], self.tp, self.mesh)
+                                   caches["lead"][j], self.tp, self.mesh, rows)
             lead.append(c)
         blocks = caches["blocks"]
         lengths = {}  # every layer of one stack starts from the same length
@@ -447,7 +460,7 @@ class Model(nn.Module):
             for j, kind in enumerate(plan.pattern):
                 key = f"b{j}"
                 x, c, _ = _block_apply(self.cfg, kind, p_sb[key], x, mode,
-                                       _layer(blocks[key], i), self.tp, self.mesh)
+                                       _layer(blocks[key], i), self.tp, self.mesh, rows)
                 if kind == "attn":
                     lengths[key] = c.length
         blocks = {k: c._replace(length=lengths[k]) if k in lengths else c
@@ -455,21 +468,23 @@ class Model(nn.Module):
         tail = []
         for j, kind in enumerate(plan.tail):
             x, c, _ = _block_apply(self.cfg, kind, self._params(f"tail.{j}"), x, mode,
-                                   caches["tail"][j], self.tp, self.mesh)
+                                   caches["tail"][j], self.tp, self.mesh, rows)
             tail.append(c)
         return x, {"lead": lead, "blocks": blocks, "tail": tail}
 
-    def _train_stack(self, x: torch.Tensor):
+    def _train_stack(self, x: torch.Tensor, rows: Optional[moe_mod.Rows] = None):
         """The unrolled lead layers, the stacked super-blocks, each under
         remat unless ``cfg.remat`` is ``"none"`` (the reference's
-        per-super-block ``jax.checkpoint``), then the unrolled tail.  Each
-        super-block gathers its FSDP shards inside the remat'd function.
-        Returns (x, the sum of the MoE layers' aux losses)."""
-        plan = self.plan
+        per-super-block ``jax.checkpoint``), then the unrolled tail, over
+        ``rows`` (default :attr:`rows`).  Each super-block gathers its FSDP
+        shards inside the remat'd function.  Returns (x, the sum of the MoE
+        layers' aux losses)."""
+        plan, rows = self.plan, rows or self.rows
         total = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def run(kind, p, x, total):
-            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None, self.tp, self.mesh)
+            x, _, aux = _block_apply(self.cfg, kind, p, x, "train", None, self.tp, self.mesh,
+                                     rows)
             return x, total if aux is None else total + aux
 
         def superblock(i: int, x: torch.Tensor, total: torch.Tensor):
@@ -501,11 +516,14 @@ class Model(nn.Module):
             x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
         return x
 
-    def forward(self, batch: Dict[str, torch.Tensor], head: Optional[Dict[str, Any]] = None):
+    def forward(self, batch: Dict[str, torch.Tensor], head: Optional[Dict[str, Any]] = None,
+                rows: Optional[moe_mod.Rows] = None):
         """Training-mode forward to final hidden states [B, T, D], and the
-        sum of the MoE layers' load-balance losses (0 without MoE)."""
+        sum of the MoE layers' load-balance losses (0 without MoE).
+        ``rows``: the ranks whose rows make up the microbatch (default
+        :attr:`rows`; ``launch.steps.step_rows``)."""
         head = head or self._head()
-        x, aux = self._train_stack(self._embed_inputs(batch, head))
+        x, aux = self._train_stack(self._embed_inputs(batch, head), rows)
         return rmsnorm(head["final_norm"], x), aux
 
     def _xent(self, h: torch.Tensor, labels: torch.Tensor, mask, head: Dict[str, Any]
@@ -520,15 +538,15 @@ class Model(nn.Module):
             return chunked_xent(h, logits, labels, mask, tp=tp)
         return softmax_xent(logits(h), labels, mask, tp)
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
+    def loss(self, batch: Dict[str, torch.Tensor], rows: Optional[moe_mod.Rows] = None):
         """Mean next-token cross-entropy over ``labels`` (and ``mask``), plus
         ``aux_loss_weight`` times the MoE load-balance loss and 0.3 times
         DeepSeek-V3's multi-token-prediction loss where the config has them;
         returns (total, metrics with ``ce``, ``aux`` and ``mtp_ce`` where
-        they apply, and ``loss``)."""
+        they apply, and ``loss``).  ``rows`` as in :meth:`forward`."""
         cfg = self.cfg
         head = self._head()
-        h, aux = self.forward(batch, head)
+        h, aux = self.forward(batch, head, rows)
         if cfg.frontend == "vision":
             h = h[:, cfg.frontend_tokens:]  # the loss covers the text positions only
         ce = self._xent(h, batch["labels"], batch.get("mask"), head)

@@ -64,6 +64,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 SHARD_AXES = ("data", "model")
+# The axes that split a served, encoded or flat-trained batch's rows,
+# pod-major: the reference's batch axes.
+ROWS = ("pod", "data")
 
 
 @dataclass(frozen=True)
@@ -433,20 +436,14 @@ def gather_model(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
     return x if tp is None else _gather(x.detach(), dim % x.ndim, "model", tp)
 
 
-def row_axes(cfg, mesh) -> Tuple[str, ...]:
-    """The axes that split a served or encoded batch's rows, pod-major:
-    ``(pod, data)``, as the reference's serving steps lay them.  A MoE
-    model over pods takes ``data`` alone, every pod serving the whole batch:
-    the port routes a group over one pod's data ranks, where the
-    reference's groups span ``(pod, data)`` (ROADMAP's item 3f), so that
-    each pod's groups are the reference's."""
-    if mesh is not None and cfg.moe is not None and mesh.size("pod") > 1:
-        return ("data",)
-    return ("pod", "data")
+def row_rank(mesh, axes=ROWS) -> Tuple[int, int]:
+    """(this rank's index among the ranks whose rows split over ``axes``,
+    pod-major; their count)."""
+    return _index(axes, mesh) if mesh is not None else (0, 1)
 
 
-def gather_rows(x: torch.Tensor, mesh, axes: Tuple[str, ...] = ("pod", "data")) -> torch.Tensor:
-    """Every row rank's rows of ``x`` (dim 0) over ``axes``
-    (:func:`row_axes`), in their order (no gradient)."""
+def gather_rows(x: torch.Tensor, mesh, axes: Tuple[str, ...] = ROWS) -> torch.Tensor:
+    """Every row rank's rows of ``x`` (dim 0) over ``axes``, in their order
+    (no gradient)."""
     return x if mesh is None else _gather(x.detach(), 0, tuple(axes), mesh)
 

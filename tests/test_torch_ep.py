@@ -1,9 +1,9 @@
 """Expert parallelism over gloo ranks against the JAX package's all-to-all
 island (``expert_sharding="ep_a2a"``, ``repro/models/moe.py::_manual_ep_moe``).
 
-JAX runs once, in a subprocess with four host devices (``conftest``'s
-``run_multidevice``), its cases in threads: deepseek-v2 smoke on ``ep_a2a`` at
-(data 1, model 2) and (2, 2), deepseek-v3 smoke with 256 experts at (2, 2)
+JAX runs in four subprocesses with four host devices each (``conftest``'s
+``run_multidevice``), its cases split over them and run in threads:
+deepseek-v2 smoke on ``ep_a2a`` at (data 1, model 2) and (2, 2), deepseek-v3 smoke with 256 experts at (2, 2)
 (the island's 2-D branch: experts on ``(data, model)`` jointly, the
 all-to-all over both axes), each two steps of ``build_train_step`` (two
 microbatches) and the logits of ``build_prefill_step`` and of one
@@ -24,7 +24,7 @@ gradient difference into a parameter difference past the tolerance."""
 
 import dataclasses
 import math
-from concurrent.futures import ThreadPoolExecutor
+import threading
 
 import numpy as np
 import pytest
@@ -59,8 +59,13 @@ CASES = [
 BY_NAME = {c["name"]: c for c in CASES}
 
 JAX_REF = """
-import dataclasses, math
+import dataclasses, math, os
 from concurrent.futures import ThreadPoolExecutor
+# LLVM at O1 compiles the reference's steps in about 70 % of the time of its
+# default O2, and its code keeps the port as near: an element whose gradient
+# sits near AdamW's eps read at most 0.70 of GRAD_TOL at O1 and 0.75 at O2
+# (mla_12 of tests/test_torch_moe_mesh.py), 0.99 at O0.
+os.environ['XLA_FLAGS'] += ' --xla_backend_optimization_level=1'
 import jax, jax.numpy as jnp, numpy as np
 from repro.compat import set_mesh
 from repro.configs import RunConfig, ShapeConfig, get_config
@@ -126,7 +131,8 @@ def one(c, part):
         res[f'{n}/tokens'] = np.concatenate(tokens, axis=1)
     return res
 
-TASKS = [(c, 'train') for c in CASES] + [(c, 'serve') for c in CASES if c.get('serve')]
+# This subprocess's share: every PARTS-th task from PART, the steps first.
+TASKS = ([(c, 'train') for c in CASES] + [(c, 'serve') for c in CASES if c.get('serve')])[PART::PARTS]
 with ThreadPoolExecutor(len(TASKS)) as pool:
     res = {k: v for r in pool.map(lambda t: one(*t), TASKS) for k, v in r.items()}
 np.savez(OUT, **{k: np.asarray(v) for k, v in res.items()})
@@ -145,13 +151,44 @@ def conditioned(tree):
     return tree
 
 
+_INITS, _INIT_LOCK = {}, threading.Lock()
+
+
 def _params(c):
-    """The case's initial parameters (numpy, ``state_dict`` keys): JAX's
-    draws from ``PRNGKey(0)``, conditioned."""
+    """The case's config and initial parameters (numpy, ``state_dict``
+    keys): JAX's draws from ``PRNGKey(0)``, conditioned.  Drawn once for
+    each arch and expert count (the other MoE fields change no draw), one
+    draw at a time: the fixtures' threads ask for them together, and the
+    first draw compiles JAX's random ops under the interpreter lock."""
     cfg = jax_config(c["arch"], smoke=True).with_overrides(dtype="float32")
     cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **c["moe"]))
-    tree = conditioned(jax.device_get(JaxModel(cfg).init(jax.random.PRNGKey(0))))
-    return cfg, {k: v.numpy() for k, v in params_from_jax(tree).items()}
+    key = (c["arch"], cfg.moe.num_experts)
+    with _INIT_LOCK:
+        if key not in _INITS:
+            tree = conditioned(jax.device_get(JaxModel(cfg).init(jax.random.PRNGKey(0))))
+            _INITS[key] = {k: v.numpy() for k, v in params_from_jax(tree).items()}
+    return cfg, _INITS[key]
+
+
+def jax_parts(cases, out_dir, n=4):
+    """``torch_rank_fns.side_by_side`` parts that run :data:`JAX_REF` over
+    ``cases`` in ``n`` subprocesses of four host devices, each every n-th
+    task (a process's threads trace under one interpreter lock, so one
+    process took 1.6 times as long), each writing ``ref{i}.npz`` under
+    ``out_dir``."""
+    return {f"jax {i}": lambda i=i: run_multidevice(
+        f"CASES, OUT, PART, PARTS = {cases!r}, {str(out_dir / f'ref{i}.npz')!r}, {i}, {n}\n"
+        + JAX_REF, devices=4, timeout=600) for i in range(n)}
+
+
+def jax_results(parts, out_dir):
+    """The JAX results of :func:`jax_parts`' ``parts``, merged."""
+    ref = {}
+    for i, name in enumerate(n for n in parts if n.startswith("jax")):
+        assert "OK ref" in parts[name]
+        with np.load(out_dir / f"ref{i}.npz") as f:
+            ref.update({k: f[k] for k in f.files})
+    return ref
 
 
 def _jobs(c):
@@ -175,22 +212,19 @@ def _jobs(c):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX subprocess, the 4-rank spawn and the 2-rank spawn side by
-    side; each rank's results by case name."""
-    out = tmp_path_factory.mktemp("jax_ep") / "ref.npz"
-    head = f"CASES, OUT = {CASES!r}, {str(out)!r}\n"
+    """The JAX subprocesses, the 4-rank spawn and the 2-rank spawn side by
+    side (``torch_rank_fns.side_by_side``: each part's time is printed, and
+    a part that fails is reported with the others' times); each rank's
+    results by case name."""
+    out = tmp_path_factory.mktemp("jax_ep")
     by_size = {2: [c for c in CASES if c["mesh"] == (1, 2)],
                4: [c for c in CASES if c["mesh"] == (2, 2)]}
-    pool = ThreadPoolExecutor(3)
-    jax_run = pool.submit(run_multidevice, head + JAX_REF, devices=4, timeout=600)
-    with pool:
-        spawns = {n: pool.submit(spawn_ranks, torch_rank_fns.ranks_main, n,
-                                 ([j for c in cases for j in _jobs(c)],), timeout=600)
-                  for n, cases in by_size.items()}
-        ranks = {n: s.result() for n, s in spawns.items()}
-        assert "OK ref" in jax_run.result()
-    with np.load(out) as f:
-        ref = {k: f[k] for k in f.files}
+    spawn = lambda n: spawn_ranks(torch_rank_fns.ranks_main, n,
+                                  ([j for c in by_size[n] for j in _jobs(c)],), timeout=600)
+    parts = torch_rank_fns.side_by_side({
+        **jax_parts(CASES, out), **{f"{n} ranks": lambda n=n: spawn(n) for n in by_size}})
+    ranks = {n: parts[f"{n} ranks"] for n in by_size}
+    ref = jax_results(parts, out)
     port = {}
     for n, cases in by_size.items():
         for rank in ranks[n]:

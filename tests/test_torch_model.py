@@ -232,15 +232,16 @@ def _unknown_block_kind():
     return get_config("llama3.2-1b", smoke=True).with_overrides(block_pattern=("attn", "conv"))
 
 
-def _experts_over_two_axes():
+def _unknown_expert_layout():
     cfg = get_config("deepseek-v2-236b", smoke=True)
-    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="ep2d"))
+    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="ep3d"))
 
 
-@pytest.mark.parametrize("make_cfg", [_unknown_block_kind, _experts_over_two_axes])
+@pytest.mark.parametrize("make_cfg", [_unknown_block_kind, _unknown_expert_layout])
 def test_other_archs_are_refused(make_cfg):
-    """What the port still refuses: a block kind it does not know, and MoE
-    experts sharded other than ``fsdp_d`` (a multi-GPU layout)."""
+    """What the port still refuses: a block kind it does not know, and an
+    expert layout that is none of the reference's four (``fsdp_d``,
+    ``fsdp_f``, ``ep2d``, ``ep_a2a``)."""
     with pytest.raises(NotImplementedError, match="not yet"):
         model_specs(make_cfg())
 

@@ -2,19 +2,25 @@
 the JAX package's GSPMD, the block's *g* rule, phase 9 of ``chip_smoke.py``
 rehearsed at smoke width, and what the port still refuses.
 
-JAX runs once, in a subprocess with four host devices (``conftest``'s
-``run_multidevice``), its cases in threads: deepseek-v2 smoke on the
-``fsdp_d`` layout (experts on ``model``, d_model FSDP on ``data``) at (data
-2, model 1) with one MoE group (its slots continue across the data ranks)
-and with two (one on each), at (2, 2), and at (1, 2), where MLA runs a
-rank's heads; each two steps of ``build_train_step`` in two microbatches,
-and at (2, 2) the logits of ``build_prefill_step`` and of one
-``build_decode_step``.  Beside it the port runs on 2 gloo ranks in one spawn
-and on 4 in another, from the same initial parameters, in fp32 within
-``GRAD_TOL``; the parameters are conditioned and the learning rate is 1e-4,
-as in ``tests/test_torch_ep.py``.
+JAX runs in four subprocesses with four host devices each (``conftest``'s
+``run_multidevice``, ``tests/test_torch_ep.py``'s ``jax_parts``), its cases
+split over them and run in threads: deepseek-v2 smoke on the ``fsdp_d``
+layout (experts on ``model``, d_model FSDP on ``data``) at (data 2, model 1)
+with one MoE group (its slots continue across the data ranks) and with two
+(one on each), at (2, 2), and at (1, 2), where MLA runs a rank's heads; on
+``fsdp_f`` (experts on ``model``, the FFN dim FSDP on ``data``) and on
+``ep2d`` (experts on ``(data, model)`` jointly: the slots go to the
+experts' owners over ``data``) at (1, 2) and (2, 2); each two steps of
+``build_train_step`` (two microbatches; one on ``fsdp_f`` and ``ep2d``), and
+at (2, 2) and on the two new layouts the logits of ``build_prefill_step``
+and of one ``build_decode_step``.  Beside it the port runs on 2 gloo ranks
+in one spawn and on 4 in another, from the same initial parameters, in fp32
+within ``GRAD_TOL``; the parameters are conditioned and the learning rate is
+1e-4, as in ``tests/test_torch_ep.py``.  The 4-rank spawn also reads the
+``data`` group's bytes inside each MoE call of ``ep2d``: the tokens' alone,
+and not so with the weights gathered over ``data``.
 
-The 2-rank spawn also runs the island (``ep_a2a`` at (1, 2)) as it is and
+A second 2-rank spawn runs the island (``ep_a2a`` at (1, 2)) as it is and
 with its output summed over ``model`` (the block's *g* on an output that is
 already whole), each against one process whose MoE routes each model rank's
 slice as a group of its own (``chip_smoke.py``'s ``island_groups``), and
@@ -25,7 +31,6 @@ faults."""
 import copy
 import dataclasses
 import math
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -38,21 +43,20 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import input_specs as jax_input_specs  # noqa: E402
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.launch.mesh import Mesh, spawn_ranks  # noqa: E402
 from repro_torch.launch.steps import build_train_step, init_train_state  # noqa: E402
 from repro_torch.models import Model, model_specs  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 
 import torch_rank_fns  # noqa: E402
-from conftest import run_multidevice  # noqa: E402
-from test_torch_ep import JAX_REF, conditioned  # noqa: E402
+from test_torch_ep import _params, jax_parts, jax_results  # noqa: E402
 
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 V2 = "deepseek-v2-236b"
 SERVE = (4, 8, 4)
 FSDP = {"expert_sharding": "fsdp_d"}
-CASES = [
+FSDP_F, EP2D = {"expert_sharding": "fsdp_f"}, {"expert_sharding": "ep2d"}
+FSDP_D_CASES = [
     dict(name="g1_21", arch=V2, mesh=(2, 1), moe=FSDP, B=8, T=16, steps=2, micro=2, lr=1e-4),
     dict(name="g2_21", arch=V2, mesh=(2, 1), moe=dict(FSDP, groups=2), B=8, T=16, steps=2,
          micro=2, lr=1e-4),
@@ -60,6 +64,10 @@ CASES = [
     dict(name="fsdp_22", arch=V2, mesh=(2, 2), moe=FSDP, B=8, T=16, steps=2, micro=2, lr=1e-4,
          serve=SERVE),
 ]
+LAYOUT_CASES = [dict(name=f"{name}_{''.join(map(str, mesh))}", arch=V2, mesh=mesh, moe=moe, B=8,
+                     T=16, steps=2, micro=1, lr=1e-4, serve=SERVE)
+                for name, moe in (("fsdp_f", FSDP_F), ("ep2d", EP2D)) for mesh in ((1, 2), (2, 2))]
+CASES = FSDP_D_CASES + LAYOUT_CASES
 BY_NAME = {c["name"]: c for c in CASES}
 # The island at (1, 2): sound, and with its output summed over model.
 ISLAND = dict(name="island", arch=V2, mesh=(1, 2), moe={"expert_sharding": "ep_a2a"}, B=8,
@@ -79,12 +87,6 @@ REHEARSE_LIMITS = dict(EP_LOGITS_RTOL=5e-2, EP_LOSS_RTOL=1e-4, EP_NORM_RTOL=5e-3
 def _cfg(c, framework_config):
     cfg = framework_config(c["arch"], smoke=True).with_overrides(dtype="float32")
     return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **c["moe"]))
-
-
-def _params(c):
-    cfg = _cfg(c, jax_config)
-    tree = conditioned(jax.device_get(JaxModel(cfg).init(jax.random.PRNGKey(0))))
-    return cfg, {k: v.numpy() for k, v in params_from_jax(tree).items()}
 
 
 def _batches(c, vocab):
@@ -126,45 +128,66 @@ def _one_island(cs):
     return {"loss": losses, "grad_norm": norms}
 
 
+# The ep2d byte probe: one forward of the fsdp_22 case's first batch on (2, 2)
+# with ep2d, the data group's bytes inside each MoE call recorded, as it is
+# and with the experts' weights gathered over data (the same numbers).
+EP2D_PROBE = BY_NAME["ep2d_22"]
+
+
+def _ep2d_probe_jobs():
+    c = EP2D_PROBE
+    _, params = _params(c)
+    batch = _batches(c, get_config(V2, smoke=True).vocab_size)[0]
+    return [("moe_data_bytes", (c["arch"], c["mesh"], params, batch, c["moe"], fault))
+            for fault in (False, True)]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX subprocess and the two spawns side by side; meanwhile, here,
-    the one-process references of the island and of phase 9."""
+    """The JAX subprocesses and the two spawns side by side, and the
+    one-process references of the island and of phase 9
+    (``torch_rank_fns.side_by_side``: each part's time is printed, and a
+    part that fails is reported with the others' times)."""
     cs = torch_rank_fns._chip_smoke()
-    out = tmp_path_factory.mktemp("jax_moe_mesh") / "ref.npz"
-    head = f"CASES, OUT = {CASES!r}, {str(out)!r}\n"
-    pool = ThreadPoolExecutor(3)
-    jax_run = pool.submit(run_multidevice, head + JAX_REF, devices=4, timeout=600)
+    out = tmp_path_factory.mktemp("jax_moe_mesh")
     two = [c for c in CASES if math.prod(c["mesh"]) == 2]
-    jobs2 = [j for c in two for j in _jobs(c)]
-    jobs2 += _jobs(ISLAND) + _jobs(ISLAND, "island_summed_steps")
-    jobs2 += [("chip_smoke_ep_rank", (REHEARSE_SERVE, REHEARSE_TRAIN, True, "cpu"))]
-    jobs4 = _jobs(BY_NAME["fsdp_22"])
-    with pool:
-        ranks2 = pool.submit(spawn_ranks, torch_rank_fns.ranks_main, 2, (jobs2,), timeout=600)
-        ranks4 = pool.submit(spawn_ranks, torch_rank_fns.ranks_main, 4, (jobs4,), timeout=600)
-        island = _one_island(cs)
-        rehearsal = cs.ep_references(REHEARSE_SERVE, REHEARSE_TRAIN, smoke=True, device="cpu")
-        ranks = {2: ranks2.result(), 4: ranks4.result()}
-        assert "OK ref" in jax_run.result()
-    with np.load(out) as f:
-        ref = {k: f[k] for k in f.files}
+    four = [c for c in CASES if math.prod(c["mesh"]) == 4]
+
+    def spawned(n, jobs):
+        return spawn_ranks(torch_rank_fns.ranks_main, n, (jobs(),), timeout=600)
+
+    ranks2 = lambda: spawned(2, lambda: [j for c in two for j in _jobs(c)])
+    island2 = lambda: spawned(2, lambda: _jobs(ISLAND) + _jobs(ISLAND, "island_summed_steps") + [
+        ("chip_smoke_ep_rank", (REHEARSE_SERVE, REHEARSE_TRAIN, True, "cpu"))])
+    ranks4 = lambda: spawned(4, lambda: [j for c in four for j in _jobs(c)] + _ep2d_probe_jobs())
+
+    parts = torch_rank_fns.side_by_side({
+        **jax_parts(CASES, out), "2 ranks": ranks2, "2 ranks, the island": island2,
+        "4 ranks": ranks4, "island": lambda: _one_island(cs),
+        "rehearsal": lambda: cs.ep_references(REHEARSE_SERVE, REHEARSE_TRAIN, smoke=True,
+                                              device="cpu")})
+    ref = jax_results(parts, out)
     port = {}
-    for n, cases in ((2, two), (4, [BY_NAME["fsdp_22"]])):
-        for rank in ranks[n]:
+    for n, cases in ((2, two), (4, four)):
+        for rank in parts[f"{n} ranks"]:
             results = iter(rank)
             for c in cases:
                 got = port.setdefault(c["name"], [])
                 got.append({"steps": next(results)})
                 if c.get("serve"):
                     got[-1]["logits"] = next(results)
-            if n == 2:
-                for name in ("island", "island_summed"):
+            if n == 4:
+                for name in ("ep2d_bytes", "ep2d_bytes_fault"):
                     port.setdefault(name, []).append(next(results))
-                ep = next(results)
-                port.setdefault("ep_serve", []).append(ep["serve"])
-                port.setdefault("ep_train", []).append(ep["train"])
-    return {"jax": ref, "port": port, "island": island, "rehearsal": rehearsal, "cs": cs}
+    for rank in parts["2 ranks, the island"]:
+        results = iter(rank)
+        for name in ("island", "island_summed"):
+            port.setdefault(name, []).append(next(results))
+        ep = next(results)
+        port.setdefault("ep_serve", []).append(ep["serve"])
+        port.setdefault("ep_train", []).append(ep["train"])
+    return {"jax": ref, "port": port, "island": parts["island"],
+            "rehearsal": parts["rehearsal"], "cs": cs}
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])
@@ -292,29 +315,103 @@ def _mesh(shape):
                 coords={"data": 0, "model": 0}, device=torch.device("cpu"))
 
 
+def test_ep2d_moves_no_expert_weight_over_data(runs):
+    """ep2d on (2, 2): the data group's bytes inside each MoE call of a
+    forward are the tokens' alone: the all-gather of the [E] int64 counts
+    (one group spans both data ranks) and the two all-to-alls of the
+    [data, groups, experts a rank, C, d_model] fp32 slots.  With the experts'
+    weights gathered over data instead (the same numbers) they are not."""
+    from repro_torch.core.asymmetry import all_gather_wire_bytes, all_to_all_wire_bytes
+    from repro_torch.models.moe import _capacity
+
+    c = EP2D_PROBE
+    cfg = _cfg(c, get_config)
+    D, M = c["mesh"]
+    E, S = cfg.moe.num_experts, c["B"] // D * c["T"]
+    slots = D * 1 * (E // (D * M)) * _capacity(S * D, cfg.moe) * cfg.d_model
+    want = all_gather_wire_bytes(D * E * 8, D) + 2 * all_to_all_wire_bytes(4 * slots, D)
+    for sound, fault in zip(runs["port"]["ep2d_bytes"], runs["port"]["ep2d_bytes_fault"]):
+        assert sound["calls"] == [want] * 2, (sound["coords"], sound["calls"], want)
+        assert all(b != want for b in fault["calls"]), (fault["calls"], want)
+
+
+def _jax_block_shapes(cfg, shape):
+    """The block a rank holds of each MoE expert weight under JAX's
+    ``param_pspecs`` fitted to a (data, model) mesh of ``shape``."""
+    from types import SimpleNamespace
+
+    from repro.sharding import rules as jax_rules
+
+    sizes = dict(zip(("data", "model"), shape))
+    specs = jax_rules.param_pspecs(JaxModel(cfg).specs())["blocks"]["b0"]["ffn"]
+    spec_shapes = JaxModel(cfg).specs()["blocks"]["b0"]["ffn"]
+    out = {}
+    for key in ("wi", "wo"):
+        full = spec_shapes[key].shape
+        ps = jax_rules.fit_pspec(specs[key], full, SimpleNamespace(shape=sizes))
+        axes = [(e,) if isinstance(e, str) else e or () for e in ps]
+        axes += [()] * (len(full) - len(axes))
+        out[key] = tuple(n // math.prod(sizes[a] for a in ax) for n, ax in zip(full, axes))
+    return out
+
+
 @pytest.mark.parametrize("layout", ["fsdp_f", "ep2d"])
-def test_gspmd_only_layouts_are_refused(layout):
-    """The layouts that the reference leaves to GSPMD have no port."""
+def test_gspmd_layouts_build_the_references_blocks(layout):
+    """``fsdp_f`` (experts on model, the FFN dim FSDP on data: ``wi``'s fused
+    ``[gate | up]`` split contiguously, as any FSDP dim) and ``ep2d``
+    (experts on (data, model) jointly) hold, on (1, 2) and (2, 2), the
+    blocks of JAX's ``param_pspecs``, so that checkpoints load in both
+    packages; an FFN dim that does not divide over data is refused."""
     cfg = get_config(V2, smoke=True)
     cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding=layout))
-    with pytest.raises(NotImplementedError, match=f"expert_sharding='{layout}'"):
-        model_specs(cfg)
-    with pytest.raises(NotImplementedError, match="not yet"):
-        Model(cfg, device="cpu", mesh=_mesh((1, 2)))
+    jcfg = jax_config(V2, smoke=True)
+    jcfg = jcfg.with_overrides(moe=dataclasses.replace(jcfg.moe, expert_sharding=layout))
+    for shape in ((1, 2), (2, 2)):
+        model = Model(cfg, device="cpu", mesh=_mesh(shape))
+        got = {k: tuple(model.state_dict()[f"blocks.b0.ffn.{k}"].shape) for k in ("wi", "wo")}
+        assert got == _jax_block_shapes(jcfg, shape), (shape, got)
+        assert model.layout["blocks.b0.ffn.wi"].blocks == 1
+    if layout == "fsdp_f":
+        with pytest.raises(NotImplementedError, match="fsdp_f's FFN dim 32 does not divide"):
+            Model(cfg, device="cpu", mesh=_mesh((3, 1)))
+
+
+class _Repeated(Mesh):
+    """A data rank's mesh on which every data rank holds the same rows: the
+    all-gather returns this rank's tensor once a rank."""
+
+    def all_gather(self, t, axes):
+        return t.repeat(self.group_size(self.group_name(axes)))
 
 
 def test_groups_that_straddle_data_ranks_are_refused():
-    """2 groups over 4 data ranks: a group would span two of them with its
-    capacity; 1 group (it spans every rank) and 4 (one each) are taken."""
-    cfg = get_config(V2, smoke=True)
+    """3 groups over 2 data ranks: a group would straddle a rank, and
+    neither count divides the other: refused.  2 groups over 4 data ranks
+    (each spans 2 consecutive ranks, as the production config's 16 groups
+    over 32 row ranks) are taken: with the same rows on every rank, the
+    second rank of a group gets the second half of one process's routing of
+    the group's rows (its slots after the first rank's); 4 groups are one a
+    rank."""
+    cfg = get_config(V2, smoke=True).with_overrides(dtype="float32")
     p = Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"]
-    x = torch.zeros(2, 4, cfg.d_model, dtype=torch.bfloat16)
-    bad = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=2))
+    # 2 x 64 tokens a rank at capacity factor 0.5: choices drop, so a slot
+    # offset that is not the first rank's counts would change the output.
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    bad = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=3))
     with pytest.raises(NotImplementedError, match="straddle"):
-        moe_mod.moe_ffn(p, x, bad, _mesh((4, 1)))
+        moe_mod.moe_ffn(p, torch.cat([x, x[:1]]), bad, _mesh((2, 1)),
+                        moe_mod.Rows(_mesh((2, 1))))
+    two = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=2, capacity_factor=0.5))
+    whole, _ = moe_mod.moe_ffn(p, torch.cat([x, x]), two.with_overrides(
+        moe=dataclasses.replace(two.moe, groups=1)))
+    for d in (0, 1):
+        mesh = _Repeated(axes=("data", "model"), shape={"data": 4, "model": 1},
+                         coords={"data": d, "model": 0}, device=torch.device("cpu"))
+        y, _ = moe_mod.moe_ffn(p, x, two, mesh, moe_mod.Rows(mesh))
+        torch.testing.assert_close(y, whole[2 * d:2 * d + 2], rtol=1e-5, atol=1e-6)
     four = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=4))
-    y, _ = moe_mod.moe_ffn(p, x[:1], four, _mesh((4, 1)))  # 1 row of 4 on each of 4 ranks
-    assert y.shape == (1, 4, cfg.d_model)
+    y, _ = moe_mod.moe_ffn(p, x[:1], four, _mesh((4, 1)), moe_mod.Rows(_mesh((4, 1))))
+    assert y.shape == (1, 64, cfg.d_model)
 
 
 def test_experts_that_do_not_divide_are_refused():

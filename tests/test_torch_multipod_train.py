@@ -256,16 +256,16 @@ def test_moe_sync_at_data_1_matches_jax(port_2, jax_ref):
 
 def test_moe_serves_on_two_pods_as_on_one_rank(port_2, jax_ref):
     """serve() of deepseek-v2 (fp32) on 2 pods x 1 data: every rank serves
-    the whole batch on a whole replica, since the port routes a group over
-    one pod's rows where the reference's span (pod, data) (ROADMAP's item
-    3f), and its tokens are the port's one-rank tokens."""
+    its pod's half of the batch on a whole replica, its MoE groups spanning
+    both pods' rows as the reference's span (pod, data), and its tokens are
+    the port's one-rank tokens."""
     ranks, _ = port_2
     want, _ = torch_rank_fns.pod_serve(MOE, (1, 1), _tree(jax_ref, "moe/init/"),
                                        _moe_prompts(), *MOE_SERVE, torch_rank_fns.DATA_MODEL)
     for rank in ranks:
         tokens, rows = rank[-1]
         np.testing.assert_array_equal(tokens, want)
-        assert rows == [MOE_SERVE[0]]
+        assert rows == [MOE_SERVE[0] // 2]
 
 
 def _one_process(arch, params, run, batches):

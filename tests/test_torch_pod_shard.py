@@ -2,26 +2,30 @@
 data, model)`` mesh over gloo ranks, against the JAX package's
 ``build_train_step`` and ``serve`` loop on the same meshes.
 
-JAX runs once, in a subprocess with four host devices (``conftest``'s
-``run_multidevice``), started first, in fp32 from ``PRNGKey(0)``'s jitted
-init: smoke llama3.2-1b on ``(2, 1, 2)`` in flat, sync, sync + int8 and local
-(budget 2), and on ``(2, 2, 1)`` in sync and sync + int8, 2 steps each;
+JAX runs in four subprocesses with four host devices each (``conftest``'s
+``run_multidevice``), its tasks split over them, in fp32 from
+``PRNGKey(0)``'s jitted init: smoke llama3.2-1b on ``(2, 1, 2)`` in flat,
+sync, sync + int8 and local (budget 2), and on ``(2, 2, 1)`` in sync and sync + int8, 2 steps each;
 smoke deepseek-v2-236b (its MLA up-projections conditioned as in
 ``tests/test_torch_moe_train.py``) on ``(2, 1, 2)`` and ``(2, 2, 1)`` in sync,
-2 steps each; and the greedy tokens of llama's prefill and decode steps on
-``(2, 1, 2)``.  Beside it the port runs on 4 gloo ranks from the same
-parameters, where every pod holds its ``(data, model)`` blocks and only they
-cross ``pod``: those steps, int8 with a scale per block (a planted quantiser
-that must miss JAX's ``ef``), ``serve()`` of llama and of deepseek (held to
-the port's one rank), and a local-mode ``train()`` whose checkpoint, written on
-``(2, 1, 2)``, loads under JAX's ``train_state_specs(npods=2)`` and resumes on
-``(2, 2, 1)`` and on one rank.  A second spawn rehearses ``chip_smoke.py``'s
-phase 11 at smoke width.  The mesh's groups on ``(2, 2, 2)`` are checked
-without spawning 8 ranks."""
+and in flat at capacity factor 0.5 (``FLAT_MOE``: the island on ``(2, 1,
+2)``; one group over the 4 row ranks and 2 groups over 2 each on ``(2, 2,
+1)``), 2 steps each; the greedy tokens of llama's prefill and decode steps
+on ``(2, 1, 2)``; and deepseek-v2's at capacity factor 0.5 on ``(2, 2, 1)``
+with the prefill's and first decode step's logits.  Beside it the port runs
+on 4 gloo ranks from the same parameters, where every pod holds its ``(data,
+model)`` blocks and only they cross ``pod``: those steps, int8 with a scale
+per block (a planted quantiser that must miss JAX's ``ef``), flat MoE with
+each pod's rows routed alone (a planted group over one pod that must miss
+JAX's), ``serve()`` of llama and of deepseek, and a local-mode ``train()``
+whose checkpoint, written on ``(2, 1, 2)``, loads under JAX's
+``train_state_specs(npods=2)`` and resumes on ``(2, 2, 1)`` and on one
+rank.  A second spawn rehearses ``chip_smoke.py``'s phases 11 and 12 at
+smoke width.  The mesh's groups on ``(2, 2, 2)`` are checked without
+spawning 8 ranks."""
 
 import copy
 import math
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -64,17 +68,35 @@ D2_MODES = ("sync", "int8")  # on (2, 2, 1): FSDP's fragment and its int8 scale
 SERVE = dict(batch=4, prompt_len=8, gen_len=4)
 # fp32 on both sides: summation order only (tests/test_torch_train.py's).
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
-# The reference's (tag, arch, mesh, run fields), run in one subprocess.
-TAGS = ([(m, LLAMA, (2, 1, 2), kw) for m, kw in MODES.items()]
-        + [(f"{m}-d2", LLAMA, (2, 2, 1), MODES[m]) for m in D2_MODES]
-        + [("moe", MOE, (2, 1, 2), MODES["sync"]), ("moe-d2", MOE, (2, 2, 1), MODES["sync"])])
+# Flat MoE over pods (the reference's production layout for its MoE archs,
+# src/repro/launch/dryrun.py) at capacity factor 0.5, where choices drop, so
+# that a group over one pod's rows differs from one over (pod, data): the
+# island on (2, 1, 2); on (2, 2, 1) one group over the 4 row ranks, and 2
+# groups, each over 2 of them (the production config's 16 groups over 32
+# row ranks, cut to size).
+DROP = {"capacity_factor": 0.5}
+FLAT_MOE = {"moe-flat-a2a": ((2, 1, 2), {**DROP, "expert_sharding": "ep_a2a"}),
+            "moe-flat-d2": ((2, 2, 1), DROP), "moe-flat-g2": ((2, 2, 1), {**DROP, "groups": 2})}
+# The reference's (tag, arch, mesh, run fields, MoE fields), run in one
+# subprocess.
+TAGS = ([(m, LLAMA, (2, 1, 2), kw, None) for m, kw in MODES.items()]
+        + [(f"{m}-d2", LLAMA, (2, 2, 1), MODES[m], None) for m in D2_MODES]
+        + [("moe", MOE, (2, 1, 2), MODES["sync"], None),
+           ("moe-d2", MOE, (2, 2, 1), MODES["sync"], None)]
+        + [(t, MOE, mesh, MODES["flat"], moe) for t, (mesh, moe) in FLAT_MOE.items()])
 # chip_smoke.py's phase 11 at smoke width (bf16): served (rows, prompt,
 # generated tokens: phase 8's rehearsal's request) and trained (rows, tokens
 # per row, microbatches a rank, steps a mode, peak lr).
 REHEARSE_SERVE, REHEARSE_TRAIN = (8, 64, 6), (4, 256, 2, 2, 3e-4)
+# chip_smoke.py's phase 12 at smoke width (bf16): phase 9's rehearsal's
+# request (rows, prompt, generated tokens), 2 rows a rank on (2, 1, 2).
+REHEARSE_EP_POD = (4, 64, 6)
 
+# The reference's tasks run in JAX_PARTS subprocesses, each every
+# JAX_PARTS-th task (one process took 80 s).
+JAX_PARTS = 4
 JAX_REF = """
-import math, os
+import dataclasses, math, os
 # LLVM at -O0 compiles the reference's steps in two thirds of the time; XLA's
 # HLO passes, which decide the sums' order, run as they do by default.
 os.environ['XLA_FLAGS'] += ' --xla_backend_optimization_level=0'
@@ -110,21 +132,50 @@ def podded(init, run):
         state['ef'] = jax.tree.map(lambda x: np.zeros((2,) + x.shape, np.float32), init['params'])
     return state
 
+def served(model, params, prompts, mesh, tag):
+    # serve()'s loop: greedy tokens from the prefill and decode steps, and
+    # the prefill's and the first decode step's last-token logits.
+    cfg = model.cfg
+    bs, plen, glen = SERVE['batch'], SERVE['prompt_len'], SERVE['gen_len']
+    pshape = ShapeConfig('serve', plen, bs, 'prefill')
+    prefill, _, (param_sh, pbatch_sh, _) = build_prefill_step(model, mesh, pshape, plen + glen)
+    params = jax.device_put(params, param_sh)
+    logits, caches = prefill(params, jax.device_put(prompts, pbatch_sh))
+    res[f'{tag}/prefill'] = np.asarray(logits[:, -1])
+    dec, _, _ = build_decode_step(model, mesh, ShapeConfig('serve', plen + glen, bs, 'decode'), plen + glen)
+    tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+    gen = [np.asarray(tok)]
+    for i in range(glen - 1):
+        logits, caches = dec(params, caches, tok)
+        if i == 0:
+            res[f'{tag}/decode'] = np.asarray(logits[:, -1])
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+        gen.append(np.asarray(tok))
+    res[f'{tag}/tokens'] = np.concatenate(gen, axis=1)
+
 res, inits = {}, {}
-for tag, arch, shape, kw in TAGS:
+
+def init(arch):
+    # JAX's jitted init, once for each arch this process steps or serves.
+    if arch not in inits:
+        model = Model(get_config(arch, smoke=True).with_overrides(dtype='float32'))
+        state = jax.device_get(jax.jit(lambda key: init_train_state(model, RunConfig(total_steps=10), key))(jax.random.PRNGKey(0)))
+        if arch.startswith('deepseek'):
+            state['params'] = conditioned(state['params'])
+        inits[arch] = state
+    return inits[arch]
+
+def stepped(tag, arch, shape, kw, moe):
     cfg = get_config(arch, smoke=True).with_overrides(dtype='float32')
+    if moe:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **moe))
     run = RunConfig(total_steps=10, **{**RUN, **kw})
     model = Model(cfg)
-    if arch not in inits:
-        init = jax.device_get(jax.jit(lambda key: init_train_state(model, RunConfig(total_steps=10), key))(jax.random.PRNGKey(0)))
-        if arch.startswith('deepseek'):
-            init['params'] = conditioned(init['params'])
-        inits[arch] = init
     mesh = make_mesh(shape, ('pod', 'data', 'model'))
     toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (STEPS, B, T + 1))
     with set_mesh(mesh):
         step, _, state_sh, batch_sh = build_train_step(model, run, mesh, ShapeConfig('t', T, B, 'train'))
-        state = jax.device_put(podded(inits[arch], run), state_sh)
+        state = jax.device_put(podded(init(arch), run), state_sh)
         for i in range(STEPS):
             batch = {'tokens': toks[i, :, :-1].astype(np.int32), 'labels': toks[i, :, 1:].astype(np.int32)}
             state, m = step(state, jax.device_put(batch, batch_sh))
@@ -134,25 +185,28 @@ for tag, arch, shape, kw in TAGS:
         if group in state:
             for k, v in flat(jax.device_get(state[group])).items():
                 res[f'{tag}/{group}/{k}'] = v
-cfg = get_config(LLAMA, smoke=True).with_overrides(dtype='float32')
-model = Model(cfg)
-mesh = make_mesh((2, 1, 2), ('pod', 'data', 'model'))
-bs, plen, glen = SERVE['batch'], SERVE['prompt_len'], SERVE['gen_len']
-with set_mesh(mesh):
-    # serve()'s loop: greedy tokens from the prefill and decode steps.
-    pshape = ShapeConfig('serve', plen, bs, 'prefill')
-    prefill, _, (param_sh, pbatch_sh, _) = build_prefill_step(model, mesh, pshape, plen + glen)
-    params = jax.device_put(inits[LLAMA]['params'], param_sh)
-    prompts = input_specs(cfg, pshape, concrete=True, rng=jax.random.PRNGKey(1))
-    logits, caches = prefill(params, jax.device_put(prompts, pbatch_sh))
-    dec, _, _ = build_decode_step(model, mesh, ShapeConfig('serve', plen + glen, bs, 'decode'), plen + glen)
-    tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
-    gen = [np.asarray(tok)]
-    for i in range(glen - 1):
-        logits, caches = dec(params, caches, tok)
-        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
-        gen.append(np.asarray(tok))
-    res['serve/tokens'] = np.concatenate(gen, axis=1)
+
+def serve_llama():
+    cfg = get_config(LLAMA, smoke=True).with_overrides(dtype='float32')
+    mesh = make_mesh((2, 1, 2), ('pod', 'data', 'model'))
+    pshape = ShapeConfig('serve', SERVE['prompt_len'], SERVE['batch'], 'prefill')
+    with set_mesh(mesh):
+        served(Model(cfg), init(LLAMA)['params'], input_specs(cfg, pshape, concrete=True, rng=jax.random.PRNGKey(1)), mesh, 'serve')
+
+def serve_moe():
+    # deepseek-v2 served on (2, 2, 1) at capacity factor 0.5: its prefill's
+    # one group spans the 4 row ranks, 1 row each.
+    cfg = get_config(MOE, smoke=True).with_overrides(dtype='float32')
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **DROP))
+    mesh = make_mesh((2, 2, 1), ('pod', 'data', 'model'))
+    prompts = {'tokens': np.random.default_rng(3).integers(0, cfg.vocab_size, (SERVE['batch'], SERVE['prompt_len'])).astype(np.int32)}
+    with set_mesh(mesh):
+        served(Model(cfg), init(MOE)['params'], prompts, mesh, 'moe-serve')
+
+# This subprocess's share: every PARTS-th task from PART.
+TASKS = [lambda t=t: stepped(*t) for t in TAGS] + [serve_llama, serve_moe]
+for task in TASKS[PART::PARTS]:
+    task()
 np.savez(OUT, **{k: np.asarray(v) for k, v in res.items()})
 print('OK ref')
 """
@@ -205,21 +259,25 @@ def runs(tmp_path_factory):
     parameters, the port's 4-rank spawn of the held runs and, beside it, the
     4-rank rehearsal of phase 11; meanwhile, in this process, the
     rehearsal's one-rank references."""
-    out = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
-    head = (f"TAGS, RUN, SERVE, LLAMA = {TAGS!r}, {RUN!r}, {SERVE!r}, {LLAMA!r}\n"
-            f"STEPS, B, T, OUT = {STEPS}, {B}, {T}, {str(out)!r}\n")
+    out = tmp_path_factory.mktemp("jax_ref")
+    head = (f"TAGS, RUN, SERVE, LLAMA, MOE, DROP = {TAGS!r}, {RUN!r}, {SERVE!r}, {LLAMA!r}, "
+            f"{MOE!r}, {DROP!r}\nSTEPS, B, T = {STEPS}, {B}, {T}\n")
+    jax_parts = {f"jax {i}": lambda i=i: run_multidevice(
+        head + f"OUT, PART, PARTS = {str(out / f'ref{i}.npz')!r}, {i}, {JAX_PARTS}\n" + JAX_REF,
+        devices=4, timeout=600) for i in range(JAX_PARTS)}
     ckpt, cli = (str(tmp_path_factory.mktemp(n)) for n in ("ckpt_local", "ckpt_cli"))
     ckpt_kw = dict(**RUN, **MODES["local"], total_steps=3, checkpoint_every=2,
                    checkpoint_dir=ckpt)
     cs = torch_rank_fns._chip_smoke()
-    with ThreadPoolExecutor(3) as pool:
-        jax_run = pool.submit(run_multidevice, head + JAX_REF, devices=4, timeout=600)
-        rows, seq, micro, steps, lr = REHEARSE_TRAIN
-        rehearsal = pool.submit(spawn_ranks, torch_rank_fns.chip_smoke_pod_tp_rank, 4,
-                                ((LLAMA, *REHEARSE_SERVE), (LLAMA, rows, seq, micro, steps, lr),
-                                 True, "cpu"), timeout=600)
-        params = {LLAMA: _params(LLAMA), MOE: _params(MOE)}
+    rows, seq, micro, steps, lr = REHEARSE_TRAIN
+    params = {}
+
+    def held():
+        params.update({LLAMA: _params(LLAMA), MOE: _params(MOE)})
         runs = lambda modes: [{**RUN, **MODES[m]} for m in modes]
+        flat = lambda tag, fn="step_modes": (fn, (MOE, FLAT_MOE[tag][0], params[MOE],
+                                                 _batches(MOE), runs(["flat"]), AXES,
+                                                 FLAT_MOE[tag][1]))
         jobs = [("step_modes", (LLAMA, (2, 1, 2), params[LLAMA], _batches(LLAMA),
                                 runs(MODES), AXES)),
                 ("block_scaled_steps", (LLAMA, (2, 1, 2), params[LLAMA], _batches(LLAMA),
@@ -236,23 +294,42 @@ def runs(tmp_path_factory):
                                "pod,data,model", "--sync-mode", "sync", "--device", "cpu"],)),
                 ("step_modes", (MOE, (2, 2, 1), params[MOE], _batches(MOE), runs(["sync"]),
                                 AXES)),
-                ("pod_serve", (MOE, (2, 1, 2), params[MOE], _moe_prompts(), *SERVE.values()))]
-        ranks = pool.submit(spawn_ranks, torch_rank_fns.ranks_main, 4, (jobs,), timeout=600)
+                ("pod_serve", (MOE, (2, 1, 2), params[MOE], _moe_prompts(), *SERVE.values())),
+                flat("moe-flat-a2a"), flat("moe-flat-d2"), flat("moe-flat-g2"),
+                flat("moe-flat-d2", "pod_alone_steps"),
+                ("tp_logits", (MOE, (2, 2, 1), params[MOE], _moe_prompts(),
+                               SERVE["prompt_len"] + SERVE["gen_len"], DROP, None, None, AXES)),
+                ("pod_serve", (MOE, (2, 2, 1), params[MOE], _moe_prompts(), *SERVE.values(),
+                               AXES, DROP))]
+        return spawn_ranks(torch_rank_fns.ranks_main, 4, (jobs,), timeout=600)
+
+    def refs():
         refs = _rehearsal_refs(cs)
         refs["moe_tokens"] = torch_rank_fns.pod_serve(
-            MOE, (1, 1), params[MOE], _moe_prompts(), *SERVE.values(),
+            MOE, (1, 1), _params(MOE), _moe_prompts(), *SERVE.values(),
             axes=torch_rank_fns.DATA_MODEL)[0]
-        assert "OK ref" in jax_run.result()
-        with np.load(out) as f:
-            ref = {k: f[k] for k in f.files}
-        return {"jax": ref, "ranks": ranks.result(), "rehearsal": rehearsal.result(),
-                "refs": refs, "params": params, "ckpt": ckpt_kw, "cli": cli}
+        return refs
+
+    parts = torch_rank_fns.side_by_side({
+        **jax_parts, "rehearsal": lambda: spawn_ranks(
+            torch_rank_fns.chip_smoke_pods_rank, 4,
+            ((LLAMA, *REHEARSE_SERVE), (LLAMA, rows, seq, micro, steps, lr), REHEARSE_EP_POD,
+             True, "cpu"), timeout=600),
+        "held": held, "refs": refs})
+    ref = {}
+    for i in range(JAX_PARTS):
+        assert "OK ref" in parts[f"jax {i}"]
+        with np.load(out / f"ref{i}.npz") as f:
+            ref.update({k: f[k] for k in f.files})
+    return {"jax": ref, "ranks": parts["held"], "rehearsal": parts["rehearsal"],
+            "refs": parts["refs"], "params": params, "ckpt": ckpt_kw, "cli": cli}
 
 
 def _rehearsal_refs(cs):
-    """One rank's references of phase 11 at smoke width (bf16): the
-    prefill's last-token logits and the served tokens (phase 4's), and
-    step 1's loss and grad-norm (phase 8's one rank)."""
+    """One rank's references of phases 11 and 12 at smoke width (bf16): the
+    prefill's last-token logits and the served tokens (phase 4's), step 1's
+    loss and grad-norm (phase 8's one rank), and phase 12's
+    (``ep_serve_reference`` with pods 2)."""
     batch, plen, glen = REHEARSE_SERVE
     cfg = get_config(LLAMA, smoke=True)
     model = Model(cfg, device="cpu", generator=torch.Generator("cpu").manual_seed(0))
@@ -262,7 +339,8 @@ def _rehearsal_refs(cs):
     tokens = serve(LLAMA, batch=batch, prompt_len=plen, gen_len=glen, device="cpu")["tokens"]
     rows, seq, micro, _, lr = REHEARSE_TRAIN
     first = cs.one_rank_step(LLAMA, {}, rows, seq, micro, lr, 0, True, "cpu")
-    return {"logits": logits, "tokens": tokens.numpy(), "first": first}
+    ep_pod = cs.ep_serve_reference(REHEARSE_EP_POD, cs.EP_POD_MESH[0][0], True, "cpu", True)
+    return {"logits": logits, "tokens": tokens.numpy(), "first": first, "ep_pod": ep_pod}
 
 
 def _job(runs, i):
@@ -362,44 +440,84 @@ def test_pod_bytes_are_the_ranks_blocks(runs):
                 assert [w["pod"] - metrics for w in res["wire"]] == want, (mode, i)
 
 
+def _moe_rule(runs, res, tag):
+    """What breaks ``tests/test_torch_multipod_train.py``'s MoE rule for one
+    rank's run ``res`` against JAX's ``tag`` (losses and grad-norms within
+    rtol 1e-5; parameter elements outside GRAD_TOL under 1 in 10^4 and
+    within lr / 2: AdamW turns near-zero gradients' fp32 noise into updates
+    near lr); empty where it holds."""
+    ref, lr, broken = runs["jax"], RUN["learning_rate"], []
+    for key in ("loss", "grad_norm"):
+        if not np.allclose(res[key], ref[f"{tag}/{key}"], rtol=1e-5, atol=0):
+            broken.append(f"{key} {res[key]} against {ref[f'{tag}/{key}'].tolist()}")
+    want = _tree(ref, f"{tag}/params/")
+    assert set(res["params"]) == set(want)
+    off = total = 0
+    for key, got in res["params"].items():
+        outside = _outside(got, want[key])
+        if not np.all(np.abs(got - want[key])[outside] <= lr / 2):
+            broken.append(f"{key} off by more than lr / 2")
+        off += int(outside.sum())
+        total += got.size
+    if off >= total / 10 ** 4:
+        broken.append(f"{off} of {total} elements outside GRAD_TOL")
+    return broken
+
+
 @pytest.mark.parametrize("tag, job", [("moe", 3), ("moe-d2", 8)])
 def test_moe_sync_over_sharded_pods_matches_jax(runs, tag, job):
     """deepseek-v2 in sync on (2, 1, 2), each pod's rows routed on its model
     ranks, and on (2, 2, 1), each pod's rows routed over its two data ranks
-    as the reference's vmap over pods routes them (the refusal of MoE over
-    sharded pods lifted); losses, grad-norms and parameters by the multi-pod
-    test's MoE rule (elements outside GRAD_TOL under 1 in 10^4 and within
-    lr / 2: AdamW turns near-zero gradients' fp32 noise into updates near
-    lr).  flat MoE over pods stays refused by name."""
-    ref, lr = runs["jax"], RUN["learning_rate"]
+    as the reference's vmap over pods routes them; losses, grad-norms and
+    parameters by the MoE rule (:func:`_moe_rule`)."""
     for rank in _job(runs, job):
-        res = rank["runs"][0]
-        np.testing.assert_allclose(res["loss"], ref[f"{tag}/loss"], rtol=1e-5)
-        np.testing.assert_allclose(res["grad_norm"], ref[f"{tag}/grad_norm"], rtol=1e-5)
-        want = _tree(ref, f"{tag}/params/")
-        assert set(res["params"]) == set(want)
-        off = total = 0
-        for key, got in res["params"].items():
-            outside = _outside(got, want[key])
-            assert np.all(np.abs(got - want[key])[outside] <= lr / 2), key
-            off += int(outside.sum())
-            total += got.size
-        assert off < total / 10 ** 4, (off, total)
-    mesh = Mesh(axes=AXES, shape=dict(zip(AXES, (2, 1, 2))), coords=dict.fromkeys(AXES, 0),
-                device=torch.device("cpu"))
-    model = Model(get_config(MOE, smoke=True), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="flat MoE over pods"):
-        build_train_step(model, RunConfig(sync_mode="flat"), mesh)
+        assert not _moe_rule(runs, rank["runs"][0], tag), rank["coords"]
+
+
+@pytest.mark.parametrize("tag, job", [("moe-flat-a2a", 10), ("moe-flat-d2", 11),
+                                      ("moe-flat-g2", 12)])
+def test_flat_moe_over_pods_matches_jax(runs, tag, job):
+    """deepseek-v2 in flat over pods at capacity factor 0.5, against JAX's
+    ``build_train_step`` in flat (its groups over the ``(pod, data)`` rows,
+    ``_gf_axes``): the island on (2, 1, 2) (capacity per source slice, the
+    EP group inside a pod), and on (2, 2, 1) one group over the 4 row ranks
+    and 2 groups over 2 each; by the MoE rule (:func:`_moe_rule`)."""
+    for rank in _job(runs, job):
+        assert not _moe_rule(runs, rank["runs"][0], tag), rank["coords"]
+
+
+def test_a_group_over_one_pod_breaks_flat_moe(runs):
+    """The planted fault (``chip_smoke.py``'s ``pod_alone_rows``): flat on
+    (2, 2, 1) with each pod's rows routed alone, the route before flat MoE
+    over pods was ported: at capacity factor 0.5 it breaks the MoE rule
+    against JAX's flat step on every rank."""
+    for rank in _job(runs, 13):
+        assert _moe_rule(runs, rank["runs"][0], "moe-flat-d2"), rank["coords"]
 
 
 def test_moe_serves_on_sharded_pods_as_on_one_rank(runs):
-    """serve() of deepseek-v2 (fp32) on (2, 1, 2): every pod serves the whole
-    batch on its model ranks' blocks, since the port routes a group over one
-    pod's rows where the reference's span (pod, data) (ROADMAP's item 3f),
+    """serve() of deepseek-v2 (fp32) on (2, 1, 2): each rank's prefill held
+    its ``(pod, data)`` rows, batch / 2, its group spanning both pods' rows,
     and every rank's tokens are the port's one-rank tokens."""
     for tokens, rows in _job(runs, 9):
         np.testing.assert_array_equal(tokens, runs["refs"]["moe_tokens"])
-        assert rows == [SERVE["batch"]]
+        assert rows == [SERVE["batch"] // 2]
+
+
+def test_moe_served_on_pod_data_rows_matches_jax(runs):
+    """deepseek-v2 served on (2, 2, 1) at capacity factor 0.5, each rank its
+    ``(pod, data)`` row (batch / 4), the prefill's one group spanning the 4
+    row ranks: each rank's prefill and first decode step's last-token
+    logits, and serve()'s tokens, against JAX's prefill, decode and serving
+    loop on the same mesh."""
+    ref = runs["jax"]
+    for res in _job(runs, 14):
+        i = res["coords"]["pod"] * 2 + res["coords"]["data"]
+        for what in ("prefill", "decode"):
+            np.testing.assert_allclose(res[what], ref[f"moe-serve/{what}"][i:i + 1], **GRAD_TOL)
+    for tokens, rows in _job(runs, 15):
+        np.testing.assert_array_equal(tokens, ref["moe-serve/tokens"])
+        assert rows == [SERVE["batch"] // 4]
 
 
 def test_serve_on_pods_matches_jax_and_splits_the_rows(runs):
@@ -550,3 +668,30 @@ def test_phase_11_rehearses_at_smoke_width_on_the_cpu(runs):
             cs.check_pod_tp_training(blind, cfg, ref["first"], None, None)
     finally:
         cs.POD_TP_TRAIN = real
+
+
+def test_phase_12_rehearses_at_smoke_width_on_the_cpu(runs):
+    """chip_smoke.py's phase 12 at smoke width (bf16) on 4 CPU ranks
+    (deepseek-v2 served on (2, 1, 2), 2 rows a rank): its checks pass
+    (logits and tokens against one rank's, bytes, decode's slot offsets on
+    pod 1 equal to pod 0's counts, the planted route of each pod alone
+    failing that probe); they fail when a prefill holds the whole batch, a
+    decode step counts 4 bytes more, or pod 1's offsets read as the fault's."""
+    cs = torch_rank_fns._chip_smoke()
+    ref, cfg = runs["refs"]["ep_pod"], cs.ep_config(smoke=True)
+    batch, plen, _ = REHEARSE_EP_POD
+    ranks = [r["eppod"] for r in runs["rehearsal"]]
+    assert cs.check_ep_pod_serving(ranks, cfg, batch, plen, ref, None) <= cs.EP_LOGITS_RTOL
+    whole = copy.deepcopy(ranks)
+    whole[2]["prefill_rows"] = batch
+    with pytest.raises(AssertionError, match="share"):
+        cs.check_ep_pod_serving(whole, cfg, batch, plen, ref, None)
+    extra = copy.deepcopy(ranks)
+    extra[1]["decode_bytes"][0]["pod"] += 4
+    with pytest.raises(AssertionError, match="decode wire bytes"):
+        cs.check_ep_pod_serving(extra, cfg, batch, plen, ref, None)
+    alone = copy.deepcopy(ranks)
+    for r in alone:
+        r["offsets"] = r["fault_offsets"]
+    with pytest.raises(AssertionError, match="does not span the pods' rows"):
+        cs.check_ep_pod_serving(alone, cfg, batch, plen, ref, None)

@@ -231,15 +231,15 @@ def _mesh(shape):
                 coords={"data": 0, "model": 0}, device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("arch,what", [("deepseek-v2-236b", "MoE")])
+@pytest.mark.parametrize("arch,what", [("deepseek-v2-236b", "8 experts do not divide over 3")])
 def test_model_axis_refuses_blocks_it_does_not_shard(arch, what):
-    """Of MoE the layouts that the reference leaves to GSPMD (``fsdp_f``
-    here)."""
+    """Of MoE, experts that do not divide over the ranks that split them
+    (``ep2d`` here: its 8 experts over ``(data, model)``, 3 ranks)."""
     cfg = get_config(arch, smoke=True)
     if cfg.moe is not None:
-        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="fsdp_f"))
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="ep2d"))
     with pytest.raises(NotImplementedError, match=what):
-        Model(cfg, device="cpu", mesh=_mesh((1, 2)))
+        Model(cfg, device="cpu", mesh=_mesh((1, 3)))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
@@ -312,7 +312,7 @@ def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():
     p = Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"]
     with pytest.raises(NotImplementedError, match="straddle"):
         moe_mod.moe_ffn(p, torch.zeros(3, 4, cfg.d_model, dtype=torch.bfloat16), cfg,
-                        _mesh((2, 1)))
+                        _mesh((2, 1)), moe_mod.Rows(_mesh((2, 1))))
     model = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", mesh=_mesh((2, 1)))
     full = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu")
     for key, p in full.state_dict().items():
@@ -320,3 +320,20 @@ def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():
         assert tuple(model.state_dict()[key].shape) == tuple(
             n // (2 if "data" in pl.axes(d) else 1) for d, n in enumerate(p.shape)), key
     assert model.layout["blocks.b0.rec.lam"].spec == (None, None)
+
+
+def test_staging_buffer_first_made_in_inference_mode_takes_writes_after(monkeypatch):
+    """A gloo group on a card stages its tensors in pinned host buffers, one
+    per dtype, made at first use.  A MoE decode step's all-gather of int64
+    counts is that first use under ``inference_mode``; ``serve()``'s token
+    gather writes the same buffer after it, which an inference tensor
+    refuses (the card's phase 12 met it).  The buffer is a normal tensor."""
+    real = torch.empty
+    # Without a CUDA device no memory pins: the buffer's other properties count.
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **kw: real(*a, **kw))
+    mesh = Mesh(axes=("pod",), shape={"pod": 2}, coords={"pod": 0}, device=torch.device("cpu"))
+    with torch.inference_mode():
+        buf = mesh._host(torch.int64, 0, 4)
+        buf.copy_(torch.arange(4))
+    assert not buf.is_inference()
+    mesh._host(torch.int64, 0, 4).copy_(torch.arange(4))

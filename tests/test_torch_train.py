@@ -183,10 +183,12 @@ def test_train_state_shares_the_models_parameters():
 
 @pytest.mark.parametrize("mode", ["sync", "local", "flat"])
 def test_multi_pod_modes_are_refused(mode):
-    """MoE over pods trains in sync and local mode, each pod's rows routed
-    over its own data ranks as the reference's vmap over pods routes them
-    (at data 1 and 2); flat over pods, whose groups span (pod, data) in the
-    reference, is refused by name (ROADMAP's item 3f)."""
+    """MoE over pods builds its step in every mode (at data 1 and 2): in
+    sync and local each pod's rows routed over its own data ranks, as the
+    reference's vmap over pods routes them, and in flat over the ``(pod,
+    data)`` rows, as the reference's groups span them (``step_rows``)."""
+    from repro_torch.launch.steps import step_rows
+
     cfg = get_config("deepseek-v2-236b", smoke=True)
     run = RunConfig(sync_mode=mode, compress_int8=mode == "sync")
     for sizes in ((2, 2), (2, 1)):
@@ -194,11 +196,8 @@ def test_multi_pod_modes_are_refused(mode):
                     coords={"pod": 0, "data": 0}, device=torch.device("cpu"))
         tm = Model(cfg, device="cpu", mesh=mesh)
         assert (tm.mesh is mesh) == (sizes[1] > 1)
-        if mode == "flat":
-            with pytest.raises(NotImplementedError, match="flat MoE over pods"):
-                build_train_step(tm, run, mesh)
-        else:
-            assert callable(build_train_step(tm, run, mesh))
+        assert callable(build_train_step(tm, run, mesh))
+        assert step_rows(mode, mesh).axes == (("pod", "data") if mode == "flat" else ("data",))
 
 
 def test_train_without_device_needs_cuda(tmp_path):

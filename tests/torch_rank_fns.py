@@ -1,8 +1,11 @@
 """Functions that the multi-rank CPU tests run in each spawned rank
 (``repro_torch.launch.mesh.spawn_ranks``).  They import torch and the port
-only, so that a rank starts without JAX; each returns numpy arrays."""
+only, so that a rank starts without JAX; each returns numpy arrays.  Also
+:func:`side_by_side`, which the tests' fixtures run their parts with."""
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -64,23 +67,53 @@ def cohort_checks(g):
             "even_pod": even_pod, "ef_errors": errs, "backends": dict(mesh.backends)}
 
 
-def _model(arch, params):
-    model = Model(get_config(arch, smoke=True).with_overrides(dtype="float32"), device="cpu")
+def side_by_side(parts):
+    """Run each of ``parts`` (name -> a function of no arguments) in a thread
+    of its own, all at once, and wait for every one.  Prints each part's
+    seconds and outcome; returns the results by name, or, where any part
+    raised, raises one error that names every part's time and the errors in
+    full, so that a part that fails under load can be read."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+
+    def timed(fn):
+        try:
+            return True, fn(), time.perf_counter() - t0
+        except BaseException:  # reported below with the other parts' times
+            import traceback
+            return False, traceback.format_exc(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(parts)) as pool:
+        done = dict(zip(parts, pool.map(timed, parts.values())))
+    times = ", ".join(f"{n} {'ok' if ok else 'FAILED'} at {t:.1f} s"
+                      for n, (ok, _, t) in done.items())
+    print(f"[parts] {times}", flush=True)
+    failed = {n: out for n, (ok, out, _) in done.items() if not ok}
+    if failed:
+        raise AssertionError(f"parts: {times}\n" + "\n".join(
+            f"--- {n} ---\n{out}" for n, out in failed.items()))
+    return {n: out for n, (_, out, _) in done.items()}
+
+
+def _model(arch, params, moe=None):
+    model = Model(_fp32(arch, moe), device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     return model
 
 
-def step_modes(arch, shape, params, batches, runs, axes=POD_DATA):
+def step_modes(arch, shape, params, batches, runs, axes=POD_DATA, moe=None):
     """For each ``RunConfig`` keyword set of ``runs``: ``arch`` (smoke, fp32,
-    from the whole ``params``; on a sharded mesh this rank's blocks of them)
-    stepped over ``batches`` on a mesh of ``shape`` over ``axes``.  Returns,
-    per run, the losses, grad-norms, wire bytes per step on each group,
-    this rank's pod's final parameters (and ``ef``), gathered whole, and the
-    elements and leaves of the rank's own blocks."""
+    MoE fields ``moe``, from the whole ``params``; on a sharded mesh this
+    rank's blocks of them) stepped over ``batches`` on a mesh of ``shape``
+    over ``axes``.  Returns, per run, the losses, grad-norms, wire bytes per
+    step on each group, this rank's pod's final parameters (and ``ef``),
+    gathered whole, and the elements and leaves of the rank's own blocks."""
     mesh = make_mesh(shape, axes, "cpu")
     out = []
     for kw in runs:
-        model = _sharded(arch, params, mesh) if sharded(mesh) else _model(arch, params)
+        model = (_sharded(arch, params, mesh, moe) if sharded(mesh)
+                 else _model(arch, params, moe))
         whole = lambda tree: _numpy(gather_tree(dict(tree), model.layout, mesh)
                                     if model.mesh is not None else tree)
         run = RunConfig(total_steps=10, **kw)
@@ -222,10 +255,20 @@ def tp_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, moe=None)
                    moe)[0]
 
 
-def pod_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, axes=POD_DATA_MODEL):
+def pod_serve(arch, shape, params, prompts, batch, prompt_len, gen_len, axes=POD_DATA_MODEL,
+              moe=None):
     """:func:`_served` on a pod mesh of ``shape`` over ``axes``: every
     rank's tokens and the rows of this rank's prefill."""
-    return _served(arch, shape, axes, params, prompts, batch, prompt_len, gen_len)
+    return _served(arch, shape, axes, params, prompts, batch, prompt_len, gen_len, moe)
+
+
+def pod_alone_steps(*args, **kw):
+    """:func:`step_modes` under ``chip_smoke.py``'s ``pod_alone_rows``: each
+    pod's rows routed alone (a MoE group over one pod's data ranks), where
+    the reference's flat groups span ``(pod, data)``: the fault that the
+    tests must catch."""
+    with _chip_smoke().pod_alone_rows():
+        return step_modes(*args, **kw)
 
 
 def block_scaled_steps(*args):
@@ -242,14 +285,13 @@ def block_scaled_steps(*args):
         cohort.int8_block_mean = real
 
 
-def tp_logits(arch, shape, params, prompts, max_len, moe=None, over=None, fault=None):
+def tp_logits(arch, shape, params, prompts, max_len, moe=None, over=None, fault=None,
+              axes=DATA_MODEL):
     """This rank's rows' last-token logits of a prefill of ``prompts`` and of
-    one greedy decode step after it, over the whole vocab, on a ``(data,
-    model)`` mesh of ``shape`` (``fault``: under the context manager of
+    one greedy decode step after it, over the whole vocab, on a mesh of
+    ``shape`` over ``axes`` (``fault``: under the context manager of
     ``chip_smoke.py`` of that name)."""
-    import contextlib
-
-    mesh = make_mesh(shape, DATA_MODEL, "cpu")
+    mesh = make_mesh(shape, axes, "cpu")
     model = _sharded(arch, params, mesh, moe, over)
     with getattr(_chip_smoke(), fault)() if fault else contextlib.nullcontext():
         return _logits(model, prompts, max_len)
@@ -396,3 +438,58 @@ def chip_smoke_ep_rank(*args):
 def chip_smoke_pod_tp_rank(*args):
     """chip_smoke.py's phase-11 rank (``pod_tp_rank``)."""
     return _chip_smoke().pod_tp_rank(*args)
+
+
+def chip_smoke_pods_rank(serving, training, ep_serving, smoke=False, device=None):
+    """chip_smoke.py's phase-11 rank (``pod_tp_rank`` of ``serving`` and
+    ``training``), then, in the same process, its phase-12 rank
+    (``ep_pod_rank`` of ``ep_serving``) under ``"eppod"``."""
+    cs = _chip_smoke()
+    return {**cs.pod_tp_rank(serving, training, smoke, device),
+            "eppod": cs.ep_pod_rank(*ep_serving, smoke, device)}
+
+
+@contextlib.contextmanager
+def gathered_experts():
+    """``models/moe.py`` running experts split over ``(data, model)`` on
+    their weights gathered over ``data``, not by sending the tokens to them:
+    the same numbers, with the weights on the wire, which ``ep2d``'s byte
+    check must catch."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding.shard import gather_data
+
+    real = moe_mod._exchanged_experts
+    moe_mod._exchanged_experts = lambda wi, wo, xe, mesh: moe_mod._experts(
+        gather_data(wi, 0, mesh), gather_data(wo, 0, mesh), xe)
+    try:
+        yield
+    finally:
+        moe_mod._exchanged_experts = real
+
+
+def moe_data_bytes(arch, shape, params, tokens, moe, fault=False):
+    """One forward of ``arch``'s loss (smoke, fp32, MoE fields ``moe``,
+    from the whole ``params``) over the rank's rows of ``tokens`` ``[B, T +
+    1]`` on a ``(data, model)`` mesh of ``shape``, without gradients;
+    returns the ``data`` group's wire bytes inside each MoE call (with
+    ``fault``, under :func:`gathered_experts`) and the rank's coordinates."""
+    from repro_torch.launch.steps import rank_rows
+    from repro_torch.models import moe as moe_mod
+
+    mesh = make_mesh(shape, DATA_MODEL, "cpu")
+    model = _sharded(arch, params, mesh, moe)
+    real, calls = moe_mod.moe_ffn, []
+
+    def counted(*a, **kw):
+        before = mesh.traffic.wire_bytes.get("data", 0.0)
+        out = real(*a, **kw)
+        calls.append(mesh.traffic.wire_bytes.get("data", 0.0) - before)
+        return out
+
+    moe_mod.moe_ffn = counted
+    try:
+        with torch.no_grad(), gathered_experts() if fault else contextlib.nullcontext():
+            model.loss(rank_rows(_batch(tokens, model.cfg), mesh, "flat", 1))
+    finally:
+        moe_mod.moe_ffn = real
+    return {"calls": calls, "coords": dict(mesh.coords)}
