@@ -309,7 +309,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 12. MoE served on ``(pod, data)`` rows: phase 9's config on ``(pod 2,
    data 1, model 2)`` (``EP_POD_MESH``), four ranks spawned as phase 7's
-   (:func:`ep_pod_rank`, their models built :func:`one_at_a_time`), serving
+   (:func:`ep_pod_rank`; their models built at once where four ranks' init
+   peaks, counted on the meta device by :func:`init_need`, leave
+   ``EP_POD_AT_ONCE_FREE`` of the card free, else :func:`one_at_a_time`), serving
    phase 9's request with 2 rows a rank: the island inside each pod in
    prefill (MLA flash on ``wgmma`` on every rank), the scatter path with one
    group over both pods' rows in decode; held by
@@ -321,6 +323,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    :func:`ep_pod_serve_wire_bytes`, decode's slot offsets on pod 1 equal to
    pod 0's counts (:func:`slot_offsets`), and a planted fault that routes
    each pod alone (:func:`pod_alone_rows`) must fail that probe.
+13. the dry run (``launch/dryrun.py``) on this machine's CPU, every tensor on
+   the meta device, its cells in worker processes started after phase 1
+   and running beside phases 2-12 (:func:`start_dry_cells`,
+   :func:`dry_cell`): (a) all ten published configs built, each one's
+   parameter count printed; (b) the one-card cells that phases 4 and 6(c)
+   measured, at their settings (``DRY_MEASURED``): each peak estimate beside
+   the phase's ``max_memory_allocated`` within ``DRY_PEAK_BAND``, each
+   measured time at least the roofline's largest term, and
+   ``model_flops_estimate`` beside the script's own count within
+   ``DRY_FLOPS_BAND``; (c) two production cells' roofline rows
+   (``DRY_PRODUCTION``), estimates on the H100 data sheet's constants.
+
+In phases 8-12 every rank prints its peak memory right after its sharded
+model is built, the peak statistics reset before the build
+(:func:`build_peaks`).
 
 Before each of phases 3-12 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
@@ -861,11 +878,34 @@ POD_TP_FAULT = ("fault: pod groups across model ranks", {"sync_mode": "sync"},
 # choice, so the tokens cannot tell a group over one pod from one over both;
 # the probe (slot_offsets) reads decode's slot offsets on pod 1's ranks,
 # which must be pod 0's counts, and the planted fault (pod_alone_rows, each
-# pod routed alone) must fail it.  The ranks draw their weights one at a time
-# (one_at_a_time).  Training over pods at published width does not fit one
+# pod routed alone) must fail it.  The ranks draw their weights at once where
+# four ranks' init peaks (init_need) leave 8 GB of the card free, else one at
+# a time (one_at_a_time).  Training over pods at published width does not fit one
 # card: one replica peaks at 71 GB on one rank (6(g)), and two pods hold two;
 # it is held to JAX on CPU ranks only (tests/test_torch_pod_shard.py).
 EP_POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+# The free memory that four ranks' init peaks must leave for phase 12 to
+# build its ranks at once.
+EP_POD_AT_ONCE_FREE = 8e9
+# Phase 13: the dry run (launch/dryrun.py) on this machine's CPU, every
+# tensor on the meta device.  (b) The one-card cells that earlier phases
+# measured, at their settings: name, arch, (positions, rows, kind),
+# microbatches, cache length: 6(c)'s training step, phase 4's llama3.2-1b
+# prefill (its cache as long as the request's prompt and tokens) and phase
+# 4's hubert-xlarge encode.  (c) Two production cells: arch, shape, pods.
+DRY_MEASURED = (
+    ("llama3.2-1b train", TRAIN[0], (TRAIN[2], TRAIN[1], "train"), TRAIN[3], None),
+    ("llama3.2-1b prefill", SERVE[0][0], (SERVE[0][2], SERVE[0][1], "prefill"), None,
+     SERVE[0][2] + SERVE[0][3]),
+    ("hubert-xlarge encode", ENCODE[0], (ENCODE[2], ENCODE[1], "prefill"), None, None))
+DRY_PRODUCTION = (("llama3-8b", "train_4k", False), ("deepseek-v3-671b", "train_4k", True))
+# The bands that PERF.md stated before the first run: each peak estimate over
+# the phase's max_memory_allocated, and model_flops_estimate over the
+# script's own count of the model FLOPs.  Every measured time must be at
+# least the roofline's largest term.  The phase's budget in seconds.
+DRY_PEAK_BAND = (0.7, 1.4)
+DRY_FLOPS_BAND = (0.75, 1.25)
+DRY_BUDGET_S = 60
 # The script's target time (ROADMAP), half of its 1200 s time limit: the
 # last line before the JSON says when a run went over it.
 TARGET_S = 600
@@ -2866,10 +2906,12 @@ def slot_offsets(log, on):
 
 def one_at_a_time(cls):
     """``cls`` (a ``Model``) built on one rank of the process group at a
-    time, the card's cache emptied after each: a sharded model draws the
-    whole tree before it keeps its blocks (meta-device init is ROADMAP's
-    item 4), so ranks that share a card and draw at once would each hold a
-    whole replica and an fp32 draw of its largest tensor together."""
+    time, the card's cache emptied after each: a sharded rank draws each
+    tensor whole in fp32 before it keeps its block, so ranks that share a
+    card and draw at once each hold their blocks, the largest whole fp32
+    draw and its block together (:func:`init_need`; phase 12 builds its
+    ranks this way only where four of those do not leave
+    ``EP_POD_AT_ONCE_FREE`` free)."""
     import torch
     import torch.distributed as dist
 
@@ -2909,9 +2951,10 @@ def ep_pod_serve_wire_bytes(cfg, batch, positions):
     return out
 
 
-def ep_pod_rank(batch, prompt_len, gen_len, smoke=False, device=None):
+def ep_pod_rank(batch, prompt_len, gen_len, smoke=False, device=None, at_once=False):
     """One rank of phase 12, spawned: ``serve()`` of :func:`ep_config` on
-    ``EP_POD_MESH`` (the model built :func:`one_at_a_time`) with the
+    ``EP_POD_MESH`` (the model built :func:`one_at_a_time` unless
+    ``at_once``) with the
     launches counted from zero around it, ``Model.prefill`` and
     ``decode_step`` wrapped to record the logits, launches and wire bytes
     of each call and the choices each MoE call dropped, and decode's slot
@@ -2935,7 +2978,8 @@ def ep_pod_rank(batch, prompt_len, gen_len, smoke=False, device=None):
                 on[0] = False
 
     real = serve_mod.Model, serve_mod.get_config
-    serve_mod.Model, serve_mod.get_config = one_at_a_time(Probed), lambda a, smoke=False: cfg
+    serve_mod.Model = Probed if at_once else one_at_a_time(Probed)
+    serve_mod.get_config = lambda a, smoke=False: cfg
     try:
         with counted_plain_calls() as plain, counted_drops(drops), slot_offsets(offsets, on):
             if device is None:
@@ -4045,6 +4089,193 @@ def xlstm_step_flops(cfg, n_params: int, rows: int, T: int):
     return 6 * n_params * rows * T + mlstm, mlstm
 
 
+def build_peaks(tag: str):
+    """A context in which every ``Model`` built on a sharded mesh on the card
+    has the card's peak statistics reset before its build and prints the
+    rank's peak memory right after it (phases 8-12)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.sharding.shard import sharded
+
+    real = transformer.Model.__init__
+
+    def init(self, cfg, *args, **kw):
+        mesh = kw.get("mesh")
+        watched = sharded(mesh) and mesh.device.type == "cuda"
+        if watched:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        real(self, cfg, *args, **kw)
+        if watched:
+            blocks = sum(p.numel() * p.element_size() for p in self.parameters())
+            print(f"[{tag}] rank {dict(mesh.coords)}: {cfg.name} built, {blocks / 1e9:.3f} GB "
+                  f"of parameter blocks; peak memory from the build's start "
+                  f"{torch.cuda.max_memory_allocated(mesh.device) / 1e9:.2f} GB", flush=True)
+
+    @contextlib.contextmanager
+    def patched():
+        transformer.Model.__init__ = init
+        try:
+            yield
+        finally:
+            transformer.Model.__init__ = real
+
+    return patched()
+
+
+def peaks_rank(tag, fn, *args):
+    """``fn(*args)`` on a spawned rank under :func:`build_peaks`."""
+    with build_peaks(tag):
+        return fn(*args)
+
+
+def init_need(cfg, mesh_spec):
+    """A rank's bytes at the peak of its sharded init on ``mesh_spec`` (shape,
+    axes), counted on the meta device: (its parameter blocks, the largest
+    whole fp32 draw, that draw's block in its parameter's dtype, which the
+    init casts while the draw is alive)."""
+    from repro_torch.launch.mesh import meta_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.sharding.shard import named_leaves
+
+    params = dict(Model(cfg, mesh=meta_mesh(*mesh_spec)).named_parameters())
+    blocks = sum(p.numel() * p.element_size() for p in params.values())
+    n, key = max((math.prod(spec.shape), key) for key, spec in named_leaves(model_specs(cfg))
+                 if spec.init not in ("zeros", "ones"))
+    return blocks, 4 * n, params[key].numel() * params[key].element_size()
+
+
+def dry_cell(job):
+    """One cell of phase 13 in a worker process: the dry run
+    (``launch/dryrun.py``) of one rank's step on the meta device, counted.
+    ``job``: ``("measured", name, arch, (seq, rows, kind), microbatches,
+    max_len)`` for a one-card cell of an earlier phase, or ``("production",
+    arch, shape, multi_pod)``.  Returns the record (``dryrun.run_cell``'s
+    layout), its roofline row and the seconds it took."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.models import param_count
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if job[0] == "production":
+        _, arch, shape, multi_pod = job
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = dryrun.run_cell(arch, shape, multi_pod, "sync", tmp, skip_existing=False)
+        return {"job": job, "rec": rec, "row": roofline.roofline_terms(rec),
+                "seconds": time.perf_counter() - t0}
+    _, name, arch, (seq, rows, kind), micro, max_len = job
+    cfg = get_config(arch)
+    shape = ShapeConfig(name, seq, rows, kind)
+    cfg, shape, mesh, run, args, counted = dryrun.run_rank(
+        arch, shape, False, "sync", max_len=max_len, microbatches=micro, cfg=cfg,
+        mesh_shape=((1, 1), ("data", "model")))
+    n_params = param_count(model_specs(cfg))
+    rec = {"cell": name, "num_devices": 1, "params": n_params,
+           "model_flops": dryrun.model_flops_estimate(cfg, shape, n_params),
+           "memory_analysis": {"argument_bytes_per_device": args,
+                               "peak_estimate_bytes_per_device": args + counted.peak_bytes},
+           "parsed": {"flops_per_device": counted.flops, "hbm_bytes_per_device": counted.bytes,
+                      "ici_wire_bytes_per_chip": 0.0, "dcn_wire_bytes_per_chip": 0.0},
+           "kernel_launches": counted.kernels}
+    return {"job": job, "rec": rec, "row": roofline.roofline_terms(rec),
+            "seconds": time.perf_counter() - t0}
+
+
+def start_dry_cells():
+    """Phase 13's cells (:func:`dry_cell`) started in worker processes, one
+    a cell: CPU work on the meta device that no card phase waits on, so it
+    runs beside phases 2-12.  Returns (the pool, its pending result, the
+    start time)."""
+    import multiprocessing
+
+    jobs = ([("measured", *cell) for cell in DRY_MEASURED]
+            + [("production", *cell) for cell in DRY_PRODUCTION])
+    pool = multiprocessing.get_context("spawn").Pool(len(jobs))
+    pending = pool.map_async(dry_cell, jobs)
+    pool.close()
+    return pool, pending, time.perf_counter()
+
+
+def dry_run_phase(measured, smi, started):
+    """Phase 13: the dry run on this machine's CPU (see the module's
+    docstring), its cells those of :func:`start_dry_cells` (``started``),
+    held to ``measured`` (by ``DRY_MEASURED`` name: the measured seconds
+    ``s``, what they time, ``peak_gb`` and, where the phase counted them,
+    ``model_flops``); raises where a check fails."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.roofline import format_table
+    from repro_torch.models import Model
+
+    t13 = time.perf_counter()
+    for arch in ARCHS:
+        meta = Model(get_config(arch), device="meta")
+        print(f"[dryrun] {arch} built on meta: {sum(p.numel() for p in meta.parameters())} "
+              "parameters")
+    del meta
+    pool, pending, t0 = started
+    waited = time.perf_counter()
+    cells = pending.get(timeout=900)
+    pool.join()
+    print(f"[dryrun] the cells ran in {len(cells)} worker processes beside phases 2-12, "
+          f"from {t13 - t0:.1f} s before this phase; waited {time.perf_counter() - waited:.1f} "
+          "s for them here")
+    faults = []
+    for cell in cells:
+        job, rec, row = cell["job"], cell["rec"], cell["row"]
+        if job[0] != "measured":
+            continue
+        _, name, arch, (seq, rows, kind), _, _ = job
+        got = measured[name]
+        cfg = get_config(arch)
+        est_gb = rec["memory_analysis"]["peak_estimate_bytes_per_device"] / 1e9
+        terms = {k: row[f"{k}_s"] for k in ("compute", "memory", "collective")}
+        largest = max(terms, key=terms.get)
+        if "model_flops" in got:
+            own = got["model_flops"]
+        else:  # train_step_flops: training's; a forward is a third of it
+            params = dict(Model(cfg, device="meta").named_parameters())
+            own = train_step_flops(cfg, params, rows, seq)[0] / (3 if kind == "prefill" else 1)
+        peak_ratio, flops_ratio = est_gb / got["peak_gb"], rec["model_flops"] / own
+        print(f"[dryrun] {name} ({rows} x {seq}, {cell['seconds']:.1f} s on the CPU): peak "
+              f"estimate {est_gb:.2f} GB beside the measured max_memory_allocated "
+              f"{got['peak_gb']:.2f} GB (ratio {peak_ratio:.3f}, band {DRY_PEAK_BAND}); the "
+              f"roofline's largest term {largest} {terms[largest]:.4f} s (compute "
+              f"{terms['compute']:.4f}, memory {terms['memory']:.4f}) beside the measured "
+              f"{got['time']} {got['s']:.4f}; model_flops_estimate "
+              f"{rec['model_flops'] / 1e12:.2f} T beside the script's count {own / 1e12:.2f} T "
+              f"(ratio {flops_ratio:.3f}, band {DRY_FLOPS_BAND}); counted "
+              f"{rec['parsed']['flops_per_device'] / 1e12:.2f} T FLOPs, "
+              f"{rec['parsed']['hbm_bytes_per_device'] / 1e9:.1f} GB unfused, launches "
+              f"{rec['kernel_launches']}")
+        if got["s"] < terms[largest]:
+            faults.append(f"{name}: measured {got['s']} s under the roofline's {terms[largest]}")
+        if not DRY_PEAK_BAND[0] <= peak_ratio <= DRY_PEAK_BAND[1]:
+            faults.append(f"{name}: peak estimate / measured {peak_ratio} off {DRY_PEAK_BAND}")
+        if not DRY_FLOPS_BAND[0] <= flops_ratio <= DRY_FLOPS_BAND[1]:
+            faults.append(f"{name}: model FLOPs ratio {flops_ratio} off {DRY_FLOPS_BAND}")
+    production = [c for c in cells if c["job"][0] == "production"]
+    print("[dryrun] production cells, estimates on the H100 data sheet's constants:\n"
+          + format_table([c["row"] for c in production]))
+    for c in production:
+        rec, mem = c["rec"], c["rec"]["memory_analysis"]
+        print(f"[dryrun] {rec['cell']} ({c['seconds']:.1f} s on the CPU): "
+              f"{rec['parsed']['flops_per_device'] / 1e12:.2f} T FLOPs a rank, "
+              f"{rec['parsed']['hbm_bytes_per_device'] / 1e9:.1f} GB unfused, wire bytes "
+              f"{rec['collectives']}, state {mem['argument_bytes_per_device'] / 1e9:.2f} GB, "
+              f"peak estimate {mem['peak_estimate_bytes_per_device'] / 1e9:.2f} GB")
+    took = time.perf_counter() - t13
+    print(f"[dryrun] phase 13 took {took:.1f} s (budget {DRY_BUDGET_S} s"
+          + (", over it" if took > DRY_BUDGET_S else "") + f"); {smi}")
+    if faults:
+        raise AssertionError("phase 13: " + "; ".join(faults))
+
+
+
 def main() -> int:
     import torch
 
@@ -4061,7 +4292,7 @@ def main() -> int:
 
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, ref, work
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import rglru_scan as scan_mod
     from repro_torch.kernels.flash_attention import (MAX_FUSED_BWD_DIM, flash_attention_bwd,
@@ -4105,6 +4336,7 @@ def main() -> int:
               | {"rglru_scan_tma", "rglru_scan_bwd_tma"})
     if no_spill != wanted:
         raise AssertionError(f"nvcc's log shows {sorted(no_spill)}, expected {sorted(wanted)}")
+    dry_cells = start_dry_cells()  # phase 13's CPU work, beside the card's phases
 
     # --------------------------------------------------------- 2. kernels --
     gen = torch.Generator(dev).manual_seed(0)
@@ -4204,12 +4436,12 @@ def main() -> int:
         del expect
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, window=window), 20)
         plain_ms = time_ms(lambda: plain_fwd(q, k, v, causal=causal, window=window), 3)
-        # Work this run's inputs need: unmasked (q, k) pairs, 2 FLOP per
-        # multiply-add in QK^T (dk) and PV (dv); each of q, k, v, o moved once.
+        # Work this run's inputs need (kernels/work.py): unmasked (q, k)
+        # pairs, 2 FLOP per multiply-add in QK^T (dk) and PV (dv); each of
+        # q, k, v, o moved once.
         keep = attn_pairs(T, causal, window)
-        pairs = B * H * int(keep.sum())
-        flops = 2 * (dk + dv) * pairs
-        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+        pairs = B * H * work.attn_pairs(T, T, causal, window)
+        flops, nbytes = work.flash_fwd_work(q, k, v, causal, window)
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
         D = padded_dim(dk, dv)
         padded_ms, _ = bound(2 * 2 * D * pairs, PEAK_BF16_FLOPS, nbytes)
@@ -4351,9 +4583,8 @@ def main() -> int:
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw), 20)
             fwd_backend, fwd_top = sdpa_backend(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, **sdpa_kw))
-        pairs = B * H * int(keep.sum())  # unmasked (query, key) pairs
-        flops = 2 * (dk + dv) * pairs
-        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+        pairs = B * H * work.attn_pairs(T, T, causal, window)  # unmasked (query, key) pairs
+        flops, nbytes = work.flash_fwd_work(q, k, v, causal, window)
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
         D = padded_dim(dk, dv)
         padded_ms, _ = bound(2 * 2 * D * pairs, PEAK_BF16_FLOPS, nbytes)
@@ -4434,10 +4665,8 @@ def main() -> int:
         del o_sdpa, gt
         # Five products per unmasked pair (S, dP, dV, dK, dQ: 2 FLOP per
         # multiply-add over 3 dk + 2 dv); q, k, v, out, dout, lse read once
-        # and dq, dk, dv written once.
-        bwd_flops = 2 * (3 * dk + 2 * dv) * pairs
-        bwd_bytes = (sum(x.numel() * x.element_size() for x in (q, k, v, out, g, lse))
-                     + sum(x.numel() * x.element_size() for x in (q, k, v)))
+        # and dq, dk, dv written once (kernels/work.py).
+        bwd_flops, bwd_bytes = work.flash_bwd_work(q, k, v, causal, window)
         bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
         main_ms = sum(split[n] for n in BWD_MAIN[split_kind])
         # Past head dim 128 the dq kernel recomputes S and dP: seven products
@@ -4654,7 +4883,7 @@ def main() -> int:
     # (the earlier kernels).
     # The forward moves a, b in and h out, one fma per element; the backward
     # g, a, h in and da, db out, an add and two multiplies per element; both
-    # read h0 (and the backward writes dh0) once (fp32).  The backward's plain
+    # read h0 (and the backward writes dh0) once (fp32; kernels/work.py).  The backward's plain
     # time is the oracle's autograd with its forward, as the parent tree ran
     # it; the plain reverse loop is timed beside it.  tma's h must equal
     # lane's, and a second call's, bit for bit.
@@ -4681,10 +4910,10 @@ def main() -> int:
         if not all(same.values()):
             raise AssertionError(f"rglru_scan at {shape} is not bit for bit: {same}")
         del h_lane, got, got_lane
-        n, n0 = a.numel(), h0.numel()
         fwd = dict(ms=time_ms(lambda: rglru_scan_fwd(a, b, h0), 50),
                    plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, warmup=1))
-        fwd.update(zip(("bound_ms", "bound_by"), bound(2 * n, PEAK_FP32_FLOPS, 4 * (3 * n + n0))))
+        fwd_flops, fwd_bytes = work.scan_fwd_work(a, h0)
+        fwd.update(zip(("bound_ms", "bound_by"), bound(fwd_flops, PEAK_FP32_FLOPS, fwd_bytes)))
         leaves = [x.detach().requires_grad_() for x in (a, b, h0)]
         # A rank's prefill scan (phase 10) has no backward: its plain
         # versions, seconds at this shape, are not timed.
@@ -4694,8 +4923,8 @@ def main() -> int:
                        ref.rglru_scan_ref(*leaves), leaves, g), 1, warmup=1),
                    plain_loop_ms=time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, h0, g), 1,
                                          warmup=1)) if timed_bwd else {}
-        bwd_bytes = 4 * (5 * n + 2 * n0)
-        bwd.update(zip(("bound_ms", "bound_by"), bound(3 * n, PEAK_FP32_FLOPS, bwd_bytes)))
+        bwd_flops, bwd_bytes = work.scan_bwd_work(a, h0)
+        bwd.update(zip(("bound_ms", "bound_by"), bound(bwd_flops, PEAK_FP32_FLOPS, bwd_bytes)))
         with scan_forced("lane"):
             fwd["earlier_ms"] = time_ms(lambda: rglru_scan_fwd(a, b, h0), 50)
             if timed_bwd:
@@ -4713,7 +4942,7 @@ def main() -> int:
         rings = {"rglru_scan": ring_text(B, W, 2, ring_cfg["FWD_STAGES"]),
                  "rglru_scan_bwd": ring_text(B, W, 3, ring_cfg["BWD_STAGES"])}
         scan_times[shape] = (err, fwd, bwd_err, bwd)
-        for name, rec, e, nbytes in (("rglru_scan", fwd, err, 4 * (3 * n + n0)),
+        for name, rec, e, nbytes in (("rglru_scan", fwd, err, fwd_bytes),
                                      ("rglru_scan_bwd", bwd, bwd_err, bwd_bytes))[:1 + timed_bwd]:
             plain = (f"plain (the oracle's autograd, forward recomputed) {rec['plain_ms']:.4f} ms, "
                      f"plain reverse loop {rec['plain_loop_ms']:.4f} ms"
@@ -4807,6 +5036,7 @@ def main() -> int:
                "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd}
 
     served = {}  # each main path's result
+    dry_measured = {}  # what phase 13's dry run is held to: seconds and peak GB
     for arch, batch, prompt_len, gen_len, layers in SERVE:
         full = get_config(arch)
         if layers:
@@ -4874,6 +5104,9 @@ def main() -> int:
             res = served[arch] = serve(arch, smoke=False, batch=batch, prompt_len=prompt_len,
                                        gen_len=gen_len, device="cuda")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if arch == DRY_MEASURED[1][1]:
+            dry_measured[DRY_MEASURED[1][0]] = {"s": res["prefill_seconds"], "peak_gb": peak_gb,
+                                            "time": "prefill s"}
         launches = {name: fn.launches for name, fn in kernels.items()}
         flash_variants = dict(flash_attention_fwd.launches_by_variant)
         scan_variants = dict(rglru_scan_fwd.launches_by_variant)
@@ -4961,6 +5194,8 @@ def main() -> int:
     # (query, key) pair of each row, in every layer.
     attn_flops = 2 * 2 * hd * H * frames * frames * batch * L
     model_flops = 2 * n_read * batch * frames + attn_flops
+    dry_measured[DRY_MEASURED[2][0]] = {"s": encode_s, "peak_gb": peak_gb, "time": "encode s",
+                                    "model_flops": model_flops}
     print(f"[encode] {arch} published width and depth bf16, {L} layers, {n_params} parameters "
           f"({n_read} read: the audio stub replaces the token embedding), batch {batch} x "
           f"{frames} frames ({frames * 0.02:g} s of audio at 20 ms a frame): logits "
@@ -5227,6 +5462,7 @@ def main() -> int:
         print(f"[train] {arch} full width step {h['step']}: loss {h['loss']:.6f}, grad-norm "
               f"{h['grad_norm']:.6f}, {h['seconds_per_step']:.4f} s")
     step_s = statistics.mean(h["seconds_per_step"] for h in hist[1:])
+    dry_measured[DRY_MEASURED[0][0]] = {"s": step_s, "peak_gb": peak_gb, "time": "s per step"}
     tokens = rows * seq
     H, hd, L = full.num_heads, full.resolved_head_dim, full.num_layers
     # Model FLOPs: 6 N per token, plus causal attention's QK^T and PV (2 FLOP
@@ -5818,7 +6054,8 @@ def main() -> int:
     print(f"[tp] {n_ranks} ranks sharing one {name} ({limit}); the model group's exchange over "
           "gloo through host memory" if torch.cuda.device_count() < n_ranks else
           f"[tp] {n_ranks} ranks, each on its own {name} ({limit})")
-    ranks = spawn_ranks(tp_serve_rank, n_ranks, (arch, batch, prompt_len, gen_len), timeout=600)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("tp", tp_serve_rank, arch, batch, prompt_len,
+                                                gen_len), timeout=600)
     check_tp_serving(ranks, get_config(arch), batch, prompt_len, tp_ref_logits,
                      served[arch]["tokens"].numpy(), smi)
     records[("flash_attention", f"{arch} model 2")]["launches"] = (
@@ -5840,8 +6077,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     n_ranks = math.prod(TP_TRAIN_MESH[0])
-    ranks = spawn_ranks(tp_train_rank, n_ranks, (arch, rows, seq, micro, n_steps, lr),
-                        timeout=900)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("tp", tp_train_rank, arch, rows, seq, micro,
+                                               n_steps, lr), timeout=900)
     check_tp_training(ranks, get_config(arch), ref,
                       expected_launches(layer_plan(get_config(arch)), micro), smi)
     for name in ("flash_attention", "flash_attention_bwd"):
@@ -5879,8 +6116,8 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, mem_get_info free {free / 1e9:.2f} "
           f"of {total / 1e9:.2f} GB")
     mark("9's ranks")
-    ranks = spawn_ranks(ep_rank, n_ranks, ((batch, prompt_len, gen_len),
-                                           (rows, seq, micro, n_steps, lr)), timeout=900)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("ep", ep_rank, (batch, prompt_len, gen_len),
+                                               (rows, seq, micro, n_steps, lr)), timeout=900)
     serving, training = [r["serve"] for r in ranks], [r["train"] for r in ranks]
     del ranks
     check_ep_serving(serving, cfg, batch, prompt_len, ref_logits, smi)
@@ -5929,8 +6166,8 @@ def main() -> int:
           f"step 1 of 6(d) and of xlstm-1.3b's fp32 run, {tpr_first}; the probe's fp32 "
           "gradient)")
     mark("10's ranks")
-    ranks = spawn_ranks(tp_recurrent_rank, n_ranks, (TPR_SERVE, TPR_TRAIN, TPR_PROBE),
-                        timeout=900)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("tpr", tp_recurrent_rank, TPR_SERVE, TPR_TRAIN,
+                                               TPR_PROBE), timeout=900)
     for i, (arch, over, batch, prompt_len, gen_len, _) in enumerate(TPR_SERVE):
         check_tp_recurrent_serving([r["serve"][i] for r in ranks],
                                    get_config(arch).with_overrides(**over), batch, prompt_len,
@@ -5973,7 +6210,8 @@ def main() -> int:
           else f"[podtp] {n_ranks} ranks, each on its own {name} ({limit})")
     print("[podtp] reckoned before the run, per rank: " + pod_tp_memory(cfg))
     serving, training = SERVE[0][:4], POD_TP_TRAIN
-    ranks = spawn_ranks(pod_tp_rank, n_ranks, (serving, training), timeout=900)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("podtp", pod_tp_rank, serving, training),
+                        timeout=900)
     check_pod_tp_serving([r["serve"] for r in ranks], cfg, serving[1], serving[2],
                          tp_ref_logits, served[serving[0]]["tokens"].numpy(), smi)
     check_pod_tp_training([r["train"] for r in ranks], cfg, tp_first,
@@ -5999,13 +6237,36 @@ def main() -> int:
           else f"[eppod] {n_ranks} ranks, each on its own {name} ({limit})")
     ref = ep_serve_reference((batch, prompt_len, gen_len), EP_POD_MESH[0][0], decode=True)
     print(f"[eppod] one-rank reference in {time.perf_counter() - t12:.1f} s")
+    # Build the ranks at once only where four ranks' init peaks leave
+    # EP_POD_AT_ONCE_FREE of the card free.
+    torch.cuda.empty_cache()
+    blocks, draw, block = init_need(cfg, EP_POD_MESH)
+    need = n_ranks * (blocks + draw + block)
+    free, total = torch.cuda.mem_get_info()
+    at_once = free - need >= EP_POD_AT_ONCE_FREE
+    print(f"[eppod] a rank's init peak, counted on meta: parameter blocks {blocks / 1e9:.3f} GB "
+          f"+ the largest whole fp32 draw {draw / 1e9:.3f} GB + its block {block / 1e9:.3f} GB; "
+          f"{n_ranks} ranks at once need {need / 1e9:.3f} GB beside the "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB this process holds; mem_get_info free "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB, leaving {(free - need) / 1e9:.2f} GB: the "
+          f"ranks build " + ("at once" if at_once else "one at a time")
+          + f" (at once where {EP_POD_AT_ONCE_FREE / 1e9:g} GB are left)")
     mark("12's ranks")
-    ranks = spawn_ranks(ep_pod_rank, n_ranks, (batch, prompt_len, gen_len), timeout=600)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("eppod", ep_pod_rank, batch, prompt_len, gen_len,
+                                              False, None, at_once), timeout=600)
     check_ep_pod_serving(ranks, cfg, batch, prompt_len, ref, smi)
     del ranks, ref
     print(f"[eppod] {cfg.name} at published widths, {cfg.num_layers} of 60 layers: served on "
           f"{EP_POD_MESH[0]} over {EP_POD_MESH[1]}: phase 12 took "
           f"{time.perf_counter() - t12:.1f} s; {smi}")
+
+    # --------------------------------------------------- 13. the dry run --
+    # launch/dryrun.py on this machine's CPU, every tensor on meta: (a) every
+    # published config built; (b) the one-card cells that earlier phases
+    # measured, each estimate beside its measurement; (c) two production
+    # cells' roofline rows.  The cells ran in worker processes started after
+    # phase 1 (start_dry_cells).
+    dry_run_phase(dry_measured, smi, dry_cells)
 
     ran = time.perf_counter() - started
     print(f"[time] chip_smoke.py ran {ran:.1f} s"

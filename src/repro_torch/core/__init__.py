@@ -12,7 +12,8 @@ Data plane (``torch.distributed``, multi-pod), ported from the reference:
     SyncConfig, pod_sync_grads, pod_average_params
     H100 and the asymmetry cost model
 
-The reference's model checker (``modelcheck``) is not part of the port yet.
+Model checker (``modelcheck``), copied from the reference: an explicit-state
+check of the PlusCal spec (paper Appendix A).
 """
 
 from .memory import (  # noqa: F401
@@ -52,3 +53,4 @@ from .cohort import (  # noqa: F401
     pod_average_params,
     pod_sync_grads,
 )
+from . import modelcheck  # noqa: F401

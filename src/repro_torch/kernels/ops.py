@@ -3,9 +3,11 @@ and its autodiff design.
 
 Port of ``repro/kernels/ops.py``.  A CUDA tensor goes to the Hopper kernel, a
 CPU tensor to the plain PyTorch version in ``ref``; there is no fallback from
-one to the other.  Each kernel is a ``torch.autograd.Function`` with the
-reference's ``jax.custom_vjp`` contract: the same function and the same
-cotangents, up to rounding.
+one to the other.  A ``meta`` tensor (the dry run's) gets empty outputs of the
+kernel's shapes and dtypes, and the kernel's work goes to ``work``'s
+recorders; any other device raises.  Each kernel is a
+``torch.autograd.Function`` with the reference's ``jax.custom_vjp`` contract:
+the same function and the same cotangents, up to rounding.
 
 Flash attention's forward also returns each row's log-sum-exp when a
 gradient is wanted, and saves q, k, v, its output and that lse; its backward
@@ -28,7 +30,7 @@ from typing import Iterable, List, Optional
 
 import torch
 
-from . import build, ref
+from . import build, ref, work
 from .flash_attention import flash_attention_bwd, flash_attention_fwd
 from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
@@ -39,6 +41,11 @@ KERNEL_OF = {"attn": "flash_attention", "rec": "rglru_scan", "mlstm": None, "sls
 
 def _flash_fwd(q, k, v, causal, window, scale, lse=False):
     """The output, or (output, lse) with ``lse``."""
+    if q.device.type == "meta":
+        work.record("flash_attention", work.flash_fwd_work(q, k, v, causal, window, lse))
+        out = v.new_empty((*q.shape[:3], v.shape[3]))
+        return (out, q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)
+                ) if lse else out
     if q.device.type == "cuda":
         return flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale, lse=lse)
     if q.device.type == "cpu":
@@ -49,6 +56,9 @@ def _flash_fwd(q, k, v, causal, window, scale, lse=False):
 
 def _flash_bwd(q, k, v, out, lse, g, causal, window, scale):
     """(dq, dk, dv) from the forward's output and lse."""
+    if q.device.type == "meta":
+        work.record("flash_attention_bwd", work.flash_bwd_work(q, k, v, causal, window))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cuda":
         return flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window,
                                    scale=scale)
@@ -59,6 +69,9 @@ def _flash_bwd(q, k, v, out, lse, g, causal, window, scale):
 
 
 def _scan_fwd(a, b, h0):
+    if a.device.type == "meta":
+        work.record("rglru_scan", work.scan_fwd_work(a, h0))
+        return torch.empty_like(a)
     if a.device.type == "cuda":
         return rglru_scan_fwd(a, b, h0)
     if a.device.type == "cpu":
@@ -68,6 +81,9 @@ def _scan_fwd(a, b, h0):
 
 def _scan_bwd(a, h, h0, g):
     """(da, db, dh0) from a, the forward's output h and h0."""
+    if a.device.type == "meta":
+        work.record("rglru_scan_bwd", work.scan_bwd_work(a, h0))
+        return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
     if a.device.type == "cuda":
         return rglru_scan_bwd(a, h, h0, g)
     if a.device.type == "cpu":

@@ -28,7 +28,9 @@ group given CUDA tensors stages them through pinned host buffers.
 :data:`CHUNK_ELEMENTS` elements, through the list forms of
 ``torch.distributed``'s calls.  Each call adds to :class:`Traffic` the
 bytes it puts on its group, by ``core/asymmetry.py``'s formulas, and the
-seconds it took between device synchronisations.
+seconds it took between device synchronisations.  A mesh of :func:`meta_mesh`
+(one rank's, on the ``meta`` device, with no process group) counts the bytes
+and moves nothing.
 """
 
 from __future__ import annotations
@@ -154,6 +156,9 @@ class Mesh:
         return buf[:n]
 
     def _run(self, name: str, wire_bytes: float, body: Callable[[bool], None]) -> None:
+        if self.device.type == "meta":  # a mesh of :func:`meta_mesh`: the bytes alone
+            self.traffic.add(name, wire_bytes, 0.0)
+            return
         staged = self.device.type == "cuda" and self.backends[name] == "gloo"
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -170,7 +175,8 @@ class Mesh:
         a = self.group_size(name)
         if a == 1:
             return t
-        group, rop = self.groups[name], {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        group = self.groups.get(name)
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
         def body(staged):
             for s in t.split(CHUNK_ELEMENTS):
@@ -194,7 +200,7 @@ class Mesh:
         if f * a != t.numel():
             raise ValueError(f"{t.numel()} elements do not split over {a} ranks")
         out = torch.empty(f, dtype=t.dtype, device=t.device)
-        group, step = self.groups[name], max(CHUNK_ELEMENTS // a, 1)
+        group, step = self.groups.get(name), max(CHUNK_ELEMENTS // a, 1)
 
         def body(staged):
             for lo in range(0, f, step):
@@ -223,7 +229,7 @@ class Mesh:
             return t
         f = t.numel()
         out = torch.empty(a * f, dtype=t.dtype, device=t.device)
-        group, step = self.groups[name], max(CHUNK_ELEMENTS // a, 1)
+        group, step = self.groups.get(name), max(CHUNK_ELEMENTS // a, 1)
 
         def body(staged):
             for lo in range(0, f, step):
@@ -253,7 +259,7 @@ class Mesh:
         if f * a != t.numel():
             raise ValueError(f"{t.numel()} elements do not split over {a} ranks")
         out = torch.empty_like(t)
-        group, step = self.groups[name], max(CHUNK_ELEMENTS // a, 1)
+        group, step = self.groups.get(name), max(CHUNK_ELEMENTS // a, 1)
 
         def body(staged):
             if not staged:
@@ -343,6 +349,22 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
                     print(f"[mesh] {sizes}: group {name} of ranks {ranks} on "
                           f"{sorted({topology[r] for r in ranks})}: {backend}")
     return mesh
+
+
+def meta_mesh(shape: Sequence[int], axes: Sequence[str], rank: int = 0) -> Mesh:
+    """Rank ``rank``'s :class:`Mesh` of ``shape`` over ``axes`` on the ``meta``
+    device, with no process group: the dry run's (``launch/dryrun.py``).
+    Its collectives return tensors of their shapes on ``meta`` and add each
+    call's wire bytes to :class:`Traffic` by the same formulas, and touch no
+    ``torch.distributed``; the groups' members follow from the shape
+    (:func:`group_spans`, :func:`group_ranks`)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes) or not set(axes) <= set(AXES):
+        raise ValueError(f"mesh {shape} over {axes}: axes are distinct names of {AXES}")
+    sizes = dict(zip(axes, shape))
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} of a mesh of {math.prod(shape)} ranks")
+    return Mesh(axes=axes, shape=sizes, coords=_coords(rank, sizes), device=torch.device("meta"))
 
 
 # ----------------------------------------------------------- launcher --

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,19 +52,27 @@ def _map(fn, specs):
     return [_map(fn, v) for v in specs]
 
 
-def init_params(specs, generator: torch.Generator, device: torch.device):
+def init_params(specs, generator: Optional[torch.Generator], device: torch.device,
+                take: Optional[Callable[[str, torch.Tensor, torch.dtype], torch.Tensor]] = None):
     """Materialise a spec tree on ``device``, drawing from ``generator``.
 
     Initializers follow ``repro/models/specs.py:50-72``: normal draws in
     float32, scaled, then cast to the spec's dtype.  ``generator`` must live
-    on ``device`` (a CUDA generator for CUDA weights).
+    on ``device`` (a CUDA generator for CUDA weights).  The leaves are drawn
+    one at a time, in the tree's order, each whole, so that the stream is the
+    one-device init's whatever is kept.  ``take(key, t, dtype)``: the part
+    of each whole tensor to keep (``key`` its ``state_dict`` key; a rank's
+    block) in ``dtype``, cast after the slicing, which commutes with it; the
+    whole tensor is let go before the next draw.  On the ``meta`` device
+    nothing is drawn or allocated (``generator`` may be None).
     """
+    keep = take or (lambda key, t, dtype: t.to(dtype))
 
-    def one(spec: ParamSpec) -> torch.Tensor:
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    def one(key: str, spec: ParamSpec) -> torch.Tensor:
+        fill = torch.empty if device.type == "meta" else {
+            "zeros": torch.zeros, "ones": torch.ones}.get(spec.init)
+        if fill is not None:
+            return keep(key, fill(spec.shape, dtype=spec.dtype, device=device), spec.dtype)
         if spec.init in ("normal", "embed"):
             std = spec.scale
         elif spec.init == "fan_in":
@@ -78,9 +86,20 @@ def init_params(specs, generator: torch.Generator, device: torch.device):
                         dtype=torch.float32)
         # Scaled in place: one fp32 draw at a time is the init's peak (30 GB
         # for deepseek-v2's stacked experts at three layers).
-        return x.mul_(std).to(spec.dtype)
+        return keep(key, x.mul_(std), spec.dtype)
 
-    return _map(one, specs)
+    return _map_keyed(one, specs)
+
+
+def _map_keyed(fn, specs, prefix: str = ""):
+    """``_map`` with each leaf's ``state_dict`` key (a list's entries keyed
+    ``0``, ``1``, ...) passed as ``fn``'s first argument."""
+    if isinstance(specs, ParamSpec):
+        return fn(prefix, specs)
+    join = lambda k: f"{prefix}.{k}" if prefix else str(k)
+    if isinstance(specs, dict):
+        return {k: _map_keyed(fn, v, join(k)) for k, v in specs.items()}
+    return [_map_keyed(fn, v, join(i)) for i, v in enumerate(specs)]
 
 
 def pspec(*entries) -> Tuple:

@@ -345,9 +345,13 @@ class Model(nn.Module):
 
     Parameters are drawn on ``device`` from ``generator`` (a ``torch.Generator``
     on that device; seed 0 when omitted), with the JAX package's initializers.
-    On a sharded mesh every rank draws the whole tree and keeps its block of
-    each tensor, so every layout starts from the one-device weights (init
-    peaks at one whole replica a rank; meta-device init is ROADMAP's item 4).
+    On a sharded mesh every rank draws each tensor whole, one at a time in
+    the one-device order, and keeps its block of it before the next draw, so
+    every layout starts from the one-device weights and a rank's init peaks
+    at its blocks plus one whole fp32 draw (and, where the block is not
+    contiguous in the whole, its fp32 copy).  On the ``meta`` device
+    (``device="meta"``, or a mesh on it: ``launch.mesh.meta_mesh``) every
+    parameter has its shape and dtype and nothing is drawn or allocated.
     ``layout`` maps each ``state_dict`` key to its ``sharding.shard.Placement``.
     """
 
@@ -369,11 +373,11 @@ class Model(nn.Module):
         vocab_dim = (self.layout["embed.table"].axes(0) if cfg.tie_embeddings
                      else self.layout["unembed.w"].axes(1))
         self.vocab_tp = self.tp if "model" in vocab_dim else None
-        if generator is None:
+        if generator is None and self.device.type != "meta":
             generator = torch.Generator(self.device).manual_seed(0)
-        params = init_params(specs, generator, self.device)
-        if self.mesh is not None:
-            params = _shard_nested(params, self.layout, self.mesh)
+        take = ((lambda key, t, dtype: shard(t, self.layout[key], self.mesh, dtype))
+                if self.mesh is not None else None)
+        params = init_params(specs, generator, self.device, take)
         self.embed = ParamTree(params["embed"])
         self.lead = ParamTree(params["lead"])
         self.blocks = ParamTree(params["blocks"])
@@ -595,14 +599,3 @@ class Model(nn.Module):
         x, caches = self._stack(x, "decode", caches)
         return self._whole_logits(rmsnorm(head["final_norm"], x), head), caches
 
-
-def _shard_nested(tree, layout, mesh, prefix: str = ""):
-    """This rank's block of each tensor of a nested params tree (a list's
-    entries keyed ``0``, ``1``, ... as ``ParamTree`` keys them); each whole
-    tensor is let go once its block is taken."""
-    if isinstance(tree, dict):
-        return {k: _shard_nested(v, layout, mesh, f"{prefix}.{k}" if prefix else k)
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_shard_nested(v, layout, mesh, f"{prefix}.{i}") for i, v in enumerate(tree)]
-    return shard(tree, layout[prefix], mesh)

@@ -169,8 +169,10 @@ def _index(axes, mesh) -> Tuple[int, int]:
     return c, math.prod(mesh.size(a) for a in axes)
 
 
-def shard(t: torch.Tensor, pl: Placement, mesh) -> torch.Tensor:
-    """This rank's block of the whole tensor ``t`` (a new contiguous tensor)."""
+def shard(t: torch.Tensor, pl: Placement, mesh, dtype: Optional[torch.dtype] = None
+          ) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` (a new contiguous tensor),
+    cast to ``dtype`` where one is given: the block is cast, not the whole."""
     for d in range(t.ndim):
         axes = pl.axes(d)
         if not axes:
@@ -178,7 +180,8 @@ def shard(t: torch.Tensor, pl: Placement, mesh) -> torch.Tensor:
         c, n = _index(axes, mesh)
         b = pl.blocks_of(d)
         t = t.unflatten(d, (b, n, t.shape[d] // (b * n))).narrow(d + 1, c, 1).flatten(d, d + 2)
-    return t.contiguous().clone()
+    t = t.contiguous()
+    return t.clone() if dtype is None else t.to(dtype, copy=True)
 
 
 def _gather(t: torch.Tensor, dim: int, axis, mesh, blocks: int = 1) -> torch.Tensor:

@@ -23,6 +23,8 @@ COPIED = [
     "coord/__init__.py", "coord/faults.py", "coord/inflation.py",
     "coord/overload.py", "coord/table.py", "coord/ledger.py",
     "coord/membership.py", "coord/pipeline.py", "coord/service.py",
+    "core/modelcheck.py", "sim/__init__.py", "sim/engine.py", "sim/fabric.py",
+    "sim/workloads.py",
 ]
 
 # What the port changes in a copy, in order: absolute imports of the core
@@ -37,6 +39,8 @@ REWRITES = [
      "Single table transactions post"),
     (re.compile(r'(^|"""|# )PR \d+ (\w)', re.M), lambda m: m[1] + m[2].upper()),
     (re.compile(r"\bPR \d+ "), ""),
+    # sim/fabric.py's docstring cites a PR in the possessive.
+    (re.compile(r"PR \d+'s (\w)"), lambda m: m[1].upper()),
 ]
 
 
@@ -91,7 +95,8 @@ def test_port_core_exports_the_control_plane():
         if inspect.isclass(obj) or inspect.isfunction(obj):
             assert obj.__module__.startswith("repro_torch.core."), (name, obj.__module__)
     assert hasattr(tcore, "H100") and not hasattr(tcore, "TPUv5e")
-    assert not hasattr(tcore, "wrap_step_with_pod_sync") and not hasattr(tcore, "modelcheck")
+    assert not hasattr(tcore, "wrap_step_with_pod_sync")
+    assert tcore.modelcheck.__name__ == "repro_torch.core.modelcheck"
 
 
 def test_port_coord_exports_what_the_reference_exports():
@@ -243,3 +248,30 @@ def test_scripted_parity_with_the_reference(seed, num_hosts, num_shards):
     assert totals[0].rdma_ops == 0  # the local class (class 0) never touches the fabric
     if num_hosts > 1:
         assert sum(c.rdma_ops for c in totals.values()) > 0
+
+
+# ------------------------------------------------- model checker and sim --
+def test_port_modelcheck_equals_the_reference():
+    """The smallest spec of ``tests/test_modelcheck.py`` (2 processes, budget
+    1): the port's copy finds the same states and verdicts."""
+    from repro.core.modelcheck import check as jax_check
+    from repro_torch.core.modelcheck import check
+
+    got, want = check(num_procs=2, init_budget=1), jax_check(num_procs=2, init_budget=1)
+    assert plain(got) == plain(want)
+    assert got.mutual_exclusion and got.num_states == 692
+
+
+def test_port_lock_table_sim_equals_the_reference():
+    """One ``SIM_WORKLOADS`` entry and one seed at ``tests/test_sim.py``'s
+    small scale: every field of the byte-stable row is the reference's."""
+    from repro.sim import SIM_WORKLOADS as JAX_WORKLOADS
+    from repro.sim import run_lock_table_sim as jax_sim
+    from repro_torch.sim import SIM_WORKLOADS, run_lock_table_sim
+
+    assert list(SIM_WORKLOADS) == list(JAX_WORKLOADS)
+    small = dict(num_hosts=8, clients_per_host=4, num_shards=16, total_ops=3000)
+    got = run_lock_table_sim("zipfian", seed=5, **small).row()
+    want = jax_sim("zipfian", seed=5, **small).row()
+    assert plain(got) == plain(want)
+    assert got["ops"] >= small["total_ops"]

@@ -279,10 +279,16 @@ def test_backward_wrapper_refuses_cpu_tensors():
 
 
 def test_ops_backward_refuses_unknown_device():
-    q = torch.empty((1, 4, 2, 8), device="meta")
-    lse = torch.empty((1, 2, 4), device="meta")
+    """A device other than cuda, cpu and meta raises; meta (the dry run's)
+    gets dq, dk and dv of q's, k's and v's shapes."""
+    other = SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="no flash_attention backward"):
-        ops._flash_bwd(q, q, q, q, lse, q, True, 0, None)
+        ops._flash_bwd(other, other, other, other, other, other, True, 0, None)
+    q = torch.empty((1, 4, 2, 8), device="meta")
+    kv = torch.empty((1, 4, 1, 8), device="meta")
+    lse = torch.empty((1, 2, 4), device="meta")
+    grads = ops._flash_bwd(q, kv, kv, q, lse, q, True, 0, None)
+    assert [g.shape for g in grads] == [q.shape, kv.shape, kv.shape]
 
 
 # ------------------------------------------------------------ autograd --

@@ -193,9 +193,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_ops_refuses_unknown_device():
-    q = torch.empty((1, 4, 2, 8), device="meta")
+    """A device other than cuda, cpu and meta raises; meta (the dry run's)
+    gets the output's shape and dtype."""
+    other = SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="no flash_attention path"):
-        ops.flash_attention(q, q, q)
+        ops._flash_fwd(other, other, other, True, 0, None)
+    q = torch.empty((1, 4, 2, 8), device="meta")
+    out = ops.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -136,11 +136,16 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(kind, direction):
 
 
 def test_ops_rglru_refuses_unknown_device():
-    a = torch.empty((1, 4, 8), device="meta")
+    """A device other than cuda, cpu and meta raises; meta (the dry run's)
+    gets the outputs' shapes."""
+    other = SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="no rglru_scan path"):
-        ops.rglru_scan(a, a, torch.empty((1, 8), device="meta"))
+        ops._scan_fwd(other, other, other)
     with pytest.raises(ValueError, match="no rglru_scan backward"):
-        ops._scan_bwd(a, a, torch.empty((1, 8), device="meta"), a)
+        ops._scan_bwd(other, other, other, other)
+    a, h0 = torch.empty((1, 4, 8), device="meta"), torch.empty((1, 8), device="meta")
+    assert ops.rglru_scan(a, a, h0).shape == a.shape
+    assert [t.shape for t in ops._scan_bwd(a, a, h0, a)] == [a.shape, a.shape, h0.shape]
 
 
 def test_rglru_build_raises_without_nvcc(tmp_path, monkeypatch):

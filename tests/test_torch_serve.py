@@ -140,18 +140,21 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "assert {'repro_torch.optim.adamw', 'repro_torch.data.pipeline',\n"
         "        'repro_torch.checkpoint.ckpt', 'repro_torch.launch.train',\n"
         "        'repro_torch.models.moe', 'repro_torch.sharding.rules',\n"
-        "        'repro_torch.sharding.shard'} <= set(names)\n"
+        "        'repro_torch.sharding.shard', 'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.roofline', 'repro_torch.core.modelcheck',\n"
+        "        'repro_torch.sim.workloads', 'repro_torch.kernels.work'} <= set(names)\n"
     )
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 53
+    assert int(proc.stdout.split()[0]) >= 68
 
 
 def test_port_sources_name_no_jax_or_repro_import():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)(\.|\s|$)", re.M)
     files = sorted((SRC / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "examples/serve_batch_torch.py",
-        REPO / "examples/quickstart_torch.py"]
+        REPO / "examples/quickstart_torch.py", REPO / "examples/lock_service_torch.py",
+        REPO / "examples/train_lm_torch.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
 
@@ -161,6 +164,20 @@ def test_example_runs_on_cpu():
                  "--prompt-len", "8", "--gen", "4"])
     assert proc.returncode == 0, proc.stderr
     assert "generated 2 sequences x 4 tokens" in proc.stdout
+
+
+def test_train_lm_example_runs_on_cpu(tmp_path):
+    proc = _run(["examples/train_lm_torch.py", "--tiny", "--steps", "3", "--device", "cpu",
+                 "--ckpt-dir", str(tmp_path)])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[train] step 3/3" in proc.stdout and "[train_lm] loss" in proc.stdout
+
+
+def test_lock_service_example_runs_over_the_port():
+    proc = _run(["examples/lock_service_torch.py"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "rejected zombie writes" in proc.stdout
+    assert "OK: home readers paid 0 RDMA ops" in proc.stdout
 
 
 def test_example_serves_recurrentgemma_on_cpu():

@@ -254,6 +254,21 @@ def test_four_ranks_train_as_jax_on_data_2_model_2(runs):
     np.testing.assert_allclose(one["loss"], ref["loss"], **GRAD_TOL)
 
 
+def test_meta_dry_run_wire_bytes_equal_a_gloo_ranks(runs):
+    """Each rank's first step on (2, 2) over gloo against the same step of
+    that rank on a mesh of the meta device with no process group
+    (``launch/dryrun.py``): every group's wire bytes equal."""
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("train", T, B, "train")
+    for r, rank in enumerate(runs["four"]):
+        _, _, mesh, *_ = dryrun.run_rank(
+            LLAMA, shape, False, "sync", microbatches=RUN["microbatches"], rank=r,
+            cfg=torch_rank_fns._fp32(LLAMA), mesh_shape=((2, 2), ("data", "model")))
+        assert mesh.coords == rank[0]["coords"]
+        assert dict(mesh.traffic.wire_bytes) == rank[0]["wire"][0]
+
+
 def test_serve_on_data_2_model_2_gives_jax_tokens(runs):
     """serve(mesh_shape=(2, 2)) from JAX's weights and prompts: every rank
     returns JAX's whole [batch, gen_len] tokens."""
