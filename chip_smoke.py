@@ -259,8 +259,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    published widths cut to 6(d)'s 8 layers and xlstm-1.3b cut to 6(e)'s 8
    blocks (xlstm in fp32, see ``TPR_SERVE``), two ranks on ``(data 1,
    model 2)`` spawned as phase 7's (:func:`tp_recurrent_rank`): each served
-   with its phase-4 request
-   (:func:`tp_serve_rank`) and held to one rank's prefill of the same cut
+   with its phase-4 request (xlstm's generated tokens cut to
+   ``TPR_XLSTM_TOKENS``) (:func:`tp_serve_rank`) and held to one rank's prefill of the same cut
    on the same prompts (:func:`check_tp_recurrent_serving`: the last-token
    logits within ``TP_LOGITS_RTOL``, every first token the one rank's
    argmax, the ``model`` group's bytes of the prefill and of each decode
@@ -333,13 +333,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    measured time at least the roofline's largest term, and
    ``model_flops_estimate`` beside the script's own count within
    ``DRY_FLOPS_BAND``; (c) two production cells' roofline rows
-   (``DRY_PRODUCTION``), estimates on the H100 data sheet's constants.
+   (``DRY_PRODUCTION``), estimates on the H100 data sheet's constants;
+14. tensor parallelism on widths that do not divide over ``model``:
+   xlstm-1.3b cut to 6(e)'s 8 blocks in fp32 (phase 10(b)'s config) on
+   ``(data 1, model 8)`` (``UNEVEN_MESH``), eight ranks spawned as phase 7's
+   (:func:`tp_recurrent_rank`): its 4 heads do not split over 8, so each
+   rank gathers its columns of the up-projection whole, runs the heads'
+   work whole and cuts the cell's output back to its columns
+   (``models/xlstm.py``).  Served with phase 10(b)'s prompts and
+   ``UNEVEN_DECODE`` generated tokens, held by
+   :func:`check_tp_recurrent_serving` to phase 10's one-rank prefill logits
+   and first tokens, its ``model`` bytes to :func:`tpr_wire_bytes`; one step
+   of ``TPR_TRAIN``'s xlstm run, held by :func:`check_tp_recurrent_training`
+   to phase 10's one-rank step 1, each rank's parameter and moment bytes its
+   ``fit_pspec`` blocks (``wq``, ``wk``, ``wv`` and the sLSTM block whole);
+   the fp32 gradient of the whole ``wq`` on 6(e)'s slope row on every rank
+   against one rank's within ``TPR_GRAD_RTOL``, and the planted fault
+   (:func:`plain_column_cut`: the cut as a plain slice) outside it.
 
-In phases 8-12 every rank prints its peak memory right after its sharded
+In phases 8-12 and 14 every rank prints its peak memory right after its sharded
 model is built, the peak statistics reset before the build
 (:func:`build_peaks`).
 
-Before each of phases 3-12 a ``[memory]`` line prints what the phases before
+Before each of phases 3-12 and 14 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds (and whether they passed ``TARGET_S``),
 the kernels' JSON record, the card's
@@ -813,11 +829,14 @@ EP_ISLAND_RTOL = 1e-2
 # moved its logits 0.19 in relative L2 and step 1's grad-norm 4 % from one
 # rank's on an H100 (phase 4's XLSTM_PREFILL_TOL says why: its blocks carry
 # bf16 rounding into the logits).  Each served cut is held to one rank's
-# prefill of it on the same prompts.
+# prefill of it on the same prompts.  Since PR 32 xlstm generates
+# TPR_XLSTM_TOKENS tokens, not phase 4's 32, for the script's time (phase
+# 14 came in): at 72-121 ms a token that is 2-3 s.
 TPR_MESH = ((1, 2), ("data", "model"))
 TPR_XLSTM = {"num_layers": XLSTM_TRAIN[1], "dtype": "float32"}
+TPR_XLSTM_TOKENS = 8
 TPR_SERVE = ((RG_TRAIN[0], {"num_layers": RG_TRAIN[1]}, *SERVE[1][1:4], "rope_before_gather"),
-             (XLSTM_TRAIN[0], TPR_XLSTM, *SERVE[3][1:4], None))
+             (XLSTM_TRAIN[0], TPR_XLSTM, *SERVE[3][1:3], TPR_XLSTM_TOKENS, None))
 # Trained: each (arch, config fields, rows, tokens per row, microbatches,
 # steps, peak lr, warmup steps), held to one rank's step 1: recurrentgemma-9b
 # 6(d)'s run cut to 2 steps, whose step 1 is 6(d)'s (at 2 of its rows a step,
@@ -906,6 +925,23 @@ DRY_PRODUCTION = (("llama3-8b", "train_4k", False), ("deepseek-v3-671b", "train_
 DRY_PEAK_BAND = (0.7, 1.4)
 DRY_FLOPS_BAND = (0.75, 1.25)
 DRY_BUDGET_S = 60
+# Phase 14: tensor parallelism on widths that do not divide over model,
+# xlstm-1.3b at phase 10(b)'s cut and dtype (8 blocks, fp32) on (data 1,
+# model 8), eight ranks spawned as phase 7's (they share the card where it is
+# the only one).  Its 4 heads do not divide over 8 (its inner width 4096
+# does): fit_pspec keeps wq, wk and wv whole, and the sLSTM's FFN (2 x 2730
+# columns) and cell stay whole too.  Served: phase 10(b)'s request (8 x 2048
+# prompt), decode cut to UNEVEN_DECODE tokens, held to phase 10's one-rank
+# prefill logits and first tokens; trained: TPR_TRAIN's xlstm step, held to
+# phase 10's one-rank step 1; probed: the fp32 gradient of the whole wq.
+# Generated tokens cut to 2 (one decode step after the prefill's token): an
+# H100 read 650 ms a token over the 8 ranks, and the script's time on the
+# slowest machine seen projected past 1100 s with 8.
+UNEVEN_MESH = ((1, 8), ("data", "model"))
+UNEVEN_DECODE = 2
+UNEVEN_SERVE = ((*TPR_SERVE[1][:4], UNEVEN_DECODE, None),)
+UNEVEN_TRAIN = (TPR_TRAIN[1],)
+UNEVEN_PROBE = (*TPR_PROBE[:3], "blocks.b0.cell.wq")
 # The script's target time (ROADMAP), half of its 1200 s time limit: the
 # last line before the JSON says when a run went over it.
 TARGET_S = 600
@@ -3197,6 +3233,89 @@ def w_if_through_g():
         xlstm.reduce_scatter_model = real
 
 
+@contextlib.contextmanager
+def plain_column_cut():
+    """Phase 14's planted fault in the mLSTM whose heads do not split over
+    ``model``: the whole cell output cut to the rank's columns by a plain
+    slice, whose backward does not gather.  The forward is the sound one;
+    each rank's whole ``wq``, ``wk`` and ``wv`` then get only their share of
+    the gradient through the rank's own columns, a different gradient on
+    every rank."""
+    from repro_torch.models import xlstm
+
+    real = xlstm._rank_columns
+
+    def plain(h, tp):
+        n = h.shape[-1] // tp.size("model")
+        return h.narrow(-1, tp.coords["model"] * n, n)
+
+    xlstm._rank_columns = plain
+    try:
+        yield
+    finally:
+        xlstm._rank_columns = real
+
+
+def uneven_phase(smi, ref_logits, ref_first):
+    """Phase 14 on the card, held to phase 10's one-rank references of the
+    same cut: ``ref_logits`` (the prefill's last-token logits, numpy) and
+    ``ref_first`` (step 1's loss and grad-norm).  Computes one rank's
+    gradient of the probed ``wq``, spawns the ranks, checks their records
+    and prints the phase's lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    arch, over, batch, prompt_len, gen_len, _ = UNEVEN_SERVE[0]
+    cfg = get_config(arch).with_overrides(**over)
+    n_ranks = math.prod(UNEVEN_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    print(f"[uneven] {n_ranks} ranks sharing one {name} ({limit}); the model group's exchange "
+          "over gloo through host memory" if torch.cuda.device_count() < n_ranks else
+          f"[uneven] {n_ranks} ranks, each on its own {name} ({limit})")
+    print("[uneven] " + uneven_layout(cfg, UNEVEN_MESH[0]))
+    probe_ref = grad_probe(*UNEVEN_PROBE, device="cuda", fault=None)["sound"]
+    torch.cuda.empty_cache()
+    print(f"[uneven] one rank's fp32 gradient of {UNEVEN_PROBE[3]} in "
+          f"{time.perf_counter() - t14:.1f} s", flush=True)
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("uneven", tp_recurrent_rank, UNEVEN_SERVE,
+                                               UNEVEN_TRAIN, UNEVEN_PROBE, False, None,
+                                               UNEVEN_MESH, "plain_column_cut"), timeout=900)
+    check_tp_recurrent_serving([r["serve"][0] for r in ranks], cfg, batch, prompt_len,
+                               ref_logits, smi, UNEVEN_MESH, "uneven")
+    _, _, rows, seq, micro, n_steps, _, _ = UNEVEN_TRAIN[0]
+    check_tp_recurrent_training([r["train"][0] for r in ranks], cfg, (rows, seq, micro, n_steps),
+                                ref_first, smi, UNEVEN_MESH, "uneven")
+    check_grad_probe(ranks, get_config(arch).with_overrides(num_layers=UNEVEN_PROBE[1]),
+                     UNEVEN_PROBE[3], probe_ref, UNEVEN_MESH, "uneven",
+                     "the whole cell's output cut to the rank's columns by a plain slice")
+    for r in ranks:
+        print(f"[uneven] rank {r['coords']}: peak memory by job "
+              f"{[round(j['peak_gb'], 2) for j in r['serve'] + r['train'] if 'peak_gb' in j]} GB")
+    print(f"[uneven] {arch} at published width cut to {cfg.num_layers} blocks in fp32, served, "
+          f"trained and probed on {UNEVEN_MESH[0]} over {UNEVEN_MESH[1]}: phase 14 took "
+          f"{time.perf_counter() - t14:.1f} s; {smi}")
+
+
+def uneven_layout(cfg, shape) -> str:
+    """Which of ``cfg``'s leaves ``param_layout`` keeps whole on a ``(data,
+    model)`` mesh of ``shape``, by leaf name, and the mLSTM's layout there."""
+    from repro_torch.models import model_specs
+    from repro_torch.sharding.shard import param_layout
+
+    layout = param_layout(model_specs(cfg), cfg.act, cpu_mesh(shape))
+    whole = sorted({k.split(".", 2)[-1] for k, pl in layout.items()
+                    if k.startswith("blocks.") and pl.dim_of("model") is None})
+    split = sorted({k.split(".", 2)[-1] for k, pl in layout.items()
+                    if k.startswith("blocks.") and pl.dim_of("model") is not None})
+    M, H = shape[1], cfg.num_heads
+    return (f"{cfg.name} on model {M}: {H} heads {'split' if H % M == 0 else 'whole'}, the "
+            f"block leaves whole on model {whole}, split {split}")
+
+
 def tpr_layer_bytes(cfg, kind, M, pos, cache=0):
     """One layer's ``model``-group wire bytes per rank over ``pos`` positions
     (rows times positions), by ``core/asymmetry.py``'s formulas: (the
@@ -3210,9 +3329,14 @@ def tpr_layer_bytes(cfg, kind, M, pos, cache=0):
     their gradient reduce-scattered; *g* and *f* as above.  mLSTM: ``w_if``'s
     fp32 partials reduce-scattered ``[pos, 2H]``, the squares' fp32 sum
     all-reduced, *g*; backward their all-gather and all-reduce, *f*, and the
-    all-gathers of ``b_if``'s and ``gnorm.scale``'s slices.  sLSTM: the FFN
-    as ``[gate_m | up_m]`` *g* and *f*; split contiguously the projection
-    gathered and *f*; whole, nothing."""
+    all-gathers of ``b_if``'s and ``gnorm.scale``'s slices; where its heads
+    do not divide (the inner width does), the up-projection ``[pos, inner]``
+    gathered, ``w_if``'s fp32 partials all-reduced ``[pos, 2H]``, the squares
+    and *g*; backward the squares, the cell output's gradient gathered
+    ``[pos, inner]`` (``slice_model``), *f* and ``gnorm.scale``'s gather
+    (``b_if`` is whole); where the inner width does not divide, nothing.
+    sLSTM: the FFN as ``[gate_m | up_m]`` *g* and *f*; split contiguously
+    the projection gathered and *f*; whole, nothing."""
     import torch
 
     from repro_torch.core.asymmetry import (all_gather_wire_bytes, allreduce_wire_bytes,
@@ -3235,6 +3359,12 @@ def tpr_layer_bytes(cfg, kind, M, pos, cache=0):
     if kind == "mlstm":
         H, inner = cfg.num_heads, int(cfg.xlstm.proj_factor_m * cfg.d_model)
         gates, squares = pos * 2 * H * 4, allreduce_wire_bytes(pos * 4, M)
+        if inner % M:
+            return [], False, 0
+        if H % M:
+            up = ag(pos * inner * e)
+            return ([up, allreduce_wire_bytes(gates, M), squares, act], True,
+                    squares + up + act + ag(inner * e))
         return ([reduce_scatter_wire_bytes(gates, M), squares, act], True,
                 ag(gates) + squares + act + ag(2 * H * 4) + ag(inner * e))
     dff = int(cfg.xlstm.proj_factor_s * cfg.d_model)
@@ -3283,12 +3413,15 @@ def tpr_wire_bytes(cfg, M, rows, positions, micro=0, cache=0):
             "world": allreduce_wire_bytes(4, M)}
 
 
-def grad_probe(arch, layers, seq, key, smoke=False, device=None, mesh=None):
+def grad_probe(arch, layers, seq, key, smoke=False, device=None, mesh=None,
+               fault="w_if_through_g"):
     """The fp32 gradient of parameter ``key`` of ``arch`` (published width
     cut to ``layers`` layers, or smoke width) at its initial weights on the
     first row's first ``seq`` tokens of 6(e)'s batch (6(e)'s slope row), as
     one rank computes it whole (``mesh`` None) or as this rank of ``mesh``
-    computes its block: sound and under :func:`w_if_through_g`."""
+    computes its block: sound and under ``fault`` (the name of a context
+    manager here: phase 10's :func:`w_if_through_g`, phase 14's
+    :func:`plain_column_cut`)."""
     import torch
 
     from repro_torch.configs import ShapeConfig, get_config
@@ -3304,7 +3437,8 @@ def grad_probe(arch, layers, seq, key, smoke=False, device=None, mesh=None):
     row = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in row.items()}
     param = dict(model.named_parameters())[key]
     out = {}
-    for name, ctx in (("sound", contextlib.nullcontext), ("fault", w_if_through_g)):
+    faults = (("fault", globals()[fault]),) if fault else ()
+    for name, ctx in (("sound", contextlib.nullcontext),) + faults:
         with ctx():
             g, = torch.autograd.grad(model.loss(row)[0], [param])
         out[name] = g.cpu().numpy()
@@ -3331,14 +3465,15 @@ def one_rank_step(arch, over, rows, seq, micro, lr, warmup, smoke=False, device=
     return hist[0]["loss"], hist[0]["grad_norm"]
 
 
-def tp_recurrent_rank(serving, training, probe, smoke=False, device=None):
-    """One rank of phase 10, spawned: :func:`tp_serve_rank` on ``TPR_MESH``
-    for each (arch, config fields, batch, prompt, generated tokens, fault)
-    of ``serving``, :func:`tp_train_rank` for each (arch, config fields,
-    rows, tokens per row, microbatches, steps, peak lr, warmup) of
-    ``training`` (no fault: phase 10's training fault is the probe's), then
-    :func:`grad_probe` of ``probe`` (arch, layers, tokens, key) on the mesh.
-    Returns their records."""
+def tp_recurrent_rank(serving, training, probe, smoke=False, device=None,
+                      mesh_spec=TPR_MESH, probe_fault="w_if_through_g"):
+    """One rank of phase 10 (and of 14), spawned: :func:`tp_serve_rank` on
+    ``mesh_spec`` for each (arch, config fields, batch, prompt, generated
+    tokens, fault) of ``serving``, :func:`tp_train_rank` for each (arch,
+    config fields, rows, tokens per row, microbatches, steps, peak lr,
+    warmup) of ``training`` (no fault: the training fault is the probe's),
+    then :func:`grad_probe` of ``probe`` (arch, layers, tokens, key) on the
+    mesh, its fault ``probe_fault``.  Returns their records."""
     import torch
 
     from repro_torch.launch.mesh import make_mesh
@@ -3351,20 +3486,22 @@ def tp_recurrent_rank(serving, training, probe, smoke=False, device=None):
     out = {"serve": [], "train": []}
     for arch, over, batch, prompt_len, gen_len, fault in serving:
         out["serve"].append(tp_serve_rank(arch, batch, prompt_len, gen_len, smoke, device,
-                                          over, TPR_MESH, fault))
+                                          over, mesh_spec, fault))
         free()
     for arch, over, rows, seq, micro, n_steps, lr, warmup in training:
         out["train"].append(tp_train_rank(arch, rows, seq, micro, n_steps, lr, smoke, device,
-                                          over, TPR_MESH, None, warmup))
+                                          over, mesh_spec, None, warmup))
         free()
-    mesh = make_mesh(*TPR_MESH, device=device)
-    out["probe"] = grad_probe(*probe, smoke=smoke, mesh=mesh)
+    mesh = make_mesh(*mesh_spec, device=device)
+    out["probe"] = grad_probe(*probe, smoke=smoke, mesh=mesh, fault=probe_fault)
     out["coords"] = dict(mesh.coords)
     return out
 
 
-def check_tp_recurrent_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
-    """Phase 10's serving checks over the ranks' :func:`tp_serve_rank`
+def check_tp_recurrent_serving(ranks, cfg, batch, prompt_len, ref_logits, smi,
+                               mesh_spec=TPR_MESH, tag="tpr"):
+    """Phase 10's (and 14's, on ``mesh_spec``, its lines tagged ``tag``)
+    serving checks over the ranks' :func:`tp_serve_rank`
     records of ``cfg`` (cut to its depth), against the one-rank
     ``ref_logits`` (numpy ``[batch, V]``): each rank's prefill logits within
     ``TP_LOGITS_RTOL`` in relative L2, and where the rank ran a fault its
@@ -3379,7 +3516,7 @@ def check_tp_recurrent_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
 
     from repro_torch.models import layer_plan
 
-    M = TPR_MESH[0][1]
+    M = mesh_spec[0][1]
     rel = lambda a: float(np.linalg.norm(a - ref_logits) / np.linalg.norm(ref_logits))
     first = ref_logits.argmax(-1)
     plan = layer_plan(cfg)
@@ -3422,8 +3559,8 @@ def check_tp_recurrent_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
                                  f"{want_launches}, none in decode, no plain call")
         if smi is None and (launched or decode):
             raise AssertionError(f"{cfg.name} rank {rank}: launches on the CPU")
-    print(f"[tpr] serving {cfg.name} ({cfg.num_layers} layers) on "
-          f"{dict(zip(*reversed(TPR_MESH)))}: prefill logits against one rank's, relative L2 "
+    print(f"[{tag}] serving {cfg.name} ({cfg.num_layers} layers) on "
+          f"{dict(zip(*reversed(mesh_spec)))}: prefill logits against one rank's, relative L2 "
           f"{[round(rel(r['logits']), 6) for r in ranks]} (limit {TP_LOGITS_RTOL})"
           + (f"; the planted fault (RoPE on the rank's head-dim slice before the gather) "
              f"{[round(f, 4) for f in fault]}" if fault else "")
@@ -3435,15 +3572,16 @@ def check_tp_recurrent_serving(ranks, cfg, batch, prompt_len, ref_logits, smi):
           f"{smi}")
     one = shard_bytes(cfg, (1, 1))[0]
     for rank, r in enumerate(ranks):
-        print(f"[tpr] serving {cfg.name} rank {rank} on {r['device']}: parameters "
+        print(f"[{tag}] serving {cfg.name} rank {rank} on {r['device']}: parameters "
               f"{r['param_bytes']} B against one rank's {one} B ({r['param_bytes'] / one:.4f}; "
-              f"the leaves split on model {tpr_split_share(cfg, r['param_bytes']):.4f})"
+              f"the leaves split on model "
+              f"{tpr_split_share(cfg, r['param_bytes'], mesh_spec):.4f})"
               + (f", peak memory {r['peak_gb']:.2f} GB" if "peak_gb" in r else ""))
     return worst, fault
 
 
-def tpr_split_share(cfg, param_bytes):
-    """Of a rank's ``param_bytes`` on ``TPR_MESH``, the share of the leaves
+def tpr_split_share(cfg, param_bytes, mesh_spec=TPR_MESH):
+    """Of a rank's ``param_bytes`` on ``mesh_spec``, the share of the leaves
     that the rules split on ``model``: (``param_bytes`` less the bytes of the
     leaves whole on ``model``) over those split leaves' whole bytes."""
     import torch
@@ -3451,7 +3589,7 @@ def tpr_split_share(cfg, param_bytes):
     from repro_torch.models import model_specs
     from repro_torch.sharding.shard import named_leaves, param_layout
 
-    layout = param_layout(model_specs(cfg), cfg.act, cpu_mesh(TPR_MESH[0]))
+    layout = param_layout(model_specs(cfg), cfg.act, cpu_mesh(mesh_spec[0]))
     whole = {True: 0, False: 0}
     for key, spec in named_leaves(model_specs(cfg)):
         size = math.prod(spec.shape) * torch.empty((), dtype=spec.dtype).element_size()
@@ -3459,8 +3597,9 @@ def tpr_split_share(cfg, param_bytes):
     return (param_bytes - whole[False]) / whole[True]
 
 
-def check_tp_recurrent_training(ranks, cfg, run, ref, smi):
-    """Phase 10's training checks over the ranks' :func:`tp_train_rank`
+def check_tp_recurrent_training(ranks, cfg, run, ref, smi, mesh_spec=TPR_MESH, tag="tpr"):
+    """Phase 10's (and 14's, on ``mesh_spec``, its lines tagged ``tag``)
+    training checks over the ranks' :func:`tp_train_rank`
     records of ``cfg`` (cut to its depth) trained with ``run`` (rows, tokens
     per row, microbatches, steps), by :func:`check_rank_steps`: every rank's
     losses equal; each step's wire bytes equal :func:`tpr_wire_bytes`; each
@@ -3475,14 +3614,14 @@ def check_tp_recurrent_training(ranks, cfg, run, ref, smi):
 
     rows, seq, micro, n_steps = run
     hist = ranks[0]["history"]
-    losses = check_rank_steps(ranks, tpr_wire_bytes(cfg, TPR_MESH[0][1], rows, seq, micro),
-                              shard_bytes(cfg, TPR_MESH[0]),
+    losses = check_rank_steps(ranks, tpr_wire_bytes(cfg, mesh_spec[0][1], rows, seq, micro),
+                              shard_bytes(cfg, mesh_spec[0]),
                               expected_counts(layer_plan(cfg), micro) if smi else None)
     if len(losses) != n_steps:
         raise AssertionError(f"{cfg.name}: {len(losses)} steps, expected {n_steps}")
     gaps = (abs(losses[0] - ref[0]) / abs(ref[0]), abs(hist[0]["grad_norm"] - ref[1]) / ref[1])
-    print(f"[tpr] training {cfg.name} ({cfg.num_layers} layers) on "
-          f"{dict(zip(*reversed(TPR_MESH)))}, {rows} x {seq} in {micro} microbatches: losses "
+    print(f"[{tag}] training {cfg.name} ({cfg.num_layers} layers) on "
+          f"{dict(zip(*reversed(mesh_spec)))}, {rows} x {seq} in {micro} microbatches: losses "
           f"{losses}, grad-norms {[h['grad_norm'] for h in hist]}; step 1 against one rank's "
           f"(loss {ref[0]}, grad-norm {ref[1]}): relative {gaps[0]:.3e} and {gaps[1]:.3e} "
           f"(limits {TP_LOSS_RTOL}, {TP_NORM_RTOL}); s per step "
@@ -3493,7 +3632,7 @@ def check_tp_recurrent_training(ranks, cfg, run, ref, smi):
           f"versions {ranks[0]['plain']}; {smi}")
     one = shard_bytes(cfg, (1, 1))
     for rank, r in enumerate(ranks):
-        print(f"[tpr] training {cfg.name} rank {rank} on {r['device']}: parameters "
+        print(f"[{tag}] training {cfg.name} rank {rank} on {r['device']}: parameters "
               f"{r['param_bytes']} B and moments {r['moment_bytes']} B = its blocks by the "
               f"rules, {(r['param_bytes'] + r['moment_bytes']) / sum(one):.4f} of one rank's "
               f"{sum(one) / 1e9:.3f} GB"
@@ -3501,17 +3640,18 @@ def check_tp_recurrent_training(ranks, cfg, run, ref, smi):
                  f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
                  if "peak_gb" in r else ""))
     if gaps[0] > TP_LOSS_RTOL or gaps[1] > TP_NORM_RTOL:
-        raise AssertionError(f"{cfg.name} step 1 on {TPR_MESH[0]}: loss {losses[0]}, grad-norm "
+        raise AssertionError(f"{cfg.name} step 1 on {mesh_spec[0]}: loss {losses[0]}, grad-norm "
                              f"{hist[0]['grad_norm']} against one rank's {ref}: {gaps}")
     return gaps
 
 
-def check_grad_probe(ranks, cfg, key, ref):
-    """Phase 10's probe of the mLSTM's gradient over the ranks'
+def check_grad_probe(ranks, cfg, key, ref, mesh_spec=TPR_MESH, tag="tpr",
+                     fault="w_if's partial through g, then sliced"):
+    """Phase 10's (and 14's) probe of the mLSTM's gradient over the ranks'
     :func:`grad_probe` records against one rank's whole gradient ``ref``:
-    each rank's block of it (its layout on ``TPR_MESH``) in relative L2
-    within ``TPR_GRAD_RTOL``, and under :func:`w_if_through_g` outside it.
-    Returns (the sound gaps, the fault's)."""
+    each rank's block of it (its layout on ``mesh_spec``) in relative L2
+    within ``TPR_GRAD_RTOL``, and under the planted fault (described by
+    ``fault``) outside it.  Returns (the sound gaps, the fault's)."""
     import numpy as np
     import torch
 
@@ -3519,19 +3659,18 @@ def check_grad_probe(ranks, cfg, key, ref):
     from repro_torch.models import model_specs
     from repro_torch.sharding.shard import param_layout, shard
 
-    axes = TPR_MESH[1]
-    pl = param_layout(model_specs(cfg), cfg.act, cpu_mesh(TPR_MESH[0]))[key]
+    axes = mesh_spec[1]
+    pl = param_layout(model_specs(cfg), cfg.act, cpu_mesh(mesh_spec[0]))[key]
     gaps = {"sound": [], "fault": []}
     for r in ranks:
-        mesh = Mesh(axes=axes, shape=dict(zip(axes, TPR_MESH[0])), coords=r["coords"],
+        mesh = Mesh(axes=axes, shape=dict(zip(axes, mesh_spec[0])), coords=r["coords"],
                     device=torch.device("cpu"))
         want = shard(torch.from_numpy(ref), pl, mesh).numpy()
         for name in gaps:
             gaps[name].append(float(np.linalg.norm(r["probe"][name] - want) / np.linalg.norm(want)))
-    print(f"[tpr] {cfg.name}'s fp32 gradient of {key} at the initial weights on one row, each "
-          f"rank's block against one rank's, relative L2: {gaps['sound']} (limit "
-          f"{TPR_GRAD_RTOL}); the planted fault (w_if's partial through g, then sliced) "
-          f"{gaps['fault']}")
+    print(f"[{tag}] {cfg.name}'s fp32 gradient of {key} at the initial weights on one row, "
+          f"each rank's block against one rank's, relative L2: {gaps['sound']} (limit "
+          f"{TPR_GRAD_RTOL}); the planted fault ({fault}) {gaps['fault']}")
     if not max(gaps["sound"]) <= TPR_GRAD_RTOL:
         raise AssertionError(f"{key}'s gradient lies {gaps['sound']} from one rank's "
                              f"(limit {TPR_GRAD_RTOL})")
@@ -6267,6 +6406,15 @@ def main() -> int:
     # cells' roofline rows.  The cells ran in worker processes started after
     # phase 1 (start_dry_cells).
     dry_run_phase(dry_measured, smi, dry_cells)
+
+    # --------- 14. TP on widths that do not divide over model --
+    # xlstm-1.3b (8 blocks, fp32) on (data 1, model 8): its 4 heads over 8
+    # ranks; served, trained and its whole wq's gradient probed, each held to
+    # phase 10's one-rank references.
+    held(14)
+    mark("14")
+    arch = UNEVEN_SERVE[0][0]
+    uneven_phase(smi, tpr_logits[arch], tpr_first[arch])
 
     ran = time.perf_counter() - started
     print(f"[time] chip_smoke.py ran {ran:.1f} s"

@@ -17,7 +17,8 @@ the dry run's roofline (``launch/dryrun.py``):
 
 On the ``meta`` device the kernels' entry points (``kernels/ops.py``) run no
 operation that a FLOP counter could see: each adds its work to every
-recorder open in :func:`recorded`.
+recorder open in :func:`recorded`.  Inside :func:`repeated` every count is
+multiplied: a loop that runs one step on ``meta`` counts as its whole.
 """
 
 from __future__ import annotations
@@ -97,8 +98,32 @@ def recorded() -> Iterator[Dict]:
 
 
 def record(name: str, work: Tuple[int, int]) -> None:
-    """Add one launch of ``name`` and its (FLOPs, bytes) to every open record."""
+    """Add one launch of ``name`` and its (FLOPs, bytes) to every open record,
+    :func:`repeats` times."""
+    n = repeats()
     for rec in _RECORDERS:
-        rec["flops"] += work[0]
-        rec["bytes"] += work[1]
-        rec["calls"][name] = rec["calls"].get(name, 0) + 1
+        rec["flops"] += n * work[0]
+        rec["bytes"] += n * work[1]
+        rec["calls"][name] = rec["calls"].get(name, 0) + n
+
+
+_REPEATS = [1]
+
+
+@contextlib.contextmanager
+def repeated(n: int) -> Iterator[None]:
+    """Inside the block everything that a count sees (the dry run's FLOPs
+    and HBM bytes, ``launch.roofline.StepCounter``, and the kernels' work)
+    counts ``n`` times: one step of a loop run on ``meta`` stands for ``n``
+    of them (the reference's dry run multiplies a loop body's counts by its
+    trip count).  ``n`` 0: nothing is counted."""
+    _REPEATS.append(_REPEATS[-1] * n)
+    try:
+        yield
+    finally:
+        _REPEATS.pop()
+
+
+def repeats() -> int:
+    """How many times what runs now counts (:func:`repeated`)."""
+    return _REPEATS[-1]

@@ -27,16 +27,22 @@ step's highest live bytes over them), ``parsed`` (the counted FLOPs and
 HBM bytes per rank and the wire bytes per rank over NVLink and
 InfiniBand, ``launch/roofline.py``) and ``collectives`` (calls and wire
 bytes per group).  A cell that the model
-refuses on the mesh (xlstm-1.3b's 4 heads do not divide over model 16) is
-written ``skipped`` with the refusal's text, as the reference writes
-``shape_cells``' skips.  A host read inside a step (``.item()``, ``int(t)``)
-fails on ``meta`` and is not caught.  Every operation runs through
-PyTorch's Python meta kernels and the counter's dispatch mode, so a cell
-takes from a second (prefill, decode) to a minute and a half (a wide train
-step) on one CPU core.  The sLSTM's loop over time runs op by op: an
-xlstm-1.3b ``prefill_32k`` cell on a mesh that takes it ((8, 4)) had not
-ended after 24 minutes.  Every xLSTM cell is refused on the production
-meshes.
+refuses on the mesh is written ``skipped`` with the refusal's text, as the
+reference writes ``shape_cells``' skips; only MoE cases are refused
+(``models/transformer.py::_check_mesh``: experts that do not divide over
+their ranks, an ``fsdp_f`` FFN dim that does not divide over ``data``; and
+``models/moe.py``'s group counts that straddle a rank).  A width that does
+not divide over ``model`` (xlstm-1.3b's 4 heads over 16) stays whole, as
+``fit_pspec`` leaves it.  A host read inside a step (``.item()``,
+``int(t)``) fails on ``meta`` and is not caught.  Every operation runs
+through PyTorch's Python meta kernels and the counter's dispatch mode, so a
+cell takes from a second (prefill, decode) to two minutes (xlstm-1.3b's
+train step) on one CPU core.  The xLSTM's loops (the sLSTM's over time,
+the mLSTM's over chunks) run one step on ``meta`` and count it once per
+step (``models/xlstm.py::_CountedLoop``, ``kernels.work.repeated``), as
+the reference's ``hloparse`` multiplies a while loop's counts by its trip
+count: op by op, an xlstm-1.3b ``prefill_32k`` cell had not ended after 24
+minutes and a ``train_4k`` cell ran over 30.
 """
 
 from __future__ import annotations

@@ -39,6 +39,14 @@ one rank's step as it runs on the ``meta`` device (:class:`StepCounter`):
   freed when the last tensor on it dies; tensors saved for backward count
   while autograd holds them.  The highest sum is the step's temporaries.
 
+A loop that runs one step on ``meta`` (the sLSTM's loop over time,
+``models/xlstm.py``) counts that step's FLOPs and bytes once per step
+(``kernels.work.repeated``), as the reference's ``hloparse`` multiplies a
+while loop's body by its trip count.  Its live bytes are one step's, beside
+the other steps' outputs and the loop's stacked outputs at their whole
+size; under autograd it holds n times what one step saves for the backward
+(``xlstm._saved_by_steps``) until its backward ends.
+
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline --results results/
 """
 
@@ -122,12 +130,13 @@ class _Counted(TorchDispatchMode):
             if name in _ALLOCATIONS:
                 self._track(out)
             return out
+        n = work.repeats()
         if flops is not None:
-            self.flops += flops(*args, **kwargs, out_val=out)
+            self.flops += n * flops(*args, **kwargs, out_val=out)
         ins, _ = tree_flatten((args, kwargs))
         outs, _ = tree_flatten(out)
-        self.bytes += sum(t.numel() * t.element_size() for t in ins + outs
-                          if isinstance(t, torch.Tensor))
+        self.bytes += n * sum(t.numel() * t.element_size() for t in ins + outs
+                              if isinstance(t, torch.Tensor))
         returns = func._schema.returns
         for i, t in enumerate(outs):
             # An output that aliases an input (in place, ``out=``) allocates nothing.

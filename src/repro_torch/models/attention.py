@@ -34,11 +34,24 @@ elements and one of ``2·B·S·K·hd`` (:func:`gqa_decode`).  Splitting the
 scores over ``hd`` instead would move ``B·H·S`` fp32 partial scores, but
 also every query head's q and output slices: four exchanges a layer where
 this takes two, and on a card whose ranks talk through host memory a call
-costs more than these bytes.  MLA's up-projections (``w_uq``, ``w_uk``, ``w_uv``)
+costs more than these bytes.  Where the query heads do not divide over
+``model`` but their ``H·hd`` columns do (``gqa_layout`` ``"gathered"``), a
+rank's columns of q (and of k and v where theirs split) cut across heads:
+they are gathered whole by one ``gather_slices``, the attention runs over
+every head on every rank, and its output is cut back to the rank's columns
+by ``slice_model`` (whose backward gathers) before ``wo``'s rows and *g*.
+Where ``wk`` and ``wv`` are whole, k and v are computed whole from the
+block's input before *f*; under split query heads (``"kv_whole"``) they
+pass through *f* so that their gradient sums over the ranks whose query
+heads read them.  In both the cache holds every KV head whole.  Where no
+weight splits (``"whole"``) the block runs whole, with no *f* and no *g*.
+MLA's up-projections (``w_uq``, ``w_uk``, ``w_uv``)
 and ``wo`` hold the rank's heads; its down-projections, their norms and
 ``w_kr`` are whole on every model rank, so Megatron's *f* sits on the
 latents where they meet the rank's heads (``tp``), and the latent cache
-stays whole on every model rank.
+stays whole on every model rank; where the heads do not divide, the
+up-projections are whole, the heads run whole with no *f*, and ``wo``'s
+rows split as the GQA case above (or stay whole, with no *g*).
 
 Unlike JAX's immutable arrays, the caches here are written in place: prefill
 copies into the buffers ``Model.cache`` allocated, and each decode step
@@ -56,7 +69,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..sharding.shard import all_gather_model, copy_to_model, gather_model
+from ..sharding.shard import (all_gather_model, copy_to_model, gather_model, gather_slices,
+                              reduce_from_model, slice_model)
 from .layers import rmsnorm, rmsnorm_spec, rope
 from .specs import ParamSpec
 
@@ -115,21 +129,37 @@ class KVCache(NamedTuple):
     length: int          # tokens currently cached
 
 
-def head_dim_split(cfg: ModelConfig, model_size: int) -> bool:
-    """Whether a rank of ``model_size`` holds a slice of the KV heads' head
-    dim: the KV heads do not split over ``model``."""
-    return model_size > 1 and cfg.num_kv_heads % model_size != 0
+def gqa_layout(cfg: ModelConfig, model_size: int) -> str:
+    """How ``sharding.shard.param_layout`` lays GQA's weights over
+    ``model_size`` model ranks (``fit_pspec``: a dim splits where it divides),
+    and so what a rank computes: ``"heads"`` (its query and KV heads),
+    ``"head_dim"`` (its query heads; ``wk``/``wv`` split their ``K·hd``
+    columns though the KV heads do not split), ``"kv_whole"`` (its query
+    heads; ``wk``/``wv`` whole), ``"gathered"`` (the query heads do not split
+    but their ``H·hd`` columns do: the projections gathered whole, the
+    attention whole on every rank), ``"whole"`` (nothing splits) or
+    ``"none"`` (one model rank)."""
+    H, K, hd, M = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, model_size
+    if M == 1:
+        return "none"
+    if H % M:
+        return "gathered" if H * hd % M == 0 else "whole"
+    if K % M == 0:
+        return "heads"
+    return "head_dim" if K * hd % M == 0 else "kv_whole"
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device: torch.device, model_size: int = 1) -> KVCache:
     """A zeroed cache; ``S = min(max_len, window)`` when windowed; a rank's
-    ``K / model_size`` KV heads, or where they do not split its
-    ``hd / model_size`` slice of every head."""
+    ``K / model_size`` KV heads, where only their columns split its
+    ``hd / model_size`` slice of every head, else every head whole
+    (:func:`gqa_layout`)."""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    if head_dim_split(cfg, model_size):
+    layout = gqa_layout(cfg, model_size)
+    if layout == "head_dim":
         hd //= model_size
-    else:
+    elif layout == "heads":
         K //= model_size
     S = min(max_len, cfg.window) if cfg.window else max_len
     shape = (batch, S, K, hd)
@@ -137,16 +167,8 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
 
 
-def _heads_of(p, cfg: ModelConfig):
-    """(query heads, KV heads, head dim) that ``p``'s weights hold (the KV
-    heads only where they split over ``model``)."""
-    hd = cfg.resolved_head_dim
-    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd, hd
-
-
-def _split(tp, cfg: ModelConfig):
-    """``tp`` where its ranks hold slices of the KV heads' head dim, else None."""
-    return tp if tp is not None and head_dim_split(cfg, tp.size("model")) else None
+def _layout(cfg: ModelConfig, tp) -> str:
+    return gqa_layout(cfg, 1 if tp is None else tp.size("model"))
 
 
 def _kv_whole(p, x, cfg: ModelConfig, positions, tp):
@@ -176,44 +198,85 @@ def _cache_slice(t: torch.Tensor, tp) -> torch.Tensor:
     return t.narrow(-1, tp.coords["model"] * n, n)
 
 
+def _gathered(parts, tp):
+    """The rank's column slices ``parts`` (each ``[B, T, c_i]``) whole over
+    ``model``, by one gather (``gather_slices``: the work after it runs alike
+    on every model rank, so the backward keeps the rank's slice)."""
+    widths = [t.shape[-1] for t in parts]
+    whole = gather_slices(torch.cat(parts, dim=-1)[..., None, :], tp, -2)
+    return [t.flatten(-2) for t in whole.split(widths, dim=-1)]
+
+
 def _project_qkv(p, x, cfg: ModelConfig, positions, tp=None):
-    """q, k, v of the rank's heads; under the head-dim split (``tp``) k and v
-    whole (:func:`_kv_whole`)."""
+    """q, k, v (k rotated) of ``x`` (before *f*) ``[B, T, *, hd]``: q of the
+    rank's query heads (of every head where they are gathered or whole), k
+    and v of its KV heads where they split, else of every KV head."""
     B, T, _ = x.shape
-    H, K, hd = _heads_of(p, cfg)
-    q = rope((x @ p["wq"]).reshape(B, T, H, hd), positions, cfg.rope_theta)
-    if tp is not None:
-        return (q, *_kv_whole(p, x, cfg, positions, tp))
-    k = (x @ p["wk"]).reshape(B, T, K, hd)
-    v = (x @ p["wv"]).reshape(B, T, K, hd)
-    return q, rope(k, positions, cfg.rope_theta), v
+    hd = cfg.resolved_head_dim
+    layout = _layout(cfg, tp)
+    if layout in ("none", "whole"):
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    else:
+        xf = copy_to_model(x, tp)
+        q = xf @ p["wq"]
+        if layout == "head_dim":
+            return (rope(q.unflatten(-1, (-1, hd)), positions, cfg.rope_theta),
+                    *_kv_whole(p, xf, cfg, positions, tp))
+        if layout == "heads":
+            k, v = xf @ p["wk"], xf @ p["wv"]
+        elif p["wk"].shape[-1] < cfg.num_kv_heads * hd:  # gathered, wk and wv split
+            q, k, v = _gathered([q, xf @ p["wk"], xf @ p["wv"]], tp)
+        else:
+            # wk and wv whole: every rank's k and v are whole.  With the query
+            # heads split, *f* on each sums over the ranks whose query heads
+            # read it; gathered, every rank reads them alike.
+            k, v = x @ p["wk"], x @ p["wv"]
+            if layout == "kv_whole":
+                k, v = copy_to_model(k, tp), copy_to_model(v, tp)
+            else:
+                q, = _gathered([q], tp)
+    q, k, v = (t.unflatten(-1, (-1, hd)) for t in (q, k, v))
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
 def _flash(q, k, v, cfg: ModelConfig, tp):
-    if tp is not None:
+    if _layout(cfg, tp) in ("head_dim", "kv_whole"):
         k, v = (_read_heads(t, q.shape[2], cfg, tp).contiguous() for t in (k, v))
     return ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block, cfg.k_block)
 
 
+def _out(p, out: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The attention's output ``[B, T, heads, hd]`` through ``wo``, whole:
+    where the heads were gathered, first cut to the rank's columns
+    (``slice_model``, whose backward gathers the gradient); *g* after ``wo``
+    where its rows split."""
+    B, T = out.shape[:2]
+    out = out.reshape(B, T, -1)
+    layout = _layout(cfg, tp)
+    if layout in ("none", "whole"):
+        return out @ p["wo"]
+    if layout == "gathered":
+        out = slice_model(out, tp, -1)
+    return reduce_from_model(out @ p["wo"], tp)
+
+
 def gqa_attention(p, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Training self-attention. x: [B, T, D] → [B, T, D].  ``tp``: the
-    model axis (x after *f*, the output the rank's partial sum)."""
-    B, T, _ = x.shape
-    tp = _split(tp, cfg)
+    model axis (x before *f*; the output whole)."""
+    T = x.shape[1]
     positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, tp)
-    return _flash(q, k, v, cfg, tp).reshape(B, T, -1) @ p["wo"]
+    return _out(p, _flash(q, k, v, cfg, tp), cfg, tp)
 
 
 def gqa_prefill(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
     """Prefill: run attention AND fill ``cache`` in place (ring-buffered if
     windowed).  x: [B, T, D] → ([B, T, D], cache with length T)."""
-    B, T, _ = x.shape
-    tp = _split(tp, cfg)
+    T = x.shape[1]
     positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, tp)
     out = _flash(q, k, v, cfg, tp)
-    if tp is not None:
+    if _layout(cfg, tp) == "head_dim":
         k, v = _cache_slice(k, tp), _cache_slice(v, tp)
     S = cache.k.shape[1]
     if T >= S:
@@ -230,8 +293,7 @@ def gqa_prefill(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
         cache.v[:, :T].copy_(v)
         cache.k[:, T:].zero_()
         cache.v[:, T:].zero_()
-    y = out.reshape(B, T, -1) @ p["wo"]
-    return y, cache._replace(length=T)
+    return _out(p, out, cfg, tp), cache._replace(length=T)
 
 
 def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
@@ -240,11 +302,11 @@ def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
     Under the head-dim split the cache is gathered whole over ``model`` for
     the rank's query heads (the module's docstring counts its bytes)."""
     B = x.shape[0]
-    tp = _split(tp, cfg)
+    layout = _layout(cfg, tp)
     pos = cache.length  # absolute position of the new token
     ppos = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, ppos, tp)
-    if tp is not None:
+    if layout == "head_dim":
         k, v = _cache_slice(k, tp), _cache_slice(v, tp)
     S = cache.k.shape[1]
     slot = pos % S if cfg.window > 0 else min(pos, S - 1)
@@ -252,12 +314,12 @@ def gqa_decode(p, x, cfg: ModelConfig, cache: KVCache, tp=None):
     cache.v[:, slot].copy_(v[:, 0])
     n_valid = min(pos + 1, S) if cfg.window > 0 else pos + 1
     kc, vc = cache.k, cache.v
-    if tp is not None:
-        kc, vc = (_read_heads(t, q.shape[2], cfg, tp)
-                  for t in gather_model(torch.stack([kc, vc]), tp).unbind(0))
+    if layout == "head_dim":
+        kc, vc = gather_model(torch.stack([kc, vc]), tp).unbind(0)
+    if layout in ("head_dim", "kv_whole"):
+        kc, vc = (_read_heads(t, q.shape[2], cfg, tp) for t in (kc, vc))
     out = decode_attention(q, kc, vc, n_valid)
-    y = out.reshape(B, 1, -1) @ p["wo"]
-    return y, cache._replace(length=pos + 1)
+    return _out(p, out, cfg, tp), cache._replace(length=pos + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -307,9 +369,30 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
+def _mla_tp(p, cfg: ModelConfig, tp):
+    """``tp`` where the rank holds its own heads, None where the heads do not
+    split over ``model`` (the up-projections whole: no *f* on the latents)."""
+    return None if tp is None or p["w_uk"].shape[1] == cfg.num_heads else tp
+
+
+def _mla_out(p, out: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The attention's output ``[B, T, heads, dv]`` through ``wo``, whole:
+    *g* after ``wo``'s rows, which split with the heads or, the heads whole,
+    with their ``H·dv`` columns (the output cut to the rank's columns first,
+    ``slice_model``); no exchange where ``wo`` is whole."""
+    B, T = out.shape[:2]
+    out = out.reshape(B, T, -1)
+    if tp is None or p["wo"].shape[0] == out.shape[-1] == cfg.num_heads * cfg.mla.v_head_dim:
+        return out @ p["wo"]
+    if out.shape[-1] > p["wo"].shape[0]:
+        out = slice_model(out, tp, -1)
+    return reduce_from_model(out @ p["wo"], tp)
+
+
 def _mla_q(p, x, cfg: ModelConfig, positions, tp=None):
     """Queries of the heads that ``p`` holds; *f* on the input of their
-    projection (``tp``: the model axis of a sharded mesh)."""
+    projection (``tp``: the model axis of a sharded mesh, where the rank
+    holds its own heads)."""
     m = cfg.mla
     if m.q_lora_rank:
         q = _heads(copy_to_model(rmsnorm(p["q_norm"], x @ p["w_dq"]), tp), p["w_uq"])
@@ -331,14 +414,15 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def _mla_attend(p, x, cfg: ModelConfig, tp=None):
     """Expand the latents to per-head K/V of the heads that ``p`` holds and
-    flash-attend; returns the block's output (the rank's partial sum under
-    ``tp``) and the latents (c_kv, k_rope) that prefill caches."""
+    flash-attend; returns the block's output (whole) and the latents (c_kv,
+    k_rope) that prefill caches."""
     B, T, _ = x.shape
     H, dr = p["w_uk"].shape[1], cfg.mla.rope_head_dim
     positions = torch.arange(T, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, x, cfg, positions, tp)
+    ftp = _mla_tp(p, cfg, tp)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, ftp)
     c_kv, k_rope = _mla_latents(p, x, cfg, positions)
-    ck, kr = copy_to_model(c_kv, tp), copy_to_model(k_rope, tp)
+    ck, kr = copy_to_model(c_kv, ftp), copy_to_model(k_rope, ftp)
     # The kernel takes contiguous q, k, v: each concatenation is a new tensor,
     # with k_rope broadcast over the heads.
     k = torch.cat([_heads(ck, p["w_uk"]), kr[:, :, None, :].expand(B, T, H, dr)], dim=-1)
@@ -346,11 +430,11 @@ def _mla_attend(p, x, cfg: ModelConfig, tp=None):
     v = _heads(ck, p["w_uv"])
     out = ops.flash_attention(q, k, v, cfg.causal, cfg.window, cfg.q_block, cfg.k_block,
                               _mla_scale(cfg))
-    return out.reshape(B, T, -1) @ p["wo"], c_kv, k_rope
+    return _mla_out(p, out, cfg, tp), c_kv, k_rope
 
 
 def mla_attention(p, x, cfg: ModelConfig, tp=None) -> torch.Tensor:
-    """Training MLA. x: [B, T, D] (before *f*) → [B, T, D]."""
+    """Training MLA. x: [B, T, D] (before *f*) → [B, T, D] (whole)."""
     return _mla_attend(p, x, cfg, tp)[0]
 
 
@@ -378,7 +462,7 @@ def mla_decode(p, x, cfg: ModelConfig, cache: MLACache, tp=None):
     B = x.shape[0]
     pos = cache.length
     ppos = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg, ppos, tp)
+    q_nope, q_rope = _mla_q(p, x, cfg, ppos, _mla_tp(p, cfg, tp))
     c_new, kr_new = _mla_latents(p, x, cfg, ppos)
     S = cache.c_kv.shape[1]
     slot = min(pos, S - 1)  # the reference's dynamic_update_slice clamps
@@ -395,5 +479,4 @@ def mla_decode(p, x, cfg: ModelConfig, cache: MLACache, tp=None):
     a = torch.softmax(s, dim=-1).to(x.dtype)
     o_lat = torch.einsum("bths,bsr->bthr", a, c_kv)            # reduce in latent
     out = torch.einsum("bthr,rhd->bthd", o_lat, p["w_uv"])     # absorb W_uv
-    y = out.reshape(B, 1, -1) @ p["wo"]
-    return y, cache._replace(length=pos + 1)
+    return _mla_out(p, out, cfg, tp), cache._replace(length=pos + 1)

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.shard import max_over_model, reduce_from_model
+from ..sharding.shard import copy_to_model, gather_slices, max_over_model, reduce_from_model
 from .specs import ParamSpec
 
 
@@ -58,16 +58,30 @@ def mlp_spec(d_model: int, d_ff: int, act: str, dtype=torch.bfloat16) -> Dict:
     }
 
 
-def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ p["wi"]
+def _activate(h: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         gate, up = torch.chunk(h, 2, dim=-1)
-        h = F.silu(gate) * up
-    elif act == "gelu":
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    else:
-        raise ValueError(f"unknown activation {act}")
-    return h @ p["wo"]
+        return F.silu(gate) * up
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+    raise ValueError(f"unknown activation {act}")
+
+
+def mlp(p, x: torch.Tensor, act: str, tp=None, d_ff: Optional[int] = None) -> torch.Tensor:
+    """The FFN of ``x``.  ``tp`` (the model axis; ``x`` before *f*, ``d_ff``
+    the whole FFN width): the output whole, by the layout that
+    ``sharding.shard.param_layout`` gave the weights: ``wo``'s rows split
+    (swiglu's ``wi`` as ``[gate_m | up_m]``), *f*, the rank's columns and
+    *g*; ``wo`` whole and ``wi``'s columns split contiguously (a gate that
+    does not split in two), *f* and the projection gathered whole over
+    ``model``, the rest whole on every rank; both whole, no exchange."""
+    wi, wo = p["wi"], p["wo"]
+    if tp is None or wi.shape[-1] == (2 if act == "swiglu" else 1) * d_ff:
+        return _activate(x @ wi, act) @ wo
+    h = copy_to_model(x, tp) @ wi
+    if wo.shape[0] < d_ff:
+        return reduce_from_model(_activate(h, act) @ wo, tp)
+    return _activate(gather_slices(h, tp, -1), act) @ wo
 
 
 # -------------------------------------------------------------- embeddings --

@@ -63,7 +63,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
 from ..sharding.shard import (all_to_all, copy_to_model, gather_slices, model_parallel,
-                              reduce_from_model, ROWS, row_rank)
+                              model_split, reduce_from_model, ROWS, row_rank)
 from .layers import mlp, mlp_spec
 from .specs import ParamSpec
 
@@ -404,8 +404,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None, rows: Optional[Rows
                                local, tp, span, exchange)
         y = yg.reshape(B, T, D)
     if m.num_shared:
-        shared = mlp(p["shared"], xf, "swiglu")
-        y = shared if y is None else y + shared
+        d_shared = m.num_shared * m.d_expert
+        if model_split(tp, d_shared) is not None or tp is None:
+            shared = mlp(p["shared"], xf, "swiglu")
+            y = shared if y is None else y + shared
+        else:  # the shared experts' width does not split: their output whole
+            shared = mlp(p["shared"], x, "swiglu", tp, d_shared)
+            whole = shared if whole is None else whole + shared
     if y is None:
         return whole, aux
     y = reduce_from_model(y, tp)

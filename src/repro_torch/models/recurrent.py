@@ -27,11 +27,13 @@ reduce-scatter over ``model`` (``sharding.shard.reduce_scatter_model``)
 carries both gates' partials to their sums on the rank's channels.  ``b_a``,
 ``b_i`` and ``lam``, whole on every model rank, are cut to those channels
 (``slice_model``).  The scan runs on ``[B, T, W/M]``; ``w_out`` holds the
-rank's rows, and the caller's *g* sums its output.  The state
-(:class:`RGLRUState`) holds the rank's channels, ``h [B, W/M]`` and ``conv
-[B, 3, W/M]``, where the reference's ``cache_pspecs`` replicates them over
-``model``: the rank's scan produces only its channels, and decode reads only
-those.
+rank's rows, and *g* sums the block's output (*f* sits on its input).  The
+state (:class:`RGLRUState`) holds the rank's channels, ``h [B, W/M]`` and
+``conv [B, 3, W/M]``, where the reference's ``cache_pspecs`` replicates them
+over ``model``: the rank's scan produces only its channels, and decode reads
+only those.  Where W does not divide over ``model``, the rules leave every
+weight of the block whole: the block then runs whole on every model rank,
+with no *f* and no *g*, and its state is whole.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..sharding.shard import reduce_scatter_model, slice_model
+from ..sharding.shard import (copy_to_model, model_split, reduce_from_model,
+                              reduce_scatter_model, slice_model)
 from .specs import ParamSpec
 
 
@@ -71,11 +74,17 @@ class RGLRUState(NamedTuple):
     conv: torch.Tensor    # [B, conv_width-1, W] trailing inputs (fp32)
 
 
+def _width(cfg: ModelConfig) -> int:
+    return cfg.rglru.width or cfg.d_model
+
+
 def rglru_state_spec(cfg: ModelConfig, batch: int, device: torch.device,
                      model_size: int = 1) -> RGLRUState:
-    """A zeroed state of a rank's ``W / model_size`` channels."""
+    """A zeroed state of a rank's ``W / model_size`` channels (all ``W`` where
+    they do not divide)."""
     g = cfg.rglru
-    W = (g.width or cfg.d_model) // model_size
+    W = _width(cfg)
+    W //= model_size if W % model_size == 0 else 1
     return RGLRUState(
         h=torch.zeros((batch, W), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, g.conv_width - 1, W), dtype=torch.float32, device=device),
@@ -122,10 +131,12 @@ def rglru_block_with_state(
     p, x: torch.Tensor, cfg: ModelConfig, state: Optional[RGLRUState], tp=None
 ) -> Tuple[torch.Tensor, RGLRUState]:
     """x: [B, T, D] → ([B, T, D], state after the last token).  ``state=None``
-    starts from zeros (prefill).  ``tp``: x after *f*, the output the rank's
-    partial sum."""
+    starts from zeros (prefill).  ``tp``: the model axis (x before *f*); the
+    output whole."""
     g = cfg.rglru
     B, T, D = x.shape
+    tp = model_split(tp, _width(cfg))
+    x = copy_to_model(x, tp)
     W = p["w_x"].shape[-1]
     z = x @ p["w_x"]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")  # jax.nn.gelu's default form
@@ -141,7 +152,7 @@ def rglru_block_with_state(
     a, b = _gates(p, zc, g.c, tp)
     h = ops.rglru_scan(a, b, h0.contiguous())
     out = (h.to(x.dtype) * gate) @ p["w_out"]
-    return out, RGLRUState(h=h[:, -1], conv=tail.float())
+    return reduce_from_model(out, tp), RGLRUState(h=h[:, -1], conv=tail.float())
 
 
 def rglru_block(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
@@ -152,6 +163,8 @@ def rglru_block(p, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
 def rglru_decode(p, x: torch.Tensor, cfg: ModelConfig, state: RGLRUState, tp=None):
     """One-token step. x: [B, 1, D] → ([B, 1, D], new state)."""
     g = cfg.rglru
+    tp = model_split(tp, _width(cfg))
+    x = copy_to_model(x, tp)
     z = x @ p["w_x"]                                               # [B, 1, W]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     hist = torch.cat([state.conv.to(z.dtype), z], dim=1)           # [B, cw, W]
@@ -159,4 +172,4 @@ def rglru_decode(p, x: torch.Tensor, cfg: ModelConfig, state: RGLRUState, tp=Non
     a, b = _gates(p, zc[:, None, :], g.c, tp)
     h = a[:, 0] * state.h + b[:, 0]
     out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
-    return out, RGLRUState(h=h, conv=hist[:, 1:].float())
+    return reduce_from_model(out, tp), RGLRUState(h=h, conv=hist[:, 1:].float())

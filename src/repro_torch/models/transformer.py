@@ -37,7 +37,12 @@ heads (where the KV heads do not split, a slice of their head dim; MLA's
 up-projections), MLP columns, RG-LRU channels, mLSTM heads, experts and
 vocab range, with Megatron's *f* after each norm (MLA: on its latents,
 ``models/attention.py``; MoE: ``models/moe.py``; the sLSTM: after its group
-norm, ``models/xlstm.py``) and *g* after each row-parallel product.  The MoE
+norm, ``models/xlstm.py``) and *g* after each row-parallel product.  A
+width that does not divide over ``model`` stays whole, as ``fit_pspec``
+leaves it: heads whose columns split but whose count does not are gathered
+whole and run whole on every rank, cut back to the rank's columns before
+the row-parallel product; a block whose weights are all whole runs whole,
+with no *f* and no *g*.  The MoE
 FFN's output is whole: the expert-parallel island's as it is, the partial
 sums through *g*.  Experts split over ``(data, model)`` jointly are not
 gathered on use: the island runs its own block of them, and the scatter path
@@ -61,7 +66,7 @@ from . import moe as moe_mod
 from . import recurrent as rec
 from . import xlstm as xl
 from ..sharding.shard import (copy_to_model, gather_model, gather_on_use, model_parallel,
-                              param_layout, reduce_from_model, shard, sharded)
+                              param_layout, shard, sharded)
 from .layers import (chunked_xent, embed, embed_spec, mlp, mlp_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, unembed, unembed_spec)
 from .specs import ParamSpec, init_params, stack_layer_specs
@@ -109,41 +114,26 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """What a sharded mesh refuses, never replicating a layer silently:
-    experts that do not divide over the ranks that split them (``model``, or
-    ``(data, model)`` for the 2-D layouts), an FFN dim of ``fsdp_f`` that
-    does not divide over ``data``; at model above 1, query heads, a d_ff, an
-    RG-LRU width or an mLSTM inner width that do not divide by the model
-    axis, and KV heads whose count and whose ``K·hd`` columns both do not.
-    MoE runs on any other mesh (``models/moe.py``)."""
-    if not sharded(mesh):
+    """What a sharded mesh refuses, never replicating a layer silently: the
+    MoE cases only, experts that do not divide over the ranks that split
+    them (``model``, or ``(data, model)`` for the 2-D layouts) and an FFN dim
+    of ``fsdp_f`` that does not divide over ``data`` (``models/moe.py``
+    refuses a group count and a row-rank count of which neither divides the
+    other).  No width is refused on the ``model`` axis: a rank computes with
+    the blocks that ``fit_pspec`` gives it, a dim that does not divide
+    whole (the mixers' and ``layers.mlp``'s layouts)."""
+    if not sharded(mesh) or cfg.moe is None:
         return
     M, m = mesh.size("model"), cfg.moe
-    if m is not None:
-        ep = M * (mesh.size("data") if moe_mod.two_d(m) else 1)
-        if m.num_experts % ep:
-            raise NotImplementedError(
-                f"{cfg.name}: {m.num_experts} experts do not divide over {ep} ranks: the "
-                f"{m.expert_sharding} layout needs a whole block of experts a rank")
-        if m.expert_sharding == "fsdp_f" and m.d_expert % mesh.size("data"):
-            raise NotImplementedError(
-                f"{cfg.name}: fsdp_f's FFN dim {m.d_expert} does not divide over data "
-                f"{mesh.size('data')}")
-    if M == 1:
-        return
-    kinds = set(cfg.block_pattern)
-    widths = {"query heads": cfg.num_heads, "d_ff": cfg.d_ff}
-    if "rec" in kinds:
-        widths["RG-LRU width"] = cfg.rglru.width or cfg.d_model
-    if "mlstm" in kinds:
-        widths["mLSTM inner width"] = int(cfg.xlstm.proj_factor_m * cfg.d_model)
-    bad = [f"{name} {n}" for name, n in widths.items() if n % M]
-    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    if "attn" in kinds and cfg.attention == "gqa" and K % M and K * hd % M:
-        bad.append(f"KV heads {K} and their {K * hd} columns")
-    if bad:
+    ep = M * (mesh.size("data") if moe_mod.two_d(m) else 1)
+    if m.num_experts % ep:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} do not all divide by model {M}")
+            f"{cfg.name}: {m.num_experts} experts do not divide over {ep} ranks: the "
+            f"{m.expert_sharding} layout needs a whole block of experts a rank")
+    if m.expert_sharding == "fsdp_f" and m.d_expert % mesh.size("data"):
+        raise NotImplementedError(
+            f"{cfg.name}: fsdp_f's FFN dim {m.d_expert} does not divide over data "
+            f"{mesh.size('data')}")
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
@@ -183,13 +173,12 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
     """One pre-norm block. mode: train | prefill | decode.  ``cache`` (a
     ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState`` or
     ``SLSTMState`` of buffers; ``None`` in train mode) is written in place.
-    ``tp`` (the model axis of ``mesh``, a sharded mesh): *f* after each norm
-    (MLA, MoE and the xLSTM blocks place theirs inside), *g* after the
-    attention's, the RG-LRU's and a dense FFN's output products; the MoE FFN
-    and the xLSTM blocks return their output whole.  ``rows``: the ranks
-    whose rows make up the microbatch, over which a MoE FFN's groups lie.
-    Returns (x, cache, aux): aux is the MoE load-balance loss, ``None`` for a
-    dense FFN or an xLSTM block."""
+    ``tp`` (the model axis of ``mesh``, a sharded mesh): each mixer and FFN
+    takes the norm's output before *f*, places its own *f* and *g* by the
+    layout of its weights, and returns its output whole.  ``rows``: the
+    ranks whose rows make up the microbatch, over which a MoE FFN's groups
+    lie.  Returns (x, cache, aux): aux is the MoE load-balance loss, ``None``
+    for a dense FFN or an xLSTM block."""
     if kind in _XLSTM:
         block, decode = _XLSTM[kind]
         h = rmsnorm(p["ln"], x)
@@ -203,8 +192,6 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
         return x + y, cache, None
     mla = kind != "rec" and cfg.attention == "mla"
     h = rmsnorm(p["ln1"], x)
-    if not mla:
-        h = copy_to_model(h, tp)
     if kind == "rec":
         if mode == "train":
             y = rec.rglru_block(p["rec"], h, cfg, tp)
@@ -227,13 +214,13 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, mode: str, cache, tp=None,
         else:
             step = attn.gqa_prefill if mode == "prefill" else attn.gqa_decode
             y, cache = step(p["attn"], h, cfg, cache, tp)
-    x = x + reduce_from_model(y, tp)
+    x = x + y
     h = rmsnorm(p["ln2"], x)
     if cfg.moe is not None and kind == "attn":
         y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg, mesh, rows)
         return x + y, cache, aux
-    y = mlp(p["ffn"], copy_to_model(h, tp), cfg.act)
-    return x + reduce_from_model(y, tp), cache, None
+    d_ff = cfg.moe.dense_d_ff or cfg.d_ff if cfg.moe is not None else cfg.d_ff
+    return x + mlp(p["ffn"], h, cfg.act, tp, d_ff), cache, None
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
@@ -267,8 +254,9 @@ def cache_tree(cfg: ModelConfig, batch: int, max_len: int, device, model_size: i
                ) -> Dict[str, Any]:
     """Fresh caches shaped like the JAX tree (:meth:`Model.cache`) for
     ``batch`` rows, a rank's share of ``model_size``: its KV heads (or its
-    slice of their head dim), RG-LRU channels and mLSTM heads; on the
-    ``meta`` device, their shapes alone (``sharding.rules.cache_pspecs``)."""
+    slice of their head dim), RG-LRU channels and mLSTM heads, each whole
+    where it does not split; on the ``meta`` device, their shapes alone
+    (``sharding.rules.cache_pspecs``)."""
     plan, dtype, device = layer_plan(cfg), _DTYPES[cfg.dtype], torch.device(device)
     mk = lambda kind: _block_cache(cfg, kind, batch, max_len, dtype, device, model_size)
     blocks = {f"b{i}": _stacked(mk(k), plan.n_scan) for i, k in enumerate(plan.pattern)}
@@ -441,9 +429,9 @@ class Model(nn.Module):
         ``[n, B, H]``, ``SLSTMState`` c, n, m and h ``[n, B, D]``; every m
         at -1e30, everything else zero); ``lead`` and ``tail`` hold one per
         layer.  ``batch``: this rank's rows; on a model axis, the rank's
-        ``K / M`` KV heads (where they do not split, ``[.., K, hd / M]``),
-        ``W / M`` RG-LRU channels and ``H / M`` mLSTM heads (the sLSTM's
-        state whole)."""
+        ``K / M`` KV heads (where only their columns split, ``[.., K, hd /
+        M]``), ``W / M`` RG-LRU channels and ``H / M`` mLSTM heads, each
+        whole where it does not split (the sLSTM's state whole)."""
         M = self.tp.size("model") if self.tp is not None else 1
         return cache_tree(self.cfg, batch, max_len, self.device, M)
 

@@ -45,8 +45,14 @@ The collectives of the sharded step, as autograd functions:
 * :func:`all_to_all` — the expert-parallel exchange (``models/moe.py``'s
   island): piece ``i`` of dim 0 to rank ``i`` of a group, the gradient back
   by the same exchange;
-* :func:`gather_slices` — the island's output slices whole over ``model``;
-  in the backward the rank keeps its own slice of the gradient.
+* :func:`gather_slices` — the island's output slices whole over ``model``,
+  and a column-split projection whole for work that every model rank then
+  runs alike (heads that do not split over ``model``, a fused swiglu block
+  that does not); in the backward the rank keeps its own slice of the
+  gradient.  The work's output goes back to the rank's columns by
+  :func:`slice_model`, whose backward gathers: a plain slice there would
+  leave each rank only its own columns' share of the gradient of every
+  weight that the whole work used.
 
 The rules never name ``pod``: every pod holds the same blocks, sharded over
 its own ``data`` and ``model`` ranks, and every collective above runs on a
@@ -107,6 +113,12 @@ def sharded(mesh) -> bool:
 def model_parallel(mesh):
     """``mesh`` where its model axis is above 1, else None (no TP)."""
     return mesh if sharded(mesh) and mesh.size("model") > 1 else None
+
+
+def model_split(tp, n: int):
+    """``tp`` where a dim of ``n`` divides over its model axis, else None:
+    ``fit_pspec`` keeps such a dim whole on every model rank."""
+    return tp if tp is not None and n % tp.size("model") == 0 else None
 
 
 def named_leaves(tree, prefix=""):

@@ -99,19 +99,94 @@ def _reference_state_bytes(ref_dryrun, arch, multi_pod):
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
 def test_train_state_bytes_equal_the_reference_rules(multi_pod, ref_dryrun):
     for arch in ARCHS:
-        if arch == "xlstm-1.3b":
-            with pytest.raises(NotImplementedError, match="do not all divide by model 16"):
-                dryrun.build_rank(arch, "train_4k", multi_pod, "sync")
-            continue
         _, _, mesh, run, model = dryrun.build_rank(arch, "train_4k", multi_pod, "sync")
         got = dryrun.tree_bytes(init_train_state(model, run, mesh))
         assert got == _reference_state_bytes(ref_dryrun, arch, multi_pod), arch
 
 
 def test_refused_cell_is_written_skipped(tmp_path):
-    rec = dryrun.run_cell("xlstm-1.3b", "train_4k", False, "sync", str(tmp_path))
-    assert rec["skipped"].startswith("refused: xlstm-1.3b: query heads 4")
+    """A cell that the port still refuses (deepseek-v2's 160 experts in the
+    2-D layout over 256 ranks) is written ``skipped`` with the refusal."""
+    rec = dryrun.run_cell("deepseek-v2-236b", "train_4k", False, "sync", str(tmp_path),
+                          expert_sharding="ep2d")
+    assert rec["skipped"].startswith(
+        "refused: deepseek-v2-236b: 160 experts do not divide over 256 ranks")
     assert json.loads((tmp_path / (rec["cell"] + ".json")).read_text()) == rec
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_slstm_loop_counts_one_step_times_t_as_the_loop(kind, monkeypatch):
+    """On ``meta`` a loop over more than one step (the sLSTM's over time,
+    the mLSTM's over chunks) runs one step and counts it once per step
+    (``kernels.work.repeated``), forward and backward, with the sums
+    between the steps' gradients: its FLOPs and HBM bytes equal those of
+    the loop run step by step (``xlstm._counted`` false), for smoke
+    xlstm-1.3b's prefill and train step (2 microbatches under remat) over
+    24 tokens (3 chunks of 8)."""
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    shape = ShapeConfig("t", 24, 4, kind)
+    real, loops = xlstm._CountedLoop.apply, []
+    monkeypatch.setattr(xlstm._CountedLoop, "apply",
+                        lambda *a: loops.append(a[6].shape[a[1]]) or real(*a))
+    counts = {}
+    for name in ("one step", "loop"):
+        if name == "loop":
+            monkeypatch.setattr(xlstm, "_counted", lambda x, dim: False)
+        *_, counted = dryrun.run_rank("xlstm-1.3b", shape, False, "sync", microbatches=2,
+                                      cfg=cfg, mesh_shape=((1, 1), ("data", "model")))
+        counts[name] = (counted.flops, counted.bytes)
+        if name == "one step":  # each block's loop took one step: 3 chunks, 24 steps
+            assert set(loops) == {3, 24}
+            loops.clear()
+    assert not loops
+    assert counts["one step"] == counts["loop"]
+    assert counts["loop"][0] > 0
+
+
+@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
+def test_counted_loop_holds_what_the_loop_saves(kind, monkeypatch):
+    """On ``meta`` the counted loop holds, in the live bytes until its
+    backward, ``n`` times what one step between the first and the last
+    saves for the backward (``xlstm._saved_by_steps``): no less than, and
+    within 10 % of, the bytes of the storages that autograd saves over the
+    whole loop on the CPU (the first step saves less: its state takes no
+    gradient), the inputs' own storages aside; smoke xlstm-1.3b's sLSTM
+    over 24 steps and an mLSTM of 4 heads over 3 chunks of 8."""
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    B, T, D, H = 4, 24, cfg.d_model, cfg.num_heads
+
+    def loop(dev):
+        g = torch.Generator().manual_seed(0)
+        new = lambda *s: torch.randn(*s, generator=g).to(dev).requires_grad_()
+        if kind == "slstm":
+            wx, r = new(B, T, 4 * D), new(4, H, D // H, D // H)
+            state = xlstm.SLSTMState(*(torch.zeros(B, D, device=dev) for _ in range(4)))
+            return lambda: xlstm._slstm_scan_local(r, wx, state, cfg), (wx,)
+        ins = new(B, T, H, 8), new(B, T, H, 8), new(B, T, H, 16), new(B, T, H), new(B, T, H)
+        state = xlstm.MLSTMState(torch.zeros(B, H, 8, 16, device=dev),
+                                 torch.zeros(B, H, 8, device=dev), torch.zeros(B, H, device=dev))
+        return lambda: xlstm.mlstm_chunkwise(*ins, state, 8), ins
+
+    run, ins = loop("cpu")
+    saved, skip = {}, {t.untyped_storage()._cdata for t in ins}
+
+    def pack(t):
+        if t.untyped_storage()._cdata not in skip:
+            saved[t.untyped_storage()._cdata] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        run()
+    real, held = xlstm._saved_by_steps, []
+    monkeypatch.setattr(xlstm, "_saved_by_steps",
+                        lambda *a: held.append(real(*a)) or held[-1])
+    loop("meta")[0]()
+    assert len(held) == 1
+    assert sum(saved.values()) <= held[0].numel() <= 1.1 * sum(saved.values())
 
 
 # ----------------------------------------------------- FLOPs on meta --

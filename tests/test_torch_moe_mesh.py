@@ -425,9 +425,14 @@ def test_experts_that_do_not_divide_are_refused():
 def test_rglru_at_model_2_is_refused():
     """RG-LRU blocks take model 2 where their width divides
     (``tests/test_torch_tp_recurrent.py`` holds them to JAX); a width that
-    does not divide is refused by name."""
+    does not divide is no longer refused: the rules leave every weight of
+    the block whole, and the block's state is whole on every rank
+    (``tests/test_torch_tp_uneven.py`` holds such a block to JAX).  The
+    name is the one the test had when that width was refused."""
     cfg = get_config("recurrentgemma-9b", smoke=True)
     Model(cfg, device="cpu", mesh=_mesh((1, 2)))
     odd = cfg.with_overrides(rglru=dataclasses.replace(cfg.rglru, width=65))
-    with pytest.raises(NotImplementedError, match="RG-LRU width 65"):
-        Model(odd, device="cpu", mesh=_mesh((1, 2)))
+    model = Model(odd, device="cpu", mesh=_mesh((1, 2)))
+    assert all(model.layout[f"blocks.b0.rec.{k}"].dim_of("model") is None
+               for k in ("w_x", "w_a", "w_out", "conv_w"))
+    assert model.cache(2, 8)["blocks"]["b0"].h.shape[-1] == 65

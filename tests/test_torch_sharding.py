@@ -290,15 +290,31 @@ def test_model_axis_4_splits_the_kv_heads_head_dim(arch):
 
 
 def test_model_axis_refuses_heads_that_do_not_divide():
-    """Smoke llama has 4 query heads over 2 KV heads: model 3 splits
-    neither; and KV heads whose count and ``K·hd`` columns both do not
-    divide are refused by name, the query heads and d_ff dividing."""
-    with pytest.raises(NotImplementedError, match="do not all divide"):
-        Model(get_config("llama3.2-1b", smoke=True), device="cpu", mesh=_mesh((1, 3)))
-    cfg = get_config("llama3.2-1b", smoke=True).with_overrides(
-        num_heads=6, num_kv_heads=1, head_dim=5, d_ff=96)
-    with pytest.raises(NotImplementedError, match="KV heads 1 and their 5 columns"):
-        Model(cfg, device="cpu", mesh=_mesh((1, 3)))
+    """No width is refused on ``model`` any more: a rank holds what
+    ``fit_pspec`` gives it.  Smoke llama's 4 query heads over 2 KV heads on
+    model 3: nothing of the attention or the FFN splits, so every rank holds
+    them whole and runs them whole (``gqa_layout`` "whole"); 6 query heads
+    over one KV head of 5 columns: the query heads split and ``wk``/``wv``
+    stay whole ("kv_whole"), and the cache holds the whole KV head.
+    ``tests/test_torch_tp_uneven.py`` holds such layouts to JAX.  The name
+    is the one the test had when such heads were refused."""
+    from repro_torch.models.attention import gqa_layout
+
+    cfg = get_config("llama3.2-1b", smoke=True)
+    model = Model(cfg, device="cpu", mesh=_mesh((1, 3)))
+    assert gqa_layout(cfg, 3) == "whole"
+    whole = Model(cfg, device="cpu").state_dict()
+    for key in ("blocks.b0.attn.wq", "blocks.b0.attn.wk", "blocks.b0.attn.wo",
+                "blocks.b0.ffn.wi", "blocks.b0.ffn.wo"):
+        assert model.state_dict()[key].shape == whole[key].shape, key
+    cfg = cfg.with_overrides(num_heads=6, num_kv_heads=1, head_dim=5, d_ff=96)
+    model = Model(cfg, device="cpu", mesh=_mesh((1, 3)))
+    assert gqa_layout(cfg, 3) == "kv_whole"
+    p = model.blocks.layer(0)["b0"]["attn"]
+    assert tuple(p["wq"].shape) == (cfg.d_model, 10)
+    assert tuple(p["wk"].shape) == tuple(p["wv"].shape) == (cfg.d_model, 5)
+    cache = model.cache(3, 8)["blocks"]["b0"]
+    assert tuple(cache.k.shape) == (model.plan.n_scan, 3, 8, 1, 5)
 
 
 def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():

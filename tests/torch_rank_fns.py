@@ -151,8 +151,12 @@ def train_fp32(arch, shape, steps, run_kw, resume=False, axes=POD_DATA):
 
 def _fp32(arch, moe=None, over=None):
     """``arch``'s smoke config in fp32, its MoE config's fields ``moe``
-    (a dict) replaced, and its own fields ``over`` (a dict)."""
-    cfg = get_config(arch, smoke=True).with_overrides(dtype="float32", **(over or {}))
+    (a dict) replaced, and its own fields ``over`` (a dict; a dict value
+    replaces fields of that sub-config, as ``{"rglru": {"width": 60}}``)."""
+    cfg = get_config(arch, smoke=True)
+    over = {k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict) else v
+            for k, v in (over or {}).items()}
+    cfg = cfg.with_overrides(dtype="float32", **over)
     return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **moe)) if moe else cfg
 
 
@@ -295,6 +299,22 @@ def tp_logits(arch, shape, params, prompts, max_len, moe=None, over=None, fault=
     model = _sharded(arch, params, mesh, moe, over)
     with getattr(_chip_smoke(), fault)() if fault else contextlib.nullcontext():
         return _logits(model, prompts, max_len)
+
+
+def tp_grads(arch, shape, params, tokens, keys=None, over=None, fault=None):
+    """The gradients of the leaves ``keys`` (every leaf if None) of the loss
+    of ``arch`` (smoke, fp32, fields ``over``, from the whole ``params``)
+    over ``tokens`` ``[B, T + 1]`` on a ``(data, model)`` mesh of ``shape``,
+    gathered whole from the ranks' blocks; under ``fault``, the context
+    manager of ``chip_smoke.py`` of that name."""
+    mesh = make_mesh(shape, DATA_MODEL, "cpu")
+    model = _sharded(arch, params, mesh, None, over)
+    named = dict(model.named_parameters())
+    keys = list(named) if keys is None else keys
+    with getattr(_chip_smoke(), fault)() if fault else contextlib.nullcontext():
+        grads = torch.autograd.grad(model.loss(_batch(tokens, model.cfg))[0],
+                                    [named[k] for k in keys])
+    return _numpy(gather_tree(dict(zip(keys, grads)), model.layout, mesh))
 
 
 def _logits(model, prompts, max_len):
