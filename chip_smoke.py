@@ -350,12 +350,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    the fp32 gradient of the whole ``wq`` on 6(e)'s slope row on every rank
    against one rank's within ``TPR_GRAD_RTOL``, and the planted fault
    (:func:`plain_column_cut`: the cut as a plain slice) outside it.
+15. MoE on counts that do not divide: phase 9's cut of deepseek-v2-236b on
+   ``ep2d`` with 16 groups over ``(data 3, model 1)`` (``UNEVEN_EP_MESH``),
+   three ranks spawned as phase 7's (:func:`uneven_ep_rank`; built one at a
+   time unless three ranks' init peaks leave ``EP_POD_AT_ONCE_FREE`` free):
+   the 160 experts do not divide over 3, so every rank holds and runs all of
+   them, and the 16 groups of 768 tokens straddle the ranks' 4096.  Serving
+   one row of 4096 a rank and 2 generated tokens (``UNEVEN_EP_SERVE``),
+   held by :func:`check_uneven_ep_serving` to one rank's prefill and decode
+   of the same rows (:func:`ep_serve_reference` of this config): logits
+   within ``EP_LOGITS_RTOL``, first tokens equal, every rank's 160 experts,
+   each group's bytes equal to :func:`uneven_ep_wire_bytes`, every MoE
+   call's slot offsets equal to the counts of its group's pieces on the
+   ranks before (:func:`piece_offsets`), and a planted fault that takes
+   each rank's own counts (:func:`own_counts`) must fail that probe.
 
-In phases 8-12 and 14 every rank prints its peak memory right after its sharded
+In phases 8-12, 14 and 15 every rank prints its peak memory right after its sharded
 model is built, the peak statistics reset before the build
 (:func:`build_peaks`).
 
-Before each of phases 3-12 and 14 a ``[memory]`` line prints what the phases before
+Before each of phases 3-12, 14 and 15 a ``[memory]`` line prints what the phases before
 it left allocated on the card, which adds to every later peak reading.  The
 last lines are the script's seconds (and whether they passed ``TARGET_S``),
 the kernels' JSON record, the card's
@@ -433,6 +447,9 @@ FLASH_SLICES = {  # prefill attention of each main path
     # recurrentgemma-9b's prefill on a rank of model 2 (phase 10(a)): its 8
     # query heads over the one KV head, gathered whole (the head-dim split).
     "recurrentgemma-9b model 2": (4, 4096, 8, 1, 256, 256, True, 2048, "bfloat16"),
+    # deepseek-v2-236b's MLA prefill on a rank of data 3 (phase 15): one row
+    # of 4096 at all 128 heads.
+    "deepseek-v2-236b data 3": (1, 4096, 128, 128, 192, 128, True, 0, "bfloat16"),
 }
 # The plain versions run over slices of the KV heads whose fp32 scores take at
 # most this many bytes: whole, MLA's 128 heads would not fit the card
@@ -727,13 +744,14 @@ INTERNVL2_TRAIN_BF16_TOL = {"loss": 6e-5, "grad": 2e-2, "norm": 7e-4}
 # phase 6(c)'s 1 x 4096 microbatch), steps per mode, peak learning rate.
 # Warmup 0, so that the first update moves the parameters (local mode's pods
 # must part after step 1); 6(c)'s warmup of 2 would not.  Cut from 3 steps a
-# mode to 2, and from 16 layers to POD_LAYERS, to make room for phase 11 in
-# the script's time: local's pods still part after step 1 and meet after
-# step 2 (its parting again after step 3, and int8's third step of error
-# feedback, are left to tests/test_torch_multipod_train.py on the CPU);
+# mode to 2, and from 16 layers to 8 and then to POD_LAYERS, to make room
+# for phases 11 and 15 in the script's time: local's pods still part after
+# step 1 and meet after step 2 (its parting again after step 3, and int8's
+# third step of error feedback, are left to tests/test_torch_multipod_train.py
+# on the CPU);
 # phase 11 trains every pod mode at published depth.
 POD_TRAIN = ("llama3.2-1b", 8, 4096, 4, 2, 3e-4)
-POD_LAYERS = 8
+POD_LAYERS = 4
 POD_MESH = ((2, 1), ("pod", "data"))
 POD_MODES = (("flat", {"sync_mode": "flat"}), ("sync", {"sync_mode": "sync"}),
              ("sync+int8", {"sync_mode": "sync", "compress_int8": True}),
@@ -906,6 +924,24 @@ EP_POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
 # The free memory that four ranks' init peaks must leave for phase 12 to
 # build its ranks at once.
 EP_POD_AT_ONCE_FREE = 8e9
+# Phase 15: MoE on counts that do not divide.  deepseek-v2-236b at phase 9's
+# cut (EP_LAYERS of 60 layers: the dense lead and one MoE layer of 160
+# experts top-6 and 2 shared) on ep2d with 16 groups, over (data 3, model 1):
+# three ranks share the card, their exchanges over gloo.  160 experts do not
+# divide over 3 ranks (fit_pspec leaves wi and wo whole: every rank holds and
+# runs all of them), and 16 groups of 768 tokens straddle the three ranks'
+# 4096 each; d_model 5120 and the vocab do not divide by 3 either, so a rank
+# holds nearly the whole 5.36 G parameters.  With model 1 the reference's
+# fault on (3, 2) (ROADMAP's Queue 3) does not arise.  Served: one row of
+# 4096 prompt tokens a rank and 2 generated tokens (rows, prompt, generated),
+# held to one rank's prefill and decode of the same three rows, routed in the
+# reference's 16 groups of the whole batch; the ranks' slot offsets probed
+# (piece_offsets) and the planted fault (own_counts: each rank's pieces
+# offset by nothing, their groups' counts its own) must fail the probe.  A
+# training step does not fit one card (three replicas of gradients and
+# moments); CPU ranks hold it to JAX (tests/test_torch_moe_uneven.py).
+UNEVEN_EP_MESH = ((3, 1), ("data", "model"))
+UNEVEN_EP_SERVE = (3, 4096, 2)
 # Phase 13: the dry run (launch/dryrun.py) on this machine's CPU, every
 # tensor on the meta device.  (b) The one-card cells that earlier phases
 # measured, at their settings: name, arch, (positions, rows, kind),
@@ -2554,25 +2590,28 @@ def ep_wire_bytes(cfg, model_size, rows, seq):
             "world": allreduce_wire_bytes(4, M)}
 
 
-def ep_serve_reference(serving, pods=1, smoke=False, device="cuda", decode=False):
+def ep_serve_reference(serving, pods=1, smoke=False, device="cuda", decode=False, cfg=None):
     """The one-rank reference of phase 9's (``pods`` 1) or phase 12's
     (``pods`` 2) serving under :func:`island_groups`: the last-token logits
     (numpy ``[batch, V]``) of the prefill of ``serving``'s request (rows,
     prompt, generated tokens; ``serve()``'s weights and prompts); with
     ``decode``, also the logits of the first decode step and ``serve()``'s
-    greedy tokens ``[batch, generated]``."""
+    greedy tokens ``[batch, generated]``.  With ``cfg`` (phase 15's), that
+    config routed as one device routes it, in the reference's groups of the
+    whole batch."""
     import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.models import Model, input_specs
 
-    cfg, M, dev = ep_config(smoke), EP_MESH[0][1], torch.device(device)
+    routed = island_groups(EP_MESH[0][1], pods) if cfg is None else contextlib.nullcontext()
+    cfg, dev = cfg or ep_config(smoke), torch.device(device)
     batch, prompt_len, gen_len = serving
     model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
     prompts = input_specs(cfg, ShapeConfig("serve", prompt_len, batch, "prefill"),
                           generator=torch.Generator(dev).manual_seed(1), device=dev)
     out = {}
-    with island_groups(M, pods):
+    with routed:
         logits, caches = model.prefill(prompts, prompt_len + gen_len)
         out["logits"] = logits[:, -1].float().cpu().numpy()
         tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -3171,6 +3210,264 @@ def check_ep_pod_serving(ranks, cfg, batch, prompt_len, ref, smi):
     one = shard_bytes(cfg, (1, 1))[0]
     for rank, r in enumerate(ranks):
         print(f"[eppod] serving rank {rank} {r['coords']} on {r['device']}: parameters "
+              f"{r['param_bytes']} B against one rank's {one} B ({r['param_bytes'] / one:.4f})"
+              + (f", peak memory {r['peak_gb']:.2f} GB, mem_get_info free "
+                 f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
+                 if "peak_gb" in r else ""))
+    return worst
+
+
+def uneven_ep_config(smoke=False):
+    """Phase 15's config: deepseek-v2-236b (published widths, or smoke width)
+    cut to ``EP_LAYERS`` layers, its experts on ``ep2d`` in 16 groups."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(EP_SERVE[0], smoke=smoke)
+    return cfg.with_overrides(num_layers=EP_LAYERS, moe=dataclasses.replace(
+        cfg.moe, expert_sharding="ep2d", groups=16))
+
+
+@contextlib.contextmanager
+def piece_offsets(log, on):
+    """Phase 15's probe: ``models/moe.py``'s ``_piece_offsets`` wrapped;
+    while ``on[0]``, each call appends to ``log`` the groups of the rank's
+    pieces, their ``[P, E]`` counts and the ``[P, E]`` slot offsets it
+    returns (numpy), which the pieces' slots start from."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod._piece_offsets
+
+    def offsets(counts, pc):
+        offset, total = real(counts, pc)
+        if on[0]:
+            log.append((list(pc.groups), counts.cpu().numpy(), offset.cpu().numpy()))
+        return offset, total
+
+    moe_mod._piece_offsets = offsets
+    try:
+        yield
+    finally:
+        moe_mod._piece_offsets = real
+
+
+@contextlib.contextmanager
+def own_counts():
+    """Phase 15's planted fault: each rank's pieces take their offsets and
+    their groups' counts from the rank's own counts (offsets 0, as if every
+    group it touches lay whole on it), with no exchange."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod._piece_offsets
+    moe_mod._piece_offsets = lambda counts, pc: (torch.zeros_like(counts), counts)
+    try:
+        yield
+    finally:
+        moe_mod._piece_offsets = real
+
+
+def uneven_ep_wire_bytes(cfg, batch, positions):
+    """Each group's wire bytes per rank of one prefill over ``positions`` (1:
+    one decode step) of ``batch`` global rows on ``UNEVEN_EP_MESH``: on
+    ``data``, each leaf that splits over it gathered once (the FSDP gather on
+    use); on the rows' group (``(pod, data)``, named ``world`` at model 1),
+    where the MoE groups straddle or span the row ranks, per MoE layer the
+    all-gather of every rank's ``[G, E]`` int64 counts."""
+    from repro_torch.core.asymmetry import all_gather_wire_bytes
+    from repro_torch.launch.mesh import meta_mesh
+    from repro_torch.models import Model, layer_plan
+    from repro_torch.models.moe import Rows, pieces
+    from repro_torch.sharding.shard import ROWS
+
+    (D, _), axes = UNEVEN_EP_MESH
+    mesh = meta_mesh(*UNEVEN_EP_MESH)
+    model = Model(cfg, mesh=mesh)
+    out = {"data": sum(all_gather_wire_bytes(D * p.numel() * p.element_size(), D)
+                       for k, p in model.state_dict().items()
+                       if model.layout[k].dim_of("data") is not None)}
+    pc = pieces(batch // D * positions, cfg.moe, Rows(mesh))
+    if pc.rows is not None:
+        n_moe = cfg.num_layers - len(layer_plan(cfg).lead)
+        out[cpu_mesh(*UNEVEN_EP_MESH).group_name(ROWS)] = n_moe * all_gather_wire_bytes(
+            D * pc.n_groups * cfg.moe.num_experts * 8, D)
+    return {g: b for g, b in out.items() if b}
+
+
+def uneven_ep_rank(batch, prompt_len, gen_len, smoke=False, device=None, at_once=False):
+    """One rank of phase 15, spawned: ``serve()`` of :func:`uneven_ep_config`
+    on ``UNEVEN_EP_MESH`` (the model built :func:`one_at_a_time` unless
+    ``at_once``) with the launches counted from zero around it,
+    ``Model.prefill`` and ``decode_step`` wrapped to record the logits,
+    launches and wire bytes of each call and the choices each MoE call
+    dropped, and the slot offsets of every MoE call read by
+    :func:`piece_offsets`; then the same model's prefill of the same
+    prompts under :func:`own_counts`, the offsets read again."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model, input_specs, rank_inputs
+
+    cfg, rec, drops, offsets, on = uneven_ep_config(smoke), {}, [], [], [True]
+    recorded = recorded_model(rec, drops)
+    real = serve_mod.Model, serve_mod.get_config
+    serve_mod.Model = recorded if at_once else one_at_a_time(recorded)
+    serve_mod.get_config = lambda a, smoke=False: cfg
+    try:
+        with counted_plain_calls() as plain, counted_drops(drops), piece_offsets(offsets, on):
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            res = serve_mod.serve(cfg.name, smoke=smoke, batch=batch, prompt_len=prompt_len,
+                                  gen_len=gen_len, mesh_shape=UNEVEN_EP_MESH[0],
+                                  mesh_axes=UNEVEN_EP_MESH[1], device=device)
+            launches = launch_counts()
+    finally:
+        serve_mod.Model, serve_mod.get_config = real
+    model = rec.pop("model")
+    mesh = model.mesh
+    out = {"tokens": res["tokens"].numpy(), "prefill_s": res["prefill_seconds"],
+           "decode_ms": res["decode_seconds_per_token"] * 1e3, "launches": launches,
+           "plain": dict(plain), "backends": dict(mesh.backends), "device": str(mesh.device),
+           "coords": dict(mesh.coords), "exchange_s": dict(mesh.traffic.seconds),
+           "offsets": offsets, "experts": int(model.blocks["b0"]["ffn"]["wi"].shape[1]),
+           "decode_drops": sum(int(d) for d in drops) - sum(rec["prefill_drops"]), **rec}
+    if device is None:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["mem_get_info"] = [x / 1e9 for x in torch.cuda.mem_get_info()]
+    del res
+    pshape = ShapeConfig("serve", prompt_len, batch, "prefill")
+    prompts = rank_inputs(input_specs(cfg, pshape,
+                                      generator=torch.Generator(mesh.device).manual_seed(1),
+                                      device=mesh.device), cfg, pshape, mesh)
+    fault = []
+    # The plain model's method: the recording one would add to the records.
+    with own_counts(), piece_offsets(fault, [True]):
+        Model.prefill(model, prompts, prompt_len + gen_len)
+    out["fault_offsets"] = fault
+    return out
+
+
+def check_piece_offsets(ranks, key="offsets"):
+    """Phase 15's probe over the ranks' ``key`` logs (:func:`piece_offsets`,
+    one entry per MoE call): in every call each rank's piece of group g
+    starts each expert's slots at the sum of that expert's counts in group
+    g's pieces on the data ranks before it, and at least one offset is above
+    0 (else the probe cannot tell a group that straddles the ranks from one
+    whole on a rank).  Returns the number of offsets above 0 read; raises
+    where one differs."""
+    import numpy as np
+
+    by = sorted(ranks, key=lambda r: r["coords"]["data"])
+    calls = {len(r[key]) for r in by}
+    if len(calls) != 1 or not calls.pop():
+        raise AssertionError(f"the ranks read {[len(r[key]) for r in by]} MoE calls' offsets")
+    seen = 0
+    for j in range(len(by[0][key])):
+        before = {}
+        for r in by:
+            groups, counts, offset = r[key][j]
+            for g, c, o in zip(groups, counts, offset):
+                want = before.get(g, np.zeros_like(c))
+                if not np.array_equal(o, want):
+                    bad = np.flatnonzero(o != want)
+                    raise AssertionError(
+                        f"data rank {r['coords']['data']}, MoE call {j}, group {g}: {bad.size} "
+                        f"experts, {bad[:6].tolist()} first, start at slots "
+                        f"{o[bad[:6]].tolist()}, the counts of its pieces on the ranks before "
+                        f"are {want[bad[:6]].tolist()}: the group does not straddle the ranks")
+                seen += int((o > 0).sum())
+                before[g] = want + c
+    if not seen:
+        raise AssertionError("no piece had an offset above 0: the probe cannot tell a group "
+                             "that straddles the ranks from one whole on a rank")
+    return seen
+
+
+def check_uneven_ep_serving(ranks, cfg, batch, prompt_len, ref, smi):
+    """Phase 15's checks and lines over the ranks' :func:`uneven_ep_rank`
+    records, against the one-rank ``ref`` (:func:`ep_serve_reference` of
+    phase 15's config: logits, decode_logits, tokens): each rank's prefill
+    held its data share of the rows; its prefill's and first decode step's
+    last-token logits within ``EP_LOGITS_RTOL`` in relative L2 of the one
+    rank's for those rows; every rank's first tokens the one rank's; every
+    rank holds every expert; each group's bytes of the prefill and of each
+    decode step equal :func:`uneven_ep_wire_bytes`; the slot offsets of
+    every MoE call straddle the ranks (:func:`check_piece_offsets`) and the
+    planted fault's do not; on the card (``smi`` not None) one flash launch
+    a prefill per MLA layer on ``wgmma`` on every rank, none in decode, and
+    no call of a plain version (on the CPU: no launch).  Returns the largest
+    relative L2."""
+    import numpy as np
+
+    (D, _), E = UNEVEN_EP_MESH[0], cfg.moe.num_experts
+    share = batch // D
+    pf, dc = (uneven_ep_wire_bytes(cfg, batch, n) for n in (prompt_len, 1))
+    worst, gaps = 0.0, []
+    for rank, r in enumerate(ranks):
+        rows = slice(r["coords"]["data"] * share, (r["coords"]["data"] + 1) * share)
+        for what, got, want in (("prefill", r["logits"], ref["logits"][rows]),
+                                ("decode", r["decode_logits"], ref["decode_logits"][rows])):
+            gap = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            worst, gaps = max(worst, gap), gaps + [gap]
+            if not gap <= EP_LOGITS_RTOL:
+                raise AssertionError(f"rank {rank} {r['coords']}: {what} logits {gap:.3e} from "
+                                     f"one rank's (limit {EP_LOGITS_RTOL})")
+        if r["prefill_rows"] != share:
+            raise AssertionError(f"rank {rank} {r['coords']}: its prefill held "
+                                 f"{r['prefill_rows']} rows, its data share is {share} of "
+                                 f"{batch}")
+        if not np.array_equal(r["tokens"][:, 0], ref["tokens"][:, 0]):
+            raise AssertionError(f"rank {rank}: first tokens {r['tokens'][:, 0]} differ from "
+                                 f"one rank's {ref['tokens'][:, 0]}")
+        if r["experts"] != E:
+            raise AssertionError(f"rank {rank}: holds {r['experts']} of the {E} experts")
+        for what, got, want_b in (("prefill", [r["prefill_bytes"]], pf),
+                                  ("decode", r["decode_bytes"], dc)):
+            if any(g != want_b for g in got):
+                raise AssertionError(f"rank {rank}: {what} wire bytes {got[:2]}, asymmetry's "
+                                     f"formulas {want_b}")
+        flash = {k: v for k, v in r["prefill_launches"].items() if v}
+        decode = {k: v for d in r["decode_launches"] for k, v in d.items() if v}
+        if smi is not None:
+            n = forward_flash_calls(cfg)
+            if (flash != {"flash_attention": n, "flash_attention:wgmma": n} or decode
+                    or r["plain"]):
+                raise AssertionError(f"rank {rank}: prefill launches {flash}, decode {decode}, "
+                                     f"plain versions {r['plain']}; expected {n} flash, all "
+                                     "wgmma, and no plain call")
+        elif flash or decode:
+            raise AssertionError(f"rank {rank}: launches on the CPU")
+    seen = check_piece_offsets(ranks)
+    try:
+        check_piece_offsets(ranks, "fault_offsets")
+    except AssertionError as e:
+        fault = str(e)
+    else:
+        raise AssertionError("the planted fault's slot offsets (each rank's own counts) pass "
+                             "the probe: it cannot tell")
+    print(f"[unevenep] serving {cfg.name} ({cfg.num_layers} layers, {E} experts top-"
+          f"{cfg.moe.top_k} on {cfg.moe.expert_sharding}, {cfg.moe.groups} groups) on "
+          f"{dict(zip(*reversed(UNEVEN_EP_MESH)))}: every rank holds {E} experts; each rank's "
+          f"prefill held {[r['prefill_rows'] for r in ranks]} of {batch} rows; prefill and "
+          f"first decode logits against one rank's (the reference's groups of the whole "
+          f"batch), relative L2 {[round(g, 6) for g in gaps]} (limit {EP_LOGITS_RTOL}); first "
+          f"tokens equal; slot offsets of every MoE call equal the counts of the pieces before "
+          f"them ({seen} offsets above 0 read), the planted fault (each rank's own counts): "
+          f"{fault}; prefill s {[round(r['prefill_s'], 4) for r in ranks]}, decode ms/token "
+          f"{[round(r['decode_ms'], 3) for r in ranks]}; exchange s by group "
+          f"{[{g: round(t, 4) for g, t in r['exchange_s'].items()} for r in ranks]}; wire bytes "
+          f"per prefill {ranks[0]['prefill_bytes']} and per token {ranks[0]['decode_bytes'][0]} "
+          f"= the formulas ({pf}, {dc}); dropped choices in the prefill by rank "
+          f"{[r['prefill_drops'] for r in ranks]}, in decode {[r['decode_drops'] for r in ranks]}"
+          f"; flash launches per rank and prefill "
+          f"{[r['prefill_launches'].get('flash_attention', 0) for r in ranks]} (wgmma "
+          f"{[r['prefill_launches'].get('flash_attention:wgmma', 0) for r in ranks]}); calls of "
+          f"the plain versions {ranks[0]['plain']}; backends {ranks[0]['backends']}; {smi}")
+    one = shard_bytes(cfg, (1, 1))[0]
+    for rank, r in enumerate(ranks):
+        print(f"[unevenep] serving rank {rank} {r['coords']} on {r['device']}: parameters "
               f"{r['param_bytes']} B against one rank's {one} B ({r['param_bytes'] / one:.4f})"
               + (f", peak memory {r['peak_gb']:.2f} GB, mem_get_info free "
                  f"{r['mem_get_info'][0]:.2f} of {r['mem_get_info'][1]:.2f} GB"
@@ -4231,7 +4528,7 @@ def xlstm_step_flops(cfg, n_params: int, rows: int, T: int):
 def build_peaks(tag: str):
     """A context in which every ``Model`` built on a sharded mesh on the card
     has the card's peak statistics reset before its build and prints the
-    rank's peak memory right after it (phases 8-12)."""
+    rank's peak memory right after it (phases 8-12, 14 and 15)."""
     import torch
 
     from repro_torch.models import transformer
@@ -6415,6 +6712,45 @@ def main() -> int:
     mark("14")
     arch = UNEVEN_SERVE[0][0]
     uneven_phase(smi, tpr_logits[arch], tpr_first[arch])
+
+    # ------------ 15. MoE on counts that do not divide --
+    # deepseek-v2-236b at phase 9's cut on ep2d with 16 groups over (data 3,
+    # model 1): 160 experts whole on every rank, groups that straddle the
+    # data ranks; one row a rank served, held to one rank of the same rows;
+    # the ranks' slot offsets probed.
+    held(15)
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    cfg = uneven_ep_config()
+    batch, prompt_len, gen_len = UNEVEN_EP_SERVE
+    n_ranks = math.prod(UNEVEN_EP_MESH[0])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    print(f"[unevenep] {n_ranks} ranks sharing one {name} ({limit}); the data group's exchange "
+          "over gloo through host memory" if torch.cuda.device_count() < n_ranks
+          else f"[unevenep] {n_ranks} ranks, each on its own {name} ({limit})")
+    ref = ep_serve_reference(UNEVEN_EP_SERVE, decode=True, cfg=cfg)
+    print(f"[unevenep] one-rank reference in {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
+    blocks, draw, block = init_need(cfg, UNEVEN_EP_MESH)
+    need = n_ranks * (blocks + draw + block)
+    free, total = torch.cuda.mem_get_info()
+    at_once = free - need >= EP_POD_AT_ONCE_FREE
+    print(f"[unevenep] a rank's init peak, counted on meta: parameter blocks "
+          f"{blocks / 1e9:.3f} GB + the largest whole fp32 draw {draw / 1e9:.3f} GB + its block "
+          f"{block / 1e9:.3f} GB; {n_ranks} ranks at once need {need / 1e9:.3f} GB; "
+          f"mem_get_info free {free / 1e9:.2f} of {total / 1e9:.2f} GB: the ranks build "
+          + ("at once" if at_once else "one at a time")
+          + f" (at once where {EP_POD_AT_ONCE_FREE / 1e9:g} GB are left)")
+    mark("15's ranks")
+    ranks = spawn_ranks(peaks_rank, n_ranks, ("unevenep", uneven_ep_rank, batch, prompt_len,
+                                              gen_len, False, None, at_once), timeout=600)
+    check_uneven_ep_serving(ranks, cfg, batch, prompt_len, ref, smi)
+    records[("flash_attention", f"{cfg.name} data 3")]["launches"] = (
+        ranks[0]["prefill_launches"]["flash_attention"])
+    del ranks, ref
+    print(f"[unevenep] {cfg.name} at published widths, {cfg.num_layers} of 60 layers: served "
+          f"on {UNEVEN_EP_MESH[0]} over {UNEVEN_EP_MESH[1]}: phase 15 took "
+          f"{time.perf_counter() - t15:.1f} s; {smi}")
 
     ran = time.perf_counter() - started
     print(f"[time] chip_smoke.py ran {ran:.1f} s"

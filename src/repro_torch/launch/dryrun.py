@@ -28,12 +28,13 @@ HBM bytes per rank and the wire bytes per rank over NVLink and
 InfiniBand, ``launch/roofline.py``) and ``collectives`` (calls and wire
 bytes per group).  A cell that the model
 refuses on the mesh is written ``skipped`` with the refusal's text, as the
-reference writes ``shape_cells``' skips; only MoE cases are refused
-(``models/transformer.py::_check_mesh``: experts that do not divide over
-their ranks, an ``fsdp_f`` FFN dim that does not divide over ``data``; and
-``models/moe.py``'s group counts that straddle a rank).  A width that does
-not divide over ``model`` (xlstm-1.3b's 4 heads over 16) stays whole, as
-``fit_pspec`` leaves it.  A host read inside a step (``.item()``,
+reference writes ``shape_cells``' skips; only the expert-parallel island
+refuses, where the reference's ``shard_map`` raises (``models/moe.py``:
+expert weights that do not split evenly over ``model`` and ``data``), at
+the step's first MoE call.  A width that does not divide over its ranks
+(xlstm-1.3b's 4 heads over 16, deepseek-v2's 160 experts over ``ep2d``'s
+256) stays whole, as ``fit_pspec`` leaves it, and MoE groups may straddle
+row ranks.  A host read inside a step (``.item()``,
 ``int(t)``) fails on ``meta`` and is not caught.  Every operation runs
 through PyTorch's Python meta kernels and the counter's dispatch mode, so a
 cell takes from a second (prefill, decode) to two minutes (xlstm-1.3b's

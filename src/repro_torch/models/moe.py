@@ -34,24 +34,32 @@ reference's two routes:
   on use), or on ``(data, model)`` jointly (``ep2d``, the island's 2-D
   layout), where the weights never move: the slots of the experts that data
   rank ``d`` holds go to it by an all-to-all over ``data``, and the results
-  come back the same way.
+  come back the same way.  Where the experts do not divide over their ranks
+  (``fit_pspec`` leaves ``wi`` and ``wo`` whole), every model rank runs
+  every expert on the input before *f*: the output is whole and joins
+  after *g*.
 
 The microbatch is the rows of every rank on the step's row axes (``rows``:
 ``("pod", "data")`` in ``flat`` training and in every serving step, the
 reference's batch axes; ``("data",)`` in ``sync`` and ``local``, whose
-``vmap`` over pods routes each pod's rows alone).  With R row ranks and G
-groups, a rank holds G / R whole groups, or, where R / G is whole, one group
-spans R / G consecutive row ranks: an expert's slots continue across them in
-pod-major order (an all-gather of the ``[E]`` counts over the row ranks, of
-which each group reads its own ranks').  The island routes each model
+``vmap`` over pods routes each pod's rows alone).  Group g of G is the
+tokens ``[g·S/G, (g+1)·S/G)`` of its S tokens, in (row, position) order
+with the rows pod-major over the row ranks, whatever the row ranks' count:
+a rank's *pieces* are where its tokens meet the groups (:func:`pieces`).
+Where a group spans row ranks, one all-gather over them of each rank's
+``[G, E]`` counts gives each piece its slot offsets (its group's counts on
+the ranks before it) and its group's counts (:func:`_piece_offsets`); a
+rank fills only its own pieces' slots.  The island routes each model
 rank's slice of a rank's own rows; its capacity is per source slice on any
-row axes.
+row axes.  It raises where the reference's island raises: expert weights
+that its ``shard_map`` cannot split evenly.
 
 Either way the router runs whole on every model rank, on the FFN input
-before *f*, and its gates pass through *f*: a model rank's experts (or
-token slice) see only their share of the gates' gradient, which *f* sums,
-so the router's weights get the same whole gradient on every model rank.
-The experts read the input after *f*.
+before *f*, and where the experts split its gates pass through *f*: a model
+rank's experts (or token slice) see only their share of the gates'
+gradient, which *f* sums, so the router's weights get the same whole
+gradient on every model rank.  The experts that split read the input after
+*f*.
 """
 
 from __future__ import annotations
@@ -134,32 +142,34 @@ def _capacity(tokens_per_group: int, m: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for tiling
 
 
-def _ranks(router: torch.Tensor, xg: torch.Tensor, m: MoEConfig):
-    """The fp32 router over xg [G, S, D]: gates [G, S, k], the experts of
-    the (token, choice) pairs in (token, k) order [G, S*k], each pair's
-    rank among its expert's pairs [G, S*k], the counts [G, E] and the
-    probabilities [G, S, E]."""
-    G, S, _ = xg.shape
+def _ranks(router: torch.Tensor, x: torch.Tensor, m: MoEConfig, piece: torch.Tensor,
+           n_pieces: int):
+    """The fp32 router over the tokens x [N, D], cut into ``n_pieces`` pieces
+    (``piece`` [N]: each token's, ascending): gates [N, k], the experts of
+    the (token, choice) pairs in (token, k) order [N*k], each pair's rank
+    among its piece's pairs of its expert [N*k], the counts [P, E] and the
+    probabilities [N, E]."""
+    N = x.shape[0]
     E, k = m.num_experts, m.top_k
-    probs = _router_probs(xg.float() @ router, m)           # fp32 [G, S, E]
-    gates, idx = _topk_gates(probs, m)                      # [G, S, k]
-    flat_e = idx.reshape(G, S * k)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    ranks = torch.empty_like(order).scatter_(             # rank within group
-        -1, order, torch.arange(S * k, device=xg.device).expand(G, -1))
-    counts = torch.zeros((G, E), dtype=torch.int64, device=xg.device).scatter_add_(
-        -1, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, dim=-1) - counts          # exclusive prefix
-    pos = ranks - torch.gather(starts, -1, flat_e)
-    return gates, flat_e, pos, counts, probs
+    probs = _router_probs(x.float() @ router, m)            # fp32 [N, E]
+    gates, idx = _topk_gates(probs, m)                      # [N, k]
+    flat_e = idx.reshape(N * k)
+    key = piece.repeat_interleave(k) * E + flat_e           # (piece, expert)
+    order = torch.argsort(key, stable=True)
+    ranks = torch.empty_like(order).scatter_(0, order, torch.arange(N * k, device=x.device))
+    counts = torch.zeros(n_pieces * E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, dim=0) - counts           # exclusive prefix
+    return gates, flat_e, ranks - starts[key], counts.view(n_pieces, E), probs
 
 
 def _slots(flat_e: torch.Tensor, pos: torch.Tensor, C: int, E: int,
            local: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Each (token, choice)'s row of the capacity buffer of the experts
-    ``local`` (their global ids; every expert when None): the expert's index
-    there times C plus its position; ``n·C`` (n experts) for a choice that
-    drops (position C or more) or goes to an expert of another rank."""
+    """Each (token, choice)'s row of its piece's capacity buffer of the
+    experts ``local`` (their global ids; every expert when None): the
+    expert's index there times C plus its position; ``n·C`` (n experts) for
+    a choice that drops (position C or more) or goes to an expert of another
+    rank."""
     if local is None:
         return torch.where(pos < C, flat_e * C + pos, E * C)   # overflow → dropped
     n = local.numel()
@@ -170,11 +180,15 @@ def _slots(flat_e: torch.Tensor, pos: torch.Tensor, C: int, E: int,
 
 
 def _route(p, xg: torch.Tensor, m: MoEConfig, C: int):
-    """Router and capacity slots of xg [G, S, D]: (gates [G, S, k] fp32,
-    slot [G, S*k] in (token, k) order, E*C for a dropped choice, aux)."""
-    gates, flat_e, pos, counts, probs = _ranks(p["router"], xg, m)
-    aux = aux_load_balance_loss(probs, counts, m)
-    return gates, _slots(flat_e, pos, C, m.num_experts), aux
+    """Router and capacity slots of xg's G whole groups [G, S, D]: (gates
+    [G, S, k] fp32, slot [G, S*k] in (token, k) order, E*C for a dropped
+    choice, aux)."""
+    G, S, D = xg.shape
+    E, k = m.num_experts, m.top_k
+    piece = torch.arange(G, device=xg.device).repeat_interleave(S)
+    gates, flat_e, pos, counts, probs = _ranks(p["router"], xg.reshape(G * S, D), m, piece, G)
+    aux = aux_load_balance_loss(probs.view(G, S, E), counts, m)
+    return gates.view(G, S, k), _slots(flat_e, pos, C, E).view(G, S * k), aux
 
 
 class Rows(NamedTuple):
@@ -185,23 +199,61 @@ class Rows(NamedTuple):
     axes: Tuple[str, ...] = ROWS
 
 
-class Span(NamedTuple):
-    """One group over ``size`` consecutive row ranks of ``rows``; ``index``
-    is this rank's, pod-major over ``rows.axes``."""
+class Pieces(NamedTuple):
+    """Where a rank's N tokens meet the microbatch's routing groups: piece j
+    is the rank's tokens ``[starts[j], starts[j + 1])``, of group
+    ``groups[j]``; ``group_size`` tokens a group, ``n_groups`` groups over
+    ``n_rows`` row ranks, of which the rank is ``index``; ``rows`` where a
+    group spans more than one row rank (None: every group lies whole on a
+    rank); ``width``, the most pieces a row rank holds."""
 
-    rows: Rows
-    size: int
+    groups: Tuple[int, ...]
+    starts: Tuple[int, ...]
+    group_size: int
+    n_groups: int
+    n_rows: int
     index: int
+    rows: Optional[Rows]
+    width: int
 
 
-def _span_offsets(counts: torch.Tensor, span: Span) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the ``[E]`` counts of the group's ranks before this one, the
-    group's counts) from every row rank's ``counts`` (one all-gather over the
-    row ranks; the group reads its own ranks')."""
-    mesh, axes = span.rows
-    every = mesh.all_gather(counts, axes).view(-1, counts.numel())
-    lo = span.index - span.index % span.size
-    return every[lo:span.index].sum(0), every[lo:lo + span.size].sum(0)
+def pieces(n: int, m: MoEConfig, rows: Optional[Rows] = None) -> Pieces:
+    """The pieces of a rank's ``n`` tokens (its rows, in (row, position)
+    order) among the reference's G groups of the microbatch over ``rows``
+    (None: this rank's alone): G is ``m.groups`` where it divides the
+    microbatch's S tokens, else 1; group g is the tokens ``[g·S/G, (g+1)·S/G)``
+    of the rows pod-major over the row ranks, and row rank r holds
+    ``[r·n, (r+1)·n)``."""
+    i, R = row_rank(rows.mesh, rows.axes) if rows is not None else (0, 1)
+    S = n * R
+    G = m.groups if (m.groups >= 1 and S % m.groups == 0) else 1
+    Sg = S // G
+
+    def cut(r: int):
+        lo, hi = r * n, (r + 1) * n
+        gs = tuple(range(lo // Sg, -(-hi // Sg)))
+        return gs, tuple(max(lo, g * Sg) - lo for g in gs) + (n,)
+
+    groups, starts = cut(i)
+    whole = n % Sg == 0
+    width = len(groups) if whole else max(len(cut(r)[0]) for r in range(R))
+    return Pieces(groups, starts, Sg, G, R, i, None if whole else rows, width)
+
+
+def _piece_offsets(counts: torch.Tensor, pc: Pieces) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(each piece's ``[E]`` offsets: the counts of its group's pieces on the
+    row ranks before this one; its group's ``[E]`` counts), ``[P, E]`` each,
+    from the pieces' ``counts`` ``[P, E]``.  Where a group spans row ranks,
+    one all-gather over them of a ``[G, E]`` int64 tensor that holds the
+    rank's counts in its pieces' rows; else no exchange (zeros, the rank's
+    own counts)."""
+    if pc.rows is None:
+        return torch.zeros_like(counts), counts
+    G, E = pc.n_groups, counts.shape[1]
+    g = torch.arange(pc.groups[0], pc.groups[-1] + 1, device=counts.device)  # consecutive
+    mine = counts.new_zeros((G, E)).index_copy(0, g, counts)
+    every = pc.rows.mesh.all_gather(mine.reshape(-1), pc.rows.axes).view(-1, G, E)
+    return every[:pc.index].sum(0)[g], every.sum(0)[g]
 
 
 def _experts(wi: torch.Tensor, wo: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
@@ -228,62 +280,78 @@ def _exchanged_experts(wi: torch.Tensor, wo: torch.Tensor, xe: torch.Tensor, mes
     return back.transpose(0, 1).reshape(G, L, C, D)
 
 
-def _combine(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
-    """Each token's k rows of ye [G, n·C, D] (row n·C: zeros) weighted by
-    the gates [G, S, k] and summed over k in a fixed order → [G, S, D]."""
-    G, S, k = gates.shape
-    ye = torch.cat([ye, ye.new_zeros((G, 1, ye.shape[-1]))], dim=1)
-    garange = torch.arange(G, device=ye.device)[:, None]
-    picked = ye[garange, slot] * gates.reshape(G, S * k, 1).to(ye.dtype)  # [G, S*k, D]
-    return picked.reshape(G, S, k, -1).sum(dim=2)
+def _combine(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+             piece: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each token's k rows of ye [P, n·C, D] (row n·C: zeros), the (token,
+    choice) pairs' ``slot`` [N*k] in the buffer of their ``piece`` [N*k]
+    (None: 0), weighted by the gates [N, k] and summed over k in a fixed
+    order → [N, D]."""
+    N, k = gates.shape
+    ye = torch.cat([ye, ye.new_zeros((ye.shape[0], 1, ye.shape[-1]))], dim=1)
+    piece = torch.zeros_like(slot) if piece is None else piece
+    picked = ye[piece, slot] * gates.reshape(N * k, 1).to(ye.dtype)  # [N*k, D]
+    return picked.reshape(N, k, -1).sum(dim=1)
 
 
 def _scatter_moe(p, xg: torch.Tensor, m: MoEConfig, xf: Optional[torch.Tensor] = None,
-                 local: Optional[torch.Tensor] = None, tp=None, span: Optional[Span] = None,
+                 local: Optional[torch.Tensor] = None, tp=None, pc: Optional[Pieces] = None,
                  exchange=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """xg: [G, S, D] → (y [G, S, D], aux). Capacity overflow tokens drop.
 
     Over ranks: ``xf`` the tokens that the experts read (xg after *f*; the
     router reads xg), ``local`` the global ids of the experts whose slots
     this rank fills (every expert when None: y is then whole, else this
-    rank's partial sum), ``tp`` the model axis (*f* on the gates), ``span``
-    where xg's one group spans several row ranks: an expert's slots continue
-    after those the group's ranks before this one filled, and the
-    load-balance loss reads the whole group's counts; ``exchange`` the mesh
-    where ``p``'s experts are one block of ``(data, model)`` and ``local``
-    those of the rank's model coordinate on every data rank
-    (:func:`_exchanged_experts`)."""
+    rank's partial sum), ``tp`` the model axis (*f* on the gates), ``pc``
+    the rank's :func:`pieces` (where a group spans row ranks, xg is ``[1,
+    N, D]``, the rank's N tokens; else each of xg's rows is a piece, a
+    whole group; None: one rank's whole groups): a piece's slots of an
+    expert continue after those that its group's pieces on the row ranks
+    before it filled, and the load-balance loss reads its group's counts;
+    ``exchange`` the mesh where ``p``'s experts are one block of ``(data,
+    model)`` and ``local`` those of the rank's model coordinate on every
+    data rank (:func:`_exchanged_experts`)."""
     G, S, D = xg.shape
     E, k = m.num_experts, m.top_k
-    xf = xg if xf is None else xf
-    n_span = span.size if span is not None else 1
-    C = _capacity(S * n_span, m)
-    if span is None and local is None:
+    N = G * S
+    if pc is None:
+        starts = tuple(range(0, N + 1, S))
+        pc = Pieces(tuple(range(G)), starts, S, G, 1, 0, None, G)
+    P, Sg = len(pc.groups), pc.group_size
+    C = _capacity(Sg, m)
+    x = xg.reshape(N, D)
+    xf = x if xf is None else xf.reshape(N, D)
+    bounds = list(zip(pc.starts, pc.starts[1:]))
+    piece = (torch.arange(P, device=x.device).repeat_interleave(S) if pc.rows is None else
+             torch.cat([torch.full((b - a,), j, dtype=torch.int64, device=x.device)
+                        for j, (a, b) in enumerate(bounds)]))                   # [N]
+    pair = piece.repeat_interleave(k)                                           # [N*k]
+    if pc.rows is None and local is None:      # xg's rows whole groups, every expert
         gates, slot, aux = _route(p, xg, m, C)
+        gates, slot = gates.reshape(N, k), slot.reshape(N * k)
     else:
-        gates, flat_e, pos, counts, probs = _ranks(p["router"], xg, m)
-        if span is not None:
-            offset, total = _span_offsets(counts.reshape(-1), span)
-            pos = pos + offset[flat_e]
-            # The group's counts with this rank's probabilities: the row
-            # ranks' mean of this is the reference's loss over the groups.
-            f = total.float() / (S * n_span * k)
-            aux = m.num_experts * torch.sum(f * probs.float().mean(dim=1)[0])
-        else:
-            aux = aux_load_balance_loss(probs, counts, m)
+        gates, flat_e, pos, counts, probs = _ranks(p["router"], x, m, piece, P)
+        offset, total = _piece_offsets(counts, pc)
+        pos = pos + offset[pair, flat_e]
+        # E·Σ f·p over the groups: f from the group's counts, p this piece's
+        # probabilities summed over the group's size, so that the mean over
+        # the row ranks is the reference's mean over the groups.
+        psum = torch.stack([probs[a:b].float().sum(0) for a, b in bounds])
+        f = total.float() / (Sg * k)
+        aux = (pc.n_rows / pc.n_groups) * E * torch.sum(f * psum) / Sg
         gates = copy_to_model(gates, tp)
         slot = _slots(flat_e, pos, C, E, local)
     n = E if local is None else local.numel()
-    garange = torch.arange(G, device=xg.device)[:, None]
-    token_of = torch.arange(S, device=xg.device).repeat_interleave(k)  # [S*k]
+    # Buffers: exchanged over data, every data rank's the same count.
+    width = pc.width if exchange is not None else P
+    token_of = torch.arange(N, device=x.device).repeat_interleave(k)
 
     # Each kept slot receives one token; row n*C collects the dropped ones
     # and is cut off unread.
-    xe = xf.new_zeros((G, n * C + 1, D)).index_put((garange, slot), xf[:, token_of])
-    xe = xe[:, :n * C].reshape(G, n, C, D)
+    xe = xf.new_zeros((width, n * C + 1, D)).index_put((pair, slot), xf[token_of])
+    xe = xe[:, :n * C].reshape(width, n, C, D)
     ye = (_experts(p["wi"], p["wo"], xe) if exchange is None
           else _exchanged_experts(p["wi"], p["wo"], xe, exchange))
-    return _combine(ye.reshape(G, n * C, D), slot, gates), aux
+    return _combine(ye.reshape(width, n * C, D), slot, gates, pair).view(G, S, D), aux
 
 
 def _onehot_moe(p, xg: torch.Tensor, m: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -335,24 +403,49 @@ def _island(p, x: torch.Tensor, xf: torch.Tensor, m: MoEConfig, mesh
     Tl = T // M
     S = B * Tl
     # Group i: model rank i's slice of every row, in (row, position) order.
-    slices = x.unflatten(1, (M, Tl)).transpose(0, 1).reshape(M, S, D)
-    gates, flat_e, pos, counts, probs = _ranks(p["router"], slices, m)
-    aux = aux_load_balance_loss(probs, counts, m)
-    gates = copy_to_model(gates, model_parallel(mesh))[mi:mi + 1]
+    slices = x.unflatten(1, (M, Tl)).transpose(0, 1).reshape(M * S, D)
+    piece = torch.arange(M, device=x.device).repeat_interleave(S)
+    gates, flat_e, pos, counts, probs = _ranks(p["router"], slices, m, piece, M)
+    aux = aux_load_balance_loss(probs.view(M, S, E), counts, m)
+    mine = slice(mi * S * k, (mi + 1) * S * k)
+    gates = copy_to_model(gates, model_parallel(mesh))[mi * S:(mi + 1) * S]
     C = _capacity(S, m)                          # per (source, expert)
-    slot = _slots(flat_e[mi:mi + 1], pos[mi:mi + 1], C, E)       # [1, S*k]
+    slot = _slots(flat_e[mine], pos[mine], C, E)                # [S*k]
     token_of = torch.arange(S, device=x.device).repeat_interleave(k)
     xs = xf[:, mi * Tl:(mi + 1) * Tl].reshape(S, D)
 
-    send = xs.new_zeros((E * C + 1, D)).index_put((slot[0],), xs[token_of])
+    send = xs.new_zeros((E * C + 1, D)).index_put((slot,), xs[token_of])
     recv = all_to_all(send[:E * C].view(ep, e_loc * C, D), axes, mesh)
     # My experts' slots from every source: [e_loc, ep·C, D].
     xe = recv.view(ep, e_loc, C, D).transpose(0, 1).reshape(1, e_loc, ep * C, D)
     ye = _experts(p["wi"], p["wo"], xe)[0]
     ye = ye.reshape(e_loc, ep, C, D).transpose(0, 1).reshape(ep, e_loc * C, D)
     back = all_to_all(ye, axes, mesh).reshape(1, E * C, D)
-    y = _combine(back, slot, gates.reshape(1, S, k))[0]
+    y = _combine(back, slot, gates)
     return gather_slices(y.reshape(B, Tl, D), model_parallel(mesh), dim=1), aux
+
+
+def _island_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
+    """Why the reference's island (``_manual_ep_moe``) raises on ``mesh``, or
+    None: its ``shard_map`` takes ``wi`` and ``wo`` split over ``P("model",
+    "data")`` (experts on model, the dims after them on data), or over
+    ``P(("data", "model"))`` for the 2-D layout, and raises where a dim does
+    not divide."""
+    m = cfg.moe
+    E, D, Fe = m.num_experts, cfg.d_model, m.d_expert
+    Dn, M = mesh.size("data"), mesh.size("model")
+    if two_d(m):
+        need = {f"{E} experts over data x model {Dn * M}": E % (Dn * M)}
+    else:
+        need = {f"{E} experts over model {M}": E % M,
+                f"wi's d_model {D} over data {Dn}": D % Dn,
+                f"wo's FFN dim {Fe} over data {Dn}": Fe % Dn}
+    bad = [what for what, rest in need.items() if rest]
+    if not bad:
+        return None
+    return (f"{cfg.name}: the expert-parallel island (ep_a2a on model {M}) needs its expert "
+            "weights split evenly, as the reference's shard_map does: " + ", ".join(bad)
+            + " do not divide")
 
 
 def _local_experts(p, m: MoEConfig, mesh) -> Tuple[Optional[torch.Tensor], Any]:
@@ -360,7 +453,8 @@ def _local_experts(p, m: MoEConfig, mesh) -> Tuple[Optional[torch.Tensor], Any]:
     for all; the mesh of :func:`_exchanged_experts`, or None) of the scatter
     path over ``mesh``: experts on ``model``, the rank's own; experts on
     ``(data, model)`` jointly, block ``d·M + mi`` of each data rank ``d`` in
-    data order, their slots exchanged over ``data``."""
+    data order, their slots exchanged over ``data``; experts that do not
+    divide over their ranks (``fit_pspec`` leaves them whole), all."""
     n, E = p["wi"].shape[0], m.num_experts
     if n == E:
         return None, None
@@ -377,32 +471,34 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, mesh=None, rows: Optional[Rows
 
     On a sharded ``mesh`` x is the rank's rows, the same on every model rank
     (the FFN input before *f*), and y is whole: the island's output as it
-    is, the shared experts' and the scatter path's partial sums through
-    *g*.  ``rows``: the ranks whose rows make up the microbatch (None: this
-    rank's alone), over which the scatter path's groups lie."""
+    is, the routed experts' whole output where every model rank holds every
+    expert (read from x, its gates through no *f*), the shared experts' and
+    the scatter path's partial sums through *g*.  ``rows``: the ranks whose
+    rows make up the microbatch (None: this rank's alone), over which the
+    scatter path's groups lie.  Raises ``NotImplementedError`` where the
+    island would run on expert weights that the reference's ``shard_map``
+    cannot split (:func:`_island_refusal`)."""
     m = cfg.moe
     B, T, D = x.shape
     tp = model_parallel(mesh)
     xf = copy_to_model(x, tp)
-    whole = None
+    whole = y = None
     if m.expert_sharding == "ep_a2a" and tp is not None and T % tp.size("model") == 0:
+        refusal = _island_refusal(cfg, mesh)
+        if refusal:
+            raise NotImplementedError(refusal)
         whole, aux = _island(p, x, xf, m, mesh)
-        y = None
     else:
-        i, R = row_rank(rows.mesh, rows.axes) if rows is not None else (0, 1)
-        S = B * T * R                              # the microbatch's tokens
-        G = m.groups if (m.groups >= 1 and S % m.groups == 0) else 1
-        if G % R and R % G:
-            raise NotImplementedError(
-                f"{cfg.name}: {G} MoE groups over {R} row ranks {tuple(rows.axes)}: a group "
-                "would straddle a rank (the reference's groups are whole on a rank or span "
-                "whole ranks: neither of the counts divides the other)")
-        g = max(G // R, 1)
-        span = Span(rows, R // G, i) if G < R else None
+        pc = pieces(B * T, m, rows)
+        shape = (1, B * T, D) if pc.rows is not None else (len(pc.groups), pc.group_size, D)
         local, exchange = _local_experts(p, m, mesh)
-        yg, aux = _scatter_moe(p, x.reshape(g, B * T // g, D), m, xf.reshape(g, B * T // g, D),
-                               local, tp, span, exchange)
-        y = yg.reshape(B, T, D)
+        if local is None:  # every expert on every model rank: their whole output
+            yg, aux = _scatter_moe(p, x.reshape(shape), m, pc=pc)
+            whole = yg.reshape(B, T, D)
+        else:
+            yg, aux = _scatter_moe(p, x.reshape(shape), m, xf.reshape(shape), local, tp, pc,
+                                   exchange)
+            y = yg.reshape(B, T, D)
     if m.num_shared:
         d_shared = m.num_shared * m.d_expert
         if model_split(tp, d_shared) is not None or tp is None:

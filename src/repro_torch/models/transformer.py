@@ -43,11 +43,12 @@ leaves it: heads whose columns split but whose count does not are gathered
 whole and run whole on every rank, cut back to the rank's columns before
 the row-parallel product; a block whose weights are all whole runs whole,
 with no *f* and no *g*.  The MoE
-FFN's output is whole: the expert-parallel island's as it is, the partial
-sums through *g*.  Experts split over ``(data, model)`` jointly are not
+FFN's output is whole: the expert-parallel island's as it is, the routed
+experts' where every rank holds them all, the partial sums through *g*.  Experts split over ``(data, model)`` jointly are not
 gathered on use: the island runs its own block of them, and the scatter path
 sends their slots to them (``models/moe.py``).  A MoE layer's groups lie
-over the row ranks of the step (:attr:`Model.rows`).  Prefill and decode
+over the row ranks of the step (:attr:`Model.rows`), whether or not their
+counts divide.  Prefill and decode
 return the whole vocab's logits (gathered over ``model`` for the argmax).
 """
 
@@ -111,29 +112,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port runs decoders and encoders of GQA or MLA "
             "attention, dense or MoE FFNs, RG-LRU and xLSTM blocks, with the "
             "audio or vision stub frontend; not yet: " + ", ".join(unsupported))
-
-
-def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """What a sharded mesh refuses, never replicating a layer silently: the
-    MoE cases only, experts that do not divide over the ranks that split
-    them (``model``, or ``(data, model)`` for the 2-D layouts) and an FFN dim
-    of ``fsdp_f`` that does not divide over ``data`` (``models/moe.py``
-    refuses a group count and a row-rank count of which neither divides the
-    other).  No width is refused on the ``model`` axis: a rank computes with
-    the blocks that ``fit_pspec`` gives it, a dim that does not divide
-    whole (the mixers' and ``layers.mlp``'s layouts)."""
-    if not sharded(mesh) or cfg.moe is None:
-        return
-    M, m = mesh.size("model"), cfg.moe
-    ep = M * (mesh.size("data") if moe_mod.two_d(m) else 1)
-    if m.num_experts % ep:
-        raise NotImplementedError(
-            f"{cfg.name}: {m.num_experts} experts do not divide over {ep} ranks: the "
-            f"{m.expert_sharding} layout needs a whole block of experts a rank")
-    if m.expert_sharding == "fsdp_f" and m.d_expert % mesh.size("data"):
-        raise NotImplementedError(
-            f"{cfg.name}: fsdp_f's FFN dim {m.d_expert} does not divide over data "
-            f"{mesh.size('data')}")
 
 
 def _block_spec(cfg: ModelConfig, kind: str, dtype) -> Dict:
@@ -350,7 +328,6 @@ class Model(nn.Module):
         self.plan = layer_plan(cfg)
         self.dtype = _DTYPES[cfg.dtype]
         self.device = resolve_device(device) if mesh is None else mesh.device
-        _check_mesh(cfg, mesh)
         specs = model_specs(cfg)
         self.mesh = mesh if sharded(mesh) else None
         # A step's rows by default: the (pod, data) ranks of the mesh given,

@@ -71,9 +71,10 @@ def test_production_tables_and_model_flops_equal_the_reference(arch, ref_dryrun)
                 == ref_dryrun.model_flops_estimate(jcfg, JAX_SHAPES[name], n)), name
 
 
-def _reference_state_bytes(ref_dryrun, arch, multi_pod):
+def _reference_state_bytes(ref_dryrun, arch, multi_pod, expert_sharding=None):
     """A rank's train-state bytes from the reference's ``train_state_specs``
-    and its fitted partition specs at the production mesh's sizes."""
+    and its fitted partition specs at the production mesh's sizes (a MoE
+    arch's experts on ``expert_sharding`` where it is given)."""
     import jax
     from jax.sharding import PartitionSpec as P
     from repro.launch.steps import train_state_specs
@@ -82,8 +83,8 @@ def _reference_state_bytes(ref_dryrun, arch, multi_pod):
 
     sizes = MESHES[multi_pod]
     run = ref_dryrun.production_run(arch, "sync", multi_pod=multi_pod)
-    shapes, specs = train_state_specs(JaxModel(ref_dryrun.production_config(arch)), run,
-                                      2 if multi_pod else 1)
+    cfg = ref_dryrun.production_config(arch, expert_sharding=expert_sharding)
+    shapes, specs = train_state_specs(JaxModel(cfg), run, 2 if multi_pod else 1)
     fake = types.SimpleNamespace(shape=sizes)
     total = 0
     for s, ps in zip(jax.tree.leaves(shapes),
@@ -104,13 +105,33 @@ def test_train_state_bytes_equal_the_reference_rules(multi_pod, ref_dryrun):
         assert got == _reference_state_bytes(ref_dryrun, arch, multi_pod), arch
 
 
-def test_refused_cell_is_written_skipped(tmp_path):
-    """A cell that the port still refuses (deepseek-v2's 160 experts in the
-    2-D layout over 256 ranks) is written ``skipped`` with the refusal."""
-    rec = dryrun.run_cell("deepseek-v2-236b", "train_4k", False, "sync", str(tmp_path),
-                          expert_sharding="ep2d")
+def test_ep2d_cell_state_bytes_equal_the_reference_rules(ref_dryrun):
+    """deepseek-v2's 160 experts in the 2-D layout over 256 ranks do not
+    divide: the cell runs, every rank holding every expert, and a rank's
+    train-state bytes are the reference's for its fitted specs."""
+    _, _, mesh, run, model = dryrun.build_rank("deepseek-v2-236b", "train_4k", False, "sync",
+                                               expert_sharding="ep2d")
+    assert model.layout["blocks.b0.ffn.wi"].spec == (None,) * 4
+    got = dryrun.tree_bytes(init_train_state(model, run, mesh))
+    assert got == _reference_state_bytes(ref_dryrun, "deepseek-v2-236b", False, "ep2d")
+
+
+def test_refused_cell_is_written_skipped(tmp_path, monkeypatch):
+    """A cell that the model refuses on the mesh is written ``skipped`` with
+    the refusal: here the expert-parallel island (deepseek-v2 on ``ep_a2a``)
+    with 100 experts, which do not divide over model 16, as the
+    reference's ``shard_map`` raises; the refusal comes from the step's
+    first MoE call."""
+    import dataclasses
+
+    real = dryrun.production_config
+    monkeypatch.setattr(dryrun, "production_config", lambda arch, **kw: real(arch, **kw)
+                        .with_overrides(moe=dataclasses.replace(real(arch, **kw).moe,
+                                                                num_experts=100)))
+    rec = dryrun.run_cell("deepseek-v2-236b", "prefill_32k", False, "sync", str(tmp_path))
     assert rec["skipped"].startswith(
-        "refused: deepseek-v2-236b: 160 experts do not divide over 256 ranks")
+        "refused: deepseek-v2-236b: the expert-parallel island (ep_a2a on model 16)")
+    assert "100 experts over model 16" in rec["skipped"]
     assert json.loads((tmp_path / (rec["cell"] + ".json")).read_text()) == rec
 
 

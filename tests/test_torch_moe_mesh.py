@@ -1,6 +1,8 @@
 """MoE's scatter path over gloo ranks and MLA's tensor parallelism against
 the JAX package's GSPMD, the block's *g* rule, phase 9 of ``chip_smoke.py``
-rehearsed at smoke width, and what the port still refuses.
+rehearsed at smoke width, and MoE on counts that do not divide: groups that
+straddle data ranks and experts that do not divide over model, each rank a
+thread (``torch_rank_fns.threaded_ranks``), held to one process.
 
 JAX runs in four subprocesses with four host devices each (``conftest``'s
 ``run_multidevice``, ``tests/test_torch_ep.py``'s ``jax_parts``), its cases
@@ -359,76 +361,97 @@ def _jax_block_shapes(cfg, shape):
 def test_gspmd_layouts_build_the_references_blocks(layout):
     """``fsdp_f`` (experts on model, the FFN dim FSDP on data: ``wi``'s fused
     ``[gate | up]`` split contiguously, as any FSDP dim) and ``ep2d``
-    (experts on (data, model) jointly) hold, on (1, 2) and (2, 2), the
-    blocks of JAX's ``param_pspecs``, so that checkpoints load in both
-    packages; an FFN dim that does not divide over data is refused."""
+    (experts on (data, model) jointly) hold, on (1, 2), (2, 2) and (3, 1),
+    the blocks of JAX's ``param_pspecs``, so that checkpoints load in both
+    packages: at (3, 1) the FFN dim 32 and the 8 experts do not divide and
+    stay whole.  ``fsdp_f`` at an FFN dim of 12 over data 8 splits ``wi``'s
+    24 columns and keeps ``wo``'s 12 rows whole, each leaf by its own fit,
+    and gathers each on use by its own placement."""
     cfg = get_config(V2, smoke=True)
     cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding=layout))
     jcfg = jax_config(V2, smoke=True)
     jcfg = jcfg.with_overrides(moe=dataclasses.replace(jcfg.moe, expert_sharding=layout))
-    for shape in ((1, 2), (2, 2)):
+    for shape in ((1, 2), (2, 2), (3, 1)):
         model = Model(cfg, device="cpu", mesh=_mesh(shape))
         got = {k: tuple(model.state_dict()[f"blocks.b0.ffn.{k}"].shape) for k in ("wi", "wo")}
         assert got == _jax_block_shapes(jcfg, shape), (shape, got)
         assert model.layout["blocks.b0.ffn.wi"].blocks == 1
     if layout == "fsdp_f":
-        with pytest.raises(NotImplementedError, match="fsdp_f's FFN dim 32 does not divide"):
-            Model(cfg, device="cpu", mesh=_mesh((3, 1)))
+        narrow = lambda c: c.with_overrides(moe=dataclasses.replace(c.moe, d_expert=12))
+        model = Model(narrow(cfg), device="cpu", mesh=_mesh((8, 1)))
+        got = {k: tuple(model.state_dict()[f"blocks.b0.ffn.{k}"].shape) for k in ("wi", "wo")}
+        assert got == _jax_block_shapes(narrow(jcfg), (8, 1)) == {
+            "wi": (2, 8, 64, 3), "wo": (2, 8, 12, 64)}, got
+        assert model.layout["blocks.b0.ffn.wo"].dim_of("data") is None
 
 
-class _Repeated(Mesh):
-    """A data rank's mesh on which every data rank holds the same rows: the
-    all-gather returns this rank's tensor once a rank."""
+def _straddled(cfg, x, shape, rows_on=("data",)):
+    """``moe_ffn`` of the smoke model's first MoE layer on every rank of a
+    mesh of ``shape``, each rank a thread that builds the model on its mesh
+    (its blocks of the one-process weights, gathered over ``data`` on use)
+    and holds its share of the rows of ``x``: the data ranks' outputs in row
+    order, the mean of the ranks' aux, and every rank's output."""
+    share = x.shape[0] // shape[0]
 
-    def all_gather(self, t, axes):
-        return t.repeat(self.group_size(self.group_name(axes)))
+    def rank(mesh):
+        d = mesh.coords["data"]
+        p = Model(cfg, device="cpu", mesh=mesh)._params("blocks", 0)["b0"]["ffn"]
+        with torch.no_grad():
+            return moe_mod.moe_ffn(p, x[d * share:(d + 1) * share], cfg, mesh,
+                                   moe_mod.Rows(mesh, rows_on))
+
+    out = torch_rank_fns.threaded_ranks(shape, rank)
+    M = shape[1]
+    return (torch.cat([y for y, _ in out[::M]]), sum(a.item() for _, a in out) / len(out),
+            [y for y, _ in out])
 
 
-def test_groups_that_straddle_data_ranks_are_refused():
-    """3 groups over 2 data ranks: a group would straddle a rank, and
-    neither count divides the other: refused.  2 groups over 4 data ranks
-    (each spans 2 consecutive ranks, as the production config's 16 groups
-    over 32 row ranks) are taken: with the same rows on every rank, the
-    second rank of a group gets the second half of one process's routing of
-    the group's rows (its slots after the first rank's); 4 groups are one a
-    rank."""
+def test_groups_that_straddle_data_ranks_route_as_one_process():
+    """3 groups of 64 tokens over 2 data ranks of 96 (rank 0 holds group 0
+    and half of group 1, rank 1 the rest: neither count divides the other),
+    2 groups over 4 data ranks (each spans 2 ranks) and 4 groups one a
+    rank: each rank's rows' output, and the mean of the ranks' load-balance losses, are one
+    process's routing of the whole microbatch, at capacity factor 0.5 where
+    choices drop, so that a slot offset other than the earlier pieces'
+    counts would change the output."""
     cfg = get_config(V2, smoke=True).with_overrides(dtype="float32")
-    p = Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"]
-    # 2 x 64 tokens a rank at capacity factor 0.5: choices drop, so a slot
-    # offset that is not the first rank's counts would change the output.
-    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(0))
-    bad = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=3))
-    with pytest.raises(NotImplementedError, match="straddle"):
-        moe_mod.moe_ffn(p, torch.cat([x, x[:1]]), bad, _mesh((2, 1)),
-                        moe_mod.Rows(_mesh((2, 1))))
-    two = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=2, capacity_factor=0.5))
-    whole, _ = moe_mod.moe_ffn(p, torch.cat([x, x]), two.with_overrides(
-        moe=dataclasses.replace(two.moe, groups=1)))
-    for d in (0, 1):
-        mesh = _Repeated(axes=("data", "model"), shape={"data": 4, "model": 1},
-                         coords={"data": d, "model": 0}, device=torch.device("cpu"))
-        y, _ = moe_mod.moe_ffn(p, x, two, mesh, moe_mod.Rows(mesh))
-        torch.testing.assert_close(y, whole[2 * d:2 * d + 2], rtol=1e-5, atol=1e-6)
-    four = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=4))
-    y, _ = moe_mod.moe_ffn(p, x[:1], four, _mesh((4, 1)), moe_mod.Rows(_mesh((4, 1))))
-    assert y.shape == (1, 64, cfg.d_model)
+    x = torch.randn(8, 24, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    for groups, data in ((3, 2), (2, 4), (4, 4)):
+        c = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=groups,
+                                                       capacity_factor=0.5))
+        whole, aux = moe_mod.moe_ffn(Model(c, device="cpu").blocks.layer(0)["b0"]["ffn"], x, c)
+        y, got_aux, _ = _straddled(c, x, (data, 1))
+        torch.testing.assert_close(y, whole, rtol=1e-5, atol=1e-6)
+        assert got_aux == pytest.approx(aux.item(), rel=1e-5), (groups, data)
+    pc = moe_mod.pieces(96, dataclasses.replace(cfg.moe, groups=3),
+                        moe_mod.Rows(_mesh((2, 1)), ("data",)))
+    assert (pc.groups, pc.starts, pc.group_size) == ((0, 1), (0, 64, 96), 64)
 
 
-def test_experts_that_do_not_divide_are_refused():
-    """6 experts over model 4: a rank would hold no whole block of them."""
-    cfg = get_config(V2, smoke=True)
-    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, num_experts=6))
-    with pytest.raises(NotImplementedError, match="6 experts do not divide over 4 ranks"):
-        Model(cfg, device="cpu", mesh=_mesh((1, 4)))
+def test_experts_that_do_not_divide_stay_whole():
+    """6 experts over model 4: ``fit_pspec`` leaves ``wi`` and ``wo`` whole,
+    and every model rank runs every expert on the FFN input before *f*: the
+    output, whole on every rank, is one process's, and no rank's output
+    passes through *g* (through it, it would be 4 times as large)."""
+    cfg = get_config(V2, smoke=True).with_overrides(dtype="float32")
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, num_experts=6,
+                                                     capacity_factor=0.5))
+    model = Model(cfg, device="cpu", mesh=_mesh((1, 4)))
+    for key in ("wi", "wo"):
+        assert model.layout[f"blocks.b0.ffn.{key}"].dim_of("model") is None, key
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    whole, _ = moe_mod.moe_ffn(Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"], x, cfg)
+    y, _, each = _straddled(cfg, x, (1, 4))
+    for got in each:
+        torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-6)
 
 
-def test_rglru_at_model_2_is_refused():
+def test_rglru_at_model_2_builds_and_an_odd_width_stays_whole():
     """RG-LRU blocks take model 2 where their width divides
     (``tests/test_torch_tp_recurrent.py`` holds them to JAX); a width that
-    does not divide is no longer refused: the rules leave every weight of
-    the block whole, and the block's state is whole on every rank
-    (``tests/test_torch_tp_uneven.py`` holds such a block to JAX).  The
-    name is the one the test had when that width was refused."""
+    does not divide is not refused: the rules leave every weight of the
+    block whole, and the block's state is whole on every rank
+    (``tests/test_torch_tp_uneven.py`` holds such a block to JAX)."""
     cfg = get_config("recurrentgemma-9b", smoke=True)
     Model(cfg, device="cpu", mesh=_mesh((1, 2)))
     odd = cfg.with_overrides(rglru=dataclasses.replace(cfg.rglru, width=65))

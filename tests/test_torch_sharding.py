@@ -231,15 +231,18 @@ def _mesh(shape):
                 coords={"data": 0, "model": 0}, device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("arch,what", [("deepseek-v2-236b", "8 experts do not divide over 3")])
-def test_model_axis_refuses_blocks_it_does_not_shard(arch, what):
+@pytest.mark.parametrize("arch,layout", [("deepseek-v2-236b", "ep2d")])
+def test_model_axis_keeps_experts_that_do_not_divide_whole(arch, layout):
     """Of MoE, experts that do not divide over the ranks that split them
-    (``ep2d`` here: its 8 experts over ``(data, model)``, 3 ranks)."""
+    (``ep2d`` here: its 8 experts over ``(data, model)``, 3 ranks): the
+    rules drop the ``(data, model)`` entry whole, and every rank holds every
+    expert, as the reference's ``fit_pspec`` places them."""
     cfg = get_config(arch, smoke=True)
-    if cfg.moe is not None:
-        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding="ep2d"))
-    with pytest.raises(NotImplementedError, match=what):
-        Model(cfg, device="cpu", mesh=_mesh((1, 3)))
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, expert_sharding=layout))
+    model, whole = Model(cfg, device="cpu", mesh=_mesh((1, 3))), Model(cfg, device="cpu")
+    for key in ("blocks.b0.ffn.wi", "blocks.b0.ffn.wo"):
+        assert model.layout[key].spec == (None,) * 4, key
+        assert model.state_dict()[key].shape == whole.state_dict()[key].shape, key
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
@@ -289,15 +292,14 @@ def test_model_axis_4_splits_the_kv_heads_head_dim(arch):
     assert specs["blocks"]["b0"].k == (None, "data", None, None, "model")
 
 
-def test_model_axis_refuses_heads_that_do_not_divide():
+def test_model_axis_keeps_heads_that_do_not_divide_whole():
     """No width is refused on ``model`` any more: a rank holds what
     ``fit_pspec`` gives it.  Smoke llama's 4 query heads over 2 KV heads on
     model 3: nothing of the attention or the FFN splits, so every rank holds
     them whole and runs them whole (``gqa_layout`` "whole"); 6 query heads
     over one KV head of 5 columns: the query heads split and ``wk``/``wv``
     stay whole ("kv_whole"), and the cache holds the whole KV head.
-    ``tests/test_torch_tp_uneven.py`` holds such layouts to JAX.  The name
-    is the one the test had when such heads were refused."""
+    ``tests/test_torch_tp_uneven.py`` holds such layouts to JAX."""
     from repro_torch.models.attention import gqa_layout
 
     cfg = get_config("llama3.2-1b", smoke=True)
@@ -317,18 +319,22 @@ def test_model_axis_refuses_heads_that_do_not_divide():
     assert tuple(cache.k.shape) == (model.plan.n_scan, 3, 8, 1, 5)
 
 
-def test_moe_refused_at_data_above_one_and_rgflru_fsdp_taken():
-    """MoE at data 2 is refused where its groups would straddle the data
-    ranks (3 groups over 2: the reference's capacity is not reproduced);
-    recurrentgemma's FSDP takes every leaf."""
+def test_moe_groups_straddle_data_ranks_and_rglru_fsdp_taken():
+    """MoE at data 2 with 3 groups over the 2 data ranks' 12 tokens (a group
+    of 4 straddles the ranks): each rank, a thread, holds its 6 tokens'
+    output of one process's routing of all 12; recurrentgemma's FSDP takes
+    every leaf."""
+    import torch_rank_fns
     from repro_torch.models import moe as moe_mod
 
-    cfg = get_config("deepseek-v2-236b", smoke=True)
-    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=3))
+    cfg = get_config("deepseek-v2-236b", smoke=True).with_overrides(dtype="float32")
+    cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, groups=3, capacity_factor=0.5))
     p = Model(cfg, device="cpu").blocks.layer(0)["b0"]["ffn"]
-    with pytest.raises(NotImplementedError, match="straddle"):
-        moe_mod.moe_ffn(p, torch.zeros(3, 4, cfg.d_model, dtype=torch.bfloat16), cfg,
-                        _mesh((2, 1)), moe_mod.Rows(_mesh((2, 1))))
+    x = torch.randn(4, 3, cfg.d_model, generator=torch.Generator().manual_seed(5))
+    want, _ = moe_mod.moe_ffn(p, x, cfg)
+    ranks = torch_rank_fns.threaded_ranks((2, 1), lambda mesh: moe_mod.moe_ffn(
+        p, x[2 * mesh.coords["data"]:][:2], cfg, mesh, moe_mod.Rows(mesh, ("data",)))[0])
+    torch.testing.assert_close(torch.cat(ranks), want, rtol=1e-5, atol=1e-6)
     model = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", mesh=_mesh((2, 1)))
     full = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu")
     for key, p in full.state_dict().items():

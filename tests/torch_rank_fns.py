@@ -5,6 +5,8 @@ only, so that a rank starts without JAX; each returns numpy arrays.  Also
 
 import contextlib
 import dataclasses
+import math
+import threading
 import time
 
 import numpy as np
@@ -17,7 +19,7 @@ from repro_torch.core.cohort import (SyncConfig, bucket_mean, cohort_all_reduce,
                                      flat_all_reduce, pod_sync_grads)
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.launch.steps import build_train_step, init_train_state
 from repro_torch.models import Model, rank_inputs
 from repro_torch.sharding.shard import gather_tree, sharded
@@ -94,6 +96,69 @@ def side_by_side(parts):
         raise AssertionError(f"parts: {times}\n" + "\n".join(
             f"--- {n} ---\n{out}" for n, out in failed.items()))
     return {n: out for n, (_, out, _) in done.items()}
+
+
+def threaded_ranks(shape, fn, axes=DATA_MODEL):
+    """``fn(mesh)`` on every rank of a mesh of ``shape`` over ``axes``, each
+    rank a thread of this process (no process group): the meshes' all-gathers
+    and all-reduces meet in memory, every rank calling each collective in
+    the same order, as the ranks of one program do (a rank that waits 120 s
+    at one breaks it for all).  Returns the results in rank order
+    (row-major over ``axes``)."""
+    sizes = dict(zip(axes, shape))
+    n = math.prod(shape)
+    coords = [dict(zip(axes, c)) for c in np.ndindex(*shape)]
+    slots, meet = [None] * n, threading.Barrier(n, timeout=120)
+
+    def members(mesh, r, group):
+        name = mesh.group_name(group)
+        spans = (set(axes) if name == "world" else set() if name == "self"
+                 else set(name.split("+")))
+        return [q for q in range(n)
+                if all(coords[q][a] == coords[r][a] for a in axes if a not in spans)]
+
+    def exchange(mesh, r, t, group):
+        slots[r] = t.detach().clone()
+        meet.wait()
+        got = [slots[q] for q in members(mesh, r, group)]
+        meet.wait()
+        return got
+
+    def rank(r):
+        mesh = Mesh(axes=tuple(axes), shape=dict(sizes), coords=dict(coords[r]),
+                    device=torch.device("cpu"))
+
+        def all_gather(t, group):
+            return torch.cat(exchange(mesh, r, t, group))
+
+        def all_reduce(t, group, op="sum"):
+            got = torch.stack(exchange(mesh, r, t, group))
+            return t.copy_(got.sum(0) if op == "sum" else got.amax(0))
+
+        mesh.all_gather, mesh.all_reduce = all_gather, all_reduce
+        return fn(mesh)
+
+    out = [None] * n
+    errors = []
+
+    def run(r):
+        try:
+            out[r] = rank(r)
+        except BaseException as e:  # noqa: BLE001 - raised below, with the others abandoned
+            errors.append(e)
+            meet.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"ranks {[r for r, t in enumerate(threads) if t.is_alive()]} "
+                           "did not end")
+    return out
 
 
 def _model(arch, params, moe=None):
@@ -199,28 +264,46 @@ def counted_drops(calls):
     moe_mod._slots = slots
 
 
-def tp_steps(arch, shape, params, batches, run_kw, moe=None, over=None):
+def first_grads(model, batch, run, mesh):
+    """Every leaf's gradient of ``batch`` as a train step takes it: each
+    rank's over its rows, their mean over ``data``, gathered whole (numpy)."""
+    from repro_torch.launch.steps import data_mean, grad_fn, pod_mode, rank_rows, step_rows
+
+    mode = pod_mode(run, mesh)
+    _, _, grads = grad_fn(model, run.microbatches, step_rows(mode, mesh))(
+        rank_rows(batch, mesh, mode, run.microbatches))
+    return _numpy(gather_tree(data_mean(grads, model.layout, mesh), model.layout, mesh))
+
+
+def tp_steps(arch, shape, params, batches, run_kw, moe=None, over=None, grads=False):
     """``arch`` (smoke, fp32, MoE fields ``moe``, fields ``over``, from the
     whole ``params``) stepped over ``batches`` on a ``(data, model)`` mesh
-    of ``shape``.  Returns the losses, grad-norms, wire bytes per step, the
-    final parameters gathered whole, and the choices each MoE call
-    dropped."""
+    of ``shape``.  Returns the losses, grad-norms, MoE load-balance losses
+    (where the model has them), wire bytes per step, the final parameters
+    gathered whole, the keys of the leaves whole on ``model``, the choices
+    each MoE call dropped and, with ``grads``, every leaf's gradient of the
+    first batch (:func:`first_grads`)."""
     mesh = make_mesh(shape, DATA_MODEL, "cpu")
     model = _sharded(arch, params, mesh, moe, over)
     drops = []
     counted_drops(drops)
     run = RunConfig(total_steps=10, **run_kw)
     state, step = init_train_state(model, run, mesh), build_train_step(model, run, mesh)
-    losses, norms, wire = [], [], []
+    first = first_grads(model, _batch(batches[0], model.cfg), run, mesh) if grads else None
+    losses, norms, aux, wire = [], [], [], []
     for b in batches:
         mesh.traffic.reset()
         state, m = step(state, _batch(b, model.cfg))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
+        if "aux" in m:
+            aux.append(m["aux"].item())
         wire.append(dict(mesh.traffic.wire_bytes))
     whole = gather_tree(dict(state["params"]), model.layout, mesh)
-    return {"loss": losses, "grad_norm": norms, "wire": wire, "params": _numpy(whole),
-            "coords": dict(mesh.coords), "drops": drops}
+    return {"loss": losses, "grad_norm": norms, "aux": aux, "wire": wire,
+            "params": _numpy(whole), "coords": dict(mesh.coords), "drops": drops,
+            "grads": first, "whole_on_model": [k for k, pl in model.layout.items()
+                                               if pl.dim_of("model") is None]}
 
 
 def _served(arch, shape, axes, params, prompts, batch, prompt_len, gen_len, moe=None):
@@ -453,6 +536,11 @@ def island_summed_steps(arch, shape, params, batches, run_kw, moe):
 def chip_smoke_ep_rank(*args):
     """chip_smoke.py's phase-9 rank (``ep_rank``: serving, then training)."""
     return _chip_smoke().ep_rank(*args)
+
+
+def chip_smoke_uneven_ep_rank(*args):
+    """chip_smoke.py's phase-15 rank (``uneven_ep_rank``)."""
+    return _chip_smoke().uneven_ep_rank(*args)
 
 
 def chip_smoke_pod_tp_rank(*args):
