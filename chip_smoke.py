@@ -7,10 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit, then the build of every kernel source
    with each kernel's registers, static shared memory and spill bytes (nvcc
-   ``-Xptxas -v``); every ``flash_fwd_wgmma`` and ``flash_bwd_wgmma``
-   instantiation (``flash_bwd_wgmma<64/128>`` and, past head dim 128,
-   ``flash_bwd_wgmma_dkdv<256>`` and ``flash_bwd_wgmma_dq<256>``),
-   ``rglru_scan_tma`` and ``rglru_scan_bwd_tma`` must spill nothing;
+   ``-Xptxas -v``); every ``flash_fwd_wgmma<DK, DV>`` instantiation (widths
+   (64, 64), (128, 128), (192, 128) and (256, 256)), ``flash_bwd_wgmma<64/
+   128>`` and, past width 128, ``flash_bwd_wgmma_dkdv`` and
+   ``flash_bwd_wgmma_dq`` at (192, 128) and (256, 256), ``rglru_scan_tma``
+   and ``rglru_scan_bwd_tma`` must spill nothing;
 2. every kernel against its plain PyTorch version on the card: the reference
    test shapes (fp32 at 2e-5 with TF32 off; bf16 within 2e-2 and, per
    element, within 1.6e-2 of the value plus 1e-2 of its row's RMS, NaN-free;
@@ -28,16 +29,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    16-byte aligned storage);
    then the forward and the backward at llama3-8b's training shape (head dim
    128), at recurrentgemma-9b's (head dim 256, MQA, window 2048: the
-   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq``), at
-   deepseek-v2-236b's MLA in phase 6(g)'s microbatch (B 2, T 4096, 128
-   heads, dk 192 / dv 128), at hubert-xlarge's (B 4, T 1500, 16 heads of
+   backward on ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq`` at
+   (256, 256)), at deepseek-v2-236b's MLA in phase 6(g)'s microbatch (B 2,
+   T 4096, 128 heads, dk 192 / dv 128: the (192, 128) kernels; at every MLA
+   shape, serving's too, each kernel is also timed at (256, 256), the
+   widths it ran before they had their own, in the same run, and the
+   instantiation that ran is read from the launch counts by widths and
+   named from a profiler trace), at hubert-xlarge's (B 4, T 1500, 16 heads of
    d 80, no causal mask) and at internvl2-76b's in phase 6(h)'s microbatch
    (B 1, T 2048, 64 heads over 8 at d 128), each
-   timed beside its plain version, its bound (at d 256 also the bound of the
-   seven products the split design runs, a second call that must repeat
-   the first bit for bit, and the time at every head-group count the
-   launch can choose; where dk or dv is under the kernel's D, the bound of
-   the work zero-filled to D) and SDPA (a window as a boolean mask; its
+   timed beside its plain version, its bound (past width 128 also the bound
+   of the seven products the split design runs, a second call that must
+   repeat the first bit for bit, and the time at every head-group count the
+   launch can choose; where dk or dv is under the kernel's widths, the
+   bound of the work zero-filled to them) and SDPA (a window as a boolean mask; its
    backends pinned to the fused ones, the math backend only where none
    takes the shape, said so; the backend that ran is named), the
    backward's device time split by launch; the plain versions run over
@@ -400,13 +405,15 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # tests/test_kernels.py's FLASH_CASES (fp32 on the simt variant, bf16 on
-# wgmma), then bf16 cases at every wgmma head dim (D 64, 128, 256) and its
-# edges: a window, d 128 with H/K = 4, dk 192 / dv 128 (MLA), recurrentgemma's
-# windowed MQA at d 256, Tq no multiple of the 128-row work tile at d 256
-# with a window, and a window that is no multiple of the KV tile; then bf16
-# without the causal mask (the encoder's attention): hubert's d 80 on
-# flash_fwd_wgmma<128> (columns 80-127 zero-filled by the TMA) with a T that
-# no tile divides, GQA at d 64, and d 128.
+# wgmma), then bf16 cases at every wgmma width ((64, 64), (128, 128),
+# (192, 128), (256, 256)) and its edges: a window, d 128 with H/K = 4, dk 192
+# / dv 128 (MLA), recurrentgemma's windowed MQA at d 256, Tq no multiple of
+# the 128-row work tile at d 256 with a window, and a window that is no
+# multiple of the KV tile; then bf16 without the causal mask (the encoder's
+# attention): hubert's d 80 on flash_fwd_wgmma<128, 128> (columns 80-127
+# zero-filled by the TMA) with a T that no tile divides, GQA at d 64, and
+# d 128; then the edges of (192, 128): H/K = 2 with a ragged tail, no causal
+# mask, and dk 136 (columns 136-191 zero-filled).
 # B, T, H, K, dk, dv, causal, window, dtype
 FLASH_CASES = [
     (2, 64, 4, 2, 32, 32, True, 0, "float32"),
@@ -426,15 +433,18 @@ FLASH_CASES = [
     (2, 300, 4, 4, 80, 80, False, 0, "bfloat16"),
     (1, 200, 8, 2, 64, 64, False, 0, "bfloat16"),
     (1, 130, 4, 2, 128, 128, False, 0, "bfloat16"),
+    (1, 333, 4, 2, 192, 128, True, 0, "bfloat16"),
+    (1, 300, 4, 4, 192, 128, False, 0, "bfloat16"),
+    (1, 200, 2, 1, 136, 128, True, 0, "bfloat16"),
 ]
 FLASH_SLICES = {  # prefill attention of each main path
     "llama3.2-1b": (8, 1024, 32, 8, 64, 64, True, 0, "bfloat16"),
     "recurrentgemma-9b": (4, 4096, 16, 1, 256, 256, True, 2048, "bfloat16"),
     # MLA: 128 heads with their own K (the latents expanded per head), dk 192
-    # = 128 nope + 64 rope, dv 128; on flash_fwd_wgmma<256>.
+    # = 128 nope + 64 rope, dv 128; on flash_fwd_wgmma<192, 128>.
     "deepseek-v2-236b": (4, 4096, 128, 128, 192, 128, True, 0, "bfloat16"),
     # hubert-xlarge's encode: 16 heads of d 80 over every pair of 1500 frames
-    # (30 s of audio at 20 ms a frame), on flash_fwd_wgmma<128>.
+    # (30 s of audio at 20 ms a frame), on flash_fwd_wgmma<128, 128>.
     "hubert-xlarge": (8, 1500, 16, 16, 80, 80, False, 0, "bfloat16"),
     # internvl2-76b's prefill: 64 heads over 8 KV heads at d 128.
     "internvl2-76b": (4, 2048, 64, 8, 128, 128, True, 0, "bfloat16"),
@@ -548,11 +558,11 @@ GRAD_CASES = [
 ]
 # Flash backward cases: GRAD_CASES, then d 128 with H/K = 4, a d 64 window that
 # is no multiple of the KV tile over a ragged tail, and dk 192 / dv 128 (MLA,
-# on the d-256 kernels); then the edges of the wgmma backward's schedule:
+# on the (192, 128) kernels); then the edges of the wgmma backward's schedule:
 # H/K = 1 and H/K = 8 at d 64 (the group sets the number of steps and which
 # consumer owns each step's dQ), a T whose last 128-key block leaves the
 # second consumer only padding keys, and a window at d 128; then those of the
-# d-256 kernels: H/K = 16 (each head its own group of blocks), a window
+# (256, 256) kernels: H/K = 16 (each head its own group of blocks), a window
 # shorter than half a 64-key tile (whole consumer halves masked), Tq with a
 # ragged last 64-row tile under a window, and Tk 300 against Tq 100 (an
 # optional tenth entry): key tiles past the last query see no query tile, so
@@ -562,8 +572,10 @@ GRAD_CASES = [
 # without the causal mask, each key tile walking every query tile: hubert's
 # d 80 on flash_bwd_wgmma<128> (dq's fp32 reductions go out in 32-column
 # boxes, the one at columns 64-95 clipped at 80) with a T that no tile
-# divides, GQA at d 64, and d 128.  bwd_want names the variant each case must
-# launch.
+# divides, GQA at d 64, and d 128; then the edges of the (192, 128) kernels:
+# H/K = 2 with a ragged tail (two head groups' partials summed), no causal
+# mask, and dk 136 zero-filled to 192.  bwd_want names the variant each case
+# must launch.
 BWD_CASES = GRAD_CASES + [
     (2, 256, 8, 2, 128, 128, True, 0, "bfloat16"),
     (2, 500, 4, 2, 64, 64, True, 77, "bfloat16"),
@@ -581,6 +593,9 @@ BWD_CASES = GRAD_CASES + [
     (2, 300, 4, 4, 80, 80, False, 0, "bfloat16"),
     (1, 200, 8, 2, 64, 64, False, 0, "bfloat16"),
     (1, 130, 4, 2, 128, 128, False, 0, "bfloat16"),
+    (1, 333, 4, 2, 192, 128, True, 0, "bfloat16"),
+    (1, 300, 4, 4, 192, 128, False, 0, "bfloat16"),
+    (1, 200, 2, 1, 136, 128, True, 0, "bfloat16"),
 ]
 # llama3-8b's attention at train_4k's length (B, T, H, K, dk, dv, causal,
 # window, dtype), timed in phase 2: the flash kernels at head dim 128.
@@ -589,7 +604,7 @@ TRAIN_D128 = (1, 4096, 32, 8, 128, 128, True, 0, "bfloat16")
 # at d 256 with the 2048 window, forward and backward on wgmma.
 TRAIN_RG_ATTN = (1, 4096, 16, 1, 256, 256, True, 2048, "bfloat16")
 # deepseek-v2-236b's MLA in phase 6(g)'s microbatch (two rows of train_4k):
-# forward and backward on the d-256 kernels.
+# forward and backward on the (192, 128) kernels.
 TRAIN_MLA = (2, 4096, 128, 128, 192, 128, True, 0, "bfloat16")
 # internvl2-76b's attention in phase 6(h)'s microbatch: one row of 2048
 # positions (256 image embeddings, then text), 64 heads over 8 at d 128.
@@ -608,20 +623,26 @@ TRAIN_EP_ATTN = (2, 4096, 64, 64, 192, 128, True, 0, "bfloat16")
 # microbatch, 8 query heads over the one KV head gathered whole.
 TRAIN_TPR_ATTN = (1, 4096, 8, 1, 256, 256, True, 2048, "bfloat16")
 # The launches of one flash_attention_bwd call on each variant (``wgmma`` up
-# to head dim 128, ``wgmma`` past it, ``simt``), each with the name its
-# kernel has in a profiler trace, and the main kernels of each.
+# to width 128, ``wgmma`` past it at each of its widths, ``simt``), each with
+# the name its kernel has in a profiler trace, and the main kernels of each.
+# At (192, 128) with one head group (every MLA shape: H/K 1) the dkdv kernel
+# casts dk and dv itself and no sum pass runs.
 BWD_LAUNCHES = {
     "wgmma": {"dq_acc zeroing": "FillFunctor", "flash_bwd_rows": "flash_bwd_rows",
               "flash_bwd_wgmma": "flash_bwd_wgmma<", "flash_bwd_dq_cast": "flash_bwd_dq_cast"},
-    "wgmma d 256": {"flash_bwd_rows": "flash_bwd_rows",
-                    "flash_bwd_wgmma_dkdv": "flash_bwd_wgmma_dkdv<",
-                    "flash_bwd_wgmma_dq": "flash_bwd_wgmma_dq<",
-                    "flash_bwd_dkdv_sum": "flash_bwd_dkdv_sum"},
+    "wgmma 256x256": {"flash_bwd_rows": "flash_bwd_rows",
+                      "flash_bwd_wgmma_dkdv": "flash_bwd_wgmma_dkdv<256, 256>",
+                      "flash_bwd_wgmma_dq": "flash_bwd_wgmma_dq<256, 256>",
+                      "flash_bwd_dkdv_sum": "flash_bwd_dkdv_sum"},
+    "wgmma 192x128": {"flash_bwd_rows": "flash_bwd_rows",
+                      "flash_bwd_wgmma_dkdv": "flash_bwd_wgmma_dkdv<192, 128>",
+                      "flash_bwd_wgmma_dq": "flash_bwd_wgmma_dq<192, 128>"},
     "simt": {"flash_bwd_rows": "flash_bwd_rows", "flash_bwd_simt_dkdv": "flash_bwd_simt_dkdv",
              "flash_bwd_simt_dq": "flash_bwd_simt_dq"},
 }
 BWD_MAIN = {"wgmma": ("flash_bwd_wgmma",),
-            "wgmma d 256": ("flash_bwd_wgmma_dkdv", "flash_bwd_wgmma_dq"),
+            "wgmma 256x256": ("flash_bwd_wgmma_dkdv", "flash_bwd_wgmma_dq"),
+            "wgmma 192x128": ("flash_bwd_wgmma_dkdv", "flash_bwd_wgmma_dq"),
             "simt": ("flash_bwd_simt_dkdv", "flash_bwd_simt_dq")}
 LSE_TOL = 1e-4  # the forward's lse against the plain version's: fp32 order only
 # fp32 gradients: largest |g - oracle|, the oracle's autograd on the same inputs.
@@ -1256,6 +1277,40 @@ def timed_microbatch(model, batch, functions):
              for label, calls in log.items()})
 
 
+def flash_widths_key(cfg) -> str:
+    """The widths ("DKxDV") of the wgmma instantiation that an arch's
+    attention runs (``flash_attention.widths``): MLA's nope + rope head dim
+    beside its v head dim, else the head dim for both."""
+    from repro_torch.kernels.flash_attention import widths
+
+    if cfg.mla:
+        dk, dv = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim
+    else:
+        dk = dv = cfg.resolved_head_dim
+    return "x".join(map(str, widths(dk, dv)))
+
+
+def widths_counts():
+    """Each flash wrapper's wgmma launches by the widths of the
+    instantiation, as ``name@DKxDV``."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    return {f"{name}@{w}": c for name, fn in (("flash_attention", flash_attention_fwd),
+                                               ("flash_attention_bwd", flash_attention_bwd))
+            for w, c in fn.launches_by_widths.items()}
+
+
+def check_flash_widths(who, counts, cfg):
+    """Every wgmma flash launch in ``counts`` (:func:`launch_counts` with
+    :func:`widths_counts`) ran the instantiation of ``cfg``'s widths."""
+    key = flash_widths_key(cfg)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        ran = {k.split("@")[1]: c for k, c in counts.items() if k.startswith(f"{name}@") and c}
+        if counts[f"{name}:wgmma"] and ran != {key: counts[f"{name}:wgmma"]}:
+            raise AssertionError(f"{who}: {name}'s wgmma launches by widths {ran}, expected "
+                                 f"all {counts[f'{name}:wgmma']} at {key}")
+
+
 def launch_counts():
     """Every kernel wrapper's launches, in all and by variant."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
@@ -1299,13 +1354,16 @@ def timed_optimizer():
 
 
 def reset_counts():
-    """Every kernel wrapper's launches, in all and by variant, set to 0."""
+    """Every kernel wrapper's launches, in all, by variant and (flash) by
+    widths, set to 0."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
     for fn in (flash_attention_fwd, flash_attention_bwd, rglru_scan_fwd, rglru_scan_bwd):
         fn.launches = 0
         fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+    for fn in (flash_attention_fwd, flash_attention_bwd):
+        fn.launches_by_widths = dict.fromkeys(fn.launches_by_widths, 0)
 
 
 @contextlib.contextmanager
@@ -4021,7 +4079,7 @@ def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, s
                                                              smoke=smoke)
         train_s = time.perf_counter() - t
     adamw_ms = [start.elapsed_time(end) for start, end in updates[1:]] if on_card else []
-    launches = launch_counts()
+    launches = {**launch_counts(), **widths_counts()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else math.nan
     hist = res["history"]
     trained = res["final_state"]["params"]
@@ -4062,6 +4120,8 @@ def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, s
              if adamw_ms else "not measured")
           + f"; {train_s:.1f} s in train(); losses {[round(h['loss'], 6) for h in hist]}; "
           f"launches per step expected " + ", ".join(f"{n} {c}" for n, c in expect.items() if c)
+          + "; flash by widths " + ", ".join(f"{n} {c}" for n, c in launches.items()
+                                             if "@" in n and c)
           + f"; weight matrices left at their init {unmoved or 'none'}; calls of the plain "
           f"versions {plain_calls}; {smi}")
     if len(step_counts) != n_steps or len(hist) != n_steps:
@@ -4074,6 +4134,7 @@ def published_width_training(arch, layers, rows, seq, micro, n_steps, lr, tol, s
         raise AssertionError(f"non-finite loss in {[h['loss'] for h in hist]}")
     if unmoved:
         raise AssertionError(f"{arch}: weights that did not move {unmoved}")
+    check_flash_widths(f"{arch} training", launches, cfg)
 
     # One microbatch, timed, then through the kernels against the plain
     # versions; the wrong recompute drops the causal mask in remat's calls,
@@ -4731,8 +4792,8 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref, work
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import rglru_scan as scan_mod
-    from repro_torch.kernels.flash_attention import (MAX_FUSED_BWD_DIM, flash_attention_bwd,
-                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import (MAX_FUSED_BWD_DIM, WIDTHS,
+                                                     flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import BatchAdmission, serve
@@ -4766,9 +4827,10 @@ def main() -> int:
                 no_spill.add(kernel)
                 if use["spill_stores"] or use["spill_loads"]:
                     raise AssertionError(f"{kernel} spills registers: {use}")
-    wanted = ({f"flash_fwd_wgmma<{d}>" for d in (64, 128, 256)}
+    wanted = ({f"flash_fwd_wgmma<{dk}, {dv}>" for dk, dv in WIDTHS}
               | {f"flash_bwd_wgmma<{d}>" for d in (64, 128)}
-              | {"flash_bwd_wgmma_dkdv<256>", "flash_bwd_wgmma_dq<256>"}
+              | {f"flash_bwd_wgmma_{k}<{dk}, {dv}>" for k in ("dkdv", "dq")
+                 for dk, dv in WIDTHS if dk > MAX_FUSED_BWD_DIM}
               | {"rglru_scan_tma", "rglru_scan_bwd_tma"})
     if no_spill != wanted:
         raise AssertionError(f"nvcc's log shows {sorted(no_spill)}, expected {sorted(wanted)}")
@@ -4838,12 +4900,26 @@ def main() -> int:
             raise AssertionError(f"bf16 case {case} ran the {kind} variant, not wgmma")
         return err, share
 
+    def widths_since(fn, before, dk, dv, kind):
+        """The suffix " at DKxDV" with the widths of the one wgmma launch
+        ``fn`` made since its ``launches_by_widths`` read ``before`` (held to
+        ``flash_attention.widths``), or "" for a simt launch."""
+        ran = [w for w, c in fn.launches_by_widths.items() if c != before[w]]
+        want = ["x".join(map(str, flash_mod.widths(dk, dv)))] if kind == "wgmma" else []
+        if ran != want:
+            raise AssertionError(f"{fn.__name__} at dk {dk}, dv {dv} ({kind}) launched widths "
+                                 f"{ran}, expected {want}")
+        return f" at {ran[0]}" if ran else ""
+
     for case in FLASH_CASES:
         B, T, H, K, dk, dv, causal, window, dtype = case
         q, k, v = flash_inputs(B, T, H, K, dk, dv, dtype)
+        before_w = dict(flash_attention_fwd.launches_by_widths)
         out, expect, kind = flash_run(case, q, k, v)
         err, share = flash_check(case, out, expect, kind)
-        print(f"[kernel] flash_attention {case} {kind}: max_abs_err {err:.3e} (tol {TOL[dtype]})"
+        ran = widths_since(flash_attention_fwd, before_w, dk, dv, kind)
+        print(f"[kernel] flash_attention {case} {kind}{ran}: max_abs_err {err:.3e} "
+              f"(tol {TOL[dtype]})"
               + (f", {share:.3f} of the per-element bound" if dtype == "bfloat16" else ""))
 
     def sdpa_yardstick(q, k, v, causal, window, keep, grad=False):
@@ -4857,12 +4933,60 @@ def main() -> int:
         backends, note = sdpa_backends(qt, kt, vt, grad=grad, **kw)
         return (qt, kt, vt), kw, backends, note
 
-    def padded_dim(dk, dv):
-        """The D of the wgmma kernels that take dk and dv (64, 128 or 256):
-        the TMA zero-fills the columns past dk and dv to D, so every product
-        they run is D wide."""
-        return next(d for d in (64, 128, 256) if max(dk, dv) <= d)
+    @contextlib.contextmanager
+    def widths_forced(dims):
+        """The wrappers with their widths fixed, for timing an instantiation
+        the rule does not choose."""
+        saved, flash_mod.widths = flash_mod.widths, lambda *_: dims
+        try:
+            yield
+        finally:
+            flash_mod.widths = saved
 
+    def ran_widths(fn, call):
+        """call() once; the widths key ("DKxDV") of the one wgmma launch it
+        made on ``fn``, checked against ``flash_attention.widths``'s, and the
+        name of the main kernel in a profiler trace of a second call ("not
+        named" where the trace has no device time)."""
+        before = dict(fn.launches_by_widths)
+        call()
+        ran = [k for k, c in fn.launches_by_widths.items() if c != before[k]]
+        names = {m[1] for n in device_times(call, 3)
+                 if (m := re.search(r"(flash_(?:fwd|bwd)_wgmma\w*<[^>]*>)", n))}
+        return ran, sorted(names) or ["not named"]
+
+    def instantiation_note(fn, call, dk, dv, pairs, nbytes, ms, products):
+        """The instantiation ``call`` launched on ``fn`` (checked against the
+        rule: one wgmma launch at ``flash_attention.widths``) and, where dk
+        and dv run below (256, 256), the same call timed at (256, 256), the
+        widths such shapes ran before (192, 128) had kernels of its own, with
+        the bound of its padded work (``products`` products, the forward's
+        two or the split backward's seven, 256 wide) and whether the two give
+        the same bits.  Returns the note for the [kernel] line and the
+        record's keys."""
+        DK, DV = flash_mod.widths(dk, dv)
+        ran, names = ran_widths(fn, call)
+        if ran != [f"{DK}x{DV}"]:
+            raise AssertionError(f"{fn.__name__} at dk {dk}, dv {dv} launched widths {ran}, "
+                                 f"expected {DK}x{DV}")
+        rec = {"widths": [DK, DV], "kernel_names": names}
+        note = f"; ran {', '.join(names)} (launches at {ran[0]})"
+        if (DK, DV) != (256, 256) and max(dk, dv) > MAX_FUSED_BWD_DIM:
+            with widths_forced((256, 256)):
+                old_ms = time_ms(call, 10)
+                old = call()
+            new = call()
+            same = all(map(torch.equal, *((x,) if torch.is_tensor(x) else x for x in (new, old))))
+            del new, old
+            old_bound, _ = bound(2 * products * 256 * pairs, PEAK_BF16_FLOPS, nbytes)
+            rec.update({"ms_at_256x256": old_ms, "padded_bound_ms_at_256x256": old_bound,
+                        "bits_equal_at_256x256": same})
+            note += (f"; the same call at (256, 256), the widths it ran before: {old_ms:.4f} ms "
+                     f"(its padded bound {old_bound:.4f}), {old_ms / ms:.2f}x this one's, its "
+                     f"results {'equal' if same else 'unequal'} bit for bit")
+        return note, rec
+
+    records = {}  # kernel entries of the JSON line, keyed by the path they serve
     records = {}  # kernel entries of the JSON line, keyed by the path they serve
     for arch, case in FLASH_SLICES.items():
         B, T, H, K, dk, dv, causal, window, dtype = case
@@ -4879,22 +5003,26 @@ def main() -> int:
         pairs = B * H * work.attn_pairs(T, T, causal, window)
         flops, nbytes = work.flash_fwd_work(q, k, v, causal, window)
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-        D = padded_dim(dk, dv)
-        padded_ms, _ = bound(2 * 2 * D * pairs, PEAK_BF16_FLOPS, nbytes)
+        DK, DV = flash_mod.widths(dk, dv)
+        padded_ms, _ = bound(2 * (DK + DV) * pairs, PEAK_BF16_FLOPS, nbytes)
+        widths_note, widths_rec = instantiation_note(
+            flash_attention_fwd, lambda: flash_attention_fwd(q, k, v, causal=causal,
+                                                             window=window),
+            dk, dv, pairs, nbytes, ms, products=2)
         # Yardstick: SDPA on the same q, k, v, its backends pinned.
         (qt, kt, vt), kw, backends, note = sdpa_yardstick(q, k, v, causal, window, keep)
         with sdpa_kernel(backends):
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), 20)
             backend, top = sdpa_backend(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
-        padded = (f"; the work flash_fwd_wgmma<{D}> runs, dk {dk} and dv {dv} zero-filled to "
-                  f"{D}, bounds it at {padded_ms:.4f} ms "
+        padded = (f"; the work flash_fwd_wgmma<{DK}, {DV}> runs, dk {dk} and dv {dv} zero-filled "
+                  f"to {DK} and {DV}, bounds it at {padded_ms:.4f} ms "
                   f"(the needed work is {100 * bound_ms / padded_ms:.1f} % of it)"
                   if padded_ms > bound_ms else "")
         print(f"[kernel] flash_attention {case} {kind} ({arch} prefill): max_abs_err {err:.3e}, "
               f"{share:.3f} of the per-element bound; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({note}; "
               f"ran {backend}: {top}), bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB){padded}; {smi}")
+              f"{nbytes / 1e6:.1f} MB){padded}{widths_note}; {smi}")
         records[("flash_attention", arch)] = {
             "name": "flash_attention",
             "variant": kind,
@@ -4912,6 +5040,7 @@ def main() -> int:
             "library_backend": backend,
             "library_note": note,
             **({"padded_bound_ms": padded_ms} if padded_ms > bound_ms else {}),
+            **widths_rec,
         }
         del q, k, v, qt, kt, vt, out, kw
         torch.cuda.empty_cache()
@@ -5022,16 +5151,20 @@ def main() -> int:
         pairs = B * H * work.attn_pairs(T, T, causal, window)  # unmasked (query, key) pairs
         flops, nbytes = work.flash_fwd_work(q, k, v, causal, window)
         bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-        D = padded_dim(dk, dv)
-        padded_ms, _ = bound(2 * 2 * D * pairs, PEAK_BF16_FLOPS, nbytes)
-        padded = (f"; the work flash_fwd_wgmma<{D}> runs, dk {dk} and dv {dv} zero-filled to "
-                  f"{D}, bounds it at {padded_ms:.4f} ms" if padded_ms > bound_ms else "")
+        DK, DV = flash_mod.widths(dk, dv)
+        padded_ms, _ = bound(2 * (DK + DV) * pairs, PEAK_BF16_FLOPS, nbytes)
+        padded = (f"; the work flash_fwd_wgmma<{DK}, {DV}> runs, dk {dk} and dv {dv} zero-filled "
+                  f"to {DK} and {DV}, bounds it at {padded_ms:.4f} ms" if padded_ms > bound_ms
+                  else "")
+        widths_note, widths_rec = instantiation_note(
+            flash_attention_fwd, lambda: flash_attention_fwd(q, k, v, **mask), dk, dv, pairs,
+            nbytes, ms, products=2)
         print(f"[kernel] flash_attention {case} {kind} ({label}): max_abs_err {err:.3e}"
               + (f", {share:.3f} of the per-element bound" if dtype == "bfloat16" else "")
               + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
               f"({sdpa_note}; ran {fwd_backend}: {fwd_top}), bound {bound_ms:.4f} ms ({bound_by}: "
               f"{flops / 1e9:.2f} GFLOP, "
-              f"{pairs} pairs){padded}; {smi}")
+              f"{pairs} pairs){padded}{widths_note}; {smi}")
         fwd = {"name": "flash_attention", "variant": kind, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:128",
@@ -5039,7 +5172,7 @@ def main() -> int:
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "library_note": sdpa_note,
                "library_backend": fwd_backend,
-               **({"padded_bound_ms": padded_ms} if padded_ms > bound_ms else {})}
+               **({"padded_bound_ms": padded_ms} if padded_ms > bound_ms else {}), **widths_rec}
 
         # The backward: checked against its plain version and the oracle,
         # then timed beside the oracle's autograd (its forward recomputed, as
@@ -5054,12 +5187,12 @@ def main() -> int:
         torch.cuda.synchronize()
         bwd_err, bwd_share, bwd_l2 = grad_check(case, bwd_kind, got, plain, oracle)
         del plain, oracle
-        split_kind = ("wgmma d 256" if bwd_kind == "wgmma" and max(dk, dv) > MAX_FUSED_BWD_DIM
-                      else bwd_kind)
-        # The d-256 kernels use no atomics: a second call must repeat the first
-        # bit for bit.
+        split = bwd_kind == "wgmma" and DK > MAX_FUSED_BWD_DIM
+        split_kind = f"wgmma {DK}x{DV}" if split else bwd_kind
+        # The split kernels use no atomics: a second call must repeat the
+        # first bit for bit.
         repeat_note = ""
-        if split_kind == "wgmma d 256":
+        if split:
             again = flash_attention_bwd(q, k, v, out, lse, g, **mask)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"flash_attention_bwd on {case} does not repeat bit for bit")
@@ -5068,11 +5201,11 @@ def main() -> int:
         del got
         torch.cuda.empty_cache()
         bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, **mask), 20)
-        split = bwd_split(split_kind, q, k, v, out, lse, g, **mask)
-        # Past head dim 128: the time at every head-group count the launch
+        by_launch = bwd_split(split_kind, q, k, v, out, lse, g, **mask)
+        # Past width 128: the time at every head-group count the launch
         # could choose (a divisor of H/K), beside bwd_groups' choice.
         groups_rec = {}
-        if split_kind == "wgmma d 256":
+        if split:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             chosen = flash_mod.bwd_groups(B, K, T, H // K, sms)
             choose, by_groups = flash_mod.bwd_groups, {}
@@ -5084,7 +5217,8 @@ def main() -> int:
             finally:
                 flash_mod.bwd_groups = choose
             print(f"[kernel] flash_attention_bwd {case} ({label}) ms per call by head groups "
-                  f"(blocks = {B * K * -(-T // 64)} key tiles x groups on {sms} SMs): "
+                  f"(bwd_groups counts {B * K * -(-T // 64)} 64-key tiles x groups on {sms} "
+                  f"SMs): "
                   + ", ".join(f"{n} {t:.4f}" for n, t in by_groups.items())
                   + f"; bwd_groups chooses {chosen}")
             groups_rec = {"head_groups": chosen,
@@ -5104,26 +5238,33 @@ def main() -> int:
         # and dq, dk, dv written once (kernels/work.py).
         bwd_flops, bwd_bytes = work.flash_bwd_work(q, k, v, causal, window)
         bwd_bound_ms, bwd_bound_by = bound(bwd_flops, PEAK_BF16_FLOPS, bwd_bytes)
-        main_ms = sum(split[n] for n in BWD_MAIN[split_kind])
-        # Past head dim 128 the dq kernel recomputes S and dP: seven products
+        main_ms = sum(by_launch[n] for n in BWD_MAIN[split_kind])
+        # Past width 128 the dq kernel recomputes S and dP: seven products
         # per unmasked pair (4 dk + 3 dv).
         design_note, design = "", {}
-        if split_kind == "wgmma d 256":
+        if split:
             flops7 = 2 * (4 * dk + 3 * dv) * pairs
             bound7_ms, _ = bound(flops7, PEAK_BF16_FLOPS, bwd_bytes)
             design_note = (f"; the split design's seven products {flops7 / 1e9:.2f} GFLOP, bound "
                            f"{bound7_ms:.4f} ms, of which the main kernels reach "
                            f"{100 * bound7_ms / main_ms:.1f} %")
             design = {"bound_7_products_ms": bound7_ms}
-            if D * 7 * 2 * pairs > flops7:  # dk, dv zero-filled to D in every product
-                bound7_padded_ms, _ = bound(2 * 7 * D * pairs, PEAK_BF16_FLOPS, bwd_bytes)
+            if 2 * (4 * DK + 3 * DV) * pairs > flops7:  # dk, dv zero-filled to DK, DV
+                bound7_padded_ms, _ = bound(2 * (4 * DK + 3 * DV) * pairs, PEAK_BF16_FLOPS,
+                                            bwd_bytes)
                 design_note += (f"; the seven products as the kernels run them, dk {dk} and dv "
-                                f"{dv} zero-filled to {D}, bound {bound7_padded_ms:.4f} ms")
+                                f"{dv} zero-filled to {DK} and {DV}, bound "
+                                f"{bound7_padded_ms:.4f} ms")
                 design["bound_7_products_padded_ms"] = bound7_padded_ms
-        elif split_kind == "wgmma" and D > max(dk, dv):  # the TMA zero-fills dk, dv to D
-            bwd_padded_ms, _ = bound(2 * 5 * D * pairs, PEAK_BF16_FLOPS, bwd_bytes)
-            design_note = (f"; the five products as flash_bwd_wgmma<{D}> runs them, dk {dk} and "
-                           f"dv {dv} zero-filled to {D}, bound {bwd_padded_ms:.4f} ms, of which "
+            note, rec = instantiation_note(
+                flash_attention_bwd, lambda: flash_attention_bwd(q, k, v, out, lse, g, **mask),
+                dk, dv, pairs, bwd_bytes, bwd_ms, products=7)
+            design_note += note
+            design.update(rec)
+        elif split_kind == "wgmma" and DK > max(dk, dv):  # the TMA zero-fills dk, dv to DK
+            bwd_padded_ms, _ = bound(2 * 5 * DK * pairs, PEAK_BF16_FLOPS, bwd_bytes)
+            design_note = (f"; the five products as flash_bwd_wgmma<{DK}> runs them, dk {dk} and "
+                           f"dv {dv} zero-filled to {DK}, bound {bwd_padded_ms:.4f} ms, of which "
                            f"the main kernel reaches {100 * bwd_padded_ms / main_ms:.1f} %")
             design = {"padded_bound_ms": bwd_padded_ms}
         print(f"[kernel] flash_attention_bwd {case} {bwd_kind} ({label}): "
@@ -5134,8 +5275,8 @@ def main() -> int:
               f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_flops / 1e9:.2f} GFLOP, "
               f"{bwd_bytes / 1e6:.1f} MB); {smi}")
         print(f"[kernel] flash_attention_bwd {case} ({label}) device ms per call by launch: "
-              + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
-              + f" (sum {sum(split.values()):.4f}); the main kernel"
+              + ", ".join(f"{n} {t:.4f}" for n, t in by_launch.items())
+              + f" (sum {sum(by_launch.values()):.4f}); the main kernel"
               f"{'s' if len(BWD_MAIN[split_kind]) > 1 else ''} reach "
               f"{100 * bwd_bound_ms / main_ms:.1f} % of the bound, the call "
               f"{100 * bwd_bound_ms / bwd_ms:.1f} %" + design_note)
@@ -5147,7 +5288,7 @@ def main() -> int:
                "shape": list(case), "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms,
                "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
                "library_ms": bwd_library_ms, "library_backend": backend,
-               "library_note": sdpa_note, "split_ms": split, **design, **groups_rec}
+               "library_note": sdpa_note, "split_ms": by_launch, **design, **groups_rec}
         del q, k, v, qt, kt, vt, out, lse, g
         torch.cuda.empty_cache()
         return fwd, bwd
@@ -5160,6 +5301,7 @@ def main() -> int:
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, lse=True)
         _, lse_plain = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=window)
         before = dict(flash_attention_bwd.launches_by_variant)
+        before_w = dict(flash_attention_bwd.launches_by_widths)
         got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
         kind, = (n for n, c in flash_attention_bwd.launches_by_variant.items() if c != before[n])
         plain, oracle = grad_refs(case, q, k, v, out, lse, g)
@@ -5168,8 +5310,9 @@ def main() -> int:
         if not lse_err <= LSE_TOL:
             raise AssertionError(f"flash_attention lse on {case}: max_abs_err {lse_err}")
         err, share, l2 = grad_check(case, kind, got, plain, oracle)
-        print(f"[kernel] flash_attention_bwd {case} {kind}: lse max_abs_err {lse_err:.3e} "
-              f"(tol {LSE_TOL}); " + bwd_note(dtype, err, share, l2))
+        ran = widths_since(flash_attention_bwd, before_w, dk, dv, kind)
+        print(f"[kernel] flash_attention_bwd {case} {kind}{ran}: lse max_abs_err "
+              f"{lse_err:.3e} (tol {LSE_TOL}); " + bwd_note(dtype, err, share, l2))
         del q, k, v, g, out, lse, got, plain, oracle
 
     # llama3-8b's training shape (d 128): no main path runs it yet; its
@@ -5545,6 +5688,7 @@ def main() -> int:
                                             "time": "prefill s"}
         launches = {name: fn.launches for name, fn in kernels.items()}
         flash_variants = dict(flash_attention_fwd.launches_by_variant)
+        flash_widths = {w: c for w, c in flash_attention_fwd.launches_by_widths.items() if c}
         scan_variants = dict(rglru_scan_fwd.launches_by_variant)
         toks = res["tokens"]
         depth = (f"{full.num_layers} of {get_config(arch).num_layers} layers ({plan.lead} + "
@@ -5564,6 +5708,7 @@ def main() -> int:
               f"launches "
               + ", ".join(f"{n} {c}" for n, c in launches.items())
               + " (flash by variant: " + ", ".join(f"{n} {c}" for n, c in flash_variants.items())
+              + f", by widths {flash_widths}"
               + "; scan by variant: " + ", ".join(f"{n} {c}" for n, c in scan_variants.items())
               + f"); calls of the plain versions {plain_calls}; {smi}")
         torch.cuda.empty_cache()
@@ -5579,6 +5724,10 @@ def main() -> int:
         if flash_variants["wgmma"] != launches["flash_attention"]:
             raise AssertionError(f"{arch} prefill launched flash attention as {flash_variants}: "
                                  "every launch must be wgmma")
+        if launches["flash_attention"] and flash_widths != {
+                flash_widths_key(full): launches["flash_attention"]}:
+            raise AssertionError(f"{arch} prefill launched flash attention at widths "
+                                 f"{flash_widths}, expected all at {flash_widths_key(full)}")
         if scan_variants["tma"] != launches["rglru_scan"]:
             raise AssertionError(f"{arch} prefill launched the scan as {scan_variants}: "
                                  "every launch must be tma")
@@ -5587,6 +5736,8 @@ def main() -> int:
         for (name, path), rec in records.items():
             if path == arch:
                 rec["launches"] = launches[name]
+                if name == "flash_attention":
+                    rec["launches_by_widths"] = flash_widths
 
     # The encoder's main path: hubert-xlarge at published width and depth,
     # encoded through build_encode_step with every launch counted from zero;
@@ -6437,6 +6588,8 @@ def main() -> int:
             if path == f"{arch} train":
                 rec["launches"] = launches[name]
                 rec["launches_per_step"] = launches[name] // n_steps
+                rec["launches_by_widths"] = {n.split("@")[1]: c for n, c in launches.items()
+                                             if n.startswith(f"{name}@") and c}
         records[("flash_attention_bwd", f"{arch} train")]["ms_in_step"] = attn_ms
         torch.cuda.empty_cache()
 

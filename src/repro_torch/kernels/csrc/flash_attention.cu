@@ -18,11 +18,20 @@
 // the TPU kernel later cancels.
 //
 // Two variants, chosen by the caller (kernels/flash_attention.py::variant):
-//  * flash_fwd_wgmma<D>: bf16 with dk, dv multiples of 8 up to 256
-//    and 16-byte aligned pointers, every serving shape.  D is the smallest of
-//    64 / 128 / 256 that covers max(dk, dv); BK keys per KV tile (128 at
-//    D 64 and 128, 64 at D 256), NS shared-memory stages (4, 3, 2), for
-//    148624, 230512 and 197712 B of dynamic shared memory (WgmmaTile::SMEM).  One
+//  * flash_fwd_wgmma<DK, DV>: bf16 with dk, dv multiples of 8 up to 256
+//    and 16-byte aligned pointers, every serving shape.  DK covers dk (q and
+//    k), DV covers dv (v and o), as kernels/flash_attention.py::widths
+//    names them: (64, 64), (128, 128) and (256, 256), the smallest that
+//    covers max(dk, dv), and (192, 128) for 128 < dk <= 192 with dv <= 128
+//    (MLA's 192 / 128).  BK keys per KV tile (128 at (64, 64) and
+//    (128, 128), 64 at (256, 256), where O's accumulator takes 128
+//    registers a thread, and at (192, 128), see WgmmaTile), NS
+//    shared-memory stages (4, 3, 2, and 4 at (192, 128)), for 148624,
+//    230512, 197712 and 214160 B of dynamic shared memory
+//    (WgmmaTile::SMEM).  At (192, 128) Q and K span three swizzle atoms and
+//    V two, O is m64n128 (64 registers, half of (256, 256)'s), and four
+//    stages of K (24 KB) and V (16 KB) lie beside Q (48 KB); its walk is
+//    head-major (see flash_fwd_wgmma).  One
 //    persistent block per SM walks work tiles of 128 query rows of one
 //    (b, h), heaviest causal tiles first, with three warpgroups:
 //      - a producer (warps 8-11, 24 registers after setmaxnreg), one thread
@@ -39,11 +48,12 @@
 //    runs the softmax of tile i while that P V is still on the tensor cores;
 //    the two consumers take turns to issue (named barriers), so that one's
 //    softmax overlaps the other's products.
-//    Every operand tile lies in shared memory as D/64 boxes of [rows][64]
-//    bf16 under the 128-byte swizzle, one swizzle atom column each, as the
-//    TMA writes them (box (64, 1, rows, 1) of a rank-4 map (d, heads, T, B)).
-//    The TMA zero-fills rows past T and columns past dk or dv, so tail
-//    padding and head dims below D cost no code.
+//    Every operand tile lies in shared memory as DK/64 (q, k) or DV/64 (v)
+//    boxes of [rows][64] bf16 under the 128-byte swizzle, one swizzle atom
+//    column each, as the TMA writes them (box (64, 1, rows, 1) of a rank-4
+//    map (d, heads, T, B)).  The TMA zero-fills rows past T and columns past
+//    dk or dv, so tail padding and head dims below DK or DV cost no code
+//    (but the products still run DK and DV wide).
 //  * flash_fwd_simt<T>: fp32 (exact fp32 arithmetic, as the reference), and
 //    any bf16 shape the TMA cannot take (a head dim that is no multiple of
 //    8, or a misaligned pointer).  CUDA-core dot products, 32x32 tiles,
@@ -61,15 +71,18 @@
 // flash-backward equations from the saved output and lse, on the tensor
 // cores for every bf16 shape the forward's wgmma rule takes, and
 // flash_bwd_simt<T> for fp32 and every other shape, as
-// kernels/flash_attention.py::variant chooses.  Up to D 128,
-// flash_bwd_wgmma<D> is warp-specialised like the forward: a TMA loader, a dQ
-// writer that adds finished dQ tiles into fp32 sums by TMA reductions, and
-// two consumer warpgroups of 64 keys each that meet only through mbarriers,
-// the dQ of each query tile computed by one of them in turn.  Past it, up to
-// D 256, two kernels split the work: flash_bwd_wgmma_dkdv<256> (64 keys a
-// block, the head dim split across the two consumers, the GQA group split
-// across blocks) and flash_bwd_wgmma_dq<256> (64 queries a block, S and dP
-// recomputed), with no atomics.  The reference has no backward kernel: its
+// kernels/flash_attention.py::variant chooses, at the widths ::widths
+// names.  At (64, 64) and (128, 128), flash_bwd_wgmma<D> is warp-specialised
+// like the forward: a TMA loader, a dQ writer that adds finished dQ tiles
+// into fp32 sums by TMA reductions, and two consumer warpgroups of 64 keys
+// each that meet only through mbarriers, the dQ of each query tile computed
+// by one of them in turn.  Past them two kernels split the work with no
+// atomics, flash_bwd_wgmma_dkdv<DK, DV> (dK and dV, the GQA group split
+// across blocks) and flash_bwd_wgmma_dq<DK, DV> (dQ, S and dP recomputed):
+// at (256, 256) 64 keys or queries a block with the head dim split across
+// the two consumers; at (192, 128), MLA's widths, 128 a block, each
+// consumer holding whole rows of 64 keys or queries (dK 96 and dV 64
+// registers, or dQ 96).  The reference has no backward kernel: its
 // custom_vjp (repro/kernels/ops.py) takes the vjp of its quadratic oracle,
 // which this computes up to rounding.
 //
@@ -229,20 +242,31 @@ constexpr int W_THREADS = 384;            // + 1 producer warpgroup
 constexpr int W_ATOM = 64;                // bf16 columns of one 128-byte swizzle atom
 constexpr int W_PRODUCER_REGS = 24, W_CONSUMER_REGS = 240;
 
-// Head dim D (64, 128 or 256): BK keys per KV tile, NS shared-memory stages.
-template <int D>
+// Widths DK (q and k) and DV (v and o) of an instantiation: (64, 64),
+// (128, 128), (192, 128) or (256, 256).  BK keys per KV tile, NS
+// shared-memory stages.  The O accumulator takes DV / 2 registers a thread
+// and the S accumulator BK / 2: BK is 64 at (256, 256), where O takes 128.
+// At (192, 128) BK is 64 too, in four stages.  128 keys a tile fit its
+// registers and ran faster at MLA's shapes (PERF.md, PR 34), but the online
+// softmax then rounds otherwise than the (256, 256) kernel MLA ran before,
+// and that new bf16 rounding alone moved chip_smoke.py's phase 9(b) check
+// of two ranks against one over its limit; at 64 keys the forward gives the
+// (256, 256) kernel's bits (its zero-filled columns add exact zeros).
+template <int DK, int DV>
 struct WgmmaTile {
-  static constexpr int BK = D == 256 ? 64 : 128;  // the S accumulator: BK / 2 registers
-  static constexpr int NS = D == 64 ? 4 : D == 128 ? 3 : 2;
-  static constexpr int ATOMS = D / W_ATOM;
+  static constexpr int BK = DV == 256 || DK != DV ? 64 : 128;  // the S accumulator: BK / 2 registers
+  static constexpr int NS = DK == 64 || DK != DV ? 4 : DK == 128 ? 3 : 2;
+  static constexpr int K_ATOMS = DK / W_ATOM, V_ATOMS = DV / W_ATOM;
   static constexpr uint32_t Q_BOX = W_BQ * 128;        // bytes of one [128][64] atom column
   static constexpr uint32_t KV_BOX = BK * 128;         // bytes of one [BK][64] atom column
-  static constexpr uint32_t Q_BYTES = ATOMS * Q_BOX;
-  static constexpr uint32_t KV_BYTES = ATOMS * KV_BOX;  // one K or one V stage
+  static constexpr uint32_t Q_BYTES = K_ATOMS * Q_BOX;
+  static constexpr uint32_t K_BYTES = K_ATOMS * KV_BOX;  // one K stage
+  static constexpr uint32_t V_BYTES = V_ATOMS * KV_BOX;  // one V stage
   // Q, then NS K stages, NS V stages, then the mbarriers (Q full and empty,
   // then for each stage: K full, V full, K empty, V empty); 1024 bytes of
   // slack to align the base to the swizzle period.
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * NS * (size_t)KV_BYTES + 8 * (2 + 4 * NS);
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + NS * ((size_t)K_BYTES + V_BYTES) + 8 * (2 + 4 * NS);
   static_assert(SMEM <= 232448, "over the 227 KB a block may use");
 };
 
@@ -405,6 +429,28 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : F64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : F64(0), F32(64)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
@@ -580,19 +626,19 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pf)[
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(W_THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Params p) {
-  using Tile = WgmmaTile<D>;
-  constexpr int BK = Tile::BK, NS = Tile::NS, ATOMS = Tile::ATOMS;
+  using Tile = WgmmaTile<DK, DV>;
+  constexpr int BK = Tile::BK, NS = Tile::NS, K_ATOMS = Tile::K_ATOMS, V_ATOMS = Tile::V_ATOMS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle period
   const uint32_t sK = sQ + Tile::Q_BYTES;
-  const uint32_t sV = sK + NS * Tile::KV_BYTES;
+  const uint32_t sV = sK + NS * Tile::K_BYTES;
   // mbarriers, 8 bytes each: Q full, Q empty, then K full, V full, K empty,
   // V empty for each stage.
-  const uint32_t q_full = sV + NS * Tile::KV_BYTES, q_empty = q_full + 8;
+  const uint32_t q_full = sV + NS * Tile::V_BYTES, q_empty = q_full + 8;
   const uint32_t k_full = q_empty + 8, v_full = k_full + 8 * NS;
   const uint32_t k_empty = v_full + 8 * NS, v_empty = k_empty + 8 * NS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -603,10 +649,29 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   // loads of the next.  KV tiles are numbered across work tiles: the j-th
   // goes through stage j % NS in round j / NS.
   const int BH = p.B * p.H, nq = (p.Tq + W_BQ - 1) / W_BQ, nwork = BH * nq;
+  // At (192, 128) the walk is head-major instead (heaviest tiles of each
+  // head first): MLA gives every query head its own K and V (2.6 MB at T
+  // 4096), and tile-major order would keep 132 heads in flight, more than
+  // the 50 MB L2 holds, so every work tile would read its K and V from HBM.
+  // Its n-th round of work tiles, [n G, n G + G) for a grid of G, goes to
+  // the blocks rotated by n, so that each block meets every query tile of a
+  // head in turn and none runs ahead of the others onto later heads.
+  auto work = [&](int n) {
+    if constexpr (DK != DV)
+      return n * (int)gridDim.x + ((int)blockIdx.x + n) % (int)gridDim.x;
+    else
+      return (int)blockIdx.x + n * (int)gridDim.x;
+  };
   auto decode = [&](int w, int& b, int& h, int& q0, int& lo, int& hi) {
-    q0 = (nq - 1 - w / BH) * W_BQ;
-    b = (w % BH) / p.H;
-    h = w % p.H;
+    if constexpr (DK != DV) {
+      q0 = (nq - 1 - w % nq) * W_BQ;
+      b = w / nq / p.H;
+      h = w / nq % p.H;
+    } else {
+      q0 = (nq - 1 - w / BH) * W_BQ;
+      b = (w % BH) / p.H;
+      h = w % p.H;
+    }
     kv_tiles(p, q0, W_BQ, BK, lo, hi);
   };
 
@@ -631,29 +696,29 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
     if (threadIdx.x == 256) {
       int j = 0;
-      for (int w = blockIdx.x, n = 0; w < nwork; w += gridDim.x, ++n) {
+      for (int n = 0, w = work(0); w < nwork; w = work(++n)) {
         int b, h, q0, lo, hi;
         decode(w, b, h, q0, lo, hi);
         const int kh = h / (p.H / p.K);
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
         mbar_expect_tx(q_full, Tile::Q_BYTES);
 #pragma unroll
-        for (int a = 0; a < ATOMS; ++a)
+        for (int a = 0; a < K_ATOMS; ++a)
           tma_load(sQ + a * Tile::Q_BOX, &tq, q_full, a * W_ATOM, h, q0, b);
         for (int kt = lo; kt < hi; ++kt, ++j) {
           const int s = j % NS;
           const uint32_t parity = ((j / NS) - 1) & 1;
           if (j >= NS) mbar_wait(k_empty + 8 * s, parity);
-          mbar_expect_tx(k_full + 8 * s, Tile::KV_BYTES);
+          mbar_expect_tx(k_full + 8 * s, Tile::K_BYTES);
 #pragma unroll
-          for (int a = 0; a < ATOMS; ++a)
-            tma_load(sK + s * Tile::KV_BYTES + a * Tile::KV_BOX, &tk, k_full + 8 * s, a * W_ATOM,
+          for (int a = 0; a < K_ATOMS; ++a)
+            tma_load(sK + s * Tile::K_BYTES + a * Tile::KV_BOX, &tk, k_full + 8 * s, a * W_ATOM,
                      kh, kt * BK, b);
           if (j >= NS) mbar_wait(v_empty + 8 * s, parity);
-          mbar_expect_tx(v_full + 8 * s, Tile::KV_BYTES);
+          mbar_expect_tx(v_full + 8 * s, Tile::V_BYTES);
 #pragma unroll
-          for (int a = 0; a < ATOMS; ++a)
-            tma_load(sV + s * Tile::KV_BYTES + a * Tile::KV_BOX, &tv, v_full + 8 * s, a * W_ATOM,
+          for (int a = 0; a < V_ATOMS; ++a)
+            tma_load(sV + s * Tile::V_BYTES + a * Tile::KV_BOX, &tv, v_full + 8 * s, a * W_ATOM,
                      kh, kt * BK, b);
         }
       }
@@ -673,9 +738,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     };
     // S = Q K_j^T, issued and committed, not waited for.
     auto issue_s = [&](float (&sc)[BK / 2], int j) {
-      const uint32_t k_st = sK + (j % NS) * Tile::KV_BYTES;
+      const uint32_t k_st = sK + (j % NS) * Tile::K_BYTES;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;  // k16 step inside a 128-byte atom row
         wgmma_ss<BK>(sc, desc_sw128(q_wg + (kk >> 2) * Tile::Q_BOX + off, 16, 1024),
                      desc_sw128(k_st + (kk >> 2) * Tile::KV_BOX + off, 16, 1024), kk > 0);
@@ -683,11 +748,11 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       wgmma_commit();
     };
     // O += P V_j, issued and committed, not waited for.
-    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pf)[BK / 16][4], int j) {
-      const uint32_t v_st = sV + (j % NS) * Tile::KV_BYTES;
+    auto issue_pv = [&](float (&o)[DV / 2], const uint32_t (&pf)[BK / 16][4], int j) {
+      const uint32_t v_st = sV + (j % NS) * Tile::V_BYTES;
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc)
-        wgmma_rs<D>(o, pf[kc], desc_sw128(v_st + kc * 16 * 128, Tile::KV_BOX, 1024), 1);
+        wgmma_rs<DV>(o, pf[kc], desc_sw128(v_st + kc * 16 * 128, Tile::KV_BOX, 1024), 1);
       wgmma_commit();
     };
 
@@ -702,7 +767,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     if (wg == 1) turn_pass();
 
     int j0 = 0;  // KV tiles of earlier work tiles
-    for (int w = blockIdx.x, n = 0; w < nwork; w += gridDim.x, ++n) {
+    for (int n = 0, w = work(0); w < nwork; w = work(++n)) {
       int b, h, q0, lo, hi;
       decode(w, b, h, q0, lo, hi);
       const int row0 = q0 + wg * 64, qpos0 = q0 + row;
@@ -714,9 +779,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
                (p.window > 0 && k0 <= row0 + 63 - p.window);
       };
 
-      float o[D / 2];
+      float o[DV / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
 
       // KV tiles [lo, hi) are pipelined: the softmax of tile kt runs while
@@ -753,7 +818,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
           fence_regs(o);
           release(v_empty, j - 1);
 #pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
+          for (int c = 0; c < DV / 8; ++c) {
             o[4 * c + 0] *= corr[0];
             o[4 * c + 1] *= corr[0];
             o[4 * c + 2] *= corr[1];
@@ -788,7 +853,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         if (qpos < p.Tq) {
           __nv_bfloat16* orow = out + ((int64_t)(b * p.Tq + qpos) * p.H + h) * p.dv;
 #pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
+          for (int c = 0; c < DV / 8; ++c) {
             const int col = 8 * c + 2 * t;
             if (col < p.dv)  // dv is even: col + 1 < dv too
               *reinterpret_cast<__nv_bfloat162*>(orow + col) =
@@ -816,8 +881,8 @@ struct BwdParams {
   float* lse2;       // [B, H, t_pad]: lse in base 2 (+inf for a row with no key)
   float* dsum;       // [B, H, t_pad]: D
   int t_pad;         // Tq rounded up to the wgmma variant's 64-row query tile
-  float* part;       // D 256 only: fp32 dK then dV of each head group, [groups, B, Tk, K, d]
-  int groups;        // D 256 only: blocks that share one (key tile, KV head), a divisor of H/K
+  float* part;       // past width 128: fp32 dK then dV of each head group, [groups, B, Tk, K, d]
+  int groups;        // past width 128: blocks that share one (key tile, KV head), a divisor of H/K
 };
 
 // Query tiles [lo, hi) that see at least one key of the KV tile at k0: the
@@ -1019,7 +1084,7 @@ __global__ void __launch_bounds__(S_THREADS) flash_bwd_simt_dq(BwdParams bp) {
 }
 
 // --------------------------------------------------------- wgmma backward --
-// flash_bwd_wgmma<D>, D 64 or 128 (dk, dv <= D; past 128, see the D 256
+// flash_bwd_wgmma<D>, D 64 or 128 (dk, dv <= D; past 128, see the split
 // kernels below).  One block per (b, KV head,
 // BN = 128 keys), heaviest key tiles first.  The block walks steps i: every
 // query head of the GQA group and every 64-row query tile the mask lets see
@@ -1457,9 +1522,10 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_cast(BwdParams bp, int64_t n
   }
 }
 
-// ------------------------------------------------ wgmma backward at D 256 --
-// flash_bwd_wgmma_dkdv<D> and flash_bwd_wgmma_dq<D>, D 256 (128 < max(dk,
-// dv) <= 256), two kernels with no atomics, so that a run repeats bit for
+// ----------------------------------- wgmma backward at (DK, DV) = (256, 256) --
+// flash_bwd_wgmma_dkdv<256, 256> and flash_bwd_wgmma_dq<256, 256> (128 <
+// max(dk, dv) <= 256 outside MLA's widths; their bodies dkdv_halves and
+// dq_halves), two kernels with no atomics, so that a run repeats bit for
 // bit.  The layout of flash_bwd_wgmma<64/128> does not stretch to D 256: dK
 // and dV of 64 keys in one warpgroup would be 256 registers a thread, and
 // K, V and two stages of Q and dO at 128 keys would be 320 KB.
@@ -1541,12 +1607,11 @@ __device__ __forceinline__ void store_half(unsigned char* dst, const float (&x)[
   }
 }
 
+// The body of flash_bwd_wgmma_dkdv<256, 256>.
 template <int D>
-__global__ void __launch_bounds__(W_THREADS, 1)
-    flash_bwd_wgmma_dkdv(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tdo, BwdParams bp) {
+__device__ __forceinline__ void dkdv_halves(const CUtensorMap& tq, const CUtensorMap& tk,
+                                            const CUtensorMap& tv, const CUtensorMap& tdo,
+                                            const BwdParams& bp) {
   using Tile = Bwd256Tile<D>;
   constexpr int NS = Tile::NS, ATOMS = Tile::ATOMS, HALF = Tile::HALF;
   const Params& p = bp.p;
@@ -1731,12 +1796,11 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// The body of flash_bwd_wgmma_dq<256, 256>.
 template <int D>
-__global__ void __launch_bounds__(W_THREADS, 1)
-    flash_bwd_wgmma_dq(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tdo, BwdParams bp) {
+__device__ __forceinline__ void dq_halves(const CUtensorMap& tq, const CUtensorMap& tk,
+                                          const CUtensorMap& tv, const CUtensorMap& tdo,
+                                          const BwdParams& bp) {
   using Tile = Bwd256Tile<D>;
   constexpr int NS = Tile::NS, ATOMS = Tile::ATOMS, HALF = Tile::HALF;
   const Params& p = bp.p;
@@ -1901,6 +1965,499 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// ------------------------------------- wgmma backward at (DK, DV) = (192, 128) --
+// flash_bwd_wgmma_dkdv<192, 128> and flash_bwd_wgmma_dq<192, 128>: MLA's
+// widths (128 < dk <= 192, dv <= 128; kernels/flash_attention.py::widths).
+// The split and its guarantees are those of the (256, 256) kernels (no
+// atomics, the head groups' partials summed in a fixed order, a run repeats
+// bit for bit), but not their layout: at these widths a consumer warpgroup
+// holds whole rows of its accumulators, so no product is split across the
+// two consumers and they never wait for each other.
+//   - dkdv: one block per (128-key tile, head group, b, KV head), heaviest
+//     key tiles first; each consumer owns 64 keys and keeps dK (DK / 2 = 96
+//     registers) and dV (DV / 2 = 64) of them for the whole walk.  A step
+//     of 64 queries runs in two halves of 32: S^T = K Q^T (m64n32, depth DK)
+//     and dP^T = V dO^T (m64n32, depth DV) with both operands in shared
+//     memory, P^T and dS^T in registers, then dV += P^T dO (m64n128) and
+//     dK += dS^T Q (m64n192) over the half's 32 queries with P^T and dS^T as
+//     register A fragments.  Whole steps (64 registers of scores beside the
+//     160) left ptxas too few of the 240 a consumer has: it spilled and
+//     serialized every wgmma; halves keep the scores to 32.  K (48 KB)
+//     and V (32 KB) load once; Q (24 KB), dO (16 KB), lse2 and D stream
+//     through three stages: 208952 B.  With one head group the block writes
+//     dk and dv in bf16 itself and no sum pass runs.
+//   - dq: one block per (b, h, 128 query rows), heaviest causal tiles
+//     first, in the forward's layout: each consumer owns 64 rows and keeps
+//     dQ (96 registers); per step of 64 keys S = Q K^T and dP = dO V^T
+//     (m64n64) from shared memory, dS in registers, dQ += dS K (m64n192, dS
+//     as the A fragments).  Q (48 KB) and dO (32 KB) load once; K (24 KB)
+//     and V (16 KB) stream through three stages: 205880 B.  128 rows a
+//     block, not 64: every K and V tile brought from L2 serves twice the
+//     rows.
+// Either kernel skips the products of a step whose tile is wholly masked for
+// the consumer's 64 keys or rows (the causal diagonal, a window's far edge,
+// rows past Tq), and still releases its stage.
+// What bounds it: seven products per unmasked pair, 4 DK + 3 DV = 1152
+// multiply-adds against 1792 zero-filled to (256, 256); at deepseek-v2's
+// training microbatch (B 2, T 4096, 128 heads, causal) 4.95 TFLOP, 5.004 ms
+// on an H100's tensor cores.  S^T and dP^T (N 32) and S and dP (N 64) read
+// both operands from shared memory, which comes close to its bandwidth; the
+// other products read B only.
+template <int DK, int DV>
+struct BwdWholeTile {
+  static constexpr int BN = 128;  // dkdv: keys per block, 64 per consumer
+  static constexpr int BM = 64;   // dkdv: queries per step
+  static constexpr int BQ = 128;  // dq: query rows per block, 64 per consumer
+  static constexpr int BKS = 64;  // dq: keys per step
+  static constexpr int NS = 3;    // stages of either kernel
+  static constexpr int K_ATOMS = DK / W_ATOM, V_ATOMS = DV / W_ATOM;
+  static constexpr uint32_t WIDE_BOX = 128 * 128;  // one [128][64] bf16 atom column
+  static constexpr uint32_t STEP_BOX = 64 * 128;   // one [64][64] bf16 atom column
+  static constexpr uint32_t ROW_BYTES = BM * 4;    // lse2 or D of one dkdv step
+  // dkdv: K and V of the block's keys, then NS stages of Q, dO, and lse2
+  // and D padded to the swizzle period.
+  static constexpr uint32_t KEY_K = K_ATOMS * WIDE_BOX, KEY_V = V_ATOMS * WIDE_BOX;
+  static constexpr uint32_t STEP_Q = K_ATOMS * STEP_BOX, STEP_DO = V_ATOMS * STEP_BOX;
+  static constexpr uint32_t DKDV_STAGE = STEP_Q + STEP_DO + 1024;
+  static constexpr size_t DKDV_SMEM =
+      1024 + KEY_K + KEY_V + NS * (size_t)DKDV_STAGE + 8 * (1 + 2 * NS);
+  // dq: Q and dO of the block's rows, then NS stages of K and V.
+  static constexpr uint32_t ROWS_Q = K_ATOMS * WIDE_BOX, ROWS_DO = V_ATOMS * WIDE_BOX;
+  static constexpr uint32_t STEP_K = K_ATOMS * STEP_BOX, STEP_V = V_ATOMS * STEP_BOX;
+  static constexpr uint32_t DQ_STAGE = STEP_K + STEP_V;
+  static constexpr size_t DQ_SMEM =
+      1024 + ROWS_Q + ROWS_DO + NS * (size_t)DQ_STAGE + 8 * (1 + 2 * NS);
+  static_assert(DKDV_SMEM <= 232448 && DQ_SMEM <= 232448, "over the 227 KB a block may use");
+  static_assert(DK % W_ATOM == 0 && DV % W_ATOM == 0 && DK <= 192 && DV <= 128,
+                "whole rows of dK and dV fit a consumer's registers up to (192, 128)");
+};
+
+// The body of flash_bwd_wgmma_dkdv<DK, DV> for DK != DV.
+template <int DK, int DV>
+__device__ __forceinline__ void dkdv_whole(const CUtensorMap& tq, const CUtensorMap& tk,
+                                           const CUtensorMap& tv, const CUtensorMap& tdo,
+                                           const BwdParams& bp) {
+  using Tile = BwdWholeTile<DK, DV>;
+  constexpr int NS = Tile::NS, BM = Tile::BM, K_ATOMS = Tile::K_ATOMS, V_ATOMS = Tile::V_ATOMS;
+  const Params& p = bp.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(sm), sV = sK + Tile::KEY_K;
+  const uint32_t sStage = sV + Tile::KEY_V;  // stage s: Q, dO, then lse2 and D
+  const uint32_t kv_full = sStage + NS * Tile::DKDV_STAGE, full = kv_full + 8,
+                 empty = full + 8 * NS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // Head-major: the blocks in flight share a few (b, KV head, group)s, whose
+  // Q and dO stay in L2 (with MLA's own K and V per head, tile-major order
+  // would stream a different head's Q and dO from HBM into every block).
+  const int G = p.H / p.K, GH = G / bp.groups;  // heads per block
+  const int n_kt = (p.Tk + Tile::BN - 1) / Tile::BN, r0 = blockIdx.x / n_kt;
+  const int kt = blockIdx.x % n_kt;  // each head's first key tiles are its heaviest
+  const int grp = r0 / (p.B * p.K), b = r0 / p.K % p.B, kh = r0 % p.K;
+  const int k0 = kt * Tile::BN, h0 = kh * G + grp * GH;
+  int lo, hi;
+  q_tiles(p, k0, Tile::BN, BM, lo, hi);
+  const int nq = hi - lo, steps = GH * nq;  // step i: head h0 + i / nq, query tile lo + i % nq
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ----------------------------------------------------------- loader --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, Tile::KEY_K + Tile::KEY_V);
+#pragma unroll
+      for (int a = 0; a < K_ATOMS; ++a)
+        tma_load(sK + a * Tile::WIDE_BOX, &tk, kv_full, a * W_ATOM, kh, k0, b);
+#pragma unroll
+      for (int a = 0; a < V_ATOMS; ++a)
+        tma_load(sV + a * Tile::WIDE_BOX, &tv, kv_full, a * W_ATOM, kh, k0, b);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % NS, h = h0 + i / nq, m0 = (lo + i % nq) * BM;
+        if (i >= NS) mbar_wait(empty + 8 * s, ((i / NS) - 1) & 1);
+        const uint32_t st = sStage + s * Tile::DKDV_STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, Tile::STEP_Q + Tile::STEP_DO + 2 * Tile::ROW_BYTES);
+#pragma unroll
+        for (int a = 0; a < K_ATOMS; ++a)
+          tma_load(st + a * Tile::STEP_BOX, &tq, bar, a * W_ATOM, h, m0, b);
+#pragma unroll
+        for (int a = 0; a < V_ATOMS; ++a)
+          tma_load(st + Tile::STEP_Q + a * Tile::STEP_BOX, &tdo, bar, a * W_ATOM, h, m0, b);
+        const int64_t rows = (int64_t)(b * p.H + h) * bp.t_pad + m0;
+        const uint32_t rs = st + Tile::STEP_Q + Tile::STEP_DO;
+        bulk_load(rs, bp.lse2 + rows, Tile::ROW_BYTES, bar);
+        bulk_load(rs + Tile::ROW_BYTES, bp.dsum + rows, Tile::ROW_BYTES, bar);
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+    const int wg = warp >> 2, t = lane & 3, g = lane >> 2;
+    const int lrow = wg * 64 + (warp & 3) * 16 + g;  // this thread's keys: k0 + lrow, + 8
+    const int kw0 = k0 + wg * 64, key0 = k0 + lrow;
+    const float sl2 = p.scale * 1.4426950408889634f;
+    const uint32_t k_wg = sK + wg * 64 * 128, v_wg = sV + wg * 64 * 128;
+
+    float dv_acc[DV / 2], dk_acc[DK / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DK / 2; ++i) dk_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % NS, m0 = (lo + i % nq) * BM;
+      const uint32_t q_st = sStage + s * Tile::DKDV_STAGE, do_st = q_st + Tile::STEP_Q;
+      mbar_wait(full + 8 * s, (i / NS) & 1);
+      // Every query of the step before every key of this consumer (causal),
+      // past every key's window, or no key left: nothing to add.
+      const bool dead = kw0 >= p.Tk || (p.causal && m0 + 63 < kw0) ||
+                        (p.window > 0 && m0 >= kw0 + 63 + p.window);
+      if (!dead) {
+        const float* lse2 =
+            reinterpret_cast<const float*>(sm + (q_st - sK) + Tile::STEP_Q + Tile::STEP_DO);
+        const float* dsum = lse2 + BM;
+        // The step in two halves of 32 queries: S^T = K Q^T and dP^T = V dO^T
+        // (m64n32, both operands K-major), P^T and dS^T in registers, then
+        // dV += P^T dO and dK += dS^T Q over the half's two k16 steps (P^T
+        // and dS^T as A fragments, B MN-major through the transpose), done
+        // before the next half: the scores never take more than 32 registers
+        // beside the 160 of dK and dV, and the other consumer's products
+        // fill the tensor cores meanwhile.  Not unrolled: the second half's
+        // addresses would take registers during the first.
+#pragma unroll 1
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t rows = half * 32 * 128;  // the half's 32 rows of a Q or dO tile
+          float sc[16], dp[16];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss<32>(sc,
+                         desc_sw128(k_wg + (kk >> 2) * Tile::WIDE_BOX + (kk & 3) * 32, 16, 1024),
+                         desc_sw128(q_st + rows + (kk >> 2) * Tile::STEP_BOX + (kk & 3) * 32, 16,
+                                    1024),
+                         kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < DV / 16; ++kk)
+            wgmma_ss<32>(dp,
+                         desc_sw128(v_wg + (kk >> 2) * Tile::WIDE_BOX + (kk & 3) * 32, 16, 1024),
+                         desc_sw128(do_st + rows + (kk >> 2) * Tile::STEP_BOX + (kk & 3) * 32, 16,
+                                    1024),
+                         kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
+
+          // P^T: element e of chunk j is key key0 + 8 (e >> 1), query
+          // mq + 8 j + 2 t + (e & 1).  Masks as in flash_bwd_wgmma, on edge
+          // halves only (warpgroup-uniform): key row r sees queries
+          // [qlo, qhi).
+          const int mq = m0 + 32 * half;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 32 * half + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, -((e & 1) ? l2.y : l2.x)));
+          }
+          if (kw0 + 64 > p.Tk || (p.causal && kw0 + 63 > mq) ||
+              (p.window > 0 && kw0 <= mq + 31 - p.window)) {
+            int qlo[2], qhi[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int key = key0 + 8 * r;
+              qlo[r] = p.causal ? key : INT_MIN;
+              qhi[r] = key >= p.Tk ? INT_MIN : p.window > 0 ? key + p.window : INT_MAX;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int q = mq + 8 * j + 2 * t + (e & 1), r = e >> 1;
+                sc[4 * j + e] = q >= qlo[r] && q < qhi[r] ? sc[4 * j + e] : 0.f;
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 dd = *reinterpret_cast<const float2*>(dsum + 32 * half + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)  // dS^T
+              dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+          }
+          uint32_t pf[2][4], dsf[2][4];
+#pragma unroll
+          for (int kc = 0; kc < 2; ++kc) {
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              pf[kc][f] = pack_bf16(sc[8 * kc + 2 * f], sc[8 * kc + 2 * f + 1]);
+              dsf[kc][f] = pack_bf16(dp[8 * kc + 2 * f], dp[8 * kc + 2 * f + 1]);
+            }
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < 2; ++kc)
+            wgmma_rs<DV>(dv_acc, pf[kc],
+                         desc_sw128(do_st + rows + kc * 16 * 128, Tile::STEP_BOX, 1024), 1);
+#pragma unroll
+          for (int kc = 0; kc < 2; ++kc)
+            wgmma_rs<DK>(dk_acc, dsf[kc],
+                         desc_sw128(q_st + rows + kc * 16 * 128, Tile::STEP_BOX, 1024), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // One head group: dk (scaled) and dv in bf16; more: this group's fp32
+    // partials (dK unscaled), summed by flash_bwd_dkdv_sum.
+    const int64_t n_k = (int64_t)p.B * p.Tk * p.K;
+    float* dk_part = bp.part + grp * n_k * p.dk;
+    float* dv_part = bp.part + bp.groups * n_k * p.dk + grp * n_k * p.dv;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key < p.Tk) {
+        const int64_t base = (int64_t)(b * p.Tk + key) * p.K + kh;
+#pragma unroll
+        for (int c = 0; c < DK / 8; ++c) {
+          const int col = 8 * c + 2 * t;
+          if (col >= p.dk) continue;
+          const float x = dk_acc[4 * c + 2 * r], y = dk_acc[4 * c + 2 * r + 1];
+          if (bp.groups == 1)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(bp.dk) + base * p.dk +
+                                               col) = __floats2bfloat162_rn(p.scale * x, p.scale * y);
+          else
+            *reinterpret_cast<float2*>(dk_part + base * p.dk + col) = make_float2(x, y);
+        }
+#pragma unroll
+        for (int c = 0; c < DV / 8; ++c) {
+          const int col = 8 * c + 2 * t;
+          if (col >= p.dv) continue;
+          const float x = dv_acc[4 * c + 2 * r], y = dv_acc[4 * c + 2 * r + 1];
+          if (bp.groups == 1)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(bp.dv) + base * p.dv +
+                                               col) = __floats2bfloat162_rn(x, y);
+          else
+            *reinterpret_cast<float2*>(dv_part + base * p.dv + col) = make_float2(x, y);
+        }
+      }
+    }
+  }
+}
+
+// The body of flash_bwd_wgmma_dq<DK, DV> for DK != DV.
+template <int DK, int DV>
+__device__ __forceinline__ void dq_whole(const CUtensorMap& tq, const CUtensorMap& tk,
+                                         const CUtensorMap& tv, const CUtensorMap& tdo,
+                                         const BwdParams& bp) {
+  using Tile = BwdWholeTile<DK, DV>;
+  constexpr int NS = Tile::NS, BQ = Tile::BQ, BKS = Tile::BKS;
+  constexpr int K_ATOMS = Tile::K_ATOMS, V_ATOMS = Tile::V_ATOMS;
+  const Params& p = bp.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(sm), sDO = sQ + Tile::ROWS_Q;
+  const uint32_t sStage = sDO + Tile::ROWS_DO;  // stage s: K, then V
+  const uint32_t q_full = sStage + NS * Tile::DQ_STAGE, full = q_full + 8, empty = full + 8 * NS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // Head-major, each head's heaviest causal tiles first: the blocks in flight
+  // share a few heads, whose K and V stay in L2.
+  const int nqt = (p.Tq + BQ - 1) / BQ, bh = blockIdx.x / nqt;
+  const int m0 = (nqt - 1 - blockIdx.x % nqt) * BQ;
+  const int b = bh / p.H, h = bh % p.H, kh = h / (p.H / p.K);
+  int lo, hi;
+  kv_tiles(p, m0, BQ, BKS, lo, hi);
+  const int steps = hi - lo;  // step j: key tile lo + j
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ----------------------------------------------------------- loader --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, Tile::ROWS_Q + Tile::ROWS_DO);
+#pragma unroll
+      for (int a = 0; a < K_ATOMS; ++a)
+        tma_load(sQ + a * Tile::WIDE_BOX, &tq, q_full, a * W_ATOM, h, m0, b);
+#pragma unroll
+      for (int a = 0; a < V_ATOMS; ++a)
+        tma_load(sDO + a * Tile::WIDE_BOX, &tdo, q_full, a * W_ATOM, h, m0, b);
+      for (int j = 0; j < steps; ++j) {
+        const int s = j % NS, n0 = (lo + j) * BKS;
+        if (j >= NS) mbar_wait(empty + 8 * s, ((j / NS) - 1) & 1);
+        const uint32_t st = sStage + s * Tile::DQ_STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, Tile::DQ_STAGE);
+#pragma unroll
+        for (int a = 0; a < K_ATOMS; ++a)
+          tma_load(st + a * Tile::STEP_BOX, &tk, bar, a * W_ATOM, kh, n0, b);
+#pragma unroll
+        for (int a = 0; a < V_ATOMS; ++a)
+          tma_load(st + Tile::STEP_K + a * Tile::STEP_BOX, &tv, bar, a * W_ATOM, kh, n0, b);
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+    const int wg = warp >> 2, t = lane & 3, g = lane >> 2;
+    const int row0 = m0 + wg * 64, qpos0 = row0 + (warp & 3) * 16 + g;  // rows qpos0, + 8
+    const float sl2 = p.scale * 1.4426950408889634f;
+    const uint32_t q_wg = sQ + wg * 64 * 128, do_wg = sDO + wg * 64 * 128;
+    // Rows past t_pad (in the second half of the last block) get P = 0, as
+    // the row pass gives rows past Tq.
+    float l2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qpos0 + 8 * r;
+      const int64_t row = (int64_t)(b * p.H + h) * bp.t_pad + q;
+      l2[r] = q < bp.t_pad ? bp.lse2[row] : INFINITY;
+      dd[r] = q < bp.t_pad ? bp.dsum[row] : 0.f;
+    }
+
+    float dq_acc[DK / 2];
+#pragma unroll
+    for (int i = 0; i < DK / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < steps; ++j) {
+      const int s = j % NS, n0 = (lo + j) * BKS;
+      const uint32_t k_st = sStage + s * Tile::DQ_STAGE, v_st = k_st + Tile::STEP_K;
+      mbar_wait(full + 8 * s, (j / NS) & 1);
+      // No row of this consumer left, every key after every row (causal), or
+      // every key before every row's window: nothing to add.
+      const bool dead = row0 >= p.Tq || (p.causal && n0 > row0 + 63) ||
+                        (p.window > 0 && n0 + 63 <= row0 - p.window);
+      if (!dead) {
+        float sc[32], dp[32];
+        // S = Q K^T and dP = dO V^T, both operands K-major.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk)
+          wgmma_ss<64>(sc, desc_sw128(q_wg + (kk >> 2) * Tile::WIDE_BOX + (kk & 3) * 32, 16, 1024),
+                       desc_sw128(k_st + (kk >> 2) * Tile::STEP_BOX + (kk & 3) * 32, 16, 1024),
+                       kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss<64>(dp, desc_sw128(do_wg + (kk >> 2) * Tile::WIDE_BOX + (kk & 3) * 32, 16, 1024),
+                       desc_sw128(v_st + (kk >> 2) * Tile::STEP_BOX + (kk & 3) * 32, 16, 1024),
+                       kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P: element e of chunk c is query qpos0 + 8 (e >> 1), key
+        // n0 + 8 c + 2 t + (e & 1).  Masks as in the forward's softmax_tile,
+        // on edge tiles only: row r sees keys klo < key < khi.
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[4 * c + e] = ex2(fmaf(sc[4 * c + e], sl2, -l2[e >> 1]));
+        }
+        if (n0 + 64 > p.Tk || (p.causal && n0 + 63 > row0) ||
+            (p.window > 0 && n0 <= row0 + 63 - p.window)) {
+          int klo[2], khi[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int q = qpos0 + 8 * r;
+            khi[r] = p.causal ? min(p.Tk, q + 1) : p.Tk;
+            klo[r] = p.window > 0 ? q - p.window : -1;
+          }
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = n0 + 8 * c + 2 * t + (e & 1), r = e >> 1;
+              sc[4 * c + e] = key > klo[r] && key < khi[r] ? sc[4 * c + e] : 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dd[(i >> 1) & 1]);  // dS
+        uint32_t dsf[4][4];
+        pack_p<64>(dp, dsf);
+
+        // dQ += dS K (B MN-major, read through the transpose), done before
+        // the stage goes back to the loader.
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma_rs<DK>(dq_acc, dsf[kc], desc_sw128(k_st + kc * 16 * 128, Tile::STEP_BOX, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(bp.dq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qpos0 + 8 * r;
+      if (q < p.Tq) {
+        __nv_bfloat16* row = out + ((int64_t)(b * p.Tq + q) * p.H + h) * p.dk;
+#pragma unroll
+        for (int c = 0; c < DK / 8; ++c) {
+          const int col = 8 * c + 2 * t;
+          if (col < p.dk)
+            *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(
+                p.scale * dq_acc[4 * c + 2 * r], p.scale * dq_acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The backward past head dim 128 in two kernels, on the head-dim halves at
+// (256, 256) and on whole rows at (192, 128).
+template <int DK, int DV>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_bwd_wgmma_dkdv(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, BwdParams bp) {
+  if constexpr (DK == DV)
+    dkdv_halves<DK>(tq, tk, tv, tdo, bp);
+  else
+    dkdv_whole<DK, DV>(tq, tk, tv, tdo, bp);
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_bwd_wgmma_dq(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, BwdParams bp) {
+  if constexpr (DK == DV)
+    dq_halves<DK>(tq, tk, tv, tdo, bp);
+  else
+    dq_whole<DK, DV>(tq, tk, tv, tdo, bp);
+}
+
 // dk = scale sum_g dK part g, dv = sum_g dV part g, in bf16, group by group
 // in order; 8 columns per thread (dk and dv are multiples of 8 here).
 __global__ void __launch_bounds__(256) flash_bwd_dkdv_sum(BwdParams bp, int64_t nk8,
@@ -1972,15 +2529,15 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads, int d, 
 
 // Returns a cudaError_t (0 on success), or minus the CUresult of a tensor
 // map that could not be encoded.
-template <int D>
+template <int DK, int DV>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
-  using Tile = WgmmaTile<D>;
+  using Tile = WgmmaTile<DK, DV>;
   CUtensorMap tq, tk, tv;
   int r = make_map(&tq, p.q, p.B, p.Tq, p.H, p.dk, W_BQ);
   if (r == 0) r = make_map(&tk, p.k, p.B, p.Tk, p.K, p.dk, Tile::BK);
   if (r == 0) r = make_map(&tv, p.v, p.B, p.Tk, p.K, p.dv, Tile::BK);
   if (r != 0) return -r;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tile::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -1990,7 +2547,7 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return (int)err;
   const int nwork = p.B * p.H * ((p.Tq + W_BQ - 1) / W_BQ);
-  flash_fwd_wgmma<D><<<nwork < sms ? nwork : sms, W_THREADS, Tile::SMEM, stream>>>(
+  flash_fwd_wgmma<DK, DV><<<nwork < sms ? nwork : sms, W_THREADS, Tile::SMEM, stream>>>(
       tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -2047,6 +2604,15 @@ int launch_bwd_wgmma(const BwdParams& bp, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// flash_bwd_dkdv_sum over the head groups' partials in bp.part.
+int launch_dkdv_sum(const BwdParams& bp, cudaStream_t stream) {
+  const Params& p = bp.p;
+  const int64_t rows = (int64_t)p.B * p.Tk * p.K, nk8 = rows * p.dk / 8, nv8 = rows * p.dv / 8;
+  const int64_t grid = (nk8 + nv8 + 255) / 256;
+  flash_bwd_dkdv_sum<<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(bp, nk8, nv8);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bwd_wgmma_split(const BwdParams& bp, cudaStream_t stream) {
   using Tile = Bwd256Tile<D>;
@@ -2057,23 +2623,55 @@ int launch_bwd_wgmma_split(const BwdParams& bp, cudaStream_t stream) {
   if (r == 0) r = make_map(&tk, p.k, p.B, p.Tk, p.K, p.dk, Tile::BT);
   if (r == 0) r = make_map(&tv, p.v, p.B, p.Tk, p.K, p.dv, Tile::BT);
   if (r != 0) return -r;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma_dkdv<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma_dkdv<D, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tile::DKDV_SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_wgmma_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Tile::DQ_SMEM);
+    err = cudaFuncSetAttribute(flash_bwd_wgmma_dq<D, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int kv_blocks = p.B * p.K * bp.groups * ((p.Tk + Tile::BT - 1) / Tile::BT);
-  flash_bwd_wgmma_dkdv<D><<<kv_blocks, W_THREADS, Tile::DKDV_SMEM, stream>>>(tq, tk, tv, tdo, bp);
+  flash_bwd_wgmma_dkdv<D, D><<<kv_blocks, W_THREADS, Tile::DKDV_SMEM, stream>>>(tq, tk, tv, tdo,
+                                                                                bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int q_blocks = p.B * p.H * (bp.t_pad / Tile::BT);
-  flash_bwd_wgmma_dq<D><<<q_blocks, W_THREADS, Tile::DQ_SMEM, stream>>>(tq, tk, tv, tdo, bp);
+  flash_bwd_wgmma_dq<D, D><<<q_blocks, W_THREADS, Tile::DQ_SMEM, stream>>>(tq, tk, tv, tdo, bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int64_t rows = (int64_t)p.B * p.Tk * p.K, nk8 = rows * p.dk / 8, nv8 = rows * p.dv / 8;
-  const int64_t grid = (nk8 + nv8 + 255) / 256;
-  flash_bwd_dkdv_sum<<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(bp, nk8, nv8);
-  return (int)cudaGetLastError();
+  return launch_dkdv_sum(bp, stream);
+}
+
+// flash_bwd_wgmma_dkdv / _dq at (192, 128), then the sum of the head groups'
+// partials where there is more than one group.
+template <int DK, int DV>
+int launch_bwd_wgmma_whole(const BwdParams& bp, cudaStream_t stream) {
+  using Tile = BwdWholeTile<DK, DV>;
+  const Params& p = bp.p;
+  CUtensorMap tq_step, tdo_step, tk_key, tv_key, tq_rows, tdo_rows, tk_step, tv_step;
+  int r = make_map(&tq_step, p.q, p.B, p.Tq, p.H, p.dk, Tile::BM);
+  if (r == 0) r = make_map(&tdo_step, bp.dout, p.B, p.Tq, p.H, p.dv, Tile::BM);
+  if (r == 0) r = make_map(&tk_key, p.k, p.B, p.Tk, p.K, p.dk, Tile::BN);
+  if (r == 0) r = make_map(&tv_key, p.v, p.B, p.Tk, p.K, p.dv, Tile::BN);
+  if (r == 0) r = make_map(&tq_rows, p.q, p.B, p.Tq, p.H, p.dk, Tile::BQ);
+  if (r == 0) r = make_map(&tdo_rows, bp.dout, p.B, p.Tq, p.H, p.dv, Tile::BQ);
+  if (r == 0) r = make_map(&tk_step, p.k, p.B, p.Tk, p.K, p.dk, Tile::BKS);
+  if (r == 0) r = make_map(&tv_step, p.v, p.B, p.Tk, p.K, p.dv, Tile::BKS);
+  if (r != 0) return -r;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma_dkdv<DK, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tile::DKDV_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_wgmma_dq<DK, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int kv_blocks = p.B * p.K * bp.groups * ((p.Tk + Tile::BN - 1) / Tile::BN);
+  flash_bwd_wgmma_dkdv<DK, DV><<<kv_blocks, W_THREADS, Tile::DKDV_SMEM, stream>>>(
+      tq_step, tk_key, tv_key, tdo_step, bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int q_blocks = p.B * p.H * ((p.Tq + Tile::BQ - 1) / Tile::BQ);
+  flash_bwd_wgmma_dq<DK, DV><<<q_blocks, W_THREADS, Tile::DQ_SMEM, stream>>>(
+      tq_rows, tk_step, tv_step, tdo_rows, bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return bp.groups > 1 ? launch_dkdv_sum(bp, stream) : 0;
 }
 
 template <typename T>
@@ -2102,31 +2700,41 @@ int launch_bwd_rows(const BwdParams& bp, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The wgmma instantiations, (DK, DV): kernels/flash_attention.py::widths
+// names the one a shape runs.
+bool known_widths(int wdk, int wdv) {
+  return (wdk == wdv && (wdk == 64 || wdk == 128 || wdk == 256)) || (wdk == 192 && wdv == 128);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt, 1 = wgmma, as
-// kernels/flash_attention.py::variant chose it; that function states which
-// requests the wgmma variant takes.  A wgmma request that breaks its rule is
-// refused here (cudaErrorInvalidValue), never sent to another variant.
-// lse is null, or fp32 [B, H, Tq] for each row's log-sum-exp (see the
-// header).  Returns the cudaError_t of the launch (0 on success), or minus the
-// CUresult of a tensor map that could not be encoded.  The caller has
-// checked shapes, H % K == 0, dk, dv <= 256, contiguity and that q, k, v, o
-// live on the current device.
+// kernels/flash_attention.py::variant chose it, and for wgmma the widths
+// (wdk, wdv) of the instantiation, as kernels/flash_attention.py::widths
+// chose them; those functions state which requests the wgmma variant takes.
+// A wgmma request that breaks its rule, or names widths that do not cover dk
+// and dv, is refused here (cudaErrorInvalidValue), never sent to another
+// variant or instantiation.  lse is null, or fp32 [B, H, Tq] for each row's
+// log-sum-exp (see the header).  Returns the cudaError_t of the launch (0 on
+// success), or minus the CUresult of a tensor map that could not be encoded.
+// The caller has checked shapes, H % K == 0, dk, dv <= 256, contiguity and
+// that q, k, v, o live on the current device.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int dtype, int variant, int B, int Tq, int Tk, int H,
-                                   int K, int dk, int dv, int causal, int window, float scale,
-                                   void* stream) {
+                                   float* lse, int dtype, int variant, int wdk, int wdv, int B,
+                                   int Tq, int Tk, int H, int K, int dk, int dv, int causal,
+                                   int window, float scale, void* stream) {
   Params p{q, k, v, o, lse, B, Tq, Tk, H, K, dk, dv, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // report this launch's error, not an earlier one's
   if (variant == 1) {
     const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
-    const int d = dk > dv ? dk : dv;
-    if (dtype != 1 || dk % 8 || dv % 8 || addr % 16 || d > 256) return (int)cudaErrorInvalidValue;
-    if (d <= 64) return launch_wgmma<64>(p, s);
-    if (d <= 128) return launch_wgmma<128>(p, s);
-    return launch_wgmma<256>(p, s);
+    if (dtype != 1 || dk % 8 || dv % 8 || addr % 16 || !known_widths(wdk, wdv) || dk > wdk ||
+        dv > wdv)
+      return (int)cudaErrorInvalidValue;
+    if (wdk == 64) return launch_wgmma<64, 64>(p, s);
+    if (wdk == 128) return launch_wgmma<128, 128>(p, s);
+    if (wdk == 192) return launch_wgmma<192, 128>(p, s);
+    return launch_wgmma<256, 256>(p, s);
   }
   if (dtype == 1) return launch_simt<__nv_bfloat16>(p, s);
   return launch_simt<float>(p, s);
@@ -2134,37 +2742,40 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 // The backward: (dq, dk, dv) from q, k, v, the forward's output o and lse
 // (flash_attention_fwd with a non-null lse) and the output's cotangent dout.
-// dtype and variant as for the forward; variant 1 (wgmma) is
-// kernels/flash_attention.py::variant's choice and needs bf16, dk and
-// dv multiples of 8 up to 256 and 16-byte aligned q, k, v, dout; it is refused
-// otherwise (cudaErrorInvalidValue).  lse2 and dsum are fp32 [B, H, t_pad]
-// scratch, t_pad = Tq rounded up to 64.  scratch is fp32, for variant 1 only:
-// zeros [B, H, t_pad, dk] (dq's sums) up to head dim 128; past it, room for
-// the head groups' dK and dV, [groups, B, Tk, K, dk] then [groups, B, Tk, K,
-// dv], groups a divisor of H/K.  Returns as the forward does.
+// dtype, variant and the widths as for the forward; variant 1 (wgmma) needs
+// bf16, dk and dv multiples of 8 up to 256, 16-byte aligned q, k, v, dout,
+// and widths that cover dk and dv; it is refused otherwise
+// (cudaErrorInvalidValue).  lse2 and dsum are fp32 [B, H, t_pad] scratch,
+// t_pad = Tq rounded up to 64.  scratch is fp32, for variant 1 only: zeros
+// [B, H, t_pad, dk] (dq's sums) at widths up to 128; past them, room for the
+// head groups' dK and dV, [groups, B, Tk, K, dk] then [groups, B, Tk, K,
+// dv], groups a divisor of H/K (null at (192, 128) with one group, whose
+// kernel writes dk and dv itself).  Returns as the forward does.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const float* lse, const void* dout, void* dq, void* dk,
                                    void* dv, float* scratch, float* lse2, float* dsum, int dtype,
-                                   int variant, int B, int Tq, int Tk, int H, int K, int dk_,
-                                   int dv_, int causal, int window, int groups, float scale,
-                                   void* stream) {
+                                   int variant, int wdk, int wdv, int B, int Tq, int Tk, int H,
+                                   int K, int dk_, int dv_, int causal, int window, int groups,
+                                   float scale, void* stream) {
   Params p{q, k, v, const_cast<void*>(o), const_cast<float*>(lse), B, Tq, Tk, H, K, dk_, dv_,
            causal, window, scale};
-  const int d = dk_ > dv_ ? dk_ : dv_;
-  const bool split = d > 128;  // flash_bwd_wgmma_dkdv / _dq (the wrapper's MAX_FUSED_BWD_DIM)
-  BwdParams bp{p, dout, dq, dk, dv, split ? nullptr : scratch, lse2, dsum, (Tq + 63) / 64 * 64,
-               split ? scratch : nullptr, groups};
+  const bool fused = wdk <= 128;  // flash_bwd_wgmma<64/128>; past it, flash_bwd_wgmma_dkdv / _dq
+  const bool parts = !fused && (wdk == wdv || groups > 1);  // the head groups' fp32 partials
+  BwdParams bp{p, dout, dq, dk, dv, fused ? scratch : nullptr, lse2, dsum, (Tq + 63) / 64 * 64,
+               fused ? nullptr : scratch, groups};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // report this call's error, not an earlier one's
   if (variant == 1) {
     const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
-    if (dtype != 1 || dk_ % 8 || dv_ % 8 || addr % 16 || d > 256 || scratch == nullptr ||
-        (split && (groups < 1 || (H / K) % groups)))
+    if (dtype != 1 || dk_ % 8 || dv_ % 8 || addr % 16 || !known_widths(wdk, wdv) || dk_ > wdk ||
+        dv_ > wdv || ((fused || parts) && scratch == nullptr) ||
+        (!fused && (groups < 1 || (H / K) % groups)))
       return (int)cudaErrorInvalidValue;
     int err = launch_bwd_rows<__nv_bfloat16>(bp, s);
     if (err) return err;
-    if (d <= 64) return launch_bwd_wgmma<64>(bp, s);
-    if (d <= 128) return launch_bwd_wgmma<128>(bp, s);
+    if (wdk == 64) return launch_bwd_wgmma<64>(bp, s);
+    if (wdk == 128) return launch_bwd_wgmma<128>(bp, s);
+    if (wdk == 192) return launch_bwd_wgmma_whole<192, 128>(bp, s);
     return launch_bwd_wgmma_split<256>(bp, s);
   }
   if (dtype == 1) {

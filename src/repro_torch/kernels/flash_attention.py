@@ -18,16 +18,36 @@ that the TMA cannot load, take the ``simt`` variant (CUDA cores, exact fp32
 arithmetic).  :func:`variant` makes the choice, explicitly and never on a
 failure; the source file's header has the tiling.
 
+The ``wgmma`` variant is instantiated at four widths (DK for q and k, DV
+for v and o), and :func:`widths` names the one a shape runs: (64, 64),
+(128, 128) and (256, 256) for head dims up to 64, 128 and 256, and
+(192, 128) for MLA's dk 192 / dv 128 (any 128 < dk <= 192 with dv <= 128).
+The TMA zero-fills dk and dv up to DK and DV, and every product runs that
+wide.  What bounds each on an H100: the tensor cores at every width;
+at (64, 64) the softmax's exponentials as much as the products.  At
+(256, 256) the forward holds 64 keys a tile (O's accumulator takes 128
+registers a thread).  At (192, 128) Q and K span three 64-column swizzle
+atoms and V two: O is 64 registers, with 64 keys a tile as at (256, 256)
+(the source's ``WgmmaTile`` says why not 128), in 214160 B of shared memory
+(Q 48 KB, four stages of K 24 KB and V 16 KB), and its blocks walk each
+head's query tiles together, so that the head's K and V stay in L2 (MLA
+gives every head its own); zero-filled to (256, 256) instead, MLA ran 512
+product columns a pair where it needs 320.
+
 The forward writes each row's log-sum-exp when asked (fp32 ``[B,H,Tq]``,
 natural-log units of the scaled scores, -inf for a row with no unmasked
 key).  :func:`flash_attention_bwd` computes (dq, dk, dv) from it and the
 forward's output with the flash-backward equations, on the tensor cores for
-every bf16 shape the forward's ``wgmma`` rule takes: ``flash_bwd_wgmma`` up
-to head dim 128 (dq summed in fp32 by bulk reductions whose order across
-blocks can change from run to run), and past it, up to 256,
-``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq`` (dK and dV of each head
-group to fp32 partials that one pass sums in a fixed order, dq recomputed
-per query tile: no atomics, deterministic).  ``flash_bwd_simt`` takes
+every bf16 shape the forward's ``wgmma`` rule takes, at the same widths:
+``flash_bwd_wgmma`` at (64, 64) and (128, 128) (dq summed in fp32 by bulk
+reductions whose order across blocks can change from run to run), and past
+them ``flash_bwd_wgmma_dkdv`` and ``flash_bwd_wgmma_dq`` (dK and dV of each
+head group to fp32 partials that one pass sums in a fixed order, dq
+recomputed per query tile: no atomics, deterministic).  At (256, 256) those
+split the head dim across two consumer warpgroups; at (192, 128) each
+consumer holds whole rows (dK 96 and dV 64 registers a thread for 64 keys,
+beside the scores of 32 queries at a time; or dQ 96 for 64 queries), and
+with one head group the dkdv kernel casts dk and dv itself.  ``flash_bwd_simt`` takes
 everything else (CUDA cores, exact fp32, no atomics, deterministic);
 :func:`variant` makes that choice too.  The reference has no backward
 kernel: its ``custom_vjp`` takes the oracle's vjp, which this computes up to
@@ -41,7 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,18 +70,20 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "wgmma": 1}
 _MAX_HEAD_DIM = 256
-MAX_FUSED_BWD_DIM = 128  # flash_bwd_wgmma<64>, <128>; past it, flash_bwd_wgmma_dkdv/_dq<256>
+MAX_FUSED_BWD_DIM = 128  # flash_bwd_wgmma<64>, <128>; past it, flash_bwd_wgmma_dkdv / _dq
+# The wgmma instantiations (DK, DV), as the C entries take them.
+WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
 _ROWS = 64  # the backward's query tile (t_pad in the .cu): per-row buffers are padded to it
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 + [ctypes.c_float,
                                                                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -109,6 +131,22 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "wgmma" if tma else "simt"
 
 
+def widths(dk: int, dv: int) -> Tuple[int, int]:
+    """The widths (DK, DV) of the ``wgmma`` instantiation that runs a shape
+    of head dims dk (q, k) and dv (v), forward and backward: (192, 128) for
+    128 < dk <= 192 with dv <= 128 (MLA's 192 / 128), else (D, D) for the
+    smallest D of 64, 128 and 256 that covers max(dk, dv).  The TMA
+    zero-fills dk and dv to DK and DV.  A rule of the shape alone, stated
+    here once; the C entries refuse widths that do not cover dk and dv."""
+    if 128 < dk <= 192 and dv <= 128:
+        return 192, 128
+    d = max(dk, dv)
+    if not 0 < d <= _MAX_HEAD_DIM:
+        raise ValueError(f"no wgmma instantiation covers dk {dk}, dv {dv}")
+    d = next(w for w in (64, 128, 256) if d <= w)
+    return d, d
+
+
 def bwd_groups(B: int, K: int, Tk: int, group: int, sms: int) -> int:
     """Blocks that share one (64-key tile, KV head) in the backward past head
     dim 128: the smallest divisor of the GQA group ``group`` (= H/K) that
@@ -137,18 +175,18 @@ def flash_attention_fwd(
         return (out, row_lse) if lse else out
     scale = 1.0 / math.sqrt(dk) if scale is None else float(scale)
     kind = variant(q, k, v)
+    wdk, wdv = widths(dk, dv) if kind == "wgmma" else (0, 0)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             row_lse.data_ptr() if lse else None,
-            _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
+            _DTYPES[q.dtype], _VARIANTS[kind], wdk, wdv, B, Tq, Tk, H, K, dk, dv,
             int(causal), int(window), scale, stream,
         )
     build.raise_on(err, "flash_attention")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_variant[kind] += 1
+    _count(flash_attention_fwd, kind, wdk, wdv)
     return (out, row_lse) if lse else out
 
 
@@ -184,20 +222,23 @@ def flash_attention_bwd(
         return dq.zero_(), dk_.zero_(), dv_.zero_()
     scale = 1.0 / math.sqrt(dk) if scale is None else float(scale)
     kind = variant(q, k, v)
+    wdk, wdv = widths(dk, dv) if kind == "wgmma" else (0, 0)
     # Per-row D = rowsum(dout * out) and lse in base 2, padded to whole
-    # query tiles.  The wgmma variant's fp32 scratch: up to head dim 128, dq's
+    # query tiles.  The wgmma variant's fp32 scratch: up to width 128, dq's
     # sums, [B,H,t_pad,dk] so that each query tile of a head is one contiguous
-    # run; past it, each head group's dK and then dV, [groups,B,Tk,K,d].
+    # run; past it, each head group's dK and then dV, [groups,B,Tk,K,d]
+    # (none at (192, 128) with one group: its kernel casts dk and dv itself).
     t_pad = -(-Tq // _ROWS) * _ROWS
     rows = torch.empty((2, B, H, t_pad), dtype=torch.float32, device=q.device)
     scratch, groups = None, 1
-    if kind == "wgmma" and max(dk, dv) <= MAX_FUSED_BWD_DIM:
+    if kind == "wgmma" and wdk <= MAX_FUSED_BWD_DIM:
         scratch = torch.zeros((B, H, t_pad, dk), dtype=torch.float32, device=q.device)
     elif kind == "wgmma":
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         groups = bwd_groups(B, K, Tk, H // K, sms)
-        scratch = torch.empty(groups * B * Tk * K * (dk + dv), dtype=torch.float32,
-                              device=q.device)
+        if groups > 1 or wdk == wdv:
+            scratch = torch.empty(groups * B * Tk * K * (dk + dv), dtype=torch.float32,
+                                  device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -206,19 +247,26 @@ def flash_attention_bwd(
             dout.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             rows[0].data_ptr(), rows[1].data_ptr(),
-            _DTYPES[q.dtype], _VARIANTS[kind], B, Tq, Tk, H, K, dk, dv,
+            _DTYPES[q.dtype], _VARIANTS[kind], wdk, wdv, B, Tq, Tk, H, K, dk, dv,
             int(causal), int(window), groups, scale, stream,
         )
     build.raise_on(err, "flash_attention backward")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.launches_by_variant[kind] += 1
+    _count(flash_attention_bwd, kind, wdk, wdv)
     return dq, dk_, dv_
 
 
-# Kernel launches since the last reset, in all and by variant (a backward
-# launch is one call: its row pass, its main kernels and the last pass that
-# casts dq, or sums and casts dk and dv).
-flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
-flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
+def _count(fn, kind: str, wdk: int, wdv: int) -> None:
+    fn.launches += 1
+    fn.launches_by_variant[kind] += 1
+    if kind == "wgmma":
+        fn.launches_by_widths[f"{wdk}x{wdv}"] += 1
+
+
+# Kernel launches since the last reset, in all, by variant and, on wgmma, by
+# the widths of the instantiation, "DKxDV" (a backward launch is one call:
+# its row pass, its main kernels and the last pass that casts dq, or sums
+# and casts dk and dv).
+for _fn in (flash_attention_fwd, flash_attention_bwd):
+    _fn.launches = 0
+    _fn.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
+    _fn.launches_by_widths = dict.fromkeys((f"{a}x{b}" for a, b in WIDTHS), 0)

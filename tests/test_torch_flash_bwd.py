@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    bwd_groups, flash_attention_bwd, flash_attention_fwd, variant)
+    MAX_FUSED_BWD_DIM, bwd_groups, flash_attention_bwd, flash_attention_fwd, variant, widths)
 
 # tests/test_kernels.py's FLASH_CASES, dtypes by name.
 FLASH_CASES = [
@@ -194,6 +194,19 @@ def test_grad_bound_accepts_kernel_rounding(case):
     assert _grad_bound_share(got, want) <= 0.6
 
 
+@pytest.mark.parametrize("case", [(1, 600, 4, 1, True), (1, 333, 4, 2, True),
+                                  (1, 300, 4, 4, False)])
+def test_grad_bound_accepts_mla_rounding(case):
+    """The bound passes the wgmma variant's roundings at dk 192 / dv 128 (the
+    (192, 128) kernels): a ragged tail with H/K = 2, and no causal mask."""
+    B, T, H, K, causal = case
+    q, k, v, g = _inputs((B, T, H, K, 192, 128), seed=3, dtype="bfloat16")
+    got, out, lse = _bwd_bf16(q, k, v, g, causal, 0)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse,
+                                       g.float(), causal=causal, window=0)
+    assert _grad_bound_share(got, want) <= 0.6
+
+
 @pytest.mark.parametrize("case", [c for c in BOUND_CASES if c[-1]])
 def test_grad_bound_rejects_window_off_by_one(case):
     B, T, H, K, d, causal, window = case
@@ -221,7 +234,7 @@ BWD_VARIANT_CASES = [
     ((1, 40, 4, 2, 128, 128), "bfloat16", "wgmma"),  # llama3-8b's d 128
     ((1, 40, 4, 4, 80, 80), "bfloat16", "wgmma"),    # hubert's d 80 on the D-128 kernel
     ((1, 40, 4, 2, 32, 16), "bfloat16", "wgmma"),    # dk != dv under 64
-    ((1, 40, 2, 1, 192, 128), "bfloat16", "wgmma"),  # MLA: the d-256 kernels
+    ((1, 40, 2, 1, 192, 128), "bfloat16", "wgmma"),  # MLA: the (192, 128) kernels
     ((1, 40, 2, 1, 256, 256), "bfloat16", "wgmma"),  # recurrentgemma's d 256
     ((1, 40, 2, 1, 64, 60), "bfloat16", "simt"),     # dv no multiple of 8
     ((1, 40, 2, 1, 64, 64), "float32", "simt"),
@@ -234,6 +247,23 @@ BWD_VARIANT_CASES = [
 def test_flash_backward_variant_dispatch(shape, dtype, expect):
     q, k, v, _ = _inputs(shape, dtype=dtype)
     assert variant(q, k, v) == expect
+
+
+# (dk, dv) of BWD_VARIANT_CASES' wgmma shapes and MLA's neighbours -> the
+# widths of the backward's kernels and whether they are the fused
+# flash_bwd_wgmma (True) or the split dkdv / dq pair.  Only 128 < dk <= 192
+# with dv <= 128 runs the (192, 128) pair; d 256 keeps (256, 256).
+BWD_WIDTH_CASES = [((64, 64), (64, 64), True), ((128, 128), (128, 128), True),
+                   ((80, 80), (128, 128), True), ((32, 16), (64, 64), True),
+                   ((192, 128), (192, 128), False), ((256, 256), (256, 256), False),
+                   ((136, 128), (192, 128), False), ((192, 192), (256, 256), False),
+                   ((200, 128), (256, 256), False)]
+
+
+@pytest.mark.parametrize("dims,expect,fused", BWD_WIDTH_CASES)
+def test_flash_backward_widths(dims, expect, fused):
+    assert widths(*dims) == expect
+    assert (expect[0] <= MAX_FUSED_BWD_DIM) == fused
 
 
 def test_flash_backward_variant_needs_aligned_storage():
@@ -346,7 +376,10 @@ CARD_CASES = [(c[:6], c[8], c[9], c[10]) for c in FLASH_CASES] + [
     ((1, 200, 2, 1, 64, 64), False, 0, "bfloat16"),       # no mask, ragged tail
     ((2, 256, 8, 2, 128, 128), True, 0, "bfloat16"),      # H/K = 4 at d 128
     ((2, 500, 4, 2, 64, 64), True, 77, "bfloat16"),       # window % KV tile != 0
-    ((1, 70, 2, 1, 192, 128), True, 0, "bfloat16"),       # dk 192 / dv 128: wgmma, d 256
+    ((1, 70, 2, 1, 192, 128), True, 0, "bfloat16"),       # dk 192 / dv 128: wgmma (192, 128)
+    ((1, 333, 4, 2, 192, 128), True, 0, "bfloat16"),      # (192, 128): H/K = 2, ragged tail
+    ((1, 300, 4, 4, 192, 128), False, 0, "bfloat16"),     # (192, 128): no causal mask
+    ((1, 200, 2, 1, 136, 128), True, 0, "bfloat16"),      # dk zero-filled to 192
     ((1, 300, 4, 1, 256, 256), True, 64, "bfloat16"),     # d 256: wgmma
     ((1, 40, 2, 1, 64, 64), True, 0, "float32"),
     ((1, 512, 8, 8, 64, 64), True, 0, "bfloat16"),        # H/K = 1

@@ -15,7 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_fwd, variant  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    WIDTHS, flash_attention_fwd, variant, widths)
 
 # tests/test_kernels.py's FLASH_CASES, dtypes by name.
 FLASH_CASES = [
@@ -40,7 +41,7 @@ BF16_RTOL, BF16_ROW = 1.6e-2, 1e-2
 # on "simt", other bf16 on "wgmma".  (B, T, H, K, dk, dv), dtype, variant.
 VARIANT_CASES = [(c[:6], c[10], "simt" if c[10] == "float32" else "wgmma")
                  for c in FLASH_CASES] + [
-    ((1, 70, 2, 1, 192, 128), "bfloat16", "wgmma"),   # MLA: D 256 covers dk 192
+    ((1, 70, 2, 1, 192, 128), "bfloat16", "wgmma"),   # MLA: widths (192, 128)
     ((1, 130, 4, 2, 128, 128), "bfloat16", "wgmma"),  # llama3-8b's d 128
     ((2, 300, 4, 4, 80, 80), "bfloat16", "wgmma"),    # hubert's d 80: D 128 covers it
     ((1, 300, 4, 1, 256, 256), "bfloat16", "wgmma"),  # recurrentgemma's d 256
@@ -56,6 +57,9 @@ CARD_CASES = [
     (1, 130, 4, 2, 128, 128, 0, 0, True, 0, "bfloat16"),
     (2, 256, 8, 2, 128, 128, 0, 0, True, 0, "bfloat16"),    # H/K = 4 at d 128
     (1, 300, 4, 1, 192, 128, 0, 0, True, 0, "bfloat16"),    # dk 192 / dv 128
+    (1, 333, 4, 2, 192, 128, 0, 0, True, 0, "bfloat16"),    # H/K = 2, ragged tail
+    (1, 300, 4, 4, 192, 128, 0, 0, False, 0, "bfloat16"),   # no causal mask
+    (1, 200, 2, 1, 136, 128, 0, 0, True, 0, "bfloat16"),    # dk zero-filled to 192
     (1, 300, 4, 1, 256, 256, 0, 0, True, 64, "bfloat16"),
     (2, 333, 4, 2, 256, 256, 0, 0, True, 200, "bfloat16"),  # Tq % 128 != 0, window
     (2, 500, 4, 2, 64, 64, 0, 0, True, 77, "bfloat16"),     # window % KV tile != 0
@@ -240,6 +244,38 @@ def test_flash_variant_dispatch(shape, dtype, expect):
     assert variant(q, k, v) == expect
 
 
+# (dk, dv) -> the widths (DK, DV) of the wgmma instantiation: the head dims
+# of VARIANT_CASES, then dk past 128 beside dv 128 and both at 192, 200 and
+# 256.  Only 128 < dk <= 192 with dv <= 128 runs (192, 128); every other
+# shape keeps the smallest (D, D) of 64, 128 and 256 that covers it.
+WIDTH_CASES = [((32, 32), (64, 64)), ((64, 64), (64, 64)), ((16, 16), (64, 64)),
+               ((32, 16), (64, 64)), ((8, 8), (64, 64)), ((4, 4), (64, 64)),
+               ((64, 60), (64, 64)), ((80, 80), (128, 128)), ((128, 128), (128, 128)),
+               ((192, 128), (192, 128)), ((136, 128), (192, 128)), ((192, 192), (256, 256)),
+               ((200, 128), (256, 256)), ((256, 256), (256, 256))]
+
+
+def _widths_before_mla(dk, dv):
+    """The rule before (192, 128) existed: the smallest (D, D) that covers
+    both head dims."""
+    d = next(w for w in (64, 128, 256) if max(dk, dv) <= w)
+    return d, d
+
+
+@pytest.mark.parametrize("dims,expect", WIDTH_CASES)
+def test_flash_widths(dims, expect):
+    dk, dv = dims
+    got = widths(dk, dv)
+    assert got == expect and got in WIDTHS and dk <= got[0] and dv <= got[1]
+    if not (128 < dk <= 192 and dv <= 128):
+        assert got == _widths_before_mla(dk, dv)
+
+
+def test_flash_widths_refuse_past_256():
+    with pytest.raises(ValueError, match="no wgmma instantiation"):
+        widths(264, 64)
+
+
 @pytest.mark.parametrize("operand", [0, 1, 2])
 def test_flash_variant_needs_aligned_storage(operand):
     """The TMA reads from 16-byte aligned bases only: q, k or v in a view 2
@@ -270,6 +306,23 @@ def test_bf16_bound_accepts_kernel_rounding(case):
     (q, k, v), causal, window = _bound_inputs(case)
     expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     out = _online_bf16(q, k, v, causal, window)
+    assert _np((out.float() - expect.float()).abs()).max() <= TOL["bfloat16"]
+    assert _bf16_bound_share(out, expect) <= 0.9
+
+
+# MLA's widths on the (192, 128) forward, 128 keys a tile: B, T, H, K,
+# causal; a ragged tail with H/K = 2, and no causal mask.
+MLA_BOUND_CASES = [(1, 600, 4, 1, True), (1, 333, 4, 2, True), (1, 300, 4, 4, False)]
+
+
+@pytest.mark.parametrize("case", MLA_BOUND_CASES)
+def test_bf16_bound_accepts_mla_tile_rounding(case):
+    """The card test's bf16 bound passes the roundings of flash_fwd_wgmma<192,
+    128>, whose KV tiles hold 128 keys, at dk 192 / dv 128."""
+    B, T, H, K, causal = case
+    q, k, v = _torch(_inputs((B, T, H, K, 192, 128), seed=3), "bfloat16")
+    expect = ref.flash_attention_ref(q, k, v, causal=causal)
+    out = _online_bf16(q, k, v, causal, 0, bk=128)
     assert _np((out.float() - expect.float()).abs()).max() <= TOL["bfloat16"]
     assert _bf16_bound_share(out, expect) <= 0.9
 
